@@ -1,0 +1,17 @@
+"""Pinned serving constants, copied from the JAX package's
+``constants.py`` (the port imports nothing of that package).
+
+``KV_DTYPES``, ``WEIGHT_DTYPES`` and ``MATMUL_DTYPES`` are the choices of the
+serving quantization knobs; this slice serves ``auto``/``bf16`` pools and
+``auto`` weights and arithmetic, and the engine raises
+``NotImplementedError`` for the rest.
+"""
+
+from __future__ import annotations
+
+# The serving endpoint port.
+SERVE_PORT = 8000
+
+KV_DTYPES = ("auto", "bf16", "int8", "fp8")
+WEIGHT_DTYPES = ("auto", "int8", "fp8")
+MATMUL_DTYPES = ("auto", "f32", "int8", "fp8")

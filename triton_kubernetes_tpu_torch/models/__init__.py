@@ -1,0 +1,32 @@
+"""The Llama-3 family in PyTorch: config registry, model, contiguous
+prefill and sampling, and the paged prefill/decode the serving engine runs
+(the port of ``triton_kubernetes_tpu/models``)."""
+
+from .config import CONFIGS, ModelConfig, get_config
+from .generate import KVCache, init_cache, prefill, sample_token
+from .llama import Llama, from_numpy_params, init_params
+from .paged import (
+    PagedKVCache,
+    init_paged_cache,
+    paged_decode_step,
+    paged_prefill,
+    paged_prefill_chunk,
+)
+
+__all__ = [
+    "CONFIGS",
+    "ModelConfig",
+    "get_config",
+    "Llama",
+    "init_params",
+    "from_numpy_params",
+    "KVCache",
+    "init_cache",
+    "prefill",
+    "sample_token",
+    "PagedKVCache",
+    "init_paged_cache",
+    "paged_prefill",
+    "paged_prefill_chunk",
+    "paged_decode_step",
+]

@@ -1,0 +1,97 @@
+"""Contiguous-cache prefill and token sampling -- the part of
+``triton_kubernetes_tpu/models/generate.py`` the serving path needs.
+
+:func:`prefill` runs a prompt through the stack with dense causal
+attention and fills a contiguous ``[L, B, max_len, Hkv, Dh]`` cache in
+place; the whole-prompt paged prefill (``models/paged.py``) builds on it.
+:func:`sample_token` is greedy at temperature 0, else temperature with
+top-k then top-p filtering, drawn with an explicit ``torch.Generator``
+(Gumbel-max, the rule ``jax.random.categorical`` uses; the random bits
+differ from JAX's).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..ops.attention import causal_attention
+from . import llama
+from .config import ModelConfig
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # [L, B, max_len, Hkv, Dh] activation dtype
+    v: torch.Tensor  # [L, B, max_len, Hkv, Dh]
+    length: int  # tokens written so far
+
+
+def init_cache(config: ModelConfig, batch: int, max_len: int,
+               device: torch.device | str = "cuda") -> KVCache:
+    dev = llama.resolve_device(device)
+    shape = (config.num_layers, batch, max_len,
+             config.num_kv_heads, config.head_dim)
+    dt = config.activation_dtype
+    return KVCache(k=torch.zeros(shape, dtype=dt, device=dev),
+                   v=torch.zeros(shape, dtype=dt, device=dev), length=0)
+
+
+def prefill(model: llama.Llama,
+            tokens: torch.Tensor,  # [B, P] prompt
+            config: ModelConfig,
+            cache: KVCache,
+            last_logits_only: bool = False,
+            last_position: Optional[torch.Tensor] = None,  # [B]
+            ) -> Tuple[torch.Tensor, KVCache]:
+    """Run the prompt through the stack, writing ``cache[:, :, :P]`` in
+    place. Returns (logits f32, cache) -- [B, P, V], or [B, 1, V] at the
+    last position (``last_logits_only``) or at each row's own
+    ``last_position``."""
+    b, p = tokens.shape
+    positions = torch.arange(p, device=tokens.device).expand(b, p)
+    cos, sin = model.rotary()
+    x = model.embed[tokens]
+    for i, layer in enumerate(model.layers):
+        q, k, v = llama._qkv(x, layer, config, cos, sin, positions)
+        attn = causal_attention(q, k, v, positions, positions)
+        x = llama.project_out(x, attn, layer, config)
+        x = x + llama._mlp(x, layer, config)
+        cache.k[i, :, :p] = k
+        cache.v[i, :, :p] = v
+    if last_position is not None:
+        idx = last_position.long().reshape(-1, 1, 1).expand(-1, 1, x.shape[-1])
+        x = torch.gather(x, 1, idx)  # [B, 1, D]
+    elif last_logits_only:
+        x = x[:, -1:, :]
+    return llama.unembed(x, model), cache._replace(length=p)
+
+
+def sample_token(logits: torch.Tensor,  # [B, V] f32
+                 generator: Optional[torch.Generator],
+                 temperature: float = 1.0,
+                 top_k: int = 0,
+                 top_p: float = 1.0) -> torch.Tensor:
+    """Greedy when temperature == 0 (no generator needed); else
+    temperature with optional top-k and/or top-p filtering -- top-k cuts
+    first, then top-p trims the survivors' mass. Returns [B] int64."""
+    if not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    logits = logits.float() / temperature
+    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    if top_k > 0:
+        kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
+        logits = torch.where(logits < kth, neg_inf, logits)
+    if top_p < 1.0:
+        # Nucleus: keep the smallest probability-sorted prefix whose mass
+        # reaches top_p; `cum - p < top_p` always keeps the top token.
+        sorted_logits, order = torch.sort(logits, dim=-1, descending=True)
+        probs = torch.softmax(sorted_logits, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        masked = torch.where((cum - probs) < top_p, sorted_logits, neg_inf)
+        logits = torch.empty_like(logits).scatter_(-1, order, masked)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(logits + gumbel, dim=-1)

@@ -1,0 +1,2 @@
+"""Ops of the port: plain PyTorch versions, and the wrappers of the
+hand-written CUDA kernels in ``csrc/`` (``paged_attention.py``)."""
