@@ -22,8 +22,10 @@ result:
    (random bf16 weights from a seed), chunked prefill with the prefix
    cache, 8 requests; checks completions, pool drain, prefix hits and that
    both kernels' launch counters rose by exactly (windows x layers) and
-   (decode ticks x layers); cross-checks one greedy request against an
-   engine forced onto the plain versions.
+   (decode ticks x layers); prints TTFT, TPOT, tokens/s and tick times;
+   cross-checks one greedy request's first-token logits against the plain
+   versions (and an engine forced onto them); profiles a few decode ticks
+   (device busy time by kernel class, idle share, launches per tick).
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. With ``--out DIR`` everything measured,
@@ -66,9 +68,13 @@ ATOL, RTOL = 1e-2, 2.0 ** -7
 # model: the matmuls are identical, the attention outputs one bf16 ulp
 # apart in a few elements, and every later bf16 rounding such a flip
 # touches can flip too, so the gap compounds over 32 layers to a few
-# percent of the logits (max abs diff 0.2435 in the first run on an H100
-# 80GB HBM3 at 700 W). Bounds: relative L2 error, and max error relative to
-# the largest logit. A wrong kernel moves logits by their whole spread.
+# percent of the logits. For scale, the script also prints how far two
+# plain paths with different rounding orders drift apart (whole-prompt
+# dense attention vs the chunked plain version: 0.0585 relative L2 on an
+# H100 80GB HBM3 at 700 W); kernel and plain version share one rounding
+# order and came in at 0.0352. Bounds: relative L2 error, and max error
+# relative to the largest logit. A wrong kernel moves logits by their
+# whole spread.
 LOGITS_REL_L2, LOGITS_REL_MAX = 0.05, 0.1
 
 
@@ -281,6 +287,61 @@ def first_token_logits(model, cfg, prompt, impl, paged):
     return logits
 
 
+def profile_decode(engine, cfg, Request, ticks=4):
+    """Where a decode tick's time goes: 8 sequences of 600-token prompts
+    decoding, ``ticks`` decode-only ticks under torch.profiler. Returns
+    wall and device-busy milliseconds per tick, the device's idle share,
+    kernel launches per tick, and device time by kernel class."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(7)
+    # Long enough that no sequence finishes while the others still
+    # prefill (one 256-token window per tick, three per prompt).
+    new_tokens = 3 * engine.max_batch + ticks + 8
+    for i in range(engine.max_batch):
+        engine.submit(Request(f"p{i}", rng.integers(
+            0, cfg.vocab_size, 600).tolist(), new_tokens))
+    for _ in range(new_tokens):
+        if all(s is not None and s.prefilled >= s.target
+               for s in engine.slots):
+            break
+        engine.step()
+    else:
+        raise AssertionError("profile: the batch never reached decode")
+    engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    engine.run_until_idle()
+    events = prof.events()
+    launches = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                              "cuLaunchKernelEx") for e in events)
+    by_class = {"paged_decode kernel": 0.0, "GEMM (cuBLAS)": 0.0,
+                "other kernels": 0.0}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        if "paged_decode_kernel" in e.name:
+            by_class["paged_decode kernel"] += us
+        elif e.name.startswith(("nvjet", "sm90_xmma", "cutlass")) \
+                or "gemm" in e.name.lower():
+            by_class["GEMM (cuBLAS)"] += us
+        else:
+            by_class["other kernels"] += us
+    by_class = {k: v / 1e3 / ticks for k, v in by_class.items()}
+    busy_ms = sum(by_class.values())
+    return dict(wall_ms_per_tick=wall_ms, device_busy_ms_per_tick=busy_ms,
+                device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
+                launches_per_tick=launches / ticks,
+                device_ms_per_tick_by_class=by_class)
+
+
 def serve_phase(card):
     from triton_kubernetes_tpu_torch.models import get_config, init_params
     from triton_kubernetes_tpu_torch.models import paged
@@ -313,15 +374,25 @@ def serve_phase(card):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done, tick = {}, 0
+    tick_ms = {"decode only": [], "prefill window + decode": [],
+               "prefill window only": []}
     while engine.has_work or tick <= max(arrivals):
         for i in arrivals.get(tick, []):
             engine.submit(requests[i])
+        before = engine.stats()
+        t_tick = time.perf_counter()
         for d in engine.step():
             done[d.request_id] = d
+        torch.cuda.synchronize()
+        after = engine.stats()
+        window = after["prefill_windows"] > before["prefill_windows"]
+        decode = after["decode_steps"] > before["decode_steps"]
+        kind = ("prefill window + decode" if window and decode else
+                "prefill window only" if window else "decode only")
+        tick_ms[kind].append((time.perf_counter() - t_tick) * 1e3)
         tick += 1
         if tick > 10_000:
             raise AssertionError("engine did not drain")
-    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"paged_decode": pa.ragged_paged_attention.launches,
                 "paged_prefill": pa.paged_prefill_attention.launches}
@@ -354,6 +425,11 @@ def serve_phase(card):
     print(f"serve: {len(requests)} requests, {prompt_tokens} prompt tokens "
           f"({int(hits)} from the prefix cache), {windows} prefill windows, "
           f"{ticks} decode ticks, launches {launches}", flush=True)
+    for kind, ms in tick_ms.items():
+        if ms:
+            print(f"serve: {len(ms)} ticks {kind}: median "
+                  f"{statistics.median(ms):.3f} ms, max {max(ms):.3f} ms",
+                  flush=True)
     print(f"serve: TTFT median {statistics.median(ttft):.4f} s max "
           f"{max(ttft):.4f} s, TPOT median {statistics.median(tpot):.5f} s, "
           f"{generated / wall:.2f} generated tokens/s over {wall:.3f} s "
@@ -365,6 +441,21 @@ def serve_phase(card):
     ld = first_token_logits(model, cfg, probe.tokens, "dense", paged)
     if lk.shape != (cfg.vocab_size,) or not bool(torch.isfinite(lk).all()):
         raise AssertionError("first-token logits not finite or misshapen")
+    # Noise floor: the whole-prompt prefill (dense causal attention, a
+    # different but equally valid bf16 rounding order) against the plain
+    # chunked path -- how far two correct bf16 paths drift apart.
+    n = len(probe.tokens)
+    width = -(-n // BS) * BS
+    floor_cache = paged.init_paged_cache(cfg, width // BS + 1, BS,
+                                         device="cuda")
+    with torch.inference_mode():
+        lw = paged.paged_prefill(
+            model, torch.tensor([probe.tokens + [0] * (width - n)],
+                                dtype=torch.int32, device="cuda"),
+            n, cfg, floor_cache,
+            torch.arange(1, width // BS + 1, dtype=torch.int32,
+                         device="cuda"))
+    floor_rel_l2 = float((lw - ld).norm() / ld.norm())
     logit_err = float((lk - ld).abs().max())
     logit_max = float(ld.abs().max())
     rel_l2 = float((lk - ld).norm() / ld.norm())
@@ -384,9 +475,23 @@ def serve_phase(card):
     print(f"serve: {probe.request_id} first-token logits kernels vs plain: "
           f"max abs diff {logit_err:.5f} (bound {LOGITS_REL_MAX} * max "
           f"|logit| {logit_max:.4f}), relative L2 {rel_l2:.5f} (bound "
-          f"{LOGITS_REL_L2}), same argmax: {int(lk.argmax()) == int(ld.argmax())}"
+          f"{LOGITS_REL_L2}; two plain bf16 paths differ by {floor_rel_l2:.5f})"
+          f", same argmax: {int(lk.argmax()) == int(ld.argmax())}"
           f" (plain top-2 gap {gap:.5f}); {same}/32 tokens equal to the "
           f"plain-version engine", flush=True)
+    prof = profile_decode(engine, cfg, Request)
+    if prof["device_idle_share"] is None:
+        print("serve: decode tick profile: the profiler saw no device "
+              "kernels; device time not measured", flush=True)
+    else:
+        classes = ", ".join(f"{k} {v:.3f} ms" for k, v in
+                            prof["device_ms_per_tick_by_class"].items())
+        print(f"serve: decode tick (8 x ~600-token contexts) profiled: wall "
+              f"{prof['wall_ms_per_tick']:.3f} ms, device busy "
+              f"{prof['device_busy_ms_per_tick']:.3f} ms (idle share "
+              f"{prof['device_idle_share']:.3f}), "
+              f"{prof['launches_per_tick']:.0f} launches; {classes} "
+              f"[{card}]", flush=True)
     return launches, dict(
         requests=len(requests), prompt_tokens=prompt_tokens,
         prefix_hit_tokens=hits, prefill_windows=windows, decode_ticks=ticks,
@@ -396,6 +501,9 @@ def serve_phase(card):
         first_token_logit_max_abs=logit_max,
         first_token_logit_rel_l2=rel_l2,
         first_token_plain_top2_gap=gap,
+        first_token_plain_paths_rel_l2=floor_rel_l2,
+        tick_ms=tick_ms,
+        decode_tick_profile=prof,
         tokens_equal_to_plain_engine=same,
         peak_memory_bytes=torch.cuda.max_memory_allocated())
 

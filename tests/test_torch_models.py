@@ -167,11 +167,14 @@ def test_later_slices_raise_not_implemented():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every port module, and chip_smoke.py, import without loading
+    jax or any module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import triton_kubernetes_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k == 'jax'"
         " or k.startswith('jax.') or k == 'triton_kubernetes_tpu'"
         " or k.startswith('triton_kubernetes_tpu.'))\n"

@@ -18,42 +18,55 @@
 // What the design does about it: one block per (KV head, tile of 64 query
 //   rows) -- 1,024 rows per KV head are too many for one block, and 16
 //   tiles x 8 KV heads fill the 132 SMs. A block stops its walk over the
-//   block table at the last page its own rows can see (causal skip: a
-//   page that is fully masked for a row is an exact no-op of the online
-//   softmax, so stopping early changes no bit). The K tile of each page
-//   is staged once in shared memory (padded rows, conflict-free) and
-//   reused by all 64 rows. This first version runs the products on the
-//   CUDA cores in f32; the tensor cores (mma/wgmma on bf16 tiles) are
-//   later work, and until then the kernel sits far above its bound.
+//   block table at the last page its own rows can see (causal skip: a page
+//   that is fully masked for a row is an exact no-op of the online softmax,
+//   so stopping early changes no bit). Pages are staged 64 keys at a time
+//   (V by 16-byte asynchronous copies, K converted to f32 on the way in), so
+//   a tile costs one memory latency. The score product is register tiled:
+//   each thread computes a 4-row x 8-key block from 16-byte shared-memory
+//   reads, 8 FMAs per load; P*V keeps each thread's column of the 64-row
+//   accumulator in registers and the page's V column too. The products run
+//   on the CUDA cores in f32; moving them to the tensor cores (mma/wgmma on
+//   bf16 tiles) is later work, and until then the kernel sits far above its
+//   bound.
 //
 // Rounding order as in paged_decode.cu: q.k in f32 from bf16 operands,
-// then times D^-0.5; f32 online softmax per page; p rounded to V's dtype
-// before P*V; f32 acc and l; acc / l where l > 0, else 0.
+// then times D^-0.5; f32 online softmax per page of bs keys; p rounded to
+// V's dtype before P*V; f32 acc and l; acc / l where l > 0, else 0.
 #include "paged_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kRows = 64;          // query rows per block
-constexpr int kMaxBs = 32;         // block sizes 1..32 dividing kThreads
-constexpr int kMaxRowsPerThread = kRows * kMaxBs / kThreads;  // 16
+constexpr int kRows = 64;       // query rows per block
+constexpr int kKeys = 64;       // keys staged per tile
+constexpr int kMaxDim = 128;    // one accumulator column per thread
+// Score micro-tile of thread (rg = tid / 8, kg = tid % 8): rows rg + 16 i
+// (i < 4) and keys kg + 8 jj (jj < 8) -- interleaved so that the eight
+// threads of a 16-byte shared-memory phase read eight consecutive K rows.
+constexpr int kTileRows = 4;
+constexpr int kTileKeys = 8;
 
-template <typename T>
+template <typename T, int BS>
 __global__ void __launch_bounds__(kThreads)
 paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                      const T* __restrict__ v_pages,
                      const int* __restrict__ block_table, T* __restrict__ out,
-                     int chunk, int hkv, int group, int d, int bs,
-                     int offset, float scale) {
-  extern __shared__ float smem[];
-  const int dp = d + 1;                // padded row stride
-  float* q_sh = smem;                  // [kRows][dp]
-  float* k_sh = q_sh + kRows * dp;     // [bs][dp]
-  float* s_sh = k_sh + bs * dp;        // [kRows][bs]
-  float* p_sh = s_sh + kRows * bs;     // [kRows][bs]
-  float* m_sh = p_sh + kRows * bs;     // [kRows]
-  float* l_sh = m_sh + kRows;          // [kRows]
-  float* c_sh = l_sh + kRows;          // [kRows]
+                     int chunk, int hkv, int group, int d, int offset,
+                     float scale) {
+  constexpr int vec = vec_of<T>();
+  constexpr int ppt = kKeys / BS;            // pages per tile
+  constexpr int sp = kKeys + 1;              // score row stride (odd)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int dp = d + 4;                      // f32 row stride: +16 B of pad
+  T* v_sh = reinterpret_cast<T*>(smem_raw);  // [kKeys][d]
+  float* q_sh = reinterpret_cast<float*>(v_sh + kKeys * d);  // [kRows][dp]
+  float* k_sh = q_sh + kRows * dp;           // [kKeys][dp]
+  float* s_sh = k_sh + kKeys * dp;           // [kRows][sp]
+  float* p_sh = s_sh + kRows * sp;           // [kRows][sp]
+  float* c_sh = p_sh + kRows * sp;           // [kRows][ppt]
+  float* m_sh = c_sh + kRows * ppt;          // [kRows]
+  float* l_sh = m_sh + kRows;                // [kRows]
 
   const int h = blockIdx.x;
   const int row0 = blockIdx.y * kRows;
@@ -61,14 +74,19 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int tid = threadIdx.x;
   const int hq = hkv * group;
 
-  // Row r of this tile is (token (row0+r)/group, member (row0+r)%group).
-  for (int i = tid; i < rows * d; i += kThreads) {
+  // Row r of this tile is (token (row0+r)/group, member (row0+r)%group);
+  // rows past the window are zero queries whose results are never stored.
+  for (int i = tid; i < kRows * d; i += kThreads) {
     const int r = i / d, c = i % d;
-    const int gr = row0 + r;
-    const int tok = gr / group, g = gr % group;
-    q_sh[r * dp + c] = to_f(q[((size_t)tok * hq + (size_t)h * group + g) * d + c]);
+    float x = 0.f;
+    if (r < rows) {
+      const int gr = row0 + r;
+      const int tok = gr / group, g = gr % group;
+      x = to_f(q[((size_t)tok * hq + (size_t)h * group + g) * d + c]);
+    }
+    q_sh[r * dp + c] = x;
   }
-  if (tid < rows) {
+  if (tid < kRows) {
     m_sh[tid] = TK8S_NEG_INF;
     l_sh[tid] = 0.f;
   }
@@ -78,63 +96,104 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 
   // The last key any row of this tile attends is its last row's position.
   const int last_pos = offset + (row0 + rows - 1) / group;
-  const int n_pages = last_pos / bs + 1;
-  const int jt = tid % bs;             // this thread's key in a page
-  const int rg = tid / bs;             // and its first row
-  const int row_step = kThreads / bs;
+  const int n_pages = last_pos / BS + 1;
+  const int rg = tid / kTileKeys;
+  const int kg = tid % kTileKeys;
+  const int row_vecs = d / vec;
   __syncthreads();
 
-  for (int t = 0; t < n_pages; ++t) {
-    const size_t base = ((size_t)block_table[t] * hkv + h) * (size_t)bs * d;
-    const T* kt = k_pages + base;
-    const T* vt = v_pages + base;
-    for (int i = tid; i < bs * d; i += kThreads)
-      k_sh[(i / d) * dp + i % d] = to_f(kt[i]);
+  for (int p0 = 0; p0 < n_pages; p0 += ppt) {
+    const int np = min(ppt, n_pages - p0);
+    const int nk = np * BS;
+
+    // 1. Stage the tile: V by async copies, K converted to f32.
+    for (int i = tid; i < nk * row_vecs; i += kThreads) {
+      const int j = i / row_vecs, cv = (i % row_vecs) * vec;
+      const size_t src =
+          (((size_t)block_table[p0 + j / BS] * hkv + h) * BS + j % BS) * d +
+          cv;
+      cp_async16(v_sh + j * d + cv, v_pages + src);
+      float kf[vec];
+      load16_as_f32(k_pages + src, kf);
+#pragma unroll
+      for (int e = 0; e < vec; e += 4)
+        *reinterpret_cast<float4*>(k_sh + j * dp + cv + e) =
+            make_float4(kf[e], kf[e + 1], kf[e + 2], kf[e + 3]);
+    }
+    cp_async_wait_all();
     __syncthreads();
 
-    // Scores: thread (key jt, rows rg, rg+row_step, ...).
-    float part[kMaxRowsPerThread];
+    // 2. Scores, register tiled: 4 rows x 8 keys per thread.
+    float sc[kTileRows][kTileKeys];
 #pragma unroll
-    for (int i = 0; i < kMaxRowsPerThread; ++i) part[i] = 0.f;
-    const float* krow = k_sh + jt * dp;
-    for (int c = 0; c < d; ++c) {
-      const float kv = krow[c];
+    for (int i = 0; i < kTileRows; ++i)
 #pragma unroll
-      for (int i = 0; i < kMaxRowsPerThread; ++i) {
-        const int r = rg + i * row_step;
-        if (r < rows) part[i] = fmaf(q_sh[r * dp + c], kv, part[i]);
+      for (int jj = 0; jj < kTileKeys; ++jj) sc[i][jj] = 0.f;
+    for (int c = 0; c < d; c += 4) {
+      float4 qv[kTileRows], kv[kTileKeys];
+#pragma unroll
+      for (int i = 0; i < kTileRows; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(
+            q_sh + (rg + 16 * i) * dp + c);
+#pragma unroll
+      for (int jj = 0; jj < kTileKeys; ++jj)
+        kv[jj] = *reinterpret_cast<const float4*>(
+            k_sh + (kg + 8 * jj) * dp + c);
+#pragma unroll
+      for (int i = 0; i < kTileRows; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < kTileKeys; ++jj) {
+          float a = sc[i][jj];
+          a = fmaf(qv[i].x, kv[jj].x, a);
+          a = fmaf(qv[i].y, kv[jj].y, a);
+          a = fmaf(qv[i].z, kv[jj].z, a);
+          a = fmaf(qv[i].w, kv[jj].w, a);
+          sc[i][jj] = a;
+        }
       }
     }
-    const int k_pos = t * bs + jt;
 #pragma unroll
-    for (int i = 0; i < kMaxRowsPerThread; ++i) {
-      const int r = rg + i * row_step;
-      if (r < rows) {
-        const int q_pos = offset + (row0 + r) / group;
-        s_sh[r * bs + jt] = k_pos <= q_pos ? part[i] * scale : TK8S_NEG_INF;
+    for (int i = 0; i < kTileRows; ++i) {
+      const int r = rg + 16 * i;
+      const int q_pos = offset + (row0 + r) / group;
+#pragma unroll
+      for (int jj = 0; jj < kTileKeys; ++jj) {
+        const int j = kg + 8 * jj;
+        s_sh[r * sp + j] =
+            p0 * BS + j <= q_pos ? sc[i][jj] * scale : TK8S_NEG_INF;
       }
     }
     __syncthreads();
 
-    if (tid < rows)
-      softmax_row_update<T>(s_sh + tid * bs, p_sh + tid * bs, bs, m_sh + tid,
-                            l_sh + tid, c_sh + tid);
+    // 3. Online softmax, page by page, one thread per row.
+    if (tid < rows) {
+      for (int p = 0; p < np; ++p)
+        softmax_row_update<T>(s_sh + tid * sp + p * BS,
+                              p_sh + tid * sp + p * BS, BS, m_sh + tid,
+                              l_sh + tid, c_sh + tid * ppt + p);
+    }
     __syncthreads();
 
-    // P*V: thread tid owns column tid of every row's accumulator.
+    // 4. P*V: thread tid owns column tid of every row's accumulator.
     if (tid < d) {
+      for (int p = 0; p < np; ++p) {
+        float vr[BS];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        if (r < rows) acc[r] *= c_sh[r];
-      for (int j = 0; j < bs; ++j) {
-        const float vv = to_f(vt[(size_t)j * d + tid]);
+        for (int jj = 0; jj < BS; ++jj)
+          vr[jj] = to_f(v_sh[(p * BS + jj) * d + tid]);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          if (r < rows) acc[r] = fmaf(p_sh[r * bs + j], vv, acc[r]);
+        for (int r = 0; r < kRows; ++r) {
+          if (r < rows) {
+            const float* pr = p_sh + r * sp + p * BS;
+            float pv = 0.f;
+#pragma unroll
+            for (int jj = 0; jj < BS; ++jj) pv = fmaf(pr[jj], vr[jj], pv);
+            acc[r] = acc[r] * c_sh[r * ppt + p] + pv;
+          }
+        }
       }
     }
-    // k_sh is rewritten next page only after every thread passed the
-    // score barrier above; p_sh/c_sh only after the next score barrier.
+    __syncthreads();  // the next tile overwrites v_sh, k_sh and s_sh/p_sh
   }
 
   if (tid < d) {
@@ -151,28 +210,55 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
+template <typename T, int BS>
+int launch_bs(const T* q, const T* k_pages, const T* v_pages,
+              const int* block_table, T* out, int chunk, int hkv, int group,
+              int d, int offset, float scale, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(T) * (size_t)kKeys * d +
+      sizeof(float) * ((size_t)(kRows + kKeys) * (d + 4) +
+                       2 * (size_t)kRows * (kKeys + 1) +
+                       (size_t)kRows * (kKeys / BS) + 2 * kRows);
+  cudaError_t e = cudaFuncSetAttribute(
+      paged_prefill_kernel<T, BS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(hkv, (chunk * group + kRows - 1) / kRows);
+  paged_prefill_kernel<T, BS><<<grid, kThreads, smem, stream>>>(
+      q, k_pages, v_pages, block_table, out, chunk, hkv, group, d, offset,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* block_table, void* out, int chunk, int hkv, int group,
            int d, int bs, int offset, float scale, void* stream) {
-  if (chunk < 1 || group < 1 || d < 1 || d > kThreads || bs < 1 ||
-      bs > kMaxBs || kThreads % bs != 0 || offset < 0)
+  if (chunk < 1 || group < 1 || d < 8 || d > kMaxDim || d % 8 != 0 ||
+      offset < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)kRows * (d + 1) +
-                                       (size_t)bs * (d + 1) +
-                                       2 * (size_t)kRows * bs + 3 * kRows);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_prefill_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const T* qq = (const T*)q;
+  const T* kp = (const T*)k_pages;
+  const T* vp = (const T*)v_pages;
+  const int* bt = (const int*)block_table;
+  T* o = (T*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (bs) {
+    case 4:
+      return launch_bs<T, 4>(qq, kp, vp, bt, o, chunk, hkv, group, d, offset,
+                             scale, s);
+    case 8:
+      return launch_bs<T, 8>(qq, kp, vp, bt, o, chunk, hkv, group, d, offset,
+                             scale, s);
+    case 16:
+      return launch_bs<T, 16>(qq, kp, vp, bt, o, chunk, hkv, group, d,
+                              offset, scale, s);
+    case 32:
+      return launch_bs<T, 32>(qq, kp, vp, bt, o, chunk, hkv, group, d,
+                              offset, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  dim3 grid(hkv, (chunk * group + kRows - 1) / kRows);
-  paged_prefill_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k_pages, (const T*)v_pages,
-      (const int*)block_table, (T*)out, chunk, hkv, group, d, bs, offset,
-      scale);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

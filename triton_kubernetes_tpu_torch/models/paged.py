@@ -60,10 +60,6 @@ class PagedKVCache:
         return self.k.shape[3]
 
     @property
-    def quantized(self) -> bool:
-        return False
-
-    @property
     def pool_bytes(self) -> int:
         """Device bytes of the K/V page arrays."""
         return (self.k.numel() * self.k.element_size()

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use, on the machine with the card, by
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC
+         -Xcompiler -fPIC -Xptxas -v
 
-into ``triton_kubernetes_tpu_torch/_build/`` (listed in ``.gitignore``).
+into ``triton_kubernetes_tpu_torch/_build/`` (listed in ``.gitignore``);
+``-Xptxas -v`` puts each kernel's registers and spills in the build log.
 The library name carries a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. The library is
 loaded with ``ctypes``: pointers and the stream are ``c_void_p``, ints
@@ -173,6 +174,11 @@ def _check_operands(what: str, q: torch.Tensor, k_pages: torch.Tensor,
                  f"{what}: block tables and lengths must be contiguous "
                  f"int32 on {q.device}")
     _, hkv, bs, d = k_pages.shape
+    # Pages are staged with 16-byte copies: rows and bases 16-byte aligned.
+    _require(d % 8 == 0 and d <= 128,
+             f"{what}: head_dim {d} must be a multiple of 8, at most 128")
+    _require(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
+             f"{what}: page pools must start 16-byte aligned")
     return hkv, bs, d
 
 
@@ -188,7 +194,8 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
              f"got {tuple(q.shape)}")
     _require(hq % hkv == 0 and hq // hkv <= 8,
              f"paged_decode: Hq {hq} must be Hkv {hkv} times a group <= 8")
-    _require(d <= 256, f"paged_decode: head_dim {d} > 256")
+    _require(bs <= 32 and 128 % bs == 0,
+             f"paged_decode: block size {bs} must divide 128 and be <= 32")
     _require(block_tables.dim() == 2 and block_tables.shape[0] == b
              and lengths.shape == (b,),
              f"paged_decode: block_tables [B, T] and lengths [B] for B={b}")
@@ -216,9 +223,8 @@ def paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
              f"paged_prefill: q must be [1, C, Hq, {d}], got {tuple(q.shape)}")
     _require(hq % hkv == 0, f"paged_prefill: Hq {hq} not a multiple of "
              f"Hkv {hkv}")
-    _require(d <= 128, f"paged_prefill: head_dim {d} > 128")
-    _require(bs <= 32 and 128 % bs == 0,
-             f"paged_prefill: block size {bs} must divide 128 and be <= 32")
+    _require(bs in (4, 8, 16, 32),
+             f"paged_prefill: block size {bs} must be 4, 8, 16 or 32")
     _require(block_table.dim() == 1, "paged_prefill: block_table is [T]")
     offset = int(offset)
     _require(0 <= offset and offset + c <= block_table.shape[0] * bs,
