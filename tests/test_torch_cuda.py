@@ -112,3 +112,116 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError, match="outside the table"):
         pa.paged_prefill_attention(q[:1].expand(1, 40, 8, 64).contiguous(),
                                    kp, kp, tables[0], 0)
+
+
+# ---- flash attention: kernels 1-3 (csrc/flash_*.cu) ----
+
+def _flash_inputs(gen, b, s, hq, hkv, d, dtype, device):
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+    return rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), \
+        rnd(b, s, hq, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,hq,hkv,d", [
+    (2, 128, 4, 4, 64),    # MHA, whole tiles
+    (1, 200, 8, 2, 128),   # group 4, a ragged last tile
+    (2, 77, 6, 2, 32),     # group 3, one ragged tile pair
+    (1, 1000, 32, 8, 128),  # Llama-3-8B heads, S = 1,000
+])
+def test_flash_kernels_match_plain(device, dtype, b, s, hq, hkv, d):
+    from triton_kubernetes_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(s + hq + d)
+    q, k, v, do = _flash_inputs(gen, b, s, hq, hkv, d, dtype, device)
+    out, lse = _kernels.flash_fwd(q, k, v)
+    want_out, want_lse = fa._flash_forward_plain(q, k, v, fa.KERNEL_BLOCK_K)
+    dvec = fa._row_dot(do, out)
+    dq = _kernels.flash_bwd_dq(q, k, v, do, lse, dvec)
+    dk, dv = _kernels.flash_bwd_dkv(q, k, v, do, lse, dvec)
+    want = fa._flash_backward_plain(q, k, v, do, lse, dvec)
+    torch.cuda.synchronize()
+    tol = _tol(dtype)
+    torch.testing.assert_close(out.float(), want_out.float(), **tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    for got, exp in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got.float(), exp.float(), **tol)
+
+
+def test_flash_attention_counts_launches_and_takes_strided_views(device):
+    """The autograd Function launches each kernel once per call on CUDA
+    tensors, reading q/k/v through their strides (views of one fused
+    projection here), and agrees with the plain versions' gradients."""
+    from triton_kubernetes_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    qkv = torch.randn((2, 96, 12, 64), generator=gen, device=device
+                      ).to(torch.bfloat16)
+    leaves = []
+    for plain in (False, True):
+        x = qkv.clone().requires_grad_(True)
+        q, k, v = x[:, :, :8], x[:, :, 8:10], x[:, :, 10:]
+        fa.reset_launch_counts()
+        out = (fa.flash_attention_plain(q, k, v) if plain
+               else fa.flash_attention(q, k, v))
+        out.float().square().sum().backward()
+        leaves.append((out.detach(), x.grad))
+        want = ({"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                if plain else
+                {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1})
+        assert fa.flash_attention.launches == want
+    torch.cuda.synchronize()
+    for got, exp in zip(*leaves):
+        torch.testing.assert_close(got.float(), exp.float(), atol=2e-2,
+                                   rtol=2 ** -6)
+
+
+def test_flash_refuses_and_never_falls_back(device, monkeypatch):
+    from triton_kubernetes_tpu_torch.ops import flash_attention as fa
+
+    q = torch.zeros((1, 64, 4, 64), dtype=torch.bfloat16, device=device)
+    k = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=device)
+    with pytest.raises(ValueError, match="head_dim"):
+        _kernels.flash_fwd(torch.zeros((1, 64, 4, 256), device=device,
+                                       dtype=torch.bfloat16),
+                           torch.zeros((1, 64, 2, 256), device=device,
+                                       dtype=torch.bfloat16),
+                           torch.zeros((1, 64, 2, 256), device=device,
+                                       dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="multiple"):
+        _kernels.flash_fwd(q, torch.zeros((1, 64, 3, 64), device=device,
+                                          dtype=torch.bfloat16),
+                           torch.zeros((1, 64, 3, 64), device=device,
+                                       dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="dtype"):
+        _kernels.flash_fwd(q.half(), k.half(), k.half())
+
+    # A launch that fails raises from the autograd Function: no plain
+    # version runs in its place.
+    def refuse(*args):
+        return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(_kernels, "_entry", lambda name, dtype: refuse)
+    fa.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="flash_fwd kernel launch failed"):
+        fa.flash_attention(q, k, k)
+    assert fa.flash_attention.launches["flash_fwd"] == 0
+
+
+def test_flash_takes_any_stride_on_size_one_dims(device):
+    """Autograd hands the backward a contiguous dO whose size-1 batch dim
+    may carry stride 1; the binding ignores strides of size-1 dims."""
+    from triton_kubernetes_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    q, k, v, do = _flash_inputs(gen, 1, 130, 8, 2, 64, torch.bfloat16,
+                                device)
+    do1 = do.as_strided(do.shape, (1,) + do.stride()[1:])
+    out, lse = _kernels.flash_fwd(q, k, v)
+    dvec = fa._row_dot(do1, out)
+    dq = _kernels.flash_bwd_dq(q, k, v, do1, lse, dvec)
+    want = fa._flash_backward_plain(q, k, v, do, lse, dvec)[0]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dq.float(), want.float(),
+                               **_tol(torch.bfloat16))

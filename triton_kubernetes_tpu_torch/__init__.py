@@ -8,9 +8,12 @@ own copies of the few jax-free pieces it needs (``constants.py``,
 ``utils/metrics.py``, ``serve/blocks.py``).
 
 Slice 1 is the paged serving path: ``serve.ServeEngine`` running chunked
-prefill with the prefix cache and batched ragged decode, over the two
+prefill with the prefix cache and batched ragged decode, over two
 hand-written Hopper kernels in ``csrc/`` (``ops/paged_attention.py`` holds
-their wrappers and plain versions). Entry points run on the card unless the
+their wrappers and plain versions). Slice 2 is training on one card:
+``python -m triton_kubernetes_tpu_torch.train`` (``train/``), over the
+flash-attention forward and backward kernels (``ops/flash_attention.py``)
+and the fused cross-entropy head. Entry points run on the card unless the
 caller passes ``device="cpu"``.
 """
 

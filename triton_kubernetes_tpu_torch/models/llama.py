@@ -1,30 +1,51 @@
 """Llama-3-family decoder as a PyTorch ``nn.Module`` -- the port of
-``triton_kubernetes_tpu/models/llama.py`` for the serving path.
+``triton_kubernetes_tpu/models/llama.py`` for the serving and training
+paths.
 
 Weights keep the JAX package's layouts (``wq [D, H, Dh]``, ``wo [H, Dh,
 D]``, ``w1 [D, F]``, ...), so a JAX parameter tree maps onto the module one
-to one (:func:`from_numpy_params`). They are stored in the activation dtype:
-the JAX package keeps f32 master weights and casts them at every use, which
-gives the same matmul operand at twice the memory.
+to one (:func:`from_numpy_params`, :func:`to_numpy_params`). A model is
+built in one of two forms:
+
+* serving (the default): weights stored in the activation dtype, without
+  gradients. The JAX package keeps f32 master weights and casts them at
+  every use, which gives the same matmul operand at twice the memory;
+* trainable (``trainable=True``): ``config.weight_dtype`` master weights
+  as ``nn.Parameter`` s with gradients, cast to the activation dtype at
+  every use (the reference's ``resolve_weight``), so the gradient of each
+  master is the reference's cotangent cast back to f32.
 
 The block math is split as in the reference -- :func:`_qkv`, attention (the
 caller's), :func:`project_out`, :func:`_mlp`, and :func:`unembed` -- so the
-paged prefill and decode paths (``models/paged.py``) reuse it. MoE layers
-and quantized weight leaves are later slices of the port and raise
-``NotImplementedError``.
+paged prefill and decode paths (``models/paged.py``) reuse it, and
+:func:`forward`/:func:`forward_hidden` run the whole stack for training.
+MoE layers and quantized weight leaves are later slices of the port and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
+from ..ops.attention import causal_attention
+from ..ops.flash_attention import flash_attention
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rotary, rotary_tables
 from .config import ModelConfig
+
+# attention_fn(q, k, v, positions) -> out; positions is [B, S] int.
+AttentionFn = Callable[
+    [torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 _MOE_LATER = ("MoE layers are not ported yet: they come with the MoE slice "
               "of the port (ROADMAP.md)")
@@ -44,49 +65,56 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return dev
 
 
-def _buffer(shape, dtype, device) -> nn.Parameter:
+def _weight(shape, dtype, device, trainable: bool) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+                        requires_grad=trainable)
 
 
 class LlamaBlock(nn.Module):
     """One decoder layer's weights, in the JAX package's layouts."""
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, trainable: bool = False):
         super().__init__()
         d, dh, f = config.embed_dim, config.head_dim, config.mlp_dim
         h, hkv = config.num_heads, config.num_kv_heads
-        self.attn_norm = _buffer((d,), dtype, device)
-        self.wq = _buffer((d, h, dh), dtype, device)
-        self.wk = _buffer((d, hkv, dh), dtype, device)
-        self.wv = _buffer((d, hkv, dh), dtype, device)
-        self.wo = _buffer((h, dh, d), dtype, device)
-        self.mlp_norm = _buffer((d,), dtype, device)
-        self.w1 = _buffer((d, f), dtype, device)
-        self.w3 = _buffer((d, f), dtype, device)
-        self.w2 = _buffer((f, d), dtype, device)
+        w = functools.partial(_weight, dtype=dtype, device=device,
+                              trainable=trainable)
+        self.attn_norm = w((d,))
+        self.wq = w((d, h, dh))
+        self.wk = w((d, hkv, dh))
+        self.wv = w((d, hkv, dh))
+        self.wo = w((h, dh, d))
+        self.mlp_norm = w((d,))
+        self.w1 = w((d, f))
+        self.w3 = w((d, f))
+        self.w2 = w((f, d))
 
 
 class Llama(nn.Module):
     """Embedding, ``num_layers`` :class:`LlamaBlock` s, final norm and lm
-    head. Build one with :func:`init_params` or :func:`from_numpy_params`."""
+    head. Build one with :func:`init_params` or :func:`from_numpy_params`.
+    ``trainable`` stores ``config.weight_dtype`` masters with gradients
+    instead of activation-dtype weights without."""
 
-    def __init__(self, config: ModelConfig, device: torch.device | str):
+    def __init__(self, config: ModelConfig, device: torch.device | str,
+                 trainable: bool = False):
         super().__init__()
         if config.is_moe:
             raise NotImplementedError(_MOE_LATER)
         if config.weight_quant != "none":
             raise NotImplementedError(_QUANT_LATER)
         dev = torch.device(device)
-        dtype = config.activation_dtype
+        dtype = config.weight_dtype if trainable else config.activation_dtype
         d, v = config.embed_dim, config.vocab_size
         self.config = config
-        self.embed = _buffer((v, d), dtype, dev)
+        self.trainable = trainable
+        self.embed = _weight((v, d), dtype, dev, trainable)
         self.layers = nn.ModuleList(
-            LlamaBlock(config, dtype, dev) for _ in range(config.num_layers))
-        self.final_norm = _buffer((d,), dtype, dev)
-        self.lm_head = _buffer((d, v), dtype, dev)
+            LlamaBlock(config, dtype, dev, trainable)
+            for _ in range(config.num_layers))
+        self.final_norm = _weight((d,), dtype, dev, trainable)
+        self.lm_head = _weight((d, v), dtype, dev, trainable)
         self._rotary: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @property
@@ -103,12 +131,13 @@ class Llama(nn.Module):
 
 
 def init_params(config: ModelConfig, seed: int = 0,
-                device: torch.device | str = "cuda") -> Llama:
+                device: torch.device | str = "cuda",
+                trainable: bool = False) -> Llama:
     """Normal(0.02) init, residual-out projections scaled by 1/sqrt(2L),
     norms at one -- the reference's init rule, drawn from a ``torch``
     generator on ``device`` (so the values differ from the JAX init)."""
     dev = resolve_device(device)
-    model = Llama(config, dev)
+    model = Llama(config, dev, trainable)
     gen = torch.Generator(device=dev).manual_seed(seed)
     std = 0.02
     out_std = 0.02 / (2 * config.num_layers) ** 0.5
@@ -132,13 +161,15 @@ def init_params(config: ModelConfig, seed: int = 0,
 
 
 def from_numpy_params(params: Dict[str, Any], config: ModelConfig,
-                      device: torch.device | str = "cuda") -> Llama:
+                      device: torch.device | str = "cuda",
+                      trainable: bool = False) -> Llama:
     """The port's model from a JAX parameter tree given as numpy arrays
     (``{"embed", "layers": {name: [L, ...]}, "final_norm", "lm_head"}``,
     the stacked layout of the reference's ``init_params``). Leaves are cast
-    to the activation dtype."""
+    to the activation dtype, or to ``config.weight_dtype`` masters with
+    gradients when ``trainable``."""
     dev = resolve_device(device)
-    model = Llama(config, dev)
+    model = Llama(config, dev, trainable)
 
     def put(p: nn.Parameter, arr: Any) -> None:
         if isinstance(arr, dict):
@@ -160,6 +191,31 @@ def from_numpy_params(params: Dict[str, Any], config: ModelConfig,
     return model
 
 
+def to_numpy_params(model: Llama) -> Dict[str, Any]:
+    """The model's weights as a JAX-layout parameter tree of f32 numpy
+    arrays, layers stacked on a leading ``L`` axis (the inverse of
+    :func:`from_numpy_params`)."""
+
+    def arr(p: torch.Tensor) -> np.ndarray:
+        return p.detach().float().cpu().numpy()
+
+    names = [n for n, _ in model.layers[0].named_parameters()]
+    return {
+        "embed": arr(model.embed),
+        "layers": {n: np.stack([arr(getattr(layer, n))
+                                for layer in model.layers])
+                   for n in names},
+        "final_norm": arr(model.final_norm),
+        "lm_head": arr(model.lm_head),
+    }
+
+
+def resolve_weight(w: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+    """The matmul operand of a weight: the weight cast to the activation
+    dtype (a no-op for the serving form, whose weights already are)."""
+    return w.to(config.activation_dtype)
+
+
 def weight_einsum(spec: str, x: torch.Tensor, w: torch.Tensor,
                   config: ModelConfig) -> torch.Tensor:
     """One weight matmul on the reference's f32 path (``matmul_dtype``
@@ -167,7 +223,7 @@ def weight_einsum(spec: str, x: torch.Tensor, w: torch.Tensor,
     activation-dtype operands, in the activation dtype."""
     if config.weight_quant != "none":
         raise NotImplementedError(_QUANT_LATER)
-    return torch.einsum(spec, x, w)
+    return torch.einsum(spec, x, resolve_weight(w, config))
 
 
 def _qkv(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
@@ -191,7 +247,7 @@ def _mlp(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig
     h = rms_norm(x, layer.mlp_norm, config.norm_eps)
     gate = torch.nn.functional.silu(
         weight_einsum("bsd,df->bsf", h, layer.w3, config).float()
-    ).to(x.dtype)
+    ).to(config.activation_dtype)
     up = weight_einsum("bsd,df->bsf", h, layer.w1, config)
     return weight_einsum("bsf,fd->bsd", gate * up, layer.w2, config)
 
@@ -207,6 +263,12 @@ def final_norm_hidden(x: torch.Tensor, model: Llama) -> torch.Tensor:
     return rms_norm(x, model.final_norm, model.config.norm_eps)
 
 
+def head_weights(model: Llama) -> torch.Tensor:
+    """The lm head matrix in the activation dtype: the exact operand
+    :func:`unembed` contracts with (and the fused-CE head's)."""
+    return resolve_weight(model.lm_head, model.config)
+
+
 def unembed(x: torch.Tensor, model: Llama) -> torch.Tensor:
     """Final norm + lm head: [B, S, D] -> f32 logits [B, S, V], the
     product accumulated in f32 and kept in f32 (the reference's
@@ -214,7 +276,7 @@ def unembed(x: torch.Tensor, model: Llama) -> torch.Tensor:
     h = final_norm_hidden(x, model)
     b, s, d = h.shape
     h2 = h.reshape(b * s, d)
-    w = model.lm_head
+    w = head_weights(model)
     if h2.dtype == torch.float32:
         out = h2 @ w
     elif h2.is_cuda:
@@ -222,3 +284,114 @@ def unembed(x: torch.Tensor, model: Llama) -> torch.Tensor:
     else:
         out = h2.float() @ w.float()
     return out.reshape(b, s, -1)
+
+
+# ---------------------------------------------------------------------
+# The whole stack, for training (reference ``forward``/``forward_hidden``)
+# ---------------------------------------------------------------------
+
+def _dense_attention(q, k, v, positions):
+    return causal_attention(q, k, v, positions, positions)
+
+
+def _flash(q, k, v, positions):
+    return flash_attention(q, k, v)
+
+
+def resolve_attention(config: ModelConfig,
+                      device: torch.device | str) -> Optional[AttentionFn]:
+    """``config.attention`` -> attention fn, or None for the dense einsum.
+
+    "flash" (and "flash-interpret") take :func:`ops.flash_attention`: the
+    hand-written kernels on CUDA tensors, their plain versions on CPU
+    tensors. "auto" takes flash on a CUDA device and the dense einsum on
+    the CPU, as the reference's auto takes its kernel only on the
+    accelerator. Flash assumes standard positions (0..S-1);
+    :func:`forward_hidden` keeps the dense einsum when a caller passes
+    explicit positions."""
+    mode = config.attention
+    if mode == "dense":
+        return None
+    if mode in ("flash", "flash-interpret"):
+        return _flash
+    return _flash if torch.device(device).type == "cuda" else None
+
+
+# Matmul outputs the "dots" remat policy saves: the aten products the
+# einsums and mms lower to. Everything else in a block is recomputed.
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                  torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_BY_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_block(body: Callable, config: ModelConfig) -> Callable:
+    """Apply the configured rematerialization policy to a block body.
+    "none" (or remat=False) saves everything; "full" recomputes the whole
+    block in backward (``torch.utils.checkpoint``, non-reentrant); "dots"
+    saves the matmul outputs and recomputes the rest (selective
+    checkpointing), as the reference's ``dots_with_no_batch_dims_saveable``
+    keeps its MXU outputs."""
+    if not config.remat or config.remat_policy == "none":
+        return body
+    if config.remat_policy == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _dots_policy)
+        return lambda *a: checkpoint(body, *a, use_reentrant=False,
+                                     context_fn=context_fn)
+    return lambda *a: checkpoint(body, *a, use_reentrant=False)
+
+
+def _block(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
+           cos: torch.Tensor, sin: torch.Tensor, positions: torch.Tensor,
+           attention_fn: AttentionFn) -> torch.Tensor:
+    q, k, v = _qkv(x, layer, config, cos, sin, positions)
+    attn = attention_fn(q, k, v, positions)
+    x = project_out(x, attn, layer, config)
+    return x + _mlp(x, layer, config)
+
+
+def forward(model: Llama, tokens: torch.Tensor, config: ModelConfig,
+            attention_fn: Optional[AttentionFn] = None,
+            positions: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits [B, S, V] f32, MoE aux loss scalar -- 0 here)."""
+    x, aux = forward_hidden(model, tokens, config, attention_fn, positions)
+    return unembed(x, model), aux
+
+
+def forward_hidden(model: Llama, tokens: torch.Tensor, config: ModelConfig,
+                   attention_fn: Optional[AttentionFn] = None,
+                   positions: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decoder stack without the vocab projection: (hidden states
+    [B, S, D] before the final norm, MoE aux loss scalar). The fused-CE
+    head (``ops/fused_ce.py``) consumes this, so [B, S, V] logits are never
+    formed.
+
+    The layers are a Python loop: the reference's ``scan_layers`` exists to
+    keep XLA's compile time flat in depth, which eager PyTorch does not
+    have, so the flag is not read here."""
+    b, s = tokens.shape
+    if attention_fn is None:
+        if positions is None:
+            attention_fn = resolve_attention(config, tokens.device)
+        attention_fn = attention_fn or _dense_attention
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+    cos, sin = model.rotary()
+    # Cast, then gather, as the reference does: the embedding's gradient
+    # is scattered in the activation dtype and cast back to the master's.
+    x = resolve_weight(model.embed, config)[tokens.long()]
+
+    def body(x: torch.Tensor, layer: LlamaBlock) -> torch.Tensor:
+        return _block(x, layer, config, cos, sin, positions, attention_fn)
+
+    body = remat_block(body, config)
+    for layer in model.layers:
+        x = body(x, layer)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -1,2 +1,3 @@
 """Ops of the port: plain PyTorch versions, and the wrappers of the
-hand-written CUDA kernels in ``csrc/`` (``paged_attention.py``)."""
+hand-written CUDA kernels in ``csrc/`` (``paged_attention.py``,
+``flash_attention.py``)."""

@@ -37,11 +37,15 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("paged_decode", "paged_prefill")
+KERNELS = ("paged_decode", "paged_prefill", "flash_fwd", "flash_bwd_dq",
+           "flash_bwd_dkv")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
+# Strides (batch, seq, head) of one [B, S, H, D] operand, in elements.
+_STRIDES = (_L, _L, _L)
 # name -> argument types of its C entries (one per dtype suffix).
 _SIGNATURES = {
     # q, k_pages, v_pages, block_tables, lengths, out,
@@ -52,6 +56,17 @@ _SIGNATURES = {
     # C, Hkv, group, D, bs, offset, scale, stream
     "paged_prefill": (_P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, out, lse, B, S, Hq, Hkv, D, strides of q, k, v, scale, stream
+    "flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                  *_STRIDES * 3, _F, _P),
+    # q, k, v, dout, lse, dvec, dq, B, S, Hq, Hkv, D,
+    # strides of q, k, v, dout, scale, stream
+    "flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     *_STRIDES * 4, _F, _P),
+    # q, k, v, dout, lse, dvec, dk, dv, B, S, Hq, Hkv, D,
+    # strides of q, k, v, dout, scale, stream
+    "flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      *_STRIDES * 4, _F, _P),
 }
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
@@ -239,3 +254,110 @@ def paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     _check(rc, "paged_prefill")
     return out
 
+
+
+def _check_flash(what: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, *more: torch.Tensor
+                 ) -> Tuple[int, int, int, int, int]:
+    """Device, dtype, shape and layout checks shared by the three flash
+    kernels; returns (B, S, Hq, Hkv, D). The kernels read every operand
+    through its (batch, seq, head) strides with 16-byte copies, so the last
+    dimension must be unit-stride and every row 16-byte aligned. Outputs
+    and the f32 row statistics are contiguous."""
+    if not q.is_cuda:
+        raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors, "
+                         f"got q on {q.device}")
+    _require(q.dtype in _SUFFIX,
+             f"{what}: dtype must be bfloat16 or float32, got {q.dtype}")
+    b, s, hq, d = q.shape
+    _require(k.dim() == 4 and k.shape[0] == b and k.shape[1] == s
+             and k.shape[3] == d and v.shape == k.shape,
+             f"{what}: k, v must be [{b}, {s}, Hkv, {d}], got "
+             f"{tuple(k.shape)} and {tuple(v.shape)}")
+    hkv = k.shape[2]
+    _require(hkv >= 1 and hq % hkv == 0,
+             f"{what}: Hq {hq} not a multiple of Hkv {hkv}")
+    _require(d % 8 == 0 and d <= 128,
+             f"{what}: head_dim {d} must be a multiple of 8, at most 128")
+    _require(b >= 1 and s >= 1, f"{what}: empty batch or sequence")
+    vec = 16 // q.element_size()
+    for t, nm in ((q, "q"), (k, "k"), (v, "v")) + tuple(
+            (t, f"operand {i}") for i, t in enumerate(more)):
+        _require(t.device == q.device and t.dtype == q.dtype,
+                 f"{what}: {nm} must be {q.dtype} on {q.device}, got "
+                 f"{t.dtype} on {t.device}")
+        # A size-1 dim's stride is never multiplied by a nonzero index.
+        _require(t.stride(-1) == 1 and all(
+            st % vec == 0 for st, n in zip(t.stride()[:-1], t.shape[:-1])
+            if n > 1),
+                 f"{what}: {nm} needs a unit last stride and 16-byte "
+                 f"aligned rows, got strides {t.stride()}")
+        _require(t.data_ptr() % 16 == 0,
+                 f"{what}: {nm} must start 16-byte aligned")
+    return b, s, hq, hkv, d
+
+
+def _row_stats(what: str, t: torch.Tensor, b: int, hq: int, s: int,
+               device: torch.device) -> None:
+    _require(t.device == device and t.dtype == torch.float32
+             and t.is_contiguous() and t.shape == (b, hq, s),
+             f"{what}: lse and D must be contiguous float32 [{b}, {hq}, "
+             f"{s}] on {device}")
+
+
+def _strides(*ts: torch.Tensor):
+    return [st for t in ts for st in t.stride()[:3]]
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/flash_fwd.cu`` on the current stream: (out
+    [B, S, Hq, D] in q's dtype, lse [B, Hq, S] f32)."""
+    b, s, hq, hkv, d = _check_flash("flash_fwd", q, k, v)
+    out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    rc = _entry("flash_fwd", q.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, s, hq, hkv, d, *_strides(q, k, v), d ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check(rc, "flash_fwd")
+    return out, lse
+
+
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 dout: torch.Tensor, lse: torch.Tensor, dvec: torch.Tensor
+                 ) -> torch.Tensor:
+    """Launch ``csrc/flash_bwd_dq.cu`` on the current stream: dq
+    [B, S, Hq, D] in q's dtype."""
+    b, s, hq, hkv, d = _check_flash("flash_bwd_dq", q, k, v, dout)
+    _require(dout.shape == q.shape, "flash_bwd_dq: dout must match q")
+    for t in (lse, dvec):
+        _row_stats("flash_bwd_dq", t, b, hq, s, q.device)
+    dq = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
+    rc = _entry("flash_bwd_dq", q.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), b, s, hq, hkv, d,
+        *_strides(q, k, v, dout), d ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check(rc, "flash_bwd_dq")
+    return dq
+
+
+def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  dout: torch.Tensor, lse: torch.Tensor, dvec: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/flash_bwd_dkv.cu`` on the current stream: (dk, dv),
+    each [B, S, Hkv, D] in k's dtype, summed over each KV head's group."""
+    b, s, hq, hkv, d = _check_flash("flash_bwd_dkv", q, k, v, dout)
+    _require(dout.shape == q.shape, "flash_bwd_dkv: dout must match q")
+    for t in (lse, dvec):
+        _row_stats("flash_bwd_dkv", t, b, hq, s, q.device)
+    dk = torch.empty((b, s, hkv, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    rc = _entry("flash_bwd_dkv", q.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, s, hq, hkv, d, *_strides(q, k, v, dout), d ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check(rc, "flash_bwd_dkv")
+    return dk, dv

@@ -1,7 +1,8 @@
 """Process-wide metrics: counters, gauges, histograms, Prometheus text --
 the port's copy of ``triton_kubernetes_tpu/utils/metrics.py``, holding the
-registry, its exposition, and the ``tk8s_serve_*`` families the serving
-engine updates, so they behave exactly as the JAX engine's do.
+registry, its exposition, the ``tk8s_serve_*`` families the serving
+engine updates and the ``tk8s_train_*`` families of the training loop, so
+they behave exactly as the JAX package's do.
 
 Families are create-or-get by name (``metrics.counter(name).inc(...)``);
 help text, label names and buckets come from :data:`CATALOG`. The registry
@@ -67,6 +68,21 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...], Optional[Tuple[float, ...]]]
         "gauge", "KV pages currently indexed by the radix prefix cache "
         "(each holds one cache-owned reference; evicted LRU-leaf-first "
         "under pool pressure)", (), None),
+    # ---------------------------------- train/pipeline.py (one process:
+    # the reference's process_id label has one value here and is dropped)
+    "tk8s_train_step_duration_seconds": (
+        "histogram", "Per-step wall-clock duration, amortized over each "
+        "sync window of the pipelined training loop", ("config",),
+        DEFAULT_BUCKETS),
+    "tk8s_train_tokens_total": (
+        "counter", "Tokens trained, incremented at each host sync point",
+        ("config",), None),
+    "tk8s_train_host_syncs_total": (
+        "counter", "Device->host metric syncs taken by the training loop "
+        "(one per sync window, NOT one per step)", ("config",), None),
+    "tk8s_train_steps_in_flight": (
+        "gauge", "Dispatched-but-unsynced steps currently in flight in "
+        "the pipelined training loop", (), None),
 }
 
 _VALID_KINDS = ("counter", "gauge", "histogram")
