@@ -10,15 +10,18 @@ order; any failure raises and the script exits non-zero without printing a
 result:
 
 1. card   -- requires CUDA; prints ``nvidia-smi``'s name and power limit;
-2. build  -- compiles the five kernels of ``csrc/`` (paged decode and
-   prefill, flash forward, dQ and dK/dV) with ``nvcc`` for ``sm_90a``, all
-   at once, and prints the seconds and what ``ptxas`` reports;
+2. build  -- compiles the six kernel sources of ``csrc/`` (paged decode,
+   verify and prefill, each for bf16/f32 queries over bf16/f32, int8 and
+   fp8 pages; flash forward, dQ and dK/dV) with ``nvcc`` for ``sm_90a``,
+   all at once, and prints the seconds and what ``ptxas`` reports;
 3. kernels -- each kernel against its plain PyTorch version at Llama-3-8B
-   shapes (Hq 32, Hkv 8, D 128, bf16; paged: bs 16, 128 pages per
-   sequence; flash: (B, S) = (4, 2048), (1, 1000), (1, 1280)), with its
-   time, the plain version's, one ``scaled_dot_product_attention`` call's
-   as a yardstick (the port never calls it), and the card's bound for the
-   same work;
+   shapes (Hq 32, Hkv 8, D 128, bf16 queries; paged: bs 16, 128 pages per
+   sequence, on bf16, int8 and fp8 pages; verify at B 8, S 4; flash:
+   (B, S) = (4, 2048), (1, 1000), (1, 1280)), with its time, the plain
+   version's, one ``scaled_dot_product_attention`` call's as a yardstick
+   (the port never calls it), and the card's bound for the same work; and
+   every verify row ``torch.equal`` to the decode kernel at that row's
+   length, on every page kind;
 4. serve  -- ``ServeEngine`` on ``llama3-8b`` at full width and depth
    (random bf16 weights from a seed), chunked prefill with the prefix
    cache, 8 requests; checks completions, pool drain, prefix hits and that
@@ -26,7 +29,21 @@ result:
    (decode ticks x layers); prints TTFT, TPOT, tokens/s and tick times;
    cross-checks one greedy request's first-token logits against the plain
    versions (and an engine forced onto them); profiles a few decode ticks
-   (device busy time by kernel class, idle share, launches per tick);
+   (device busy time by kernel class, idle share, launches per tick).
+   Then six more runs of those 8 requests plus 4 repetitive ones (one
+   seeded token tiled 300-700 times, so the model repeats itself and the
+   drafter fires): bf16, int8 and fp8 pools, each
+   with ``spec_k`` 0 and 3, one pool freed before the next. Each checks
+   completions, drain, drafts where speculating, a finite quant error on
+   8-bit pools and every kernel's launches = (ticks that ran it x layers),
+   and prints TTFT, TPOT, tokens/s, accept rate, tokens per sequence per
+   verify, quant error, pool bytes against bf16's and how many tokens
+   equal the spec-off run of its pool kind (not asserted: the verify's
+   [B*S]-row products may round differently from decode's [B]-row ones).
+   The 8-bit kernels' first-token logits are held to their plain versions
+   on the same pool kind. A rewind probe per bf16 and int8 pool verifies
+   junk drafts on one prefilled sequence, rewinds all but the first, and
+   checks every rejected slot and scale byte-equal to the pre-verify pool;
 5. train  -- ``python -m triton_kubernetes_tpu_torch.train``'s ``main`` on
    ``llama3-8b`` at full width cut to 4 layers (fused CE, flash attention,
    bf16 policy, remat full), batch 4 x 2048, 6 AdamW steps; checks finite
@@ -101,8 +118,19 @@ PEAKS = {
 
 HQ, HKV, D, BS, T = 32, 8, 128, 16, 128
 DECODE_LENGTHS = [0, 1, 16, 17, 300, 1000, 2047, 2048]
+# Speculative verify: spec_k 3 (S = 4 rows a sequence) at lengths covering
+# an inactive row, one token, rows crossing a page edge (14 + 3 = 17) and
+# a near-full table (2045 + 3 = 2048).
+SPEC_K = 3
+VERIFY_LENGTHS = [0, 1, 14, 16, 17, 300, 1000, 2045]
+# Page kinds of the paged kernels: the activation dtype, then 8-bit pools.
+KV_KINDS = ("bf16", "int8", "fp8")
 PREFILL_CHUNK = 256
 PREFILL_OFFSETS = [0, 256, 1024]
+SERVE_DEVICE = "cuda"
+SERVE_ENGINE_KW = dict(block_size=BS, num_blocks=2048, max_batch=8,
+                       max_model_len=2048, prefill_chunk=PREFILL_CHUNK,
+                       prefix_cache=True)
 POISON = 1e4
 # Kernel vs plain version, both bf16 with the same rounding order: they
 # differ only in f32 summation order, which can move an output across one
@@ -177,10 +205,63 @@ def make_pool(gen, n_pages, lengths_tables, device):
     return pools
 
 
-def kernel_phase(pa, device, flush, peaks):
-    """Both kernels against their plain versions; returns their records."""
+def pool_variant(kp, vp, kind):
+    """The bf16 pools as the kernels of one page kind take them: (k, v,
+    k_scale, v_scale), the anchored quantization of the same values for
+    int8/fp8 (``ops/quantization.py``), scales None for bf16."""
+    if kind == "bf16":
+        return kp, vp, None, None
+    from triton_kubernetes_tpu_torch.ops import quantization as qz
+    dtype = qz.KV_QUANT_DTYPES[kind]
+    (qk, sk), (qv, sv) = (qz.quantize_kv_pages(p.float(), dtype)
+                          for p in (kp, vp))
+    return qk, qv, sk, sv
+
+
+def dequantized(pa, pages, scale, tables):
+    """Gathered K or V in bf16 for the SDPA yardstick (dequantized first
+    for 8-bit pools; not timed)."""
+    if scale is None:
+        return pa.gather_pages(pages, tables)
+    return pa.gather_pages(pages, tables, scale, torch.bfloat16)
+
+
+def paged_bytes(pages_read, kind, extra):
+    """Bytes a paged kernel must move: K and V of the pages it reads (and
+    their two f32 scales on 8-bit pools), plus ``extra`` (q, out, tables)."""
+    elem = 2 if kind == "bf16" else 1
+    scales = 0 if kind == "bf16" else pages_read * HKV * 4 * 2
+    return pages_read * BS * HKV * D * elem * 2 + scales + extra
+
+
+def kernel_record(name, kind, source, replaces, err, ms, pms, lms, nbytes,
+                  flops, peaks, library_call, shape, **more):
     bw, flops_peak = peaks
+    suffix = "" if kind == "bf16" else f"_{kind}"
+    return dict(
+        name=name + suffix, route="cuda",
+        source=f"triton_kubernetes_tpu_torch/csrc/{source}",
+        replaces=replaces, max_abs_err=err,
+        tolerance=f"{ATOL} + {RTOL} * |plain|",
+        ms=ms, plain_ms=pms, library_ms=lms,
+        bound_ms=max(nbytes / bw, flops / flops_peak) * 1e3,
+        bound_by="bytes" if nbytes / bw >= flops / flops_peak
+        else "operations",
+        library_call=library_call, bytes=nbytes, flops=flops,
+        shape=dict(shape, pages=kind), **more)
+
+
+def sdpa(qs, kk, vv, mask):
+    return torch.nn.functional.scaled_dot_product_attention(
+        qs, kk, vv, attn_mask=mask)
+
+
+def kernel_phase(pa, device, flush, peaks):
+    """Decode, verify and prefill against their plain versions on bf16,
+    int8 and fp8 pages; verify rows against decode bit for bit. Returns
+    the kernels' records."""
     gen = torch.Generator(device=device).manual_seed(1234)
+    group = HQ // HKV
     records = []
 
     # ---- decode: B = 8 sequences at ragged lengths, own pages each.
@@ -189,115 +270,175 @@ def kernel_phase(pa, device, flush, peaks):
     tables_cpu = (perm.reshape(b, T) + 1).to(torch.int32)
     for i, n in enumerate(DECODE_LENGTHS):  # unused entries -> trash page
         tables_cpu[i, (n + BS - 1) // BS:] = pa.TRASH_PAGE
-    kp, vp = make_pool(gen, 1 + b * T,
-                       [(n, tables_cpu[i].tolist())
-                        for i, n in enumerate(DECODE_LENGTHS)], device)
+    kp16, vp16 = make_pool(gen, 1 + b * T,
+                           [(n, tables_cpu[i].tolist())
+                            for i, n in enumerate(DECODE_LENGTHS)], device)
     tables = tables_cpu.to(device)
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=device)
     q = torch.randn((b, 1, HQ, D), generator=gen, device=device
                     ).to(torch.bfloat16)
-    got = pa.ragged_paged_attention(q, kp, vp, tables, lengths, impl="cuda")
-    want = pa.ragged_paged_attention(q, kp, vp, tables, lengths,
-                                     impl="dense")
-    torch.cuda.synchronize()
-    err = check_close("paged_decode", got, want)
-    if bool(got[0].any()):
-        raise AssertionError("paged_decode: a length-0 slot must give 0")
-    kms = time_ms(lambda: pa.ragged_paged_attention(
-        q, kp, vp, tables, lengths, impl="cuda"), flush)
-    pms = time_ms(lambda: pa.ragged_paged_attention(
-        q, kp, vp, tables, lengths, impl="dense"), flush)
-    group = HQ // HKV
-    kk = pa.gather_pages(kp, tables).transpose(1, 2).repeat_interleave(
-        group, dim=1)
-    vv = pa.gather_pages(vp, tables).transpose(1, 2).repeat_interleave(
-        group, dim=1)
     mask = (torch.arange(T * BS, device=device)[None, :]
             < lengths[:, None])[:, None, None, :]
-    qs = q.transpose(1, 2)
-    lms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, kk, vv, attn_mask=mask), flush)
     pages_read = sum((n + BS - 1) // BS for n in DECODE_LENGTHS)
-    nbytes = (pages_read * BS * HKV * D * 2 * 2 + 2 * q.numel() * 2
-              + tables.numel() * 4 + lengths.numel() * 4)
-    flops = 4 * D * HQ * sum(DECODE_LENGTHS)
-    bound = max(nbytes / bw, flops / flops_peak) * 1e3
-    records.append(dict(
-        name="paged_decode", route="cuda",
-        source="triton_kubernetes_tpu_torch/csrc/paged_decode.cu",
-        replaces="triton_kubernetes_tpu/ops/paged_attention.py:461",
-        max_abs_err=err, tolerance=f"{ATOL} + {RTOL} * |plain|",
-        ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bound,
-        library_call="scaled_dot_product_attention over the gathered "
-                     "pages with a length mask",
-        bound_by="bytes" if nbytes / bw >= flops / flops_peak
-        else "operations",
-        bytes=nbytes, flops=flops,
-        shape=dict(B=b, Hq=HQ, Hkv=HKV, D=D, bs=BS, T=T,
-                   lengths=DECODE_LENGTHS)))
+    for kind in KV_KINDS:
+        kp, vp, ks, vs = pool_variant(kp16, vp16, kind)
+        got = pa.ragged_paged_attention(q, kp, vp, tables, lengths, ks, vs,
+                                        impl="cuda")
+        want = pa.ragged_paged_attention(q, kp, vp, tables, lengths, ks, vs,
+                                         impl="dense")
+        torch.cuda.synchronize()
+        err = check_close(f"paged_decode ({kind} pages)", got, want)
+        if bool(got[0].any()):
+            raise AssertionError("paged_decode: a length-0 slot must give 0")
+        kms = time_ms(lambda: pa.ragged_paged_attention(
+            q, kp, vp, tables, lengths, ks, vs, impl="cuda"), flush)
+        pms = time_ms(lambda: pa.ragged_paged_attention(
+            q, kp, vp, tables, lengths, ks, vs, impl="dense"), flush)
+        kk = dequantized(pa, kp, ks, tables).transpose(1, 2
+                                                       ).repeat_interleave(
+            group, dim=1)
+        vv = dequantized(pa, vp, vs, tables).transpose(1, 2
+                                                       ).repeat_interleave(
+            group, dim=1)
+        lms = time_ms(lambda: sdpa(q.transpose(1, 2), kk, vv, mask), flush)
+        del kk, vv
+        records.append(kernel_record(
+            "paged_decode", kind, "paged_decode.cu",
+            "triton_kubernetes_tpu/ops/paged_attention.py:461", err, kms,
+            pms, lms, paged_bytes(pages_read, kind, 2 * q.numel() * 2
+                                  + tables.numel() * 4 + lengths.numel() * 4),
+            4 * D * HQ * sum(DECODE_LENGTHS), peaks,
+            "scaled_dot_product_attention over the gathered (dequantized) "
+            "pages with a length mask",
+            dict(B=b, Hq=HQ, Hkv=HKV, D=D, bs=BS, T=T,
+                 lengths=DECODE_LENGTHS)))
+
+    # ---- verify: B = 8 sequences, S = spec_k + 1 staggered rows each.
+    s = SPEC_K + 1
+    tables_cpu = (perm.reshape(b, T) + 1).to(torch.int32)
+    for i, n in enumerate(VERIFY_LENGTHS):
+        tables_cpu[i, (n + s - 1 + BS - 1) // BS:] = pa.TRASH_PAGE
+    kp16, vp16 = make_pool(gen, 1 + b * T,
+                           [(n + s - 1, tables_cpu[i].tolist())
+                            for i, n in enumerate(VERIFY_LENGTHS)], device)
+    tables = tables_cpu.to(device)
+    lengths = torch.tensor(VERIFY_LENGTHS, dtype=torch.int32, device=device)
+    q = torch.randn((b, s, HQ, D), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    row_len = lengths[:, None] + torch.arange(s, device=device)[None]
+    mask = (torch.arange(T * BS, device=device)[None, None, :]
+            < row_len[:, :, None])[:, None]  # [B, 1, S, T*bs]
+    pages_read = sum(min(T, (n + s - 1 + BS - 1) // BS)
+                     for n in VERIFY_LENGTHS)
+    for kind in KV_KINDS:
+        kp, vp, ks, vs = pool_variant(kp16, vp16, kind)
+        got = pa.ragged_verify_attention(q, kp, vp, tables, lengths, ks, vs,
+                                         impl="cuda")
+        want = pa.ragged_verify_attention(q, kp, vp, tables, lengths, ks, vs,
+                                          impl="dense")
+        rows = [pa.ragged_paged_attention(q[:, j:j + 1].contiguous(), kp, vp,
+                                          tables, lengths + j, ks, vs,
+                                          impl="cuda") for j in range(s)]
+        torch.cuda.synchronize()
+        err = check_close(f"paged_verify ({kind} pages)", got, want)
+        for j, row in enumerate(rows):
+            if not torch.equal(got[:, j:j + 1], row):
+                worst = float((got[:, j:j + 1].float() - row.float()).abs()
+                              .max())
+                raise AssertionError(
+                    f"paged_verify ({kind} pages): row {j} differs from "
+                    f"paged_decode at lengths + {j} (max abs {worst}); the "
+                    f"rows must be bitwise equal")
+        kms = time_ms(lambda: pa.ragged_verify_attention(
+            q, kp, vp, tables, lengths, ks, vs, impl="cuda"), flush)
+        pms = time_ms(lambda: pa.ragged_verify_attention(
+            q, kp, vp, tables, lengths, ks, vs, impl="dense"), flush)
+        kk = dequantized(pa, kp, ks, tables).transpose(1, 2
+                                                       ).repeat_interleave(
+            group, dim=1)
+        vv = dequantized(pa, vp, vs, tables).transpose(1, 2
+                                                       ).repeat_interleave(
+            group, dim=1)
+        lms = time_ms(lambda: sdpa(q.transpose(1, 2), kk, vv, mask), flush)
+        del kk, vv
+        records.append(kernel_record(
+            "paged_verify", kind, "paged_verify.cu",
+            "triton_kubernetes_tpu/ops/paged_attention.py:756", err, kms,
+            pms, lms, paged_bytes(pages_read, kind, 2 * q.numel() * 2
+                                  + tables.numel() * 4 + lengths.numel() * 4),
+            4 * D * HQ * int(row_len.sum()), peaks,
+            "scaled_dot_product_attention over the gathered (dequantized) "
+            "pages with each row's length mask",
+            dict(B=b, S=s, Hq=HQ, Hkv=HKV, D=D, bs=BS, T=T,
+                 lengths=VERIFY_LENGTHS),
+            rows_bitwise_equal_to_decode=True))
 
     # ---- prefill: one C = 256 window at three offsets.
-    cases = []
+    cases = {kind: [] for kind in KV_KINDS}
     for off in PREFILL_OFFSETS:
         total = off + PREFILL_CHUNK
         table_cpu = (torch.randperm(T, generator=torch.Generator()
                                     .manual_seed(off)) + 1).to(torch.int32)
-        kp, vp = make_pool(gen, 1 + T, [(total, table_cpu.tolist())], device)
+        kp16, vp16 = make_pool(gen, 1 + T, [(total, table_cpu.tolist())],
+                               device)
         table = table_cpu.to(device)
         q = torch.randn((1, PREFILL_CHUNK, HQ, D), generator=gen,
                         device=device).to(torch.bfloat16)
-        got = pa.paged_prefill_attention(q, kp, vp, table, off, impl="cuda")
-        want = pa.paged_prefill_attention(q, kp, vp, table, off,
-                                          impl="dense")
-        torch.cuda.synchronize()
-        err = check_close(f"paged_prefill@{off}", got, want)
-        kms = time_ms(lambda: pa.paged_prefill_attention(
-            q, kp, vp, table, off, impl="cuda"), flush)
-        pms = time_ms(lambda: pa.paged_prefill_attention(
-            q, kp, vp, table, off, impl="dense"), flush)
-        kk = pa.gather_pages(kp, table[None]).transpose(1, 2)
-        vv = pa.gather_pages(vp, table[None]).transpose(1, 2)
-        kk = kk.repeat_interleave(HQ // HKV, dim=1)
-        vv = vv.repeat_interleave(HQ // HKV, dim=1)
         qpos = off + torch.arange(PREFILL_CHUNK, device=device)
         mask = (torch.arange(T * BS, device=device)[None, :]
                 <= qpos[:, None])[None, None]
-        qs = q.transpose(1, 2)
-        lms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qs, kk, vv, attn_mask=mask), flush)
         keys = sum(off + i + 1 for i in range(PREFILL_CHUNK))
-        flops = 4 * D * HQ * keys
-        nbytes = (((total + BS - 1) // BS) * BS * HKV * D * 2 * 2
-                  + 2 * q.numel() * 2 + table.numel() * 4)
-        cases.append(dict(offset=off, max_abs_err=err, ms=kms, plain_ms=pms,
-                          library_ms=lms, flops=flops, bytes=nbytes,
-                          bound_ms=max(flops / flops_peak, nbytes / bw) * 1e3))
-    flops = sum(c["flops"] for c in cases)
-    nbytes = sum(c["bytes"] for c in cases)
-    records.append(dict(
-        name="paged_prefill", route="cuda",
-        source="triton_kubernetes_tpu_torch/csrc/paged_prefill.cu",
-        replaces="triton_kubernetes_tpu/ops/paged_attention.py:633",
-        max_abs_err=max(c["max_abs_err"] for c in cases),
-        tolerance=f"{ATOL} + {RTOL} * |plain|",
-        ms=sum(c["ms"] for c in cases),
-        plain_ms=sum(c["plain_ms"] for c in cases),
-        library_ms=sum(c["library_ms"] for c in cases),
-        library_call="scaled_dot_product_attention over the gathered "
-                     "pages with a causal mask at the window's offset",
-        bound_ms=sum(c["bound_ms"] for c in cases),
-        bound_by="operations" if flops / flops_peak >= nbytes / bw
-        else "bytes",
-        bytes=nbytes, flops=flops,
-        shape=dict(C=PREFILL_CHUNK, Hq=HQ, Hkv=HKV, D=D, bs=BS, T=T,
-                   offsets=PREFILL_OFFSETS, summed_over="offsets"),
-        cases=cases))
+        for kind in KV_KINDS:
+            kp, vp, ks, vs = pool_variant(kp16, vp16, kind)
+            got = pa.paged_prefill_attention(q, kp, vp, table, off, ks, vs,
+                                             impl="cuda")
+            want = pa.paged_prefill_attention(q, kp, vp, table, off, ks, vs,
+                                              impl="dense")
+            torch.cuda.synchronize()
+            err = check_close(f"paged_prefill@{off} ({kind} pages)", got,
+                              want)
+            kms = time_ms(lambda: pa.paged_prefill_attention(
+                q, kp, vp, table, off, ks, vs, impl="cuda"), flush)
+            pms = time_ms(lambda: pa.paged_prefill_attention(
+                q, kp, vp, table, off, ks, vs, impl="dense"), flush)
+            kk = dequantized(pa, kp, ks, table[None]).transpose(1, 2)
+            vv = dequantized(pa, vp, vs, table[None]).transpose(1, 2)
+            kk = kk.repeat_interleave(group, dim=1)
+            vv = vv.repeat_interleave(group, dim=1)
+            lms = time_ms(lambda: sdpa(q.transpose(1, 2), kk, vv, mask),
+                          flush)
+            del kk, vv
+            flops = 4 * D * HQ * keys
+            nbytes = paged_bytes((total + BS - 1) // BS, kind,
+                                 2 * q.numel() * 2 + table.numel() * 4)
+            cases[kind].append(dict(
+                offset=off, max_abs_err=err, ms=kms, plain_ms=pms,
+                library_ms=lms, flops=flops, bytes=nbytes,
+                bound_ms=max(flops / peaks[1], nbytes / peaks[0]) * 1e3))
+    for kind in KV_KINDS:
+        cs = cases[kind]
+        rec = kernel_record(
+            "paged_prefill", kind, "paged_prefill.cu",
+            "triton_kubernetes_tpu/ops/paged_attention.py:633",
+            max(c["max_abs_err"] for c in cs), sum(c["ms"] for c in cs),
+            sum(c["plain_ms"] for c in cs), sum(c["library_ms"] for c in cs),
+            sum(c["bytes"] for c in cs), sum(c["flops"] for c in cs), peaks,
+            "scaled_dot_product_attention over the gathered (dequantized) "
+            "pages with a causal mask at the window's offset",
+            dict(C=PREFILL_CHUNK, Hq=HQ, Hkv=HKV, D=D, bs=BS, T=T,
+                 offsets=PREFILL_OFFSETS, summed_over="offsets"), cases=cs)
+        # Summed over three launches: the bound is the sum of theirs.
+        rec["bound_ms"] = sum(c["bound_ms"] for c in cs)
+        records.append(rec)
     for r in records:
         print(f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.6g} "
               f"(tolerance {r['tolerance']}) kernel_ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
+              f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})"
+              + (" rows == paged_decode bitwise"
+                 if r.get("rows_bitwise_equal_to_decode") else ""),
+              flush=True)
     return records
 
 
@@ -319,21 +460,33 @@ def make_requests(cfg, Request):
     return reqs
 
 
-def first_token_logits(model, cfg, prompt, impl, paged):
-    """Logits at a prompt's last token through all its prefill windows,
-    on a fresh pool, with the given attention impl."""
-    windows = -(-len(prompt) // PREFILL_CHUNK)
+def prefill_fresh(model, cfg, prompt, impl, paged, kv_dtype="auto",
+                  spare_windows=0):
+    """A fresh pool holding one prompt, written by its prefill windows with
+    the given attention impl: (logits at the last token, pool, table).
+    The table has ``spare_windows`` more windows of pages past the
+    prompt's."""
+    windows = -(-len(prompt) // PREFILL_CHUNK) + spare_windows
     pages = windows * PREFILL_CHUNK // BS
-    cache = paged.init_paged_cache(cfg, pages + 1, BS, device="cuda")
-    table = torch.arange(1, pages + 1, dtype=torch.int32, device="cuda")
+    cache = paged.init_paged_cache(cfg, pages + 1, BS, kv_dtype=kv_dtype,
+                                   device=SERVE_DEVICE)
+    table = torch.arange(1, pages + 1, dtype=torch.int32,
+                         device=SERVE_DEVICE)
     with torch.inference_mode():
         for off in range(0, len(prompt), PREFILL_CHUNK):
             clen = min(PREFILL_CHUNK, len(prompt) - off)
             toks = prompt[off:off + clen] + [0] * (PREFILL_CHUNK - clen)
             logits = paged.paged_prefill_chunk(
-                model, torch.tensor([toks], dtype=torch.int32, device="cuda"),
+                model, torch.tensor([toks], dtype=torch.int32,
+                                    device=SERVE_DEVICE),
                 off, clen, cfg, cache, table, attention_impl=impl)
-    return logits
+    return logits, cache, table
+
+
+def first_token_logits(model, cfg, prompt, impl, paged, kv_dtype="auto"):
+    """Logits at a prompt's last token through all its prefill windows,
+    on a fresh pool, with the given attention impl."""
+    return prefill_fresh(model, cfg, prompt, impl, paged, kv_dtype)[0]
 
 
 def profile_decode(engine, cfg, Request, ticks=4):
@@ -405,9 +558,7 @@ def serve_phase(card):
     print(f"serve: llama3-8b {cfg.num_layers} layers, width {cfg.embed_dim},"
           f" vocab {cfg.vocab_size}: {cfg.num_params() / 1e9:.3f}B bf16 "
           f"params initialised in {time.perf_counter() - t0:.1f} s", flush=True)
-    engine_kw = dict(block_size=BS, num_blocks=2048, max_batch=8,
-                     max_model_len=2048, prefill_chunk=PREFILL_CHUNK,
-                     prefix_cache=True)
+    engine_kw = SERVE_ENGINE_KW
     engine = ServeEngine(model, cfg, **engine_kw)
 
     # Warm-up (cuBLAS handles, first launches), then a clean slate.
@@ -529,6 +680,9 @@ def serve_phase(card):
           f" (plain top-2 gap {gap:.5f}); {same}/32 tokens equal to the "
           f"plain-version engine", flush=True)
     prof = profile_decode(engine, cfg, Request)
+    del engine, dense
+    gc.collect()
+    torch.cuda.empty_cache()
     if prof["device_idle_share"] is None:
         print("serve: decode tick profile: the profiler saw no device "
               "kernels; device time not measured", flush=True)
@@ -541,7 +695,12 @@ def serve_phase(card):
               f"{prof['device_idle_share']:.3f}), "
               f"{prof['launches_per_tick']:.0f} launches; {classes} "
               f"[{card}]", flush=True)
+    runs = spec_quant_phase(model, cfg, card, requests)
+    probes = [rewind_probe(model, cfg, kind, requests[4].tokens)
+              for kind in ("bf16", "int8")]
+    peak = torch.cuda.max_memory_allocated()
     return launches, dict(
+        spec_quant_runs=runs, rewind_probes=probes,
         requests=len(requests), prompt_tokens=prompt_tokens,
         prefix_hit_tokens=hits, prefill_windows=windows, decode_ticks=ticks,
         launches=launches, wall_s=wall, ttft_s=ttft, tpot_s=tpot,
@@ -554,7 +713,250 @@ def serve_phase(card):
         tick_ms=tick_ms,
         decode_tick_profile=prof,
         tokens_equal_to_plain_engine=same,
-        peak_memory_bytes=torch.cuda.max_memory_allocated())
+        peak_memory_bytes=peak)
+
+
+def repetitive_requests(cfg, Request):
+    """4 prompts of 300-700 copies of one seeded token: a motif tiled so far
+    that this random-weight model settles into repeating its own output,
+    which the n-gram drafter then proposes. (Tiled random motifs of 4-32
+    tokens, and motifs of the model's own greedy continuation, gave it
+    nothing to draft in 32 tokens on the H100: with random weights the
+    continuation never repeats the prompt.)"""
+    rng = np.random.default_rng(77)
+    return [Request(f"m{i}", [int(rng.integers(0, cfg.vocab_size))]
+                    * int(rng.integers(300, 701)), 32) for i in range(4)]
+
+
+def serve_run(model, cfg, kind, spec_k, requests, arrivals):
+    """One engine run of ``requests`` on a pool of ``kind`` pages with
+    ``spec_k``; the kernels' launch counts are zeroed just before it and
+    read just after. Checks completions, pool drain, launches = ticks x
+    layers for each kernel, drafts where speculating and a finite quant
+    error on 8-bit pools. Returns the run's record."""
+    from triton_kubernetes_tpu_torch.ops import paged_attention as pa
+    from triton_kubernetes_tpu_torch.serve import Request, ServeEngine
+    from triton_kubernetes_tpu_torch.utils import metrics
+
+    engine = ServeEngine(model, cfg, device=SERVE_DEVICE, **dict(
+        SERVE_ENGINE_KW, kv_dtype="auto" if kind == "bf16" else kind,
+        spec_k=spec_k))
+    engine.submit(Request("warmup", list(range(1, 65)), 2))
+    engine.run_until_idle()
+    engine.release_prefix_cache()
+    metrics.configure()
+    base = engine.stats()
+    pa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, tick, per_verify = {}, 0, []
+    while engine.has_work or tick <= max(arrivals):
+        for i in arrivals.get(tick, []):
+            engine.submit(requests[i])
+        verifies = engine.stats()["verify_steps"]
+        for d in engine.step():
+            done[d.request_id] = d
+        if engine.stats()["verify_steps"] > verifies:
+            per_verify.append(metrics.gauge(
+                "tk8s_serve_spec_tokens_per_step").value())
+        tick += 1
+        if tick > 10_000:
+            raise AssertionError("engine did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_decode": pa.ragged_paged_attention.launches,
+                "paged_verify": pa.ragged_verify_attention.launches,
+                "paged_prefill": pa.paged_prefill_attention.launches}
+    stats = engine.stats()
+    counts = {k: stats[k] - base[k] for k in
+              ("prefill_windows", "decode_steps", "verify_steps")}
+    tag = f"{kind} spec_k={spec_k}"
+    for r in requests:
+        d = done[r.request_id]
+        if len(d.tokens) != r.max_new_tokens or d.finish_reason != "length":
+            raise AssertionError(f"{tag}: {r.request_id}: {len(d.tokens)} "
+                                 f"tokens, {d.finish_reason}")
+        if not all(0 <= t < cfg.vocab_size for t in d.tokens):
+            raise AssertionError(f"{tag}: {r.request_id}: token outside "
+                                 f"the vocab")
+    engine.release_prefix_cache()
+    if engine.allocator.in_use != 0:
+        raise AssertionError(f"{tag}: {engine.allocator.in_use} pages "
+                             f"leaked")
+    want = {"paged_prefill": counts["prefill_windows"] * cfg.num_layers,
+            "paged_decode": counts["decode_steps"] * cfg.num_layers,
+            "paged_verify": counts["verify_steps"] * cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"{tag}: launch counts {launches} != "
+                             f"expected {want}")
+    proposed = metrics.counter("tk8s_serve_spec_proposed_tokens_total"
+                               ).value()
+    accepted = metrics.counter("tk8s_serve_spec_accepted_tokens_total"
+                               ).value()
+    if spec_k and not (proposed > 0 and counts["verify_steps"] > 0):
+        raise AssertionError(f"{tag}: the drafter never proposed")
+    quant_err = {t: metrics.gauge("tk8s_serve_quant_error").value(tensor=t)
+                 for t in ("k", "v")}
+    if kind != "bf16" and not all(np.isfinite(e) and e > 0
+                                  for e in quant_err.values()):
+        raise AssertionError(f"{tag}: quant error {quant_err}")
+    pool_bytes = stats["kv_pool_bytes"]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    ttft = [done[r.request_id].ttft for r in requests]
+    tpot = [done[r.request_id].tpot for r in requests]
+    generated = sum(len(done[r.request_id].tokens) for r in requests)
+    return dict(
+        kind=kind, spec_k=spec_k, launches=launches, **counts,
+        wall_s=wall, ttft_s=ttft, tpot_s=tpot, generated_tokens=generated,
+        tokens_per_s=generated / wall, proposed=proposed, accepted=accepted,
+        accept_rate=accepted / proposed if proposed else None,
+        tokens_per_seq_per_verify=(statistics.mean(per_verify)
+                                   if per_verify else None),
+        quant_error=quant_err, kv_pool_bytes=pool_bytes,
+        tokens={r.request_id: done[r.request_id].tokens for r in requests})
+
+
+def spec_quant_phase(model, cfg, card, requests):
+    """The serve runs of this slice: bf16, int8 and fp8 pools, each with
+    spec_k 0 and 3, on the 8 requests plus 4 repetitive ones. Prints each
+    run's numbers, its tokens against the spec-off run of its pool kind
+    (reported, not asserted: the verify's [B*S]-row GEMMs may round
+    differently from decode's [B]-row ones), and checks the 8-bit kernels'
+    first-token logits against the plain versions on the same pool kind."""
+    from triton_kubernetes_tpu_torch.models import paged
+    from triton_kubernetes_tpu_torch.serve import Request
+
+    reqs = list(requests) + repetitive_requests(cfg, Request)
+    arrivals = {0: [0, 4, 5, 8, 9], 5: [1, 2, 3], 6: [6, 7, 10, 11]}
+    runs = []
+    for kind in KV_KINDS:
+        for spec_k in (0, SPEC_K):
+            run = serve_run(model, cfg, kind, spec_k, reqs, arrivals)
+            runs.append(run)
+            agree = ""
+            if spec_k:
+                off, got = runs[-2]["tokens"], run["tokens"]
+                run["tokens_equal_to_spec_off"] = sum(
+                    x == y for r in reqs
+                    for x, y in zip(got[r.request_id], off[r.request_id]))
+                run["first_differences_from_spec_off"] = [
+                    f"{r.request_id}@{i}" for r in reqs
+                    for i, (x, y) in enumerate(zip(got[r.request_id],
+                                                   off[r.request_id]))
+                    if x != y and got[r.request_id][:i] == off[r.request_id][:i]]
+                agree = (f"; {run['tokens_equal_to_spec_off']}/"
+                         f"{run['generated_tokens']} tokens equal to "
+                         f"spec_k=0 on {kind} pages, first differences "
+                         f"{run['first_differences_from_spec_off']}")
+            rate = run["accept_rate"]
+            tpv = run["tokens_per_seq_per_verify"]
+            print(f"serve[{kind} pages, spec_k={spec_k}]: {len(reqs)} "
+                  f"requests, {run['prefill_windows']} windows, "
+                  f"{run['decode_steps']} decode + {run['verify_steps']} "
+                  f"verify ticks, launches {run['launches']}; TTFT median "
+                  f"{statistics.median(run['ttft_s']):.4f} s, TPOT median "
+                  f"{statistics.median(run['tpot_s']):.5f} s, "
+                  f"{run['tokens_per_s']:.2f} tokens/s over "
+                  f"{run['wall_s']:.3f} s; proposed {run['proposed']:.0f}, "
+                  f"accepted {run['accepted']:.0f} (rate "
+                  f"{'n/a' if rate is None else f'{rate:.4f}'}), tokens per "
+                  f"sequence per verify "
+                  f"{'n/a' if tpv is None else f'{tpv:.4f}'}; quant error "
+                  f"k {run['quant_error']['k']:.6f} v "
+                  f"{run['quant_error']['v']:.6f}; pool bytes "
+                  f"{run['kv_pool_bytes']} "
+                  f"({run['kv_pool_bytes'] / runs[0]['kv_pool_bytes']:.4f}"
+                  f" x bf16){agree} [{card}]", flush=True)
+        if kind == "bf16":
+            continue
+        probe = requests[4].tokens
+        lk = first_token_logits(model, cfg, probe, None, paged, kind)
+        ld = first_token_logits(model, cfg, probe, "dense", paged, kind)
+        err = rel_l2(lk, ld)
+        if not bool(torch.isfinite(lk).all()) or err > LOGITS_REL_L2:
+            raise AssertionError(
+                f"{kind} first-token logits: kernels vs plain relative L2 "
+                f"{err} (bound {LOGITS_REL_L2})")
+        runs[-1]["first_token_logits_rel_l2_vs_plain"] = err
+        print(f"serve[{kind} pages]: {requests[4].request_id} first-token "
+              f"logits, kernels vs plain on {kind} pages: relative L2 "
+              f"{err:.5f} (bound {LOGITS_REL_L2}), same argmax: "
+              f"{int(lk.argmax()) == int(ld.argmax())}", flush=True)
+    return runs
+
+
+def rewind_probe(model, cfg, kind, prompt):
+    """One prefilled sequence of 254 tokens (so the junk run crosses a page
+    edge and anchors a page's scale); verify it with junk drafts, rewind
+    with keep = 1. Every rejected slot and every scale must be byte-equal
+    to the pre-verify pool; the kept slot is compared with the write of a
+    decode step and reported."""
+    from triton_kubernetes_tpu_torch.models import paged
+    from triton_kubernetes_tpu_torch.ops.paged_attention import (
+        TRASH_PAGE, byte_view)
+
+    prompt = list(prompt[:254])
+    n = len(prompt)
+    logits, cache, table = prefill_fresh(
+        model, cfg, prompt, None, paged,
+        "auto" if kind == "bf16" else kind, spare_windows=1)
+    tok0 = int(logits.argmax())
+    dev = SERVE_DEVICE
+    bt, lens = table[None], torch.tensor([n], dtype=torch.int32, device=dev)
+    fields = ("k", "v", "k_scale", "v_scale")
+    before = {f: byte_view(getattr(cache, f)).clone() for f in fields
+              if getattr(cache, f) is not None}
+    ref = paged.PagedKVCache(*[None if getattr(cache, f) is None
+                               else getattr(cache, f).clone()
+                               for f in fields])
+    junk = [tok0] + [(tok0 + 7 * (j + 1)) % cfg.vocab_size
+                     for j in range(SPEC_K)]
+    with torch.inference_mode():
+        paged.paged_decode_step(
+            model, torch.tensor([tok0], dtype=torch.int32, device=dev), cfg,
+            ref, bt, lens)
+        _, undo = paged.paged_verify_step(
+            model, torch.tensor([junk], dtype=torch.int32, device=dev), cfg,
+            cache, bt, lens)
+        wrote = not torch.equal(byte_view(cache.k), before["k"])
+        paged.paged_rewind(cache, undo, bt, lens,
+                           torch.tensor([1], dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    if not wrote:
+        raise AssertionError(f"rewind probe ({kind}): the verify wrote "
+                             f"nothing; the probe is vacuous")
+    page, slot = int(table[n // BS]), n % BS
+    for f in ("k", "v"):
+        got = byte_view(getattr(cache, f))
+        keep = torch.ones(got.shape[:4], dtype=torch.bool, device=dev)
+        keep[:, page, :, slot] = False
+        keep[:, TRASH_PAGE] = False
+        if not torch.equal(got[keep], before[f][keep]):
+            raise AssertionError(f"rewind probe ({kind}): a rejected slot "
+                                 f"of {f} differs from the pre-verify pool")
+    for f in ("k_scale", "v_scale"):
+        if f in before and not torch.equal(getattr(cache, f)[:, 1:],
+                                           before[f][:, 1:]):
+            raise AssertionError(f"rewind probe ({kind}): {f} not restored")
+    kept = {}
+    for f in ("k", "v"):
+        a = getattr(cache, f)[:, page, :, slot].float()
+        b = getattr(ref, f)[:, page, :, slot].float()
+        kept[f] = dict(bitwise=bool(torch.equal(
+            byte_view(getattr(cache, f))[:, page, :, slot],
+            byte_view(getattr(ref, f))[:, page, :, slot])),
+            max_abs_diff=float((a - b).abs().max()))
+    print(f"rewind probe ({kind} pages, prompt {n} tokens, junk drafts "
+          f"{junk[1:]}, keep 1): every rejected slot"
+          f"{' and scale' if 'k_scale' in before else ''} byte-equal to the "
+          f"pre-verify pool; kept slot vs a decode step's write: {kept}",
+          flush=True)
+    del cache, ref, undo, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(kind=kind, prompt_tokens=n, kept_slot_vs_decode=kept)
 
 
 def flash_kernel_phase(device, flush, peaks):
@@ -914,16 +1316,32 @@ def main() -> int:
         out_dir = args.out if args.out is not None else Path(tmp)
         out_dir.mkdir(parents=True, exist_ok=True)
         train_launches, train = train_phase(card, out_dir)
-    launches.update(train_launches)
-    # Launches per unit of the main path: a decode tick, a prefill window,
-    # a training step.
-    per = {"paged_decode": ("decode tick", serve["decode_ticks"]),
-           "paged_prefill": ("prefill window", serve["prefill_windows"])}
+    # Each kernel's launches on the serve runs of its page kind (the first
+    # serve run and the bf16 runs for bf16 pages) or on training, and per
+    # unit of that path: a decode tick, a verify tick, a prefill window, a
+    # training step.
+    ticks = {"paged_decode": ("decode_steps", "decode tick"),
+             "paged_verify": ("verify_steps", "verify tick"),
+             "paged_prefill": ("prefill_windows", "prefill window")}
+    count = {"paged_decode": [launches["paged_decode"],
+                              serve["decode_ticks"]],
+             "paged_prefill": [launches["paged_prefill"],
+                               serve["prefill_windows"]]}
+    for run in serve["spec_quant_runs"]:
+        suffix = "" if run["kind"] == "bf16" else f"_{run['kind']}"
+        for k, (field, _) in ticks.items():
+            c = count.setdefault(k + suffix, [0, 0])
+            c[0] += run["launches"][k]
+            c[1] += run[field]
+    count.update({k: [n, TRAIN_STEPS] for k, n in train_launches.items()})
     for r in records:
-        r["launches"] = launches[r["name"]]
-        unit, n = per.get(r["name"], ("training step", TRAIN_STEPS))
-        r["launches_per"] = unit
-        r["launches_per_unit"] = r["launches"] / n
+        n, per = count[r["name"]]
+        if not n:
+            raise AssertionError(f"{r['name']}: launched no time on the "
+                                 f"main path")
+        base = r["name"].removesuffix("_int8").removesuffix("_fp8")
+        r["launches"], r["launches_per_unit"] = n, n / per
+        r["launches_per"] = ticks.get(base, (None, "training step"))[1]
 
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(dict(

@@ -9,7 +9,8 @@ neither JAX nor the JAX package, so they run on the card's machine with
 (``--noconftest`` because ``tests/conftest.py`` sets up JAX). They cover
 what ``chip_smoke.py``'s Llama-3-8B shapes do not: other group sizes, head
 dims, block sizes, f32 pools, a window that is not page aligned in its
-last rows, and the wrappers' refusals.
+last rows, quantized (int8/fp8) pools, the verify kernel's rows against the
+decode kernel bit for bit, and the wrappers' refusals.
 """
 
 import pytest
@@ -112,6 +113,119 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError, match="outside the table"):
         pa.paged_prefill_attention(q[:1].expand(1, 40, 8, 64).contiguous(),
                                    kp, kp, tables[0], 0)
+
+
+# ---- speculative verify (csrc/paged_verify.cu) and quantized pools ----
+
+QUANT = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+def _quant_pool(gen, n, hkv, bs, d, kind, device):
+    """8-bit pages and scales, the anchored quantization of unit normals
+    (the trash page poisoned before quantizing)."""
+    from triton_kubernetes_tpu_torch.ops import quantization as qz
+    exact = torch.randn((n, hkv, bs, d), generator=gen, device=device)
+    exact[pa.TRASH_PAGE] = 1e4
+    return qz.quantize_kv_pages(exact, QUANT[kind])
+
+
+def _paged_case(gen, device, dtype, kind, lengths, hq, hkv, d, bs, t, s=1):
+    b = len(lengths)
+    n = 1 + b * t
+    if kind is None:
+        kp, vp = (_pool(gen, n, hkv, bs, d, dtype, device) for _ in range(2))
+        ks = vs = None
+    else:
+        kp, ks = _quant_pool(gen, n, hkv, bs, d, kind, device)
+        vp, vs = _quant_pool(gen, n, hkv, bs, d, kind, device)
+    tables = (torch.randperm(b * t, device=device).reshape(b, t) + 1
+              ).to(torch.int32)
+    for i, length in enumerate(lengths):
+        tables[i, pa.blocks_for(length + s - 1, bs):] = pa.TRASH_PAGE
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    q = torch.randn((b, s, hq, d), generator=gen, device=device).to(dtype)
+    return q, kp, vp, ks, vs, tables, lens
+
+
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,hq,hkv,d,bs", [
+    (4, 32, 8, 128, 16),  # spec_k 3 at Llama-3-8B heads: 16 rows
+    (8, 32, 8, 128, 16),  # spec_k 7: 32 rows, the most a block takes
+    (3, 8, 8, 64, 8),     # group 1
+    (2, 12, 4, 96, 32),   # group 3, bs 32
+])
+def test_verify_kernel_rows_equal_decode_kernel(device, kind, dtype, s, hq,
+                                                hkv, d, bs):
+    """Row j of the verify kernel is the decode kernel at length len + j,
+    bit for bit, on unquantized and quantized pools; and both agree with
+    their plain versions."""
+    if kind is not None and d % 16:
+        pytest.skip("8-bit pages need head_dim % 16 == 0")
+    gen = torch.Generator(device=device).manual_seed(s + hq + d)
+    t = 10
+    lengths = [0, 1, bs - 1, bs, t * bs - s, t * bs - s + 1]
+    q, kp, vp, ks, vs, tables, lens = _paged_case(
+        gen, device, dtype, kind, lengths, hq, hkv, d, bs, t, s)
+    pa.reset_launch_counts()
+    got = pa.ragged_verify_attention(q, kp, vp, tables, lens, ks, vs)
+    assert pa.ragged_verify_attention.launches == 1
+    want = pa.ragged_verify_attention(q, kp, vp, tables, lens, ks, vs,
+                                      impl="dense")
+    for j in range(s):
+        row = pa.ragged_paged_attention(q[:, j:j + 1].contiguous(), kp, vp,
+                                        tables, lens + j, ks, vs)
+        assert torch.equal(got[:, j:j + 1], row), f"row {j}"
+    torch.cuda.synchronize()
+    assert not got[0, 0].any()  # length 0: no key at all
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantized_decode_and_prefill_kernels_match_plain(device, kind,
+                                                          dtype):
+    gen = torch.Generator(device=device).manual_seed(7)
+    hq, hkv, d, bs, t = 32, 8, 128, 16, 10
+    q, kp, vp, ks, vs, tables, lens = _paged_case(
+        gen, device, dtype, kind, [0, 1, 16, 17, 159, 160], hq, hkv, d, bs,
+        t)
+    got = pa.ragged_paged_attention(q, kp, vp, tables, lens, ks, vs)
+    want = pa.ragged_paged_attention(q, kp, vp, tables, lens, ks, vs,
+                                     impl="dense")
+    torch.cuda.synchronize()
+    assert not got[0].any()
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    for c, offset in ((64, 64), (24, 0)):
+        qp = torch.randn((1, c, hq, d), generator=gen, device=device
+                         ).to(dtype)
+        got = pa.paged_prefill_attention(qp, kp, vp, tables[-1], offset,
+                                         ks, vs)
+        want = pa.paged_prefill_attention(qp, kp, vp, tables[-1], offset,
+                                          ks, vs, impl="dense")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+def test_verify_and_quantized_bindings_refuse(device):
+    q = torch.zeros((2, 9, 32, 128), dtype=torch.bfloat16, device=device)
+    kp = torch.zeros((4, 8, 16, 128), dtype=torch.bfloat16, device=device)
+    tables = torch.zeros((2, 2), dtype=torch.int32, device=device)
+    lens = torch.ones(2, dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="S \\* group <= 32"):
+        _kernels.paged_verify(q, kp, kp, tables, lens)  # 9 x 4 = 36 rows
+    q1, q4 = q[:, :1].contiguous(), q[:, :4].contiguous()
+    k8 = kp.to(torch.int8)
+    with pytest.raises(ValueError, match="need their scales"):
+        _kernels.paged_decode(q1, k8, k8, tables, lens)
+    sc = torch.ones((4, 8), device=device)
+    with pytest.raises(ValueError, match="int8 or float8"):
+        _kernels.paged_decode(q1, kp, kp, tables, lens, sc, sc)
+    with pytest.raises(ValueError, match="float32"):
+        _kernels.paged_decode(q1, k8, k8, tables, lens, sc.double(),
+                              sc.double())
+    with pytest.raises(ValueError, match="both"):
+        _kernels.paged_verify(q4, k8, k8, tables, lens, sc, None)
 
 
 # ---- flash attention: kernels 1-3 (csrc/flash_*.cu) ----

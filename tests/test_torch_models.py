@@ -159,23 +159,31 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_later_slices_raise_not_implemented():
+    """MoE and W8A8 weights are later slices; quantized pools are not."""
     with pytest.raises(NotImplementedError, match="MoE"):
         init_params(get_config("mixtral-test"), device="cpu")
-    with pytest.raises(NotImplementedError, match="quantized"):
-        init_paged_cache(get_config("llama-test"), 8, 4, kv_dtype="int8",
-                         device="cpu")
+    from triton_kubernetes_tpu_torch.serve import ServeEngine
+    cfg = get_config("llama-test")
+    model = init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="W8A8"):
+        ServeEngine(model, cfg, device="cpu", weight_dtype="int8")
+    assert init_paged_cache(cfg, 8, 4, kv_dtype="int8",
+                            device="cpu").quantized
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every port module, and chip_smoke.py, import without loading
-    jax or any module of the JAX package -- the training package and the
-    flash-attention op named first."""
+    jax or any module of the JAX package -- the training package, the
+    flash-attention op, the KV quantizers and the self-drafter named
+    first."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import triton_kubernetes_tpu_torch.train\n"
         "import triton_kubernetes_tpu_torch.train.__main__\n"
         "import triton_kubernetes_tpu_torch.ops.flash_attention\n"
         "import triton_kubernetes_tpu_torch.ops.fused_ce\n"
+        "import triton_kubernetes_tpu_torch.ops.quantization\n"
+        "import triton_kubernetes_tpu_torch.serve.speculation\n"
         "import triton_kubernetes_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"

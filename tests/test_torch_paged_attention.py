@@ -235,3 +235,167 @@ def test_kernel_build_without_nvcc_names_nvcc(monkeypatch, tmp_path):
         _kernels.build()
     with pytest.raises(RuntimeError, match="nvcc"):
         _kernels.find_nvcc()
+
+
+# ------------------------------------------------ speculative verify rows
+@pytest.mark.parametrize("lengths", [
+    [1, 5],            # one token; S - 1 rows cross a page edge (bs 4)
+    [0, 16, 7],        # an inactive row; a row reaching past the table
+])
+@pytest.mark.parametrize("jax_impl", ["dense", "pallas-interpret"])
+def test_ragged_verify_attention_matches_jax(lengths, jax_impl):
+    """S = 3 staggered rows per sequence: row j at length ``len + j``. The
+    JAX Pallas verify kernel walks only the table's T pages, as the port's
+    does, so rows past the table agree too."""
+    rng = np.random.default_rng(11)
+    q, kp, vp, tables, lens = _decode_case(12, lengths)
+    q = rng.standard_normal((len(lengths), 3, 4, 16)).astype(np.float32)
+    got = tpa.ragged_verify_attention(_t(q), _t(kp), _t(vp), _t(tables),
+                                      _t(lens))
+    want = jpa.ragged_verify_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(lens), impl=jax_impl)
+    live = np.asarray(lens)[:, None] + np.arange(3)[None] > 0
+    np.testing.assert_allclose(got.numpy()[live], np.asarray(want)[live],
+                               **TOL)
+    # The length-0 row gets 0, as the decode kernel gives at length 0.
+    assert not got.numpy()[~live].any()
+
+
+def test_verify_rows_are_the_decode_plain_version_at_staggered_lengths():
+    """Each verify row is the decode plain version at ``len + j``, bit for
+    bit: the contract the CUDA kernels hold on the card."""
+    q, kp, vp, tables, lens = _decode_case(13, [3, 9])
+    qv = np.random.default_rng(13).standard_normal((2, 4, 4, 16)).astype(
+        np.float32)
+    got = tpa.ragged_verify_attention(_t(qv), _t(kp), _t(vp), _t(tables),
+                                      _t(lens))
+    for j in range(4):
+        row = tpa.ragged_paged_attention(_t(qv[:, j:j + 1]), _t(kp), _t(vp),
+                                         _t(tables), _t(lens + j))
+        assert torch.equal(got[:, j:j + 1], row)
+
+
+# --------------------------------------------------------- quantized pools
+QDTYPES = {"int8": (torch.int8, jnp.int8),
+           "fp8": (torch.float8_e4m3fn, jnp.float8_e4m3fn)}
+
+
+def _qpool(rng, kind, num_pages=12, hkv=2, bs=4, d=16):
+    """Quantized pages and scales (made by the JAX quantizer from seeded
+    normals), and the same as torch tensors."""
+    from triton_kubernetes_tpu.ops import quantization as jq
+    tdt, jdt = QDTYPES[kind]
+    exact = rng.standard_normal((num_pages, hkv, bs, d)).astype(np.float32)
+    qp, sc = jq.quantize_kv_pages(jnp.asarray(exact), jdt)
+    qp_np = np.asarray(qp)
+    t = torch.from_numpy(qp_np.view(np.uint8).copy()).view(tdt)
+    return qp, sc, t, _t(np.array(sc))
+
+
+def _bytes(x):
+    """Page bytes (numpy uint8) of a torch or JAX 8-bit pool."""
+    if isinstance(x, torch.Tensor):
+        return tpa.byte_view(x).view(torch.uint8).numpy()
+    return np.asarray(x).view(np.uint8)
+
+
+def test_gather_pages_with_scale_exact():
+    rng = np.random.default_rng(20)
+    tables = _tables(rng, [7, 12, 1], 3, 4, 12)
+    for kind in QDTYPES:
+        jp, js, tp, ts = _qpool(rng, kind)
+        got = tpa.gather_pages(tp, _t(tables), ts)
+        want = jpa.gather_pages(jp, jnp.asarray(tables), js)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_quantized_scatters_match_jax(kind):
+    """The anchored-scale writes: a slot-0 token sets its page's scale,
+    later slots quantize against it; span writes are token at a time and
+    chunk writes re-anchor whole pages. Pages and scales are exact against
+    JAX outside the trash page (colliding inactive writes land there)."""
+    rng = np.random.default_rng(21)
+    jk, jks, tk, tks = _qpool(rng, kind, num_pages=16)
+    jv, jvs, tv, tvs = _qpool(rng, kind, num_pages=16)
+    tables = _tables(rng, [12, 12, 0, 12], 3, 4, 16)
+
+    def check():
+        for t, j in ((tk, jk), (tv, jv)):
+            np.testing.assert_array_equal(_bytes(t)[1:], _bytes(j)[1:])
+        for t, j in ((tks, jks), (tvs, jvs)):
+            np.testing.assert_array_equal(t.numpy()[1:], np.asarray(j)[1:])
+
+    # Token writes: slots 2 and 1 (against the stored scale), slot 0 of a
+    # page (sets its scale), and an inactive row (trash page).
+    # Every active row owns 3 pages (12 slots).
+    k = (rng.standard_normal((4, 1, 2, 16)) * 3).astype(np.float32)
+    v = rng.standard_normal((4, 1, 2, 16)).astype(np.float32)
+    pos = np.array([6, 4, 0, 9], np.int32)
+    tpa.scatter_token(tk, tv, _t(k), _t(v), _t(tables), _t(pos), tks, tvs)
+    jk, jv, jks, jvs = jpa.scatter_token(
+        jk, jv, jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+        jnp.asarray(pos), jks, jvs)
+    check()
+    # Spans of 3 crossing a page edge (slots 3, 0, 1), and one running
+    # past the table (position 12: the trash page).
+    ks = rng.standard_normal((4, 3, 2, 16)).astype(np.float32)
+    vs = rng.standard_normal((4, 3, 2, 16)).astype(np.float32)
+    start = np.array([7, 3, 0, 10], np.int32)
+    tpa.scatter_span(tk, tv, _t(ks), _t(vs), _t(tables), _t(start), tks, tvs)
+    jk, jv, jks, jvs = jpa.scatter_span(
+        jk, jv, jnp.asarray(ks), jnp.asarray(vs), jnp.asarray(tables),
+        jnp.asarray(start), jks, jvs)
+    check()
+    # A two-page chunk.
+    kc = rng.standard_normal((1, 8, 2, 16)).astype(np.float32)
+    vc = rng.standard_normal((1, 8, 2, 16)).astype(np.float32)
+    window = np.array([5, 11], np.int32)
+    tpa.scatter_chunk(tk, tv, _t(kc), _t(vc), _t(window), tks, tvs)
+    jk, jv, jks, jvs = jpa.scatter_chunk(
+        jk, jv, jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(window),
+        jks, jvs)
+    check()
+    with pytest.raises(ValueError, match="both"):
+        tpa.scatter_token(tk, tv, _t(k), _t(v), _t(tables), _t(pos), tks)
+
+
+def _quant_case(rng, kind, lengths, t=4, pages=24):
+    jk, jks, tk, tks = _qpool(rng, kind, num_pages=pages)
+    jv, jvs, tv, tvs = _qpool(rng, kind, num_pages=pages)
+    tables = _tables(rng, lengths, t, 4, pages)
+    return (jk, jv, jks, jvs), (tk, tv, tks, tvs), tables
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("jax_impl", ["dense", "pallas-interpret"])
+def test_quantized_plain_attention_matches_jax(kind, jax_impl):
+    """The quantized plain versions (scores times the K scale, p kept in
+    f32, P @ V times the V scale) against the JAX dense reference (which
+    dequantizes first) and the JAX Pallas kernels' quantized branches, in
+    f32 at 1e-5: decode, verify (S 3) and a prefill window."""
+    rng = np.random.default_rng(22)
+    lengths = [5, 16, 2]
+    (jk, jv, jks, jvs), (tk, tv, tks, tvs), tables = _quant_case(
+        rng, kind, lengths)
+    lens = np.asarray(lengths, np.int32)
+    q = rng.standard_normal((3, 3, 4, 16)).astype(np.float32)
+    jt, jl = jnp.asarray(tables), jnp.asarray(lens)
+    got = tpa.ragged_paged_attention(_t(q[:, :1]), tk, tv, _t(tables),
+                                     _t(lens), tks, tvs)
+    want = jpa.ragged_paged_attention(jnp.asarray(q[:, :1]), jk, jv, jt, jl,
+                                      jks, jvs, impl=jax_impl)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    got = tpa.ragged_verify_attention(_t(q), tk, tv, _t(tables), _t(lens),
+                                      tks, tvs)
+    want = jpa.ragged_verify_attention(jnp.asarray(q), jk, jv, jt, jl,
+                                       jks, jvs, impl=jax_impl)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    qp = rng.standard_normal((1, 8, 4, 16)).astype(np.float32)
+    table = tables[1]
+    got = tpa.paged_prefill_attention(_t(qp), tk, tv, _t(table), 8, tks, tvs)
+    want = jpa.paged_prefill_attention(jnp.asarray(qp), jk, jv,
+                                       jnp.asarray(table), jnp.int32(8),
+                                       jks, jvs, impl=jax_impl)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

@@ -207,7 +207,6 @@ def test_engine_validates_and_refuses_later_slices(models):
         eng.submit(Request("r", [1] * 20, 10))
     with pytest.raises(NotImplementedError, match="migration"):
         eng.submit(Request("r", [1, 2], 2, handoff=True))
-    for bad in (dict(spec_k=2), dict(kv_dtype="int8"),
-                dict(weight_dtype="int8"), dict(flight=object())):
+    for bad in (dict(weight_dtype="int8"), dict(flight=object())):
         with pytest.raises(NotImplementedError, match="slice"):
             ServeEngine(model, cfg, device="cpu", **bad)

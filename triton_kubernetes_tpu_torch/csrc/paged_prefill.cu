@@ -2,13 +2,15 @@
 //
 // Replaces: the TPU kernel `_prefill_chunk_kernel`
 //   (triton_kubernetes_tpu/ops/paged_attention.py:633, launched by
-//   `_paged_prefill_attention_pallas` at :693), unquantized pools.
+//   `_paged_prefill_attention_pallas` at :693), unquantized and quantized
+//   (int8/fp8 pages with per-(page, head) scales, :665-666 and :677-682).
 //
 // Computes: the C queries of one prefill window, at absolute positions
 //   offset .. offset+C-1, attend causally by position to the sequence's
 //   pages, the window's own K/V included (it is scattered in first).
-//   q [1, C, Hq, D], pages [N, Hkv, bs, D] (one layer's slice of the pool),
-//   block_table [T] int32. Query row r of KV head h is (token r / group,
+//   q [1, C, Hq, D], pages [N, Hkv, bs, D] (one layer's slice of the pool;
+//   q's dtype, or int8/fp8 with f32 scales [N, Hkv]), block_table [T]
+//   int32. Query row r of KV head h is (token r / group,
 //   head h*group + r % group); a key is kept when k_pos <= q_pos.
 //
 // What bounds it on this card: at C = 256 and group 4 every K/V byte feeds
@@ -30,9 +32,12 @@
 //   bf16 tiles) is later work, and until then the kernel sits far above its
 //   bound.
 //
-// Rounding order as in paged_decode.cu: q.k in f32 from bf16 operands,
-// then times D^-0.5; f32 online softmax per page of bs keys; p rounded to
-// V's dtype before P*V; f32 acc and l; acc / l where l > 0, else 0.
+// Rounding order as in paged_decode.cu: q.k in f32 from q's dtype and K
+// converted exactly, then times D^-0.5 (then times the page's K scale);
+// f32 online softmax per page of bs keys; p rounded to V's dtype before
+// P*V on unquantized pools, kept in f32 on quantized ones, whose page sums
+// are multiplied by the V scale; f32 acc and l; acc / l where l > 0,
+// else 0.
 #include "paged_common.cuh"
 
 namespace {
@@ -47,19 +52,22 @@ constexpr int kMaxDim = 128;    // one accumulator column per thread
 constexpr int kTileRows = 4;
 constexpr int kTileKeys = 8;
 
-template <typename T, int BS>
+template <typename T, typename KV, int BS>
 __global__ void __launch_bounds__(kThreads)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                     const T* __restrict__ v_pages,
+paged_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
+                     const KV* __restrict__ v_pages,
+                     const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale,
                      const int* __restrict__ block_table, T* __restrict__ out,
                      int chunk, int hkv, int group, int d, int offset,
                      float scale) {
-  constexpr int vec = vec_of<T>();
+  constexpr int vec = vec_of<KV>();
+  constexpr bool quant = is_quant<KV>();
   constexpr int ppt = kKeys / BS;            // pages per tile
   constexpr int sp = kKeys + 1;              // score row stride (odd)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int dp = d + 4;                      // f32 row stride: +16 B of pad
-  T* v_sh = reinterpret_cast<T*>(smem_raw);  // [kKeys][d]
+  KV* v_sh = reinterpret_cast<KV*>(smem_raw);  // [kKeys][d]
   float* q_sh = reinterpret_cast<float*>(v_sh + kKeys * d);  // [kRows][dp]
   float* k_sh = q_sh + kRows * dp;           // [kKeys][dp]
   float* s_sh = k_sh + kKeys * dp;           // [kRows][sp]
@@ -152,6 +160,15 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         }
       }
     }
+    // K scale of each key's page (keys past the tile's pages: unused).
+    float ksc[kTileKeys];
+#pragma unroll
+    for (int jj = 0; jj < kTileKeys; ++jj) {
+      const int j = kg + 8 * jj;
+      ksc[jj] = quant && j < nk
+                    ? k_scale[(size_t)block_table[p0 + j / BS] * hkv + h]
+                    : 1.f;
+    }
 #pragma unroll
     for (int i = 0; i < kTileRows; ++i) {
       const int r = rg + 16 * i;
@@ -159,8 +176,9 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
       for (int jj = 0; jj < kTileKeys; ++jj) {
         const int j = kg + 8 * jj;
-        s_sh[r * sp + j] =
-            p0 * BS + j <= q_pos ? sc[i][jj] * scale : TK8S_NEG_INF;
+        float s = __fmul_rn(sc[i][jj], scale);
+        if (quant) s = __fmul_rn(s, ksc[jj]);
+        s_sh[r * sp + j] = p0 * BS + j <= q_pos ? s : TK8S_NEG_INF;
       }
     }
     __syncthreads();
@@ -168,15 +186,17 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     // 3. Online softmax, page by page, one thread per row.
     if (tid < rows) {
       for (int p = 0; p < np; ++p)
-        softmax_row_update<T>(s_sh + tid * sp + p * BS,
-                              p_sh + tid * sp + p * BS, BS, m_sh + tid,
-                              l_sh + tid, c_sh + tid * ppt + p);
+        softmax_row_update<T, KV>(s_sh + tid * sp + p * BS,
+                                  p_sh + tid * sp + p * BS, BS, m_sh + tid,
+                                  l_sh + tid, c_sh + tid * ppt + p);
     }
     __syncthreads();
 
     // 4. P*V: thread tid owns column tid of every row's accumulator.
     if (tid < d) {
       for (int p = 0; p < np; ++p) {
+        const float vsc =
+            quant ? v_scale[(size_t)block_table[p0 + p] * hkv + h] : 1.f;
         float vr[BS];
 #pragma unroll
         for (int jj = 0; jj < BS; ++jj)
@@ -188,7 +208,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
             float pv = 0.f;
 #pragma unroll
             for (int jj = 0; jj < BS; ++jj) pv = fmaf(pr[jj], vr[jj], pv);
-            acc[r] = acc[r] * c_sh[r * ppt + p] + pv;
+            acc[r] = acc_update<KV>(acc[r], c_sh[r * ppt + p], pv, vsc);
           }
         }
       }
@@ -210,52 +230,58 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-template <typename T, int BS>
-int launch_bs(const T* q, const T* k_pages, const T* v_pages,
+template <typename T, typename KV, int BS>
+int launch_bs(const T* q, const KV* k_pages, const KV* v_pages,
+              const float* k_scale, const float* v_scale,
               const int* block_table, T* out, int chunk, int hkv, int group,
               int d, int offset, float scale, cudaStream_t stream) {
   const size_t smem =
-      sizeof(T) * (size_t)kKeys * d +
+      sizeof(KV) * (size_t)kKeys * d +
       sizeof(float) * ((size_t)(kRows + kKeys) * (d + 4) +
                        2 * (size_t)kRows * (kKeys + 1) +
                        (size_t)kRows * (kKeys / BS) + 2 * kRows);
   cudaError_t e = cudaFuncSetAttribute(
-      paged_prefill_kernel<T, BS>,
+      paged_prefill_kernel<T, KV, BS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(hkv, (chunk * group + kRows - 1) / kRows);
-  paged_prefill_kernel<T, BS><<<grid, kThreads, smem, stream>>>(
-      q, k_pages, v_pages, block_table, out, chunk, hkv, group, d, offset,
-      scale);
+  paged_prefill_kernel<T, KV, BS><<<grid, kThreads, smem, stream>>>(
+      q, k_pages, v_pages, k_scale, v_scale, block_table, out, chunk, hkv,
+      group, d, offset, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename KV>
 int launch(const void* q, const void* k_pages, const void* v_pages,
-           const void* block_table, void* out, int chunk, int hkv, int group,
-           int d, int bs, int offset, float scale, void* stream) {
-  if (chunk < 1 || group < 1 || d < 8 || d > kMaxDim || d % 8 != 0 ||
-      offset < 0)
+           const void* k_scale, const void* v_scale, const void* block_table,
+           void* out, int chunk, int hkv, int group, int d, int bs,
+           int offset, float scale, void* stream) {
+  constexpr int vec = vec_of<KV>();
+  if (chunk < 1 || group < 1 || d < vec || d > kMaxDim || d % vec != 0 ||
+      offset < 0 ||
+      (is_quant<KV>() && (k_scale == nullptr || v_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
   const T* qq = (const T*)q;
-  const T* kp = (const T*)k_pages;
-  const T* vp = (const T*)v_pages;
+  const KV* kp = (const KV*)k_pages;
+  const KV* vp = (const KV*)v_pages;
+  const float* ks = (const float*)k_scale;
+  const float* vs = (const float*)v_scale;
   const int* bt = (const int*)block_table;
   T* o = (T*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (bs) {
     case 4:
-      return launch_bs<T, 4>(qq, kp, vp, bt, o, chunk, hkv, group, d, offset,
-                             scale, s);
+      return launch_bs<T, KV, 4>(qq, kp, vp, ks, vs, bt, o, chunk, hkv, group,
+                                 d, offset, scale, s);
     case 8:
-      return launch_bs<T, 8>(qq, kp, vp, bt, o, chunk, hkv, group, d, offset,
-                             scale, s);
+      return launch_bs<T, KV, 8>(qq, kp, vp, ks, vs, bt, o, chunk, hkv, group,
+                                 d, offset, scale, s);
     case 16:
-      return launch_bs<T, 16>(qq, kp, vp, bt, o, chunk, hkv, group, d,
-                              offset, scale, s);
+      return launch_bs<T, KV, 16>(qq, kp, vp, ks, vs, bt, o, chunk, hkv,
+                                  group, d, offset, scale, s);
     case 32:
-      return launch_bs<T, 32>(qq, kp, vp, bt, o, chunk, hkv, group, d,
-                              offset, scale, s);
+      return launch_bs<T, KV, 32>(qq, kp, vp, ks, vs, bt, o, chunk, hkv,
+                                  group, d, offset, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -263,22 +289,14 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 
 }  // namespace
 
-extern "C" int tk8s_paged_prefill_bf16(const void* q, const void* k_pages,
-                                       const void* v_pages,
-                                       const void* block_table, void* out,
-                                       int chunk, int hkv, int group, int d,
-                                       int bs, int offset, float scale,
-                                       void* stream) {
-  return launch<__nv_bfloat16>(q, k_pages, v_pages, block_table, out, chunk,
-                               hkv, group, d, bs, offset, scale, stream);
-}
-
-extern "C" int tk8s_paged_prefill_f32(const void* q, const void* k_pages,
-                                      const void* v_pages,
-                                      const void* block_table, void* out,
-                                      int chunk, int hkv, int group, int d,
-                                      int bs, int offset, float scale,
-                                      void* stream) {
-  return launch<float>(q, k_pages, v_pages, block_table, out, chunk, hkv,
-                       group, d, bs, offset, scale, stream);
-}
+#define TK8S_PREFILL_ENTRY(suffix, T, KV)                                   \
+  extern "C" int tk8s_paged_prefill_##suffix(                               \
+      const void* q, const void* k_pages, const void* v_pages,              \
+      const void* k_scale, const void* v_scale, const void* block_table,    \
+      void* out, int chunk, int hkv, int group, int d, int bs, int offset,  \
+      float scale, void* stream) {                                          \
+    return launch<T, KV>(q, k_pages, v_pages, k_scale, v_scale,             \
+                         block_table, out, chunk, hkv, group, d, bs,        \
+                         offset, scale, stream);                            \
+  }
+TK8S_PAGED_DTYPES(TK8S_PREFILL_ENTRY)

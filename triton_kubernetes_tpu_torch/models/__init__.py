@@ -1,16 +1,19 @@
 """The Llama-3 family in PyTorch: config registry, model, contiguous
-prefill and sampling, and the paged prefill/decode the serving engine runs
-(the port of ``triton_kubernetes_tpu/models``)."""
+prefill and sampling, and the paged prefill/decode/verify/rewind the
+serving engine runs (the port of ``triton_kubernetes_tpu/models``)."""
 
 from .config import CONFIGS, ModelConfig, get_config
 from .generate import KVCache, init_cache, prefill, sample_token
 from .llama import Llama, from_numpy_params, init_params
 from .paged import (
     PagedKVCache,
+    VerifyUndo,
     init_paged_cache,
     paged_decode_step,
     paged_prefill,
     paged_prefill_chunk,
+    paged_rewind,
+    paged_verify_step,
 )
 
 __all__ = [
@@ -29,4 +32,7 @@ __all__ = [
     "paged_prefill",
     "paged_prefill_chunk",
     "paged_decode_step",
+    "VerifyUndo",
+    "paged_verify_step",
+    "paged_rewind",
 ]

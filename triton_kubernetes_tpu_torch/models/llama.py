@@ -50,7 +50,7 @@ AttentionFn = Callable[
 _MOE_LATER = ("MoE layers are not ported yet: they come with the MoE slice "
               "of the port (ROADMAP.md)")
 _QUANT_LATER = ("quantized weights are not ported yet: they come with the "
-                "quantized-pool and W8A8 slice of the port (ROADMAP.md)")
+                "W8A8 weights slice of the port (ROADMAP.md)")
 
 
 def resolve_device(device: torch.device | str) -> torch.device:

@@ -29,7 +29,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -37,8 +37,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("paged_decode", "paged_prefill", "flash_fwd", "flash_bwd_dq",
-           "flash_bwd_dkv")
+KERNELS = ("paged_decode", "paged_verify", "paged_prefill", "flash_fwd",
+           "flash_bwd_dq", "flash_bwd_dkv")
+PAGED_KERNELS = ("paged_decode", "paged_verify", "paged_prefill")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,13 +49,17 @@ _F = ctypes.c_float
 _STRIDES = (_L, _L, _L)
 # name -> argument types of its C entries (one per dtype suffix).
 _SIGNATURES = {
-    # q, k_pages, v_pages, block_tables, lengths, out,
+    # q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths, out,
     # B, Hkv, group, D, bs, T, scale, stream
-    "paged_decode": (_P, _P, _P, _P, _P, _P,
+    "paged_decode": (_P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _F, _P),
-    # q, k_pages, v_pages, block_table, out,
+    # q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths, out,
+    # B, S, Hkv, group, D, bs, T, scale, stream
+    "paged_verify": (_P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k_pages, v_pages, k_scale, v_scale, block_table, out,
     # C, Hkv, group, D, bs, offset, scale, stream
-    "paged_prefill": (_P, _P, _P, _P, _P,
+    "paged_prefill": (_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _F, _P),
     # q, k, v, out, lse, B, S, Hq, Hkv, D, strides of q, k, v, scale, stream
     "flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -69,6 +74,11 @@ _SIGNATURES = {
                       *_STRIDES * 4, _F, _P),
 }
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# Page dtypes of quantized pools -> the suffix the paged kernels' entries
+# append to q's (``tk8s_paged_decode_bf16_int8``).
+_PAGE_SUFFIX = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
+# Most query rows (S * group) one verify block takes.
+MAX_VERIFY_ROWS = 32
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -139,7 +149,7 @@ def library(name: str) -> ctypes.CDLL:
     if not path.exists():
         build([name])
     lib = ctypes.CDLL(str(path))
-    for suffix in _SUFFIX.values():
+    for suffix in _entry_suffixes(name):
         fn = getattr(lib, f"tk8s_{name}_{suffix}")
         fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -147,8 +157,22 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _entry(name: str, dtype: torch.dtype):
-    return getattr(library(name), f"tk8s_{name}_{_SUFFIX[dtype]}")
+def _entry_suffixes(name: str):
+    """Suffixes of a kernel's C entries: one per q dtype, and for the paged
+    kernels one more per (q dtype, quantized page dtype) pair."""
+    out = list(_SUFFIX.values())
+    if name in PAGED_KERNELS:
+        out += [f"{q}_{p}" for q in _SUFFIX.values()
+                for p in _PAGE_SUFFIX.values()]
+    return out
+
+
+def _entry(name: str, dtype: torch.dtype,
+           page_dtype: Optional[torch.dtype] = None):
+    suffix = _SUFFIX[dtype]
+    if page_dtype is not None and page_dtype != dtype:
+        suffix += "_" + _PAGE_SUFFIX[page_dtype]
+    return getattr(library(name), f"tk8s_{name}_{suffix}")
 
 
 def _check(rc: int, name: str) -> None:
@@ -164,19 +188,28 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def _check_operands(what: str, q: torch.Tensor, k_pages: torch.Tensor,
-                    v_pages: torch.Tensor,
-                    ints: Tuple[torch.Tensor, ...]) -> Tuple[int, int, int]:
-    """Device, dtype, contiguity and page-shape checks shared by both
-    kernels; returns (Hkv, bs, D) of the page pool."""
+                    v_pages: torch.Tensor, ints: Tuple[torch.Tensor, ...],
+                    k_scale: Optional[torch.Tensor],
+                    v_scale: Optional[torch.Tensor]) -> Tuple[int, int, int]:
+    """Device, dtype, contiguity and page-shape checks shared by the paged
+    kernels; returns (Hkv, bs, D) of the page pool. Pages are q's dtype, or
+    int8/float8_e4m3fn with both layer scales ([N, Hkv] f32) passed."""
     if not q.is_cuda:
         raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors, "
                          f"got q on {q.device}")
     _require(q.dtype in _SUFFIX,
              f"{what}: dtype must be bfloat16 or float32, got {q.dtype}")
+    _require((k_scale is None) == (v_scale is None),
+             f"{what}: pass both k_scale and v_scale, or neither")
+    page_dtype = q.dtype if k_scale is None else k_pages.dtype
+    if k_scale is not None:
+        _require(page_dtype in _PAGE_SUFFIX,
+                 f"{what}: scales come with int8 or float8_e4m3fn pages, "
+                 f"got {page_dtype} pages")
     for t, nm in ((k_pages, "k_pages"), (v_pages, "v_pages")):
-        _require(t.device == q.device and t.dtype == q.dtype,
-                 f"{what}: {nm} must be {q.dtype} on {q.device}, got "
-                 f"{t.dtype} on {t.device}")
+        _require(t.device == q.device and t.dtype == page_dtype,
+                 f"{what}: {nm} must be {page_dtype} on {q.device} (8-bit "
+                 f"pages need their scales), got {t.dtype} on {t.device}")
         _require(t.is_contiguous(), f"{what}: {nm} must be contiguous")
         _require(t.dim() == 4, f"{what}: {nm} must be [N, Hkv, bs, D]")
     _require(k_pages.shape == v_pages.shape,
@@ -188,22 +221,38 @@ def _check_operands(what: str, q: torch.Tensor, k_pages: torch.Tensor,
                  and t.is_contiguous(),
                  f"{what}: block tables and lengths must be contiguous "
                  f"int32 on {q.device}")
-    _, hkv, bs, d = k_pages.shape
+    n, hkv, bs, d = k_pages.shape
+    if k_scale is not None:
+        for t in (k_scale, v_scale):
+            _require(t.device == q.device and t.dtype == torch.float32
+                     and t.is_contiguous() and t.shape == (n, hkv),
+                     f"{what}: scales must be contiguous float32 [{n}, "
+                     f"{hkv}] on {q.device}")
     # Pages are staged with 16-byte copies: rows and bases 16-byte aligned.
-    _require(d % 8 == 0 and d <= 128,
-             f"{what}: head_dim {d} must be a multiple of 8, at most 128")
+    vec = 16 // k_pages.element_size()
+    _require(d % vec == 0 and d <= 128,
+             f"{what}: head_dim {d} must be a multiple of {vec}, at most 128")
     _require(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
              f"{what}: page pools must start 16-byte aligned")
     return hkv, bs, d
 
 
+def _scale_ptrs(k_scale: Optional[torch.Tensor],
+                v_scale: Optional[torch.Tensor]):
+    if k_scale is None:
+        return None, None
+    return k_scale.data_ptr(), v_scale.data_ptr()
+
+
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                  v_pages: torch.Tensor, block_tables: torch.Tensor,
-                 lengths: torch.Tensor) -> torch.Tensor:
+                 lengths: torch.Tensor,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch ``csrc/paged_decode.cu`` on the current stream:
     [B, 1, Hq, D] in q's dtype."""
     hkv, bs, d = _check_operands("paged_decode", q, k_pages, v_pages,
-                                 (block_tables, lengths))
+                                 (block_tables, lengths), k_scale, v_scale)
     b, s, hq, dq = q.shape
     _require(s == 1 and dq == d, f"paged_decode: q must be [B, 1, Hq, {d}], "
              f"got {tuple(q.shape)}")
@@ -217,8 +266,9 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    rc = _entry("paged_decode", q.dtype)(
+    rc = _entry("paged_decode", q.dtype, k_pages.dtype)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        *_scale_ptrs(k_scale, v_scale),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         b, hkv, hq // hkv, d, bs, block_tables.shape[1], d ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -226,13 +276,48 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
+def paged_verify(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, block_tables: torch.Tensor,
+                 lengths: torch.Tensor,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch ``csrc/paged_verify.cu`` on the current stream:
+    [B, S, Hq, D] in q's dtype; S * group rows per block, at most
+    :data:`MAX_VERIFY_ROWS`."""
+    hkv, bs, d = _check_operands("paged_verify", q, k_pages, v_pages,
+                                 (block_tables, lengths), k_scale, v_scale)
+    b, s, hq, dq = q.shape
+    _require(s >= 1 and dq == d, f"paged_verify: q must be [B, S, Hq, {d}],"
+             f" got {tuple(q.shape)}")
+    _require(hq % hkv == 0 and s * (hq // hkv) <= MAX_VERIFY_ROWS,
+             f"paged_verify: Hq {hq} must be Hkv {hkv} times a group with "
+             f"S * group <= {MAX_VERIFY_ROWS} rows, got S={s}")
+    _require(bs <= 32 and 128 % bs == 0,
+             f"paged_verify: block size {bs} must divide 128 and be <= 32")
+    _require(block_tables.dim() == 2 and block_tables.shape[0] == b
+             and lengths.shape == (b,),
+             f"paged_verify: block_tables [B, T] and lengths [B] for B={b}")
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    rc = _entry("paged_verify", q.dtype, k_pages.dtype)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        *_scale_ptrs(k_scale, v_scale),
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        b, s, hkv, hq // hkv, d, bs, block_tables.shape[1], d ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _check(rc, "paged_verify")
+    return out
+
+
 def paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
                   v_pages: torch.Tensor, block_table: torch.Tensor,
-                  offset: int) -> torch.Tensor:
+                  offset: int, k_scale: Optional[torch.Tensor] = None,
+                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch ``csrc/paged_prefill.cu`` on the current stream:
     [1, C, Hq, D] in q's dtype."""
     hkv, bs, d = _check_operands("paged_prefill", q, k_pages, v_pages,
-                                 (block_table,))
+                                 (block_table,), k_scale, v_scale)
     one, c, hq, dq = q.shape
     _require(one == 1 and dq == d and c >= 1,
              f"paged_prefill: q must be [1, C, Hq, {d}], got {tuple(q.shape)}")
@@ -246,14 +331,13 @@ def paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
              f"paged_prefill: window [{offset}, {offset + c}) outside the "
              f"table's {block_table.shape[0] * bs} slots")
     out = torch.empty_like(q)
-    rc = _entry("paged_prefill", q.dtype)(
+    rc = _entry("paged_prefill", q.dtype, k_pages.dtype)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_table.data_ptr(), out.data_ptr(),
-        c, hkv, hq // hkv, d, bs, offset, d ** -0.5,
+        *_scale_ptrs(k_scale, v_scale), block_table.data_ptr(),
+        out.data_ptr(), c, hkv, hq // hkv, d, bs, offset, d ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     _check(rc, "paged_prefill")
     return out
-
 
 
 def _check_flash(what: str, q: torch.Tensor, k: torch.Tensor,

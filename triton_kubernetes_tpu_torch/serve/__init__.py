@@ -1,8 +1,10 @@
-"""Serving: the continuous-batching engine over the paged KV pool and its
-page allocator (the port of ``triton_kubernetes_tpu/serve``)."""
+"""Serving: the continuous-batching engine over the paged KV pool, its
+page allocator and the speculative self-drafter (the port of
+``triton_kubernetes_tpu/serve``)."""
 
 from .blocks import BlockAllocator, OutOfBlocksError, PrefixCache
 from .engine import FinishedRequest, ManualClock, Request, ServeEngine
+from .speculation import draft_ngram, longest_agreeing_prefix
 
 __all__ = [
     "BlockAllocator",
@@ -12,4 +14,6 @@ __all__ = [
     "ManualClock",
     "Request",
     "ServeEngine",
+    "draft_ngram",
+    "longest_agreeing_prefix",
 ]

@@ -22,7 +22,16 @@ One :meth:`ServeEngine.step` is one scheduler tick:
 4. **decode** -- ONE batched ragged decode step for all fully prefilled
    sequences (always ``max_batch`` wide; empty and still-prefilling slots
    ride the trash page), then per-sequence sampling, completion checks and
-   page frees.
+   page frees. With ``spec_k > 0`` the step widens into a **speculative
+   verify**: each sequence's n-gram self-drafter (``serve/speculation.py``)
+   proposes up to ``spec_k`` tokens from its own history, pages for them
+   are allocated only from what is free after every sequence's mandatory
+   growth, ``models.paged.paged_verify_step`` scores all ``spec_k + 1``
+   positions in one pass (one weight read), acceptance keeps the longest
+   prefix the request's own (seed, position)-keyed samples agree with, and
+   the KV writes of rejected tokens are rolled back (``paged_rewind``)
+   before any page is freed. A tick where nothing was drafted runs the
+   plain decode step.
 
 The scheduler is deterministic: the clock is injectable (:class:`ManualClock`
 for tests), allocation is lowest-index-first, admission FIFO, preemption
@@ -35,10 +44,14 @@ The page pool is written in place by the model functions
 the model lives on a card; a config with ``attention="dense"`` forces the
 plain versions (a reference engine).
 
+``kv_dtype`` "int8"/"fp8" stores the pool quantized (anchored per-page
+scales); the quantized kernels dequantize as they read, and each prompt's
+final prefill sets the ``tk8s_serve_quant_error`` gauges.
+
 Not ported yet, and raising ``NotImplementedError`` naming the slice:
-speculative decoding (``spec_k > 0``), quantized weights, arithmetic and
-pools, the flight recorder and goodput ledger, and session handoff,
-export and import.
+quantized weights and arithmetic (``weight_dtype``, ``matmul_dtype`` other
+than auto/f32: the W8A8 slice), the flight recorder and goodput ledger,
+and session handoff, export and import (migration).
 """
 
 from __future__ import annotations
@@ -60,10 +73,13 @@ from ..models.paged import (
     paged_decode_step,
     paged_prefill,
     paged_prefill_chunk,
+    paged_rewind,
+    paged_verify_step,
 )
 from ..ops.paged_attention import TRASH_PAGE, blocks_for
 from ..utils import metrics
 from .blocks import BlockAllocator, OutOfBlocksError, PrefixCache
+from .speculation import draft_ngram, longest_agreeing_prefix
 
 # Ticks of pool-utilization history behind the stats() kv_pressure signal.
 _PRESSURE_WINDOW = 32
@@ -149,6 +165,9 @@ class _Sequence:
     # pages vs its full length. prefilled == target means decoding.
     prefilled: int = 0
     target: int = 0
+    # This tick's self-drafted proposal (spec_k > 0): made during page
+    # growth, consumed by the verify, dropped on preemption.
+    draft: List[int] = field(default_factory=list)
 
     @property
     def length(self) -> int:
@@ -219,14 +238,9 @@ class ServeEngine:
                 "prefix_cache requires prefill_chunk: prefix reuse skips "
                 "whole chunk windows (the absolute-window alignment is "
                 "what keeps sharing ON/OFF outputs identical)")
-        if spec_k > 0:
-            raise _later("speculative decoding (spec_k > 0)",
-                         "speculative verify and rewind")
         if weight_dtype != "auto" or matmul_dtype not in ("auto", "f32"):
             raise _later(f"weight_dtype={weight_dtype!r}/matmul_dtype="
-                         f"{matmul_dtype!r}", "quantized-pool and W8A8")
-        if kv_dtype in ("int8", "fp8"):
-            raise _later(f"kv_dtype={kv_dtype!r}", "quantized-pool and W8A8")
+                         f"{matmul_dtype!r}", "W8A8 weights")
         if flight is not None:
             raise _later("the flight recorder", "flight recorder and goodput")
         dev = resolve_device(device)
@@ -269,6 +283,7 @@ class ServeEngine:
         self._steps = 0
         self._prefill_windows = 0
         self._decode_steps = 0
+        self._verify_steps = 0
         self._pressure_samples: Deque[float] = deque(
             maxlen=_PRESSURE_WINDOW)
         metrics.gauge("tk8s_serve_kv_bytes").set(
@@ -332,7 +347,10 @@ class ServeEngine:
             self._ensure_growth_pages()
             if any(s is not None and s.prefilled >= s.target
                    for s in self.slots):
-                self._decode_once(finished)
+                if self.spec_k > 0:
+                    self._spec_decode_once(finished)
+                else:
+                    self._decode_once(finished)
         self._steps += 1
         self._update_gauges()
         return finished
@@ -425,14 +443,19 @@ class ServeEngine:
         off = seq.prefilled
         clen = min(c, seq.target - off)
         toks = prompt[off:off + clen] + [0] * (c - clen)
-        logits = paged_prefill_chunk(
+        # The quant-error gauge reads the final window only: earlier
+        # windows' values would be overwritten, so they are not computed.
+        final = off + clen == seq.target
+        out = paged_prefill_chunk(
             self.params, self._tensor([toks]), off, clen, self.config,
-            self.cache, self._tensor(self._table(seq)))
+            self.cache, self._tensor(self._table(seq)),
+            with_quant_error=final and self.cache.quantized)
         self._prefill_windows += 1
         seq.prefilled = off + clen
         metrics.counter("tk8s_serve_tokens_total").inc(clen, kind="prefill")
         if seq.prefilled < seq.target:
             return
+        logits = self._set_quant_error(out)
         if self.prefix is not None:
             # Index every full prompt page (reused prefixes dedupe to
             # their existing nodes).
@@ -444,13 +467,24 @@ class ServeEngine:
 
     def _prefill_sequence(self, seq: _Sequence, prompt: List[int]) -> None:
         padded = prompt + [0] * (self.prefill_width - len(prompt))
-        logits = paged_prefill(
+        logits = self._set_quant_error(paged_prefill(
             self.params, self._tensor([padded]), len(prompt), self.config,
-            self.cache, self._tensor(self._table(seq)))
+            self.cache, self._tensor(self._table(seq)),
+            with_quant_error=self.cache.quantized))
         seq.prefilled = seq.target = len(prompt)
         seq.generated.append(self._sample(seq, logits[None, :]))
         if seq.first_token_at is None:
             seq.first_token_at = self.clock()
+
+    def _set_quant_error(self, out) -> torch.Tensor:
+        """A prefill's logits; on a quantized pool, ``out`` also carries
+        the (k, v) dequantization errors, which set the gauges."""
+        if not self.cache.quantized:
+            return out
+        logits, (k_err, v_err) = out
+        metrics.gauge("tk8s_serve_quant_error").set(float(k_err), tensor="k")
+        metrics.gauge("tk8s_serve_quant_error").set(float(v_err), tensor="v")
+        return logits
 
     # ------------------------------------------------- growth/preemption
     def _ensure_growth_pages(self) -> None:
@@ -477,6 +511,17 @@ class ServeEngine:
                     self._preempt(victim)
                     if victim == i:
                         break  # preempted ourselves; re-admit later
+        if self.spec_k > 0:
+            # Speculative pages come in a second pass, after every
+            # sequence's mandatory page: interleaved, an early sequence's
+            # draft pages could starve a later one's mandatory page and
+            # force an eviction or preemption the spec_k=0 engine would
+            # never make.
+            for i in sorted(range(self.max_batch),
+                            key=lambda i: (self.slots[i].admit_seq
+                                           if self.slots[i] else -1)):
+                if self.slots[i] is not None:
+                    self._draft_and_grow(self.slots[i])
 
     def _preempt(self, slot: int) -> None:
         seq = self.slots[slot]
@@ -486,9 +531,36 @@ class ServeEngine:
         seq.admit_seq = -1
         seq.preemptions += 1
         seq.prefilled = seq.target = 0
+        seq.draft = []
         self.slots[slot] = None
         self.waiting.appendleft(seq)
         metrics.counter("tk8s_serve_preemptions_total").inc()
+
+    def _draft_and_grow(self, seq: _Sequence) -> None:
+        """Self-draft this tick's proposal and allocate the pages its
+        writes need. Speculative pages are opportunistic: under pool
+        pressure the draft trims itself instead of evicting prefix-cache
+        pages or preempting a neighbour, so every eviction and preemption
+        is the spec_k=0 engine's."""
+        seq.draft = []
+        if seq.prefilled < seq.target or not seq.generated:
+            return  # still prefilling: nothing to speculate from
+        r = seq.request
+        # Accepted drafts + the bonus token never pass max_new_tokens (so
+        # every written position stays inside the validated window).
+        cap = min(self.spec_k, r.max_new_tokens - len(seq.generated) - 1)
+        if cap <= 0:
+            return
+        draft = draft_ngram(list(r.tokens) + list(seq.generated), cap)
+        while draft:
+            need = (blocks_for(seq.length + len(draft) + 1, self.block_size)
+                    - len(seq.pages))
+            if need <= self.allocator.available:
+                if need > 0:
+                    seq.pages.extend(self.allocator.alloc(need))
+                break
+            draft.pop()
+        seq.draft = draft
 
     # ------------------------------------------------------------ decode
     def _decode_once(self, finished: List[FinishedRequest]) -> None:
@@ -524,12 +596,112 @@ class ServeEngine:
         metrics.counter("tk8s_serve_tokens_total").inc(
             len(active), kind="decode")
 
+    def _spec_decode_once(self, finished: List[FinishedRequest]) -> None:
+        """The widened decode tick: verify every sequence's draft at
+        ``spec_k + 1`` positions in one pass, keep the longest prefix the
+        model agrees with, roll rejected KV writes back, and emit the
+        accepted tokens plus the model's own next token. Every position is
+        sampled with the same (seed, position)-keyed draw as plain decode,
+        so a rejected draft costs a verify row, never a changed token."""
+        active = [i for i, s in enumerate(self.slots)
+                  if s is not None and s.prefilled >= s.target]
+        if not any(self.slots[i].draft for i in active):
+            # Nothing drafted: the plain step emits the same token for one
+            # weight pass less.
+            self._decode_once(finished)
+            return
+        s_width = self.spec_k + 1
+        tokens = [[0] * s_width for _ in range(self.max_batch)]
+        lengths = [0] * self.max_batch
+        tables = [[TRASH_PAGE] * self.blocks_per_seq
+                  for _ in range(self.max_batch)]
+        for i in active:
+            seq = self.slots[i]
+            tokens[i][0] = seq.generated[-1]
+            tokens[i][1:1 + len(seq.draft)] = seq.draft
+            lengths[i] = seq.length
+            tables[i][:len(seq.pages)] = seq.pages
+        bt, lens = self._tensor(tables), self._tensor(lengths)
+        logits, undo = paged_verify_step(
+            self.params, self._tensor(tokens), self.config, self.cache, bt,
+            lens)
+        self._verify_steps += 1
+        # Greedy rows share one batched argmax (one host sync); sampled
+        # rows draw per position below.
+        greedy = None
+        if any(self.slots[i].request.temperature == 0.0 for i in active):
+            greedy = torch.argmax(logits, dim=-1).tolist()
+        proposed = accepted = emitted = 0
+        keep = [s_width] * self.max_batch
+        plans: Dict[int, List[int]] = {}
+        for i in active:
+            seq = self.slots[i]
+            r = seq.request
+            nd, g0 = len(seq.draft), len(seq.generated)
+            samples: List[int] = []
+            for j in range(nd + 1):
+                if r.temperature == 0.0:
+                    tok = int(greedy[i][j])
+                else:
+                    tok = self._sample_at(seq, logits[i, j][None], g0 + j)
+                samples.append(tok)
+                if j >= nd or tok != seq.draft[j]:
+                    break  # bonus row sampled, or first disagreement
+            a = longest_agreeing_prefix(seq.draft, samples)
+            # Truncate at eos / max_new BEFORE keep and the accept counts:
+            # a draft token past the sequence's end is never emitted, so
+            # its K/V is rewound and it is not counted as accepted.
+            emit = samples[:a + 1]
+            cut = len(emit)
+            for j, tok in enumerate(emit):
+                if (r.eos_id is not None and tok == r.eos_id) \
+                        or g0 + j + 1 >= r.max_new_tokens:
+                    cut = j + 1
+                    break
+            plans[i] = emit[:cut]
+            keep[i] = cut
+            proposed += nd
+            accepted += min(a, cut)
+        if any(keep[i] < s_width for i in active):
+            # Roll back every rejected (and pad) write BEFORE any page can
+            # be freed or handed out again.
+            paged_rewind(self.cache, undo, bt, lens, self._tensor(keep))
+        for i in active:
+            seq = self.slots[i]
+            seq.draft = []
+            seq.generated.extend(plans[i])
+            emitted += len(plans[i])
+            if not self._maybe_finish(i, finished):
+                # Return the surplus pages of rejected drafts now: a
+                # spec_k=0 engine that emitted these tokens would end the
+                # tick holding blocks_for(length) pages, and admission,
+                # eviction and preemption match it only if this one does.
+                surplus = (len(seq.pages)
+                           - blocks_for(seq.length, self.block_size))
+                if surplus > 0:
+                    self.allocator.free(seq.pages[-surplus:])
+                    del seq.pages[-surplus:]
+        metrics.counter("tk8s_serve_tokens_total").inc(emitted, kind="decode")
+        metrics.counter("tk8s_serve_spec_proposed_tokens_total").inc(proposed)
+        metrics.counter("tk8s_serve_spec_accepted_tokens_total").inc(accepted)
+        if proposed:
+            metrics.histogram("tk8s_serve_spec_accept_rate").observe(
+                accepted / proposed)
+        metrics.gauge("tk8s_serve_spec_tokens_per_step").set(
+            emitted / len(active))
+
     def _sample(self, seq: _Sequence, logits: torch.Tensor) -> int:
-        """Sample position len(generated) of this request, keyed by the
-        request's own seed and that position -- independent of batch
-        composition, and the same draw after a preemption's re-prefill."""
+        """Sample position len(generated) of this request (see
+        :meth:`_sample_at`)."""
+        return self._sample_at(seq, logits, len(seq.generated))
+
+    def _sample_at(self, seq: _Sequence, logits: torch.Tensor,
+                   position: int) -> int:
+        """Sample one position of this request, keyed by the request's own
+        seed and the position -- independent of batch composition, the
+        same draw after a preemption's re-prefill, and the same whether
+        the position is reached by plain decode or inside a verify."""
         r = seq.request
-        position = len(seq.generated)
         gen = (None if r.temperature == 0.0 else
                _sample_generator(r.seed, position, logits.device))
         return int(sample_token(logits, gen, r.temperature, r.top_k,
@@ -599,6 +771,7 @@ class ServeEngine:
             "steps": self._steps,
             "prefill_windows": self._prefill_windows,
             "decode_steps": self._decode_steps,
+            "verify_steps": self._verify_steps,
             "sequential": self.sequential,
             "kv_dtype": self.kv_dtype,
             "weight_dtype": self.weight_dtype,

@@ -60,6 +60,10 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...], Optional[Tuple[float, ...]]]
         "(pages = the K/V page arrays at the configured --kv-dtype; "
         "scales = the per-page-per-head f32 quantization scales, 0 "
         "unless --kv-dtype int8)", ("component",), None),
+    "tk8s_serve_quant_error": (
+        "gauge", "Mean relative dequantization error of the most "
+        "recent quantized prefill's scattered KV pages, by tensor "
+        "(k/v); stays 0 when the pool is unquantized", ("tensor",), None),
     "tk8s_serve_prefix_hit_tokens_total": (
         "counter", "Prompt tokens served from the shared radix prefix "
         "cache instead of prefill compute — the O(users) -> O(1) "
@@ -68,6 +72,22 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...], Optional[Tuple[float, ...]]]
         "gauge", "KV pages currently indexed by the radix prefix cache "
         "(each holds one cache-owned reference; evicted LRU-leaf-first "
         "under pool pressure)", (), None),
+    "tk8s_serve_spec_proposed_tokens_total": (
+        "counter", "Draft tokens proposed by the n-gram self-drafter "
+        "and scored by the widened verify step (spec_k > 0)", (), None),
+    "tk8s_serve_spec_accepted_tokens_total": (
+        "counter", "Proposed draft tokens the model's own keyed samples "
+        "agreed with (accepted/proposed = the effective accept rate; "
+        "rejected tokens' KV writes are rolled back)", (), None),
+    "tk8s_serve_spec_accept_rate": (
+        "histogram", "Per-verify-step draft acceptance rate "
+        "(accepted/proposed over the step's batch); high on "
+        "self-similar text, ~0 where speculation is wasted",
+        (), (0.1, 0.25, 0.5, 0.75, 0.9, 1.0)),
+    "tk8s_serve_spec_tokens_per_step": (
+        "gauge", "Tokens emitted per decoding sequence by the most "
+        "recent verify step (1.0 = plain-decode pace, up to spec_k + 1 "
+        "when every draft accepts)", (), None),
     # ---------------------------------- train/pipeline.py (one process:
     # the reference's process_id label has one value here and is dropped)
     "tk8s_train_step_duration_seconds": (
