@@ -17,11 +17,13 @@ result:
 3. kernels -- each kernel against its plain PyTorch version at Llama-3-8B
    shapes (Hq 32, Hkv 8, D 128, bf16 queries; paged: bs 16, 128 pages per
    sequence, on bf16, int8 and fp8 pages; verify at B 8, S 4; flash:
-   (B, S) = (4, 2048), (1, 1000), (1, 1280)), with its time, the plain
-   version's, one ``scaled_dot_product_attention`` call's as a yardstick
-   (the port never calls it), and the card's bound for the same work; and
-   every verify row ``torch.equal`` to the decode kernel at that row's
-   length, on every page kind;
+   (B, S) = (4, 2048), (1, 1000), (1, 1280), (1, 4096), plus one case
+   for each other design of the forward and dK/dV kernels -- tensor cores
+   at D 64, CUDA cores at D 96), with its time, the plain version's, one
+   ``scaled_dot_product_attention`` call's as a yardstick (the port never
+   calls it), the card's bound for the same work, the share of it reached
+   and the TFLOP/s achieved; and every verify row ``torch.equal`` to the
+   decode kernel at that row's length, on every page kind;
 4. serve  -- ``ServeEngine`` on ``llama3-8b`` at full width and depth
    (random bf16 weights from a seed), chunked prefill with the prefix
    cache, 8 requests; checks completions, pool drain, prefix hits and that
@@ -59,7 +61,9 @@ The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. With ``--out DIR`` everything measured,
 the per-offset prefill cases included, is also written to
 ``DIR/chip_smoke.json``, and the trainer's report to
-``DIR/train_report.json``.
+``DIR/train_report.json``. ``--flash-only`` builds and checks the three
+flash kernels and stops (half a minute: the first run after a change to
+one of them).
 """
 
 from __future__ import annotations
@@ -90,7 +94,12 @@ TRAIN_ARGV = [
     "--steps", str(TRAIN_STEPS), "--batch-size", str(TRAIN_BATCH),
     "--seq-len", str(TRAIN_SEQ), "--learning-rate", "3e-4",
     "--warmup-steps", "1", "--log-every", "1", "--device", TRAIN_DEVICE]
-FLASH_SHAPES = [(4, 2048), (1, 1000), (1, 1280)]
+FLASH_SHAPES = [(4, 2048), (1, 1000), (1, 1280), (1, 4096)]
+# Besides the Llama-3-8B heads (bf16, D 128: the tensor-core design), one
+# case per other branch of ``_kernels.flash_variant``, (B, S, Hq, Hkv, D):
+# the tensor-core kernels at D 64 and the CUDA-core kernels at a width the
+# first are not instantiated for.
+FLASH_VARIANT_CASES = [(2, 200, 8, 2, 64), (1, 300, 6, 2, 96)]
 # Flash kernels vs plain versions: the rounding order is shared (f32
 # scores, p and ds rounded to bf16 at the same points), so they differ in
 # f32 summation order only -- one bf16 ulp of the output, as for the paged
@@ -151,6 +160,11 @@ ATOL, RTOL = 1e-2, 2.0 ** -7
 LOGITS_REL_L2, LOGITS_REL_MAX = 0.05, 0.1
 
 
+# Times the 128 MB flush buffer is zeroed ahead of each timed launch
+# (~0.05 ms of device work a pass: enough to cover the host's enqueue).
+FLUSH_PASSES = 4
+
+
 def card_peaks(name: str):
     for key in ("H200", "H100 NVL", "H100 PCIe"):
         if all(part in name for part in key.split()):
@@ -161,14 +175,19 @@ def card_peaks(name: str):
 def time_ms(fn, flush: torch.Tensor, runs: int = 30, warmup: int = 3):
     """Median of ``runs`` CUDA-event timings of ``fn``, the 50 MB L2
     flushed before each (the serving path reads every layer's pages
-    cold)."""
+    cold). The flush is enqueued :data:`FLUSH_PASSES` times: the card is
+    still busy with it while the host prepares ``fn``'s launch, so the
+    window between the two events holds the device's time and not the
+    Python wrapper's (some 0.04 ms of a sub-millisecond kernel when the
+    flush ran once)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(runs):
-        flush.zero_()
+        for _ in range(FLUSH_PASSES):
+            flush.zero_()
         start.record()
         fn()
         end.record()
@@ -238,15 +257,18 @@ def kernel_record(name, kind, source, replaces, err, ms, pms, lms, nbytes,
                   flops, peaks, library_call, shape, **more):
     bw, flops_peak = peaks
     suffix = "" if kind == "bf16" else f"_{kind}"
+    bound_ms = max(nbytes / bw, flops / flops_peak) * 1e3
     return dict(
         name=name + suffix, route="cuda",
         source=f"triton_kubernetes_tpu_torch/csrc/{source}",
-        replaces=replaces, max_abs_err=err,
+        replaces=replaces, variant="cuda_core", max_abs_err=err,
         tolerance=f"{ATOL} + {RTOL} * |plain|",
         ms=ms, plain_ms=pms, library_ms=lms,
-        bound_ms=max(nbytes / bw, flops / flops_peak) * 1e3,
+        bound_ms=bound_ms,
         bound_by="bytes" if nbytes / bw >= flops / flops_peak
         else "operations",
+        bound_share=bound_ms / ms,
+        achieved_tflops=flops / (ms * 1e-3) / 1e12,
         library_call=library_call, bytes=nbytes, flops=flops,
         shape=dict(shape, pages=kind), **more)
 
@@ -959,56 +981,79 @@ def rewind_probe(model, cfg, kind, prompt):
     return dict(kind=kind, prompt_tokens=n, kept_slot_vs_decode=kept)
 
 
+def flash_check(tag, q, k, v, do, errs):
+    """Kernels 1-3 on one set of bf16 operands against their plain
+    versions (the plain forward at the key tile of the kernel that runs);
+    updates the worst errors in ``errs`` and returns (lse, dvec)."""
+    from triton_kubernetes_tpu_torch.ops import _kernels
+    from triton_kubernetes_tpu_torch.ops import flash_attention as fa
+
+    out, lse = _kernels.flash_fwd(q, k, v)
+    want_out, want_lse = fa._flash_forward_plain(
+        q, k, v, fa.kernel_block_k(q.dtype, q.shape[-1]))
+    dvec = fa._row_dot(do, out)
+    dq = _kernels.flash_bwd_dq(q, k, v, do, lse, dvec)
+    dk, dv = _kernels.flash_bwd_dkv(q, k, v, do, lse, dvec)
+    want_dq, want_dk, want_dv = fa._flash_backward_plain(q, k, v, do, lse,
+                                                         dvec)
+    torch.cuda.synchronize()
+    errs["flash_fwd"] = max(errs["flash_fwd"], check_close(
+        f"flash_fwd out {tag}", out, want_out))
+    worst_lse = float((lse - want_lse).abs().max())
+    if not worst_lse <= LSE_ATOL:
+        raise AssertionError(f"flash_fwd lse {tag}: max abs err "
+                             f"{worst_lse} > {LSE_ATOL}")
+    errs["lse"] = max(errs["lse"], worst_lse)
+    errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], check_close(
+        f"flash_bwd_dq {tag}", dq, want_dq))
+    errs["flash_bwd_dkv"] = max(
+        errs["flash_bwd_dkv"],
+        check_close(f"flash_bwd_dkv dk {tag}", dk, want_dk),
+        check_close(f"flash_bwd_dkv dv {tag}", dv, want_dv))
+    return lse, dvec
+
+
 def flash_kernel_phase(device, flush, peaks):
-    """Kernels 1-3 against their plain versions at Llama-3-8B heads;
-    timed at the training shape (B 4, S 2048). Returns their records."""
+    """Kernels 1-3 against their plain versions at Llama-3-8B heads, and
+    one case per other design of ``_kernels.flash_variant``; timed at the
+    training shape (B 4, S 2048). Returns their records."""
     from triton_kubernetes_tpu_torch.ops import _kernels
     from triton_kubernetes_tpu_torch.ops import flash_attention as fa
 
     bw, flops_peak = peaks
     gen = torch.Generator(device=device).manual_seed(4321)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    errs = {name: 0.0 for name in ("flash_fwd", "flash_bwd_dq",
-                                   "flash_bwd_dkv")}
-    lse_err = 0.0
+    errs = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                          "lse"), 0.0)
     timed = {}
+
+    def rnd(b, s, h, d):
+        return torch.randn((b, s, h, d), generator=gen, device=device
+                           ).to(torch.bfloat16)
+
+    for b, s, hq, hkv, d in FLASH_VARIANT_CASES:
+        name = _kernels.flash_variant(torch.bfloat16, d)
+        flash_check(f"B={b},S={s},Hq={hq},Hkv={hkv},D={d} ({name})",
+                    rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d),
+                    rnd(b, s, hq, d), errs)
+    variants = {_kernels.flash_variant(torch.bfloat16, case[-1])
+                for case in FLASH_VARIANT_CASES}
+    variant = _kernels.flash_variant(torch.bfloat16, D)
+    if variants | {variant} != set(_kernels.FLASH_VARIANTS):
+        raise AssertionError(f"flash designs checked {variants | {variant}} "
+                             f"!= {set(_kernels.FLASH_VARIANTS)}")
     for b, s in FLASH_SHAPES:
-        def rnd(h):
-            return torch.randn((b, s, h, D), generator=gen, device=device
-                               ).to(torch.bfloat16)
-        q, k, v, do = rnd(HQ), rnd(HKV), rnd(HKV), rnd(HQ)
-        out, lse = _kernels.flash_fwd(q, k, v)
-        want_out, want_lse = fa._flash_forward_plain(q, k, v,
-                                                     fa.KERNEL_BLOCK_K)
-        dvec = fa._row_dot(do, out)
-        dq = _kernels.flash_bwd_dq(q, k, v, do, lse, dvec)
-        dk, dv = _kernels.flash_bwd_dkv(q, k, v, do, lse, dvec)
-        want_dq, want_dk, want_dv = fa._flash_backward_plain(q, k, v, do,
-                                                             lse, dvec)
-        torch.cuda.synchronize()
-        tag = f"B={b},S={s}"
-        errs["flash_fwd"] = max(errs["flash_fwd"], check_close(
-            f"flash_fwd out {tag}", out, want_out))
-        worst_lse = float((lse - want_lse).abs().max())
-        if not worst_lse <= LSE_ATOL:
-            raise AssertionError(f"flash_fwd lse {tag}: max abs err "
-                                 f"{worst_lse} > {LSE_ATOL}")
-        lse_err = max(lse_err, worst_lse)
-        errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], check_close(
-            f"flash_bwd_dq {tag}", dq, want_dq))
-        errs["flash_bwd_dkv"] = max(
-            errs["flash_bwd_dkv"],
-            check_close(f"flash_bwd_dkv dk {tag}", dk, want_dk),
-            check_close(f"flash_bwd_dkv dv {tag}", dv, want_dv))
-        del want_out, want_lse, want_dq, want_dk, want_dv
+        q, k, v, do = (rnd(b, s, HQ, D), rnd(b, s, HKV, D),
+                       rnd(b, s, HKV, D), rnd(b, s, HQ, D))
+        lse, dvec = flash_check(f"B={b},S={s}", q, k, v, do, errs)
         if (b, s) != (TRAIN_BATCH, TRAIN_SEQ):
             continue
         # Timing at the training shape. The plain versions materialise
         # [B, Hq, S, S] f32 scores: median of 5 runs for them.
+        block_k = fa.kernel_block_k(q.dtype, D)
         timed["flash_fwd"] = (
             time_ms(lambda: _kernels.flash_fwd(q, k, v), flush),
-            time_ms(lambda: fa._flash_forward_plain(q, k, v,
-                                                    fa.KERNEL_BLOCK_K),
+            time_ms(lambda: fa._flash_forward_plain(q, k, v, block_k),
                     flush, runs=5, warmup=1))
         timed["flash_bwd_dq"] = (
             time_ms(lambda: _kernels.flash_bwd_dq(q, k, v, do, lse, dvec),
@@ -1040,14 +1085,19 @@ def flash_kernel_phase(device, flush, peaks):
         "flash_bwd_dkv": (8 * D * pairs, io * (2 * HQ + 4 * HKV) + 2 * rows),
     }
     lines = {"flash_fwd": 75, "flash_bwd_dq": 196, "flash_bwd_dkv": 230}
+    # flash_bwd_dq has one design, the CUDA cores'.
+    design = {"flash_fwd": variant, "flash_bwd_dq": "cuda_core",
+              "flash_bwd_dkv": variant}
     records = []
     for name, (flops, nbytes) in work.items():
         kms, pms = timed[name]
+        bound_ms = max(flops / flops_peak, nbytes / bw) * 1e3
         records.append(dict(
             name=name, route="cuda",
             source=f"triton_kubernetes_tpu_torch/csrc/{name}.cu",
             replaces=f"triton_kubernetes_tpu/ops/flash_attention.py:"
                      f"{lines[name]}",
+            variant=design[name],
             max_abs_err=errs[name],
             tolerance=f"{ATOL} + {RTOL} * |plain|",
             ms=kms, plain_ms=pms,
@@ -1056,25 +1106,31 @@ def flash_kernel_phase(device, flush, peaks):
                           "enable_gqa) forward" if name == "flash_fwd" else
                           "the same call's backward (dq, dk and dv "
                           "together)"),
-            bound_ms=max(flops / flops_peak, nbytes / bw) * 1e3,
+            bound_ms=bound_ms,
             bound_by="operations" if flops / flops_peak >= nbytes / bw
             else "bytes",
+            bound_share=bound_ms / kms,
+            achieved_tflops=flops / (kms * 1e-3) / 1e12,
             flops=flops, bytes=nbytes,
             shape=dict(B=b, S=s, Hq=HQ, Hkv=HKV, D=D,
-                       checked_at=FLASH_SHAPES)))
-    records[0]["lse_max_abs_err"] = lse_err
+                       checked_at=FLASH_SHAPES,
+                       variant_cases=FLASH_VARIANT_CASES)))
+    records[0]["lse_max_abs_err"] = errs["lse"]
     # The plain backward computes dq, dk and dv in one pass: its time is
     # recorded once, on the dK/dV row, and the dQ row shares it.
     records[1]["plain_ms"] = records[2]["plain_ms"]
     records[1]["plain_note"] = "one plain pass computes dq, dk and dv"
     records[2]["plain_note"] = records[1]["plain_note"]
     for r in records:
-        print(f"kernel {r['name']} (B={b}, S={s}): max_abs_err="
-              f"{r['max_abs_err']:.6g} (tolerance {r['tolerance']}) "
-              f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+        print(f"kernel {r['name']} ({r['variant']}; B={b}, S={s}): "
+              f"max_abs_err={r['max_abs_err']:.6g} (tolerance "
+              f"{r['tolerance']}) kernel_ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms']:.4f} bound_ms="
-              f"{r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
-    print(f"kernel flash_fwd: lse max abs err {lse_err:.3g} (bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']}; share "
+              f"{r['bound_share']:.4f}), {r['achieved_tflops']:.1f} "
+              f"TFLOP/s", flush=True)
+    print(f"kernel flash_fwd: lse max abs err {errs['lse']:.3g} (bound "
           f"{LSE_ATOL})", flush=True)
     return records
 
@@ -1260,6 +1316,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", type=Path, default=None,
                         help="directory for chip_smoke.json")
+    parser.add_argument("--flash-only", action="store_true",
+                        help="build the three flash kernels, hold them "
+                             "against their plain versions, time them and "
+                             "stop: the short first run after a change to "
+                             "one of them (prints no device line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on the "
@@ -1290,18 +1351,25 @@ def main() -> int:
 
     # Phase 2: build, every source at once.
     t0 = time.perf_counter()
-    logs = _kernels.build()
-    for kernel in _kernels.KERNELS:
+    built = (tuple(k for k in _kernels.KERNELS if k.startswith("flash_"))
+             if args.flash_only else _kernels.KERNELS)
+    logs = _kernels.build(built)
+    for kernel in built:
         _kernels.library(kernel)
     build_s = time.perf_counter() - t0
-    print(f"build: {', '.join(_kernels.KERNELS)} in {build_s:.1f} s", flush=True)
+    print(f"build: {', '.join(built)} in {build_s:.1f} s", flush=True)
     for kernel, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "warning" in line.lower()):
                 print(f"build: {kernel}: {line.strip()}", flush=True)
 
     # Phase 3: kernels against their plain versions.
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=device)
+    if args.flash_only:
+        print(json.dumps({"kernels": flash_kernel_phase(device, flush,
+                                                        peaks)}))
+        return 0
     records = kernel_phase(pa, device, flush, peaks)
     records += flash_kernel_phase(device, flush, peaks)
     del flush
@@ -1347,10 +1415,10 @@ def main() -> int:
         (args.out / "chip_smoke.json").write_text(json.dumps(dict(
             card=card, device=name, build_s=build_s, kernels=records,
             serve=serve, train=train), indent=1))
-    keys = ("name", "route", "source", "replaces", "launches",
+    keys = ("name", "route", "source", "replaces", "variant", "launches",
             "launches_per_unit", "launches_per", "max_abs_err", "ms",
-            "plain_ms", "plain_note", "bound_ms", "bound_by", "library_ms",
-            "library_call")
+            "plain_ms", "plain_note", "bound_ms", "bound_by", "bound_share",
+            "achieved_tflops", "library_ms", "library_call")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys}
                                   for r in records]}))
     print(json.dumps({"ok": True, "device": {

@@ -237,12 +237,22 @@ def _flash_inputs(gen, b, s, hq, hkv, d, dtype, device):
         rnd(b, s, hq, d)
 
 
+# bf16 at D 64 and 128 runs the tensor-core design of flash_fwd and
+# flash_bwd_dkv (key tiles of 128, query tiles of 128 and 64), f32 and
+# bf16 at other widths the CUDA-core design (tiles of 64): the cases
+# below cover both on either side of their tile boundaries.
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,s,hq,hkv,d", [
     (2, 128, 4, 4, 64),    # MHA, whole tiles
     (1, 200, 8, 2, 128),   # group 4, a ragged last tile
     (2, 77, 6, 2, 32),     # group 3, one ragged tile pair
     (1, 1000, 32, 8, 128),  # Llama-3-8B heads, S = 1,000
+    (4, 2048, 32, 8, 128),  # the training shape
+    (2, 5, 8, 2, 128),     # S below one tile
+    (1, 129, 8, 2, 128),   # one past a 128 boundary
+    (1, 65, 4, 2, 64),     # one past a 64 boundary
+    (1, 300, 4, 4, 128),   # group 1 at D 128
+    (1, 300, 6, 2, 96),    # bf16 at a width only the CUDA cores take
 ])
 def test_flash_kernels_match_plain(device, dtype, b, s, hq, hkv, d):
     from triton_kubernetes_tpu_torch.ops import flash_attention as fa
@@ -250,7 +260,8 @@ def test_flash_kernels_match_plain(device, dtype, b, s, hq, hkv, d):
     gen = torch.Generator(device=device).manual_seed(s + hq + d)
     q, k, v, do = _flash_inputs(gen, b, s, hq, hkv, d, dtype, device)
     out, lse = _kernels.flash_fwd(q, k, v)
-    want_out, want_lse = fa._flash_forward_plain(q, k, v, fa.KERNEL_BLOCK_K)
+    want_out, want_lse = fa._flash_forward_plain(
+        q, k, v, fa.kernel_block_k(dtype, d))
     dvec = fa._row_dot(do, out)
     dq = _kernels.flash_bwd_dq(q, k, v, do, lse, dvec)
     dk, dv = _kernels.flash_bwd_dkv(q, k, v, do, lse, dvec)
@@ -261,6 +272,42 @@ def test_flash_kernels_match_plain(device, dtype, b, s, hq, hkv, d):
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
     for got, exp in zip((dq, dk, dv), want):
         torch.testing.assert_close(got.float(), exp.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype,d,name", [
+    (torch.bfloat16, 128, "tensor_core"), (torch.bfloat16, 64, "tensor_core"),
+    (torch.bfloat16, 96, "cuda_core"), (torch.float32, 128, "cuda_core"),
+])
+def test_flash_variant_reaches_the_c_entry(device, monkeypatch, dtype, d,
+                                           name):
+    """The wrappers hand the C entries the code of the design the table
+    names, and the entries refuse a design they are not built for."""
+    gen = torch.Generator(device=device).manual_seed(d)
+    q, k, v, do = _flash_inputs(gen, 1, 70, 4, 2, d, dtype, device)
+    seen = []
+    real = _kernels._entry
+
+    def spy(kernel, dt):
+        fn = real(kernel, dt)
+
+        def call(*args):
+            seen.append((kernel, args[-2]))
+            return fn(*args)
+        return call
+
+    monkeypatch.setattr(_kernels, "_entry", spy)
+    out, lse = _kernels.flash_fwd(q, k, v)
+    _kernels.flash_bwd_dkv(q, k, v, do, lse, torch.zeros_like(lse))
+    torch.cuda.synchronize()
+    code = _kernels.FLASH_VARIANTS[name].code
+    assert _kernels.flash_variant(dtype, d) == name
+    assert seen == [("flash_fwd", code), ("flash_bwd_dkv", code)]
+    if name == "cuda_core":  # no tensor-core kernel for these: refused
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), 1, 70, 4, 2, d, *_kernels._strides(q, k, v),
+                d ** -0.5, 1,
+                torch.cuda.current_stream(q.device).cuda_stream]
+        assert real("flash_fwd", dtype)(*args) != 0
 
 
 def test_flash_attention_counts_launches_and_takes_strided_views(device):

@@ -54,12 +54,19 @@ def _port_side(arrs, dtype, block):
     return [t.detach().float().numpy() for t in (out, q.grad, k.grad, v.grad)]
 
 
+# The key tiles of the port's two forward designs (``_kernels.
+# FLASH_VARIANTS``): the plain forward is held against the JAX kernel at
+# each. The reference pads S to a multiple of 128 and takes the largest
+# 128-multiple block that fits, so 64 asks for 128 at these lengths and
+# 128 asks for it outright; S = 300 walks three such tiles.
+@pytest.mark.parametrize("block", [64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hq,hkv,s", [(4, 4, 128), (4, 2, 200), (8, 2, 128)])
-def test_forward_and_gradients_match_pallas(dtype, hq, hkv, s):
+@pytest.mark.parametrize("hq,hkv,s", [(4, 4, 128), (4, 2, 200), (8, 2, 128),
+                                      (4, 2, 300)])
+def test_forward_and_gradients_match_pallas(dtype, hq, hkv, s, block):
     arrs = _inputs(1, s, hq, hkv, 32, seed=hq * 1000 + s)
-    want = _jax_side(arrs, dtype, 64)
-    got = _port_side(arrs, dtype, 64)
+    want = _jax_side(arrs, dtype, block)
+    got = _port_side(arrs, dtype, block)
     for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
         assert a.shape == b.shape, name
         np.testing.assert_allclose(a, b, err_msg=name, **TOL[dtype])
@@ -79,6 +86,56 @@ def test_plain_forward_tiles_follow_the_block():
     np.testing.assert_allclose(
         lse.numpy(), torch.logsumexp(scores, -1).reshape(2, 4, 96).numpy(),
         atol=1e-5, rtol=1e-5)
+
+
+def test_flash_variant_table_and_its_key_tiles():
+    """Which design runs is decided by (dtype, head_dim) in one table, and
+    each design's key tile is what the on-card comparisons hand the plain
+    forward (``chip_smoke.py`` and ``tests/test_torch_cuda.py`` call
+    ``kernel_block_k``)."""
+    import inspect
+
+    from triton_kubernetes_tpu_torch.ops import _kernels
+
+    assert _kernels.FLASH_VARIANTS == {
+        "tensor_core": _kernels.FlashVariant(code=1, block_k=128),
+        "cuda_core": _kernels.FlashVariant(code=0, block_k=64)}
+    want = {(torch.bfloat16, 128): "tensor_core",
+            (torch.bfloat16, 64): "tensor_core",
+            (torch.bfloat16, 96): "cuda_core",
+            (torch.bfloat16, 32): "cuda_core",
+            (torch.float32, 128): "cuda_core",
+            (torch.float32, 64): "cuda_core"}
+    for (dtype, d), name in want.items():
+        assert _kernels.flash_variant(dtype, d) == name, (dtype, d)
+        assert fa.kernel_block_k(dtype, d) == \
+            _kernels.FLASH_VARIANTS[name].block_k
+    assert fa.KERNEL_BLOCK_K == {"tensor_core": 128, "cuda_core": 64}
+    # The wrappers pass the table's code, and nothing else picks a design.
+    for fn in (_kernels.flash_fwd, _kernels.flash_bwd_dkv):
+        assert "FLASH_VARIANTS[flash_variant(q.dtype, d)].code" in \
+            inspect.getsource(fn)
+    # The C sources instantiate the tensor-core kernels for exactly the
+    # table's head widths.
+    for src in ("flash_fwd.cu", "flash_bwd_dkv.cu"):
+        text = (_kernels.CSRC / src).read_text()
+        for _, d in _kernels.FLASH_TENSOR_CORE:
+            assert f"launch_tc<{d}>" in text, (src, d)
+    assert "wgmma.mma_async" in (_kernels.CSRC / "flash_wgmma.cuh"
+                                 ).read_text()
+
+
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 128), ("bfloat16", 64),
+                                     ("float32", 64)])
+def test_plain_at_kernel_tile_equals_flash_attention_plain(dtype, d):
+    """``flash_attention_plain`` picks the key tile of the kernel that
+    would run for its operands."""
+    arrs = _inputs(1, 160, 4, 2, d, seed=d)
+    q, k, v = (torch.from_numpy(a).to(TDT[dtype]) for a in arrs[:3])
+    got = fa.flash_attention_plain(q, k, v)
+    want, _ = fa._flash_forward_plain(q, k, v, fa.kernel_block_k(TDT[dtype],
+                                                                 d))
+    assert torch.equal(got, want)
 
 
 def test_pick_block_is_the_reference_rule():
@@ -114,7 +171,7 @@ def test_every_kernel_source_is_in_the_build_hash(tmp_path, monkeypatch):
         assert (csrc / f"{name}.cu").exists()
     before = {n: _kernels._library_path(n) for n in _kernels.KERNELS}
     for src in ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
-                "flash_common.cuh"):
+                "flash_common.cuh", "flash_wgmma.cuh"):
         path = csrc / src
         path.write_text(path.read_text() + "\n// edited\n")
         after = {n: _kernels._library_path(n) for n in _kernels.KERNELS}

@@ -29,7 +29,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,17 +61,18 @@ _SIGNATURES = {
     # C, Hkv, group, D, bs, offset, scale, stream
     "paged_prefill": (_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _F, _P),
-    # q, k, v, out, lse, B, S, Hq, Hkv, D, strides of q, k, v, scale, stream
+    # q, k, v, out, lse, B, S, Hq, Hkv, D, strides of q, k, v, scale,
+    # variant, stream
     "flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                  *_STRIDES * 3, _F, _P),
+                  *_STRIDES * 3, _F, _I, _P),
     # q, k, v, dout, lse, dvec, dq, B, S, Hq, Hkv, D,
     # strides of q, k, v, dout, scale, stream
     "flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      *_STRIDES * 4, _F, _P),
     # q, k, v, dout, lse, dvec, dk, dv, B, S, Hq, Hkv, D,
-    # strides of q, k, v, dout, scale, stream
+    # strides of q, k, v, dout, scale, variant, stream
     "flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      *_STRIDES * 4, _F, _P),
+                      *_STRIDES * 4, _F, _I, _P),
 }
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # Page dtypes of quantized pools -> the suffix the paged kernels' entries
@@ -79,6 +80,35 @@ _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _PAGE_SUFFIX = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 # Most query rows (S * group) one verify block takes.
 MAX_VERIFY_ROWS = 32
+
+
+class FlashVariant(NamedTuple):
+    """One of the two hand-written designs of ``flash_fwd`` and
+    ``flash_bwd_dkv``: the code the C entries take as ``variant``, and the
+    forward's key-tile width, which the plain forward must be given to
+    repeat the kernel's arithmetic (p is rounded against the running max
+    of its key tile)."""
+    code: int
+    block_k: int
+
+
+# "tensor_core": wgmma on 128-byte-swizzled bf16 tiles, key tiles of 128.
+# "cuda_core": f32 FMAs on the CUDA cores, key tiles of 64 -- every f32
+# operand (the tensor cores have no full-f32 product) and bf16 at head
+# widths the first is not instantiated for.
+FLASH_VARIANTS = {"tensor_core": FlashVariant(code=1, block_k=128),
+                  "cuda_core": FlashVariant(code=0, block_k=64)}
+# The (dtype, head_dim) pairs that go to the tensor cores; everything else
+# the kernels take goes to the CUDA cores. The choice is by shape alone:
+# nothing is tried and retried.
+FLASH_TENSOR_CORE = frozenset({(torch.bfloat16, 64), (torch.bfloat16, 128)})
+
+
+def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Name (key of :data:`FLASH_VARIANTS`) of the design that
+    ``flash_fwd`` and ``flash_bwd_dkv`` run for this dtype and head width."""
+    return ("tensor_core" if (dtype, head_dim) in FLASH_TENSOR_CORE
+            else "cuda_core")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -395,14 +425,16 @@ def _strides(*ts: torch.Tensor):
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_fwd.cu`` on the current stream: (out
-    [B, S, Hq, D] in q's dtype, lse [B, Hq, S] f32)."""
+    """Launch ``csrc/flash_fwd.cu`` on the current stream, the design
+    :func:`flash_variant` names for (dtype, D): (out [B, S, Hq, D] in q's
+    dtype, lse [B, Hq, S] f32)."""
     b, s, hq, hkv, d = _check_flash("flash_fwd", q, k, v)
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     rc = _entry("flash_fwd", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, s, hq, hkv, d, *_strides(q, k, v), d ** -0.5,
+        FLASH_VARIANTS[flash_variant(q.dtype, d)].code,
         torch.cuda.current_stream(q.device).cuda_stream)
     _check(rc, "flash_fwd")
     return out, lse
@@ -430,8 +462,9 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   dout: torch.Tensor, lse: torch.Tensor, dvec: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_bwd_dkv.cu`` on the current stream: (dk, dv),
-    each [B, S, Hkv, D] in k's dtype, summed over each KV head's group."""
+    """Launch ``csrc/flash_bwd_dkv.cu`` on the current stream, the design
+    :func:`flash_variant` names for (dtype, D): (dk, dv), each
+    [B, S, Hkv, D] in k's dtype, summed over each KV head's group."""
     b, s, hq, hkv, d = _check_flash("flash_bwd_dkv", q, k, v, dout)
     _require(dout.shape == q.shape, "flash_bwd_dkv: dout must match q")
     for t in (lse, dvec):
@@ -442,6 +475,7 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, s, hq, hkv, d, *_strides(q, k, v, dout), d ** -0.5,
+        FLASH_VARIANTS[flash_variant(q.dtype, d)].code,
         torch.cuda.current_stream(q.device).cuda_stream)
     _check(rc, "flash_bwd_dkv")
     return dk, dv

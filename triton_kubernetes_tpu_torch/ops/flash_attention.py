@@ -30,8 +30,10 @@ before ``ds @ K`` and ``ds^T @ Q``; ``p`` rounded before ``p^T @ dO``; dK
 and dV summed over the query heads of a group in f32. The forward's ``p``
 depends on the running max at each key tile, so the plain forward takes
 the tile width: the JAX block rule :func:`_pick_block` on the CPU path (so
-the CPU tests match the JAX kernel's tiles), :data:`KERNEL_BLOCK_K` when
-compared with the CUDA kernel.
+the CPU tests match the JAX kernel's tiles), :func:`kernel_block_k` when
+compared with the CUDA kernel. ``flash_fwd`` and ``flash_bwd_dkv`` each
+have two designs, tensor cores (bf16 at D 64 or 128, key tiles of 128) and
+CUDA cores (key tiles of 64), chosen by ``_kernels.flash_variant``.
 """
 
 from __future__ import annotations
@@ -47,11 +49,18 @@ from .attention import NEG_INF
 # carry over; these only fix the plain version's tile on the CPU path).
 DEFAULT_BLOCK_Q = 1024
 DEFAULT_BLOCK_K = 1024
-# Keys per tile in csrc/flash_fwd.cu: the plain version's block_k when it
-# is compared with the kernel.
-KERNEL_BLOCK_K = 64
+# Keys per tile in csrc/flash_fwd.cu, by design: the plain version's
+# block_k when it is compared with the kernel.
+KERNEL_BLOCK_K = {name: variant.block_k
+                  for name, variant in _kernels.FLASH_VARIANTS.items()}
 
 _KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def kernel_block_k(dtype: torch.dtype, head_dim: int) -> int:
+    """Key-tile width of the forward kernel that runs for this dtype and
+    head width."""
+    return KERNEL_BLOCK_K[_kernels.flash_variant(dtype, head_dim)]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -201,12 +210,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = dict.fromkeys(_KERNEL_NAMES, 0)
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          block_k: int = KERNEL_BLOCK_K) -> torch.Tensor:
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                          ) -> torch.Tensor:
     """The plain versions behind the same autograd Function, on any
-    device. For comparisons with the kernels (``chip_smoke.py``); the
-    model never calls it."""
-    return _FlashAttention.apply(q, k, v, block_k, True)
+    device, at the key tile of the kernel that would run for q. For
+    comparisons with the kernels (``chip_smoke.py``); the model never
+    calls it."""
+    return _FlashAttention.apply(
+        q, k, v, kernel_block_k(q.dtype, q.shape[-1]), True)
 
 
 def reset_launch_counts() -> None:
