@@ -10,25 +10,47 @@ order; any failure raises and the script exits non-zero without printing a
 result:
 
 1. card   -- requires CUDA; prints ``nvidia-smi``'s name and power limit;
-2. build  -- compiles the six kernel sources of ``csrc/`` (paged decode,
-   verify and prefill, each for bf16/f32 queries over bf16/f32, int8 and
-   fp8 pages; flash forward, dQ and dK/dV) with ``nvcc`` for ``sm_90a``,
-   all at once, and prints the seconds and what ``ptxas`` reports;
+2. build  -- compiles the eight kernel sources of ``csrc/`` (paged
+   decode, verify and prefill, each for bf16/f32 queries over bf16/f32,
+   int8 and fp8 pages; flash forward, dQ and dK/dV; the row-invariant
+   decode GEMM and RMSNorm) with ``nvcc`` for ``sm_90a``, all at once, and
+   prints the seconds and what ``ptxas`` reports;
 3. kernels -- each kernel against its plain PyTorch version at Llama-3-8B
    shapes (Hq 32, Hkv 8, D 128, bf16 queries; paged: bs 16, 128 pages per
    sequence, on bf16, int8 and fp8 pages; verify at B 8, S 4; flash:
    (B, S) = (4, 2048), (1, 1000), (1, 1280), (1, 4096), plus one case
-   for each other design of the forward and dK/dV kernels -- tensor cores
-   at D 64, CUDA cores at D 96), with its time, the plain version's, one
-   ``scaled_dot_product_attention`` call's as a yardstick (the port never
-   calls it), the card's bound for the same work, the share of it reached
-   and the TFLOP/s achieved; and every verify row ``torch.equal`` to the
-   decode kernel at that row's length, on every page kind;
-4. serve  -- ``ServeEngine`` on ``llama3-8b`` at full width and depth
-   (random bf16 weights from a seed), chunked prefill with the prefix
-   cache, 8 requests; checks completions, pool drain, prefix hits and that
-   both kernels' launch counters rose by exactly (windows x layers) and
-   (decode ticks x layers); prints TTFT, TPOT, tokens/s and tick times;
+   for each other design of the three flash kernels -- tensor cores at D
+   64, CUDA cores at D 96; each flash kernel, dQ included, runs its
+   tensor-core design at the 8B heads), with its time, the plain
+   version's, one ``scaled_dot_product_attention`` call's as a yardstick
+   (the port never calls it), the card's bound for the same work, the
+   share of it reached and the TFLOP/s achieved; and every verify row
+   ``torch.equal`` to the decode kernel at that row's length, on every
+   page kind. The decode GEMM at each of the 8B model's product shapes
+   (K x N: 4096 x 4096, 4096 x 1024, 4096 x 14336, 14336 x 4096, and the
+   lm head 4096 x 128256 in f32) and the RMSNorm at D 4096, at M 8 (a
+   decode tick) and 32 (a verify tick): against ``torch.mm`` (the plain
+   version, also the library yardstick) and the plain norm (yardstick:
+   ``torch.nn.functional.rms_norm``), rows at M 1, 8 and 32
+   ``torch.equal`` to the kernel's rows at M 64, times beside the
+   weight-bytes bound; the plain torch ops' rows at every M of 1-64
+   against their own at M 64, reported;
+4. serve  -- ``llama3-8b`` at full width and depth (random bf16 weights
+   from a seed). First the F1 probe: one verify tick's layer input
+   [8, 4, 4096] through each row op of layer 0 and of the head (the norms,
+   wq/wk/wv, wo, w3/w1/w2, the f32 lm head), once on its 32 rows and once
+   on each of its four 8-row slices, by the plain torch ops and by the
+   row-invariant kernels; prints which are bitwise row for row and
+   asserts the kernels' are. Then the direct check: 8 prefilled
+   sequences, one ``paged_verify_step`` of 4 tokens each against four
+   ``paged_decode_step`` s fed the same tokens; every logits row and the
+   two pools after must be ``torch.equal``. Then ``ServeEngine``,
+   chunked prefill with the prefix cache, 8 requests; checks
+   completions, pool drain, prefix hits and that the paged kernels'
+   launch counters rose by exactly (windows x layers) and (decode ticks x
+   layers), the decode GEMM's by ticks x (7 x layers + 1) and the norm's
+   by ticks x (2 x layers + 1); prints TTFT, TPOT, tokens/s and tick
+   times;
    cross-checks one greedy request's first-token logits against the plain
    versions (and an engine forced onto them); profiles a few decode ticks
    (device busy time by kernel class, idle share, launches per tick).
@@ -40,8 +62,8 @@ result:
    8-bit pools and every kernel's launches = (ticks that ran it x layers),
    and prints TTFT, TPOT, tokens/s, accept rate, tokens per sequence per
    verify, quant error, pool bytes against bf16's and how many tokens
-   equal the spec-off run of its pool kind (not asserted: the verify's
-   [B*S]-row products may round differently from decode's [B]-row ones).
+   equal the spec-off run of its pool kind -- asserted: all of them,
+   since a verify row is bitwise the decode row (fault F1 of ROADMAP.md).
    The 8-bit kernels' first-token logits are held to their plain versions
    on the same pool kind. A rewind probe per bf16 and int8 pool verifies
    junk drafts on one prefilled sequence, rewinds all but the first, and
@@ -464,6 +486,307 @@ def kernel_phase(pa, device, flush, peaks):
     return records
 
 
+# The decode tick's weight products of Llama-3-8B, (name, K, N, out dtype):
+# one of each shape a layer (wq and wo share 4096 x 4096, wk and wv
+# 4096 x 1024, w1 and w3 4096 x 14336), and the lm head once a tick.
+GEMM_SHAPES = [("wq/wo", 4096, 4096, torch.bfloat16),
+               ("wk/wv", 4096, 1024, torch.bfloat16),
+               ("w1/w3", 4096, 14336, torch.bfloat16),
+               ("w2", 14336, 4096, torch.bfloat16),
+               ("lm head", 4096, 128256, torch.float32)]
+# Rows of a decode tick (max_batch) and of a verify tick (max_batch x
+# (spec_k + 1)); M 1 joins them in the row-invariance check.
+GEMM_ROWS = (8, 32)
+# Every row count a decode or verify tick can have up to one launch of
+# decode_gemm (max_batch x (spec_k + 1) <= 64): the plain torch ops are
+# held to their own 64-row result at each, and reported.
+ALL_ROWS = range(1, 65)
+
+
+def rows_differing(fn, x, ms):
+    """The row counts m in ms at which fn(x[:m]) is not bitwise fn(x)[:m]
+    (fn maps [M, ...] to [M, ...])."""
+    full = fn(x)
+    return [m for m in ms
+            if not torch.equal(fn(x[:m].contiguous()), full[:m])]
+
+
+def rows_kernel_phase(device, flush, peaks):
+    """The row-invariant decode GEMM and RMSNorm against their plain
+    versions (torch.mm and the plain rms_norm) at the 8B shapes, M 8 and
+    32; rows at M 1, 8 and 32 bitwise the rows at M 64 (the plain ops' at
+    every M of 1-64 reported); times beside the bytes bound and the
+    library call's (torch.mm, which is also the GEMM's plain version;
+    torch.nn.functional.rms_norm, which the port never calls).
+    Returns the two kernels' records (their headline numbers at M 8: a
+    decode tick's rows), the per-shape cases inside."""
+    from triton_kubernetes_tpu_torch.ops import _kernels
+    from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
+    from triton_kubernetes_tpu_torch.ops import norms
+
+    def gemm(x, w, out):  # one launch of the kernel, as the wrapper makes
+        y = torch.empty((x.shape[0], w.shape[1]), dtype=out, device=x.device)
+        _kernels.decode_gemm(x, w, y)
+        return y
+
+    bw = peaks[0]
+    gen = torch.Generator(device=device).manual_seed(99)
+    cases = []
+    for name, k, n, out in GEMM_SHAPES:
+        w = (torch.randn((k, n), generator=gen, device=device) * 0.02
+             ).to(torch.bfloat16)
+        x = torch.randn((max(ALL_ROWS), k), generator=gen, device=device
+                        ).to(torch.bfloat16)
+        bad = rows_differing(lambda t: gemm(t, w, out), x, (1, 8, 32))
+        if bad:
+            raise AssertionError(f"decode_gemm {name}: rows at M {bad} are "
+                                 f"not bitwise its rows at M 64")
+        torch_rows = rows_differing(
+            lambda t: dg.decode_gemm_plain(t, w, out), x, ALL_ROWS)
+        for m in GEMM_ROWS:
+            xm = x[:m].contiguous()
+            got = gemm(xm, w, out)
+            want = dg.decode_gemm_plain(xm, w, out)
+            torch.cuda.synchronize()
+            err = check_close(f"decode_gemm {name} M={m}", got, want)
+            kms = time_ms(lambda: gemm(xm, w, out), flush)
+            pms = time_ms(lambda: dg.decode_gemm_plain(xm, w, out), flush)
+            nbytes = (k * n + m * k) * 2 + m * n * got.element_size()
+            cases.append(dict(
+                kernel="decode_gemm", shape=name, K=k, N=n, M=m,
+                out=str(out).removeprefix("torch."), max_abs_err=err,
+                ms=kms, plain_ms=pms, library_ms=pms, bytes=nbytes,
+                flops=2 * m * k * n, bound_ms=nbytes / bw * 1e3,
+                torch_rows_differing_at=torch_rows))
+        del w, x
+    scale = (1 + 0.1 * torch.randn((4096,), generator=gen, device=device)
+             ).to(torch.bfloat16)
+    x = (3 * torch.randn((max(ALL_ROWS), 4096), generator=gen,
+                         device=device)).to(torch.bfloat16)
+    bad = rows_differing(lambda t: _kernels.rms_norm(t, scale, 1e-5), x,
+                         (1, 8, 32))
+    if bad:
+        raise AssertionError(f"rms_norm: rows at M {bad} are not bitwise its "
+                             f"rows at M 64")
+    torch_rows = rows_differing(lambda t: norms.rms_norm(t, scale, 1e-5), x,
+                                ALL_ROWS)
+    for m in GEMM_ROWS:
+        xm = x[:m].contiguous()
+        got = _kernels.rms_norm(xm, scale, 1e-5)
+        want = norms.rms_norm(xm, scale, 1e-5)
+        torch.cuda.synchronize()
+        err = check_close(f"rms_norm M={m}", got, want)
+        kms = time_ms(lambda: _kernels.rms_norm(xm, scale, 1e-5), flush)
+        pms = time_ms(lambda: norms.rms_norm(xm, scale, 1e-5), flush)
+        lms = time_ms(lambda: torch.nn.functional.rms_norm(
+            xm, (4096,), scale, 1e-5), flush)
+        nbytes = 2 * m * 4096 * 2 + 4096 * 2
+        cases.append(dict(
+            kernel="rms_norm", shape="D 4096", K=4096, N=None, M=m,
+            out="bfloat16", max_abs_err=err, ms=kms, plain_ms=pms,
+            library_ms=lms, bytes=nbytes, flops=4 * m * 4096,
+            bound_ms=nbytes / bw * 1e3, torch_rows_differing_at=torch_rows))
+    for c in cases:
+        print(f"kernel {c['kernel']} {c['shape']} M={c['M']} ({c['out']} "
+              f"out): max_abs_err={c['max_abs_err']:.6g} kernel_ms="
+              f"{c['ms']:.4f} plain_ms={c['plain_ms']:.4f} library_ms="
+              f"{c['library_ms']:.4f} bound_ms="
+              f"{c['bound_ms']:.5f} (bytes; share "
+              f"{c['bound_ms'] / c['ms']:.4f}); rows at M 1/8/32 bitwise "
+              f"to M 64: kernel yes; plain torch differs at M "
+              f"{c['torch_rows_differing_at'] or 'none'} of 1-64",
+              flush=True)
+    records = []
+    for name, source, library_call in (
+            ("decode_gemm", "decode_gemm.cu",
+             "torch.mm (out_dtype float32 for the lm head), which is also "
+             "the plain version"),
+            ("rms_norm", "rms_norm.cu", "torch.nn.functional.rms_norm")):
+        mine = [c for c in cases if c["kernel"] == name and c["M"] == 8]
+        total = {f: sum(c[f] for c in mine)
+                 for f in ("ms", "plain_ms", "library_ms", "bytes", "flops",
+                           "bound_ms")}
+        records.append(dict(
+            name=name, route="cuda",
+            source=f"triton_kubernetes_tpu_torch/csrc/{source}",
+            replaces=("none: plain XLA matmuls in the reference "
+                      "(triton_kubernetes_tpu/models/llama.py:86)"
+                      if name == "decode_gemm" else
+                      "none: a plain XLA reduction in the reference "
+                      "(triton_kubernetes_tpu/ops/norms.py:11)"),
+            variant="tensor_core (mma.sync)" if name == "decode_gemm"
+            else "cuda_core",
+            max_abs_err=max(c["max_abs_err"] for c in cases
+                            if c["kernel"] == name),
+            tolerance=f"{ATOL} + {RTOL} * |plain|",
+            ms=total["ms"], plain_ms=total["plain_ms"],
+            library_ms=total["library_ms"],
+            library_call=library_call, bound_ms=total["bound_ms"],
+            bound_by="bytes", bound_share=total["bound_ms"] / total["ms"],
+            achieved_tflops=total["flops"] / (total["ms"] * 1e-3) / 1e12,
+            bytes=total["bytes"], flops=total["flops"],
+            shape=dict(M=8, summed_over=[c["shape"] for c in mine]),
+            cases=[c for c in cases if c["kernel"] == name]))
+    return records
+
+
+def f1_probe(model, cfg):
+    """Fault F1's probe: one verify tick's layer input x [8, 4, D] (the
+    embeddings of seeded tokens) through each row op of layer 0 and the
+    head, once on the 32 rows as the verify step runs them and once on
+    each x[:, j] of 8 rows as the decode step does, by the plain torch
+    ops and by the row-invariant kernels. Returns {op: (torch bitwise,
+    kernels bitwise)}; raises unless every kernel op is."""
+    from triton_kubernetes_tpu_torch.models import llama
+    from triton_kubernetes_tpu_torch.ops import norms
+    from triton_kubernetes_tpu_torch.ops.decode_gemm import decode_gemm
+
+    b, s = SERVE_ENGINE_KW["max_batch"], SPEC_K + 1
+    gen = torch.Generator(device=SERVE_DEVICE).manual_seed(61)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=SERVE_DEVICE)
+    layer, eps = model.layers[0], cfg.norm_eps
+    head = llama.head_weights(model)
+
+    def einsum(spec, w):
+        return lambda t: torch.einsum(spec, t, w)
+
+    def kernel_product(spec, w):
+        return lambda t: llama._row_product(spec, t, w)
+
+    def norm(fn, scale):
+        return lambda t: fn(t, scale, eps)
+
+    def head_mm(t):
+        return torch.mm(t.reshape(-1, t.shape[-1]), head,
+                        out_dtype=torch.float32).reshape(*t.shape[:2], -1)
+
+    def head_kernel(t):
+        return decode_gemm(t.reshape(-1, t.shape[-1]).contiguous(), head,
+                           torch.float32).reshape(*t.shape[:2], -1)
+
+    with torch.inference_mode():
+        x = model.embed[tokens]  # [B, S, D]
+        h = norms.rms_norm(x, layer.attn_norm, eps)
+        attn = torch.randn((b, s, cfg.num_heads, cfg.head_dim),
+                           generator=gen, device=SERVE_DEVICE
+                           ).to(x.dtype)
+        h2 = norms.rms_norm(x, layer.mlp_norm, eps)
+        up = torch.einsum("bsd,df->bsf", h2, layer.w1)
+        gate = torch.nn.functional.silu(torch.einsum(
+            "bsd,df->bsf", h2, layer.w3).float()).to(x.dtype)
+        # op: (input [B, S, ...], plain torch op, kernel op)
+        ops = {
+            "rms_norm (attn_norm)": (x, norm(norms.rms_norm, layer.attn_norm),
+                                     norm(norms.rms_norm_rows,
+                                          layer.attn_norm)),
+            "wq": (h, einsum("bsd,dhk->bshk", layer.wq),
+                   kernel_product("bsd,dhk->bshk", layer.wq)),
+            "wk": (h, einsum("bsd,dhk->bshk", layer.wk),
+                   kernel_product("bsd,dhk->bshk", layer.wk)),
+            "wv": (h, einsum("bsd,dhk->bshk", layer.wv),
+                   kernel_product("bsd,dhk->bshk", layer.wv)),
+            "project_out (wo)": (attn, einsum("bshk,hkd->bsd", layer.wo),
+                                 kernel_product("bshk,hkd->bsd", layer.wo)),
+            "rms_norm (mlp_norm)": (x, norm(norms.rms_norm, layer.mlp_norm),
+                                    norm(norms.rms_norm_rows,
+                                         layer.mlp_norm)),
+            "w3": (h2, einsum("bsd,df->bsf", layer.w3),
+                   kernel_product("bsd,df->bsf", layer.w3)),
+            "w1": (h2, einsum("bsd,df->bsf", layer.w1),
+                   kernel_product("bsd,df->bsf", layer.w1)),
+            "w2": (gate * up, einsum("bsf,fd->bsd", layer.w2),
+                   kernel_product("bsf,fd->bsd", layer.w2)),
+            "final_norm_hidden": (x, norm(norms.rms_norm, model.final_norm),
+                                  norm(norms.rms_norm_rows,
+                                       model.final_norm)),
+            "unembed mm (f32 out)": (h2, head_mm, head_kernel),
+        }
+        result = {}
+        for op, (inp, plain, kernel) in ops.items():
+            same = []
+            for fn in (plain, kernel):
+                full = fn(inp)
+                same.append(all(
+                    torch.equal(fn(inp[:, j:j + 1].contiguous())[:, 0],
+                                full[:, j]) for j in range(s)))
+            result[op] = tuple(same)
+    torch.cuda.synchronize()
+    print(f"F1 probe (layer 0 and head at width {cfg.embed_dim}; verify's "
+          f"{b * s} rows vs "
+          "decode's 8 at each j, row for row torch.equal): " + "; ".join(
+              f"{op}: torch {'yes' if t else 'NO'}, kernel "
+              f"{'yes' if k else 'NO'}" for op, (t, k) in result.items()),
+          flush=True)
+    bad = [op for op, (_, k) in result.items() if not k]
+    if bad:
+        raise AssertionError(f"F1 probe: the row-invariant kernels give "
+                             f"verify rows other bits than decode rows in "
+                             f"{bad}")
+    return {op: dict(torch_bitwise=t, kernel_bitwise=k)
+            for op, (t, k) in result.items()}
+
+
+def verify_rows_check(model, cfg, paged):
+    """Each verify logits row (b, j) against the decode logits at that
+    length, at the serve configuration (max_batch 8 sequences, spec_k 3):
+    8 seeded prompts prefilled into one pool, one paged_verify_step on a
+    copy of it and four paged_decode_steps on another, fed the same
+    tokens. Raises unless every row, and the two pools after, are
+    bitwise equal."""
+    rng = np.random.default_rng(5)
+    dev = SERVE_DEVICE
+    b, s = SERVE_ENGINE_KW["max_batch"], SPEC_K + 1
+    per = 512 // BS  # pages a sequence: two prefill windows
+    cache = paged.init_paged_cache(cfg, 1 + b * per, BS, device=dev)
+    tables = (torch.arange(b * per, dtype=torch.int32, device=dev)
+              .reshape(b, per) + 1)
+    lengths, tokens = [], []
+    with torch.inference_mode():
+        for i in range(b):
+            n = int(rng.integers(100, 512 - s))
+            prompt = rng.integers(0, cfg.vocab_size, n).tolist()
+            for off in range(0, n, PREFILL_CHUNK):
+                clen = min(PREFILL_CHUNK, n - off)
+                toks = prompt[off:off + clen] + [0] * (PREFILL_CHUNK - clen)
+                logits = paged.paged_prefill_chunk(
+                    model, torch.tensor([toks], dtype=torch.int32,
+                                        device=dev),
+                    off, clen, cfg, cache, tables[i])
+            lengths.append(n)
+            tokens.append([int(logits.argmax())] + rng.integers(
+                0, cfg.vocab_size, s - 1).tolist())
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        tok = torch.tensor(tokens, dtype=torch.int32, device=dev)
+        vcache = paged.PagedKVCache(cache.k.clone(), cache.v.clone())
+        dcache = paged.PagedKVCache(cache.k, cache.v)
+        verify, _ = paged.paged_verify_step(model, tok, cfg, vcache, tables,
+                                            lens)
+        decode = [paged.paged_decode_step(model, tok[:, j].contiguous(), cfg,
+                                          dcache, tables, lens + j)
+                  for j in range(s)]
+    torch.cuda.synchronize()
+    equal = [[bool(torch.equal(verify[i, j], decode[j][i])) for j in
+              range(s)] for i in range(b)]
+    pools = (torch.equal(vcache.k, dcache.k)
+             and torch.equal(vcache.v, dcache.v))
+    worst = max(float((verify[:, j] - decode[j]).abs().max())
+                for j in range(s))
+    print(f"verify rows vs decode ({cfg.num_layers} layers, width "
+          f"{cfg.embed_dim}, B {b}, S {s}, "
+          f"lengths {lengths}): {sum(map(sum, equal))}/{b * s} logits rows "
+          f"torch.equal (max abs diff {worst}), pools after "
+          f"{'bitwise equal' if pools else 'DIFFERENT'}", flush=True)
+    if not all(map(all, equal)) or not pools:
+        raise AssertionError(f"verify rows vs decode: rows equal {equal}, "
+                             f"pools equal {pools}: a verify row must be "
+                             f"bitwise the decode row at its length")
+    del cache, vcache, dcache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(lengths=lengths, rows_equal=b * s, pools_equal=pools)
+
+
 def make_requests(cfg, Request):
     """8 requests, prompts of 200-1000 tokens from a seeded RNG; r0-r3
     share a 512-token prefix; r5 is sampled, the rest greedy."""
@@ -511,6 +834,27 @@ def first_token_logits(model, cfg, prompt, impl, paged, kv_dtype="auto"):
     return prefill_fresh(model, cfg, prompt, impl, paged, kv_dtype)[0]
 
 
+def reset_row_counts():
+    from triton_kubernetes_tpu_torch.ops import decode_gemm, norms
+    decode_gemm.reset_launch_counts()
+    norms.reset_launch_counts()
+
+
+def row_counts():
+    """Launches of the row-invariant kernels since reset_row_counts."""
+    from triton_kubernetes_tpu_torch.ops import decode_gemm, norms
+    return {"decode_gemm": decode_gemm.decode_gemm.launches,
+            "rms_norm": norms.rms_norm_rows.launches}
+
+
+def row_counts_wanted(ticks, cfg):
+    """What ``ticks`` decode or verify ticks launch at <= 64 rows: seven
+    weight products and two norms a layer, the final norm and the lm
+    head."""
+    return {"decode_gemm": ticks * (7 * cfg.num_layers + 1),
+            "rms_norm": ticks * (2 * cfg.num_layers + 1)}
+
+
 def profile_decode(engine, cfg, Request, ticks=4):
     """Where a decode tick's time goes: 8 sequences of 600-token prompts
     decoding, ``ticks`` decode-only ticks under torch.profiler. Returns
@@ -545,7 +889,8 @@ def profile_decode(engine, cfg, Request, ticks=4):
     events = prof.events()
     launches = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
                               "cuLaunchKernelEx") for e in events)
-    by_class = {"paged_decode kernel": 0.0, "GEMM (cuBLAS)": 0.0,
+    by_class = {"paged_decode kernel": 0.0, "decode_gemm kernel": 0.0,
+                "rms_norm kernel": 0.0, "GEMM (cuBLAS)": 0.0,
                 "other kernels": 0.0}
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -553,6 +898,10 @@ def profile_decode(engine, cfg, Request, ticks=4):
         us = e.time_range.elapsed_us()
         if "paged_decode_kernel" in e.name:
             by_class["paged_decode kernel"] += us
+        elif "decode_gemm_kernel" in e.name:
+            by_class["decode_gemm kernel"] += us
+        elif "rms_norm_kernel" in e.name:
+            by_class["rms_norm kernel"] += us
         elif e.name.startswith(("nvjet", "sm90_xmma", "cutlass")) \
                 or "gemm" in e.name.lower():
             by_class["GEMM (cuBLAS)"] += us
@@ -580,6 +929,8 @@ def serve_phase(card):
     print(f"serve: llama3-8b {cfg.num_layers} layers, width {cfg.embed_dim},"
           f" vocab {cfg.vocab_size}: {cfg.num_params() / 1e9:.3f}B bf16 "
           f"params initialised in {time.perf_counter() - t0:.1f} s", flush=True)
+    probe_ops = f1_probe(model, cfg)
+    rows_check = verify_rows_check(model, cfg, paged)
     engine_kw = SERVE_ENGINE_KW
     engine = ServeEngine(model, cfg, **engine_kw)
 
@@ -592,6 +943,7 @@ def serve_phase(card):
     requests = make_requests(cfg, Request)
     arrivals = {0: [0, 4, 5], 5: [1, 2, 3], 6: [6, 7]}
 
+    reset_row_counts()
     pa.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -617,7 +969,8 @@ def serve_phase(card):
             raise AssertionError("engine did not drain")
     wall = time.perf_counter() - t0
     launches = {"paged_decode": pa.ragged_paged_attention.launches,
-                "paged_prefill": pa.paged_prefill_attention.launches}
+                "paged_prefill": pa.paged_prefill_attention.launches,
+                **row_counts()}
     stats = engine.stats()
     windows = stats["prefill_windows"] - base["prefill_windows"]
     ticks = stats["decode_steps"] - base["decode_steps"]
@@ -636,7 +989,8 @@ def serve_phase(card):
     if engine.allocator.in_use != 0:
         raise AssertionError(f"{engine.allocator.in_use} pages leaked")
     want = {"paged_prefill": windows * cfg.num_layers,
-            "paged_decode": ticks * cfg.num_layers}
+            "paged_decode": ticks * cfg.num_layers,
+            **row_counts_wanted(ticks, cfg)}
     if launches != want or not all(launches.values()):
         raise AssertionError(f"launch counts {launches} != expected {want}")
 
@@ -722,6 +1076,7 @@ def serve_phase(card):
               for kind in ("bf16", "int8")]
     peak = torch.cuda.max_memory_allocated()
     return launches, dict(
+        f1_probe=probe_ops, verify_rows_vs_decode=rows_check,
         spec_quant_runs=runs, rewind_probes=probes,
         requests=len(requests), prompt_tokens=prompt_tokens,
         prefix_hit_tokens=hits, prefill_windows=windows, decode_ticks=ticks,
@@ -769,6 +1124,7 @@ def serve_run(model, cfg, kind, spec_k, requests, arrivals):
     metrics.configure()
     base = engine.stats()
     pa.reset_launch_counts()
+    reset_row_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done, tick, per_verify = {}, 0, []
@@ -788,7 +1144,8 @@ def serve_run(model, cfg, kind, spec_k, requests, arrivals):
     wall = time.perf_counter() - t0
     launches = {"paged_decode": pa.ragged_paged_attention.launches,
                 "paged_verify": pa.ragged_verify_attention.launches,
-                "paged_prefill": pa.paged_prefill_attention.launches}
+                "paged_prefill": pa.paged_prefill_attention.launches,
+                **row_counts()}
     stats = engine.stats()
     counts = {k: stats[k] - base[k] for k in
               ("prefill_windows", "decode_steps", "verify_steps")}
@@ -807,7 +1164,9 @@ def serve_run(model, cfg, kind, spec_k, requests, arrivals):
                              f"leaked")
     want = {"paged_prefill": counts["prefill_windows"] * cfg.num_layers,
             "paged_decode": counts["decode_steps"] * cfg.num_layers,
-            "paged_verify": counts["verify_steps"] * cfg.num_layers}
+            "paged_verify": counts["verify_steps"] * cfg.num_layers,
+            **row_counts_wanted(counts["decode_steps"]
+                                + counts["verify_steps"], cfg)}
     if launches != want:
         raise AssertionError(f"{tag}: launch counts {launches} != "
                              f"expected {want}")
@@ -843,10 +1202,12 @@ def serve_run(model, cfg, kind, spec_k, requests, arrivals):
 def spec_quant_phase(model, cfg, card, requests):
     """The serve runs of this slice: bf16, int8 and fp8 pools, each with
     spec_k 0 and 3, on the 8 requests plus 4 repetitive ones. Prints each
-    run's numbers, its tokens against the spec-off run of its pool kind
-    (reported, not asserted: the verify's [B*S]-row GEMMs may round
-    differently from decode's [B]-row ones), and checks the 8-bit kernels'
-    first-token logits against the plain versions on the same pool kind."""
+    run's numbers, its tokens against the spec-off run of its pool kind,
+    and checks the 8-bit kernels'
+    first-token logits against the plain versions on the same pool kind.
+    Every token of a spec_k 3 run must equal its spec-off run's: verify
+    rows are bitwise decode rows, so speculation changes no greedy token
+    (the sampled request draws with the same (seed, position) keys)."""
     from triton_kubernetes_tpu_torch.models import paged
     from triton_kubernetes_tpu_torch.serve import Request
 
@@ -872,6 +1233,11 @@ def spec_quant_phase(model, cfg, card, requests):
                          f"{run['generated_tokens']} tokens equal to "
                          f"spec_k=0 on {kind} pages, first differences "
                          f"{run['first_differences_from_spec_off']}")
+                if run["tokens_equal_to_spec_off"] != run["generated_tokens"]:
+                    raise AssertionError(
+                        f"{kind} spec_k={spec_k}: greedy tokens must equal "
+                        f"the spec_k=0 run's (the reference's pin)"
+                        + agree)
             rate = run["accept_rate"]
             tpv = run["tokens_per_seq_per_verify"]
             print(f"serve[{kind} pages, spec_k={spec_k}]: {len(reqs)} "
@@ -1085,9 +1451,7 @@ def flash_kernel_phase(device, flush, peaks):
         "flash_bwd_dkv": (8 * D * pairs, io * (2 * HQ + 4 * HKV) + 2 * rows),
     }
     lines = {"flash_fwd": 75, "flash_bwd_dq": 196, "flash_bwd_dkv": 230}
-    # flash_bwd_dq has one design, the CUDA cores'.
-    design = {"flash_fwd": variant, "flash_bwd_dq": "cuda_core",
-              "flash_bwd_dkv": variant}
+    design = dict.fromkeys(work, variant)
     records = []
     for name, (flops, nbytes) in work.items():
         kms, pms = timed[name]
@@ -1372,6 +1736,7 @@ def main() -> int:
         return 0
     records = kernel_phase(pa, device, flush, peaks)
     records += flash_kernel_phase(device, flush, peaks)
+    records += rows_kernel_phase(device, flush, peaks)
     del flush
 
     # Phase 4: serve.
@@ -1401,6 +1766,15 @@ def main() -> int:
             c = count.setdefault(k + suffix, [0, 0])
             c[0] += run["launches"][k]
             c[1] += run[field]
+    # The row-invariant kernels, on every serve run: a decode or verify
+    # tick is their unit.
+    for k in ("decode_gemm", "rms_norm"):
+        ticks[k] = (None, "decode or verify tick")
+        count[k] = [launches[k] + sum(run["launches"][k] for run in
+                                      serve["spec_quant_runs"]),
+                    serve["decode_ticks"] + sum(
+                        run["decode_steps"] + run["verify_steps"]
+                        for run in serve["spec_quant_runs"])]
     count.update({k: [n, TRAIN_STEPS] for k, n in train_launches.items()})
     for r in records:
         n, per = count[r["name"]]

@@ -10,7 +10,10 @@ neither JAX nor the JAX package, so they run on the card's machine with
 what ``chip_smoke.py``'s Llama-3-8B shapes do not: other group sizes, head
 dims, block sizes, f32 pools, a window that is not page aligned in its
 last rows, quantized (int8/fp8) pools, the verify kernel's rows against the
-decode kernel bit for bit, and the wrappers' refusals.
+decode kernel bit for bit, the dQ kernel's tensor-core design at ragged
+sequences, the row-invariant decode GEMM and RMSNorm (rows at M 1, 8 and
+32 bitwise, at the 8B widths), a small model's verify logits rows against
+its decode rows, and the wrappers' refusals.
 """
 
 import pytest
@@ -297,11 +300,13 @@ def test_flash_variant_reaches_the_c_entry(device, monkeypatch, dtype, d,
 
     monkeypatch.setattr(_kernels, "_entry", spy)
     out, lse = _kernels.flash_fwd(q, k, v)
+    _kernels.flash_bwd_dq(q, k, v, do, lse, torch.zeros_like(lse))
     _kernels.flash_bwd_dkv(q, k, v, do, lse, torch.zeros_like(lse))
     torch.cuda.synchronize()
     code = _kernels.FLASH_VARIANTS[name].code
     assert _kernels.flash_variant(dtype, d) == name
-    assert seen == [("flash_fwd", code), ("flash_bwd_dkv", code)]
+    assert seen == [("flash_fwd", code), ("flash_bwd_dq", code),
+                    ("flash_bwd_dkv", code)]
     if name == "cuda_core":  # no tensor-core kernel for these: refused
         args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr(), 1, 70, 4, 2, d, *_kernels._strides(q, k, v),
@@ -386,3 +391,210 @@ def test_flash_takes_any_stride_on_size_one_dims(device):
     torch.cuda.synchronize()
     torch.testing.assert_close(dq.float(), want.float(),
                                **_tol(torch.bfloat16))
+
+
+# ---- the row-invariant decode GEMM and RMSNorm, and dQ's tensor cores
+
+# Llama-3-8B's decode products (K, N, out dtype): wq/wo, wk/wv, w1/w3, w2,
+# and the lm head in f32.
+GEMM_8B = [(4096, 4096, torch.bfloat16), (4096, 1024, torch.bfloat16),
+           (4096, 14336, torch.bfloat16), (14336, 4096, torch.bfloat16),
+           (4096, 128256, torch.float32)]
+
+
+@pytest.mark.parametrize("k,n,out", GEMM_8B)
+def test_decode_gemm_rows_are_bitwise_and_match_plain(device, k, n, out):
+    """Rows at every M of 1-63 are torch.equal to the rows at M 64 (so a
+    decode tick's rows are a verify tick's for any max_batch and spec_k
+    within one launch), and the kernel is within one bf16 ulp of
+    torch.mm at M 8 and 32."""
+    from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
+
+    gen = torch.Generator(device=device).manual_seed(k + n)
+    w = (torch.randn((k, n), generator=gen, device=device) * 0.02
+         ).to(torch.bfloat16)
+    x = torch.randn((64, k), generator=gen, device=device).to(torch.bfloat16)
+    dg.reset_launch_counts()
+    full = dg.decode_gemm(x, w, out)
+    assert dg.decode_gemm.launches == 1
+    for m in range(1, 64):
+        assert torch.equal(dg.decode_gemm(x[:m].contiguous(), w, out),
+                           full[:m]), m
+    for m in (8, 32):
+        want = dg.decode_gemm_plain(x[:m].contiguous(), w, out)
+        torch.testing.assert_close(full[:m].float(), want.float(),
+                                   **_tol(torch.bfloat16))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k,n", [(k, n) for k, n, _ in GEMM_8B])
+def test_decode_gemm_f32_rows_are_bitwise_and_within_the_sum_bound(device, k,
+                                                                   n):
+    """f32 operands (a model served in f32), at the 8B shapes: rows at
+    every M of 1-63 are torch.equal to the rows at M 64, and each output is
+    within the bound any order of an f32 sum of K products obeys,
+    |y - exact| <= K 2^-24 sum_k |x_k w_k| (exact: the f64 product)."""
+    from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
+
+    gen = torch.Generator(device=device).manual_seed(k + n + 1)
+    w = torch.randn((k, n), generator=gen, device=device) * 0.02
+    x = torch.randn((64, k), generator=gen, device=device)
+    dg.reset_launch_counts()
+    full = dg.decode_gemm(x, w)
+    assert full.dtype == torch.float32 and dg.decode_gemm.launches == 1
+    for m in range(1, 64):
+        assert torch.equal(dg.decode_gemm(x[:m].contiguous(), w), full[:m]), m
+    exact = x.double() @ w.double()
+    bound = 1.01 * k * 2.0 ** -24 * (x.double().abs() @ w.double().abs())
+    assert bool(((full.double() - exact).abs() <= bound).all())
+    torch.cuda.synchronize()
+
+
+def test_decode_gemm_runs_more_than_64_rows_in_launches_of_64(device):
+    from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
+
+    gen = torch.Generator(device=device).manual_seed(70)
+    w = torch.randn((136, 200), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    x = torch.randn((70, 136), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    dg.reset_launch_counts()
+    full = dg.decode_gemm(x, w)
+    assert dg.decode_gemm.launches == 2
+    assert torch.equal(dg.decode_gemm(x[64:].contiguous(), w), full[64:])
+    assert torch.equal(dg.decode_gemm(x[:5].contiguous(), w), full[:5])
+    torch.testing.assert_close(full.float(), (x.float() @ w.float()),
+                               **_tol(torch.bfloat16))
+
+
+def test_row_wrappers_count_only_their_launches(device):
+    """The counters rise by the launches made: none for zero rows, one a
+    64 rows of the GEMM."""
+    from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
+    from triton_kubernetes_tpu_torch.ops import norms
+
+    x = torch.ones((130, 64), dtype=torch.bfloat16, device=device)
+    w = torch.ones((64, 32), dtype=torch.bfloat16, device=device)
+    scale = torch.ones(64, dtype=torch.bfloat16, device=device)
+    dg.reset_launch_counts()
+    norms.reset_launch_counts()
+    assert dg.decode_gemm(x[:0], w).shape == (0, 32)
+    assert norms.rms_norm_rows(x[:0], scale, 1e-5).shape == (0, 64)
+    assert dg.decode_gemm.launches == norms.rms_norm_rows.launches == 0
+    assert torch.equal(dg.decode_gemm(x, w), torch.full(
+        (130, 32), 64.0, dtype=torch.bfloat16, device=device))
+    assert dg.decode_gemm.launches == 3
+    norms.rms_norm_rows(x, scale, 1e-5)
+    assert norms.rms_norm_rows.launches == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [4096, 64, 136])
+def test_rms_norm_kernel_rows_are_bitwise_and_match_plain(device, dtype, d):
+    from triton_kubernetes_tpu_torch.ops import norms
+
+    gen = torch.Generator(device=device).manual_seed(d)
+    x = (3 * torch.randn((32, d), generator=gen, device=device)).to(dtype)
+    scale = (1 + 0.1 * torch.randn((d,), generator=gen, device=device)
+             ).to(dtype)
+    norms.reset_launch_counts()
+    full = norms.rms_norm_rows(x, scale, 1e-5)
+    assert norms.rms_norm_rows.launches == 1
+    for m in (1, 8):
+        assert torch.equal(norms.rms_norm_rows(x[:m], scale, 1e-5),
+                           full[:m])
+    torch.testing.assert_close(full.float(),
+                               norms.rms_norm(x, scale, 1e-5).float(),
+                               **_tol(dtype))
+
+
+def test_row_kernels_refuse_what_they_do_not_take(device):
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device=device)
+    w = torch.zeros((64, 32), dtype=torch.bfloat16, device=device)
+    y = torch.empty((4, 32), dtype=torch.bfloat16, device=device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        _kernels.decode_gemm(x.float(), w, y)
+    with pytest.raises(ValueError, match="float32"):
+        _kernels.decode_gemm(x.float(), w.float(), y)  # f32 in, bf16 out
+    with pytest.raises(ValueError, match="multiples of 8"):
+        _kernels.decode_gemm(x[:, :60].contiguous(), w[:60], y)
+    with pytest.raises(ValueError, match="contiguous"):
+        _kernels.decode_gemm(x, w.T.contiguous().T, y)
+    with pytest.raises(ValueError, match="1-64"):
+        _kernels.decode_gemm(x.repeat(17, 1), w,
+                             y.repeat(17, 1))  # 68 rows: the wrapper's job
+    with pytest.raises(ValueError, match="a row"):
+        _kernels.rms_norm(x[:0], torch.ones(64, dtype=torch.bfloat16,
+                                            device=device), 1e-5)
+    with pytest.raises(ValueError, match="share a dtype"):
+        _kernels.rms_norm(x, torch.ones(64, device=device), 1e-5)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        _kernels.rms_norm(x[:, :60].contiguous(),
+                          torch.ones(60, dtype=torch.bfloat16,
+                                     device=device), 1e-5)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d", [
+    (1, 333, 16, 4, 128),  # group 4, odd S, a ragged 64-key tile
+    (2, 131, 8, 2, 64),    # group 4 at D 64, three past a 128 boundary
+    (1, 63, 4, 1, 128),    # below one key tile, group 4
+    (1, 257, 8, 2, 64),    # one past two query tiles
+    (2, 1, 4, 4, 128),     # one query
+])
+def test_flash_dq_tensor_cores_match_plain(device, b, s, hq, hkv, d):
+    from triton_kubernetes_tpu_torch.ops import flash_attention as fa
+
+    assert _kernels.flash_variant(torch.bfloat16, d) == "tensor_core"
+    gen = torch.Generator(device=device).manual_seed(s + d)
+    q, k, v, do = _flash_inputs(gen, b, s, hq, hkv, d, torch.bfloat16,
+                                device)
+    out, lse = _kernels.flash_fwd(q, k, v)
+    dvec = fa._row_dot(do, out)
+    dq = _kernels.flash_bwd_dq(q, k, v, do, lse, dvec)
+    want = fa._flash_backward_plain(q, k, v, do, lse, dvec)[0]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dq.float(), want.float(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_small_model_verify_rows_are_decode_rows(device, dtype):
+    """At llama-test widths on the card, in bf16 and in f32: each verify
+    logits row (b, j) is torch.equal to the decode logits at length
+    lengths[b] + j, and the two pools end bitwise equal -- through the
+    paged kernels and the row-invariant GEMM and norm."""
+    from triton_kubernetes_tpu_torch.models import (
+        get_config, init_params, paged)
+    from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
+    from triton_kubernetes_tpu_torch.ops import norms
+
+    cfg = get_config("llama-test", dtype=dtype)
+    model = init_params(cfg, seed=2, device=device)
+    bs, per, b, s = 4, 6, 3, 3
+    cache = paged.init_paged_cache(cfg, 1 + b * per, bs, device=device)
+    tables = (torch.arange(b * per, dtype=torch.int32, device=device)
+              .reshape(b, per) + 1)
+    gen = torch.Generator(device=device).manual_seed(6)
+    lengths = [5, 9, 14]
+    with torch.inference_mode():
+        for i, n in enumerate(lengths):
+            width = -(-n // bs) * bs
+            toks = torch.randint(0, cfg.vocab_size, (1, width),
+                                 generator=gen, device=device)
+            paged.paged_prefill(model, toks.to(torch.int32), n, cfg, cache,
+                                tables[i, :width // bs])
+        tok = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                            device=device).to(torch.int32)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+        vcache = paged.PagedKVCache(cache.k.clone(), cache.v.clone())
+        dg.reset_launch_counts()
+        norms.reset_launch_counts()
+        verify, _ = paged.paged_verify_step(model, tok, cfg, vcache, tables,
+                                            lens)
+        assert dg.decode_gemm.launches == 7 * cfg.num_layers + 1
+        assert norms.rms_norm_rows.launches == 2 * cfg.num_layers + 1
+        for j in range(s):
+            row = paged.paged_decode_step(model, tok[:, j].contiguous(), cfg,
+                                          cache, tables, lens + j)
+            assert torch.equal(verify[:, j], row), j
+    assert torch.equal(vcache.k, cache.k) and torch.equal(vcache.v, cache.v)

@@ -1,0 +1,233 @@
+"""The row-invariant ops of the port's decode and verify steps, on the CPU.
+
+``paged_decode_step`` and ``paged_verify_step`` take their norms and
+weight products through ``ops.norms.rms_norm_rows`` and
+``ops.decode_gemm.decode_gemm``, whose CUDA kernels give a row the same
+bits whatever the row count (tests/test_torch_cuda.py checks them on the
+card). On CPU tensors both run their plain versions, which must be exactly
+the ops the model runs everywhere else, and agree with the JAX package's
+on the same seeded numpy inputs. The flash dQ kernel's design table is
+pinned here too.
+"""
+
+import inspect
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from triton_kubernetes_tpu.models import get_config as jget_config
+from triton_kubernetes_tpu.models import llama as jllama
+from triton_kubernetes_tpu.ops import norms as jnorms
+from triton_kubernetes_tpu_torch.models import get_config, init_params, paged
+from triton_kubernetes_tpu_torch.models import llama
+from triton_kubernetes_tpu_torch.ops import _kernels, decode_gemm, norms
+
+# (spec, x shape, w shape) of every product the decode and verify steps
+# run, at llama-test widths (D 64, 4 heads of 16, 2 KV heads, F 128).
+SPECS = [
+    ("bsd,dhk->bshk", (3, 4, 64), (64, 4, 16)),   # wq
+    ("bsd,dhk->bshk", (3, 4, 64), (64, 2, 16)),   # wk, wv
+    ("bshk,hkd->bsd", (3, 4, 4, 16), (4, 16, 64)),  # wo
+    ("bsd,df->bsf", (3, 4, 64), (64, 128)),       # w1, w3
+    ("bsf,fd->bsd", (3, 4, 128), (128, 64)),      # w2
+]
+DTYPES = ["float32", "bfloat16"]  # config names; getattr(torch, name)
+
+
+def _pair(seed, xs, ws):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(xs).astype(np.float32),
+            (0.1 * rng.standard_normal(ws)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec,xs,ws", SPECS)
+def test_row_product_plain_is_weight_einsum(spec, xs, ws, dtype):
+    """On CPU tensors the row-invariant product is bitwise the einsum the
+    model runs off the decode path."""
+    cfg = get_config("llama-test", dtype=dtype)
+    xn, wn = _pair(len(spec), xs, ws)
+    dt = getattr(torch, dtype)
+    x, w = torch.from_numpy(xn).to(dt), torch.from_numpy(wn).to(dt)
+    got = llama.weight_einsum(spec, x, w, cfg, row_invariant=True)
+    want = llama.weight_einsum(spec, x, w, cfg)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("spec,xs,ws", SPECS)
+def test_row_product_matches_jax_weight_einsum(spec, xs, ws):
+    """Against the reference's ``weight_einsum`` on the same f32 inputs:
+    f32 sums of the same products, so within f32 rounding."""
+    xn, wn = _pair(len(spec) + 1, xs, ws)
+    got = llama.weight_einsum(spec, torch.from_numpy(xn),
+                              torch.from_numpy(wn), get_config("llama-test"),
+                              row_invariant=True)
+    want = jllama.weight_einsum(spec, jnp.asarray(xn), jnp.asarray(wn),
+                                jget_config("llama-test"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_gemm_plain_f32_out_is_unembed(dtype):
+    """The f32-out product is bitwise the lm head of ``unembed`` (which now
+    takes it when row_invariant), and within f32 rounding of the
+    reference's unembed on the same weights."""
+    cfg = get_config("llama-test", dtype=dtype)
+    model = init_params(cfg, seed=3, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (3, 4, cfg.embed_dim)).astype(np.float32)).to(getattr(torch, dtype))
+    want = llama.unembed(x, model)
+    got = llama.unembed(x, model, row_invariant=True)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    h = llama.final_norm_hidden(x, model).reshape(12, -1)
+    direct = decode_gemm.decode_gemm(h, llama.head_weights(model),
+                                     torch.float32)
+    assert torch.equal(direct, want.reshape(12, -1))
+    if dtype == "float32":
+        jcfg = jget_config("llama-test")
+        params = {"final_norm": jnp.asarray(model.final_norm.numpy()),
+                  "lm_head": jnp.asarray(model.lm_head.numpy())}
+        ref = jllama.unembed(jnp.asarray(x.numpy()), params, jcfg)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rms_norm_rows_plain_is_rms_norm(dtype):
+    jdt = getattr(jnp, dtype)
+    dtype = getattr(torch, dtype)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(3 * rng.standard_normal((3, 4, 64)).astype(
+        np.float32)).to(dtype)
+    scale = torch.from_numpy(1 + 0.1 * rng.standard_normal(64).astype(
+        np.float32)).to(dtype)
+    got = norms.rms_norm_rows(x, scale, 1e-5)
+    assert torch.equal(got, norms.rms_norm(x, scale, 1e-5))
+    ref = jnorms.rms_norm(jnp.asarray(x.float().numpy()).astype(jdt),
+                          jnp.asarray(scale.float().numpy()).astype(jdt),
+                          1e-5)
+    # bf16: one output ulp (f32 sum order); f32: f32 rounding.
+    tol = (dict(rtol=2 ** -7, atol=1e-2) if dtype == torch.bfloat16
+           else dict(rtol=1e-5, atol=1e-6))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref).astype(np.float32), **tol)
+
+
+def test_row_product_refuses_other_contractions():
+    x, w = torch.zeros(2, 3, 8), torch.zeros(8, 5)
+    with pytest.raises(ValueError, match="trailing-by-leading"):
+        llama._row_product("bsd,fd->bsf", x, w.T.contiguous())
+
+
+def test_decode_and_verify_steps_take_the_row_invariant_ops(monkeypatch):
+    """Every norm and weight product of both steps goes through the
+    row-invariant ops: 2 L + 1 norms and 7 L + 1 products a step; prefill
+    takes none of them."""
+    cfg = get_config("llama-test", dtype="bfloat16")
+    model = init_params(cfg, seed=0, device="cpu")
+    calls = {"norm": 0, "gemm": 0}
+    real_norm, real_gemm = llama.rms_norm_rows, llama.decode_gemm
+
+    def count_norm(*a, **k):
+        calls["norm"] += 1
+        return real_norm(*a, **k)
+
+    def count_gemm(*a, **k):
+        calls["gemm"] += 1
+        return real_gemm(*a, **k)
+
+    monkeypatch.setattr(llama, "rms_norm_rows", count_norm)
+    monkeypatch.setattr(llama, "decode_gemm", count_gemm)
+    cache = paged.init_paged_cache(cfg, 9, 4, device="cpu")
+    tables = torch.arange(1, 9, dtype=torch.int32).reshape(2, 4)
+    lens = torch.tensor([3, 5], dtype=torch.int32)
+    paged.paged_prefill(model, torch.zeros((1, 8), dtype=torch.int32), 5,
+                        cfg, cache, tables[1, :2])
+    assert calls == {"norm": 0, "gemm": 0}
+    paged.paged_decode_step(model, torch.tensor([1, 2], dtype=torch.int32),
+                            cfg, cache, tables, lens)
+    want = {"norm": 2 * cfg.num_layers + 1, "gemm": 7 * cfg.num_layers + 1}
+    assert calls == want
+    paged.paged_verify_step(model, torch.tensor([[1, 2, 3], [4, 5, 6]],
+                                                dtype=torch.int32),
+                            cfg, cache, tables, lens)
+    assert calls == {k: 2 * v for k, v in want.items()}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_verify_rows_equal_decode_rows(dtype):
+    """Each verify logits row (b, j) is bitwise the decode logits at
+    length lengths[b] + j, and the two pools end bitwise equal (the check
+    chip_smoke.py makes at the serve configuration on the card)."""
+    cfg = get_config("llama-test", dtype=dtype)
+    model = init_params(cfg, seed=2, device="cpu")
+    bs, per, b, s = 4, 6, 3, 3
+    cache = paged.init_paged_cache(cfg, 1 + b * per, bs, device="cpu")
+    tables = torch.arange(1, 1 + b * per, dtype=torch.int32).reshape(b, per)
+    rng = np.random.default_rng(6)
+    lengths = [5, 9, 14]
+    for i, n in enumerate(lengths):
+        width = -(-n // bs) * bs
+        toks = rng.integers(0, cfg.vocab_size, width).tolist()
+        paged.paged_prefill(model, torch.tensor([toks], dtype=torch.int32),
+                            n, cfg, cache, tables[i, :width // bs])
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                           ).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    vcache = paged.PagedKVCache(cache.k.clone(), cache.v.clone())
+    verify, _ = paged.paged_verify_step(model, tok, cfg, vcache, tables,
+                                        lens)
+    for j in range(s):
+        row = paged.paged_decode_step(model, tok[:, j].contiguous(), cfg,
+                                      cache, tables, lens + j)
+        assert torch.equal(verify[:, j], row), j
+    assert torch.equal(vcache.k, cache.k) and torch.equal(vcache.v, cache.v)
+
+
+def test_flash_variant_sends_dq_to_the_tensor_cores():
+    """dQ takes its design from the same table as the forward and dK/dV:
+    bf16 at D 64 and 128 on the tensor cores, the rest on the CUDA cores;
+    the wrapper passes the table's code, and the C source instantiates the
+    tensor-core kernel for exactly those widths."""
+    for d in (64, 128):
+        assert _kernels.flash_variant(torch.bfloat16, d) == "tensor_core"
+    for dtype, d in ((torch.bfloat16, 96), (torch.float32, 128),
+                     (torch.float32, 64)):
+        assert _kernels.flash_variant(dtype, d) == "cuda_core"
+    assert "FLASH_VARIANTS[flash_variant(q.dtype, d)].code" in \
+        inspect.getsource(_kernels.flash_bwd_dq)
+    sig = _kernels._SIGNATURES["flash_bwd_dq"]
+    assert sig[-2:] == (_kernels._I, _kernels._P)  # variant, stream
+    text = (_kernels.CSRC / "flash_bwd_dq.cu").read_text()
+    for _, d in _kernels.FLASH_TENSOR_CORE:
+        assert f"launch_tc<{d}>" in text
+    assert "flash_bwd_dq_tc_kernel" in text
+
+
+def test_row_kernels_are_built_and_bound():
+    """Both row-invariant kernels are in the build list with C entries for
+    bf16 and f32 (the GEMM's suffix names its operands' dtype, then its
+    output's: bf16 operands with bf16 or f32 out, and f32 operands)."""
+    entries = {"rms_norm": ("bf16", "f32"),
+               "decode_gemm": ("bf16_bf16", "bf16_f32", "f32_f32")}
+    assert tuple(_kernels.GEMM_SUFFIXES.values()) == entries["decode_gemm"]
+    for name, suffixes in entries.items():
+        assert name in _kernels.KERNELS
+        assert tuple(_kernels._entry_suffixes(name)) == suffixes
+        text = (_kernels.CSRC / f"{name}.cu").read_text()
+        for suffix in suffixes:
+            assert f"tk8s_{name}_{suffix}(" in text
+    assert "mma.sync.aligned.m16n8k16" in (
+        _kernels.CSRC / "decode_gemm.cu").read_text()
+
+
+def test_row_kernel_wrappers_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.decode_gemm(torch.zeros(2, 8, dtype=torch.bfloat16),
+                             torch.zeros(8, 8, dtype=torch.bfloat16),
+                             torch.empty(2, 8, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.rms_norm(torch.zeros(2, 8), torch.zeros(8), 1e-5)

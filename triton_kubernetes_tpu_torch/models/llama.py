@@ -19,6 +19,11 @@ The block math is split as in the reference -- :func:`_qkv`, attention (the
 caller's), :func:`project_out`, :func:`_mlp`, and :func:`unembed` -- so the
 paged prefill and decode paths (``models/paged.py``) reuse it, and
 :func:`forward`/:func:`forward_hidden` run the whole stack for training.
+Each takes ``row_invariant``: the paged decode and verify steps set it, so
+their norms and weight products go through ``ops.norms.rms_norm_rows`` and
+``ops.decode_gemm``, whose rows do not depend on the row count (a verify
+row is then bitwise the decode row, as the reference pins); everything
+else keeps the plain ``rms_norm`` and ``torch.einsum``.
 MoE layers and quantized weight leaves are later slices of the port and
 raise ``NotImplementedError``.
 """
@@ -38,8 +43,9 @@ from torch.utils.checkpoint import (
 )
 
 from ..ops.attention import causal_attention
+from ..ops.decode_gemm import decode_gemm, decode_gemm_plain
 from ..ops.flash_attention import flash_attention
-from ..ops.norms import rms_norm
+from ..ops.norms import rms_norm, rms_norm_rows
 from ..ops.rotary import apply_rotary, rotary_tables
 from .config import ModelConfig
 
@@ -216,51 +222,89 @@ def resolve_weight(w: torch.Tensor, config: ModelConfig) -> torch.Tensor:
     return w.to(config.activation_dtype)
 
 
+def _norm(x: torch.Tensor, scale: torch.Tensor, config: ModelConfig,
+          row_invariant: bool) -> torch.Tensor:
+    norm = rms_norm_rows if row_invariant else rms_norm
+    return norm(x, scale, config.norm_eps)
+
+
+@functools.lru_cache(maxsize=None)
+def _contracted_dims(spec: str) -> int:
+    """How many of x's trailing dims an einsum spec contracts with w's
+    leading ones, in order; raises for any other kind of spec."""
+    ins, out = spec.split("->")
+    xs, ws = ins.split(",")
+    c = sum(ch not in out for ch in xs)
+    if xs[len(xs) - c:] != ws[:c] or out != xs[:len(xs) - c] + ws[c:]:
+        raise ValueError(f"{spec!r} is not a trailing-by-leading contraction")
+    return c
+
+
+def _row_product(spec: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum(spec, x, w)`` for a spec that contracts x's trailing dims
+    with w's leading ones in order (``"bsd,dhk->bshk"``, ``"bshk,hkd->bsd"``),
+    as one [M, K] @ [K, N] :func:`decode_gemm`."""
+    c = _contracted_dims(spec)
+    lead, tail = x.shape[:x.dim() - c], w.shape[c:]
+    y = decode_gemm(x.reshape(lead.numel(), -1).contiguous(),
+                    w.reshape(-1, tail.numel()))
+    return y.reshape(*lead, *tail)
+
+
 def weight_einsum(spec: str, x: torch.Tensor, w: torch.Tensor,
-                  config: ModelConfig) -> torch.Tensor:
+                  config: ModelConfig,
+                  row_invariant: bool = False) -> torch.Tensor:
     """One weight matmul on the reference's f32 path (``matmul_dtype``
     "auto"/"f32" over unquantized leaves): the product of the
-    activation-dtype operands, in the activation dtype."""
+    activation-dtype operands, in the activation dtype. ``row_invariant``
+    takes it through :func:`ops.decode_gemm.decode_gemm`."""
     if config.weight_quant != "none":
         raise NotImplementedError(_QUANT_LATER)
+    if row_invariant:
+        return _row_product(spec, x, resolve_weight(w, config))
     return torch.einsum(spec, x, resolve_weight(w, config))
 
 
 def _qkv(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
-         cos: torch.Tensor, sin: torch.Tensor, positions: torch.Tensor):
+         cos: torch.Tensor, sin: torch.Tensor, positions: torch.Tensor,
+         row_invariant: bool = False):
     """Projected + rotary-encoded q/k/v for a block input ([B, S, D])."""
-    h = rms_norm(x, layer.attn_norm, config.norm_eps)
-    q = weight_einsum("bsd,dhk->bshk", h, layer.wq, config)
-    k = weight_einsum("bsd,dhk->bshk", h, layer.wk, config)
-    v = weight_einsum("bsd,dhk->bshk", h, layer.wv, config)
+    h = _norm(x, layer.attn_norm, config, row_invariant)
+    q = weight_einsum("bsd,dhk->bshk", h, layer.wq, config, row_invariant)
+    k = weight_einsum("bsd,dhk->bshk", h, layer.wk, config, row_invariant)
+    v = weight_einsum("bsd,dhk->bshk", h, layer.wv, config, row_invariant)
     q = apply_rotary(q, cos, sin, positions)
     k = apply_rotary(k, cos, sin, positions)
     return q, k, v
 
 
-def _mlp(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig
-         ) -> torch.Tensor:
+def _mlp(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
+         row_invariant: bool = False) -> torch.Tensor:
     """Post-attention half of the block: norm + dense SwiGLU. Returns the
     residual delta."""
     if config.is_moe:
         raise NotImplementedError(_MOE_LATER)
-    h = rms_norm(x, layer.mlp_norm, config.norm_eps)
+    h = _norm(x, layer.mlp_norm, config, row_invariant)
     gate = torch.nn.functional.silu(
-        weight_einsum("bsd,df->bsf", h, layer.w3, config).float()
-    ).to(config.activation_dtype)
-    up = weight_einsum("bsd,df->bsf", h, layer.w1, config)
-    return weight_einsum("bsf,fd->bsd", gate * up, layer.w2, config)
+        weight_einsum("bsd,df->bsf", h, layer.w3, config, row_invariant)
+        .float()).to(config.activation_dtype)
+    up = weight_einsum("bsd,df->bsf", h, layer.w1, config, row_invariant)
+    return weight_einsum("bsf,fd->bsd", gate * up, layer.w2, config,
+                         row_invariant)
 
 
 def project_out(x: torch.Tensor, attn: torch.Tensor, layer: LlamaBlock,
-                config: ModelConfig) -> torch.Tensor:
+                config: ModelConfig, row_invariant: bool = False
+                ) -> torch.Tensor:
     """Attention output projection + residual add."""
-    return x + weight_einsum("bshk,hkd->bsd", attn, layer.wo, config)
+    return x + weight_einsum("bshk,hkd->bsd", attn, layer.wo, config,
+                             row_invariant)
 
 
-def final_norm_hidden(x: torch.Tensor, model: Llama) -> torch.Tensor:
+def final_norm_hidden(x: torch.Tensor, model: Llama,
+                      row_invariant: bool = False) -> torch.Tensor:
     """The hidden states the vocab head consumes (final rms_norm)."""
-    return rms_norm(x, model.final_norm, model.config.norm_eps)
+    return _norm(x, model.final_norm, model.config, row_invariant)
 
 
 def head_weights(model: Llama) -> torch.Tensor:
@@ -269,20 +313,19 @@ def head_weights(model: Llama) -> torch.Tensor:
     return resolve_weight(model.lm_head, model.config)
 
 
-def unembed(x: torch.Tensor, model: Llama) -> torch.Tensor:
+def unembed(x: torch.Tensor, model: Llama,
+            row_invariant: bool = False) -> torch.Tensor:
     """Final norm + lm head: [B, S, D] -> f32 logits [B, S, V], the
     product accumulated in f32 and kept in f32 (the reference's
     ``preferred_element_type``), never rounded to the activation dtype."""
-    h = final_norm_hidden(x, model)
+    h = final_norm_hidden(x, model, row_invariant)
     b, s, d = h.shape
     h2 = h.reshape(b * s, d)
     w = head_weights(model)
-    if h2.dtype == torch.float32:
-        out = h2 @ w
-    elif h2.is_cuda:
-        out = torch.mm(h2, w, out_dtype=torch.float32)
+    if row_invariant:
+        out = decode_gemm(h2.contiguous(), w, torch.float32)
     else:
-        out = h2.float() @ w.float()
+        out = decode_gemm_plain(h2, w, torch.float32)
     return out.reshape(b, s, -1)
 
 

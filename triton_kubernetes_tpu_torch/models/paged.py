@@ -286,14 +286,15 @@ def paged_decode_step(model: llama.Llama,
     x = model.embed[token[:, None]]  # [B, 1, D]
     attn_lengths = lengths + 1
     for i, layer in enumerate(model.layers):
-        q, k, v = llama._qkv(x, layer, config, cos, sin, positions)
+        q, k, v = llama._qkv(x, layer, config, cos, sin, positions,
+                             row_invariant=True)
         kp, vp, ks, vs = cache.layer(i)
         scatter_token(kp, vp, k, v, block_tables, lengths, ks, vs)
         attn = ragged_paged_attention(q, kp, vp, block_tables, attn_lengths,
                                       ks, vs, impl=impl)
-        x = llama.project_out(x, attn, layer, config)
-        x = x + llama._mlp(x, layer, config)
-    return llama.unembed(x, model)[:, 0, :]
+        x = llama.project_out(x, attn, layer, config, row_invariant=True)
+        x = x + llama._mlp(x, layer, config, row_invariant=True)
+    return llama.unembed(x, model, row_invariant=True)[:, 0, :]
 
 
 class VerifyUndo(NamedTuple):
@@ -335,11 +336,11 @@ def paged_verify_step(model: llama.Llama,
     Input ``j`` of sequence ``b`` is written at position ``lengths[b] + j``
     (input 0 is the latest sampled token, the rest are drafts) and its
     logits row is the next-token distribution given the inputs before it.
-    Row for row this is :func:`paged_decode_step`'s math -- the same
-    token-at-a-time writes (``scatter_span``) and per-row attention
-    (``ragged_verify_attention``) -- with the weight pass paid once for S
-    positions; the projections run as [B*S]-row products, which may round
-    differently from decode's [B]-row ones.
+    Row for row this is :func:`paged_decode_step`'s math, bit for bit --
+    the same token-at-a-time writes (``scatter_span``), per-row attention
+    (``ragged_verify_attention``), and norms and weight products whose rows
+    do not depend on the row count (``row_invariant``: ``rms_norm_rows``,
+    ``decode_gemm``) -- with the weight pass paid once for S positions.
 
     The undo is one gather of every layer's touched slots, taken before
     any layer writes: the pool is written in place, so it must be a copy.
@@ -362,14 +363,15 @@ def paged_verify_step(model: llama.Llama,
     x = model.embed[tokens]  # [B, S, D]
     attn_lengths = lengths + 1
     for i, layer in enumerate(model.layers):
-        q, k, v = llama._qkv(x, layer, config, cos, sin, positions)
+        q, k, v = llama._qkv(x, layer, config, cos, sin, positions,
+                             row_invariant=True)
         kp, vp, ks, vs = cache.layer(i)
         scatter_span(kp, vp, k, v, block_tables, lengths, ks, vs)
         attn = ragged_verify_attention(q, kp, vp, block_tables, attn_lengths,
                                        ks, vs, impl=impl)
-        x = llama.project_out(x, attn, layer, config)
-        x = x + llama._mlp(x, layer, config)
-    return llama.unembed(x, model), undo
+        x = llama.project_out(x, attn, layer, config, row_invariant=True)
+        x = x + llama._mlp(x, layer, config, row_invariant=True)
+    return llama.unembed(x, model, row_invariant=True), undo
 
 
 def paged_rewind(cache: PagedKVCache,

@@ -38,7 +38,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("paged_decode", "paged_verify", "paged_prefill", "flash_fwd",
-           "flash_bwd_dq", "flash_bwd_dkv")
+           "flash_bwd_dq", "flash_bwd_dkv", "decode_gemm", "rms_norm")
 PAGED_KERNELS = ("paged_decode", "paged_verify", "paged_prefill")
 
 _P = ctypes.c_void_p
@@ -66,13 +66,17 @@ _SIGNATURES = {
     "flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                   *_STRIDES * 3, _F, _I, _P),
     # q, k, v, dout, lse, dvec, dq, B, S, Hq, Hkv, D,
-    # strides of q, k, v, dout, scale, stream
+    # strides of q, k, v, dout, scale, variant, stream
     "flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     *_STRIDES * 4, _F, _P),
+                     *_STRIDES * 4, _F, _I, _P),
     # q, k, v, dout, lse, dvec, dk, dv, B, S, Hq, Hkv, D,
     # strides of q, k, v, dout, scale, variant, stream
     "flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       *_STRIDES * 4, _F, _I, _P),
+    # x, w, y, M, N, K, stream (suffix: x's and w's dtype, then y's)
+    "decode_gemm": (_P, _P, _P, _I, _I, _I, _P),
+    # x, scale, y, M, D, eps, stream
+    "rms_norm": (_P, _P, _P, _I, _I, _F, _P),
 }
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # Page dtypes of quantized pools -> the suffix the paged kernels' entries
@@ -82,12 +86,24 @@ _PAGE_SUFFIX = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 MAX_VERIFY_ROWS = 32
 
 
+# Most rows one decode_gemm launch takes; ``ops.decode_gemm`` runs larger
+# M in launches of this many rows, each reading the weight once.
+MAX_GEMM_ROWS = 64
+# (operand dtype, output dtype) -> suffix of decode_gemm's C entry: bf16
+# operands with bf16 out (projections) or f32 out (the lm head), and f32
+# operands (a model served in f32).
+GEMM_SUFFIXES = {(torch.bfloat16, torch.bfloat16): "bf16_bf16",
+                 (torch.bfloat16, torch.float32): "bf16_f32",
+                 (torch.float32, torch.float32): "f32_f32"}
+
+
 class FlashVariant(NamedTuple):
-    """One of the two hand-written designs of ``flash_fwd`` and
-    ``flash_bwd_dkv``: the code the C entries take as ``variant``, and the
-    forward's key-tile width, which the plain forward must be given to
-    repeat the kernel's arithmetic (p is rounded against the running max
-    of its key tile)."""
+    """One of the two hand-written designs of each flash kernel
+    (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``): the code the C
+    entries take as ``variant``, and the forward's key-tile width, which
+    the plain forward must be given to repeat the kernel's arithmetic (p
+    is rounded against the running max of its key tile; the backward
+    kernels' tiles change only the order of f32 sums)."""
     code: int
     block_k: int
 
@@ -105,8 +121,9 @@ FLASH_TENSOR_CORE = frozenset({(torch.bfloat16, 64), (torch.bfloat16, 128)})
 
 
 def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """Name (key of :data:`FLASH_VARIANTS`) of the design that
-    ``flash_fwd`` and ``flash_bwd_dkv`` run for this dtype and head width."""
+    """Name (key of :data:`FLASH_VARIANTS`) of the design that all three
+    flash kernels -- ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
+    -- run for this dtype and head width."""
     return ("tensor_core" if (dtype, head_dim) in FLASH_TENSOR_CORE
             else "cuda_core")
 
@@ -190,6 +207,8 @@ def library(name: str) -> ctypes.CDLL:
 def _entry_suffixes(name: str):
     """Suffixes of a kernel's C entries: one per q dtype, and for the paged
     kernels one more per (q dtype, quantized page dtype) pair."""
+    if name == "decode_gemm":
+        return list(GEMM_SUFFIXES.values())
     out = list(_SUFFIX.values())
     if name in PAGED_KERNELS:
         out += [f"{q}_{p}" for q in _SUFFIX.values()
@@ -443,8 +462,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  dout: torch.Tensor, lse: torch.Tensor, dvec: torch.Tensor
                  ) -> torch.Tensor:
-    """Launch ``csrc/flash_bwd_dq.cu`` on the current stream: dq
-    [B, S, Hq, D] in q's dtype."""
+    """Launch ``csrc/flash_bwd_dq.cu`` on the current stream, the design
+    :func:`flash_variant` names for (dtype, D): dq [B, S, Hq, D] in q's
+    dtype."""
     b, s, hq, hkv, d = _check_flash("flash_bwd_dq", q, k, v, dout)
     _require(dout.shape == q.shape, "flash_bwd_dq: dout must match q")
     for t in (lse, dvec):
@@ -454,6 +474,7 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), b, s, hq, hkv, d,
         *_strides(q, k, v, dout), d ** -0.5,
+        FLASH_VARIANTS[flash_variant(q.dtype, d)].code,
         torch.cuda.current_stream(q.device).cuda_stream)
     _check(rc, "flash_bwd_dq")
     return dq
@@ -479,3 +500,69 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _check(rc, "flash_bwd_dkv")
     return dk, dv
+
+
+def decode_gemm(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> None:
+    """Launch ``csrc/decode_gemm.cu`` once on the current stream: y [M, N]
+    = x [M, K] @ w [K, N] with f32 sums, for 1 <= M <= :data:`MAX_GEMM_ROWS`
+    and the dtypes of :data:`GEMM_SUFFIXES`. Each output row's bits do not
+    depend on M."""
+    if not x.is_cuda:
+        raise ValueError(f"decode_gemm: the CUDA kernel takes CUDA tensors, "
+                         f"got x on {x.device}")
+    suffix = GEMM_SUFFIXES.get((x.dtype, y.dtype))
+    _require(suffix is not None and w.dtype == x.dtype
+             and w.device == x.device and y.device == x.device,
+             f"decode_gemm: x and w bfloat16 with bfloat16 or float32 y, or "
+             f"all float32, on {x.device}; got {x.dtype}, {w.dtype} and "
+             f"{y.dtype}")
+    _require(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0]
+             and y.shape == (x.shape[0], w.shape[1]),
+             f"decode_gemm: x [M, K], w [K, N] and y [M, N], got "
+             f"{tuple(x.shape)}, {tuple(w.shape)} and {tuple(y.shape)}")
+    _require(x.is_contiguous() and w.is_contiguous() and y.is_contiguous(),
+             "decode_gemm: x, w and y must be contiguous")
+    m, k = x.shape
+    n = w.shape[1]
+    _require(1 <= m <= MAX_GEMM_ROWS,
+             f"decode_gemm: M {m} must be 1-{MAX_GEMM_ROWS} a launch")
+    _require(k % 8 == 0 and n % 8 == 0,
+             f"decode_gemm: K {k} and N {n} must be multiples of 8 (rows "
+             f"are copied in 16-byte pieces)")
+    _require(x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
+             "decode_gemm: x and w must start 16-byte aligned")
+    rc = getattr(library("decode_gemm"), f"tk8s_decode_gemm_{suffix}")(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), m, n, k,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _check(rc, "decode_gemm")
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    """Launch ``csrc/rms_norm.cu`` on the current stream: x [M, D], M >= 1
+    (bf16 or f32, scale [D] of the same dtype) -> [M, D], each row's sum
+    taken in one fixed order whatever M is."""
+    if not x.is_cuda:
+        raise ValueError(f"rms_norm: the CUDA kernel takes CUDA tensors, "
+                         f"got x on {x.device}")
+    _require(x.dtype in _SUFFIX and scale.dtype == x.dtype
+             and scale.device == x.device,
+             f"rms_norm: x and scale must share a dtype (bfloat16 or "
+             f"float32) on {x.device}, got {x.dtype} and {scale.dtype} on "
+             f"{scale.device}")
+    _require(x.dim() == 2 and scale.shape == (x.shape[1],),
+             f"rms_norm: x [M, D] and scale [D], got {tuple(x.shape)} and "
+             f"{tuple(scale.shape)}")
+    _require(x.is_contiguous() and scale.is_contiguous(),
+             "rms_norm: x and scale must be contiguous")
+    m, d = x.shape
+    _require(m >= 1, "rms_norm: x must hold a row")
+    _require(d % 8 == 0, f"rms_norm: D {d} must be a multiple of 8")
+    _require(x.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0,
+             "rms_norm: x and scale must start 16-byte aligned")
+    y = torch.empty_like(x)
+    rc = _entry("rms_norm", x.dtype)(
+        x.data_ptr(), scale.data_ptr(), y.data_ptr(), m, d, float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _check(rc, "rms_norm")
+    return y

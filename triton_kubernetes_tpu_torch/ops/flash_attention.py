@@ -31,9 +31,10 @@ and dV summed over the query heads of a group in f32. The forward's ``p``
 depends on the running max at each key tile, so the plain forward takes
 the tile width: the JAX block rule :func:`_pick_block` on the CPU path (so
 the CPU tests match the JAX kernel's tiles), :func:`kernel_block_k` when
-compared with the CUDA kernel. ``flash_fwd`` and ``flash_bwd_dkv`` each
-have two designs, tensor cores (bf16 at D 64 or 128, key tiles of 128) and
-CUDA cores (key tiles of 64), chosen by ``_kernels.flash_variant``.
+compared with the CUDA kernel. Each of the three kernels has two
+designs, tensor cores (bf16 at D 64 or 128; the forward's key tiles of
+128) and CUDA cores (key tiles of 64), chosen by
+``_kernels.flash_variant``; only the forward's tile enters the rounding.
 """
 
 from __future__ import annotations
