@@ -26,7 +26,10 @@ result:
    (the port never calls it), the card's bound for the same work, the
    share of it reached and the TFLOP/s achieved; and every verify row
    ``torch.equal`` to the decode kernel at that row's length, on every
-   page kind. The decode GEMM at each of the 8B model's product shapes
+   page kind, also at lengths whose rows straddle an edge of the span
+   walk (decode and verify run their tensor-core design there, the one
+   ``_kernels.PAGED_TENSOR_CORE`` names for bf16 queries at D 128, bs
+   16). The decode GEMM at each of the 8B model's product shapes
    (K x N: 4096 x 4096, 4096 x 1024, 4096 x 14336, 14336 x 4096, and the
    lm head 4096 x 128256 in f32) and the RMSNorm at D 4096, at M 8 (a
    decode tick) and 32 (a verify tick): against ``torch.mm`` (the plain
@@ -53,7 +56,9 @@ result:
    times;
    cross-checks one greedy request's first-token logits against the plain
    versions (and an engine forced onto them); profiles a few decode ticks
-   (device busy time by kernel class, idle share, launches per tick).
+   and two verify ticks of a spec_k 3 engine (device busy time by kernel
+   class, idle share, launches per tick, the paged kernels by name, which
+   must include the span kernels).
    Then six more runs of those 8 requests plus 4 repetitive ones (one
    seeded token tiled 300-700 times, so the model repeats itself and the
    drafter fires): bf16, int8 and fp8 pools, each
@@ -93,6 +98,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -276,14 +282,15 @@ def paged_bytes(pages_read, kind, extra):
 
 
 def kernel_record(name, kind, source, replaces, err, ms, pms, lms, nbytes,
-                  flops, peaks, library_call, shape, **more):
+                  flops, peaks, library_call, shape, variant="cuda_core",
+                  **more):
     bw, flops_peak = peaks
     suffix = "" if kind == "bf16" else f"_{kind}"
     bound_ms = max(nbytes / bw, flops / flops_peak) * 1e3
     return dict(
         name=name + suffix, route="cuda",
         source=f"triton_kubernetes_tpu_torch/csrc/{source}",
-        replaces=replaces, variant="cuda_core", max_abs_err=err,
+        replaces=replaces, variant=variant, max_abs_err=err,
         tolerance=f"{ATOL} + {RTOL} * |plain|",
         ms=ms, plain_ms=pms, library_ms=lms,
         bound_ms=bound_ms,
@@ -293,6 +300,53 @@ def kernel_record(name, kind, source, replaces, err, ms, pms, lms, nbytes,
         achieved_tflops=flops / (ms * 1e-3) / 1e12,
         library_call=library_call, bytes=nbytes, flops=flops,
         shape=dict(shape, pages=kind), **more)
+
+
+def paged_design(pages):
+    """The design the decode and verify kernels run on bf16 queries over
+    these pages (``_kernels.PAGED_TENSOR_CORE``)."""
+    from triton_kubernetes_tpu_torch.ops import _kernels
+    return _kernels.paged_variant(torch.bfloat16, pages.dtype, BS, D)
+
+
+def straddle_check(pa, device, gen):
+    """Verify rows whose stagger crosses a span edge of the decode and
+    verify kernels' tensor-core design (``_kernels.PAGED_SPAN_KEYS``):
+    every row ``torch.equal`` to the decode kernel at its length, on bf16,
+    int8 and fp8 pages. Asserted; not timed."""
+    from triton_kubernetes_tpu_torch.ops import _kernels
+    s, span = SPEC_K + 1, _kernels.PAGED_SPAN_KEYS
+    # Row 0 just below an edge, row S - 1 past it: edges 1-4 and 7.
+    lengths = [span * e - s // 2 for e in (1, 2, 3, 4, 7)] + [
+        span - 1, 2 * span - 1, T * BS - s + 1]
+    b = len(lengths)
+    perm = torch.randperm(b * T, generator=torch.Generator().manual_seed(1))
+    tables_cpu = (perm.reshape(b, T) + 1).to(torch.int32)
+    for i, n in enumerate(lengths):
+        tables_cpu[i, (n + s - 1 + BS - 1) // BS:] = pa.TRASH_PAGE
+    kp16, vp16 = make_pool(gen, 1 + b * T,
+                           [(n + s - 1, tables_cpu[i].tolist())
+                            for i, n in enumerate(lengths)], device)
+    tables = tables_cpu.to(device)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    q = torch.randn((b, s, HQ, D), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    for kind in KV_KINDS:
+        kp, vp, ks, vs = pool_variant(kp16, vp16, kind)
+        got = pa.ragged_verify_attention(q, kp, vp, tables, lens, ks, vs,
+                                         impl="cuda")
+        for j in range(s):
+            row = pa.ragged_paged_attention(q[:, j:j + 1].contiguous(), kp,
+                                            vp, tables, lens + j, ks, vs,
+                                            impl="cuda")
+            if not torch.equal(got[:, j:j + 1], row):
+                raise AssertionError(
+                    f"paged_verify ({kind} pages, {paged_design(kp)}): row "
+                    f"{j} at span-straddling lengths {lengths} differs from "
+                    f"paged_decode at lengths + {j}")
+    print(f"kernel paged_verify: rows at span-straddling lengths {lengths} "
+          f"(S {s}, span {span} keys) == paged_decode bitwise on "
+          f"{', '.join(KV_KINDS)} pages", flush=True)
 
 
 def sdpa(qs, kk, vv, mask):
@@ -355,7 +409,8 @@ def kernel_phase(pa, device, flush, peaks):
             "scaled_dot_product_attention over the gathered (dequantized) "
             "pages with a length mask",
             dict(B=b, Hq=HQ, Hkv=HKV, D=D, bs=BS, T=T,
-                 lengths=DECODE_LENGTHS)))
+                 lengths=DECODE_LENGTHS),
+            variant=paged_design(kp)))
 
     # ---- verify: B = 8 sequences, S = spec_k + 1 staggered rows each.
     s = SPEC_K + 1
@@ -415,7 +470,8 @@ def kernel_phase(pa, device, flush, peaks):
             "pages with each row's length mask",
             dict(B=b, S=s, Hq=HQ, Hkv=HKV, D=D, bs=BS, T=T,
                  lengths=VERIFY_LENGTHS),
-            rows_bitwise_equal_to_decode=True))
+            variant=paged_design(kp), rows_bitwise_equal_to_decode=True))
+    straddle_check(pa, device, gen)
 
     # ---- prefill: one C = 256 window at three offsets.
     cases = {kind: [] for kind in KV_KINDS}
@@ -475,7 +531,8 @@ def kernel_phase(pa, device, flush, peaks):
         rec["bound_ms"] = sum(c["bound_ms"] for c in cs)
         records.append(rec)
     for r in records:
-        print(f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.6g} "
+        print(f"kernel {r['name']} ({r['variant']}): "
+              f"max_abs_err={r['max_abs_err']:.6g} "
               f"(tolerance {r['tolerance']}) kernel_ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms']:.4f} "
@@ -855,11 +912,50 @@ def row_counts_wanted(ticks, cfg):
             "rms_norm": ticks * (2 * cfg.num_layers + 1)}
 
 
+# Kernel classes of a profiled tick: (class, what its kernels' names hold).
+TICK_CLASSES = (("paged_decode kernel", "paged_decode_"),
+                ("paged_verify kernel", "paged_verify_"),
+                ("decode_gemm kernel", "decode_gemm_kernel"),
+                ("rms_norm kernel", "rms_norm_kernel"))
+
+
+def tick_profile(profiles, ticks, wall_ms):
+    """Device time per tick by kernel class, launches per tick, the idle
+    share against ``wall_ms`` per tick, and the paged kernels' names, from
+    the events of one or more torch.profiler runs over ``ticks`` ticks."""
+    by_class = {c: 0.0 for c, _ in TICK_CLASSES}
+    by_class.update({"GEMM (cuBLAS)": 0.0, "other kernels": 0.0})
+    launches, names = 0, set()
+    for prof in profiles:
+        events = prof.events()
+        launches += sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                   "cuLaunchKernelEx") for e in events)
+        for e in events:
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = e.time_range.elapsed_us()
+            cls = next((c for c, key in TICK_CLASSES if key in e.name), None)
+            if cls is None:
+                cls = ("GEMM (cuBLAS)"
+                       if e.name.startswith(("nvjet", "sm90_xmma", "cutlass"))
+                       or "gemm" in e.name.lower() else "other kernels")
+            elif cls.startswith("paged_"):
+                m = re.search(r"paged_\w+_kernel(<[^()]*>)?", e.name)
+                names.add(m.group(0) if m else e.name)
+            by_class[cls] += us
+    by_class = {k: v / 1e3 / ticks for k, v in by_class.items()}
+    busy_ms = sum(by_class.values())
+    return dict(wall_ms_per_tick=wall_ms, device_busy_ms_per_tick=busy_ms,
+                device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
+                launches_per_tick=launches / ticks,
+                device_ms_per_tick_by_class=by_class,
+                paged_kernels=sorted(names))
+
+
 def profile_decode(engine, cfg, Request, ticks=4):
     """Where a decode tick's time goes: 8 sequences of 600-token prompts
     decoding, ``ticks`` decode-only ticks under torch.profiler. Returns
-    wall and device-busy milliseconds per tick, the device's idle share,
-    kernel launches per tick, and device time by kernel class."""
+    :func:`tick_profile`'s record."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(7)
@@ -886,33 +982,69 @@ def profile_decode(engine, cfg, Request, ticks=4):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
     engine.run_until_idle()
-    events = prof.events()
-    launches = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                              "cuLaunchKernelEx") for e in events)
-    by_class = {"paged_decode kernel": 0.0, "decode_gemm kernel": 0.0,
-                "rms_norm kernel": 0.0, "GEMM (cuBLAS)": 0.0,
-                "other kernels": 0.0}
-    for e in events:
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        if "paged_decode_kernel" in e.name:
-            by_class["paged_decode kernel"] += us
-        elif "decode_gemm_kernel" in e.name:
-            by_class["decode_gemm kernel"] += us
-        elif "rms_norm_kernel" in e.name:
-            by_class["rms_norm kernel"] += us
-        elif e.name.startswith(("nvjet", "sm90_xmma", "cutlass")) \
-                or "gemm" in e.name.lower():
-            by_class["GEMM (cuBLAS)"] += us
-        else:
-            by_class["other kernels"] += us
-    by_class = {k: v / 1e3 / ticks for k, v in by_class.items()}
-    busy_ms = sum(by_class.values())
-    return dict(wall_ms_per_tick=wall_ms, device_busy_ms_per_tick=busy_ms,
-                device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
-                launches_per_tick=launches / ticks,
-                device_ms_per_tick_by_class=by_class)
+    return tick_profile([prof], ticks, wall_ms)
+
+
+def profile_verify(model, cfg, Request, ticks=2, max_steps=60):
+    """Where a verify tick's time goes: a spec_k 3 engine on bf16 pages,
+    8 sequences of one seeded token tiled 600 times (so the model repeats
+    itself and the drafter proposes), each tick after prefill run under
+    its own torch.profiler; the first ``ticks`` ticks that verified are
+    kept. Returns :func:`tick_profile`'s record of those ticks."""
+    from torch.profiler import ProfilerActivity, profile
+    from triton_kubernetes_tpu_torch.serve import ServeEngine
+
+    engine = ServeEngine(model, cfg, device=SERVE_DEVICE,
+                         **dict(SERVE_ENGINE_KW, spec_k=SPEC_K))
+    rng = np.random.default_rng(8)
+    # Enough new tokens that no sequence finishes, even accepting every
+    # draft, before the last one has prefilled and the kept ticks ran.
+    new_tokens = (SPEC_K + 1) * (3 * engine.max_batch + max_steps)
+    for i in range(engine.max_batch):
+        engine.submit(Request(f"v{i}", [int(rng.integers(
+            0, cfg.vocab_size))] * 600, new_tokens))
+    for _ in range(max_steps):
+        if all(s is not None and s.prefilled >= s.target
+               for s in engine.slots):
+            break
+        engine.step()
+    else:
+        raise AssertionError("profile: the batch never reached decode")
+    profiles, walls = [], []
+    for _ in range(max_steps):
+        if len(profiles) == ticks or not engine.has_work:
+            break
+        before = engine.stats()["verify_steps"]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        if engine.stats()["verify_steps"] > before:
+            profiles.append(prof)
+            walls.append(wall)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not profiles:
+        raise AssertionError("profile: no tick verified a draft")
+    return tick_profile(profiles, len(profiles), statistics.mean(walls))
+
+
+def print_tick_profile(what, prof, card):
+    if prof["device_idle_share"] is None:
+        print(f"serve: {what} profile: the profiler saw no device kernels; "
+              f"device time not measured", flush=True)
+        return
+    classes = ", ".join(f"{k} {v:.3f} ms" for k, v in
+                        prof["device_ms_per_tick_by_class"].items())
+    print(f"serve: {what} profiled: wall {prof['wall_ms_per_tick']:.3f} ms, "
+          f"device busy {prof['device_busy_ms_per_tick']:.3f} ms (idle "
+          f"share {prof['device_idle_share']:.3f}), "
+          f"{prof['launches_per_tick']:.0f} launches; {classes}; paged "
+          f"kernels {prof['paged_kernels']} [{card}]", flush=True)
 
 
 def serve_phase(card):
@@ -1059,18 +1191,18 @@ def serve_phase(card):
     del engine, dense
     gc.collect()
     torch.cuda.empty_cache()
-    if prof["device_idle_share"] is None:
-        print("serve: decode tick profile: the profiler saw no device "
-              "kernels; device time not measured", flush=True)
-    else:
-        classes = ", ".join(f"{k} {v:.3f} ms" for k, v in
-                            prof["device_ms_per_tick_by_class"].items())
-        print(f"serve: decode tick (8 x ~600-token contexts) profiled: wall "
-              f"{prof['wall_ms_per_tick']:.3f} ms, device busy "
-              f"{prof['device_busy_ms_per_tick']:.3f} ms (idle share "
-              f"{prof['device_idle_share']:.3f}), "
-              f"{prof['launches_per_tick']:.0f} launches; {classes} "
-              f"[{card}]", flush=True)
+    print_tick_profile("decode tick (8 x ~600-token contexts)", prof, card)
+    vprof = profile_verify(model, cfg, Request)
+    print_tick_profile(f"verify tick (spec_k {SPEC_K}, bf16 pages, 8 x "
+                       f"~600-token contexts)", vprof, card)
+    # The span walk runs the main path's ticks, and the profiles show it by
+    # name (when the profiler sees the device at all).
+    for what, p, key in (("decode", prof, "paged_decode_span_kernel"),
+                         ("verify", vprof, "paged_verify_span_kernel")):
+        if p["device_idle_share"] is not None and not any(
+                n.startswith(key) for n in p["paged_kernels"]):
+            raise AssertionError(f"{what} tick profile: no {key} among "
+                                 f"{p['paged_kernels']}")
     runs = spec_quant_phase(model, cfg, card, requests)
     probes = [rewind_probe(model, cfg, kind, requests[4].tokens)
               for kind in ("bf16", "int8")]
@@ -1088,7 +1220,7 @@ def serve_phase(card):
         first_token_plain_top2_gap=gap,
         first_token_plain_paths_rel_l2=floor_rel_l2,
         tick_ms=tick_ms,
-        decode_tick_profile=prof,
+        decode_tick_profile=prof, verify_tick_profile=vprof,
         tokens_equal_to_plain_engine=same,
         peak_memory_bytes=peak)
 

@@ -1,0 +1,228 @@
+"""Build the paged decode and verify kernels for the CPU and check them.
+
+The CUDA sources of ``triton_kubernetes_tpu_torch/csrc`` cannot be run
+without a card. This script rewrites ``paged_decode.cu``,
+``paged_verify.cu`` and ``paged_common.cuh`` to build with g++ against
+``emu.h`` (a thread-level emulation of shared memory, barriers, warp
+shuffles, ldmatrix, mma.sync and cp.async), loads the libraries with
+ctypes, and drives their C entries with the arguments the wrappers of
+``ops/_kernels.py`` pass, on CPU tensors. It checks, for the span walk
+(bf16 queries on bf16, int8 and fp8 pages, D 128/bs 16 and D 64/bs 32):
+
+* decode and verify within one bf16 ulp (1e-2 + 2^-7 |plain|) of the span
+  plain version of ``ops/paged_attention.py``, at lengths around the
+  span edges;
+* every verify row bitwise the decode kernel at its length;
+* a second call gives the same bits, and the arrival counters are all 0
+  after every call.
+
+Run from the repository root (about two minutes on 8 cores):
+
+    python3 scripts/cuda_emu/emulate_paged.py [--build DIR] [--quick]
+
+A rehearsal, not a measurement: the emulated mma.sync rounds its sums
+unlike the card's tensor cores, and nothing here is timed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(ROOT))
+
+from triton_kubernetes_tpu_torch.ops import _kernels as K  # noqa: E402
+from triton_kubernetes_tpu_torch.ops import paged_attention as pa  # noqa: E402
+from triton_kubernetes_tpu_torch.ops import quantization as qz  # noqa: E402
+
+EMU_H = Path(__file__).resolve().parent / "emu.h"
+KERNELS = ("paged_decode", "paged_verify")
+# Device helpers emu.h replaces: their asm bodies are renamed out of the
+# way, and calls resolve to emu.h's versions.
+HELPERS = ("cp_async16", "cp_async_wait_all", "cp_async16_zfill",
+           "ldmatrix_x4", "ldmatrix_x4_trans", "mma16816")
+
+
+def for_host(src: str) -> str:
+    """One CUDA source rewritten for g++ with emu.h included first."""
+    for h in ("cuda_bf16.h", "cuda_fp8.h", "cuda_runtime.h"):
+        src = src.replace(f"#include <{h}>", "")
+    for name in HELPERS:
+        src = re.sub(rf"void {name}\(", f"void {name}_device(", src)
+    src = src.replace("uint32_t smem_u32(", "uint32_t smem_u32_device(")
+    src = re.sub(r"asm volatile\(.*?\);", ";", src, flags=re.S)
+    src = src.replace(
+        "extern __shared__ __align__(16) unsigned char smem_raw[];",
+        "unsigned char* smem_raw = tls_smem;")
+    # kernel<<<grid, threads, smem, stream>>>(args); -> emu_launch(...)
+    return re.sub(
+        r"([A-Za-z_]\w*(?:<[^;{}]*?>)?)<<<(.*?),(.*?),(.*?),(.*?)>>>"
+        r"\((.*?)\);",
+        lambda m: (f"emu_launch(dim3({m.group(2)}), {m.group(3)}, "
+                   f"(int)({m.group(4)}), [&]() {{ {m.group(1)}"
+                   f"({m.group(6)}); }});"), src, flags=re.S)
+
+
+def build(out: Path) -> dict:
+    """g++ builds of the emulated kernels, all at once; {name: CDLL}."""
+    csrc = K.CSRC
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "paged_common.cuh").write_text(
+        for_host((csrc / "paged_common.cuh").read_text()))
+    procs = {}
+    for name in KERNELS:
+        (out / f"{name}.cpp").write_text(
+            for_host((csrc / f"{name}.cu").read_text()))
+        procs[name] = subprocess.Popen(
+            ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-pthread",
+             "-shared", "-fPIC", f"-DTK8S_PAGED_SPAN={K.PAGED_SPAN_KEYS}",
+             "-include", str(EMU_H), "-I", str(out), "-o",
+             str(out / f"lib{name}.so"), str(out / f"{name}.cpp")])
+    if any(p.wait() for p in procs.values()):
+        raise SystemExit("emulation build failed")
+    libs = {}
+    for name in KERNELS:
+        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
+        for suffix in K._entry_suffixes(name):
+            fn = getattr(lib, f"tk8s_{name}_{suffix}")
+            fn.argtypes = K._SIGNATURES[name]
+            fn.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+class Emulated:
+    """The C entries of the emulated kernels, called as the wrappers of
+    ``ops/_kernels.py`` call the real ones."""
+
+    def __init__(self, libs):
+        self.libs = libs
+        self.counters = torch.zeros(4096, dtype=torch.int32)
+
+    def __call__(self, name, q, kp, vp, tables, lens, ks, vs):
+        b, s, hq, d = q.shape
+        _, hkv, bs, _ = kp.shape
+        tw = tables.shape[1]
+        rows = s * (hq // hkv)
+        variant = K.paged_variant(q.dtype, kp.dtype, bs, d)
+        spans = max(1, -(-tw * bs // K.PAGED_SPAN_KEYS))
+        ws = torch.full((b * hkv * spans * rows * (d + 2),), float("nan"))
+        out = torch.full_like(q, float("nan"))
+        suffix = K._SUFFIX[q.dtype]
+        if kp.dtype != q.dtype:
+            suffix += "_" + K._PAGE_SUFFIX[kp.dtype]
+        scales = (None, None) if ks is None else (ks.data_ptr(),
+                                                  vs.data_ptr())
+        args = [q.data_ptr(), kp.data_ptr(), vp.data_ptr(), *scales,
+                tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), self.counters.data_ptr(), b]
+        if name == "paged_verify":
+            args.append(s)
+        args += [hkv, hq // hkv, d, bs, tw, d ** -0.5,
+                 K.PAGED_VARIANTS[variant], None]
+        rc = getattr(self.libs[name], f"tk8s_{name}_{suffix}")(*args)
+        if rc != 0:
+            raise AssertionError(f"{name}: the C entry refused ({rc})")
+        if self.counters.any():
+            raise AssertionError(f"{name}: arrival counters left non-zero")
+        return out
+
+
+def case(kind, d, bs, hq, hkv, lengths, s, tw, seed):
+    """bf16 queries over pages of ``kind`` holding each sequence's
+    ``length + s - 1`` tokens (the trash page poisoned)."""
+    gen = torch.Generator().manual_seed(seed)
+    b = len(lengths)
+    exact = [torch.randn((1 + b * tw, hkv, bs, d), generator=gen)
+             for _ in range(2)]
+    for e in exact:
+        e[pa.TRASH_PAGE] = 1e4
+    if kind == "bf16":
+        (kp, vp), ks, vs = (e.to(torch.bfloat16) for e in exact), None, None
+    else:
+        (kp, ks), (vp, vs) = (qz.quantize_kv_pages(
+            e, qz.KV_QUANT_DTYPES[kind]) for e in exact)
+    tables = (torch.randperm(b * tw, generator=gen).reshape(b, tw) + 1
+              ).to(torch.int32)
+    for i, n in enumerate(lengths):
+        tables[i, pa.blocks_for(n + s - 1, bs):] = pa.TRASH_PAGE
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    q = torch.randn((b, s, hq, d), generator=gen).to(torch.bfloat16)
+    return q, kp, vp, ks, vs, tables, lens
+
+
+def close(what, got, want):
+    err = (got.float() - want.float()).abs()
+    bound = 1e-2 + 2 ** -7 * want.float().abs()
+    ok = bool(torch.isfinite(got.float()).all()) and not bool(
+        (err > bound).any())
+    print(f"  {what}: max abs err {float(err.max()):.3g} "
+          f"{'ok' if ok else 'OUTSIDE 1e-2 + 2^-7 |plain|'}", flush=True)
+    return ok
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--build", type=Path, default=None,
+                        help="directory for the g++ builds (default: a "
+                             "temporary one)")
+    parser.add_argument("--quick", action="store_true",
+                        help="bf16 pages at D 128, bs 16 only")
+    args = parser.parse_args()
+    with tempfile.TemporaryDirectory() as tmp:
+        emu = Emulated(build(args.build or Path(tmp)))
+        span = K.PAGED_SPAN_KEYS
+        # (pages, D, bs, Hq, Hkv): group 4, and group 8 at D 64 / bs 32.
+        configs = [("bf16", 128, 16, 8, 2), ("int8", 128, 16, 8, 2),
+                   ("fp8", 128, 16, 8, 2), ("bf16", 64, 32, 8, 1),
+                   ("int8", 64, 32, 16, 2)]
+        ok = True
+        for kind, d, bs, hq, hkv in configs[:1] if args.quick else configs:
+            t0 = time.time()
+            tw = 3 * span // bs
+            print(f"{kind} pages, D {d}, bs {bs}, Hq {hq}, Hkv {hkv}",
+                  flush=True)
+            lengths = [0, 1, span - 1, span, span + 1, 2 * span - 1,
+                       2 * span + 1, 3 * span]
+            q, kp, vp, ks, vs, tables, lens = case(kind, d, bs, hq, hkv,
+                                                   lengths, 1, tw, 0)
+            got = emu("paged_decode", q, kp, vp, tables, lens, ks, vs)
+            ok &= close("decode vs the span plain version", got,
+                        pa._decode_plain(q, kp, vp, tables, lens, ks, vs,
+                                         span))
+            ok &= not bool(got[0].float().any())
+            ok &= torch.equal(got, emu("paged_decode", q, kp, vp, tables,
+                                       lens, ks, vs))
+            for s in (4, 8) if 8 * hq // hkv <= K.MAX_VERIFY_ROWS else (4,):
+                lengths = [0, 1, span - 3, span - 2, span - 1, span,
+                           2 * span - 3, 3 * span - s + 1]
+                q, kp, vp, ks, vs, tables, lens = case(
+                    kind, d, bs, hq, hkv, lengths, s, tw, s)
+                got = emu("paged_verify", q, kp, vp, tables, lens, ks, vs)
+                ok &= close(f"verify S {s} vs the span plain version", got,
+                            pa._verify_plain(q, kp, vp, tables, lens, ks,
+                                             vs, span))
+                for j in range(s):
+                    row = emu("paged_decode", q[:, j:j + 1].contiguous(),
+                              kp, vp, tables, lens + j, ks, vs)
+                    if not torch.equal(got[:, j:j + 1], row):
+                        print(f"  verify S {s}: row {j} differs from decode "
+                              f"at lengths + {j}", flush=True)
+                        ok = False
+            print(f"  ({time.time() - t0:.1f} s)", flush=True)
+    print("emulated span walk: all checks passed" if ok
+          else "emulated span walk: FAILED")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

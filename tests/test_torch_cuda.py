@@ -10,7 +10,9 @@ neither JAX nor the JAX package, so they run on the card's machine with
 what ``chip_smoke.py``'s Llama-3-8B shapes do not: other group sizes, head
 dims, block sizes, f32 pools, a window that is not page aligned in its
 last rows, quantized (int8/fp8) pools, the verify kernel's rows against the
-decode kernel bit for bit, the dQ kernel's tensor-core design at ragged
+decode kernel bit for bit, the decode and verify span walk at lengths on
+either side of its span edges and the table that picks it, the dQ
+kernel's tensor-core design at ragged
 sequences, the row-invariant decode GEMM and RMSNorm (rows at M 1, 8 and
 32 bitwise, at the 8B widths), a small model's verify logits rows against
 its decode rows, and the wrappers' refusals.
@@ -229,6 +231,117 @@ def test_verify_and_quantized_bindings_refuse(device):
                               sc.double())
     with pytest.raises(ValueError, match="both"):
         _kernels.paged_verify(q4, k8, k8, tables, lens, sc, None)
+
+
+# ---- the span walk: decode and verify on the tensor cores ----
+
+SPAN_LENGTHS = [0, 1, 255, 256, 257, 511, 512, 513, 2047, 2048]
+
+
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"])
+@pytest.mark.parametrize("d,bs", [(128, 16), (64, 32), (128, 32), (64, 16)])
+def test_span_decode_matches_plain_at_span_edges(device, kind, d, bs):
+    """bf16 queries at D 64/128, bs 16/32 run the span walk: within one
+    bf16 ulp of the span plain version at lengths on either side of the
+    span edges, one launch a call, and a second call gives the same bits
+    (the arrival counters were set back to 0)."""
+    assert _kernels.paged_variant(
+        torch.bfloat16, torch.bfloat16 if kind is None else QUANT[kind], bs,
+        d) == "tensor_core"
+    gen = torch.Generator(device=device).manual_seed(d + bs)
+    t = 2048 // bs
+    q, kp, vp, ks, vs, tables, lens = _paged_case(
+        gen, device, torch.bfloat16, kind, SPAN_LENGTHS, 32, 8, d, bs, t)
+    pa.reset_launch_counts()
+    got = pa.ragged_paged_attention(q, kp, vp, tables, lens, ks, vs)
+    assert pa.ragged_paged_attention.launches == 1
+    again = pa.ragged_paged_attention(q, kp, vp, tables, lens, ks, vs)
+    want = pa.ragged_paged_attention(q, kp, vp, tables, lens, ks, vs,
+                                     impl="dense")
+    torch.cuda.synchronize()
+    assert not got[0].any()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"])
+@pytest.mark.parametrize("s,d,bs", [(4, 128, 16), (8, 128, 16), (4, 64, 32)])
+def test_span_verify_rows_equal_decode_across_span_edges(device, kind, s, d,
+                                                         bs):
+    """Verify rows whose stagger straddles a span edge (254 + 0..3 crosses
+    256; 509 + 0..7 crosses 512) are bitwise the decode kernel at their
+    lengths, and the verify kernel is within one bf16 ulp of its plain
+    version; 32 rows (S 8, group 4) take two 16-row tiles."""
+    gen = torch.Generator(device=device).manual_seed(s + d + bs)
+    t = 2048 // bs
+    lengths = [0, 1, 253, 254, 256 - s + 1, 509, 768, 2048 - s + 1]
+    q, kp, vp, ks, vs, tables, lens = _paged_case(
+        gen, device, torch.bfloat16, kind, lengths, 32, 8, d, bs, t, s)
+    pa.reset_launch_counts()
+    got = pa.ragged_verify_attention(q, kp, vp, tables, lens, ks, vs)
+    assert pa.ragged_verify_attention.launches == 1
+    want = pa.ragged_verify_attention(q, kp, vp, tables, lens, ks, vs,
+                                      impl="dense")
+    for j in range(s):
+        row = pa.ragged_paged_attention(q[:, j:j + 1].contiguous(), kp, vp,
+                                        tables, lens + j, ks, vs)
+        assert torch.equal(got[:, j:j + 1], row), f"row {j}"
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_tol(torch.bfloat16))
+
+
+def test_paged_variant_table_reaches_the_c_entries(device, monkeypatch):
+    """Decode and verify hand their C entries the code of the design the
+    table names for (q dtype, page dtype, bs, D) -- the same for both --
+    and an entry refuses a design it is not built for: the span walk for
+    f32 queries or for a shape outside the table."""
+    cases = [(torch.bfloat16, None, 128, 16, "tensor_core"),
+             (torch.bfloat16, "int8", 64, 32, "tensor_core"),
+             (torch.bfloat16, "fp8", 128, 16, "tensor_core"),
+             (torch.bfloat16, None, 96, 16, "cuda_core"),
+             (torch.bfloat16, None, 128, 8, "cuda_core"),
+             (torch.float32, None, 128, 16, "cuda_core"),
+             (torch.float32, "int8", 128, 16, "cuda_core")]
+    real = _kernels._entry
+    for dtype, kind, d, bs, name in cases:
+        pages = dtype if kind is None else QUANT[kind]
+        assert _kernels.paged_variant(dtype, pages, bs, d) == name
+        gen = torch.Generator(device=device).manual_seed(d + bs)
+        q, kp, vp, ks, vs, tables, lens = _paged_case(
+            gen, device, dtype, kind, [300, 17], 8, 2, d, bs, 40, 4)
+        seen = []
+
+        def spy(kernel, dt, page_dtype=None):
+            fn = real(kernel, dt, page_dtype)
+
+            def call(*args):
+                seen.append((kernel, args[-2]))
+                return fn(*args)
+            return call
+
+        monkeypatch.setattr(_kernels, "_entry", spy)
+        _kernels.paged_decode(q[:, :1].contiguous(), kp, vp, tables, lens,
+                              ks, vs)
+        _kernels.paged_verify(q, kp, vp, tables, lens, ks, vs)
+        monkeypatch.setattr(_kernels, "_entry", real)
+        torch.cuda.synchronize()
+        code = _kernels.PAGED_VARIANTS[name]
+        assert seen == [("paged_decode", code), ("paged_verify", code)]
+        if name == "cuda_core":  # the span walk is not built for these
+            out = torch.empty_like(q[:, :1])
+            ws = torch.empty(1 << 20, device=device)
+            cnt = torch.zeros(64, dtype=torch.int32, device=device)
+            sc = (None, None) if ks is None else (ks.data_ptr(),
+                                                  vs.data_ptr())
+            rc = real("paged_decode", dtype, kp.dtype)(
+                q.data_ptr(), kp.data_ptr(), vp.data_ptr(), *sc,
+                tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), cnt.data_ptr(), 2, 2, 4, d, bs, 40,
+                d ** -0.5, _kernels.PAGED_VARIANTS["tensor_core"],
+                torch.cuda.current_stream(device).cuda_stream)
+            assert rc != 0
 
 
 # ---- flash attention: kernels 1-3 (csrc/flash_*.cu) ----

@@ -6,7 +6,8 @@ use, on the machine with the card, by
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v
 
-into ``triton_kubernetes_tpu_torch/_build/`` (listed in ``.gitignore``);
+into ``triton_kubernetes_tpu_torch/_build/`` (listed in ``.gitignore``),
+with ``-DTK8S_PAGED_SPAN=`` :data:`PAGED_SPAN_KEYS`;
 ``-Xptxas -v`` puts each kernel's registers and spills in the build log.
 The library name carries a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. The library is
@@ -35,8 +36,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+# Keys of one span of the decode and verify kernels' tensor-core design:
+# the key axis is cut into spans of this many keys fixed by position, one
+# block a span, their softmax states merged in order. Defined here once;
+# the kernels get it as -DTK8S_PAGED_SPAN, and the plain version
+# (``ops.paged_attention``) restarts its running max at every span.
+PAGED_SPAN_KEYS = 256
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DTK8S_PAGED_SPAN={PAGED_SPAN_KEYS}")
 KERNELS = ("paged_decode", "paged_verify", "paged_prefill", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv", "decode_gemm", "rms_norm")
 PAGED_KERNELS = ("paged_decode", "paged_verify", "paged_prefill")
@@ -50,13 +58,14 @@ _STRIDES = (_L, _L, _L)
 # name -> argument types of its C entries (one per dtype suffix).
 _SIGNATURES = {
     # q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths, out,
-    # B, Hkv, group, D, bs, T, scale, stream
-    "paged_decode": (_P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _F, _P),
+    # workspace, counters, B, Hkv, group, D, bs, T, scale, variant, stream
+    "paged_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths, out,
-    # B, S, Hkv, group, D, bs, T, scale, stream
-    "paged_verify": (_P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # workspace, counters, B, S, Hkv, group, D, bs, T, scale, variant,
+    # stream
+    "paged_verify": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # q, k_pages, v_pages, k_scale, v_scale, block_table, out,
     # C, Hkv, group, D, bs, offset, scale, stream
     "paged_prefill": (_P, _P, _P, _P, _P, _P, _P,
@@ -84,6 +93,42 @@ _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _PAGE_SUFFIX = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 # Most query rows (S * group) one verify block takes.
 MAX_VERIFY_ROWS = 32
+
+# The two designs of the decode and verify kernels, by the code their C
+# entries take as ``variant``: "tensor_core", the span walk (mma.sync on
+# bf16 operands, the key axis split into spans of PAGED_SPAN_KEYS, one
+# launch that merges them); "cuda_core", the page walk with f32 FMAs, one
+# block per (sequence, KV head) -- f32 queries, and shapes the first is not
+# built for.
+PAGED_VARIANTS = {"tensor_core": 1, "cuda_core": 0}
+# The (q dtype, page dtype, block size, head_dim) the span walk takes.
+# Decode and verify look up the same entry for the same pool and queries,
+# which is what keeps a verify row bitwise the decode row: the choice is by
+# shape alone, nothing is tried and retried.
+PAGED_TENSOR_CORE = frozenset(
+    (torch.bfloat16, pages, bs, d)
+    for pages in (torch.bfloat16, torch.int8, torch.float8_e4m3fn)
+    for bs in (16, 32) for d in (64, 128))
+
+
+def paged_variant(dtype: torch.dtype, page_dtype: torch.dtype, bs: int,
+                  head_dim: int) -> str:
+    """Name (key of :data:`PAGED_VARIANTS`) of the design that both the
+    decode and the verify kernel run for queries of ``dtype`` over pages
+    of ``page_dtype`` (q's dtype on unquantized pools), block size ``bs``
+    and this head width."""
+    return ("tensor_core"
+            if (dtype, page_dtype, bs, head_dim) in PAGED_TENSOR_CORE
+            else "cuda_core")
+
+
+def paged_span(dtype: torch.dtype, page_dtype: torch.dtype, bs: int,
+               head_dim: int) -> Optional[int]:
+    """Keys of a span of the design :func:`paged_variant` picks (its plain
+    version restarts the running max there), or None: one span."""
+    return (PAGED_SPAN_KEYS if paged_variant(dtype, page_dtype, bs,
+                                             head_dim) == "tensor_core"
+            else None)
 
 
 # Most rows one decode_gemm launch takes; ``ops.decode_gemm`` runs larger
@@ -293,13 +338,41 @@ def _scale_ptrs(k_scale: Optional[torch.Tensor],
     return k_scale.data_ptr(), v_scale.data_ptr()
 
 
+# Arrival counters of the span walk, one int32 per (sequence, KV head), a
+# buffer per device, zeroed once when it is made: the last block of a
+# (sequence, head) sets its counter back to 0, so no call zeroes them (that
+# would be one more launch a call). Calls that share them must not run at
+# once: the decode and verify kernels go on one stream at a time.
+_span_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+def _span_buffers(q: torch.Tensor, page_dtype: torch.dtype, b: int,
+                  hkv: int, rows: int, d: int, bs: int, tw: int):
+    """(variant code, workspace pointer, counters pointer) of one decode or
+    verify launch. The span walk gets an f32 workspace for its spans'
+    partial (acc, m, l) of every row, [B, Hkv, spans, rows, D + 2], made
+    here with ``torch.empty`` (the kernel allocates nothing)."""
+    variant = paged_variant(q.dtype, page_dtype, bs, d)
+    if variant != "tensor_core":
+        return PAGED_VARIANTS[variant], None, None
+    spans = max(1, -(-tw * bs // PAGED_SPAN_KEYS))
+    ws = torch.empty(b * hkv * spans * rows * (d + 2), dtype=torch.float32,
+                     device=q.device)
+    counters = _span_counters.get(q.device)
+    if counters is None or counters.numel() < b * hkv:
+        counters = torch.zeros(max(b * hkv, 1024), dtype=torch.int32,
+                               device=q.device)
+        _span_counters[q.device] = counters
+    return PAGED_VARIANTS[variant], ws.data_ptr(), counters.data_ptr()
+
+
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                  v_pages: torch.Tensor, block_tables: torch.Tensor,
                  lengths: torch.Tensor,
                  k_scale: Optional[torch.Tensor] = None,
                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch ``csrc/paged_decode.cu`` on the current stream:
-    [B, 1, Hq, D] in q's dtype."""
+    """Launch ``csrc/paged_decode.cu`` on the current stream, the design
+    :func:`paged_variant` names: [B, 1, Hq, D] in q's dtype."""
     hkv, bs, d = _check_operands("paged_decode", q, k_pages, v_pages,
                                  (block_tables, lengths), k_scale, v_scale)
     b, s, hq, dq = q.shape
@@ -315,11 +388,14 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    tw = block_tables.shape[1]
+    variant, ws, counters = _span_buffers(q, k_pages.dtype, b, hkv,
+                                          hq // hkv, d, bs, tw)
     rc = _entry("paged_decode", q.dtype, k_pages.dtype)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         *_scale_ptrs(k_scale, v_scale),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, hkv, hq // hkv, d, bs, block_tables.shape[1], d ** -0.5,
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws,
+        counters, b, hkv, hq // hkv, d, bs, tw, d ** -0.5, variant,
         torch.cuda.current_stream(q.device).cuda_stream)
     _check(rc, "paged_decode")
     return out
@@ -330,9 +406,10 @@ def paged_verify(q: torch.Tensor, k_pages: torch.Tensor,
                  lengths: torch.Tensor,
                  k_scale: Optional[torch.Tensor] = None,
                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch ``csrc/paged_verify.cu`` on the current stream:
-    [B, S, Hq, D] in q's dtype; S * group rows per block, at most
-    :data:`MAX_VERIFY_ROWS`."""
+    """Launch ``csrc/paged_verify.cu`` on the current stream, the design
+    :func:`paged_variant` names (the decode kernel's for the same pool and
+    queries): [B, S, Hq, D] in q's dtype; S * group rows per block, at
+    most :data:`MAX_VERIFY_ROWS`."""
     hkv, bs, d = _check_operands("paged_verify", q, k_pages, v_pages,
                                  (block_tables, lengths), k_scale, v_scale)
     b, s, hq, dq = q.shape
@@ -349,11 +426,14 @@ def paged_verify(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    tw = block_tables.shape[1]
+    variant, ws, counters = _span_buffers(q, k_pages.dtype, b, hkv,
+                                          s * (hq // hkv), d, bs, tw)
     rc = _entry("paged_verify", q.dtype, k_pages.dtype)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         *_scale_ptrs(k_scale, v_scale),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, s, hkv, hq // hkv, d, bs, block_tables.shape[1], d ** -0.5,
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws,
+        counters, b, s, hkv, hq // hkv, d, bs, tw, d ** -0.5, variant,
         torch.cuda.current_stream(q.device).cuda_stream)
     _check(rc, "paged_verify")
     return out

@@ -36,13 +36,15 @@ This module holds
 The plain versions follow the kernels' steps: scores in f32 from the
 input-dtype operands (8-bit K converted exactly), times ``D ** -0.5``,
 then times the page's K scale when quantized; an online softmax over one
-page of keys at a time, in f32; ``p`` rounded to V's dtype before ``P @ V``
-on unquantized pools, kept in f32 on quantized ones, where each page's
-``P @ V`` is multiplied by its V scale; ``acc / l`` where ``l > 0``, else
-0. Pages the kernels never visit (at or past the sequence's length, or past
-the prefill window) contribute nothing, so a length-0 decode slot returns 0
--- where the JAX dense reference averages garbage instead, which its
-engine discards.
+page of keys at a time, in f32, whose running max restarts at every span
+of ``_kernels.PAGED_SPAN_KEYS`` keys where the decode and verify kernels
+run their tensor-core design (``_kernels.paged_span``); ``p`` rounded to
+V's dtype before ``P @ V`` on unquantized pools, kept in f32 on quantized
+ones, where each page's ``P @ V`` is multiplied by its V scale; ``acc /
+l`` where ``l > 0``, else 0. Pages the kernels never visit (at or past
+the sequence's length, or past the prefill window) contribute nothing,
+so a length-0 decode slot returns 0 -- where the JAX dense reference
+averages garbage instead, which its engine discards.
 """
 
 from __future__ import annotations
@@ -243,14 +245,19 @@ def _paged_attention_plain(q: torch.Tensor,  # [B, Sq, Hq, D]
                            bs: int,
                            k_scale: Optional[torch.Tensor] = None,  # [B,T,Hkv]
                            v_scale: Optional[torch.Tensor] = None,
+                           span: Optional[int] = None,
                            ) -> torch.Tensor:
     """The kernels' arithmetic, vectorised over pages: the online softmax
     over pages of ``bs`` keys is written in closed form -- page ``t``'s
     ``p`` is taken against the running max ``m_t`` (and, unquantized,
-    rounded to V's dtype there), then rescaled by ``exp(m_t - m_last)``,
-    which is what the kernels' chain of ``corr`` factors multiplies it by.
-    Quantized pools pass their pages' scales: K's multiplies each page's
-    scores after ``D ** -0.5``, V's each page's ``P @ V``."""
+    rounded to V's dtype there), then rescaled by ``exp(m_t - M)``, ``M``
+    the max over every page, which is what the kernels' chain of ``corr``
+    factors (and the merge of spans) multiplies it by. With ``span`` keys
+    (a multiple of ``bs``) the running max restarts at each span's first
+    page, as each span of the tensor-core kernels starts from fresh state;
+    None is one span. Quantized pools pass their pages' scales: K's
+    multiplies each page's scores after ``D ** -0.5``, V's each page's
+    ``P @ V``."""
     b, sq, hq, d = q.shape
     _, tk, hkv, _ = k.shape
     if hq % hkv != 0:
@@ -269,10 +276,17 @@ def _paged_attention_plain(q: torch.Tensor,  # [B, Sq, Hq, D]
             < kv_len.long()[:, None])[:, None, None, None, :]  # [B,1,1,1,T]
     m_page = torch.where(live, s.amax(dim=-1),
                          torch.full((), NEG_INF, device=q.device))
-    m_run = torch.cummax(m_page, dim=-1).values  # [B, Hkv, G, Sq, T]
+    # Running max within each span: pages of a span side by side, the last
+    # span padded with dead pages.
+    pps = max(1, t if span is None else span // bs)
+    n_span = -(-t // pps)
+    m_run = torch.nn.functional.pad(m_page, (0, n_span * pps - t),
+                                    value=NEG_INF)
+    m_run = torch.cummax(m_run.unflatten(-1, (n_span, pps)), dim=-1).values
+    m_run = m_run.flatten(-2)[..., :t]  # [B, Hkv, G, Sq, T]
     p = torch.exp(s - m_run[..., None])
     p = torch.where(live[..., None], p, torch.zeros((), device=q.device))
-    w = torch.exp(m_run - m_run[..., -1:])
+    w = torch.exp(m_run - m_page.amax(dim=-1, keepdim=True))
     l = (p.sum(dim=-1) * w).sum(dim=-1)  # [B, Hkv, G, Sq]
     if quantized:
         w = w * v_scale.permute(0, 2, 1)[:, :, None, None, :]
@@ -287,11 +301,24 @@ def _paged_attention_plain(q: torch.Tensor,  # [B, Sq, Hq, D]
 
 
 def _decode_plain(q, k_pages, v_pages, block_tables, lengths, k_scale,
-                  v_scale) -> torch.Tensor:
+                  v_scale, span: Optional[int]) -> torch.Tensor:
     k, v, ks, vs = _gather_for_plain(k_pages, v_pages, block_tables,
                                      k_scale, v_scale)
     return _paged_attention_plain(q, k, v, (lengths - 1)[:, None], lengths,
-                                  k_pages.shape[2], ks, vs)
+                                  k_pages.shape[2], ks, vs, span)
+
+
+def _verify_plain(q, k_pages, v_pages, block_tables, lengths, k_scale,
+                  v_scale, span: Optional[int]) -> torch.Tensor:
+    """The S rows as staggered batch rows of the decode plain version."""
+    b, s, hq, d = q.shape
+    lens = (lengths[:, None] + torch.arange(
+        s, dtype=lengths.dtype, device=lengths.device)[None]).reshape(-1)
+    out = _decode_plain(q.reshape(b * s, 1, hq, d), k_pages, v_pages,
+                        block_tables.repeat_interleave(s, dim=0), lens,
+                        k_scale, v_scale, span)
+    return out.reshape(b, s, hq, d)
+
 
 
 def ragged_paged_attention(
@@ -313,7 +340,9 @@ def ragged_paged_attention(
     impl = resolve_paged_impl(impl, q.device)
     if impl == "dense":
         return _decode_plain(q, k_pages, v_pages, block_tables, lengths,
-                             k_scale, v_scale)
+                             k_scale, v_scale,
+                             _kernels.paged_span(q.dtype, k_pages.dtype,
+                                                 *k_pages.shape[2:]))
     out = _kernels.paged_decode(q, k_pages, v_pages, block_tables, lengths,
                                 k_scale, v_scale)
     ragged_paged_attention.launches += 1
@@ -346,13 +375,10 @@ def ragged_verify_attention(
     _check_scales(k_scale, v_scale)
     impl = resolve_paged_impl(impl, q.device)
     if impl == "dense":
-        b, s, hq, d = q.shape
-        lens = (lengths[:, None] + torch.arange(
-            s, dtype=lengths.dtype, device=lengths.device)[None]).reshape(-1)
-        out = _decode_plain(q.reshape(b * s, 1, hq, d), k_pages, v_pages,
-                            block_tables.repeat_interleave(s, dim=0), lens,
-                            k_scale, v_scale)
-        return out.reshape(b, s, hq, d)
+        return _verify_plain(q, k_pages, v_pages, block_tables, lengths,
+                             k_scale, v_scale,
+                             _kernels.paged_span(q.dtype, k_pages.dtype,
+                                                 *k_pages.shape[2:]))
     out = _kernels.paged_verify(q, k_pages, v_pages, block_tables, lengths,
                                 k_scale, v_scale)
     ragged_verify_attention.launches += 1
