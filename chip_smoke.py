@@ -29,7 +29,11 @@ result:
    page kind, also at lengths whose rows straddle an edge of the span
    walk (decode and verify run their tensor-core design there, the one
    ``_kernels.PAGED_TENSOR_CORE`` names for bf16 queries at D 128, bs
-   16). The decode GEMM at each of the 8B model's product shapes
+   16). The prefill kernel must run its tensor-core design on all three
+   page kinds (the variant code its C entry received is recorded), and
+   its rows 256-511 of a 512-token window at offset 0 must be
+   ``torch.equal`` to a 256-token window at offset 256. The decode GEMM
+   at each of the 8B model's product shapes
    (K x N: 4096 x 4096, 4096 x 1024, 4096 x 14336, 14336 x 4096, and the
    lm head 4096 x 128256 in f32) and the RMSNorm at D 4096, at M 8 (a
    decode tick) and 32 (a verify tick): against ``torch.mm`` (the plain
@@ -55,10 +59,11 @@ result:
    by ticks x (2 x layers + 1); prints TTFT, TPOT, tokens/s and tick
    times;
    cross-checks one greedy request's first-token logits against the plain
-   versions (and an engine forced onto them); profiles a few decode ticks
-   and two verify ticks of a spec_k 3 engine (device busy time by kernel
-   class, idle share, launches per tick, the paged kernels by name, which
-   must include the span kernels).
+   versions (and an engine forced onto them); profiles one 256-token
+   prefill window of a lone 1,000-token prompt, a few decode ticks and two
+   verify ticks of a spec_k 3 engine (device busy time by kernel class,
+   idle share, launches per tick, the paged kernels by name, which must
+   include the span kernels and the prefill's tensor-core kernel).
    Then six more runs of those 8 requests plus 4 repetitive ones (one
    seeded token tiled 300-700 times, so the model repeats itself and the
    drafter fires): bf16, int8 and fp8 pools, each
@@ -349,6 +354,37 @@ def straddle_check(pa, device, gen):
           f"{', '.join(KV_KINDS)} pages", flush=True)
 
 
+def prefill_window_check(pa, device, gen):
+    """Prefill rows do not depend on the window they came in: rows 256-511
+    of a 512-token window at offset 0 ``torch.equal`` to a 256-token window
+    at offset 256 over the same pages, on bf16, int8 and fp8 pages.
+    Asserted; not timed."""
+    c, half = 2 * PREFILL_CHUNK, PREFILL_CHUNK
+    table_cpu = (torch.randperm(T, generator=torch.Generator().manual_seed(2))
+                 + 1).to(torch.int32)
+    kp16, vp16 = make_pool(gen, 1 + T, [(c, table_cpu.tolist())], device)
+    table = table_cpu.to(device)
+    q = torch.randn((1, c, HQ, D), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    for kind in KV_KINDS:
+        kp, vp, ks, vs = pool_variant(kp16, vp16, kind)
+        whole = pa.paged_prefill_attention(q, kp, vp, table, 0, ks, vs,
+                                           impl="cuda")
+        part = pa.paged_prefill_attention(q[:, half:].contiguous(), kp, vp,
+                                          table, half, ks, vs, impl="cuda")
+        if not torch.equal(whole[:, half:], part):
+            worst = float((whole[:, half:].float() - part.float()).abs()
+                          .max())
+            raise AssertionError(
+                f"paged_prefill ({kind} pages, {paged_design(kp)}): rows "
+                f"{half}-{c - 1} of a {c}-token window at offset 0 differ "
+                f"from a {half}-token window at offset {half} (max abs "
+                f"{worst}); they must be bitwise equal")
+    print(f"kernel paged_prefill: rows {half}-{c - 1} of a {c}-token window "
+          f"at offset 0 == a {half}-token window at offset {half} bitwise on "
+          f"{', '.join(KV_KINDS)} pages", flush=True)
+
+
 def sdpa(qs, kk, vv, mask):
     return torch.nn.functional.scaled_dot_product_attention(
         qs, kk, vv, attn_mask=mask)
@@ -475,6 +511,10 @@ def kernel_phase(pa, device, flush, peaks):
 
     # ---- prefill: one C = 256 window at three offsets.
     cases = {kind: [] for kind in KV_KINDS}
+    designs = {kind: set() for kind in KV_KINDS}
+    from triton_kubernetes_tpu_torch.ops import _kernels
+    real_entry = _kernels._entry
+    codes = {v: k for k, v in _kernels.PAGED_VARIANTS.items()}
     for off in PREFILL_OFFSETS:
         total = off + PREFILL_CHUNK
         table_cpu = (torch.randperm(T, generator=torch.Generator()
@@ -490,8 +530,21 @@ def kernel_phase(pa, device, flush, peaks):
         keys = sum(off + i + 1 for i in range(PREFILL_CHUNK))
         for kind in KV_KINDS:
             kp, vp, ks, vs = pool_variant(kp16, vp16, kind)
-            got = pa.paged_prefill_attention(q, kp, vp, table, off, ks, vs,
-                                             impl="cuda")
+
+            def spy(kernel, dt, page_dtype=None, kind=kind):
+                fn = real_entry(kernel, dt, page_dtype)
+
+                def call(*args):  # args[-2]: the variant code
+                    designs[kind].add(codes[args[-2]])
+                    return fn(*args)
+                return call
+
+            _kernels._entry = spy
+            try:
+                got = pa.paged_prefill_attention(q, kp, vp, table, off, ks,
+                                                 vs, impl="cuda")
+            finally:
+                _kernels._entry = real_entry
             want = pa.paged_prefill_attention(q, kp, vp, table, off, ks, vs,
                                               impl="dense")
             torch.cuda.synchronize()
@@ -516,6 +569,10 @@ def kernel_phase(pa, device, flush, peaks):
                 library_ms=lms, flops=flops, bytes=nbytes,
                 bound_ms=max(flops / peaks[1], nbytes / peaks[0]) * 1e3))
     for kind in KV_KINDS:
+        if designs[kind] != {"tensor_core"}:
+            raise AssertionError(
+                f"paged_prefill ({kind} pages): the C entry ran the "
+                f"{designs[kind]} design, not the tensor cores")
         cs = cases[kind]
         rec = kernel_record(
             "paged_prefill", kind, "paged_prefill.cu",
@@ -526,10 +583,13 @@ def kernel_phase(pa, device, flush, peaks):
             "scaled_dot_product_attention over the gathered (dequantized) "
             "pages with a causal mask at the window's offset",
             dict(C=PREFILL_CHUNK, Hq=HQ, Hkv=HKV, D=D, bs=BS, T=T,
-                 offsets=PREFILL_OFFSETS, summed_over="offsets"), cases=cs)
+                 offsets=PREFILL_OFFSETS, summed_over="offsets"),
+            variant="tensor_core", cases=cs, rows_window_invariant=True)
         # Summed over three launches: the bound is the sum of theirs.
         rec["bound_ms"] = sum(c["bound_ms"] for c in cs)
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         records.append(rec)
+    prefill_window_check(pa, device, gen)
     for r in records:
         print(f"kernel {r['name']} ({r['variant']}): "
               f"max_abs_err={r['max_abs_err']:.6g} "
@@ -538,7 +598,9 @@ def kernel_phase(pa, device, flush, peaks):
               f"library_ms={r['library_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})"
               + (" rows == paged_decode bitwise"
-                 if r.get("rows_bitwise_equal_to_decode") else ""),
+                 if r.get("rows_bitwise_equal_to_decode") else "")
+              + (" rows window-invariant bitwise"
+                 if r.get("rows_window_invariant") else ""),
               flush=True)
     return records
 
@@ -915,6 +977,7 @@ def row_counts_wanted(ticks, cfg):
 # Kernel classes of a profiled tick: (class, what its kernels' names hold).
 TICK_CLASSES = (("paged_decode kernel", "paged_decode_"),
                 ("paged_verify kernel", "paged_verify_"),
+                ("paged_prefill kernel", "paged_prefill_"),
                 ("decode_gemm kernel", "decode_gemm_kernel"),
                 ("rms_norm kernel", "rms_norm_kernel"))
 
@@ -950,6 +1013,34 @@ def tick_profile(profiles, ticks, wall_ms):
                 launches_per_tick=launches / ticks,
                 device_ms_per_tick_by_class=by_class,
                 paged_kernels=sorted(names))
+
+
+def profile_prefill(engine, cfg, Request, windows_before=2):
+    """Where a prefill window's time goes: one 1,000-token prompt alone on
+    an idle engine, its third 256-token window (offset 512) run under
+    torch.profiler. Returns :func:`tick_profile`'s record of that tick."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(9)
+    engine.submit(Request("prefill-profile", rng.integers(
+        0, cfg.vocab_size, 1000).tolist(), 2))
+    for _ in range(windows_before):
+        engine.step()
+    before = engine.stats()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    after = engine.stats()
+    if (after["prefill_windows"] != before["prefill_windows"] + 1
+            or after["decode_steps"] != before["decode_steps"]):
+        raise AssertionError("profile: the profiled tick was not one "
+                             "prefill window alone")
+    engine.run_until_idle()
+    return tick_profile([prof], 1, wall_ms)
 
 
 def profile_decode(engine, cfg, Request, ticks=4):
@@ -1187,6 +1278,9 @@ def serve_phase(card):
           f", same argmax: {int(lk.argmax()) == int(ld.argmax())}"
           f" (plain top-2 gap {gap:.5f}); {same}/32 tokens equal to the "
           f"plain-version engine", flush=True)
+    pprof = profile_prefill(engine, cfg, Request)
+    print_tick_profile(f"prefill window ({PREFILL_CHUNK} tokens at offset "
+                       f"{2 * PREFILL_CHUNK}, one sequence)", pprof, card)
     prof = profile_decode(engine, cfg, Request)
     del engine, dense
     gc.collect()
@@ -1198,7 +1292,8 @@ def serve_phase(card):
     # The span walk runs the main path's ticks, and the profiles show it by
     # name (when the profiler sees the device at all).
     for what, p, key in (("decode", prof, "paged_decode_span_kernel"),
-                         ("verify", vprof, "paged_verify_span_kernel")):
+                         ("verify", vprof, "paged_verify_span_kernel"),
+                         ("prefill", pprof, "paged_prefill_mma_kernel")):
         if p["device_idle_share"] is not None and not any(
                 n.startswith(key) for n in p["paged_kernels"]):
             raise AssertionError(f"{what} tick profile: no {key} among "
@@ -1220,7 +1315,8 @@ def serve_phase(card):
         first_token_plain_top2_gap=gap,
         first_token_plain_paths_rel_l2=floor_rel_l2,
         tick_ms=tick_ms,
-        decode_tick_profile=prof, verify_tick_profile=vprof,
+        prefill_window_profile=pprof, decode_tick_profile=prof,
+        verify_tick_profile=vprof,
         tokens_equal_to_plain_engine=same,
         peak_memory_bytes=peak)
 

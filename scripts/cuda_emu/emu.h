@@ -67,6 +67,17 @@ struct __nv_fp8_e4m3 {
   }
 };
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __expf(float x) { return expf(x); }
+inline float __uint_as_float(uint32_t u) { return f_of_bits(u); }
+inline uint32_t __float_as_uint(float f) { return bits_of_f(f); }
+// prmt: byte n of the result is byte (s >> 4n) & 7 of the 8 bytes y:x.
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t xy = ((uint64_t)y << 32) | x;
+  uint32_t r = 0;
+  for (int n = 0; n < 4; ++n)
+    r |= (uint32_t)((xy >> (8 * ((s >> (4 * n)) & 7))) & 0xff) << (8 * n);
+  return r;
+}
 struct WarpCtx {
   std::barrier<>* bar;
   float f[32];

@@ -1,22 +1,29 @@
-"""Build the paged decode and verify kernels for the CPU and check them.
+"""Build the paged decode, verify and prefill kernels for the CPU and
+check them.
 
 The CUDA sources of ``triton_kubernetes_tpu_torch/csrc`` cannot be run
 without a card. This script rewrites ``paged_decode.cu``,
-``paged_verify.cu`` and ``paged_common.cuh`` to build with g++ against
-``emu.h`` (a thread-level emulation of shared memory, barriers, warp
-shuffles, ldmatrix, mma.sync and cp.async), loads the libraries with
-ctypes, and drives their C entries with the arguments the wrappers of
-``ops/_kernels.py`` pass, on CPU tensors. It checks, for the span walk
-(bf16 queries on bf16, int8 and fp8 pages, D 128/bs 16 and D 64/bs 32):
+``paged_verify.cu``, ``paged_prefill.cu`` and ``paged_common.cuh`` to
+build with g++ against ``emu.h`` (a thread-level emulation of shared
+memory, barriers, warp shuffles, ldmatrix, mma.sync and cp.async), loads
+the libraries with ctypes, and drives their C entries with the arguments
+the wrappers of ``ops/_kernels.py`` pass, on CPU tensors. It checks, for
+the tensor-core designs (bf16 queries on bf16, int8 and fp8 pages, D
+128/bs 16 and D 64/bs 32):
 
 * decode and verify within one bf16 ulp (1e-2 + 2^-7 |plain|) of the span
   plain version of ``ops/paged_attention.py``, at lengths around the
   span edges;
 * every verify row bitwise the decode kernel at its length;
 * a second call gives the same bits, and the arrival counters are all 0
-  after every call.
+  after every call;
+* prefill within one bf16 ulp of its plain version on windows that start
+  and end inside a 64-key stage and on its edge, with a ragged last row
+  tile, and its rows bitwise the same whatever window they came in (rows
+  64-127 of a 128-token window at offset 0 against a 64-token window at
+  offset 64, and the same positions 26 tokens apart in two windows).
 
-Run from the repository root (about two minutes on 8 cores):
+Run from the repository root (about three minutes on 8 cores):
 
     python3 scripts/cuda_emu/emulate_paged.py [--build DIR] [--quick]
 
@@ -45,7 +52,7 @@ from triton_kubernetes_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from triton_kubernetes_tpu_torch.ops import quantization as qz  # noqa: E402
 
 EMU_H = Path(__file__).resolve().parent / "emu.h"
-KERNELS = ("paged_decode", "paged_verify")
+KERNELS = ("paged_decode", "paged_verify", "paged_prefill")
 # Device helpers emu.h replaces: their asm bodies are renamed out of the
 # way, and calls resolve to emu.h's versions.
 HELPERS = ("cp_async16", "cp_async_wait_all", "cp_async16_zfill",
@@ -72,14 +79,15 @@ def for_host(src: str) -> str:
                    f"({m.group(6)}); }});"), src, flags=re.S)
 
 
-def build(out: Path) -> dict:
-    """g++ builds of the emulated kernels, all at once; {name: CDLL}."""
+def build(out: Path, names=KERNELS) -> dict:
+    """g++ builds of the named emulated kernels, all at once; {name:
+    CDLL}."""
     csrc = K.CSRC
     out.mkdir(parents=True, exist_ok=True)
     (out / "paged_common.cuh").write_text(
         for_host((csrc / "paged_common.cuh").read_text()))
     procs = {}
-    for name in KERNELS:
+    for name in names:
         (out / f"{name}.cpp").write_text(
             for_host((csrc / f"{name}.cu").read_text()))
         procs[name] = subprocess.Popen(
@@ -90,7 +98,7 @@ def build(out: Path) -> dict:
     if any(p.wait() for p in procs.values()):
         raise SystemExit("emulation build failed")
     libs = {}
-    for name in KERNELS:
+    for name in names:
         lib = ctypes.CDLL(str(out / f"lib{name}.so"))
         for suffix in K._entry_suffixes(name):
             fn = getattr(lib, f"tk8s_{name}_{suffix}")
@@ -108,6 +116,24 @@ class Emulated:
         self.libs = libs
         self.counters = torch.zeros(4096, dtype=torch.int32)
 
+    def prefill(self, q, kp, vp, table, offset, ks, vs, variant=None):
+        """The prefill C entry's rc and output ([1, C, Hq, D]); ``variant``
+        defaults to the one the wrapper passes."""
+        _, c, hq, d = q.shape
+        _, hkv, bs, _ = kp.shape
+        if variant is None:
+            variant = K.PAGED_VARIANTS[K.paged_variant(q.dtype, kp.dtype,
+                                                       bs, d)]
+        out = torch.full_like(q, float("nan"))
+        scales = (None, None) if ks is None else (ks.data_ptr(),
+                                                  vs.data_ptr())
+        rc = getattr(self.libs["paged_prefill"],
+                     f"tk8s_paged_prefill_{suffix_of(q, kp)}")(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), *scales,
+            table.data_ptr(), out.data_ptr(), c, hkv, hq // hkv, d, bs,
+            table.shape[0], offset, d ** -0.5, variant, None)
+        return rc, out
+
     def __call__(self, name, q, kp, vp, tables, lens, ks, vs):
         b, s, hq, d = q.shape
         _, hkv, bs, _ = kp.shape
@@ -117,9 +143,7 @@ class Emulated:
         spans = max(1, -(-tw * bs // K.PAGED_SPAN_KEYS))
         ws = torch.full((b * hkv * spans * rows * (d + 2),), float("nan"))
         out = torch.full_like(q, float("nan"))
-        suffix = K._SUFFIX[q.dtype]
-        if kp.dtype != q.dtype:
-            suffix += "_" + K._PAGE_SUFFIX[kp.dtype]
+        suffix = suffix_of(q, kp)
         scales = (None, None) if ks is None else (ks.data_ptr(),
                                                   vs.data_ptr())
         args = [q.data_ptr(), kp.data_ptr(), vp.data_ptr(), *scales,
@@ -137,6 +161,24 @@ class Emulated:
         return out
 
 
+def suffix_of(q, kp):
+    """The C entry's dtype suffix for these queries and pages."""
+    suffix = K._SUFFIX[q.dtype]
+    if kp.dtype != q.dtype:
+        suffix += "_" + K._PAGE_SUFFIX[kp.dtype]
+    return suffix
+
+
+def pages_of(kind, exact):
+    """(k, v, k_scale, v_scale) of two exact f32 pools as pages of
+    ``kind``: bf16, or the anchored int8/fp8 quantization."""
+    if kind == "bf16":
+        return (*(e.to(torch.bfloat16) for e in exact), None, None)
+    (kp, ks), (vp, vs) = (qz.quantize_kv_pages(e, qz.KV_QUANT_DTYPES[kind])
+                          for e in exact)
+    return kp, vp, ks, vs
+
+
 def case(kind, d, bs, hq, hkv, lengths, s, tw, seed):
     """bf16 queries over pages of ``kind`` holding each sequence's
     ``length + s - 1`` tokens (the trash page poisoned)."""
@@ -146,11 +188,7 @@ def case(kind, d, bs, hq, hkv, lengths, s, tw, seed):
              for _ in range(2)]
     for e in exact:
         e[pa.TRASH_PAGE] = 1e4
-    if kind == "bf16":
-        (kp, vp), ks, vs = (e.to(torch.bfloat16) for e in exact), None, None
-    else:
-        (kp, ks), (vp, vs) = (qz.quantize_kv_pages(
-            e, qz.KV_QUANT_DTYPES[kind]) for e in exact)
+    kp, vp, ks, vs = pages_of(kind, exact)
     tables = (torch.randperm(b * tw, generator=gen).reshape(b, tw) + 1
               ).to(torch.int32)
     for i, n in enumerate(lengths):
@@ -158,6 +196,56 @@ def case(kind, d, bs, hq, hkv, lengths, s, tw, seed):
     lens = torch.tensor(lengths, dtype=torch.int32)
     q = torch.randn((b, s, hq, d), generator=gen).to(torch.bfloat16)
     return q, kp, vp, ks, vs, tables, lens
+
+
+def prefill_case(kind, d, bs, hq, hkv, tw, seed):
+    """A table of ``tw`` pages of ``kind`` (the trash page poisoned) and
+    the generator for its windows' queries."""
+    gen = torch.Generator().manual_seed(seed)
+    exact = [torch.randn((1 + tw, hkv, bs, d), generator=gen)
+             for _ in range(2)]
+    for e in exact:
+        e[pa.TRASH_PAGE] = 1e4
+    table = (torch.randperm(tw, generator=gen) + 1).to(torch.int32)
+    return gen, table, pages_of(kind, exact)
+
+
+def check_prefill(emu, kind, d, bs, hq, hkv):
+    """The tensor-core prefill against its plain version, and its rows
+    against the same rows of another window, bit for bit."""
+    ok = True
+    tw = 320 // bs
+    gen, table, (kp, vp, ks, vs) = prefill_case(kind, d, bs, hq, hkv, tw,
+                                                d + bs)
+    assert K.paged_variant(torch.bfloat16, kp.dtype, bs, d) == "tensor_core"
+    # (C, offset): a window inside one stage, one across a stage edge from
+    # inside it, one from an edge to inside, one edge to edge.
+    for c, offset in ((20, 3), (40, 100), (24, 64), (64, 192)):
+        q = torch.randn((1, c, hq, d), generator=gen).to(torch.bfloat16)
+        rc, got = emu.prefill(q, kp, vp, table, offset, ks, vs)
+        if rc != 0:
+            print(f"  prefill C {c} @ {offset}: the C entry refused ({rc})")
+            return False
+        ok &= close(f"prefill C {c} @ {offset} ({c * hq // hkv} rows a "
+                    f"head) vs the plain version", got,
+                    pa.paged_prefill_attention(q, kp, vp, table, offset, ks,
+                                               vs, impl="dense"))
+    # The same positions through two windows: rows a multiple of 64
+    # apart, then 26 tokens apart (at group 4, 104 rows: another warp,
+    # and row g + 8 against g).
+    q = torch.randn((1, 128, hq, d), generator=gen).to(torch.bfloat16)
+    for (c, offset), (c2, offset2) in (((128, 0), (64, 64)),
+                                       ((48, 16), (22, 42))):
+        _, whole = emu.prefill(q[:, :c].contiguous(), kp, vp, table, offset,
+                               ks, vs)
+        _, part = emu.prefill(q[:, c - c2:c].contiguous(), kp, vp, table,
+                              offset2, ks, vs)
+        same = torch.equal(whole[:, c - c2:], part)
+        print(f"  prefill positions {offset2}-{offset + c - 1}: window C {c} "
+              f"@ {offset} == window C {c2} @ {offset2} bitwise: {same}",
+              flush=True)
+        ok &= same
+    return ok
 
 
 def close(what, got, want):
@@ -184,7 +272,7 @@ def main() -> int:
         # (pages, D, bs, Hq, Hkv): group 4, and group 8 at D 64 / bs 32.
         configs = [("bf16", 128, 16, 8, 2), ("int8", 128, 16, 8, 2),
                    ("fp8", 128, 16, 8, 2), ("bf16", 64, 32, 8, 1),
-                   ("int8", 64, 32, 16, 2)]
+                   ("int8", 64, 32, 16, 2), ("fp8", 64, 32, 16, 2)]
         ok = True
         for kind, d, bs, hq, hkv in configs[:1] if args.quick else configs:
             t0 = time.time()
@@ -218,9 +306,10 @@ def main() -> int:
                         print(f"  verify S {s}: row {j} differs from decode "
                               f"at lengths + {j}", flush=True)
                         ok = False
+            ok &= check_prefill(emu, kind, d, bs, hq, hkv)
             print(f"  ({time.time() - t0:.1f} s)", flush=True)
-    print("emulated span walk: all checks passed" if ok
-          else "emulated span walk: FAILED")
+    print("emulated tensor-core designs: all checks passed" if ok
+          else "emulated tensor-core designs: FAILED")
     return 0 if ok else 1
 
 

@@ -11,7 +11,10 @@ what ``chip_smoke.py``'s Llama-3-8B shapes do not: other group sizes, head
 dims, block sizes, f32 pools, a window that is not page aligned in its
 last rows, quantized (int8/fp8) pools, the verify kernel's rows against the
 decode kernel bit for bit, the decode and verify span walk at lengths on
-either side of its span edges and the table that picks it, the dQ
+either side of its span edges and the table that picks it, the prefill
+kernel's tensor-core design (page kinds, widths, block sizes, groups,
+windows around its 64-key stages, rows bitwise the same in any window,
+the design the table sends to the C entry), the dQ
 kernel's tensor-core design at ragged
 sequences, the row-invariant decode GEMM and RMSNorm (rows at M 1, 8 and
 32 bitwise, at the 8B widths), a small model's verify logits rows against
@@ -340,6 +343,126 @@ def test_paged_variant_table_reaches_the_c_entries(device, monkeypatch):
                 tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
                 ws.data_ptr(), cnt.data_ptr(), 2, 2, 4, d, bs, 40,
                 d ** -0.5, _kernels.PAGED_VARIANTS["tensor_core"],
+                torch.cuda.current_stream(device).cuda_stream)
+            assert rc != 0
+
+
+# ---- the prefill kernel on the tensor cores (csrc/paged_prefill.cu) ----
+
+# (C, offset): edge to edge of a 64-key stage; inside to inside across
+# stages; from an edge to inside one; ending one key past an edge.
+PREFILL_WINDOWS = [(64, 0), (40, 100), (20, 64), (73, 192)]
+
+
+def _prefill_pages(gen, kind, tw, hkv, bs, d, device):
+    if kind is None:
+        return (*(_pool(gen, 1 + tw, hkv, bs, d, torch.bfloat16, device)
+                  for _ in range(2)), None, None)
+    kp, ks = _quant_pool(gen, 1 + tw, hkv, bs, d, kind, device)
+    vp, vs = _quant_pool(gen, 1 + tw, hkv, bs, d, kind, device)
+    return kp, vp, ks, vs
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("d,bs", [(128, 16), (64, 32), (128, 32), (64, 16)])
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"])
+def test_tensor_core_prefill_matches_plain(device, kind, d, bs, group):
+    """bf16 queries at D 64/128, bs 16/32 run the tensor-core design on
+    bf16, int8 and fp8 pages: within one bf16 ulp of the plain version on
+    windows that start and end inside a 64-key stage and on its edge, with
+    ragged last row tiles (C * group not a multiple of 64), one launch a
+    call."""
+    pages = torch.bfloat16 if kind is None else QUANT[kind]
+    assert _kernels.paged_variant(torch.bfloat16, pages, bs,
+                                  d) == "tensor_core"
+    gen = torch.Generator(device=device).manual_seed(d + bs + group)
+    hkv, tw = 2, 320 // bs
+    kp, vp, ks, vs = _prefill_pages(gen, kind, tw, hkv, bs, d, device)
+    table = (torch.randperm(tw, device=device) + 1).to(torch.int32)
+    for c, offset in PREFILL_WINDOWS:
+        q = torch.randn((1, c, hkv * group, d), generator=gen,
+                        device=device).to(torch.bfloat16)
+        pa.reset_launch_counts()
+        got = pa.paged_prefill_attention(q, kp, vp, table, offset, ks, vs)
+        assert pa.paged_prefill_attention.launches == 1
+        want = pa.paged_prefill_attention(q, kp, vp, table, offset, ks, vs,
+                                          impl="dense")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **_tol(torch.bfloat16),
+                                   msg=lambda m: f"C {c} @ {offset}: {m}")
+
+
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"])
+def test_tensor_core_prefill_rows_do_not_depend_on_the_window(device, kind):
+    """At the Llama-3-8B heads (Hq 32, Hkv 8, D 128, bs 16): rows 256-511
+    of a 512-token window at offset 0 are torch.equal to a 256-token window
+    at offset 256 over the same pages; so are positions 42-63 of a 48-token
+    window at offset 16 and a 22-token window at offset 42, which sit 104
+    rows apart: in other row tiles, warps and rows of a warp."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    tw = 40
+    kp, vp, ks, vs = _prefill_pages(gen, kind, tw, 8, 16, 128, device)
+    table = (torch.randperm(tw, device=device) + 1).to(torch.int32)
+    q = torch.randn((1, 512, 32, 128), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    for (c, offset), (c2, offset2) in (((512, 0), (256, 256)),
+                                       ((48, 16), (22, 42))):
+        whole = pa.paged_prefill_attention(q[:, :c].contiguous(), kp, vp,
+                                           table, offset, ks, vs)
+        part = pa.paged_prefill_attention(
+            q[:, c - c2:c].contiguous(), kp, vp, table, offset2, ks, vs)
+        torch.cuda.synchronize()
+        assert torch.equal(whole[:, c - c2:], part), (c, offset)
+
+
+def test_prefill_variant_reaches_the_c_entry(device, monkeypatch):
+    """The prefill wrapper hands its C entry the code of the design the
+    table names -- bf16 at bs 16 / D 128 the tensor cores, f32 and the
+    shapes outside the table the CUDA cores -- and the entry refuses the
+    tensor-core design for f32 queries."""
+    cases = [(torch.bfloat16, None, 128, 16, "tensor_core"),
+             (torch.bfloat16, "int8", 64, 32, "tensor_core"),
+             (torch.bfloat16, "fp8", 128, 16, "tensor_core"),
+             (torch.bfloat16, None, 96, 16, "cuda_core"),
+             (torch.bfloat16, None, 128, 8, "cuda_core"),
+             (torch.float32, None, 128, 16, "cuda_core"),
+             (torch.float32, "int8", 128, 16, "cuda_core")]
+    real = _kernels._entry
+    for dtype, kind, d, bs, name in cases:
+        pages = dtype if kind is None else QUANT[kind]
+        assert _kernels.paged_variant(dtype, pages, bs, d) == name
+        gen = torch.Generator(device=device).manual_seed(d + bs)
+        q, kp, vp, ks, vs, tables, _ = _paged_case(
+            gen, device, dtype, kind, [300], 8, 2, d, bs, 40)
+        qc = torch.randn((1, 37, 8, d), generator=gen, device=device
+                         ).to(dtype)
+        seen = []
+
+        def spy(kernel, dt, page_dtype=None):
+            fn = real(kernel, dt, page_dtype)
+
+            def call(*args):
+                seen.append((kernel, args[-2]))
+                return fn(*args)
+            return call
+
+        monkeypatch.setattr(_kernels, "_entry", spy)
+        got = _kernels.paged_prefill(qc, kp, vp, tables[0], 200, ks, vs)
+        monkeypatch.setattr(_kernels, "_entry", real)
+        want = pa.paged_prefill_attention(qc, kp, vp, tables[0], 200, ks, vs,
+                                          impl="dense")
+        torch.cuda.synchronize()
+        assert seen == [("paged_prefill", _kernels.PAGED_VARIANTS[name])]
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+        if dtype == torch.float32:  # the tensor-core design is not built
+            out = torch.empty_like(qc)
+            sc = (None, None) if ks is None else (ks.data_ptr(),
+                                                  vs.data_ptr())
+            rc = real("paged_prefill", dtype, kp.dtype)(
+                qc.data_ptr(), kp.data_ptr(), vp.data_ptr(), *sc,
+                tables[0].data_ptr(), out.data_ptr(), 37, 2, 4, d, bs, 40,
+                200, d ** -0.5, _kernels.PAGED_VARIANTS["tensor_core"],
                 torch.cuda.current_stream(device).cuda_stream)
             assert rc != 0
 

@@ -67,9 +67,9 @@ _SIGNATURES = {
     "paged_verify": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # q, k_pages, v_pages, k_scale, v_scale, block_table, out,
-    # C, Hkv, group, D, bs, offset, scale, stream
+    # C, Hkv, group, D, bs, T, offset, scale, variant, stream
     "paged_prefill": (_P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _F, _P),
+                      _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # q, k, v, out, lse, B, S, Hq, Hkv, D, strides of q, k, v, scale,
     # variant, stream
     "flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -94,17 +94,18 @@ _PAGE_SUFFIX = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 # Most query rows (S * group) one verify block takes.
 MAX_VERIFY_ROWS = 32
 
-# The two designs of the decode and verify kernels, by the code their C
-# entries take as ``variant``: "tensor_core", the span walk (mma.sync on
-# bf16 operands, the key axis split into spans of PAGED_SPAN_KEYS, one
-# launch that merges them); "cuda_core", the page walk with f32 FMAs, one
-# block per (sequence, KV head) -- f32 queries, and shapes the first is not
-# built for.
+# The two designs of each paged kernel, by the code their C entries take
+# as ``variant``: "tensor_core", mma.sync on bf16 operands -- for decode
+# and verify the span walk (the key axis split into spans of
+# PAGED_SPAN_KEYS, one launch that merges them), for prefill 64-row GQA
+# tiles over a ring of 64-key stages; "cuda_core", f32 FMAs on the CUDA
+# cores -- f32 queries, and shapes the first is not built for.
 PAGED_VARIANTS = {"tensor_core": 1, "cuda_core": 0}
-# The (q dtype, page dtype, block size, head_dim) the span walk takes.
-# Decode and verify look up the same entry for the same pool and queries,
-# which is what keeps a verify row bitwise the decode row: the choice is by
-# shape alone, nothing is tried and retried.
+# The (q dtype, page dtype, block size, head_dim) the tensor-core designs
+# take. Decode and verify look up the same entry for the same pool and
+# queries, which is what keeps a verify row bitwise the decode row; the
+# prefill kernel reads the same table. The choice is by shape alone:
+# nothing is tried and retried.
 PAGED_TENSOR_CORE = frozenset(
     (torch.bfloat16, pages, bs, d)
     for pages in (torch.bfloat16, torch.int8, torch.float8_e4m3fn)
@@ -113,10 +114,10 @@ PAGED_TENSOR_CORE = frozenset(
 
 def paged_variant(dtype: torch.dtype, page_dtype: torch.dtype, bs: int,
                   head_dim: int) -> str:
-    """Name (key of :data:`PAGED_VARIANTS`) of the design that both the
-    decode and the verify kernel run for queries of ``dtype`` over pages
-    of ``page_dtype`` (q's dtype on unquantized pools), block size ``bs``
-    and this head width."""
+    """Name (key of :data:`PAGED_VARIANTS`) of the design that the
+    decode, verify and prefill kernels run for queries of ``dtype`` over
+    pages of ``page_dtype`` (q's dtype on unquantized pools), block size
+    ``bs`` and this head width."""
     return ("tensor_core"
             if (dtype, page_dtype, bs, head_dim) in PAGED_TENSOR_CORE
             else "cuda_core")
@@ -443,8 +444,8 @@ def paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
                   v_pages: torch.Tensor, block_table: torch.Tensor,
                   offset: int, k_scale: Optional[torch.Tensor] = None,
                   v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch ``csrc/paged_prefill.cu`` on the current stream:
-    [1, C, Hq, D] in q's dtype."""
+    """Launch ``csrc/paged_prefill.cu`` on the current stream, the design
+    :func:`paged_variant` names: [1, C, Hq, D] in q's dtype."""
     hkv, bs, d = _check_operands("paged_prefill", q, k_pages, v_pages,
                                  (block_table,), k_scale, v_scale)
     one, c, hq, dq = q.shape
@@ -460,10 +461,12 @@ def paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
              f"paged_prefill: window [{offset}, {offset + c}) outside the "
              f"table's {block_table.shape[0] * bs} slots")
     out = torch.empty_like(q)
+    variant = paged_variant(q.dtype, k_pages.dtype, bs, d)
     rc = _entry("paged_prefill", q.dtype, k_pages.dtype)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         *_scale_ptrs(k_scale, v_scale), block_table.data_ptr(),
-        out.data_ptr(), c, hkv, hq // hkv, d, bs, offset, d ** -0.5,
+        out.data_ptr(), c, hkv, hq // hkv, d, bs, block_table.shape[0],
+        offset, d ** -0.5, PAGED_VARIANTS[variant],
         torch.cuda.current_stream(q.device).cuda_stream)
     _check(rc, "paged_prefill")
     return out
