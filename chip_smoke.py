@@ -33,19 +33,22 @@ result:
    page kinds (the variant code its C entry received is recorded), and
    its rows 256-511 of a 512-token window at offset 0 must be
    ``torch.equal`` to a 256-token window at offset 256. The decode GEMM
-   at each of the 8B model's product shapes
-   (K x N: 4096 x 4096, 4096 x 1024, 4096 x 14336, 14336 x 4096, and the
-   lm head 4096 x 128256 in f32) and the RMSNorm at D 4096, at M 8 (a
-   decode tick) and 32 (a verify tick): against ``torch.mm`` (the plain
-   version, also the library yardstick) and the plain norm (yardstick:
-   ``torch.nn.functional.rms_norm``), rows at M 1, 8 and 32
-   ``torch.equal`` to the kernel's rows at M 64, times beside the
-   weight-bytes bound; the plain torch ops' rows at every M of 1-64
-   against their own at M 64, reported;
+   at each of the 8B model's launches, one a group of products of one
+   input (K x N: wq+wk+wv 4096 x (4096 + 1024 + 1024), wo 4096 x 4096,
+   w3+w1 4096 x (14336 + 14336), w2 14336 x 4096, and the lm head
+   4096 x 128256 in f32; its K split reported) and the RMSNorm at D
+   4096, at M 8 (a decode tick) and 32 (a verify tick): against their
+   plain versions (``torch.mm`` of each weight in turn; the plain norm),
+   with one library call each as a yardstick (``torch.mm`` on the
+   group's weights concatenated; ``torch.nn.functional.rms_norm``), rows
+   at M 1, 8 and 32 ``torch.equal`` to the kernel's rows at M 64, times
+   beside the weight-bytes bound; the plain torch ops' rows at every M
+   of 1-64 against their own at M 64, reported;
 4. serve  -- ``llama3-8b`` at full width and depth (random bf16 weights
    from a seed). First the F1 probe: one verify tick's layer input
    [8, 4, 4096] through each row op of layer 0 and of the head (the norms,
-   wq/wk/wv, wo, w3/w1/w2, the f32 lm head), once on its 32 rows and once
+   wq/wk/wv alone and as the one launch the step makes, wo, w3/w1 alone
+   and as one launch, w2, the f32 lm head), once on its 32 rows and once
    on each of its four 8-row slices, by the plain torch ops and by the
    row-invariant kernels; prints which are bitwise row for row and
    asserts the kernels' are. Then the direct check: 8 prefilled
@@ -55,7 +58,7 @@ result:
    chunked prefill with the prefix cache, 8 requests; checks
    completions, pool drain, prefix hits and that the paged kernels'
    launch counters rose by exactly (windows x layers) and (decode ticks x
-   layers), the decode GEMM's by ticks x (7 x layers + 1) and the norm's
+   layers), the decode GEMM's by ticks x (4 x layers + 1) and the norm's
    by ticks x (2 x layers + 1); prints TTFT, TPOT, tokens/s and tick
    times;
    cross-checks one greedy request's first-token logits against the plain
@@ -205,14 +208,19 @@ def card_peaks(name: str):
     return "H100 SXM", PEAKS["H100 SXM"]
 
 
-def time_ms(fn, flush: torch.Tensor, runs: int = 30, warmup: int = 3):
+def time_ms(fn, flush: torch.Tensor, runs: int = 30, warmup: int = 3,
+            read_flush: bool = False):
     """Median of ``runs`` CUDA-event timings of ``fn``, the 50 MB L2
     flushed before each (the serving path reads every layer's pages
     cold). The flush is enqueued :data:`FLUSH_PASSES` times: the card is
     still busy with it while the host prepares ``fn``'s launch, so the
     window between the two events holds the device's time and not the
     Python wrapper's (some 0.04 ms of a sub-millisecond kernel when the
-    flush ran once)."""
+    flush ran once). It zeroes the flush buffer, which leaves the L2 full
+    of dirty lines that ``fn``'s reads must write back; ``read_flush``
+    reads it instead, leaving clean lines (as a decode tick's kernels,
+    which write little, leave them)."""
+    words = flush.view(torch.int32)
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -220,7 +228,10 @@ def time_ms(fn, flush: torch.Tensor, runs: int = 30, warmup: int = 3):
     times = []
     for _ in range(runs):
         for _ in range(FLUSH_PASSES):
-            flush.zero_()
+            if read_flush:
+                words.sum()
+            else:
+                flush.zero_()
         start.record()
         fn()
         end.record()
@@ -605,14 +616,15 @@ def kernel_phase(pa, device, flush, peaks):
     return records
 
 
-# The decode tick's weight products of Llama-3-8B, (name, K, N, out dtype):
-# one of each shape a layer (wq and wo share 4096 x 4096, wk and wv
-# 4096 x 1024, w1 and w3 4096 x 14336), and the lm head once a tick.
-GEMM_SHAPES = [("wq/wo", 4096, 4096, torch.bfloat16),
-               ("wk/wv", 4096, 1024, torch.bfloat16),
-               ("w1/w3", 4096, 14336, torch.bfloat16),
-               ("w2", 14336, 4096, torch.bfloat16),
-               ("lm head", 4096, 128256, torch.float32)]
+# The decode and verify ticks' weight products of Llama-3-8B as the steps
+# launch them, (name, K, widths of the group, out dtype): one launch a
+# group of products of one input -- wq, wk and wv, then w3 and w1 -- and
+# one for each other weight of a layer, and the lm head once a tick.
+GEMM_GROUPS = [("wq+wk+wv", 4096, (4096, 1024, 1024), torch.bfloat16),
+               ("wo", 4096, (4096,), torch.bfloat16),
+               ("w3+w1", 4096, (14336, 14336), torch.bfloat16),
+               ("w2", 14336, (4096,), torch.bfloat16),
+               ("lm head", 4096, (128256,), torch.float32)]
 # Rows of a decode tick (max_batch) and of a verify tick (max_batch x
 # (spec_k + 1)); M 1 joins them in the row-invariance check.
 GEMM_ROWS = (8, 32)
@@ -632,52 +644,74 @@ def rows_differing(fn, x, ms):
 
 def rows_kernel_phase(device, flush, peaks):
     """The row-invariant decode GEMM and RMSNorm against their plain
-    versions (torch.mm and the plain rms_norm) at the 8B shapes, M 8 and
-    32; rows at M 1, 8 and 32 bitwise the rows at M 64 (the plain ops' at
-    every M of 1-64 reported); times beside the bytes bound and the
-    library call's (torch.mm, which is also the GEMM's plain version;
-    torch.nn.functional.rms_norm, which the port never calls).
+    versions (torch.mm of each weight in turn, and the plain rms_norm) at
+    the 8B groups and D 4096, M 8 and 32: the GEMM one launch a group
+    (wq+wk+wv, wo, w3+w1, w2, the lm head), its K split reported; rows at
+    M 1, 8 and 32 bitwise the rows at M 64 (the plain ops' at every M of
+    1-64 reported); times beside the bytes bound and the library call's
+    (one torch.mm on the group's weights concatenated outside the timed
+    window; torch.nn.functional.rms_norm), which the port never calls.
     Returns the two kernels' records (their headline numbers at M 8: a
-    decode tick's rows), the per-shape cases inside."""
+    decode tick's rows, summed over the groups), the per-group cases
+    inside."""
     from triton_kubernetes_tpu_torch.ops import _kernels
     from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
     from triton_kubernetes_tpu_torch.ops import norms
 
-    def gemm(x, w, out):  # one launch of the kernel, as the wrapper makes
-        y = torch.empty((x.shape[0], w.shape[1]), dtype=out, device=x.device)
-        _kernels.decode_gemm(x, w, y)
-        return y
+    def launch(x, ws, out):  # one launch of the kernel, as the wrapper makes
+        ys = [torch.empty((x.shape[0], w.shape[1]), dtype=out,
+                          device=x.device) for w in ws]
+        _kernels.decode_gemm(x, ws, ys)
+        return ys
+
+    # The outputs side by side, for the checks (the copy is not timed).
+    def gemm(x, ws, out):
+        return torch.cat(launch(x, ws, out), dim=1)
+
+    def plain(x, ws, out):  # the products in turn, torch.mm each
+        return torch.cat(dg.decode_gemm_group_plain(x, ws, out), dim=1)
+
+    def library(x, w_cat, out):  # one torch.mm on the weights side by side
+        return (torch.mm(x, w_cat) if out == x.dtype
+                else torch.mm(x, w_cat, out_dtype=out))
 
     bw = peaks[0]
     gen = torch.Generator(device=device).manual_seed(99)
     cases = []
-    for name, k, n, out in GEMM_SHAPES:
-        w = (torch.randn((k, n), generator=gen, device=device) * 0.02
-             ).to(torch.bfloat16)
+    for name, k, ns, out in GEMM_GROUPS:
+        ws = [(torch.randn((k, n), generator=gen, device=device) * 0.02
+               ).to(torch.bfloat16) for n in ns]
+        w_cat = torch.cat(ws, dim=1) if len(ws) > 1 else ws[0]
         x = torch.randn((max(ALL_ROWS), k), generator=gen, device=device
                         ).to(torch.bfloat16)
-        bad = rows_differing(lambda t: gemm(t, w, out), x, (1, 8, 32))
+        bad = rows_differing(lambda t: gemm(t, ws, out), x, (1, 8, 32))
         if bad:
             raise AssertionError(f"decode_gemm {name}: rows at M {bad} are "
                                  f"not bitwise its rows at M 64")
-        torch_rows = rows_differing(
-            lambda t: dg.decode_gemm_plain(t, w, out), x, ALL_ROWS)
+        torch_rows = rows_differing(lambda t: plain(t, ws, out), x, ALL_ROWS)
+        n = sum(ns)
         for m in GEMM_ROWS:
             xm = x[:m].contiguous()
-            got = gemm(xm, w, out)
-            want = dg.decode_gemm_plain(xm, w, out)
+            got = gemm(xm, ws, out)
+            want = plain(xm, ws, out)
             torch.cuda.synchronize()
             err = check_close(f"decode_gemm {name} M={m}", got, want)
-            kms = time_ms(lambda: gemm(xm, w, out), flush)
-            pms = time_ms(lambda: dg.decode_gemm_plain(xm, w, out), flush)
+            kms = time_ms(lambda: launch(xm, ws, out), flush)
+            pms = time_ms(lambda: dg.decode_gemm_group_plain(xm, ws, out),
+                          flush)
+            lms = time_ms(lambda: library(xm, w_cat, out), flush)
             nbytes = (k * n + m * k) * 2 + m * n * got.element_size()
+            tile = _kernels.gemm_tile(n)
             cases.append(dict(
-                kernel="decode_gemm", shape=name, K=k, N=n, M=m,
+                kernel="decode_gemm", shape=name, K=k, N=list(ns), M=m,
+                tile_n=tile, splits=_kernels.gemm_splits(n, k),
+                blocks=sum(-(-c // tile) for c in ns)
+                * _kernels.gemm_splits(n, k),
                 out=str(out).removeprefix("torch."), max_abs_err=err,
-                ms=kms, plain_ms=pms, library_ms=pms, bytes=nbytes,
+                ms=kms, plain_ms=pms, library_ms=lms, bytes=nbytes,
                 flops=2 * m * k * n, bound_ms=nbytes / bw * 1e3,
                 torch_rows_differing_at=torch_rows))
-        del w, x
+        del ws, w_cat, x
     scale = (1 + 0.1 * torch.randn((4096,), generator=gen, device=device)
              ).to(torch.bfloat16)
     x = (3 * torch.randn((max(ALL_ROWS), 4096), generator=gen,
@@ -706,8 +740,11 @@ def rows_kernel_phase(device, flush, peaks):
             library_ms=lms, bytes=nbytes, flops=4 * m * 4096,
             bound_ms=nbytes / bw * 1e3, torch_rows_differing_at=torch_rows))
     for c in cases:
+        split = (f", {c['tile_n']}-column tiles, K split in "
+                 f"{c['splits']}, {c['blocks']} blocks"
+                 if "splits" in c else "")
         print(f"kernel {c['kernel']} {c['shape']} M={c['M']} ({c['out']} "
-              f"out): max_abs_err={c['max_abs_err']:.6g} kernel_ms="
+              f"out{split}): max_abs_err={c['max_abs_err']:.6g} kernel_ms="
               f"{c['ms']:.4f} plain_ms={c['plain_ms']:.4f} library_ms="
               f"{c['library_ms']:.4f} bound_ms="
               f"{c['bound_ms']:.5f} (bytes; share "
@@ -718,8 +755,9 @@ def rows_kernel_phase(device, flush, peaks):
     records = []
     for name, source, library_call in (
             ("decode_gemm", "decode_gemm.cu",
-             "torch.mm (out_dtype float32 for the lm head), which is also "
-             "the plain version"),
+             "one torch.mm of x on the group's weights side by side "
+             "(out_dtype float32 for the lm head); the plain version is "
+             "torch.mm of each weight in turn"),
             ("rms_norm", "rms_norm.cu", "torch.nn.functional.rms_norm")):
         mine = [c for c in cases if c["kernel"] == name and c["M"] == 8]
         total = {f: sum(c[f] for c in mine)
@@ -733,8 +771,11 @@ def rows_kernel_phase(device, flush, peaks):
                       if name == "decode_gemm" else
                       "none: a plain XLA reduction in the reference "
                       "(triton_kubernetes_tpu/ops/norms.py:11)"),
-            variant="tensor_core (mma.sync)" if name == "decode_gemm"
-            else "cuda_core",
+            variant=("tensor_core (mma.sync), one launch a group of "
+                     "products of one input, tile width and K split by "
+                     "the shape (_kernels.gemm_tile, gemm_splits), the "
+                     "split merged in the launch"
+                     if name == "decode_gemm" else "cuda_core"),
             max_abs_err=max(c["max_abs_err"] for c in cases
                             if c["kernel"] == name),
             tolerance=f"{ATOL} + {RTOL} * |plain|",
@@ -771,7 +812,16 @@ def f1_probe(model, cfg):
         return lambda t: torch.einsum(spec, t, w)
 
     def kernel_product(spec, w):
-        return lambda t: llama._row_product(spec, t, w)
+        return lambda t: llama._row_products(spec, t, [w])[0]
+
+    def einsums(spec, ws):  # the group's products in turn, side by side
+        return lambda t: torch.cat([torch.einsum(spec, t, w).flatten(2)
+                                    for w in ws], dim=-1)
+
+    def kernel_group(spec, ws):  # one launch for the group
+        return lambda t: torch.cat([y.flatten(2) for y in
+                                    llama._row_products(spec, t, ws)],
+                                   dim=-1)
 
     def norm(fn, scale):
         return lambda t: fn(t, scale, eps)
@@ -805,6 +855,10 @@ def f1_probe(model, cfg):
                    kernel_product("bsd,dhk->bshk", layer.wk)),
             "wv": (h, einsum("bsd,dhk->bshk", layer.wv),
                    kernel_product("bsd,dhk->bshk", layer.wv)),
+            "wq+wk+wv (one launch)": (
+                h, einsums("bsd,dhk->bshk", (layer.wq, layer.wk, layer.wv)),
+                kernel_group("bsd,dhk->bshk",
+                             (layer.wq, layer.wk, layer.wv))),
             "project_out (wo)": (attn, einsum("bshk,hkd->bsd", layer.wo),
                                  kernel_product("bshk,hkd->bsd", layer.wo)),
             "rms_norm (mlp_norm)": (x, norm(norms.rms_norm, layer.mlp_norm),
@@ -814,6 +868,9 @@ def f1_probe(model, cfg):
                    kernel_product("bsd,df->bsf", layer.w3)),
             "w1": (h2, einsum("bsd,df->bsf", layer.w1),
                    kernel_product("bsd,df->bsf", layer.w1)),
+            "w3+w1 (one launch)": (
+                h2, einsums("bsd,df->bsf", (layer.w3, layer.w1)),
+                kernel_group("bsd,df->bsf", (layer.w3, layer.w1))),
             "w2": (gate * up, einsum("bsf,fd->bsd", layer.w2),
                    kernel_product("bsf,fd->bsd", layer.w2)),
             "final_norm_hidden": (x, norm(norms.rms_norm, model.final_norm),
@@ -962,15 +1019,15 @@ def reset_row_counts():
 def row_counts():
     """Launches of the row-invariant kernels since reset_row_counts."""
     from triton_kubernetes_tpu_torch.ops import decode_gemm, norms
-    return {"decode_gemm": decode_gemm.decode_gemm.launches,
+    return {"decode_gemm": decode_gemm.decode_gemm_group.launches,
             "rms_norm": norms.rms_norm_rows.launches}
 
 
 def row_counts_wanted(ticks, cfg):
-    """What ``ticks`` decode or verify ticks launch at <= 64 rows: seven
-    weight products and two norms a layer, the final norm and the lm
-    head."""
-    return {"decode_gemm": ticks * (7 * cfg.num_layers + 1),
+    """What ``ticks`` decode or verify ticks launch at <= 64 rows: four
+    weight-product launches a layer (wq+wk+wv, wo, w3+w1, w2) and two
+    norms, the final norm and the lm head."""
+    return {"decode_gemm": ticks * (4 * cfg.num_layers + 1),
             "rms_norm": ticks * (2 * cfg.num_layers + 1)}
 
 

@@ -1,7 +1,9 @@
-// Thread-level CPU emulation of the CUDA features the paged decode and
-// verify kernels use, so that g++ can build and run them on a machine
+// Thread-level CPU emulation of the CUDA features the paged kernels and
+// the decode GEMM use, so that g++ can build and run them on a machine
 // without a card (emulate_paged.py rewrites the sources to include this
-// first). Blocks of a launch run one after another, in a shuffled order;
+// first). Blocks of a launch run one after another, in a shuffled order
+// (emu_set_shuffle_seed picks it; a static __shared__ array is then one
+// array that each block in turn has to itself);
 // each runs as blockDim std::threads with real barriers for
 // __syncthreads; warp collectives (shfl, ldmatrix, mma.sync) exchange
 // their operands through per-warp buffers. cp.async copies at once;
@@ -28,6 +30,7 @@
 #define __restrict__
 #define __launch_bounds__(...)
 #define __align__(n) alignas(n)
+#define __shared__ static
 struct dim3 { unsigned x, y, z; dim3(unsigned a=1, unsigned b=1, unsigned c=1):x(a),y(b),z(c){} };
 struct uint3_ { unsigned x, y, z; };
 inline thread_local uint3_ threadIdx, blockIdx;
@@ -98,6 +101,7 @@ inline void __threadfence() {}
 // Blocks run one at a time: a plain add is atomic here.
 inline int atomicAdd(int* p, int v) { int o = *p; *p += v; return o; }
 inline float4 __ldcg(const float4* p) { return *p; }
+inline float __ldcg(const float* p) { return *p; }
 inline float2 __ldcg(const float2* p) { return *p; }
 inline uintptr_t __cvta_generic_to_shared(const void* p) { return (uintptr_t)p; }
 inline uintptr_t smem_u32(const void* p) { return (uintptr_t)p; }
@@ -155,6 +159,9 @@ template <typename F> inline cudaError_t cudaFuncSetAttribute(F, int, int) { ret
 inline cudaError_t cudaGetLastError() { return 0; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
+inline std::mt19937 emu_rng(12345);
+// Reseeds the order in which the blocks of later launches run.
+extern "C" void emu_set_shuffle_seed(unsigned seed) { emu_rng.seed(seed); }
 template <typename F>
 void emu_launch(dim3 grid, int threads, int smem, F f) {
   gridDim = {grid.x, grid.y, grid.z};
@@ -163,8 +170,7 @@ void emu_launch(dim3 grid, int threads, int smem, F f) {
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) blocks.push_back({x, y, z});
-  static std::mt19937 rng(12345);
-  std::shuffle(blocks.begin(), blocks.end(), rng);
+  std::shuffle(blocks.begin(), blocks.end(), emu_rng);
   for (const uint3_& bi : blocks) {
     std::vector<unsigned char> buf(smem + 64, 0xff);  // NaN bytes: catch uninitialised reads
     unsigned char* base = (unsigned char*)(((uintptr_t)buf.data() + 63) & ~(uintptr_t)63);

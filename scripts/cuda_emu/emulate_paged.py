@@ -29,6 +29,10 @@ Run from the repository root (about three minutes on 8 cores):
 
 A rehearsal, not a measurement: the emulated mma.sync rounds its sums
 unlike the card's tensor cores, and nothing here is timed.
+
+:func:`build` takes any kernel of ``_kernels.KERNELS`` whose source needs
+only what ``emu.h`` emulates: ``tests/test_torch_decode_gemm.py`` builds
+``decode_gemm.cu`` with it and drives the GEMM's C entries on the CPU.
 """
 
 from __future__ import annotations

@@ -16,8 +16,10 @@ kernel's tensor-core design (page kinds, widths, block sizes, groups,
 windows around its 64-key stages, rows bitwise the same in any window,
 the design the table sends to the C entry), the dQ
 kernel's tensor-core design at ragged
-sequences, the row-invariant decode GEMM and RMSNorm (rows at M 1, 8 and
-32 bitwise, at the 8B widths), a small model's verify logits rows against
+sequences, the row-invariant decode GEMM (one launch for each 8B group,
+K split by the shape: rows at every M of 1-63 bitwise, twenty launches
+bitwise, grouped refusals) and RMSNorm (rows at M 1 and 8 bitwise), a
+small model's verify logits rows against
 its decode rows, and the wrappers' refusals.
 """
 
@@ -631,58 +633,80 @@ def test_flash_takes_any_stride_on_size_one_dims(device):
 
 # ---- the row-invariant decode GEMM and RMSNorm, and dQ's tensor cores
 
-# Llama-3-8B's decode products (K, N, out dtype): wq/wo, wk/wv, w1/w3, w2,
-# and the lm head in f32.
-GEMM_8B = [(4096, 4096, torch.bfloat16), (4096, 1024, torch.bfloat16),
-           (4096, 14336, torch.bfloat16), (14336, 4096, torch.bfloat16),
-           (4096, 128256, torch.float32)]
+# Llama-3-8B's decode and verify products as the steps launch them, (K,
+# widths of the group, out dtype): wq+wk+wv, wo, w3+w1, w2, and the lm
+# head in f32.
+GEMM_8B = [(4096, (4096, 1024, 1024), torch.bfloat16),
+           (4096, (4096,), torch.bfloat16),
+           (4096, (14336, 14336), torch.bfloat16),
+           (14336, (4096,), torch.bfloat16),
+           (4096, (128256,), torch.float32)]
+GEMM_8B_IDS = ["wq+wk+wv", "wo", "w3+w1", "w2", "lm_head"]
 
 
-@pytest.mark.parametrize("k,n,out", GEMM_8B)
-def test_decode_gemm_rows_are_bitwise_and_match_plain(device, k, n, out):
-    """Rows at every M of 1-63 are torch.equal to the rows at M 64 (so a
+def _gemm_group(gen, k, ns, dtype, device):
+    ws = [(torch.randn((k, n), generator=gen, device=device) * 0.02
+           ).to(dtype) for n in ns]
+    x = torch.randn((64, k), generator=gen, device=device).to(dtype)
+    return x, ws
+
+
+@pytest.mark.parametrize("k,ns,out", GEMM_8B, ids=GEMM_8B_IDS)
+def test_decode_gemm_rows_are_bitwise_and_match_plain(device, k, ns, out):
+    """One grouped launch at each 8B group (K split by ``gemm_splits``):
+    rows at every M of 1-63 are torch.equal to the rows at M 64 (so a
     decode tick's rows are a verify tick's for any max_batch and spec_k
-    within one launch), and the kernel is within one bf16 ulp of
-    torch.mm at M 8 and 32."""
+    within one launch), the kernel is within one bf16 ulp of torch.mm at
+    M 8 and 32, and twenty repeated launches give the same bits."""
     from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
 
-    gen = torch.Generator(device=device).manual_seed(k + n)
-    w = (torch.randn((k, n), generator=gen, device=device) * 0.02
-         ).to(torch.bfloat16)
-    x = torch.randn((64, k), generator=gen, device=device).to(torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(k + sum(ns))
+    x, ws = _gemm_group(gen, k, ns, torch.bfloat16, device)
     dg.reset_launch_counts()
-    full = dg.decode_gemm(x, w, out)
-    assert dg.decode_gemm.launches == 1
+    full = dg.decode_gemm_group(x, ws, out)
+    assert dg.decode_gemm_group.launches == 1
     for m in range(1, 64):
-        assert torch.equal(dg.decode_gemm(x[:m].contiguous(), w, out),
-                           full[:m]), m
+        for a, b in zip(dg.decode_gemm_group(x[:m].contiguous(), ws, out),
+                        full):
+            assert torch.equal(a, b[:m]), m
     for m in (8, 32):
-        want = dg.decode_gemm_plain(x[:m].contiguous(), w, out)
-        torch.testing.assert_close(full[:m].float(), want.float(),
-                                   **_tol(torch.bfloat16))
+        want = dg.decode_gemm_group_plain(x[:m].contiguous(), ws, out)
+        for a, b in zip(full, want):
+            torch.testing.assert_close(a[:m].float(), b.float(),
+                                       **_tol(torch.bfloat16))
+    for _ in range(20):
+        for a, b in zip(dg.decode_gemm_group(x, ws, out), full):
+            assert torch.equal(a, b)
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("k,n", [(k, n) for k, n, _ in GEMM_8B])
+@pytest.mark.parametrize("k,ns", [(k, ns) for k, ns, _ in GEMM_8B],
+                         ids=GEMM_8B_IDS)
 def test_decode_gemm_f32_rows_are_bitwise_and_within_the_sum_bound(device, k,
-                                                                   n):
-    """f32 operands (a model served in f32), at the 8B shapes: rows at
-    every M of 1-63 are torch.equal to the rows at M 64, and each output is
+                                                                   ns):
+    """f32 operands (a model served in f32), one grouped launch at each 8B
+    group: rows at every M of 1-63 are torch.equal to the rows at M 64,
+    twenty repeated launches give the same bits, and each output is
     within the bound any order of an f32 sum of K products obeys,
     |y - exact| <= K 2^-24 sum_k |x_k w_k| (exact: the f64 product)."""
     from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
 
-    gen = torch.Generator(device=device).manual_seed(k + n + 1)
-    w = torch.randn((k, n), generator=gen, device=device) * 0.02
-    x = torch.randn((64, k), generator=gen, device=device)
+    gen = torch.Generator(device=device).manual_seed(k + sum(ns) + 1)
+    x, ws = _gemm_group(gen, k, ns, torch.float32, device)
     dg.reset_launch_counts()
-    full = dg.decode_gemm(x, w)
-    assert full.dtype == torch.float32 and dg.decode_gemm.launches == 1
+    full = dg.decode_gemm_group(x, ws)
+    assert dg.decode_gemm_group.launches == 1
     for m in range(1, 64):
-        assert torch.equal(dg.decode_gemm(x[:m].contiguous(), w), full[:m]), m
-    exact = x.double() @ w.double()
-    bound = 1.01 * k * 2.0 ** -24 * (x.double().abs() @ w.double().abs())
-    assert bool(((full.double() - exact).abs() <= bound).all())
+        for a, b in zip(dg.decode_gemm_group(x[:m].contiguous(), ws), full):
+            assert torch.equal(a, b[:m]), m
+    for _ in range(20):
+        for a, b in zip(dg.decode_gemm_group(x, ws), full):
+            assert torch.equal(a, b)
+    for y, w in zip(full, ws):
+        assert y.dtype == torch.float32
+        exact = x.double() @ w.double()
+        bound = 1.01 * k * 2.0 ** -24 * (x.double().abs() @ w.double().abs())
+        assert bool(((y.double() - exact).abs() <= bound).all())
     torch.cuda.synchronize()
 
 
@@ -696,7 +720,7 @@ def test_decode_gemm_runs_more_than_64_rows_in_launches_of_64(device):
                     ).to(torch.bfloat16)
     dg.reset_launch_counts()
     full = dg.decode_gemm(x, w)
-    assert dg.decode_gemm.launches == 2
+    assert dg.decode_gemm_group.launches == 2
     assert torch.equal(dg.decode_gemm(x[64:].contiguous(), w), full[64:])
     assert torch.equal(dg.decode_gemm(x[:5].contiguous(), w), full[:5])
     torch.testing.assert_close(full.float(), (x.float() @ w.float()),
@@ -716,10 +740,14 @@ def test_row_wrappers_count_only_their_launches(device):
     norms.reset_launch_counts()
     assert dg.decode_gemm(x[:0], w).shape == (0, 32)
     assert norms.rms_norm_rows(x[:0], scale, 1e-5).shape == (0, 64)
-    assert dg.decode_gemm.launches == norms.rms_norm_rows.launches == 0
+    assert dg.decode_gemm_group.launches == norms.rms_norm_rows.launches == 0
     assert torch.equal(dg.decode_gemm(x, w), torch.full(
         (130, 32), 64.0, dtype=torch.bfloat16, device=device))
-    assert dg.decode_gemm.launches == 3
+    assert dg.decode_gemm_group.launches == 3
+    for y in dg.decode_gemm_group(x, [w, w[:, :8].contiguous(), w]):
+        assert torch.equal(y, torch.full((130, y.shape[1]), 64.0,
+                                         dtype=torch.bfloat16, device=device))
+    assert dg.decode_gemm_group.launches == 6
     norms.rms_norm_rows(x, scale, 1e-5)
     assert norms.rms_norm_rows.launches == 1
 
@@ -749,16 +777,16 @@ def test_row_kernels_refuse_what_they_do_not_take(device):
     w = torch.zeros((64, 32), dtype=torch.bfloat16, device=device)
     y = torch.empty((4, 32), dtype=torch.bfloat16, device=device)
     with pytest.raises(ValueError, match="bfloat16"):
-        _kernels.decode_gemm(x.float(), w, y)
+        _kernels.decode_gemm(x.float(), [w], [y])
     with pytest.raises(ValueError, match="float32"):
-        _kernels.decode_gemm(x.float(), w.float(), y)  # f32 in, bf16 out
-    with pytest.raises(ValueError, match="multiples of 8"):
-        _kernels.decode_gemm(x[:, :60].contiguous(), w[:60], y)
+        _kernels.decode_gemm(x.float(), [w.float()], [y])  # f32 in, bf16 out
+    with pytest.raises(ValueError, match="multiple of 8"):
+        _kernels.decode_gemm(x[:, :60].contiguous(), [w[:60]], [y])
     with pytest.raises(ValueError, match="contiguous"):
-        _kernels.decode_gemm(x, w.T.contiguous().T, y)
+        _kernels.decode_gemm(x, [w.T.contiguous().T], [y])
     with pytest.raises(ValueError, match="1-64"):
-        _kernels.decode_gemm(x.repeat(17, 1), w,
-                             y.repeat(17, 1))  # 68 rows: the wrapper's job
+        _kernels.decode_gemm(x.repeat(17, 1), [w],
+                             [y.repeat(17, 1)])  # 68 rows: the wrapper's job
     with pytest.raises(ValueError, match="a row"):
         _kernels.rms_norm(x[:0], torch.ones(64, dtype=torch.bfloat16,
                                             device=device), 1e-5)
@@ -768,6 +796,32 @@ def test_row_kernels_refuse_what_they_do_not_take(device):
         _kernels.rms_norm(x[:, :60].contiguous(),
                           torch.ones(60, dtype=torch.bfloat16,
                                      device=device), 1e-5)
+
+
+def test_decode_gemm_group_refuses(device):
+    """A group whose weights do not share x's K, more than three products,
+    outputs that do not match, mixed output dtypes, and CPU tensors: the
+    binding raises before any launch, and the counter does not move."""
+    from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
+
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device=device)
+    w = torch.zeros((64, 32), dtype=torch.bfloat16, device=device)
+    dg.reset_launch_counts()
+    with pytest.raises(ValueError, match=r"w \[64, N\]"):
+        dg.decode_gemm_group(x, [w, torch.zeros(
+            (72, 32), dtype=torch.bfloat16, device=device)])
+    with pytest.raises(ValueError, match="1-3 weights"):
+        dg.decode_gemm_group(x, [w] * 4)
+    y = torch.empty((4, 32), dtype=torch.bfloat16, device=device)
+    with pytest.raises(ValueError, match="as many"):
+        _kernels.decode_gemm(x, [w, w], [y])
+    with pytest.raises(ValueError, match="every y"):
+        _kernels.decode_gemm(x, [w, w], [y, y.float()])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.decode_gemm(x.cpu(), [w.cpu()], [y.cpu()])
+    with pytest.raises(ValueError, match="on cuda"):
+        _kernels.decode_gemm(x, [w, w.cpu()], [y, y])
+    assert dg.decode_gemm_group.launches == 0
 
 
 @pytest.mark.parametrize("b,s,hq,hkv,d", [
@@ -827,7 +881,7 @@ def test_small_model_verify_rows_are_decode_rows(device, dtype):
         norms.reset_launch_counts()
         verify, _ = paged.paged_verify_step(model, tok, cfg, vcache, tables,
                                             lens)
-        assert dg.decode_gemm.launches == 7 * cfg.num_layers + 1
+        assert dg.decode_gemm_group.launches == 4 * cfg.num_layers + 1
         assert norms.rms_norm_rows.launches == 2 * cfg.num_layers + 1
         for j in range(s):
             row = paged.paged_decode_step(model, tok[:, j].contiguous(), cfg,

@@ -2,12 +2,14 @@
 
 ``paged_decode_step`` and ``paged_verify_step`` take their norms and
 weight products through ``ops.norms.rms_norm_rows`` and
-``ops.decode_gemm.decode_gemm``, whose CUDA kernels give a row the same
-bits whatever the row count (tests/test_torch_cuda.py checks them on the
-card). On CPU tensors both run their plain versions, which must be exactly
-the ops the model runs everywhere else, and agree with the JAX package's
-on the same seeded numpy inputs. The flash dQ kernel's design table is
-pinned here too.
+``ops.decode_gemm.decode_gemm_group`` (wq/wk/wv in one call, w3/w1 in
+another), whose CUDA kernels give a row the same bits whatever the row
+count (tests/test_torch_cuda.py checks them on the card,
+tests/test_torch_decode_gemm.py the GEMM's source in an emulation). On CPU
+tensors both run their plain versions, which must be exactly the ops the
+model runs everywhere else, and agree with the JAX package's on the same
+seeded numpy inputs. The GEMM's K split, a function of the shape alone,
+and the flash dQ kernel's design table are pinned here too.
 """
 
 import inspect
@@ -34,6 +36,18 @@ SPECS = [
     ("bsf,fd->bsd", (3, 4, 128), (128, 64)),      # w2
 ]
 DTYPES = ["float32", "bfloat16"]  # config names; getattr(torch, name)
+# (spec, x shape, weight shapes) of the grouped products: wq/wk/wv and
+# w3/w1 at llama-test widths.
+GROUPS = [
+    ("bsd,dhk->bshk", (3, 4, 64), [(64, 4, 16), (64, 2, 16), (64, 2, 16)]),
+    ("bsd,df->bsf", (3, 4, 64), [(64, 128), (64, 128)]),
+]
+# The decode GEMM's tile width and K split at Llama-3-8B's groups, (group,
+# N summed over the group, K, tile, S): wq+wk+wv, wo, w3+w1, w2, the lm
+# head.
+SPLITS_8B = [("wq+wk+wv", 6144, 4096, 64, 1), ("wo", 4096, 4096, 64, 2),
+             ("w3+w1", 28672, 4096, 128, 1), ("w2", 4096, 14336, 64, 2),
+             ("lm head", 128256, 4096, 128, 1)]
 
 
 def _pair(seed, xs, ws):
@@ -119,37 +133,125 @@ def test_rms_norm_rows_plain_is_rms_norm(dtype):
 def test_row_product_refuses_other_contractions():
     x, w = torch.zeros(2, 3, 8), torch.zeros(8, 5)
     with pytest.raises(ValueError, match="trailing-by-leading"):
-        llama._row_product("bsd,fd->bsf", x, w.T.contiguous())
+        llama._row_products("bsd,fd->bsf", x, [w.T.contiguous()])
+
+
+def _group(seed, xs, wss):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(xs).astype(np.float32),
+            [(0.1 * rng.standard_normal(ws)).astype(np.float32)
+             for ws in wss])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec,xs,wss", GROUPS)
+def test_grouped_products_plain_are_weight_einsums(spec, xs, wss, dtype):
+    """On CPU tensors the grouped row-invariant products are bitwise the
+    separate einsums the model runs off the decode path, in order."""
+    cfg = get_config("llama-test", dtype=dtype)
+    xn, wns = _group(len(wss), xs, wss)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(xn).to(dt)
+    ws = [torch.from_numpy(wn).to(dt) for wn in wns]
+    got = llama.weight_einsums(spec, x, ws, cfg, row_invariant=True)
+    assert len(got) == len(ws)
+    for y, w in zip(got, ws):
+        want = llama.weight_einsum(spec, x, w, cfg)
+        assert y.dtype == want.dtype and torch.equal(y, want)
+    flat = x.reshape(12, -1)
+    for y, p in zip(decode_gemm.decode_gemm_group(
+            flat, [w.reshape(flat.shape[1], -1) for w in ws]),
+            decode_gemm.decode_gemm_group_plain(
+                flat, [w.reshape(flat.shape[1], -1) for w in ws], dt)):
+        assert torch.equal(y, p)
+
+
+@pytest.mark.parametrize("spec,xs,wss", GROUPS)
+def test_grouped_products_match_jax_weight_einsum(spec, xs, wss):
+    """Each grouped product against the reference's ``weight_einsum`` of
+    its weight on the same f32 inputs: within f32 rounding."""
+    xn, wns = _group(len(wss) + 1, xs, wss)
+    got = llama.weight_einsums(spec, torch.from_numpy(xn),
+                               [torch.from_numpy(wn) for wn in wns],
+                               get_config("llama-test"), row_invariant=True)
+    for y, wn in zip(got, wns):
+        want = jllama.weight_einsum(spec, jnp.asarray(xn), jnp.asarray(wn),
+                                    jget_config("llama-test"))
+        np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("group,n_total,k,tile,want", SPLITS_8B)
+def test_gemm_splits_of_the_8b_groups(group, n_total, k, tile, want):
+    """The tile width and K split at each Llama-3-8B group: 128-column
+    tiles for the wide groups; the fewest ranges that give
+    GEMM_BLOCKS_WANTED blocks, each range at least 8 k tiles; none where
+    the tiles alone give them."""
+    assert _kernels.gemm_tile(n_total) == tile, group
+    s = _kernels.gemm_splits(n_total, k)
+    assert s == want, group
+    tiles, k_tiles = n_total // tile, k // 64
+    assert k_tiles // s >= _kernels.GEMM_MIN_RANGE_TILES
+    assert tiles * s >= _kernels.GEMM_BLOCKS_WANTED
+    assert s == 1 or tiles * (s - 1) < _kernels.GEMM_BLOCKS_WANTED
+
+
+def test_gemm_splits_depend_on_the_shape_alone():
+    """The split takes the group's summed width and K, nothing else (no
+    row count: a row's sum is its ranges' partials in range order, so a
+    split that moved with M would break verify rows = decode rows), and
+    is 1 at every llama-test group (K 64 or 128 holds too few k tiles);
+    the tile width takes the summed width alone."""
+    assert list(inspect.signature(_kernels.gemm_splits).parameters) == [
+        "n_total", "k"]
+    assert list(inspect.signature(_kernels.gemm_tile).parameters) == [
+        "n_total"]
+    cfg = get_config("llama-test")
+    d, f = cfg.embed_dim, cfg.mlp_dim
+    qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    for n_total, k in ((qkv, d), (d, cfg.num_heads * cfg.head_dim),
+                       (2 * f, d), (d, f), (cfg.vocab_size, d)):
+        assert _kernels.gemm_splits(n_total, k) == 1
+    for n_total in (8, 64, 1000, 6144, 10 ** 6):
+        for k in (8, 512, 4096, 14336, 10 ** 5):
+            s = _kernels.gemm_splits(n_total, k)
+            assert _kernels.gemm_tile(n_total) in (64, 128)
+            assert 1 <= s <= _kernels.GEMM_MAX_SPLITS
+            assert s == 1 or -(-k // 64) // s >= \
+                _kernels.GEMM_MIN_RANGE_TILES
 
 
 def test_decode_and_verify_steps_take_the_row_invariant_ops(monkeypatch):
     """Every norm and weight product of both steps goes through the
-    row-invariant ops: 2 L + 1 norms and 7 L + 1 products a step; prefill
-    takes none of them."""
+    row-invariant ops: 2 L + 1 norms and 4 L + 1 product calls a step
+    (wq/wk/wv, wo, w3/w1, w2 a layer, and the lm head), seven weights a
+    layer; prefill takes none of them."""
     cfg = get_config("llama-test", dtype="bfloat16")
     model = init_params(cfg, seed=0, device="cpu")
-    calls = {"norm": 0, "gemm": 0}
-    real_norm, real_gemm = llama.rms_norm_rows, llama.decode_gemm
+    calls = {"norm": 0, "gemm": 0, "weights": 0}
+    real_norm, real_gemm = llama.rms_norm_rows, llama.decode_gemm_group
 
     def count_norm(*a, **k):
         calls["norm"] += 1
         return real_norm(*a, **k)
 
-    def count_gemm(*a, **k):
+    def count_gemm(x, ws, *a, **k):
         calls["gemm"] += 1
-        return real_gemm(*a, **k)
+        calls["weights"] += len(ws)
+        return real_gemm(x, ws, *a, **k)
 
     monkeypatch.setattr(llama, "rms_norm_rows", count_norm)
-    monkeypatch.setattr(llama, "decode_gemm", count_gemm)
+    monkeypatch.setattr(llama, "decode_gemm_group", count_gemm)
     cache = paged.init_paged_cache(cfg, 9, 4, device="cpu")
     tables = torch.arange(1, 9, dtype=torch.int32).reshape(2, 4)
     lens = torch.tensor([3, 5], dtype=torch.int32)
     paged.paged_prefill(model, torch.zeros((1, 8), dtype=torch.int32), 5,
                         cfg, cache, tables[1, :2])
-    assert calls == {"norm": 0, "gemm": 0}
+    assert calls == {"norm": 0, "gemm": 0, "weights": 0}
     paged.paged_decode_step(model, torch.tensor([1, 2], dtype=torch.int32),
                             cfg, cache, tables, lens)
-    want = {"norm": 2 * cfg.num_layers + 1, "gemm": 7 * cfg.num_layers + 1}
+    want = {"norm": 2 * cfg.num_layers + 1, "gemm": 4 * cfg.num_layers + 1,
+            "weights": 7 * cfg.num_layers + 1}
     assert calls == want
     paged.paged_verify_step(model, torch.tensor([[1, 2, 3], [4, 5, 6]],
                                                 dtype=torch.int32),
@@ -227,7 +329,7 @@ def test_row_kernels_are_built_and_bound():
 def test_row_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         _kernels.decode_gemm(torch.zeros(2, 8, dtype=torch.bfloat16),
-                             torch.zeros(8, 8, dtype=torch.bfloat16),
-                             torch.empty(2, 8, dtype=torch.bfloat16))
+                             [torch.zeros(8, 8, dtype=torch.bfloat16)],
+                             [torch.empty(2, 8, dtype=torch.bfloat16)])
     with pytest.raises(ValueError, match="CUDA tensors"):
         _kernels.rms_norm(torch.zeros(2, 8), torch.zeros(8), 1e-5)

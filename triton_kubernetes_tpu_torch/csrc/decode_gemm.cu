@@ -1,5 +1,5 @@
-// Row-invariant matrix product of the decode and verify ticks, for Hopper
-// (sm_90a).
+// Row-invariant matrix products of the decode and verify ticks, for
+// Hopper (sm_90a).
 //
 // Replaces: no TPU kernel. The JAX package computes the serving products
 //   with plain XLA matmuls (`weight_einsum`,
@@ -11,63 +11,154 @@
 //   [B * S]-row product rounds differently from a decode tick's [B]-row
 //   one. Here nothing about an output element's sum depends on M.
 //
-// Computes: y [M, N] = x [M, K] w [K, N]; x and w bf16, row-major (w a
+// Computes: a group of up to kMaxProblems products of one input,
+//   y_p [M, N_p] = x [M, K] w_p [K, N_p]; x and w bf16, row-major (w a
 //   weight in the JAX layout, N contiguous); f32 accumulators; y rounded
 //   once to bf16 (the projections), or kept f32 (the lm head: the
-//   reference's preferred_element_type). A model served in f32 has f32
-//   x and w and f32 y: that product has its own kernel at the end of this
-//   file (CUDA cores, one fmaf chain over K per output element).
+//   reference's preferred_element_type). The decode step groups wq, wk and
+//   wv, and w3 and w1, which read the same normed input: one launch each.
+//   A model served in f32 has f32 x and w and f32 y: that product has its
+//   own kernel at the end of this file (CUDA cores, one fmaf chain over
+//   each K range), in the same grid and with the same merge.
 //
 // What bounds it on this card: bytes. At M <= 64 a product does 2 M FLOPs
 //   per weight element read, far below the ~295 FLOPs a byte at which the
 //   tensor cores and not HBM would limit it, so the bound is the weight
-//   bytes over 3.35 TB/s.
+//   bytes over 3.35 TB/s. Reaching it takes bytes in flight on every SM:
+//   one block per 64 output columns alone gives 16 blocks for wk and 64
+//   for wq or wo on 132 SMs.
 //
-// Design: one block (four warps) per 64 output columns and every row of
-//   x, so each weight element is read from HBM once per call for any
-//   M <= 64 (the wrapper runs larger M in launches of 64 rows). K is
-//   walked in tiles of 64 through a ring of kStages shared-memory stages
-//   kept full by 16-byte cp.async copies, each 128-byte row XOR-swizzled
-//   (chunk c of row r at c ^ r % 8) so that ldmatrix reads are free of
-//   bank conflicts; rows of x past M and columns past N are zero-filled
-//   copies and never stored. Warp w owns columns 16 w .. 16 w + 15 of the
-//   tile and sums the whole K itself, in increasing k, with mma.sync
-//   m16n8k16 (bf16 in, f32 accumulate): A fragments by ldmatrix, B
-//   fragments by ldmatrix.trans from the [k][n] tile. An output element
-//   is the same chain of mma steps over the same K order whatever M is,
-//   and an mma's row does not see the other rows of its tile, so the
-//   number of 16-row tiles instantiated (MT = 1, 2 or 4, from M) changes
-//   no bit of a row. No split of K, no atomics.
+// Design: the grid is (problem, output tile, split) flattened, the splits
+//   of a tile adjacent. The caller picks the tile width (64 or 128
+//   columns, `_kernels.gemm_tile`) and S, the number of contiguous ranges
+//   of whole 64-wide k tiles K is cut into (range s = [s nk / S,
+//   (s + 1) nk / S), `_kernels.gemm_splits`), from the group's N and K
+//   alone, never from M. A block (four warps) takes every row of x for
+//   its tile and range, so each weight element is read from HBM once per
+//   call for any M <= 64 (the wrapper runs larger M in launches of 64
+//   rows). It walks its range in tiles of 64 through a ring of
+//   shared-memory stages kept full by 16-byte cp.async copies, each row
+//   XOR-swizzled (16-byte chunk c of row r at c ^ r % 8) so that ldmatrix
+//   reads are free of bank conflicts; rows of x past M and columns past N
+//   are zero-filled copies and never stored. The four warps split each
+//   stage's four 16-deep k steps (four ways at 64 columns, two at 128)
+//   and the tile's columns (64 a warp), so a warp reads only its k steps
+//   of the x tile: warp (wk, wn) sums, with mma.sync m16n8k16 (bf16 in,
+//   f32 accumulate), the k steps wk, wk + kKw, ... of every stage in
+//   increasing k, A fragments by ldmatrix and B fragments by
+//   ldmatrix.trans from the [k][n] tile. At the end the warps' sums meet
+//   in shared memory and are added in the order wk = 0, 1, ...; with S 1
+//   the block then stores y. Otherwise it writes that f32 partial to a
+//   workspace slab of its tile, and the last of the tile's S blocks to
+//   arrive (`__threadfence`, then `atomicAdd` on the tile's counter,
+//   which that block sets back to 0) sums the S partials in the order
+//   s = 0, 1, ..., S - 1 and rounds once. An output element is then the
+//   same chains of mma steps over the same k steps, added in the same
+//   order, whatever M is, whichever block came last, and whichever tile
+//   width holds its column; and an mma's row does not see the other rows
+//   of its tile, so the number of 16-row tiles instantiated (MT = 1, 2 or
+//   4, from M) changes no bit of a row.
+//
+// Measured on an H100 (scripts/bench_decode_gemm.py; PERF.md, Findings):
+//   merge costs each block a few L2 round trips at its end, so S stays as
+//   small as fills about three quarters of the SMs; deeper rings moved
+//   the small groups by a few percent at most; 128 columns with a ring of
+//   3 gave the wide groups (w3+w1, the lm head) fewer, longer blocks and
+//   half the x reads per weight byte; splitting the k steps over the
+//   warps (in place of every warp walking every k step of its columns)
+//   took the small groups' verify-row products (M 32) 4-17% faster.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Ring depths of the two tile widths (overridable for tuning builds, as
+// scripts/bench_decode_gemm.py makes them).
+#ifndef TK8S_GEMM_STAGES_64
+#define TK8S_GEMM_STAGES_64 8
+#endif
+#ifndef TK8S_GEMM_STAGES_128
+#define TK8S_GEMM_STAGES_128 3
+#endif
+
 namespace {
 
 constexpr int kThreads = 128;  // four warps
-constexpr int kBn = 64;        // output columns a block
 constexpr int kBk = 64;        // k a stage: one 128-byte row of bf16
-constexpr int kStages = 6;
 constexpr int kMaxRows = 64;   // rows a launch
+constexpr int kMaxProblems = 3;
+constexpr int kMaxSplits = 16;
 
-template <int MT>
+// The ring of a BN-column tile: depth, and bytes of one stage (the x
+// tile of 16 MT rows of 128 bytes, then 64 w rows of 2 BN bytes).
+template <int BN>
+__host__ __device__ constexpr int stages() {
+  return BN == 64 ? TK8S_GEMM_STAGES_64 : TK8S_GEMM_STAGES_128;
+}
+template <int MT, int BN>
 __host__ __device__ constexpr int stage_bytes() {
-  return (MT * 16 + kBk) * 128;  // the x tile, then the w tile
+  return MT * 16 * 128 + kBk * 2 * BN;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+// The products of one launch: weights, outputs, widths, and the running
+// count of output tiles through each problem (tile_end[p] is the first
+// tile past problem p; unused problems repeat the last count).
+template <typename W, typename Out>
+struct Group {
+  const W* w[kMaxProblems];
+  Out* y[kMaxProblems];
+  int n[kMaxProblems];
+  int tile_end[kMaxProblems];
+};
+
+// Where a block's work lies: its problem's operands and width, the first
+// column of its tile, the tile's index in the group, and its split.
+template <typename W, typename Out>
+struct Work {
+  const W* w;
+  Out* y;
+  int n, n0, tile, split;
+};
+
+template <int BN, typename W, typename Out>
+__device__ __forceinline__ Work<W, Out> work_of(const Group<W, Out>& g,
+                                                int splits) {
+  Work<W, Out> o;
+  o.tile = blockIdx.x / splits;
+  o.split = blockIdx.x % splits;
+  const int p = o.tile < g.tile_end[0] ? 0 : o.tile < g.tile_end[1] ? 1 : 2;
+  o.w = p == 0 ? g.w[0] : p == 1 ? g.w[1] : g.w[2];
+  o.y = p == 0 ? g.y[0] : p == 1 ? g.y[1] : g.y[2];
+  o.n = p == 0 ? g.n[0] : p == 1 ? g.n[1] : g.n[2];
+  o.n0 = (o.tile - (p == 0 ? 0 : p == 1 ? g.tile_end[0] : g.tile_end[1])) *
+         BN;
+  return o;
+}
+
+// First k tile of range s of nk tiles cut into `splits` ranges.
+__device__ __forceinline__ int range_start(int s, int nk, int splits) {
+  return (int)((long long)s * nk / splits);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Byte offset of 16-byte chunk c of row r of a tile of 128-byte rows.
+// Byte offset of 16-byte chunk c of row r of a tile of `row_bytes`-byte
+// rows (128 or 256): the chunk's low three bits XORed with r % 8, so the
+// 8 rows an ldmatrix reads at one chunk index fall in 8 distinct 16-byte
+// slots of the 128-byte bank line.
+template <int row_bytes = 128>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+  return (uint32_t)(r * row_bytes + ((c ^ (r & 7)) << 4));
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(live ? 16 : 0));
+// 16 bytes from gmem into shared memory, or 16 zero bytes when !live
+// (gmem is then not read).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(live ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -117,219 +208,406 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// After a block has written its partial to the workspace: true in the
+// last of the tile's `splits` blocks to get here, which also resets the
+// tile's counter for the next call. `flag` is a word of shared memory.
+__device__ __forceinline__ bool last_to_arrive(int* counters, int tile,
+                                               int splits, int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    *flag = atomicAdd(counters + tile, 1) == splits - 1;
+  __syncthreads();
+  if (!*flag) return false;
+  __threadfence();
+  if (threadIdx.x == 0) counters[tile] = 0;
+  return true;
+}
+
 // Issue the copies of k tile kt into one stage: x rows 0 .. 16 MT - 1
-// (zero past m), then w rows k0 .. k0 + 63 at columns n0 .. n0 + 63 (zero
-// past k and n). Thread t keeps chunk t % 8 and takes every 16th row, so
-// its swizzle term is fixed.
-template <int MT>
+// (zero past m), then w rows k0 .. k0 + 63 at columns n0 .. n0 + BN - 1
+// (zero past k and n). A thread keeps one 16-byte chunk of a row and
+// takes every (128 / chunks a row)-th row, so its swizzle term is fixed.
+template <int MT, int BN>
 __device__ __forceinline__ void load_stage(unsigned char* stage,
                                            const __nv_bfloat16* x,
                                            const __nv_bfloat16* w, int m,
                                            int n, int k, int n0, int kt) {
+  constexpr int xrows = kThreads / 8;  // x rows a pass
   const int t = threadIdx.x, c = t % 8, r0 = t / 8;
   const int k0 = kt * kBk;
-  const uint32_t base = smem_addr(stage);
   const bool k_live = k0 + 8 * c < k;
 #pragma unroll
-  for (int p = 0; p < MT; ++p) {
-    const int r = r0 + 16 * p;
+  for (int p = 0; p < (MT * 16 + xrows - 1) / xrows; ++p) {
+    const int r = r0 + xrows * p;
+    if (r >= MT * 16) break;
     const bool live = r < m && k_live;
-    cp_async16(base + swz(r, c), live ? x + (size_t)r * k + k0 + 8 * c : x,
-               live);
+    cp_async16_zfill(stage + swz(r, c),
+                     live ? x + (size_t)r * k + k0 + 8 * c : x, live);
   }
-  const uint32_t wbase = base + MT * 16 * 128;
-  const bool n_live = n0 + 8 * c < n;
+  unsigned char* wst = stage + MT * 16 * 128;
+  constexpr int chunks = BN / 8, rows = kThreads / chunks;
+  const int wc = t % chunks, wr0 = t / chunks;
+  const bool n_live = n0 + 8 * wc < n;
 #pragma unroll
-  for (int p = 0; p < kBk / 16; ++p) {
-    const int r = r0 + 16 * p;
+  for (int p = 0; p < kBk / rows; ++p) {
+    const int r = wr0 + rows * p;
     const bool live = n_live && k0 + r < k;
-    cp_async16(wbase + swz(r, c),
-               live ? w + (size_t)(k0 + r) * n + n0 + 8 * c : w, live);
+    cp_async16_zfill(wst + swz<2 * BN>(r, wc),
+                     live ? w + (size_t)(k0 + r) * n + n0 + 8 * wc : w, live);
   }
 }
 
-template <int MT, typename Out>
+template <int MT, int BN, typename Out>
 __global__ void __launch_bounds__(kThreads)
 decode_gemm_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ w, Out* __restrict__ y,
-                   int m, int n, int k) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int n0 = blockIdx.x * kBn;
+                   Group<__nv_bfloat16, Out> g, int m, int k, int splits,
+                   float* __restrict__ ws, int* __restrict__ counters) {
+  constexpr int kStages = stages<BN>(), kBytes = stage_bytes<MT, BN>();
+  // The warps split each stage's four 16-deep k steps kKw ways and the
+  // tile's columns 64 a warp: (4, 1) at BN 64, (2, 2) at BN 128. A warp
+  // reads only its own k steps of the x tile, and no two warps the same
+  // part of the w tile.
+  constexpr int kKw = 4 * 64 / BN, kKsteps = kBk / 16 / kKw;
+  constexpr int kPitch = BN + 4;  // floats a row of the reduce buffer
+  static_assert(kKw * MT * 16 * kPitch * 4 <= kStages * kBytes,
+                "the reduce buffer reuses the ring");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Work<__nv_bfloat16, Out> job = work_of<BN>(g, splits);
+  const __nv_bfloat16* w = job.w;
+  const int n = job.n, n0 = job.n0;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wk = warp % kKw, wn = warp / kKw;
   const int nk = (k + kBk - 1) / kBk;
+  const int kt0 = range_start(job.split, nk, splits);
+  const int len = range_start(job.split + 1, nk, splits) - kt0;
 
-  float acc[MT][2][4];
+  float acc[MT][8][4];
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk)
-      load_stage<MT>(smem + s * stage_bytes<MT>(), x, w, m, n, k, n0, s);
+    if (s < len)
+      load_stage<MT, BN>(smem_raw + s * kBytes, x, w, m, n, k, n0, kt0 + s);
     cp_async_commit();
   }
 
   // ldmatrix row addresses: lane l names row (l % 8) + 8 ((l / 8) % 2) of
   // a 16-row block and 16-byte chunk l / 16 of a 16-column step.
   const int lr = (lane % 8) + 8 * ((lane / 8) % 2), lc = lane / 16;
-  for (int kt = 0; kt < nk; ++kt) {
+  for (int j = 0; j < len; ++j) {
     cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile kt has landed; stage kt - 1 is free
-    const int next = kt + kStages - 1;
-    if (next < nk)
-      load_stage<MT>(smem + (next % kStages) * stage_bytes<MT>(), x, w, m, n,
-                     k, n0, next);
+    __syncthreads();  // tile j has landed; stage j - 1 is free
+    const int next = j + kStages - 1;
+    if (next < len)
+      load_stage<MT, BN>(smem_raw + (next % kStages) * kBytes, x, w, m, n,
+                         k, n0, kt0 + next);
     cp_async_commit();
 
-    const uint32_t xs = smem_addr(smem + (kt % kStages) * stage_bytes<MT>());
-    const uint32_t ws = xs + MT * 16 * 128;
+    const unsigned char* xs = smem_raw + (j % kStages) * kBytes;
+    const unsigned char* wst = xs + MT * 16 * 128;
 #pragma unroll
-    for (int kk = 0; kk < kBk / 16; ++kk) {
-      uint32_t b[4];  // b0, b1 of column tile 0, then of column tile 1
-      ldmatrix_x4_trans(b, ws + swz(16 * kk + lr, 2 * warp + lc));
+    for (int q2 = 0; q2 < kKsteps; ++q2) {
+      const int kk = wk + kKw * q2;
+      uint32_t b[4][4];  // per 16 columns: b0, b1 of each n8 tile
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        ldmatrix_x4_trans(b[q], smem_u32(wst + swz<2 * BN>(
+                                             16 * kk + lr,
+                                             8 * wn + 2 * q + lc)));
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         uint32_t a[4];
-        ldmatrix_x4(a, xs + swz(16 * i + lr, 2 * kk + lc));
-        mma16816(acc[i][0], a, b[0], b[1]);
-        mma16816(acc[i][1], a, b[2], b[3]);
+        ldmatrix_x4(a, smem_u32(xs + swz(16 * i + lr, 2 * kk + lc)));
+#pragma unroll
+        for (int nj = 0; nj < 8; ++nj)
+          mma16816(acc[i][nj], a, b[nj / 2][2 * (nj % 2)],
+                   b[nj / 2][2 * (nj % 2) + 1]);
       }
     }
   }
   cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
 
-  // Accumulator element e of an m16n8 tile: row g + 8 (e / 2), columns
-  // 2 (lane % 4) + e % 2 (g = lane / 4). N is a multiple of 8, so a
-  // column pair is live or dead together.
-  const int g = lane / 4, cc = 2 * (lane % 4);
+  // Each warp's sums over its k steps into red [kKw][16 MT][kPitch]
+  // (accumulator element e of an m16n8 tile: row g + 8 (e / 2), columns
+  // 2 (lane % 4) + e % 2, g = lane / 4), then each thread adds the kKw
+  // sums of its column pairs in the order wk = 0, 1, ...
+  float* red = reinterpret_cast<float*>(smem_raw);
+  const int gr = lane / 4, cc = 2 * (lane % 4);
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = n0 + 16 * warp + 8 * j + cc;
-      if (col >= n) continue;
+    for (int nj = 0; nj < 8; ++nj)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = 16 * i + g + 8 * h;
-        if (row < m)
-          store2<Out>(y + (size_t)row * n + col, acc[i][j][2 * h],
-                      acc[i][j][2 * h + 1]);
-      }
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(
+            red + (wk * MT * 16 + 16 * i + gr + 8 * h) * kPitch + 64 * wn +
+            8 * nj + cc) =
+            make_float2(acc[i][nj][2 * h], acc[i][nj][2 * h + 1]);
+  __syncthreads();
+  // The tile's slab of partials, when K is split: [splits][m][BN] f32.
+  float* slab =
+      splits > 1 ? ws + (size_t)job.tile * splits * m * BN : nullptr;
+  for (int e = threadIdx.x; e < m * (BN / 2); e += kThreads) {
+    const int row = e / (BN / 2), col = 2 * (e % (BN / 2));
+    if (n0 + col >= n) continue;  // N is a multiple of 8: pairs live or not
+    float2* own = reinterpret_cast<float2*>(red + row * kPitch + col);
+    float2 v = *own;
+#pragma unroll
+    for (int q = 1; q < kKw; ++q) {
+      const float2 u = *reinterpret_cast<const float2*>(
+          red + (q * MT * 16 + row) * kPitch + col);
+      v.x += u.x;
+      v.y += u.y;
     }
-}
-
-template <int MT, typename Out>
-int launch_mt(const void* x, const void* w, void* y, int m, int n, int k,
-              cudaStream_t stream) {
-  constexpr int smem = kStages * stage_bytes<MT>();
-  cudaError_t e = cudaFuncSetAttribute(
-      decode_gemm_kernel<MT, Out>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  decode_gemm_kernel<MT, Out>
-      <<<(n + kBn - 1) / kBn, kThreads, smem, stream>>>(
-          (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (Out*)y, m, n,
-          k);
-  return (int)cudaGetLastError();
-}
-
-template <typename Out>
-int launch(const void* x, const void* w, void* y, int m, int n, int k,
-           void* stream) {
-  if (m < 1 || m > kMaxRows || n < 8 || n % 8 != 0 || k < 8 || k % 8 != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (m <= 16) return launch_mt<1, Out>(x, w, y, m, n, k, s);
-  if (m <= 32) return launch_mt<2, Out>(x, w, y, m, n, k, s);
-  return launch_mt<4, Out>(x, w, y, m, n, k, s);
+    if (splits == 1) {
+      store2<Out>(job.y + (size_t)row * n + n0 + col, v.x, v.y);
+    } else {
+      *reinterpret_cast<float2*>(
+          slab + ((size_t)job.split * m + row) * BN + col) = v;
+      *own = v;
+    }
+  }
+  if (splits == 1) return;
+  int* flag = reinterpret_cast<int*>(smem_raw + kStages * kBytes);
+  if (!last_to_arrive(counters, job.tile, splits, flag)) return;
+  // Sum the partials in split order; this block's own from shared memory.
+  for (int e = threadIdx.x; e < m * (BN / 2); e += kThreads) {
+    const int row = e / (BN / 2), col = 2 * (e % (BN / 2));
+    if (n0 + col >= n) continue;
+    const float2 own =
+        *reinterpret_cast<const float2*>(red + row * kPitch + col);
+    float2 sum = job.split == 0
+                     ? own
+                     : __ldcg(reinterpret_cast<const float2*>(
+                           slab + (size_t)row * BN + col));
+    for (int s = 1; s < splits; ++s) {
+      const float2 v = s == job.split
+                           ? own
+                           : __ldcg(reinterpret_cast<const float2*>(
+                                 slab + ((size_t)s * m + row) * BN + col));
+      sum.x += v.x;
+      sum.y += v.y;
+    }
+    store2<Out>(job.y + (size_t)row * n + n0 + col, sum.x, sum.y);
+  }
 }
 
 // f32 operands. There is no full-f32 tensor-core product, so this one is
-// on the CUDA cores, in the same grid: one block per 64 output columns
-// and every row, each weight element read from HBM once per call. K is
-// walked in tiles of kF32Bk staged through shared memory; thread t owns
-// column t % 64 and rows t / 64 + 4 i, and sums each output with fmaf
-// over k in increasing order. That chain is the same whatever M is, so a
-// row's bits are too. Rows past M are neither loaded nor summed.
+// on the CUDA cores, in the same grid and with the same merge: one block
+// per (tile, split) and every row. Its K range is walked in tiles of
+// kF32Bk staged through shared memory; thread t owns column t % BN and
+// rows t / BN + (256 / BN) i, and sums each output with fmaf over k in
+// increasing order. That chain is the same whatever M is, so a row's bits
+// are too. Rows past M are neither loaded nor summed.
 constexpr int kF32Threads = 256;
-constexpr int kF32Bk = 32;
-constexpr int kF32RowGroups = kF32Threads / kBn;  // 4
-constexpr int kF32RowsPerThread = kMaxRows / kF32RowGroups;  // 16
+constexpr int kF32Bk = 32;  // divides kBk: a range is whole kF32Bk tiles
 
+template <int BN>
 __global__ void __launch_bounds__(kF32Threads)
-decode_gemm_f32_kernel(const float* __restrict__ x,
-                       const float* __restrict__ w, float* __restrict__ y,
-                       int m, int n, int k) {
+decode_gemm_f32_kernel(const float* __restrict__ x, Group<float, float> g,
+                       int m, int k, int splits, float* __restrict__ ws,
+                       int* __restrict__ counters) {
+  constexpr int kGroups = kF32Threads / BN;   // row groups: 4 or 2
+  constexpr int kRows = kMaxRows / kGroups;   // rows a thread: 16 or 32
   __shared__ float xs[kMaxRows][kF32Bk];
-  __shared__ float ws[kF32Bk][kBn];
-  const int t = threadIdx.x, col = t % kBn, rg = t / kBn;
-  const int n0 = blockIdx.x * kBn;
+  __shared__ float wsh[kF32Bk][BN];
+  __shared__ int flag;
+  const Work<float, float> job = work_of<BN>(g, splits);
+  const float* w = job.w;
+  const int n = job.n, n0 = job.n0;
+  const int t = threadIdx.x, col = t % BN, rg = t / BN;
+  const int nk = (k + kBk - 1) / kBk;
+  const int k_begin = range_start(job.split, nk, splits) * kBk;
+  const int k_end = min(range_start(job.split + 1, nk, splits) * kBk, k);
   // Warp-uniform: a warp's 32 threads share rg.
-  const int rows = (m - rg + kF32RowGroups - 1) / kF32RowGroups;
+  const int rows = (m - rg + kGroups - 1) / kGroups;
 
-  float acc[kF32RowsPerThread];
+  float acc[kRows];
 #pragma unroll
-  for (int i = 0; i < kF32RowsPerThread; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
 
-  for (int k0 = 0; k0 < k; k0 += kF32Bk) {
+  for (int k0 = k_begin; k0 < k_end; k0 += kF32Bk) {
     for (int e = t; e < m * kF32Bk; e += kF32Threads) {
       const int r = e / kF32Bk, c = e % kF32Bk;
       xs[r][c] = k0 + c < k ? x[(size_t)r * k + k0 + c] : 0.f;
     }
-    for (int e = t; e < kF32Bk * kBn; e += kF32Threads) {
-      const int r = e / kBn, c = e % kBn;
-      ws[r][c] = (k0 + r < k && n0 + c < n)
-                     ? w[(size_t)(k0 + r) * n + n0 + c]
-                     : 0.f;
+    for (int e = t; e < kF32Bk * BN; e += kF32Threads) {
+      const int r = e / BN, c = e % BN;
+      wsh[r][c] = (k0 + r < k && n0 + c < n)
+                      ? w[(size_t)(k0 + r) * n + n0 + c]
+                      : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < kF32Bk; ++kk) {
-      const float wv = ws[kk][col];
+      const float wv = wsh[kk][col];
 #pragma unroll
-      for (int i = 0; i < kF32RowsPerThread; ++i)
-        if (i < rows)
-          acc[i] = fmaf(xs[rg + kF32RowGroups * i][kk], wv, acc[i]);
+      for (int i = 0; i < kRows; ++i)
+        if (i < rows) acc[i] = fmaf(xs[rg + kGroups * i][kk], wv, acc[i]);
     }
     __syncthreads();
   }
-  if (n0 + col >= n) return;
+  const bool live = n0 + col < n;
+  if (splits > 1) {
+    float* slab = ws + (size_t)job.tile * splits * m * BN;
 #pragma unroll
-  for (int i = 0; i < kF32RowsPerThread; ++i)
-    if (i < rows)
-      y[(size_t)(rg + kF32RowGroups * i) * n + n0 + col] = acc[i];
+    for (int i = 0; i < kRows; ++i)
+      if (i < rows && live)
+        slab[((size_t)job.split * m + rg + kGroups * i) * BN + col] = acc[i];
+    if (!last_to_arrive(counters, job.tile, splits, &flag)) return;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      if (i >= rows || !live) continue;
+      const int row = rg + kGroups * i;
+      float sum =
+          job.split == 0 ? acc[i] : __ldcg(slab + (size_t)row * BN + col);
+      for (int s = 1; s < splits; ++s)
+        sum += s == job.split
+                   ? acc[i]
+                   : __ldcg(slab + ((size_t)s * m + row) * BN + col);
+      acc[i] = sum;
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+    if (i < rows) job.y[(size_t)(rg + kGroups * i) * n + n0 + col] = acc[i];
 }
 
-int launch_f32(const void* x, const void* w, void* y, int m, int n, int k,
-               void* stream) {
-  if (m < 1 || m > kMaxRows || n < 8 || n % 8 != 0 || k < 8 || k % 8 != 0)
-    return (int)cudaErrorInvalidValue;
-  decode_gemm_f32_kernel<<<(n + kBn - 1) / kBn, kF32Threads, 0,
-                           (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (float*)y, m, n, k);
+// Checks the arguments every entry shares and fills the group; returns
+// the grid's block count, or 0 for arguments the kernels do not take.
+template <typename W, typename Out>
+int make_group(Group<W, Out>& g, const void* const* w, void* const* y,
+               const int* n, int count, int m, int k, int tile_n,
+               int splits, const void* ws, const void* counters) {
+  const int nk = (k + kBk - 1) / kBk;
+  if (count < 1 || count > kMaxProblems || m < 1 || m > kMaxRows || k < 8 ||
+      k % 8 != 0 || (tile_n != 64 && tile_n != 128) || splits < 1 ||
+      splits > kMaxSplits || splits > nk ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return 0;
+  int tiles = 0;
+  for (int p = 0; p < kMaxProblems; ++p) {
+    if (p < count) {
+      if (n[p] < 8 || n[p] % 8 != 0 || w[p] == nullptr || y[p] == nullptr)
+        return 0;
+      g.w[p] = (const W*)w[p];
+      g.y[p] = (Out*)y[p];
+      g.n[p] = n[p];
+      tiles += (n[p] + tile_n - 1) / tile_n;
+    } else {
+      g.w[p] = g.w[count - 1];
+      g.y[p] = g.y[count - 1];
+      g.n[p] = g.n[count - 1];
+    }
+    g.tile_end[p] = tiles;
+  }
+  return tiles * splits;
+}
+
+template <int MT, int BN, typename Out>
+int launch_bf16(const void* x, const Group<__nv_bfloat16, Out>& g,
+                int blocks, int m, int k, int splits, void* ws,
+                void* counters, cudaStream_t stream) {
+  // The ring, then the flag word.
+  constexpr int smem = stages<BN>() * stage_bytes<MT, BN>() + 16;
+  cudaError_t e = cudaFuncSetAttribute(
+      decode_gemm_kernel<MT, BN, Out>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  decode_gemm_kernel<MT, BN, Out><<<blocks, kThreads, smem, stream>>>(
+      (const __nv_bfloat16*)x, g, m, k, splits, (float*)ws, (int*)counters);
+  return (int)cudaGetLastError();
+}
+
+template <int BN, typename Out>
+int launch_rows(const void* x, const Group<__nv_bfloat16, Out>& g,
+                int blocks, int m, int k, int splits, void* ws,
+                void* counters, cudaStream_t s) {
+  if (m <= 16)
+    return launch_bf16<1, BN, Out>(x, g, blocks, m, k, splits, ws, counters,
+                                   s);
+  if (m <= 32)
+    return launch_bf16<2, BN, Out>(x, g, blocks, m, k, splits, ws, counters,
+                                   s);
+  return launch_bf16<4, BN, Out>(x, g, blocks, m, k, splits, ws, counters, s);
+}
+
+template <typename Out>
+int launch(const void* x, const void* const* w, void* const* y,
+           const int* n, int count, int m, int k, int tile_n, int splits,
+           void* ws, void* counters, void* stream) {
+  Group<__nv_bfloat16, Out> g;
+  const int blocks =
+      make_group(g, w, y, n, count, m, k, tile_n, splits, ws, counters);
+  if (blocks == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (tile_n == 64)
+    return launch_rows<64, Out>(x, g, blocks, m, k, splits, ws, counters, s);
+  return launch_rows<128, Out>(x, g, blocks, m, k, splits, ws, counters, s);
+}
+
+int launch_f32(const void* x, const void* const* w, void* const* y,
+               const int* n, int count, int m, int k, int tile_n,
+               int splits, void* ws, void* counters, void* stream) {
+  Group<float, float> g;
+  const int blocks =
+      make_group(g, w, y, n, count, m, k, tile_n, splits, ws, counters);
+  if (blocks == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (tile_n == 64)
+    decode_gemm_f32_kernel<64><<<blocks, kF32Threads, 0, s>>>(
+        (const float*)x, g, m, k, splits, (float*)ws, (int*)counters);
+  else
+    decode_gemm_f32_kernel<128><<<blocks, kF32Threads, 0, s>>>(
+        (const float*)x, g, m, k, splits, (float*)ws, (int*)counters);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x [m, k], w [k, n], y [m, n], all row-major; the suffix names x's and
-// w's dtype, then y's. 1 <= m <= 64; n and k multiples of 8.
-extern "C" int tk8s_decode_gemm_bf16_bf16(const void* x, const void* w,
-                                          void* y, int m, int n, int k,
-                                          void* stream) {
-  return launch<__nv_bfloat16>(x, w, y, m, n, k, stream);
+// One launch for `count` (1-3) products of x [m, k]: y_p [m, n_p] =
+// x w_p, w_p [k, n_p], all row-major; the suffix names x's and w's dtype,
+// then y's. 1 <= m <= 64; every n_p and k multiples of 8. A block takes
+// tile_n (64 or 128) output columns; K is cut into `splits` (1-16, at
+// most ceil(k / 64)) ranges. splits > 1 needs an f32 workspace of
+// (sum over p of ceil(n_p / tile_n)) * splits * m * tile_n floats and one
+// int counter per tile, zero on entry and left zero. Unused w_p, y_p and
+// n_p are ignored.
+extern "C" int tk8s_decode_gemm_bf16_bf16(
+    const void* x, const void* w0, const void* w1, const void* w2, void* y0,
+    void* y1, void* y2, int n0, int n1, int n2, int count, int m, int k,
+    int tile_n, int splits, void* workspace, void* counters, void* stream) {
+  const void* w[kMaxProblems] = {w0, w1, w2};
+  void* y[kMaxProblems] = {y0, y1, y2};
+  const int n[kMaxProblems] = {n0, n1, n2};
+  return launch<__nv_bfloat16>(x, w, y, n, count, m, k, tile_n, splits,
+                               workspace, counters, stream);
 }
-extern "C" int tk8s_decode_gemm_bf16_f32(const void* x, const void* w,
-                                         void* y, int m, int n, int k,
-                                         void* stream) {
-  return launch<float>(x, w, y, m, n, k, stream);
+extern "C" int tk8s_decode_gemm_bf16_f32(
+    const void* x, const void* w0, const void* w1, const void* w2, void* y0,
+    void* y1, void* y2, int n0, int n1, int n2, int count, int m, int k,
+    int tile_n, int splits, void* workspace, void* counters, void* stream) {
+  const void* w[kMaxProblems] = {w0, w1, w2};
+  void* y[kMaxProblems] = {y0, y1, y2};
+  const int n[kMaxProblems] = {n0, n1, n2};
+  return launch<float>(x, w, y, n, count, m, k, tile_n, splits, workspace,
+                       counters, stream);
 }
-extern "C" int tk8s_decode_gemm_f32_f32(const void* x, const void* w,
-                                        void* y, int m, int n, int k,
-                                        void* stream) {
-  return launch_f32(x, w, y, m, n, k, stream);
+extern "C" int tk8s_decode_gemm_f32_f32(
+    const void* x, const void* w0, const void* w1, const void* w2, void* y0,
+    void* y1, void* y2, int n0, int n1, int n2, int count, int m, int k,
+    int tile_n, int splits, void* workspace, void* counters, void* stream) {
+  const void* w[kMaxProblems] = {w0, w1, w2};
+  void* y[kMaxProblems] = {y0, y1, y2};
+  const int n[kMaxProblems] = {n0, n1, n2};
+  return launch_f32(x, w, y, n, count, m, k, tile_n, splits, workspace,
+                    counters, stream);
 }

@@ -21,9 +21,10 @@ paged prefill and decode paths (``models/paged.py``) reuse it, and
 :func:`forward`/:func:`forward_hidden` run the whole stack for training.
 Each takes ``row_invariant``: the paged decode and verify steps set it, so
 their norms and weight products go through ``ops.norms.rms_norm_rows`` and
-``ops.decode_gemm``, whose rows do not depend on the row count (a verify
-row is then bitwise the decode row, as the reference pins); everything
-else keeps the plain ``rms_norm`` and ``torch.einsum``.
+``ops.decode_gemm`` (one launch for wq/wk/wv and one for w3/w1, which share
+an input), whose rows do not depend on the row count (a verify row is then
+bitwise the decode row, as the reference pins); everything else keeps the
+plain ``rms_norm`` and ``torch.einsum``.
 MoE layers and quantized weight leaves are later slices of the port and
 raise ``NotImplementedError``.
 """
@@ -31,7 +32,7 @@ raise ``NotImplementedError``.
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +44,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..ops.attention import causal_attention
-from ..ops.decode_gemm import decode_gemm, decode_gemm_plain
+from ..ops.decode_gemm import decode_gemm_group, decode_gemm_plain
 from ..ops.flash_attention import flash_attention
 from ..ops.norms import rms_norm, rms_norm_rows
 from ..ops.rotary import apply_rotary, rotary_tables
@@ -240,29 +241,40 @@ def _contracted_dims(spec: str) -> int:
     return c
 
 
-def _row_product(spec: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum(spec, x, w)`` for a spec that contracts x's trailing dims
-    with w's leading ones in order (``"bsd,dhk->bshk"``, ``"bshk,hkd->bsd"``),
-    as one [M, K] @ [K, N] :func:`decode_gemm`."""
+def _row_products(spec: str, x: torch.Tensor,
+                  ws: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``[einsum(spec, x, w) for w in ws]`` for a spec that contracts x's
+    trailing dims with w's leading ones in order (``"bsd,dhk->bshk"``,
+    ``"bshk,hkd->bsd"``), as one [M, K] @ [K, N_w] launch of
+    :func:`decode_gemm_group` for all of ``ws``."""
     c = _contracted_dims(spec)
-    lead, tail = x.shape[:x.dim() - c], w.shape[c:]
-    y = decode_gemm(x.reshape(lead.numel(), -1).contiguous(),
-                    w.reshape(-1, tail.numel()))
-    return y.reshape(*lead, *tail)
+    lead = x.shape[:x.dim() - c]
+    ys = decode_gemm_group(x.reshape(lead.numel(), -1).contiguous(),
+                           [w.reshape(-1, w.shape[c:].numel()) for w in ws])
+    return [y.reshape(*lead, *w.shape[c:]) for y, w in zip(ys, ws)]
+
+
+def weight_einsums(spec: str, x: torch.Tensor, ws: Sequence[torch.Tensor],
+                   config: ModelConfig, row_invariant: bool = False
+                   ) -> List[torch.Tensor]:
+    """The weight matmuls of one input with each of ``ws`` on the
+    reference's f32 path (``matmul_dtype`` "auto"/"f32" over unquantized
+    leaves): the products of the activation-dtype operands, in the
+    activation dtype. ``row_invariant`` takes them all through one
+    :func:`ops.decode_gemm.decode_gemm_group` call."""
+    if config.weight_quant != "none":
+        raise NotImplementedError(_QUANT_LATER)
+    ws = [resolve_weight(w, config) for w in ws]
+    if row_invariant:
+        return _row_products(spec, x, ws)
+    return [torch.einsum(spec, x, w) for w in ws]
 
 
 def weight_einsum(spec: str, x: torch.Tensor, w: torch.Tensor,
                   config: ModelConfig,
                   row_invariant: bool = False) -> torch.Tensor:
-    """One weight matmul on the reference's f32 path (``matmul_dtype``
-    "auto"/"f32" over unquantized leaves): the product of the
-    activation-dtype operands, in the activation dtype. ``row_invariant``
-    takes it through :func:`ops.decode_gemm.decode_gemm`."""
-    if config.weight_quant != "none":
-        raise NotImplementedError(_QUANT_LATER)
-    if row_invariant:
-        return _row_product(spec, x, resolve_weight(w, config))
-    return torch.einsum(spec, x, resolve_weight(w, config))
+    """:func:`weight_einsums` of one weight."""
+    return weight_einsums(spec, x, [w], config, row_invariant)[0]
 
 
 def _qkv(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
@@ -270,9 +282,9 @@ def _qkv(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
          row_invariant: bool = False):
     """Projected + rotary-encoded q/k/v for a block input ([B, S, D])."""
     h = _norm(x, layer.attn_norm, config, row_invariant)
-    q = weight_einsum("bsd,dhk->bshk", h, layer.wq, config, row_invariant)
-    k = weight_einsum("bsd,dhk->bshk", h, layer.wk, config, row_invariant)
-    v = weight_einsum("bsd,dhk->bshk", h, layer.wv, config, row_invariant)
+    q, k, v = weight_einsums("bsd,dhk->bshk", h,
+                             [layer.wq, layer.wk, layer.wv], config,
+                             row_invariant)
     q = apply_rotary(q, cos, sin, positions)
     k = apply_rotary(k, cos, sin, positions)
     return q, k, v
@@ -285,10 +297,9 @@ def _mlp(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
     if config.is_moe:
         raise NotImplementedError(_MOE_LATER)
     h = _norm(x, layer.mlp_norm, config, row_invariant)
-    gate = torch.nn.functional.silu(
-        weight_einsum("bsd,df->bsf", h, layer.w3, config, row_invariant)
-        .float()).to(config.activation_dtype)
-    up = weight_einsum("bsd,df->bsf", h, layer.w1, config, row_invariant)
+    gate, up = weight_einsums("bsd,df->bsf", h, [layer.w3, layer.w1],
+                              config, row_invariant)
+    gate = torch.nn.functional.silu(gate.float()).to(config.activation_dtype)
     return weight_einsum("bsf,fd->bsd", gate * up, layer.w2, config,
                          row_invariant)
 
@@ -323,7 +334,7 @@ def unembed(x: torch.Tensor, model: Llama,
     h2 = h.reshape(b * s, d)
     w = head_weights(model)
     if row_invariant:
-        out = decode_gemm(h2.contiguous(), w, torch.float32)
+        out = decode_gemm_group(h2.contiguous(), [w], torch.float32)[0]
     else:
         out = decode_gemm_plain(h2, w, torch.float32)
     return out.reshape(b, s, -1)

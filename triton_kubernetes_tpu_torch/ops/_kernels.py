@@ -30,7 +30,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, NamedTuple, Optional, Tuple
+from typing import Dict, Iterable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -82,8 +82,10 @@ _SIGNATURES = {
     # strides of q, k, v, dout, scale, variant, stream
     "flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       *_STRIDES * 4, _F, _I, _P),
-    # x, w, y, M, N, K, stream (suffix: x's and w's dtype, then y's)
-    "decode_gemm": (_P, _P, _P, _I, _I, _I, _P),
+    # x, w0, w1, w2, y0, y1, y2, N0, N1, N2, count, M, K, tile_n, splits,
+    # workspace, counters, stream (suffix: x's and w's dtype, then y's)
+    "decode_gemm": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                    _I, _P, _P, _P),
     # x, scale, y, M, D, eps, stream
     "rms_norm": (_P, _P, _P, _I, _I, _F, _P),
 }
@@ -133,14 +135,55 @@ def paged_span(dtype: torch.dtype, page_dtype: torch.dtype, bs: int,
 
 
 # Most rows one decode_gemm launch takes; ``ops.decode_gemm`` runs larger
-# M in launches of this many rows, each reading the weight once.
+# M in launches of this many rows, each reading the weights once.
 MAX_GEMM_ROWS = 64
+# Most products of one input one decode_gemm launch takes (wq, wk, wv).
+MAX_GEMM_PROBLEMS = 3
 # (operand dtype, output dtype) -> suffix of decode_gemm's C entry: bf16
 # operands with bf16 out (projections) or f32 out (the lm head), and f32
 # operands (a model served in f32).
 GEMM_SUFFIXES = {(torch.bfloat16, torch.bfloat16): "bf16_bf16",
                  (torch.bfloat16, torch.float32): "bf16_f32",
                  (torch.float32, torch.float32): "f32_f32"}
+# decode_gemm's tiles and K split, chosen by the group's shape alone
+# (``scripts/bench_decode_gemm.py`` timed the choices on an H100; PERF.md,
+# Findings). A block takes GEMM_TILE_N or, for groups at least
+# GEMM_WIDE_TILES tiles of that width, GEMM_TILE_WIDE output columns (the
+# lm head and w3+w1: fewer, longer blocks and half the x reads per weight
+# byte), and walks K in tiles of GEMM_TILE_K. K is split only until the
+# grid holds GEMM_BLOCKS_WANTED blocks (about three in four of the H100's
+# 132 SMs): every split adds a merge at the end of each block, which cost
+# more than the added blocks gained past that. Each range keeps at least
+# GEMM_MIN_RANGE_TILES k tiles, so the block's cp.async ring still fills.
+GEMM_TILE_N = 64
+GEMM_TILE_WIDE = 128
+GEMM_WIDE_TILES = 264
+GEMM_TILE_K = 64
+GEMM_BLOCKS_WANTED = 96
+GEMM_MIN_RANGE_TILES = 8
+GEMM_MAX_SPLITS = 8
+
+
+def gemm_tile(n_total: int) -> int:
+    """Output columns a ``decode_gemm`` block takes for a group of products
+    whose widths sum to ``n_total``. Which columns a block takes changes
+    no bit of a row: each column's sum is the same chain either way."""
+    return (GEMM_TILE_WIDE if -(-n_total // GEMM_TILE_N) >= GEMM_WIDE_TILES
+            else GEMM_TILE_N)
+
+
+def gemm_splits(n_total: int, k: int) -> int:
+    """How many contiguous ranges of whole k tiles ``decode_gemm`` cuts K
+    into for a group of products whose widths sum to ``n_total``, reduced
+    over ``k``. A function of the shape alone, never of the row count: a
+    row's sum is its ranges' partial sums added in range order, so the
+    same S for every M is what keeps a verify row bitwise the decode row.
+    1 where the group's tiles already give GEMM_BLOCKS_WANTED blocks
+    (wq+wk+wv, w3+w1, the lm head), or where K is too short to cut."""
+    tiles = max(1, -(-n_total // gemm_tile(n_total)))
+    k_tiles = -(-k // GEMM_TILE_K)
+    return max(1, min(-(-GEMM_BLOCKS_WANTED // tiles),
+                      k_tiles // GEMM_MIN_RANGE_TILES, GEMM_MAX_SPLITS))
 
 
 class FlashVariant(NamedTuple):
@@ -585,37 +628,75 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dk, dv
 
 
-def decode_gemm(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> None:
-    """Launch ``csrc/decode_gemm.cu`` once on the current stream: y [M, N]
-    = x [M, K] @ w [K, N] with f32 sums, for 1 <= M <= :data:`MAX_GEMM_ROWS`
-    and the dtypes of :data:`GEMM_SUFFIXES`. Each output row's bits do not
-    depend on M."""
+# Arrival counters of decode_gemm's K split, one int32 per output tile of
+# a launch, a buffer per device, zeroed once when it is made: the last
+# block of a tile sets its counter back to 0, as the span walk's do. Calls
+# that share them must not run at once: one stream at a time.
+_gemm_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+def decode_gemm(x: torch.Tensor, ws: Sequence[torch.Tensor],
+                ys: Sequence[torch.Tensor]) -> None:
+    """Launch ``csrc/decode_gemm.cu`` once on the current stream for up to
+    :data:`MAX_GEMM_PROBLEMS` products of one input: ys[p] [M, N_p] =
+    x [M, K] @ ws[p] [K, N_p] with f32 sums, for 1 <= M <=
+    :data:`MAX_GEMM_ROWS` and the dtypes of :data:`GEMM_SUFFIXES` (every
+    y of one dtype). A block takes :func:`gemm_tile` columns and K is split
+    into :func:`gemm_splits` ranges, both chosen by the group's widths and
+    K alone, so each output row's bits do not depend on M."""
     if not x.is_cuda:
         raise ValueError(f"decode_gemm: the CUDA kernel takes CUDA tensors, "
                          f"got x on {x.device}")
-    suffix = GEMM_SUFFIXES.get((x.dtype, y.dtype))
-    _require(suffix is not None and w.dtype == x.dtype
-             and w.device == x.device and y.device == x.device,
-             f"decode_gemm: x and w bfloat16 with bfloat16 or float32 y, or "
-             f"all float32, on {x.device}; got {x.dtype}, {w.dtype} and "
-             f"{y.dtype}")
-    _require(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0]
-             and y.shape == (x.shape[0], w.shape[1]),
-             f"decode_gemm: x [M, K], w [K, N] and y [M, N], got "
-             f"{tuple(x.shape)}, {tuple(w.shape)} and {tuple(y.shape)}")
-    _require(x.is_contiguous() and w.is_contiguous() and y.is_contiguous(),
-             "decode_gemm: x, w and y must be contiguous")
+    ws, ys = list(ws), list(ys)
+    _require(1 <= len(ws) <= MAX_GEMM_PROBLEMS and len(ys) == len(ws),
+             f"decode_gemm: 1-{MAX_GEMM_PROBLEMS} weights and as many "
+             f"outputs a launch, got {len(ws)} and {len(ys)}")
+    suffix = GEMM_SUFFIXES.get((x.dtype, ys[0].dtype))
+    _require(suffix is not None and x.dim() == 2,
+             f"decode_gemm: x [M, K] bfloat16 with bfloat16 or float32 y, or "
+             f"all float32; got x {x.dtype} {tuple(x.shape)} and y "
+             f"{ys[0].dtype}")
     m, k = x.shape
-    n = w.shape[1]
     _require(1 <= m <= MAX_GEMM_ROWS,
              f"decode_gemm: M {m} must be 1-{MAX_GEMM_ROWS} a launch")
-    _require(k % 8 == 0 and n % 8 == 0,
-             f"decode_gemm: K {k} and N {n} must be multiples of 8 (rows "
+    _require(k % 8 == 0, f"decode_gemm: K {k} must be a multiple of 8 (rows "
              f"are copied in 16-byte pieces)")
-    _require(x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
-             "decode_gemm: x and w must start 16-byte aligned")
+    _require(x.is_contiguous() and x.data_ptr() % 16 == 0,
+             "decode_gemm: x must be contiguous and start 16-byte aligned")
+    for w, y in zip(ws, ys):
+        _require(w.dtype == x.dtype and y.dtype == ys[0].dtype
+                 and w.device == x.device and y.device == x.device,
+                 f"decode_gemm: every w {x.dtype} and every y {ys[0].dtype} "
+                 f"on {x.device}, got {w.dtype} and {y.dtype}")
+        _require(w.dim() == 2 and w.shape[0] == k
+                 and y.shape == (m, w.shape[1]),
+                 f"decode_gemm: w [{k}, N] and y [{m}, N] for x "
+                 f"{tuple(x.shape)}, got {tuple(w.shape)} and "
+                 f"{tuple(y.shape)}")
+        _require(w.is_contiguous() and y.is_contiguous(),
+                 "decode_gemm: x, w and y must be contiguous")
+        _require(w.shape[1] % 8 == 0,
+                 f"decode_gemm: N {w.shape[1]} must be a multiple of 8")
+        _require(w.data_ptr() % 16 == 0,
+                 "decode_gemm: w must start 16-byte aligned")
+    ns = [w.shape[1] for w in ws]
+    tile_n, splits = gemm_tile(sum(ns)), gemm_splits(sum(ns), k)
+    workspace = counters = None
+    if splits > 1:
+        tiles = sum(-(-n // tile_n) for n in ns)
+        workspace = torch.empty(tiles * splits * m * tile_n,
+                                dtype=torch.float32, device=x.device)
+        buf = _gemm_counters.get(x.device)
+        if buf is None or buf.numel() < tiles:
+            buf = torch.zeros(max(tiles, 4096), dtype=torch.int32,
+                              device=x.device)
+            _gemm_counters[x.device] = buf
+        workspace, counters = workspace.data_ptr(), buf.data_ptr()
+    pad = MAX_GEMM_PROBLEMS - len(ws)
     rc = getattr(library("decode_gemm"), f"tk8s_decode_gemm_{suffix}")(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), m, n, k,
+        x.data_ptr(), *[w.data_ptr() for w in ws], *[None] * pad,
+        *[y.data_ptr() for y in ys], *[None] * pad, *ns, *[0] * pad,
+        len(ws), m, k, tile_n, splits, workspace, counters,
         torch.cuda.current_stream(x.device).cuda_stream)
     _check(rc, "decode_gemm")
 
