@@ -13,7 +13,8 @@ result:
 2. build  -- compiles the eight kernel sources of ``csrc/`` (paged
    decode, verify and prefill, each for bf16/f32 queries over bf16/f32,
    int8 and fp8 pages; flash forward, dQ and dK/dV; the row-invariant
-   decode GEMM and RMSNorm) with ``nvcc`` for ``sm_90a``, all at once, and
+   decode GEMM and RMSNorm, the latter with its fused residual add) with
+   ``nvcc`` for ``sm_90a``, all at once, and
    prints the seconds and what ``ptxas`` reports;
 3. kernels -- each kernel against its plain PyTorch version at Llama-3-8B
    shapes (Hq 32, Hkv 8, D 128, bf16 queries; paged: bs 16, 128 pages per
@@ -43,7 +44,14 @@ result:
    group's weights concatenated; ``torch.nn.functional.rms_norm``), rows
    at M 1, 8 and 32 ``torch.equal`` to the kernel's rows at M 64, times
    beside the weight-bytes bound; the plain torch ops' rows at every M
-   of 1-64 against their own at M 64, reported;
+   of 1-64 against their own at M 64, reported. The fused residual add +
+   RMSNorm at D 4096, bf16 at M 1, 8, 32, 64 and 256 (a lone sequence, a
+   decode tick, a verify tick, a GEMM launch, a prefill window) and f32
+   at M 8: h and y ``torch.equal`` to torch's ``x + delta`` and the
+   delta-null norm on it, rows bitwise the rows at M 64, y within one
+   ulp of its plain version; timed beside the plain version,
+   ``F.rms_norm(x + delta)`` (two library calls), the delta-null kernel,
+   ``F.rms_norm`` alone and the bytes bound;
 4. serve  -- ``llama3-8b`` at full width and depth (random bf16 weights
    from a seed). First the F1 probe: one verify tick's layer input
    [8, 4, 4096] through each row op of layer 0 and of the head (the norms,
@@ -54,19 +62,24 @@ result:
    asserts the kernels' are. Then the direct check: 8 prefilled
    sequences, one ``paged_verify_step`` of 4 tokens each against four
    ``paged_decode_step`` s fed the same tokens; every logits row and the
-   two pools after must be ``torch.equal``. Then ``ServeEngine``,
+   two pools after must be ``torch.equal``; and the first decode tick's
+   and the verify tick's logits ``torch.equal`` to the same ticks
+   composed unfused (torch's add, then the delta-null norm, at every
+   layer boundary). Then ``ServeEngine``,
    chunked prefill with the prefix cache, 8 requests; checks
    completions, pool drain, prefix hits and that the paged kernels'
    launch counters rose by exactly (windows x layers) and (decode ticks x
-   layers), the decode GEMM's by ticks x (4 x layers + 1) and the norm's
-   by ticks x (2 x layers + 1); prints TTFT, TPOT, tokens/s and tick
+   layers), the decode GEMM's by ticks x (4 x layers + 1), the
+   delta-null norm's by (ticks + windows) and the fused add + norm's by
+   (ticks + windows) x 2 x layers; prints TTFT, TPOT, tokens/s and tick
    times;
    cross-checks one greedy request's first-token logits against the plain
    versions (and an engine forced onto them); profiles one 256-token
    prefill window of a lone 1,000-token prompt, a few decode ticks and two
-   verify ticks of a spec_k 3 engine (device busy time by kernel class,
-   idle share, launches per tick, the paged kernels by name, which must
-   include the span kernels and the prefill's tensor-core kernel).
+   verify ticks of a spec_k 3 engine (device busy time and kernels by
+   class, idle share, launches per tick, the paged kernels by name, which
+   must include the span kernels and the prefill's tensor-core kernel;
+   the decode tick and the window must run 2 x layers + 1 norm kernels).
    Then six more runs of those 8 requests plus 4 repetitive ones (one
    seeded token tiled 300-700 times, so the model repeats itself and the
    drafter fires): bf16, int8 and fp8 pools, each
@@ -634,6 +647,82 @@ GEMM_ROWS = (8, 32)
 ALL_ROWS = range(1, 65)
 
 
+# Rows of the fused residual add + norm at D 4096: a lone sequence (1), a
+# decode tick (8), a verify tick (32), one launch of decode_gemm (64) and a
+# prefill window (256); and a decode tick of a model served in f32.
+FUSED_CASES = [(torch.bfloat16, m) for m in (1, 8, 32, 64, 256)] + [
+    (torch.float32, 8)]
+
+
+def add_norm_cases(device, flush, bw, gen):
+    """The fused residual add + norm (``_kernels.add_rms_norm``) at
+    :data:`FUSED_CASES`: h and y ``torch.equal`` to torch's x + delta and
+    the delta-null entry on it, the rows bitwise the rows at M 64, y
+    within one bf16 ulp of the plain version; timed beside the plain
+    version, the library's two calls (``F.rms_norm(x + delta)``), the
+    delta-null kernel and ``F.rms_norm`` alone, and the bytes bound (x,
+    delta and scale read once, h and y written once). Returns the cases,
+    printed."""
+    from triton_kubernetes_tpu_torch.ops import _kernels, norms
+
+    rms = torch.nn.functional.rms_norm
+    eps, d = 1e-5, 4096
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        rows = [m for dt, m in FUSED_CASES if dt == dtype]
+        x = (3 * torch.randn((256, d), generator=gen, device=device)
+             ).to(dtype)
+        delta = torch.randn((256, d), generator=gen, device=device).to(dtype)
+        scale = (1 + 0.1 * torch.randn((d,), generator=gen, device=device)
+                 ).to(dtype)
+        h64, y64 = _kernels.add_rms_norm(x[:64], delta[:64], scale, eps)
+        for m in rows:
+            xm, dm = x[:m], delta[:m]
+            h, y = _kernels.add_rms_norm(xm, dm, scale, eps)
+            h_torch = xm + dm
+            if not (torch.equal(h, h_torch) and torch.equal(
+                    y, _kernels.rms_norm(h_torch, scale, eps))):
+                raise AssertionError(
+                    f"add_rms_norm {dtype} M={m}: h or y is not bitwise "
+                    f"torch's x + delta and the delta-null entry on it")
+            k = min(m, 64)
+            if not (torch.equal(h[:k], h64[:k])
+                    and torch.equal(y[:k], y64[:k])):
+                raise AssertionError(f"add_rms_norm {dtype} M={m}: rows "
+                                     f"are not bitwise the rows at M 64")
+            err = check_close(f"add_rms_norm {dtype} M={m}", y,
+                              norms.add_rms_norm(xm, dm, scale, eps)[1])
+            torch.cuda.synchronize()
+            nbytes = (4 * m * d + d) * x.element_size()
+            cases.append(dict(
+                kernel="add_rms_norm", shape="D 4096", K=d, N=None, M=m,
+                out=str(dtype).removeprefix("torch."),
+                dtype=str(dtype).removeprefix("torch."), max_abs_err=err,
+                ms=time_ms(lambda: _kernels.add_rms_norm(xm, dm, scale, eps),
+                           flush),
+                plain_ms=time_ms(
+                    lambda: norms.add_rms_norm(xm, dm, scale, eps), flush),
+                library_ms=time_ms(lambda: rms(xm + dm, (d,), scale, eps),
+                                   flush),
+                norm_kernel_ms=time_ms(
+                    lambda: _kernels.rms_norm(xm, scale, eps), flush),
+                library_norm_ms=time_ms(lambda: rms(xm, (d,), scale, eps),
+                                        flush),
+                bytes=nbytes, flops=5 * m * d, bound_ms=nbytes / bw * 1e3))
+    for c in cases:
+        print(f"kernel add_rms_norm D 4096 M={c['M']} ({c['dtype']}): h and "
+              f"y torch.equal to torch's x + delta and the delta-null "
+              f"entry, rows bitwise the rows at M 64; max_abs_err="
+              f"{c['max_abs_err']:.6g} kernel_ms={c['ms']:.4f} plain_ms="
+              f"{c['plain_ms']:.4f} library_ms={c['library_ms']:.4f} "
+              f"(F.rms_norm(x + delta)); delta-null kernel_ms="
+              f"{c['norm_kernel_ms']:.4f} library_ms="
+              f"{c['library_norm_ms']:.4f} (F.rms_norm); bytes {c['bytes']} "
+              f"bound_ms={c['bound_ms']:.5f} (share "
+              f"{c['bound_ms'] / c['ms']:.4f})", flush=True)
+    return cases
+
+
 def rows_differing(fn, x, ms):
     """The row counts m in ms at which fn(x[:m]) is not bitwise fn(x)[:m]
     (fn maps [M, ...] to [M, ...])."""
@@ -752,30 +841,40 @@ def rows_kernel_phase(device, flush, peaks):
               f"to M 64: kernel yes; plain torch differs at M "
               f"{c['torch_rows_differing_at'] or 'none'} of 1-64",
               flush=True)
+    cases += add_norm_cases(device, flush, bw, gen)
     records = []
     for name, source, library_call in (
             ("decode_gemm", "decode_gemm.cu",
              "one torch.mm of x on the group's weights side by side "
              "(out_dtype float32 for the lm head); the plain version is "
              "torch.mm of each weight in turn"),
-            ("rms_norm", "rms_norm.cu", "torch.nn.functional.rms_norm")):
-        mine = [c for c in cases if c["kernel"] == name and c["M"] == 8]
+            ("rms_norm", "rms_norm.cu", "torch.nn.functional.rms_norm"),
+            ("add_rms_norm", "rms_norm.cu",
+             "torch.nn.functional.rms_norm(x + delta): two calls")):
+        mine = [c for c in cases if c["kernel"] == name and c["M"] == 8
+                and c.get("dtype") != "float32"]
         total = {f: sum(c[f] for c in mine)
                  for f in ("ms", "plain_ms", "library_ms", "bytes", "flops",
                            "bound_ms")}
         records.append(dict(
             name=name, route="cuda",
             source=f"triton_kubernetes_tpu_torch/csrc/{source}",
-            replaces=("none: plain XLA matmuls in the reference "
-                      "(triton_kubernetes_tpu/models/llama.py:86)"
-                      if name == "decode_gemm" else
-                      "none: a plain XLA reduction in the reference "
-                      "(triton_kubernetes_tpu/ops/norms.py:11)"),
+            replaces={
+                "decode_gemm": "none: plain XLA matmuls in the reference "
+                               "(triton_kubernetes_tpu/models/llama.py:86)",
+                "rms_norm": "none: a plain XLA reduction in the reference "
+                            "(triton_kubernetes_tpu/ops/norms.py:11)",
+                "add_rms_norm": "none: plain XLA ops in the reference, the "
+                                "residual add (triton_kubernetes_tpu/models/"
+                                "llama.py:407, models/paged.py:419) and "
+                                "rms_norm (ops/norms.py:11)"}[name],
             variant=("tensor_core (mma.sync), one launch a group of "
                      "products of one input, tile width and K split by "
                      "the shape (_kernels.gemm_tile, gemm_splits), the "
                      "split merged in the launch"
-                     if name == "decode_gemm" else "cuda_core"),
+                     if name == "decode_gemm" else
+                     "cuda_core, one block a row, every load before the "
+                     "first FMA"),
             max_abs_err=max(c["max_abs_err"] for c in cases
                             if c["kernel"] == name),
             tolerance=f"{ATOL} + {RTOL} * |plain|",
@@ -934,14 +1033,26 @@ def verify_rows_check(model, cfg, paged):
                 0, cfg.vocab_size, s - 1).tolist())
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         tok = torch.tensor(tokens, dtype=torch.int32, device=dev)
-        vcache = paged.PagedKVCache(cache.k.clone(), cache.v.clone())
-        dcache = paged.PagedKVCache(cache.k, cache.v)
+        copies = [paged.PagedKVCache(cache.k.clone(), cache.v.clone())
+                  for _ in range(3)]
+        vcache, dcache = copies[0], paged.PagedKVCache(cache.k, cache.v)
         verify, _ = paged.paged_verify_step(model, tok, cfg, vcache, tables,
                                             lens)
         decode = [paged.paged_decode_step(model, tok[:, j].contiguous(), cfg,
                                           dcache, tables, lens + j)
                   for j in range(s)]
+        unfused = unfused_ticks(model, cfg, paged, copies[1:], tok, tables,
+                                lens)
     torch.cuda.synchronize()
+    fused_equal = {"decode": torch.equal(decode[0], unfused[0]),
+                   "verify": torch.equal(verify, unfused[1])}
+    print(f"fused vs unfused layer boundaries (one decode tick and one "
+          f"verify tick of the same 8 sequences, torch add then the "
+          f"delta-null norm kernel at each boundary): logits torch.equal: "
+          f"{fused_equal}", flush=True)
+    if not all(fused_equal.values()):
+        raise AssertionError(f"fused add + norm: logits differ from the "
+                             f"unfused composition: {fused_equal}")
     equal = [[bool(torch.equal(verify[i, j], decode[j][i])) for j in
               range(s)] for i in range(b)]
     pools = (torch.equal(vcache.k, dcache.k)
@@ -957,10 +1068,35 @@ def verify_rows_check(model, cfg, paged):
         raise AssertionError(f"verify rows vs decode: rows equal {equal}, "
                              f"pools equal {pools}: a verify row must be "
                              f"bitwise the decode row at its length")
-    del cache, vcache, dcache
+    del cache, vcache, dcache, copies
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(lengths=lengths, rows_equal=b * s, pools_equal=pools)
+    return dict(lengths=lengths, rows_equal=b * s, pools_equal=pools,
+                fused_logits_equal_unfused=fused_equal)
+
+
+def unfused_ticks(model, cfg, paged, caches, tok, tables, lens):
+    """One decode tick (the first column of ``tok``) on ``caches[0]`` and
+    one verify tick on ``caches[1]`` with every layer boundary composed
+    unfused: torch's ``x + delta``, then the delta-null norm kernel
+    (``rms_norm_rows``) -- the sequence the steps ran before the fusion.
+    Returns (decode logits, verify logits)."""
+    from triton_kubernetes_tpu_torch.ops import norms
+
+    def add_then_norm(x, delta, scale, eps):
+        h = x + delta
+        return h, norms.rms_norm_rows(h, scale, eps)
+
+    fused = paged.add_rms_norm_rows
+    paged.add_rms_norm_rows = add_then_norm
+    try:
+        decode = paged.paged_decode_step(model, tok[:, 0].contiguous(), cfg,
+                                         caches[0], tables, lens)
+        verify, _ = paged.paged_verify_step(model, tok, cfg, caches[1],
+                                            tables, lens)
+    finally:
+        paged.add_rms_norm_rows = fused
+    return decode, verify
 
 
 def make_requests(cfg, Request):
@@ -1020,15 +1156,19 @@ def row_counts():
     """Launches of the row-invariant kernels since reset_row_counts."""
     from triton_kubernetes_tpu_torch.ops import decode_gemm, norms
     return {"decode_gemm": decode_gemm.decode_gemm_group.launches,
-            "rms_norm": norms.rms_norm_rows.launches}
+            "rms_norm": norms.rms_norm_rows.launches,
+            "add_rms_norm": norms.add_rms_norm_rows.launches}
 
 
-def row_counts_wanted(ticks, cfg):
-    """What ``ticks`` decode or verify ticks launch at <= 64 rows: four
-    weight-product launches a layer (wq+wk+wv, wo, w3+w1, w2) and two
-    norms, the final norm and the lm head."""
+def row_counts_wanted(ticks, windows, cfg):
+    """What ``ticks`` decode or verify ticks at <= 64 rows and ``windows``
+    prefill windows launch: a tick four weight-product launches a layer
+    (wq+wk+wv, wo, w3+w1, w2) and the lm head; a tick and a window each
+    one norm of the embeddings and a fused residual add + norm at each of
+    the 2 L layer boundaries (the last one's norm the final norm)."""
     return {"decode_gemm": ticks * (4 * cfg.num_layers + 1),
-            "rms_norm": ticks * (2 * cfg.num_layers + 1)}
+            "rms_norm": ticks + windows,
+            "add_rms_norm": (ticks + windows) * 2 * cfg.num_layers}
 
 
 # Kernel classes of a profiled tick: (class, what its kernels' names hold).
@@ -1045,6 +1185,7 @@ def tick_profile(profiles, ticks, wall_ms):
     the events of one or more torch.profiler runs over ``ticks`` ticks."""
     by_class = {c: 0.0 for c, _ in TICK_CLASSES}
     by_class.update({"GEMM (cuBLAS)": 0.0, "other kernels": 0.0})
+    kernels = dict.fromkeys(by_class, 0)
     launches, names = 0, set()
     for prof in profiles:
         events = prof.events()
@@ -1063,12 +1204,15 @@ def tick_profile(profiles, ticks, wall_ms):
                 m = re.search(r"paged_\w+_kernel(<[^()]*>)?", e.name)
                 names.add(m.group(0) if m else e.name)
             by_class[cls] += us
+            kernels[cls] += 1
     by_class = {k: v / 1e3 / ticks for k, v in by_class.items()}
     busy_ms = sum(by_class.values())
     return dict(wall_ms_per_tick=wall_ms, device_busy_ms_per_tick=busy_ms,
                 device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
                 launches_per_tick=launches / ticks,
                 device_ms_per_tick_by_class=by_class,
+                kernels_per_tick_by_class={k: v / ticks
+                                           for k, v in kernels.items()},
                 paged_kernels=sorted(names))
 
 
@@ -1186,8 +1330,9 @@ def print_tick_profile(what, prof, card):
         print(f"serve: {what} profile: the profiler saw no device kernels; "
               f"device time not measured", flush=True)
         return
-    classes = ", ".join(f"{k} {v:.3f} ms" for k, v in
-                        prof["device_ms_per_tick_by_class"].items())
+    classes = ", ".join(
+        f"{k} {v:.3f} ms ({prof['kernels_per_tick_by_class'][k]:.0f} "
+        f"kernels)" for k, v in prof["device_ms_per_tick_by_class"].items())
     print(f"serve: {what} profiled: wall {prof['wall_ms_per_tick']:.3f} ms, "
           f"device busy {prof['device_busy_ms_per_tick']:.3f} ms (idle "
           f"share {prof['device_idle_share']:.3f}), "
@@ -1270,7 +1415,7 @@ def serve_phase(card):
         raise AssertionError(f"{engine.allocator.in_use} pages leaked")
     want = {"paged_prefill": windows * cfg.num_layers,
             "paged_decode": ticks * cfg.num_layers,
-            **row_counts_wanted(ticks, cfg)}
+            **row_counts_wanted(ticks, windows, cfg)}
     if launches != want or not all(launches.values()):
         raise AssertionError(f"launch counts {launches} != expected {want}")
 
@@ -1355,6 +1500,15 @@ def serve_phase(card):
                 n.startswith(key) for n in p["paged_kernels"]):
             raise AssertionError(f"{what} tick profile: no {key} among "
                                  f"{p['paged_kernels']}")
+    # A decode tick and a prefill window run the norm kernel once a layer
+    # boundary and once on the embeddings, nothing else.
+    for what, p in (("decode", prof), ("prefill", pprof)):
+        norms_run = p["kernels_per_tick_by_class"]["rms_norm kernel"]
+        if p["device_idle_share"] is not None and (
+                norms_run != 2 * cfg.num_layers + 1):
+            raise AssertionError(f"{what} tick profile: {norms_run} norm "
+                                 f"kernels a tick, not "
+                                 f"{2 * cfg.num_layers + 1}")
     runs = spec_quant_phase(model, cfg, card, requests)
     probes = [rewind_probe(model, cfg, kind, requests[4].tokens)
               for kind in ("bf16", "int8")]
@@ -1451,7 +1605,8 @@ def serve_run(model, cfg, kind, spec_k, requests, arrivals):
             "paged_decode": counts["decode_steps"] * cfg.num_layers,
             "paged_verify": counts["verify_steps"] * cfg.num_layers,
             **row_counts_wanted(counts["decode_steps"]
-                                + counts["verify_steps"], cfg)}
+                                + counts["verify_steps"],
+                                counts["prefill_windows"], cfg)}
     if launches != want:
         raise AssertionError(f"{tag}: launch counts {launches} != "
                              f"expected {want}")
@@ -2052,14 +2207,18 @@ def main() -> int:
             c[0] += run["launches"][k]
             c[1] += run[field]
     # The row-invariant kernels, on every serve run: a decode or verify
-    # tick is their unit.
-    for k in ("decode_gemm", "rms_norm"):
-        ticks[k] = (None, "decode or verify tick")
-        count[k] = [launches[k] + sum(run["launches"][k] for run in
-                                      serve["spec_quant_runs"]),
+    # tick is the GEMM's unit, and the norms' a tick or a prefill window.
+    runs = serve["spec_quant_runs"]
+    for k in ("decode_gemm", "rms_norm", "add_rms_norm"):
+        per_window = k != "decode_gemm"
+        ticks[k] = (None, "decode or verify tick" + (
+            " or prefill window" if per_window else ""))
+        count[k] = [launches[k] + sum(run["launches"][k] for run in runs),
                     serve["decode_ticks"] + sum(
                         run["decode_steps"] + run["verify_steps"]
-                        for run in serve["spec_quant_runs"])]
+                        for run in runs) + per_window * (
+                        serve["prefill_windows"] + sum(
+                            run["prefill_windows"] for run in runs))]
     count.update({k: [n, TRAIN_STEPS] for k, n in train_launches.items()})
     for r in records:
         n, per = count[r["name"]]

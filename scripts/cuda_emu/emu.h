@@ -1,7 +1,7 @@
-// Thread-level CPU emulation of the CUDA features the paged kernels and
-// the decode GEMM use, so that g++ can build and run them on a machine
-// without a card (emulate_paged.py rewrites the sources to include this
-// first). Blocks of a launch run one after another, in a shuffled order
+// Thread-level CPU emulation of the CUDA features the paged kernels, the
+// decode GEMM and the norm use, so that g++ can build and run them on a
+// machine without a card (emulate_paged.py rewrites the sources to include
+// this first). Blocks of a launch run one after another, in a shuffled order
 // (emu_set_shuffle_seed picks it; a static __shared__ array is then one
 // array that each block in turn has to itself);
 // each runs as blockDim std::threads with real barriers for
@@ -54,6 +54,7 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   u += 0x7fffu + ((u >> 16) & 1u);
   return {(unsigned short)(u >> 16)};
 }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) { return __float2bfloat16(f); }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {__float2bfloat16(a), __float2bfloat16(b)}; }
 inline float __low2float(__nv_bfloat162 v) { return __bfloat162float(v.x); }
 inline float __high2float(__nv_bfloat162 v) { return __bfloat162float(v.y); }
@@ -70,6 +71,9 @@ struct __nv_fp8_e4m3 {
   }
 };
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+// The card's rsqrtf is within 2 ulp of 1 / sqrt(x); this one rounds twice.
+inline float rsqrtf(float x) { return 1.f / sqrtf(x); }
 inline float __expf(float x) { return expf(x); }
 inline float __uint_as_float(uint32_t u) { return f_of_bits(u); }
 inline uint32_t __float_as_uint(float f) { return bits_of_f(f); }

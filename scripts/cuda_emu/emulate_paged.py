@@ -32,7 +32,8 @@ unlike the card's tensor cores, and nothing here is timed.
 
 :func:`build` takes any kernel of ``_kernels.KERNELS`` whose source needs
 only what ``emu.h`` emulates: ``tests/test_torch_decode_gemm.py`` builds
-``decode_gemm.cu`` with it and drives the GEMM's C entries on the CPU.
+``decode_gemm.cu`` with it and drives the GEMM's C entries on the CPU,
+``tests/test_torch_norms.py`` ``rms_norm.cu`` and the norm's.
 """
 
 from __future__ import annotations
@@ -104,10 +105,7 @@ def build(out: Path, names=KERNELS) -> dict:
     libs = {}
     for name in names:
         lib = ctypes.CDLL(str(out / f"lib{name}.so"))
-        for suffix in K._entry_suffixes(name):
-            fn = getattr(lib, f"tk8s_{name}_{suffix}")
-            fn.argtypes = K._SIGNATURES[name]
-            fn.restype = ctypes.c_int
+        K.bind(lib, name)
         libs[name] = lib
     return libs
 

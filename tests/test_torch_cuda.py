@@ -18,8 +18,10 @@ the design the table sends to the C entry), the dQ
 kernel's tensor-core design at ragged
 sequences, the row-invariant decode GEMM (one launch for each 8B group,
 K split by the shape: rows at every M of 1-63 bitwise, twenty launches
-bitwise, grouped refusals) and RMSNorm (rows at M 1 and 8 bitwise), a
-small model's verify logits rows against
+bitwise, grouped refusals) and RMSNorm (rows at M 1 and 8 bitwise) with
+its fused residual add (h bitwise torch's add, y the norm kernel's of h,
+rows at M 1-256 bitwise, D past the 8192 a thread keeps), a small model's
+verify logits rows against
 its decode rows, and the wrappers' refusals.
 """
 
@@ -750,6 +752,12 @@ def test_row_wrappers_count_only_their_launches(device):
     assert dg.decode_gemm_group.launches == 6
     norms.rms_norm_rows(x, scale, 1e-5)
     assert norms.rms_norm_rows.launches == 1
+    h, y = norms.add_rms_norm_rows(x[:0], x[:0], scale, 1e-5)
+    assert h.shape == y.shape == (0, 64)
+    assert norms.add_rms_norm_rows.launches == 0
+    norms.add_rms_norm_rows(x, x, scale, 1e-5)
+    assert norms.add_rms_norm_rows.launches == 1
+    assert norms.rms_norm_rows.launches == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -770,6 +778,56 @@ def test_rms_norm_kernel_rows_are_bitwise_and_match_plain(device, dtype, d):
     torch.testing.assert_close(full.float(),
                                norms.rms_norm(x, scale, 1e-5).float(),
                                **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [4096, 5120, 8192, 8704, 64, 136])
+def test_add_rms_norm_kernel_is_add_then_the_norm_kernel(device, dtype, d):
+    """One fused launch: h torch.equal to torch's x + delta, y torch.equal
+    to the delta-null kernel on that h, rows at M 1, 8, 32 and 256 bitwise
+    the rows at M 64, y within one bf16 ulp of the plain version (f32:
+    summation order), x and delta not written."""
+    from triton_kubernetes_tpu_torch.ops import norms
+
+    gen = torch.Generator(device=device).manual_seed(d + 1)
+    x = (3 * torch.randn((256, d), generator=gen, device=device)).to(dtype)
+    delta = torch.randn((256, d), generator=gen, device=device).to(dtype)
+    scale = (1 + 0.1 * torch.randn((d,), generator=gen, device=device)
+             ).to(dtype)
+    before = (x.clone(), delta.clone())
+    norms.reset_launch_counts()
+    h, y = norms.add_rms_norm_rows(x[:64], delta[:64], scale, 1e-5)
+    assert norms.add_rms_norm_rows.launches == 1
+    assert torch.equal(x, before[0]) and torch.equal(delta, before[1])
+    assert torch.equal(h, x[:64] + delta[:64])
+    assert torch.equal(y, norms.rms_norm_rows(h, scale, 1e-5))
+    for m in (1, 8, 32):
+        hm, ym = norms.add_rms_norm_rows(x[:m], delta[:m], scale, 1e-5)
+        assert torch.equal(hm, h[:m]) and torch.equal(ym, y[:m]), m
+    h_all, y_all = norms.add_rms_norm_rows(x, delta, scale, 1e-5)
+    assert torch.equal(h_all[:64], h) and torch.equal(y_all[:64], y)
+    torch.testing.assert_close(
+        y_all.float(), norms.add_rms_norm(x, delta, scale, 1e-5)[1].float(),
+        **_tol(dtype))
+
+
+def test_add_rms_norm_kernel_refuses_what_it_does_not_take(device):
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device=device)
+    scale = torch.ones(64, dtype=torch.bfloat16, device=device)
+    with pytest.raises(ValueError, match="share a dtype"):
+        _kernels.add_rms_norm(x, x.float(), scale, 1e-5)
+    with pytest.raises(ValueError, match="delta"):
+        _kernels.add_rms_norm(x, x[:2], scale, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        _kernels.add_rms_norm(x, x.T.contiguous().T, scale, 1e-5)
+    flat = torch.zeros(4 * 64 + 4, dtype=torch.bfloat16, device=device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _kernels.add_rms_norm(x, flat[4:].view(4, 64), scale, 1e-5)
+    with pytest.raises(ValueError, match="a row"):
+        _kernels.add_rms_norm(x[:0], x[:0], scale, 1e-5)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        _kernels.add_rms_norm(x[:, :60].contiguous(), x[:, :60].contiguous(),
+                              scale[:60].contiguous(), 1e-5)
 
 
 def test_row_kernels_refuse_what_they_do_not_take(device):
@@ -852,7 +910,7 @@ def test_small_model_verify_rows_are_decode_rows(device, dtype):
     """At llama-test widths on the card, in bf16 and in f32: each verify
     logits row (b, j) is torch.equal to the decode logits at length
     lengths[b] + j, and the two pools end bitwise equal -- through the
-    paged kernels and the row-invariant GEMM and norm."""
+    paged kernels, the row-invariant GEMM and the fused add + norm."""
     from triton_kubernetes_tpu_torch.models import (
         get_config, init_params, paged)
     from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
@@ -882,7 +940,9 @@ def test_small_model_verify_rows_are_decode_rows(device, dtype):
         verify, _ = paged.paged_verify_step(model, tok, cfg, vcache, tables,
                                             lens)
         assert dg.decode_gemm_group.launches == 4 * cfg.num_layers + 1
-        assert norms.rms_norm_rows.launches == 2 * cfg.num_layers + 1
+        # The embeddings' norm, then one fused add + norm a layer boundary.
+        assert norms.rms_norm_rows.launches == 1
+        assert norms.add_rms_norm_rows.launches == 2 * cfg.num_layers
         for j in range(s):
             row = paged.paged_decode_step(model, tok[:, j].contiguous(), cfg,
                                           cache, tables, lens + j)

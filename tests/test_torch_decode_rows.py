@@ -14,15 +14,25 @@ and the flash dQ kernel's design table are pinned here too.
 
 import inspect
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from triton_kubernetes_tpu.models import get_config as jget_config
+from triton_kubernetes_tpu.models import init_paged_cache as jinit_cache
+from triton_kubernetes_tpu.models import init_params as jinit_params
 from triton_kubernetes_tpu.models import llama as jllama
+from triton_kubernetes_tpu.models import paged as jpaged
 from triton_kubernetes_tpu.ops import norms as jnorms
-from triton_kubernetes_tpu_torch.models import get_config, init_params, paged
+from triton_kubernetes_tpu_torch.models import (
+    from_numpy_params,
+    get_config,
+    init_params,
+    paged,
+)
 from triton_kubernetes_tpu_torch.models import llama
 from triton_kubernetes_tpu_torch.ops import _kernels, decode_gemm, norms
 
@@ -221,42 +231,191 @@ def test_gemm_splits_depend_on_the_shape_alone():
                 _kernels.GEMM_MIN_RANGE_TILES
 
 
+class _ResidualAdds(TorchFunctionMode):
+    """Counts the adds whose result is a [..., D] tensor of the activation
+    dtype -- a residual add -- made while it is active, except inside the
+    fused add + norm (``inside``)."""
+
+    def __init__(self, d: int, dtype: torch.dtype):
+        super().__init__()
+        self.d, self.dtype, self.count, self.inside = d, dtype, 0, False
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if (not self.inside and func in _ADDS
+                and isinstance(out, torch.Tensor) and out.dim() >= 2
+                and out.shape[-1] == self.d and out.dtype == self.dtype):
+            self.count += 1
+        return out
+
+
+_ADDS = (torch.add, torch.Tensor.add, torch.Tensor.add_,
+         torch.Tensor.__add__, torch.Tensor.__radd__, torch.Tensor.__iadd__)
+
+
 def test_decode_and_verify_steps_take_the_row_invariant_ops(monkeypatch):
     """Every norm and weight product of both steps goes through the
-    row-invariant ops: 2 L + 1 norms and 4 L + 1 product calls a step
-    (wq/wk/wv, wo, w3/w1, w2 a layer, and the lm head), seven weights a
-    layer; prefill takes none of them."""
+    row-invariant ops: one norm of the embeddings and 2 L fused residual
+    adds + norms a step (each layer boundary, the last one's norm the
+    final norm), with no residual add and no norm of ``models/llama.py``
+    beside them, and 4 L + 1 product calls (wq/wk/wv, wo, w3/w1, w2 a
+    layer, and the lm head), seven weights a layer. A prefill window makes
+    the same norm calls and no product call (cuBLAS einsums); the one-shot
+    prefill makes none of them (plain norms and adds)."""
     cfg = get_config("llama-test", dtype="bfloat16")
     model = init_params(cfg, seed=0, device="cpu")
-    calls = {"norm": 0, "gemm": 0, "weights": 0}
-    real_norm, real_gemm = llama.rms_norm_rows, llama.decode_gemm_group
+    layers = cfg.num_layers
+    calls = {}
+    adds = _ResidualAdds(cfg.embed_dim, cfg.activation_dtype)
+    real = {"norm": paged.rms_norm_rows, "fused": paged.add_rms_norm_rows,
+            "llama_norm": llama._norm, "gemm": llama.decode_gemm_group}
 
-    def count_norm(*a, **k):
-        calls["norm"] += 1
-        return real_norm(*a, **k)
+    def counted(key):
+        def call(*a, **k):
+            calls[key] += 1
+            if key == "gemm":
+                calls["weights"] += len(a[1])
+            adds.inside = key == "fused"
+            try:
+                return real[key](*a, **k)
+            finally:
+                adds.inside = False
+        return call
 
-    def count_gemm(x, ws, *a, **k):
-        calls["gemm"] += 1
-        calls["weights"] += len(ws)
-        return real_gemm(x, ws, *a, **k)
+    monkeypatch.setattr(paged, "rms_norm_rows", counted("norm"))
+    monkeypatch.setattr(paged, "add_rms_norm_rows", counted("fused"))
+    monkeypatch.setattr(llama, "_norm", counted("llama_norm"))
+    monkeypatch.setattr(llama, "decode_gemm_group", counted("gemm"))
 
-    monkeypatch.setattr(llama, "rms_norm_rows", count_norm)
-    monkeypatch.setattr(llama, "decode_gemm_group", count_gemm)
+    def run(step, *args):
+        calls.update(dict.fromkeys(("norm", "fused", "llama_norm", "gemm",
+                                    "weights"), 0))
+        adds.count = 0
+        with adds:
+            step(model, *args)
+        return dict(calls, adds=adds.count)
+
     cache = paged.init_paged_cache(cfg, 9, 4, device="cpu")
     tables = torch.arange(1, 9, dtype=torch.int32).reshape(2, 4)
     lens = torch.tensor([3, 5], dtype=torch.int32)
-    paged.paged_prefill(model, torch.zeros((1, 8), dtype=torch.int32), 5,
-                        cfg, cache, tables[1, :2])
-    assert calls == {"norm": 0, "gemm": 0, "weights": 0}
-    paged.paged_decode_step(model, torch.tensor([1, 2], dtype=torch.int32),
-                            cfg, cache, tables, lens)
-    want = {"norm": 2 * cfg.num_layers + 1, "gemm": 4 * cfg.num_layers + 1,
-            "weights": 7 * cfg.num_layers + 1}
-    assert calls == want
-    paged.paged_verify_step(model, torch.tensor([[1, 2, 3], [4, 5, 6]],
-                                                dtype=torch.int32),
-                            cfg, cache, tables, lens)
-    assert calls == {k: 2 * v for k, v in want.items()}
+    assert run(paged.paged_prefill, torch.zeros((1, 8), dtype=torch.int32),
+               5, cfg, cache, tables[1, :2]) == {
+        "norm": 0, "fused": 0, "llama_norm": 2 * layers + 1, "gemm": 0,
+        "weights": 0, "adds": 2 * layers}
+    fused = {"norm": 1, "fused": 2 * layers, "llama_norm": 0, "adds": 0}
+    assert run(paged.paged_prefill_chunk,
+               torch.zeros((1, 8), dtype=torch.int32), 0, 5, cfg, cache,
+               tables[0]) == dict(fused, gemm=0, weights=0)
+    want = dict(fused, gemm=4 * layers + 1, weights=7 * layers + 1)
+    assert run(paged.paged_decode_step,
+               torch.tensor([1, 2], dtype=torch.int32), cfg, cache, tables,
+               lens) == want
+    assert run(paged.paged_verify_step,
+               torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32), cfg,
+               cache, tables, lens) == want
+
+
+def _unfused_layers(model, x, config, positions, attend, row_invariant):
+    """``paged._serve_layers`` composed as the steps ran before the fused
+    add + norm: ``llama._qkv``, ``project_out`` and ``_mlp`` a layer (each
+    norming its input), then the final norm."""
+    cos, sin = model.rotary()
+    for i, layer in enumerate(model.layers):
+        q, k, v = llama._qkv(x, layer, config, cos, sin, positions,
+                             row_invariant)
+        x = llama.project_out(x, attend(i, q, k, v), layer, config,
+                              row_invariant)
+        x = x + llama._mlp(x, layer, config, row_invariant)
+    return llama.final_norm_hidden(x, model, row_invariant)
+
+
+def _serve_sequence(model, cfg, jax_side=None):
+    """Two prefill windows (C 8, the second right-padded) of a 13-token
+    prompt, a decode step of it beside an inactive slot, then a verify
+    step of 3 tokens: the logits of each step and the pool after, from the
+    port -- and, with ``jax_side`` = (jcfg, jparams), the JAX package's on
+    the same tokens, tables and lengths."""
+    prompt = np.random.default_rng(11).integers(0, cfg.vocab_size, 13)
+    table = np.array([[5, 2, 9, 11], [0, 0, 0, 0]], np.int32)
+    if jax_side is None:
+        cache = paged.init_paged_cache(cfg, 16, 4, device="cpu")
+    else:
+        jcfg, jparams = jax_side
+        cache = jinit_cache(jcfg, 16, 4)
+    out = []
+    for off in (0, 8):
+        clen = min(8, 13 - off)
+        toks = np.zeros((1, 8), np.int32)
+        toks[0, :clen] = prompt[off:off + clen]
+        if jax_side is None:
+            out.append(paged.paged_prefill_chunk(
+                model, torch.from_numpy(toks), off, clen, cfg, cache,
+                torch.from_numpy(table[0])))
+        else:
+            logits, cache = jpaged.paged_prefill_chunk(
+                jparams, jnp.asarray(toks), jnp.int32(off),
+                jnp.int32(clen), jcfg, cache, jnp.asarray(table[0]))
+            out.append(logits)
+    token = np.array([int(np.argmax(np.asarray(out[-1], np.float32))), 0],
+                     np.int32)
+    lens = np.array([13, 0], np.int32)
+    drafts = np.array([[token[0], 3, 9], [0, 0, 0]], np.int32)
+    if jax_side is None:
+        out.append(paged.paged_decode_step(
+            model, torch.from_numpy(token), cfg, cache,
+            torch.from_numpy(table), torch.from_numpy(lens)))
+        out.append(paged.paged_verify_step(
+            model, torch.from_numpy(drafts), cfg, cache,
+            torch.from_numpy(table), torch.from_numpy(lens + [1, 0]))[0])
+        return out, (cache.k, cache.v)
+    logits, cache = jpaged.paged_decode_step(
+        jparams, jnp.asarray(token), jcfg, cache, jnp.asarray(table),
+        jnp.asarray(lens))
+    out.append(logits)
+    logits, cache, _ = jpaged.paged_verify_step(
+        jparams, jnp.asarray(drafts), jcfg, cache, jnp.asarray(table),
+        jnp.asarray(lens + [1, 0]))
+    out.append(logits)
+    return out, (cache.k, cache.v)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_steps_are_the_unfused_composition(monkeypatch, dtype):
+    """On CPU tensors the prefill-window, decode and verify steps, which
+    fuse each layer boundary's add and norm, give bitwise the logits and
+    pool of the same steps composed unfused (torch add, then the norm)."""
+    cfg = get_config("llama-test", dtype=dtype)
+    model = init_params(cfg, seed=4, device="cpu")
+    fused, fused_pool = _serve_sequence(model, cfg)
+    monkeypatch.setattr(paged, "_serve_layers", _unfused_layers)
+    plain, plain_pool = _serve_sequence(model, cfg)
+    for got, want in zip(fused + list(fused_pool), plain + list(plain_pool)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_fused_steps_match_jax():
+    """The same prefill windows, decode step and verify step against the
+    JAX package's at ``llama-test`` (f32, its weights carried over):
+    within the tolerance of the other step tests (rtol/atol 1e-4: sums in
+    another order through two layers and the lm head)."""
+    jcfg = jget_config("llama-test")
+    jparams = jinit_params(jcfg, jax.random.PRNGKey(0))
+    cfg = get_config("llama-test")
+    model = from_numpy_params(jax.tree.map(np.asarray, jparams), cfg,
+                              device="cpu")
+    got, got_pool = _serve_sequence(model, cfg)
+    want, want_pool = _serve_sequence(None, cfg, (jcfg, jparams))
+    tol = dict(rtol=1e-4, atol=1e-4)
+    for g, w in zip(got[:3], want[:3]):  # windows and decode, live rows
+        np.testing.assert_allclose(g.reshape(-1, cfg.vocab_size)[0].numpy(),
+                                   np.asarray(w).reshape(
+                                       -1, cfg.vocab_size)[0], **tol)
+    np.testing.assert_allclose(got[3][0].numpy(), np.asarray(want[3])[0],
+                               **tol)
+    pages = [5, 2, 9, 11]
+    for g, w in zip(got_pool, want_pool):
+        np.testing.assert_allclose(g[:, pages].numpy(),
+                                   np.asarray(w)[:, pages], **tol)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -36,7 +36,7 @@ def test_rotary_tables_and_apply_match_jax():
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 6, 4, 16)).astype(np.float32)
     pos = rng.integers(0, 128, size=(2, 6)).astype(np.int32)
-    tc, ts = trot.rotary_tables(16, 128, 500_000.0)
+    tc, ts = trot.rotary_tables(16, 128, 500_000.0, device="cpu")
     jc, js = jrot.rotary_tables(16, 128, 500_000.0)
     _close(tc, jc)
     _close(ts, js)

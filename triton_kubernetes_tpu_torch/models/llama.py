@@ -16,15 +16,20 @@ built in one of two forms:
   master is the reference's cotangent cast back to f32.
 
 The block math is split as in the reference -- :func:`_qkv`, attention (the
-caller's), :func:`project_out`, :func:`_mlp`, and :func:`unembed` -- so the
-paged prefill and decode paths (``models/paged.py``) reuse it, and
-:func:`forward`/:func:`forward_hidden` run the whole stack for training.
-Each takes ``row_invariant``: the paged decode and verify steps set it, so
-their norms and weight products go through ``ops.norms.rms_norm_rows`` and
-``ops.decode_gemm`` (one launch for wq/wk/wv and one for w3/w1, which share
-an input), whose rows do not depend on the row count (a verify row is then
-bitwise the decode row, as the reference pins); everything else keeps the
-plain ``rms_norm`` and ``torch.einsum``.
+caller's), :func:`project_out`, :func:`_mlp`, and :func:`unembed` -- and
+each of those norming ones is built on a helper that takes the norm's
+output (:func:`_qkv_normed`, :func:`out_projection`, :func:`_mlp_normed`,
+:func:`unembed_normed`), so the paged serving steps (``models/paged.py``)
+can run their own norms: they fuse each layer boundary's residual add and
+norm into one ``ops.norms.add_rms_norm_rows``. :func:`forward` and
+:func:`forward_hidden` run the whole stack for training with the plain
+``rms_norm``. Each takes ``row_invariant``: the paged decode and verify
+steps set it, so their weight products go through ``ops.decode_gemm`` (one
+launch for wq/wk/wv and one for w3/w1, which share an input) -- and the
+norms of these functions through ``ops.norms.rms_norm_rows`` -- whose rows
+do not depend on the row count (a verify row is then bitwise the decode
+row, as the reference pins); everything else keeps the plain ``rms_norm``
+and ``torch.einsum``.
 MoE layers and quantized weight leaves are later slices of the port and
 raise ``NotImplementedError``.
 """
@@ -277,11 +282,11 @@ def weight_einsum(spec: str, x: torch.Tensor, w: torch.Tensor,
     return weight_einsums(spec, x, [w], config, row_invariant)[0]
 
 
-def _qkv(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
-         cos: torch.Tensor, sin: torch.Tensor, positions: torch.Tensor,
-         row_invariant: bool = False):
-    """Projected + rotary-encoded q/k/v for a block input ([B, S, D])."""
-    h = _norm(x, layer.attn_norm, config, row_invariant)
+def _qkv_normed(h: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
+                cos: torch.Tensor, sin: torch.Tensor, positions: torch.Tensor,
+                row_invariant: bool = False):
+    """Projected + rotary-encoded q/k/v from the attention norm's output
+    ([B, S, D])."""
     q, k, v = weight_einsums("bsd,dhk->bshk", h,
                              [layer.wq, layer.wk, layer.wv], config,
                              row_invariant)
@@ -290,13 +295,20 @@ def _qkv(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
     return q, k, v
 
 
-def _mlp(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
-         row_invariant: bool = False) -> torch.Tensor:
-    """Post-attention half of the block: norm + dense SwiGLU. Returns the
-    residual delta."""
+def _qkv(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
+         cos: torch.Tensor, sin: torch.Tensor, positions: torch.Tensor,
+         row_invariant: bool = False):
+    """Projected + rotary-encoded q/k/v for a block input ([B, S, D])."""
+    h = _norm(x, layer.attn_norm, config, row_invariant)
+    return _qkv_normed(h, layer, config, cos, sin, positions, row_invariant)
+
+
+def _mlp_normed(h: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
+                row_invariant: bool = False) -> torch.Tensor:
+    """Dense SwiGLU of the MLP norm's output. Returns the residual
+    delta."""
     if config.is_moe:
         raise NotImplementedError(_MOE_LATER)
-    h = _norm(x, layer.mlp_norm, config, row_invariant)
     gate, up = weight_einsums("bsd,df->bsf", h, [layer.w3, layer.w1],
                               config, row_invariant)
     gate = torch.nn.functional.silu(gate.float()).to(config.activation_dtype)
@@ -304,12 +316,28 @@ def _mlp(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
                          row_invariant)
 
 
+def _mlp(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
+         row_invariant: bool = False) -> torch.Tensor:
+    """Post-attention half of the block: norm + dense SwiGLU. Returns the
+    residual delta."""
+    h = _norm(x, layer.mlp_norm, config, row_invariant)
+    return _mlp_normed(h, layer, config, row_invariant)
+
+
+def out_projection(attn: torch.Tensor, layer: LlamaBlock,
+                   config: ModelConfig, row_invariant: bool = False
+                   ) -> torch.Tensor:
+    """Attention output projection: the residual delta of the attention
+    half."""
+    return weight_einsum("bshk,hkd->bsd", attn, layer.wo, config,
+                         row_invariant)
+
+
 def project_out(x: torch.Tensor, attn: torch.Tensor, layer: LlamaBlock,
                 config: ModelConfig, row_invariant: bool = False
                 ) -> torch.Tensor:
     """Attention output projection + residual add."""
-    return x + weight_einsum("bshk,hkd->bsd", attn, layer.wo, config,
-                             row_invariant)
+    return x + out_projection(attn, layer, config, row_invariant)
 
 
 def final_norm_hidden(x: torch.Tensor, model: Llama,
@@ -329,7 +357,14 @@ def unembed(x: torch.Tensor, model: Llama,
     """Final norm + lm head: [B, S, D] -> f32 logits [B, S, V], the
     product accumulated in f32 and kept in f32 (the reference's
     ``preferred_element_type``), never rounded to the activation dtype."""
-    h = final_norm_hidden(x, model, row_invariant)
+    return unembed_normed(final_norm_hidden(x, model, row_invariant), model,
+                          row_invariant)
+
+
+def unembed_normed(h: torch.Tensor, model: Llama,
+                   row_invariant: bool = False) -> torch.Tensor:
+    """The lm head of the final norm's output: [B, S, D] -> f32 logits
+    [B, S, V], as :func:`unembed`."""
     b, s, d = h.shape
     h2 = h.reshape(b * s, d)
     w = head_weights(model)

@@ -17,7 +17,11 @@ view ``cache.k[l]``, which is what the attention kernels are handed.
 
 Per-token math is the block split of ``models/llama.py`` with explicit
 positions, so masked slots (future tokens, pad garbage, trash pages)
-contribute exactly zero. The attention implementation follows
+contribute exactly zero. The prefill-window, decode and verify steps carry
+the residual x and its norm h across each layer boundary, the add and the
+norm one ``ops.norms.add_rms_norm_rows`` (one kernel launch on the card);
+the one-shot :func:`paged_prefill` runs ``models/generate.prefill``, with
+the plain norm. The attention implementation follows
 ``ops.paged_attention.resolve_paged_impl``: the hand-written kernels for
 CUDA tensors, the plain versions for CPU tensors, or the plain versions
 everywhere with ``attention_impl="dense"`` (or ``config.attention ==
@@ -34,11 +38,12 @@ speculated would hold.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from ..constants import KV_DTYPES
+from ..ops.norms import add_rms_norm_rows, rms_norm_rows
 from ..ops.paged_attention import (
     TRASH_PAGE,
     byte_view,
@@ -160,6 +165,41 @@ def _quant_errors(cache: PagedKVCache, index: torch.Tensor,
                                    (cache.v, cache.v_scale, exact_v)))
 
 
+# attend(layer index, q, k, v) -> attention output: writes the layer's
+# K/V into the pool and attends over it.
+AttendFn = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor],
+                    torch.Tensor]
+
+
+def _serve_layers(model: llama.Llama, x: torch.Tensor, config: ModelConfig,
+                  positions: torch.Tensor, attend: AttendFn,
+                  row_invariant: bool) -> torch.Tensor:
+    """The decoder stack of the serving steps, from the embeddings x
+    ([B, S, D]) to the final norm's output, which the head reads. A layer
+    boundary's residual add and the norm after it are one
+    ``add_rms_norm_rows`` (one kernel launch on the card): x and h = the
+    norm of x are carried across it. ``row_invariant`` takes the weight
+    products through ``decode_gemm`` (decode and verify); the norms take
+    the kernel on CUDA tensors either way."""
+    cos, sin = model.rotary()
+    eps = config.norm_eps
+    layers = model.layers
+    h = rms_norm_rows(x, layers[0].attn_norm, eps)
+    for i, layer in enumerate(layers):
+        q, k, v = llama._qkv_normed(h, layer, config, cos, sin, positions,
+                                    row_invariant)
+        attn = attend(i, q, k, v)
+        x, h = add_rms_norm_rows(
+            x, llama.out_projection(attn, layer, config, row_invariant),
+            layer.mlp_norm, eps)
+        after = (layers[i + 1].attn_norm if i + 1 < len(layers)
+                 else model.final_norm)
+        x, h = add_rms_norm_rows(
+            x, llama._mlp_normed(h, layer, config, row_invariant), after,
+            eps)
+    return h
+
+
 def paged_prefill(model: llama.Llama,
                   tokens: torch.Tensor,  # [1, P] right-padded prompt
                   length: int,  # real prompt tokens (<= P)
@@ -240,24 +280,24 @@ def paged_prefill_chunk(model: llama.Llama,
         raise ValueError("with_quant_error only applies to quantized pools")
     impl = attention_impl if attention_impl is not None else config.attention
     positions = offset + torch.arange(c, device=tokens.device)[None]
-    cos, sin = model.rotary()
-    x = model.embed[tokens]  # [1, C, D]
     w = c // bs
     window = block_table[offset // bs: offset // bs + w]
     exact = ([], [])
-    for i, layer in enumerate(model.layers):
-        q, k, v = llama._qkv(x, layer, config, cos, sin, positions)
+
+    def attend(i, q, k, v):
         kp, vp, ks, vs = cache.layer(i)
         scatter_chunk(kp, vp, k, v, window, ks, vs)
         if with_quant_error:
             exact[0].append(k)
             exact[1].append(v)
-        attn = paged_prefill_attention(q, kp, vp, block_table, offset, ks, vs,
-                                       impl=impl)
-        x = llama.project_out(x, attn, layer, config)
-        x = x + llama._mlp(x, layer, config)
-    h = x[:, chunk_len - 1: chunk_len]  # unembed only the last real row
-    logits = llama.unembed(h, model)[0, 0]
+        return paged_prefill_attention(q, kp, vp, block_table, offset, ks,
+                                       vs, impl=impl)
+
+    h = _serve_layers(model, model.embed[tokens], config, positions, attend,
+                      row_invariant=False)
+    # The head reads only the last real row.
+    logits = llama.unembed_normed(h[:, chunk_len - 1: chunk_len],
+                                  model)[0, 0]
     if not with_quant_error:
         return logits
     # [L, 1, C, Hkv, Dh] -> [L, w, Hkv, bs, Dh], the window's pages.
@@ -282,19 +322,17 @@ def paged_decode_step(model: llama.Llama,
     scheduler discards."""
     impl = attention_impl if attention_impl is not None else config.attention
     positions = lengths.long()[:, None]  # [B, 1] ragged
-    cos, sin = model.rotary()
-    x = model.embed[token[:, None]]  # [B, 1, D]
     attn_lengths = lengths + 1
-    for i, layer in enumerate(model.layers):
-        q, k, v = llama._qkv(x, layer, config, cos, sin, positions,
-                             row_invariant=True)
+
+    def attend(i, q, k, v):
         kp, vp, ks, vs = cache.layer(i)
         scatter_token(kp, vp, k, v, block_tables, lengths, ks, vs)
-        attn = ragged_paged_attention(q, kp, vp, block_tables, attn_lengths,
+        return ragged_paged_attention(q, kp, vp, block_tables, attn_lengths,
                                       ks, vs, impl=impl)
-        x = llama.project_out(x, attn, layer, config, row_invariant=True)
-        x = x + llama._mlp(x, layer, config, row_invariant=True)
-    return llama.unembed(x, model, row_invariant=True)[:, 0, :]
+
+    h = _serve_layers(model, model.embed[token[:, None]], config, positions,
+                      attend, row_invariant=True)  # [B, 1, D]
+    return llama.unembed_normed(h, model, row_invariant=True)[:, 0, :]
 
 
 class VerifyUndo(NamedTuple):
@@ -339,8 +377,9 @@ def paged_verify_step(model: llama.Llama,
     Row for row this is :func:`paged_decode_step`'s math, bit for bit --
     the same token-at-a-time writes (``scatter_span``), per-row attention
     (``ragged_verify_attention``), and norms and weight products whose rows
-    do not depend on the row count (``row_invariant``: ``rms_norm_rows``,
-    ``decode_gemm``) -- with the weight pass paid once for S positions.
+    do not depend on the row count (``rms_norm_rows``,
+    ``add_rms_norm_rows``, and with ``row_invariant`` ``decode_gemm``) --
+    with the weight pass paid once for S positions.
 
     The undo is one gather of every layer's touched slots, taken before
     any layer writes: the pool is written in place, so it must be a copy.
@@ -359,19 +398,17 @@ def paged_verify_step(model: llama.Llama,
         .view(cache.v.dtype),
         k_scale=cache.k_scale[:, page] if cache.quantized else None,
         v_scale=cache.v_scale[:, page] if cache.quantized else None)
-    cos, sin = model.rotary()
-    x = model.embed[tokens]  # [B, S, D]
     attn_lengths = lengths + 1
-    for i, layer in enumerate(model.layers):
-        q, k, v = llama._qkv(x, layer, config, cos, sin, positions,
-                             row_invariant=True)
+
+    def attend(i, q, k, v):
         kp, vp, ks, vs = cache.layer(i)
         scatter_span(kp, vp, k, v, block_tables, lengths, ks, vs)
-        attn = ragged_verify_attention(q, kp, vp, block_tables, attn_lengths,
+        return ragged_verify_attention(q, kp, vp, block_tables, attn_lengths,
                                        ks, vs, impl=impl)
-        x = llama.project_out(x, attn, layer, config, row_invariant=True)
-        x = x + llama._mlp(x, layer, config, row_invariant=True)
-    return llama.unembed(x, model, row_invariant=True), undo
+
+    h = _serve_layers(model, model.embed[tokens], config, positions, attend,
+                      row_invariant=True)  # [B, S, D]
+    return llama.unembed_normed(h, model, row_invariant=True), undo
 
 
 def paged_rewind(cache: PagedKVCache,

@@ -89,6 +89,12 @@ _SIGNATURES = {
     # x, scale, y, M, D, eps, stream
     "rms_norm": (_P, _P, _P, _I, _I, _F, _P),
 }
+# C entries a library holds beside tk8s_<name>_<suffix>, one per suffix:
+# {name: {entry stem: argument types}}.
+_MORE_ENTRIES = {
+    # x, delta (null: the entry above), scale, h, y, M, D, eps, stream
+    "rms_norm": {"add_rms_norm": (_P, _P, _P, _P, _P, _I, _I, _F, _P)},
+}
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # Page dtypes of quantized pools -> the suffix the paged kernels' entries
 # append to q's (``tk8s_paged_decode_bf16_int8``).
@@ -285,12 +291,20 @@ def library(name: str) -> ctypes.CDLL:
     if not path.exists():
         build([name])
     lib = ctypes.CDLL(str(path))
-    for suffix in _entry_suffixes(name):
-        fn = getattr(lib, f"tk8s_{name}_{suffix}")
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
+    bind(lib, name)
     _loaded[name] = lib
     return lib
+
+
+def bind(lib: ctypes.CDLL, name: str) -> None:
+    """Set the argument and return types of every C entry of the kernel
+    library ``name`` (a build of ``csrc/<name>.cu``, also an emulated one)."""
+    stems = {name: _SIGNATURES[name], **_MORE_ENTRIES.get(name, {})}
+    for stem, argtypes in stems.items():
+        for suffix in _entry_suffixes(name):
+            fn = getattr(lib, f"tk8s_{stem}_{suffix}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
 
 
 def _entry_suffixes(name: str):
@@ -701,32 +715,63 @@ def decode_gemm(x: torch.Tensor, ws: Sequence[torch.Tensor],
     _check(rc, "decode_gemm")
 
 
+def _check_norm(what: str, scale: torch.Tensor,
+                *rows: torch.Tensor) -> Tuple[int, int]:
+    """Device, dtype, shape, contiguity and alignment checks of the norm
+    kernel's operands: every [M, D] row operand of ``rows`` (x first) and
+    scale [D] of one dtype on one device; returns (M, D)."""
+    x = rows[0]
+    if not x.is_cuda:
+        raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors, "
+                         f"got x on {x.device}")
+    names = "x, delta and scale" if len(rows) > 1 else "x and scale"
+    for t in (scale, *rows[1:]):
+        _require(x.dtype in _SUFFIX and t.dtype == x.dtype
+                 and t.device == x.device,
+                 f"{what}: {names} must share a dtype (bfloat16 or "
+                 f"float32) on {x.device}, got {x.dtype} and {t.dtype} on "
+                 f"{t.device}")
+    _require(x.dim() == 2 and all(t.shape == x.shape for t in rows)
+             and scale.shape == x.shape[1:],
+             f"{what}: {'x and delta' if len(rows) > 1 else 'x'} [M, D] "
+             f"and scale [D], got {[tuple(t.shape) for t in rows]} and "
+             f"{tuple(scale.shape)}")
+    _require(all(t.is_contiguous() for t in (scale, *rows)),
+             f"{what}: {names} must be contiguous")
+    m, d = x.shape
+    _require(m >= 1, f"{what}: x must hold a row")
+    _require(d % 8 == 0, f"{what}: D {d} must be a multiple of 8")
+    _require(all(t.data_ptr() % 16 == 0 for t in (scale, *rows)),
+             f"{what}: {names} must start 16-byte aligned")
+    return m, d
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float) -> torch.Tensor:
     """Launch ``csrc/rms_norm.cu`` on the current stream: x [M, D], M >= 1
     (bf16 or f32, scale [D] of the same dtype) -> [M, D], each row's sum
     taken in one fixed order whatever M is."""
-    if not x.is_cuda:
-        raise ValueError(f"rms_norm: the CUDA kernel takes CUDA tensors, "
-                         f"got x on {x.device}")
-    _require(x.dtype in _SUFFIX and scale.dtype == x.dtype
-             and scale.device == x.device,
-             f"rms_norm: x and scale must share a dtype (bfloat16 or "
-             f"float32) on {x.device}, got {x.dtype} and {scale.dtype} on "
-             f"{scale.device}")
-    _require(x.dim() == 2 and scale.shape == (x.shape[1],),
-             f"rms_norm: x [M, D] and scale [D], got {tuple(x.shape)} and "
-             f"{tuple(scale.shape)}")
-    _require(x.is_contiguous() and scale.is_contiguous(),
-             "rms_norm: x and scale must be contiguous")
-    m, d = x.shape
-    _require(m >= 1, "rms_norm: x must hold a row")
-    _require(d % 8 == 0, f"rms_norm: D {d} must be a multiple of 8")
-    _require(x.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0,
-             "rms_norm: x and scale must start 16-byte aligned")
+    m, d = _check_norm("rms_norm", scale, x)
     y = torch.empty_like(x)
     rc = _entry("rms_norm", x.dtype)(
         x.data_ptr(), scale.data_ptr(), y.data_ptr(), m, d, float(eps),
         torch.cuda.current_stream(x.device).cuda_stream)
     _check(rc, "rms_norm")
     return y
+
+
+def add_rms_norm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
+                 eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/rms_norm.cu``'s fused entry once on the current
+    stream: x and delta [M, D], M >= 1 (bf16 or f32, scale [D] of the same
+    dtype) -> (h, y), h = x + delta rounded as torch rounds it and y the
+    :func:`rms_norm` of h, both fresh [M, D] tensors (x is not written)."""
+    m, d = _check_norm("add_rms_norm", scale, x, delta)
+    h, y = torch.empty_like(x), torch.empty_like(x)
+    rc = getattr(library("rms_norm"),
+                 f"tk8s_add_rms_norm_{_SUFFIX[x.dtype]}")(
+        x.data_ptr(), delta.data_ptr(), scale.data_ptr(), h.data_ptr(),
+        y.data_ptr(), m, d, float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _check(rc, "add_rms_norm")
+    return h, y

@@ -1,18 +1,25 @@
 """RMSNorm in f32 whatever the input dtype, cast back on the way out --
-the port of ``triton_kubernetes_tpu/ops/norms.py``.
+the port of ``triton_kubernetes_tpu/ops/norms.py`` -- and the residual add
+fused with the norm that follows it.
 
-:func:`rms_norm` is the plain version, used everywhere but the serving
-decode and verify steps. Those call :func:`rms_norm_rows`, which on CUDA
-tensors launches the hand-written ``csrc/rms_norm.cu``: torch's reduction
-splits a row's sum by the number of rows in the call, so a verify step's
-``B * S`` rows would round differently from a decode step's ``B``, where
-the reference pins them bitwise equal. The kernel takes each row's sum in
-one fixed order. On CPU tensors :func:`rms_norm_rows` runs
-:func:`rms_norm`; a CUDA tensor never falls back to it.
-``rms_norm_rows.launches`` counts kernel launches.
+:func:`rms_norm` is the plain version, used by training and the one-shot
+prefill. The serving decode, verify and prefill-window steps call
+:func:`rms_norm_rows` (the first layer's attention norm) and
+:func:`add_rms_norm_rows` (every later layer boundary: ``h = x + delta``
+and the norm of h), which on CUDA tensors launch the hand-written
+``csrc/rms_norm.cu``: torch's reduction splits a row's sum by the number
+of rows in the call, so a verify step's ``B * S`` rows would round
+differently from a decode step's ``B``, where the reference pins them
+bitwise equal. The kernel takes each row's sum in one fixed order, and one
+launch does a layer boundary's add and norm. On CPU tensors both run their
+plain versions (:func:`rms_norm`, :func:`add_rms_norm`); a CUDA tensor
+never falls back to them. ``rms_norm_rows.launches`` and
+``add_rms_norm_rows.launches`` count kernel launches.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -25,6 +32,13 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = (xf * xf).mean(dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * scale.float()).to(x.dtype)
+
+
+def add_rms_norm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
+                 eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(h, y): the residual sum h = x + delta and :func:`rms_norm` of h."""
+    h = x + delta
+    return h, rms_norm(h, scale, eps)
 
 
 def rms_norm_rows(x: torch.Tensor, scale: torch.Tensor,
@@ -45,6 +59,28 @@ def rms_norm_rows(x: torch.Tensor, scale: torch.Tensor,
 rms_norm_rows.launches = 0
 
 
+def add_rms_norm_rows(x: torch.Tensor, delta: torch.Tensor,
+                      scale: torch.Tensor, eps: float = 1e-5
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`add_rms_norm` over the last dim, each row's bits independent
+    of how many rows the call holds: one kernel launch on CUDA tensors
+    (which must be contiguous: it raises rather than copy), the plain
+    version on CPU tensors. h is bitwise ``x + delta`` either way."""
+    if not x.is_cuda:
+        return add_rms_norm(x, delta, scale, eps)
+    if x.numel() == 0:
+        return torch.empty_like(x), torch.empty_like(x)
+    d = x.shape[-1]
+    h, y = _kernels.add_rms_norm(x.view(-1, d), delta.view(-1, d), scale,
+                                 eps)
+    add_rms_norm_rows.launches += 1
+    return h.view(x.shape), y.view(x.shape)
+
+
+add_rms_norm_rows.launches = 0
+
+
 def reset_launch_counts() -> None:
-    """Zero the kernel's launch counter."""
+    """Zero both kernel launch counters."""
     rms_norm_rows.launches = 0
+    add_rms_norm_rows.launches = 0

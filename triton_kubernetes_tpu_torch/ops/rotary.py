@@ -11,9 +11,11 @@ import torch
 
 def rotary_tables(head_dim: int, max_positions: int,
                   theta: float = 500_000.0,
-                  device: torch.device | str = "cpu",
+                  device: torch.device | str = "cuda",
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(cos, sin) f32 tables of shape [max_positions, head_dim // 2]."""
+    """(cos, sin) f32 tables of shape [max_positions, head_dim // 2], on
+    ``device`` (the card unless the caller asks for the CPU, as every entry
+    of the port)."""
     half = head_dim // 2
     exponent = torch.arange(0, half, dtype=torch.float32, device=device) / half
     freqs = 1.0 / torch.pow(
