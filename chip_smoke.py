@@ -10,10 +10,11 @@ order; any failure raises and the script exits non-zero without printing a
 result:
 
 1. card   -- requires CUDA; prints ``nvidia-smi``'s name and power limit;
-2. build  -- compiles the eight kernel sources of ``csrc/`` (paged
+2. build  -- compiles the nine kernel sources of ``csrc/`` (paged
    decode, verify and prefill, each for bf16/f32 queries over bf16/f32,
    int8 and fp8 pages; flash forward, dQ and dK/dV; the row-invariant
-   decode GEMM and RMSNorm, the latter with its fused residual add) with
+   decode GEMM, with its W8A8 int8/fp8 entries, and RMSNorm, with its
+   fused residual add; the per-token quantizer of the W8A8 products) with
    ``nvcc`` for ``sm_90a``, all at once, and
    prints the seconds and what ``ptxas`` reports;
 3. kernels -- each kernel against its plain PyTorch version at Llama-3-8B
@@ -44,14 +45,26 @@ result:
    group's weights concatenated; ``torch.nn.functional.rms_norm``), rows
    at M 1, 8 and 32 ``torch.equal`` to the kernel's rows at M 64, times
    beside the weight-bytes bound; the plain torch ops' rows at every M
-   of 1-64 against their own at M 64, reported. The fused residual add +
+   of 1-64 against their own at M 64, reported; the GEMM at a prefill
+   window's M 256 too, against its plain version, each 64-row tile of the
+   launch ``torch.equal`` to a launch of its rows alone. The fused residual add +
    RMSNorm at D 4096, bf16 at M 1, 8, 32, 64 and 256 (a lone sequence, a
    decode tick, a verify tick, a GEMM launch, a prefill window) and f32
    at M 8: h and y ``torch.equal`` to torch's ``x + delta`` and the
    delta-null norm on it, rows bitwise the rows at M 64, y within one
    ulp of its plain version; timed beside the plain version,
    ``F.rms_norm(x + delta)`` (two library calls), the delta-null kernel,
-   ``F.rms_norm`` alone and the bytes bound;
+   ``F.rms_norm`` alone and the bytes bound. The W8A8 kernels: kernel A,
+   the per-token quantizer, at M 1, 8, 32, 256 and K 4096, 14336, bf16
+   and f32 input, int8 and fp8, bytes and scales ``torch.equal`` to its
+   plain version; kernel B, the W8A8 entries of the decode GEMM, at the
+   five 8B groups (weights quantized per column, stored [N, K]) at M 8,
+   32 and 256: int8 ``torch.equal`` to its plain version, fp8 within one
+   bf16 ulp, rows at M 1, 8 and 32 bitwise the rows of a 64-row launch,
+   each 64-row tile of the 256-row launch bitwise a launch of its rows
+   alone; timed beside the bytes bound and ``torch._int_mm`` /
+   ``torch._scaled_mm`` as yardsticks (at M 8 on 17 / 16 rows, the least
+   each takes);
 4. serve  -- ``llama3-8b`` at full width and depth (random bf16 weights
    from a seed). First the F1 probe: one verify tick's layer input
    [8, 4, 4096] through each row op of layer 0 and of the head (the norms,
@@ -93,7 +106,23 @@ result:
    The 8-bit kernels' first-token logits are held to their plain versions
    on the same pool kind. A rewind probe per bf16 and int8 pool verifies
    junk drafts on one prefilled sequence, rewinds all but the first, and
-   checks every rejected slot and scale byte-equal to the pre-verify pool;
+   checks every rejected slot and scale byte-equal to the pre-verify pool.
+   Fault F2: one 800-token prompt prefilled under ``prefill_chunk`` 128
+   and 256 on fresh bf16 pools must leave every full page bitwise equal
+   (the windows' cuBLAS products before the repair are run too, for the
+   before/after count and device time, not asserted). Then W8A8: the 8B
+   model quantized to int8 and to fp8 (``weight_dtype`` = ``matmul_dtype``),
+   each served at spec_k 0 and 3 on the 12 requests -- spec-on tokens
+   asserted equal to spec-off, launches of kernels A and B counted as
+   above -- and its first-token logits: int8 with kernels A and B
+   ``torch.equal`` to their plain versions, and the whole kernel path
+   within a fixed limit a dtype of the plain path (0.05 cannot hold: a
+   quantizer turns a one-ulp difference upstream into a quantum), which
+   two controls in the kernels' place (the product in bf16; W8A16) must
+   exceed; printed against the bf16 model's; F2 again under W8A8 int8; a profiled
+   W8A8 int8 decode tick, which must run kernels A and B and no cuBLAS
+   GEMM; and one weight-only int8 run (``matmul_dtype`` auto: the
+   dequantize path);
 5. train  -- ``python -m triton_kubernetes_tpu_torch.train``'s ``main`` on
    ``llama3-8b`` at full width cut to 4 layers (fused CE, flash attention,
    bf16 policy, remat full), batch 4 x 2048, 6 AdamW steps; checks finite
@@ -117,6 +146,8 @@ one of them).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import gc
 import json
 import re
@@ -641,6 +672,11 @@ GEMM_GROUPS = [("wq+wk+wv", 4096, (4096, 1024, 1024), torch.bfloat16),
 # Rows of a decode tick (max_batch) and of a verify tick (max_batch x
 # (spec_k + 1)); M 1 joins them in the row-invariance check.
 GEMM_ROWS = (8, 32)
+# Rows of a prefill window, which the GEMMs take as row tiles of 64 in one
+# launch: held to the plain versions too, and each tile bitwise a launch
+# of its rows alone.
+WINDOW_ROWS = PREFILL_CHUNK
+ROW_TILE = 64
 # Every row count a decode or verify tick can have up to one launch of
 # decode_gemm (max_batch x (spec_k + 1) <= 64): the plain torch ops are
 # held to their own 64-row result at each, and reported.
@@ -731,15 +767,28 @@ def rows_differing(fn, x, ms):
             if not torch.equal(fn(x[:m].contiguous()), full[:m])]
 
 
+def tiles_differing(fn, x):
+    """The row tiles t of x [WINDOW_ROWS, ...] at which fn(x) (one launch,
+    its rows taken as tiles of ROW_TILE) is not bitwise fn of the tile's
+    rows alone."""
+    full = fn(x)
+    return [t for t in range(-(-x.shape[0] // ROW_TILE))
+            if not torch.equal(
+                fn(x[t * ROW_TILE:(t + 1) * ROW_TILE].contiguous()),
+                full[t * ROW_TILE:(t + 1) * ROW_TILE])]
+
+
 def rows_kernel_phase(device, flush, peaks):
     """The row-invariant decode GEMM and RMSNorm against their plain
     versions (torch.mm of each weight in turn, and the plain rms_norm) at
-    the 8B groups and D 4096, M 8 and 32: the GEMM one launch a group
-    (wq+wk+wv, wo, w3+w1, w2, the lm head), its K split reported; rows at
-    M 1, 8 and 32 bitwise the rows at M 64 (the plain ops' at every M of
-    1-64 reported); times beside the bytes bound and the library call's
-    (one torch.mm on the group's weights concatenated outside the timed
-    window; torch.nn.functional.rms_norm), which the port never calls.
+    the 8B groups and D 4096, M 8 and 32 (the GEMM at a prefill window's
+    M 256 too, each 64-row tile of it bitwise a launch of its rows alone):
+    the GEMM one launch a group (wq+wk+wv, wo, w3+w1, w2, the lm head),
+    its K split reported; rows at M 1, 8 and 32 bitwise the rows at M 64
+    (the plain ops' at every M of 1-64 reported); times beside the bytes
+    bound and the library call's (one torch.mm on the group's weights
+    concatenated outside the timed window; torch.nn.functional.rms_norm),
+    which the port never calls.
     Returns the two kernels' records (their headline numbers at M 8: a
     decode tick's rows, summed over the groups), the per-group cases
     inside."""
@@ -771,15 +820,22 @@ def rows_kernel_phase(device, flush, peaks):
         ws = [(torch.randn((k, n), generator=gen, device=device) * 0.02
                ).to(torch.bfloat16) for n in ns]
         w_cat = torch.cat(ws, dim=1) if len(ws) > 1 else ws[0]
-        x = torch.randn((max(ALL_ROWS), k), generator=gen, device=device
+        x = torch.randn((WINDOW_ROWS, k), generator=gen, device=device
                         ).to(torch.bfloat16)
-        bad = rows_differing(lambda t: gemm(t, ws, out), x, (1, 8, 32))
+        x64 = x[:max(ALL_ROWS)]
+        bad = rows_differing(lambda t: gemm(t, ws, out), x64, (1, 8, 32))
         if bad:
             raise AssertionError(f"decode_gemm {name}: rows at M {bad} are "
                                  f"not bitwise its rows at M 64")
-        torch_rows = rows_differing(lambda t: plain(t, ws, out), x, ALL_ROWS)
+        bad = tiles_differing(lambda t: gemm(t, ws, out), x)
+        if bad:
+            raise AssertionError(f"decode_gemm {name} M={WINDOW_ROWS}: row "
+                                 f"tiles {bad} are not bitwise a launch of "
+                                 f"their rows alone")
+        torch_rows = rows_differing(lambda t: plain(t, ws, out), x64,
+                                    ALL_ROWS)
         n = sum(ns)
-        for m in GEMM_ROWS:
+        for m in GEMM_ROWS + (WINDOW_ROWS,):
             xm = x[:m].contiguous()
             got = gemm(xm, ws, out)
             want = plain(xm, ws, out)
@@ -800,7 +856,7 @@ def rows_kernel_phase(device, flush, peaks):
                 ms=kms, plain_ms=pms, library_ms=lms, bytes=nbytes,
                 flops=2 * m * k * n, bound_ms=nbytes / bw * 1e3,
                 torch_rows_differing_at=torch_rows))
-        del ws, w_cat, x
+        del ws, w_cat, x, x64
     scale = (1 + 0.1 * torch.randn((4096,), generator=gen, device=device)
              ).to(torch.bfloat16)
     x = (3 * torch.randn((max(ALL_ROWS), 4096), generator=gen,
@@ -832,13 +888,15 @@ def rows_kernel_phase(device, flush, peaks):
         split = (f", {c['tile_n']}-column tiles, K split in "
                  f"{c['splits']}, {c['blocks']} blocks"
                  if "splits" in c else "")
+        tiles = (f"; each 64-row tile bitwise a launch of its rows alone"
+                 if c["M"] == WINDOW_ROWS else "")
         print(f"kernel {c['kernel']} {c['shape']} M={c['M']} ({c['out']} "
               f"out{split}): max_abs_err={c['max_abs_err']:.6g} kernel_ms="
               f"{c['ms']:.4f} plain_ms={c['plain_ms']:.4f} library_ms="
               f"{c['library_ms']:.4f} bound_ms="
               f"{c['bound_ms']:.5f} (bytes; share "
               f"{c['bound_ms'] / c['ms']:.4f}); rows at M 1/8/32 bitwise "
-              f"to M 64: kernel yes; plain torch differs at M "
+              f"to M 64: kernel yes{tiles}; plain torch differs at M "
               f"{c['torch_rows_differing_at'] or 'none'} of 1-64",
               flush=True)
     cases += add_norm_cases(device, flush, bw, gen)
@@ -886,6 +944,221 @@ def rows_kernel_phase(device, flush, peaks):
             bytes=total["bytes"], flops=total["flops"],
             shape=dict(M=8, summed_over=[c["shape"] for c in mine]),
             cases=[c for c in cases if c["kernel"] == name]))
+    return records
+
+
+# Rows and widths of kernel A (the per-token quantizer) at the inputs of a
+# decode tick's five product groups (K 4096 four times, w2's 14336), and
+# the other row counts it is held to its plain version at: one sequence,
+# a verify tick, a prefill window.
+QUANT_ROWS = (1, 8, 32, 256)
+QUANT_WIDTHS = (4096, 14336)
+# The 8-bit kinds of the W8A8 path: (name suffix, storage dtype, the
+# kernel's entry infix).
+W8A8_KINDS = (("", torch.int8, "s8"), ("_fp8", torch.float8_e4m3fn, "e4m3"))
+# The least rows of the library calls kernel B is timed beside:
+# torch._int_mm takes more than 16, torch._scaled_mm at least 16. Fewer
+# rows are timed at these.
+INT_MM_ROWS = 17
+SCALED_MM_ROWS = 16
+# The H100's dense int8 / fp8 tensor-core rate (NVIDIA data sheet): twice
+# the bf16 rate.
+W8A8_OPS_FACTOR = 2
+
+
+def w8a8_kernel_phase(device, flush, peaks):
+    """Kernel A (``quantize_rows``) and kernel B (``decode_gemm_w8a8``)
+    against their plain versions, int8 and fp8. A: every row count of
+    :data:`QUANT_ROWS` at both widths, bf16 and f32 input, bytes and
+    scales ``torch.equal``. B: the 8B model's five groups (one launch a
+    group, weights quantized per column and stored [N, K]) at M 8, 32 and
+    a prefill window's 256, int8 ``torch.equal`` to its plain version and
+    fp8 within ATOL + RTOL |plain|; rows at M 1, 8 and 32 bitwise the rows
+    of a 64-row launch, and each 64-row tile of the 256-row launch bitwise
+    a launch of its rows alone. Timed beside the bytes bound, the plain
+    version and the library's nearest call (``torch._int_mm``, its int32
+    product alone, and ``torch._scaled_mm`` with row and column scales; at
+    M 8 run at :data:`INT_MM_ROWS` and :data:`SCALED_MM_ROWS` rows, the
+    least each takes), which the port never calls.
+    Returns the four records (A and B, int8 and fp8; headline at M 8, a
+    decode tick's rows, summed over the five groups)."""
+    from triton_kubernetes_tpu_torch.ops import _kernels
+    from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
+    from triton_kubernetes_tpu_torch.ops import quantization as qz
+
+    bw = peaks[0]
+    gen = torch.Generator(device=device).manual_seed(123)
+    cases = []
+    for suffix, qdtype, _ in W8A8_KINDS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for k in QUANT_WIDTHS:
+                x = (2 * torch.randn((max(QUANT_ROWS), k), generator=gen,
+                                     device=device)).to(dtype)
+                for m in QUANT_ROWS:
+                    xm = x[:m].contiguous()
+                    got, gs = _kernels.quantize_rows(xm, qdtype)
+                    want, ws = qz.quantize_rows_plain(xm, qdtype)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got.view(torch.uint8),
+                                        want.view(torch.uint8))
+                            and torch.equal(gs, ws)):
+                        raise AssertionError(
+                            f"quantize_rows{suffix} {dtype} M={m} K={k}: "
+                            f"not bitwise its plain version")
+                    if dtype != torch.bfloat16 or m not in (8, 32):
+                        continue
+                    nbytes = m * k * (x.element_size() + 1) + 4 * m
+                    cases.append(dict(
+                        kernel="quantize_rows" + suffix, K=k, M=m,
+                        dtype="bfloat16", max_abs_err=0.0,
+                        ms=time_ms(lambda: _kernels.quantize_rows(
+                            xm, qdtype), flush),
+                        plain_ms=time_ms(lambda: qz.quantize_rows_plain(
+                            xm, qdtype), flush),
+                        library_ms=None, bytes=nbytes, flops=3 * m * k,
+                        bound_ms=nbytes / bw * 1e3))
+    for suffix, qdtype, _ in W8A8_KINDS:
+        name = "decode_gemm_w8a8" + suffix
+        for group, k, ns, out in GEMM_GROUPS:
+            pairs = [qz.quantize_channelwise(
+                torch.randn((k, n), generator=gen, device=device) * 0.02, 0,
+                qdtype) for n in ns]
+            wqs = [q.t().contiguous() for q, _ in pairs]
+            wss = [sc.reshape(-1).contiguous() for _, sc in pairs]
+            del pairs
+            x = torch.randn((WINDOW_ROWS, k), generator=gen, device=device
+                            ).to(torch.bfloat16)
+            xq, xs = qz.quantize_rows_plain(x, qdtype)
+
+            def launch(m, lo=0):  # one launch on rows lo .. lo + m - 1
+                ys = [torch.empty((m, w.shape[0]), dtype=out, device=device)
+                      for w in wqs]
+                _kernels.decode_gemm_w8a8(xq[lo:lo + m], xs[lo:lo + m], wqs,
+                                          wss, ys)
+                return ys
+
+            full = launch(ROW_TILE)
+            for m in (1, 8, 32):
+                for a, b in zip(launch(m), full):
+                    if not torch.equal(a, b[:m]):
+                        raise AssertionError(f"{name} {group}: rows at M {m}"
+                                             f" are not bitwise its rows at "
+                                             f"M 64")
+            full = launch(WINDOW_ROWS)
+            for lo in range(0, WINDOW_ROWS, ROW_TILE):
+                for a, b in zip(launch(ROW_TILE, lo), full):
+                    if not torch.equal(a, b[lo:lo + ROW_TILE]):
+                        raise AssertionError(
+                            f"{name} {group} M={WINDOW_ROWS}: the row tile "
+                            f"at row {lo} is not bitwise a launch of its "
+                            f"rows alone")
+            del full
+            n = sum(ns)
+            w_cat = torch.cat(wqs, dim=0)  # [N, K]: the library's operand
+            s_cat = torch.cat(wss)[None, :]
+            for m in GEMM_ROWS + (WINDOW_ROWS,):
+                got = launch(m)
+                want = dg.w8a8_gemm_group_plain(xq[:m], xs[:m], wqs, wss, out)
+                torch.cuda.synchronize()
+                if qdtype == torch.int8:
+                    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                        raise AssertionError(f"{name} {group} M={m}: not "
+                                             f"bitwise its plain version")
+                    err = 0.0
+                else:
+                    err = max(check_close(f"{name} {group} M={m}", a, b)
+                              for a, b in zip(got, want))
+                xm, sm = xq[:m].contiguous(), xs[:m].contiguous()
+                if qdtype == torch.int8:
+                    # _int_mm takes more than 16 rows.
+                    rows = max(m, INT_MM_ROWS)
+                    xl = xq[:rows].contiguous()
+                    lib = (f"torch._int_mm (int32 product alone), {rows} "
+                           f"rows")
+                    lms = time_ms(lambda: torch._int_mm(xl, w_cat.t()),
+                                  flush)
+                else:
+                    rows = max(m, SCALED_MM_ROWS)
+                    xl = xq[:rows].contiguous()
+                    sl = xs[:rows].contiguous()[:, None]
+                    # Row-wise scales take a bf16 out only.
+                    lib = (f"torch._scaled_mm, row and column scales, "
+                           f"{rows} rows, bfloat16 out")
+                    lms = time_ms(lambda: torch._scaled_mm(
+                        xl, w_cat.t(), scale_a=sl, scale_b=s_cat,
+                        out_dtype=torch.bfloat16), flush)
+                nbytes = (k * n + m * k + 4 * (m + n)
+                          + m * n * torch.empty((), dtype=out).element_size())
+                cases.append(dict(
+                    kernel=name, shape=group, K=k, N=list(ns), M=m,
+                    tile_n=_kernels.gemm_tile(n),
+                    splits=_kernels.gemm_splits(n, k),
+                    out=str(out).removeprefix("torch."), max_abs_err=err,
+                    ms=time_ms(lambda: launch(m), flush),
+                    plain_ms=time_ms(lambda: dg.w8a8_gemm_group_plain(
+                        xm, sm, wqs, wss, out), flush),
+                    library_ms=lms, library_call=lib, bytes=nbytes,
+                    flops=2 * m * k * n, bound_ms=nbytes / bw * 1e3))
+            del wqs, wss, w_cat, x, xq
+    for c in cases:
+        where = (f"{c['shape']} (tile {c['tile_n']}, K split in "
+                 f"{c['splits']})" if "shape" in c else f"K {c['K']}")
+        lib = ("not measured" if c["library_ms"] is None
+               else f"{c['library_ms']:.4f} ({c['library_call']})")
+        print(f"kernel {c['kernel']} {where} M={c['M']}: "
+              f"{'torch.equal to' if c['max_abs_err'] == 0 else 'within tolerance of'}"
+              f" plain (max_abs_err {c['max_abs_err']:.6g}); kernel_ms="
+              f"{c['ms']:.4f} plain_ms={c['plain_ms']:.4f} library_ms={lib}"
+              f" bound_ms={c['bound_ms']:.5f} (bytes; share "
+              f"{c['bound_ms'] / c['ms']:.4f})", flush=True)
+    records = []
+    for suffix, qdtype, infix in W8A8_KINDS:
+        for name, source in (("quantize_rows", "quantize_rows.cu"),
+                             ("decode_gemm_w8a8", "decode_gemm.cu")):
+            name += suffix
+            # A decode tick's five products at M 8: kernel A on each
+            # group's input (K 4096 four times, 14336 once), kernel B on
+            # each group.
+            if name.startswith("quantize_rows"):
+                mine = [c for c in cases if c["kernel"] == name
+                        and c["M"] == 8]
+                mine = [mine[0]] * 4 + [mine[1]]
+            else:
+                mine = [c for c in cases if c["kernel"] == name
+                        and c["M"] == 8]
+            total = {f: sum(c[f] for c in mine)
+                     for f in ("ms", "plain_ms", "bytes", "flops")}
+            lms = [c["library_ms"] for c in mine]
+            bound_ms = max(total["bytes"] / bw, total["flops"] / (
+                W8A8_OPS_FACTOR * peaks[1])) * 1e3
+            records.append(dict(
+                name=name, route="cuda",
+                source=f"triton_kubernetes_tpu_torch/csrc/{source}",
+                replaces=(
+                    "none: plain XLA ops in the reference's quantized_einsum "
+                    "(triton_kubernetes_tpu/ops/quantization.py:265-305)"),
+                variant=("cuda_core, one block a row" if source.startswith(
+                    "quantize") else f"tensor_core (mma.sync m16n8k32 "
+                    f"{infix}), one launch a group, tile and K split by the "
+                    f"shape"),
+                max_abs_err=max(c["max_abs_err"] for c in cases
+                                if c["kernel"] == name),
+                tolerance=("torch.equal" if qdtype == torch.int8
+                           or source.startswith("quantize")
+                           else f"{ATOL} + {RTOL} * |plain|"),
+                ms=total["ms"], plain_ms=total["plain_ms"],
+                library_ms=(None if None in lms else sum(lms)),
+                library_call=(None if None in lms else mine[0][
+                    "library_call"]),
+                bound_ms=bound_ms,
+                bound_by=("bytes" if total["bytes"] / bw >= total["flops"] / (
+                    W8A8_OPS_FACTOR * peaks[1]) else "operations"),
+                bound_share=bound_ms / total["ms"],
+                achieved_tflops=total["flops"] / (total["ms"] * 1e-3) / 1e12,
+                bytes=total["bytes"], flops=total["flops"],
+                shape=dict(M=8, summed_over=[c.get("shape", c["K"])
+                                             for c in mine]),
+                cases=[c for c in cases if c["kernel"] == name]))
     return records
 
 
@@ -1146,29 +1419,139 @@ def first_token_logits(model, cfg, prompt, impl, paged, kv_dtype="auto"):
     return prefill_fresh(model, cfg, prompt, impl, paged, kv_dtype)[0]
 
 
+# Fault F2's check: one seeded prompt written by windows of each of these
+# widths; every full page must hold the same bytes (the reference pins
+# "page contents are a function of the tokens alone").
+F2_CHUNKS = (128, 256)
+F2_PROMPT_TOKENS = 800
+# An integer dtype of each element size, to compare tensors' bits.
+BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+
+
+def window_invariance_check(model, cfg, paged, tag, kv_dtype="auto",
+                            row_invariant=True):
+    """One seeded prompt of :data:`F2_PROMPT_TOKENS` tokens prefilled on a
+    fresh pool by windows of each width of :data:`F2_CHUNKS`: counts the
+    full pages (K and V of every layer, scales on 8-bit pools) that
+    differ between the widths, and profiles each width's windows (device
+    busy ms by torch.profiler, wall ms by the host clock, a second pass
+    after a warm-up one). ``row_invariant=False`` runs the windows'
+    weight products as cuBLAS einsums, as before the repair of F2 (for
+    the before/after numbers). Returns the record; the caller asserts."""
+    from torch.profiler import ProfilerActivity, profile
+    from triton_kubernetes_tpu_torch.models import llama
+
+    rng = np.random.default_rng(31)
+    prompt = rng.integers(0, cfg.vocab_size, F2_PROMPT_TOKENS).tolist()
+    n, full = len(prompt), len(prompt) // BS
+    dev = SERVE_DEVICE
+    pools, times = {}, {}
+    row_products = llama._row_products
+    if not row_invariant:
+        llama._row_products = lambda spec, x, ws: [torch.einsum(spec, x, w)
+                                                   for w in ws]
+    try:
+        for c in F2_CHUNKS:
+            windows = -(-n // c)
+            cache = paged.init_paged_cache(cfg, windows * c // BS + 1, BS,
+                                           kv_dtype=kv_dtype, device=dev)
+            table = torch.arange(1, windows * c // BS + 1,
+                                 dtype=torch.int32, device=dev)
+            toks = [torch.tensor([prompt[off:off + c] + [0] * max(
+                0, off + c - n)], dtype=torch.int32, device=dev)
+                for off in range(0, n, c)]
+
+            def run():
+                with torch.inference_mode():
+                    for j, off in enumerate(range(0, n, c)):
+                        paged.paged_prefill_chunk(model, toks[j], off,
+                                                  min(c, n - off), cfg,
+                                                  cache, table)
+                torch.cuda.synchronize()
+
+            run()  # warms cuBLAS and the kernels
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                wall = (time.perf_counter() - t0) * 1e3
+            times[c] = dict(windows=windows, **tick_profile(
+                [prof], windows, wall / windows))
+            pools[c] = [t[:, 1:1 + full].view(BITS[t.element_size()])
+                        for t in (cache.k, cache.v, cache.k_scale,
+                                  cache.v_scale) if t is not None]
+    finally:
+        llama._row_products = row_products
+    a, b = (pools[c] for c in F2_CHUNKS)
+    # A page differs if any layer's K or V bytes (or scale) at it differ.
+    differ = torch.zeros(full, dtype=torch.bool, device=dev)
+    for x, y in zip(a, b):
+        ne = x != y
+        differ |= ne.reshape(ne.shape[0], full, -1).any(dim=2).any(dim=0)
+    n_differ = int(differ.sum())
+    how = ("row-invariant" if row_invariant
+           else "cuBLAS einsums, as before the repair")
+    print(f"F2 window invariance ({tag}, weight products {how}, "
+          f"{cfg.num_layers} layers, prompt {n} tokens, {full} "
+          f"full pages, prefill_chunk {F2_CHUNKS[0]} vs {F2_CHUNKS[1]}): "
+          f"{n_differ} pages differ; a window's device busy / wall ms "
+          + ", ".join(
+              f"C {c}: {t['device_busy_ms_per_tick']:.3f} / "
+              f"{t['wall_ms_per_tick']:.3f} ({t['windows']} windows, "
+              f"{t['launches_per_tick']:.0f} launches; GEMM ms: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in
+                  t["device_ms_per_tick_by_class"].items()
+                  if "gemm" in k.lower()) + ")"
+              for c, t in times.items()), flush=True)
+    del pools, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(tag=tag, row_invariant=row_invariant, prompt_tokens=n,
+                full_pages=full, pages_differing=n_differ,
+                chunks=list(F2_CHUNKS),
+                windows={str(c): t for c, t in times.items()})
+
+
 def reset_row_counts():
     from triton_kubernetes_tpu_torch.ops import decode_gemm, norms
+    from triton_kubernetes_tpu_torch.ops import quantization
     decode_gemm.reset_launch_counts()
     norms.reset_launch_counts()
+    quantization.reset_launch_counts()
 
 
 def row_counts():
     """Launches of the row-invariant kernels since reset_row_counts."""
     from triton_kubernetes_tpu_torch.ops import decode_gemm, norms
+    from triton_kubernetes_tpu_torch.ops import quantization
     return {"decode_gemm": decode_gemm.decode_gemm_group.launches,
+            "decode_gemm_w8a8": decode_gemm.w8a8_gemm_group.launches,
+            "quantize_rows": quantization.quantize_rows.launches,
             "rms_norm": norms.rms_norm_rows.launches,
             "add_rms_norm": norms.add_rms_norm_rows.launches}
 
 
-def row_counts_wanted(ticks, windows, cfg):
-    """What ``ticks`` decode or verify ticks at <= 64 rows and ``windows``
-    prefill windows launch: a tick four weight-product launches a layer
-    (wq+wk+wv, wo, w3+w1, w2) and the lm head; a tick and a window each
-    one norm of the embeddings and a fused residual add + norm at each of
-    the 2 L layer boundaries (the last one's norm the final norm)."""
-    return {"decode_gemm": ticks * (4 * cfg.num_layers + 1),
+def row_counts_wanted(ticks, windows, cfg, w8a8=False):
+    """What ``ticks`` decode or verify ticks and ``windows`` prefill
+    windows launch: one launch for each of a layer's four weight-product
+    groups (wq+wk+wv, wo, w3+w1, w2), and a tick's lm head (a window's
+    head, its one last row, is a plain product, unless W8A8); a tick and a
+    window each one norm of the embeddings and a fused residual add + norm
+    at each of the 2 L layer boundaries (the last one's norm the final
+    norm). Under W8A8 the products are ``decode_gemm_w8a8`` launches, each
+    group's input (and the head's) quantized by one ``quantize_rows``."""
+    per_window = 4 * cfg.num_layers
+    groups = ticks * (4 * cfg.num_layers + 1)
+    want = {"decode_gemm": groups + windows * per_window,
+            "decode_gemm_w8a8": 0, "quantize_rows": 0,
             "rms_norm": ticks + windows,
             "add_rms_norm": (ticks + windows) * 2 * cfg.num_layers}
+    if w8a8:
+        want.update(decode_gemm=0,
+                    decode_gemm_w8a8=groups + windows * (per_window + 1),
+                    quantize_rows=(ticks + windows)
+                    * (4 * cfg.num_layers + 1))
+    return want
 
 
 # Kernel classes of a profiled tick: (class, what its kernels' names hold).
@@ -1176,6 +1559,8 @@ TICK_CLASSES = (("paged_decode kernel", "paged_decode_"),
                 ("paged_verify kernel", "paged_verify_"),
                 ("paged_prefill kernel", "paged_prefill_"),
                 ("decode_gemm kernel", "decode_gemm_kernel"),
+                ("decode_gemm_w8a8 kernel", "decode_gemm_w8a8_kernel"),
+                ("quantize_rows kernel", "quantize_rows_kernel"),
                 ("rms_norm kernel", "rms_norm_kernel"))
 
 
@@ -1416,7 +1801,8 @@ def serve_phase(card):
     want = {"paged_prefill": windows * cfg.num_layers,
             "paged_decode": ticks * cfg.num_layers,
             **row_counts_wanted(ticks, windows, cfg)}
-    if launches != want or not all(launches.values()):
+    if launches != want or not all(launches[k] for k in want if k not in (
+            "decode_gemm_w8a8", "quantize_rows")):
         raise AssertionError(f"launch counts {launches} != expected {want}")
 
     ttft = [done[r.request_id].ttft for r in requests]
@@ -1512,10 +1898,22 @@ def serve_phase(card):
     runs = spec_quant_phase(model, cfg, card, requests)
     probes = [rewind_probe(model, cfg, kind, requests[4].tokens)
               for kind in ("bf16", "int8")]
+    # Fault F2: full pages the same under two window widths; the cuBLAS
+    # products of the windows before the repair, for scale (not asserted).
+    f2 = [window_invariance_check(model, cfg, paged, "bf16 weights, bf16 "
+                                  "pages", row_invariant=False),
+          window_invariance_check(model, cfg, paged, "bf16 weights, bf16 "
+                                  "pages")]
+    if f2[1]["pages_differing"]:
+        raise AssertionError(f"F2: {f2[1]['pages_differing']} full pages "
+                             f"differ between prefill_chunk {F2_CHUNKS}")
+    w8a8_runs, w8a8 = w8a8_phase(model, cfg, card, requests, lk)
+    runs += w8a8_runs
     peak = torch.cuda.max_memory_allocated()
     return launches, dict(
         f1_probe=probe_ops, verify_rows_vs_decode=rows_check,
         spec_quant_runs=runs, rewind_probes=probes,
+        window_invariance=f2 + w8a8.pop("window_invariance"), w8a8=w8a8,
         requests=len(requests), prompt_tokens=prompt_tokens,
         prefix_hit_tokens=hits, prefill_windows=windows, decode_ticks=ticks,
         launches=launches, wall_s=wall, ttft_s=ttft, tpot_s=tpot,
@@ -1544,19 +1942,22 @@ def repetitive_requests(cfg, Request):
                     * int(rng.integers(300, 701)), 32) for i in range(4)]
 
 
-def serve_run(model, cfg, kind, spec_k, requests, arrivals):
+def serve_run(model, cfg, kind, spec_k, requests, arrivals,
+              weights=("auto", "auto")):
     """One engine run of ``requests`` on a pool of ``kind`` pages with
-    ``spec_k``; the kernels' launch counts are zeroed just before it and
-    read just after. Checks completions, pool drain, launches = ticks x
-    layers for each kernel, drafts where speculating and a finite quant
-    error on 8-bit pools. Returns the run's record."""
+    ``spec_k`` and ``weights`` = (weight_dtype, matmul_dtype); the
+    kernels' launch counts are zeroed just before it and read just after.
+    Checks completions, pool drain, launches = ticks x layers for each
+    kernel, drafts where speculating and a finite quant error on 8-bit
+    pools. Returns the run's record."""
     from triton_kubernetes_tpu_torch.ops import paged_attention as pa
     from triton_kubernetes_tpu_torch.serve import Request, ServeEngine
     from triton_kubernetes_tpu_torch.utils import metrics
 
     engine = ServeEngine(model, cfg, device=SERVE_DEVICE, **dict(
         SERVE_ENGINE_KW, kv_dtype="auto" if kind == "bf16" else kind,
-        spec_k=spec_k))
+        spec_k=spec_k, weight_dtype=weights[0], matmul_dtype=weights[1]))
+    w8a8 = weights[1] in ("int8", "fp8")
     engine.submit(Request("warmup", list(range(1, 65)), 2))
     engine.run_until_idle()
     engine.release_prefix_cache()
@@ -1588,7 +1989,7 @@ def serve_run(model, cfg, kind, spec_k, requests, arrivals):
     stats = engine.stats()
     counts = {k: stats[k] - base[k] for k in
               ("prefill_windows", "decode_steps", "verify_steps")}
-    tag = f"{kind} spec_k={spec_k}"
+    tag = f"{kind} pages, weights {weights}, spec_k={spec_k}"
     for r in requests:
         d = done[r.request_id]
         if len(d.tokens) != r.max_new_tokens or d.finish_reason != "length":
@@ -1606,7 +2007,7 @@ def serve_run(model, cfg, kind, spec_k, requests, arrivals):
             "paged_verify": counts["verify_steps"] * cfg.num_layers,
             **row_counts_wanted(counts["decode_steps"]
                                 + counts["verify_steps"],
-                                counts["prefill_windows"], cfg)}
+                                counts["prefill_windows"], cfg, w8a8)}
     if launches != want:
         raise AssertionError(f"{tag}: launch counts {launches} != "
                              f"expected {want}")
@@ -1629,7 +2030,8 @@ def serve_run(model, cfg, kind, spec_k, requests, arrivals):
     tpot = [done[r.request_id].tpot for r in requests]
     generated = sum(len(done[r.request_id].tokens) for r in requests)
     return dict(
-        kind=kind, spec_k=spec_k, launches=launches, **counts,
+        kind=kind, weights=list(weights), spec_k=spec_k, launches=launches,
+        **counts,
         wall_s=wall, ttft_s=ttft, tpot_s=tpot, generated_tokens=generated,
         tokens_per_s=generated / wall, proposed=proposed, accepted=accepted,
         accept_rate=accepted / proposed if proposed else None,
@@ -1678,25 +2080,8 @@ def spec_quant_phase(model, cfg, card, requests):
                         f"{kind} spec_k={spec_k}: greedy tokens must equal "
                         f"the spec_k=0 run's (the reference's pin)"
                         + agree)
-            rate = run["accept_rate"]
-            tpv = run["tokens_per_seq_per_verify"]
-            print(f"serve[{kind} pages, spec_k={spec_k}]: {len(reqs)} "
-                  f"requests, {run['prefill_windows']} windows, "
-                  f"{run['decode_steps']} decode + {run['verify_steps']} "
-                  f"verify ticks, launches {run['launches']}; TTFT median "
-                  f"{statistics.median(run['ttft_s']):.4f} s, TPOT median "
-                  f"{statistics.median(run['tpot_s']):.5f} s, "
-                  f"{run['tokens_per_s']:.2f} tokens/s over "
-                  f"{run['wall_s']:.3f} s; proposed {run['proposed']:.0f}, "
-                  f"accepted {run['accepted']:.0f} (rate "
-                  f"{'n/a' if rate is None else f'{rate:.4f}'}), tokens per "
-                  f"sequence per verify "
-                  f"{'n/a' if tpv is None else f'{tpv:.4f}'}; quant error "
-                  f"k {run['quant_error']['k']:.6f} v "
-                  f"{run['quant_error']['v']:.6f}; pool bytes "
-                  f"{run['kv_pool_bytes']} "
-                  f"({run['kv_pool_bytes'] / runs[0]['kv_pool_bytes']:.4f}"
-                  f" x bf16){agree} [{card}]", flush=True)
+            print_serve_run(f"{kind} pages", run, reqs,
+                            runs[0]["kv_pool_bytes"], card, agree)
         if kind == "bf16":
             continue
         probe = requests[4].tokens
@@ -1713,6 +2098,243 @@ def spec_quant_phase(model, cfg, card, requests):
               f"{err:.5f} (bound {LOGITS_REL_L2}), same argmax: "
               f"{int(lk.argmax()) == int(ld.argmax())}", flush=True)
     return runs
+
+
+def plain_w8a8_rows(x, qs, scales, out):
+    """W8A8 products of x on the plain versions of kernels A and B."""
+    from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
+    from triton_kubernetes_tpu_torch.ops import quantization as qz
+
+    return dg.w8a8_gemm_group_plain(
+        *qz.quantize_rows_plain(x, qs[0].dtype), qs, scales, out)
+
+
+def bf16_product_rows(x, qs, scales, out):
+    """A control, not W8A8: the activation quantized as W8A8 does, but
+    the 8-bit product taken in bf16 (the operands are exact in bf16; the
+    sum is rounded to bf16 once, as a bf16 GEMM rounds its out), then the
+    epilogue."""
+    from triton_kubernetes_tpu_torch.ops import quantization as qz
+
+    xq, xs = qz.quantize_rows_plain(x, qs[0].dtype)
+    xb = xq.to(torch.bfloat16)
+    return [((torch.mm(xb, q.to(torch.bfloat16).t()).float() * xs[:, None])
+             * s[None, :]).to(out) for q, s in zip(qs, scales)]
+
+
+def w8a16_rows(x, qs, scales, out):
+    """A control, not W8A8: the activation left in bf16, the weight
+    dequantized to bf16, one bf16 product."""
+    xb = x.to(torch.bfloat16)
+    return [torch.mm(xb, (q.float() * s[:, None]).to(torch.bfloat16).t()
+                     ).to(out) for q, s in zip(qs, scales)]
+
+
+# The W8A8 first-token logits' limit, relative L2 of the kernel path
+# against the same quantized model's plain path on the 8B probe: midway
+# between the sound kernels' reading and the nearest control's (H100 80GB
+# HBM3, 700 W: int8 0.1419 vs 0.2133, fp8 0.2713 vs 0.3440; PERF.md). A
+# quantizer turns a one-ulp difference upstream into a whole quantum, so
+# the bf16 paths' 0.05 cannot hold here.
+W8A8_LOGITS_LIMIT = {"int8": 0.18, "fp8": 0.31}
+# The controls the W8A8 logits comparison must reject: each takes the
+# place of kernels A and B on the serving steps (everything else the same
+# kernels), and its first-token logits must sit past the dtype's limit.
+W8A8_CONTROLS = (("bf16 product", bf16_product_rows),
+                 ("W8A16", w8a16_rows))
+
+
+@contextlib.contextmanager
+def plain_row_ops(w8a8_only=False, w8a8_rows=plain_w8a8_rows):
+    """The serving steps' W8A8 products taken by ``w8a8_rows`` (default:
+    the plain versions of the quantizer and GEMM, ``quantize_rows_plain``
+    and ``w8a8_gemm_group_plain``), and unless ``w8a8_only`` the decode
+    GEMM (``decode_gemm_group_plain``) and the norms on their plain
+    versions too -- with ``attention_impl="dense"``, a model's plain path
+    end to end."""
+    from triton_kubernetes_tpu_torch.models import llama, paged
+    from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
+    from triton_kubernetes_tpu_torch.ops import norms
+
+    saved = (llama.decode_gemm_group, llama.w8a8_rows, paged.rms_norm_rows,
+             paged.add_rms_norm_rows)
+    llama.w8a8_rows = w8a8_rows
+    if not w8a8_only:
+        llama.decode_gemm_group = lambda x, ws, out=None: (
+            dg.decode_gemm_group_plain(x, ws, out or x.dtype))
+        paged.rms_norm_rows, paged.add_rms_norm_rows = (norms.rms_norm,
+                                                        norms.add_rms_norm)
+    try:
+        yield
+    finally:
+        (llama.decode_gemm_group, llama.w8a8_rows, paged.rms_norm_rows,
+         paged.add_rms_norm_rows) = saved
+
+
+def w8a8_phase(model, cfg, card, requests, bf16_logits):
+    """The W8A8 serve runs of the 8B model: weights int8 and fp8 with
+    W8A8 arithmetic (bf16 pages), each at spec_k 0 and 3 -- spec-on greedy
+    tokens asserted equal to spec-off -- and one weight-only int8 run
+    (``matmul_dtype`` auto: the dequantize path). Then, per W8A8 dtype,
+    first-token logits with the kernels against the same quantized model's
+    plain path (int8: kernels A and B ``torch.equal`` to their plain
+    versions; both: the whole path within :data:`W8A8_LOGITS_LIMIT`, and
+    each of :data:`W8A8_CONTROLS` in the kernels' place past it) and
+    against the bf16 model's (printed); F2's window check under W8A8 int8;
+    and a profiled
+    W8A8 int8 decode tick, which must run kernels A and B and no cuBLAS
+    GEMM. Returns (the runs' records, the phase's record)."""
+    from triton_kubernetes_tpu_torch.models import paged, quantize_weights
+    from triton_kubernetes_tpu_torch.serve import Request, ServeEngine
+
+    reqs = list(requests) + repetitive_requests(cfg, Request)
+    arrivals = {0: [0, 4, 5, 8, 9], 5: [1, 2, 3], 6: [6, 7, 10, 11]}
+    runs, record = [], {"logits": {}}
+    probe = requests[4].tokens
+    for wd in ("int8", "fp8"):
+        qmodel = quantize_weights(model, wd)
+        qcfg = dataclasses.replace(cfg, weight_quant=wd, matmul_dtype=wd)
+        for spec_k in (0, SPEC_K):
+            run = serve_run(qmodel, cfg, "bf16", spec_k, reqs, arrivals,
+                            weights=(wd, wd))
+            runs.append(run)
+            agree = ""
+            if spec_k:
+                off, got = runs[-2]["tokens"], run["tokens"]
+                run["tokens_equal_to_spec_off"] = sum(
+                    x == y for r in reqs
+                    for x, y in zip(got[r.request_id], off[r.request_id]))
+                agree = (f"; {run['tokens_equal_to_spec_off']}/"
+                         f"{run['generated_tokens']} tokens equal to "
+                         f"spec_k=0")
+                if run["tokens_equal_to_spec_off"] != run["generated_tokens"]:
+                    raise AssertionError(f"W8A8 {wd} spec_k={spec_k}: greedy "
+                                         f"tokens must equal spec_k=0's"
+                                         + agree)
+            print_serve_run(f"W8A8 {wd} weights, bf16 pages", run, reqs,
+                            runs[0]["kv_pool_bytes"], card, agree)
+        # Kernels against plain, held to a fixed limit a dtype
+        # (W8A8_LOGITS_LIMIT), with controls that must fall past it. The
+        # check with teeth for int8 is the swap of kernels A and B alone:
+        # its logits must be torch.equal to the plain W8A8 ops' (all else
+        # the same kernels). The distance of two plain paths (the chunked
+        # windows and the one-shot prefill, every op plain) is printed
+        # beside them, not used as a bound.
+        n = len(probe)
+        width = -(-n // BS) * BS
+        with torch.inference_mode():
+            lk = first_token_logits(qmodel, qcfg, probe, None, paged)
+            with plain_row_ops(w8a8_only=True):
+                lw = first_token_logits(qmodel, qcfg, probe, None, paged)
+            controls = {}
+            for label, fn in W8A8_CONTROLS:
+                with plain_row_ops(w8a8_only=True, w8a8_rows=fn):
+                    controls[label] = first_token_logits(qmodel, qcfg, probe,
+                                                         None, paged)
+            with plain_row_ops():
+                lp = first_token_logits(qmodel, qcfg, probe, "dense", paged)
+                lo = paged.paged_prefill(
+                    qmodel, torch.tensor([probe + [0] * (width - n)],
+                                         dtype=torch.int32,
+                                         device=SERVE_DEVICE),
+                    n, qcfg, paged.init_paged_cache(
+                        qcfg, width // BS + 1, BS, device=SERVE_DEVICE),
+                    torch.arange(1, width // BS + 1, dtype=torch.int32,
+                                 device=SERVE_DEVICE))
+        limit = W8A8_LOGITS_LIMIT[wd]
+        err, floor = rel_l2(lk, lp), rel_l2(lo, lp)
+        ops_err, vs_bf16 = rel_l2(lk, lw), rel_l2(lk, bf16_logits)
+        control_err = {label: rel_l2(lc, lp)
+                       for label, lc in controls.items()}
+        record["logits"][wd] = dict(
+            rel_l2_vs_plain=err, limit=limit,
+            controls_rel_l2_vs_plain=control_err,
+            plain_paths_rel_l2=floor,
+            rel_l2_vs_plain_w8a8_ops=ops_err, rel_l2_vs_bf16=vs_bf16,
+            same_argmax_as_plain=int(lk.argmax()) == int(lp.argmax()))
+        shown = ", ".join(f"{label} {e:.5f}"
+                          for label, e in control_err.items())
+        print(f"serve[W8A8 {wd}]: {requests[4].request_id} first-token "
+              f"logits: kernels A and B vs their plain versions (all else "
+              f"the same kernels) relative L2 {ops_err:.5f}"
+              f"{' (torch.equal)' if ops_err == 0 else ''}; the kernel path "
+              f"vs the quantized model's plain path {err:.5f} (limit "
+              f"{limit}; controls in the kernels' place, which must fall "
+              f"past it: {shown}; two plain paths differ by {floor:.5f}), "
+              f"same argmax: {int(lk.argmax()) == int(lp.argmax())}; vs the "
+              f"bf16 model's kernels {vs_bf16:.5f} (not bounded) [{card}]",
+              flush=True)
+        if not bool(torch.isfinite(lk).all()) or err > limit:
+            raise AssertionError(f"W8A8 {wd} first-token logits: kernels vs "
+                                 f"plain relative L2 {err}, past the limit "
+                                 f"{limit}")
+        passed = [label for label, e in control_err.items() if e <= limit]
+        if passed:
+            raise AssertionError(f"W8A8 {wd} first-token logits: the "
+                                 f"controls {passed} in the kernels' place "
+                                 f"come within the limit {limit} "
+                                 f"({control_err}): the comparison cannot "
+                                 f"tell a fault")
+        if wd == "int8" and not torch.equal(lk, lw):
+            raise AssertionError(f"W8A8 int8 first-token logits: kernels A "
+                                 f"and B vs their plain versions differ "
+                                 f"(relative L2 {ops_err}); they must be "
+                                 f"torch.equal")
+        if wd == "int8":
+            f2 = window_invariance_check(qmodel, qcfg, paged,
+                                         "W8A8 int8, bf16 pages")
+            if f2["pages_differing"]:
+                raise AssertionError(f"F2 under W8A8 int8: "
+                                     f"{f2['pages_differing']} full pages "
+                                     f"differ")
+            record["window_invariance"] = [f2]
+            engine = ServeEngine(qmodel, cfg, device=SERVE_DEVICE,
+                                 weight_dtype=wd, matmul_dtype=wd,
+                                 **SERVE_ENGINE_KW)
+            prof = profile_decode(engine, cfg, Request)
+            del engine
+            print_tick_profile("W8A8 int8 decode tick (8 x ~600-token "
+                               "contexts)", prof, card)
+            ran = prof["kernels_per_tick_by_class"]
+            if prof["device_idle_share"] is not None and not (
+                    ran["quantize_rows kernel"] and ran["decode_gemm_w8a8 "
+                                                         "kernel"]
+                    and not ran["GEMM (cuBLAS)"]
+                    and not ran["decode_gemm kernel"]):
+                raise AssertionError(f"W8A8 int8 decode tick: kernels by "
+                                     f"class {ran}: want quantize_rows and "
+                                     f"decode_gemm_w8a8, no other GEMM")
+            record["decode_tick_profile"] = prof
+        del qmodel
+        gc.collect()
+        torch.cuda.empty_cache()
+    run = serve_run(model, cfg, "bf16", 0, reqs, arrivals,
+                    weights=("int8", "auto"))
+    runs.append(run)
+    print_serve_run("int8 weights, dequantize path (matmul_dtype auto), "
+                    "bf16 pages", run, reqs, runs[0]["kv_pool_bytes"], card,
+                    "")
+    return runs, record
+
+
+def print_serve_run(what, run, reqs, base_pool_bytes, card, agree):
+    """One serve run's line: ticks, launches, TTFT, TPOT, throughput,
+    speculation, quant error and pool bytes."""
+    rate = run["accept_rate"]
+    tpv = run["tokens_per_seq_per_verify"]
+    print(f"serve[{what}, spec_k={run['spec_k']}]: {len(reqs)} requests, "
+          f"{run['prefill_windows']} windows, {run['decode_steps']} decode + "
+          f"{run['verify_steps']} verify ticks, launches {run['launches']}; "
+          f"TTFT median {statistics.median(run['ttft_s']):.4f} s, TPOT "
+          f"median {statistics.median(run['tpot_s']):.5f} s, "
+          f"{run['tokens_per_s']:.2f} tokens/s over {run['wall_s']:.3f} s; "
+          f"proposed {run['proposed']:.0f}, accepted {run['accepted']:.0f} "
+          f"(rate {'n/a' if rate is None else f'{rate:.4f}'}), tokens per "
+          f"sequence per verify {'n/a' if tpv is None else f'{tpv:.4f}'}; "
+          f"quant error k {run['quant_error']['k']:.6f} v "
+          f"{run['quant_error']['v']:.6f}; pool bytes {run['kv_pool_bytes']} "
+          f"({run['kv_pool_bytes'] / base_pool_bytes:.4f} x bf16){agree} "
+          f"[{card}]", flush=True)
 
 
 def rewind_probe(model, cfg, kind, prompt):
@@ -2177,6 +2799,7 @@ def main() -> int:
     records = kernel_phase(pa, device, flush, peaks)
     records += flash_kernel_phase(device, flush, peaks)
     records += rows_kernel_phase(device, flush, peaks)
+    records += w8a8_kernel_phase(device, flush, peaks)
     del flush
 
     # Phase 4: serve.
@@ -2219,6 +2842,15 @@ def main() -> int:
                         for run in runs) + per_window * (
                         serve["prefill_windows"] + sum(
                             run["prefill_windows"] for run in runs))]
+    # The W8A8 kernels, on the W8A8 serve runs of their dtype.
+    for k in ("quantize_rows", "decode_gemm_w8a8"):
+        ticks[k] = (None, "decode or verify tick or prefill window")
+        for suffix, wd in (("", "int8"), ("_fp8", "fp8")):
+            mine = [run for run in runs if run["weights"][1] == wd]
+            count[k + suffix] = [
+                sum(run["launches"][k] for run in mine),
+                sum(run["decode_steps"] + run["verify_steps"]
+                    + run["prefill_windows"] for run in mine)]
     count.update({k: [n, TRAIN_STEPS] for k, n in train_launches.items()})
     for r in records:
         n, per = count[r["name"]]

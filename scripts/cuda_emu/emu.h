@@ -1,5 +1,5 @@
 // Thread-level CPU emulation of the CUDA features the paged kernels, the
-// decode GEMM and the norm use, so that g++ can build and run them on a
+// decode GEMM (bf16 and W8A8), the norm and the row quantizer use, so that g++ can build and run them on a
 // machine without a card (emulate_paged.py rewrites the sources to include
 // this first). Blocks of a launch run one after another, in a shuffled order
 // (emu_set_shuffle_seed picks it; a static __shared__ array is then one
@@ -8,10 +8,11 @@
 // __syncthreads; warp collectives (shfl, ldmatrix, mma.sync) exchange
 // their operands through per-warp buffers. cp.async copies at once;
 // shared memory starts as 0xff bytes (NaN) so reads of unwritten shared
-// memory show. mma.sync sums its 16 products in order in f32: the card's
-// tensor cores round differently, so a comparison with the plain version
-// is held to the card's tolerance, not to bits; what the emulation checks
-// is indexing, fragment layouts, masking, the ring and the span merge.
+// memory show. mma.sync sums its 16 (bf16) or 32 (e4m3) products in order
+// in f32: the card's tensor cores round differently, so a comparison with
+// the plain version is held to the card's tolerance, not to bits; what the
+// emulation checks is indexing, fragment layouts, masking, the ring and the
+// span merge. The int8 mma sums in int32, exactly, as the card's does.
 #pragma once
 #include <stdint.h>
 #include <stddef.h>
@@ -40,6 +41,8 @@ struct uint4 { unsigned x, y, z, w; };
 struct uint2 { unsigned x, y; };
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
+struct int2 { int x, y; };
+inline int2 make_int2(int a, int b) { return {a, b}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a,b,c,d}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a,b,c,d}; }
 inline float2 make_float2(float a, float b) { return {a,b}; }
@@ -71,6 +74,26 @@ struct __nv_fp8_e4m3 {
   }
 };
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __int2float_rn(int v) { return (float)v; }
+// float -> float8_e4m3fn, round to nearest even, saturating to +-448 (the
+// nearest of the 127 finite magnitudes by search; ties to the even code).
+typedef unsigned char __nv_fp8_storage_t;
+enum __nv_saturation_t { __NV_NOSAT, __NV_SATFINITE };
+enum __nv_fp8_interpretation_t { __NV_E4M3, __NV_E5M2 };
+inline __nv_fp8_storage_t __nv_cvt_float_to_fp8(float x, __nv_saturation_t,
+                                                __nv_fp8_interpretation_t) {
+  const unsigned char sign = signbit(x) ? 0x80 : 0;
+  const float a = fminf(fabsf(x), 448.f);
+  int best = 0;
+  float best_d = INFINITY;
+  for (int c = 0; c < 0x7f; ++c) {
+    const float v = (float)__nv_fp8_e4m3{(unsigned char)c};
+    const float d = fabsf(v - a);
+    if (d < best_d || (d == best_d && c % 2 == 0)) { best = c; best_d = d; }
+  }
+  return (unsigned char)(sign | best);
+}
 inline float __fadd_rn(float a, float b) { return a + b; }
 // The card's rsqrtf is within 2 ulp of 1 / sqrt(x); this one rounds twice.
 inline float rsqrtf(float x) { return 1.f / sqrtf(x); }
@@ -107,6 +130,7 @@ inline int atomicAdd(int* p, int v) { int o = *p; *p += v; return o; }
 inline float4 __ldcg(const float4* p) { return *p; }
 inline float __ldcg(const float* p) { return *p; }
 inline float2 __ldcg(const float2* p) { return *p; }
+inline int2 __ldcg(const int2* p) { return *p; }
 inline uintptr_t __cvta_generic_to_shared(const void* p) { return (uintptr_t)p; }
 inline uintptr_t smem_u32(const void* p) { return (uintptr_t)p; }
 inline void cp_async16(void* s, const void* g) { memcpy(s, g, 16); }
@@ -155,6 +179,39 @@ inline void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
     c[e] += s;
   }
   w->bar->arrive_and_wait();
+}
+// m16n8k32 with 8-bit A (row) and B (col): register r of A holds bytes of
+// row g + 8 (r % 2) at k 4 t + 16 (r / 2) .. + 3 (g = lane / 4, t = lane %
+// 4); register r of B bytes of column g at k 4 t + 16 r .. + 3.
+template <typename Acc, typename Val>
+inline void mma16832_common(Acc (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                            uint32_t b1, Val val) {
+  WarpCtx* w = tls_warp; int l = lane_id();
+  for (int i = 0; i < 4; ++i) w->a[l][i] = a[i];
+  w->b[l][0] = b0; w->b[l][1] = b1;
+  w->bar->arrive_and_wait();
+  auto A = [&](int row, int k) {
+    const int lane = (row % 8) * 4 + (k % 16) / 4;
+    return val((uint8_t)(w->a[lane][(row >= 8 ? 1 : 0) + (k >= 16 ? 2 : 0)] >> (8 * (k % 4))));
+  };
+  auto B = [&](int k, int n) {
+    const int lane = n * 4 + (k % 16) / 4;
+    return val((uint8_t)(w->b[lane][k >= 16 ? 1 : 0] >> (8 * (k % 4))));
+  };
+  const int g = l / 4, t = l % 4;
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + 8 * (e / 2), col = 2 * t + e % 2;
+    Acc s = 0;
+    for (int k = 0; k < 32; ++k) s += A(row, k) * B(k, col);
+    c[e] += s;
+  }
+  w->bar->arrive_and_wait();
+}
+inline void mma16832(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  mma16832_common(c, a, b0, b1, [](uint8_t v) { return (int)(int8_t)v; });
+}
+inline void mma16832(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  mma16832_common(c, a, b0, b1, [](uint8_t v) { return (float)__nv_fp8_e4m3{v}; });
 }
 typedef int cudaError_t;
 typedef void* cudaStream_t;

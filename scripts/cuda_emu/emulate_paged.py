@@ -33,7 +33,8 @@ unlike the card's tensor cores, and nothing here is timed.
 :func:`build` takes any kernel of ``_kernels.KERNELS`` whose source needs
 only what ``emu.h`` emulates: ``tests/test_torch_decode_gemm.py`` builds
 ``decode_gemm.cu`` with it and drives the GEMM's C entries on the CPU,
-``tests/test_torch_norms.py`` ``rms_norm.cu`` and the norm's.
+``tests/test_torch_norms.py`` ``rms_norm.cu`` and the norm's,
+``tests/test_torch_quantize_rows.py`` ``quantize_rows.cu``.
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ KERNELS = ("paged_decode", "paged_verify", "paged_prefill")
 # Device helpers emu.h replaces: their asm bodies are renamed out of the
 # way, and calls resolve to emu.h's versions.
 HELPERS = ("cp_async16", "cp_async_wait_all", "cp_async16_zfill",
-           "ldmatrix_x4", "ldmatrix_x4_trans", "mma16816")
+           "ldmatrix_x4", "ldmatrix_x4_trans", "mma16816", "mma16832")
 
 
 def for_host(src: str) -> str:

@@ -22,7 +22,14 @@ bitwise, grouped refusals) and RMSNorm (rows at M 1 and 8 bitwise) with
 its fused residual add (h bitwise torch's add, y the norm kernel's of h,
 rows at M 1-256 bitwise, D past the 8192 a thread keeps), a small model's
 verify logits rows against
-its decode rows, and the wrappers' refusals.
+its decode rows, and the wrappers' refusals; and the W8A8 kernels --
+the per-token quantizer (bytes and scales ``torch.equal`` to its plain
+version) and the int8/fp8 GEMM entries (int8 ``torch.equal`` to its plain
+version at every M of 1-64, fp8 within one bf16 ulp, rows bitwise, K
+split by the shape), ``quantized_einsum`` on CUDA tensors, a small W8A8
+model's verify rows against its decode rows and its spec-on tokens against
+spec-off, and a prefill window's full pages the same under two window
+widths (fault F2), bf16 and W8A8 int8.
 """
 
 import pytest
@@ -713,6 +720,8 @@ def test_decode_gemm_f32_rows_are_bitwise_and_within_the_sum_bound(device, k,
 
 
 def test_decode_gemm_runs_more_than_64_rows_in_launches_of_64(device):
+    """70 rows are one launch of two row tiles of 64 (a prefill window's
+    rows the same way): each tile's rows bitwise a launch of them alone."""
     from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
 
     gen = torch.Generator(device=device).manual_seed(70)
@@ -722,7 +731,8 @@ def test_decode_gemm_runs_more_than_64_rows_in_launches_of_64(device):
                     ).to(torch.bfloat16)
     dg.reset_launch_counts()
     full = dg.decode_gemm(x, w)
-    assert dg.decode_gemm_group.launches == 2
+    assert dg.decode_gemm_group.launches == 1
+    assert torch.equal(dg.decode_gemm(x[:64].contiguous(), w), full[:64])
     assert torch.equal(dg.decode_gemm(x[64:].contiguous(), w), full[64:])
     assert torch.equal(dg.decode_gemm(x[:5].contiguous(), w), full[:5])
     torch.testing.assert_close(full.float(), (x.float() @ w.float()),
@@ -731,7 +741,7 @@ def test_decode_gemm_runs_more_than_64_rows_in_launches_of_64(device):
 
 def test_row_wrappers_count_only_their_launches(device):
     """The counters rise by the launches made: none for zero rows, one a
-    64 rows of the GEMM."""
+    call of the GEMM (130 rows: one launch of three row tiles)."""
     from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
     from triton_kubernetes_tpu_torch.ops import norms
 
@@ -745,11 +755,11 @@ def test_row_wrappers_count_only_their_launches(device):
     assert dg.decode_gemm_group.launches == norms.rms_norm_rows.launches == 0
     assert torch.equal(dg.decode_gemm(x, w), torch.full(
         (130, 32), 64.0, dtype=torch.bfloat16, device=device))
-    assert dg.decode_gemm_group.launches == 3
+    assert dg.decode_gemm_group.launches == 1
     for y in dg.decode_gemm_group(x, [w, w[:, :8].contiguous(), w]):
         assert torch.equal(y, torch.full((130, y.shape[1]), 64.0,
                                          dtype=torch.bfloat16, device=device))
-    assert dg.decode_gemm_group.launches == 6
+    assert dg.decode_gemm_group.launches == 2
     norms.rms_norm_rows(x, scale, 1e-5)
     assert norms.rms_norm_rows.launches == 1
     h, y = norms.add_rms_norm_rows(x[:0], x[:0], scale, 1e-5)
@@ -842,9 +852,8 @@ def test_row_kernels_refuse_what_they_do_not_take(device):
         _kernels.decode_gemm(x[:, :60].contiguous(), [w[:60]], [y])
     with pytest.raises(ValueError, match="contiguous"):
         _kernels.decode_gemm(x, [w.T.contiguous().T], [y])
-    with pytest.raises(ValueError, match="1-64"):
-        _kernels.decode_gemm(x.repeat(17, 1), [w],
-                             [y.repeat(17, 1)])  # 68 rows: the wrapper's job
+    with pytest.raises(ValueError, match="a row"):
+        _kernels.decode_gemm(x[:0], [w], [y[:0]])  # M 0: the wrapper's job
     with pytest.raises(ValueError, match="a row"):
         _kernels.rms_norm(x[:0], torch.ones(64, dtype=torch.bfloat16,
                                             device=device), 1e-5)
@@ -948,3 +957,239 @@ def test_small_model_verify_rows_are_decode_rows(device, dtype):
                                           cache, tables, lens + j)
             assert torch.equal(verify[:, j], row), j
     assert torch.equal(vcache.k, cache.k) and torch.equal(vcache.v, cache.v)
+
+
+# ------------------------------------------------------------------ W8A8
+QDTYPES = [torch.int8, torch.float8_e4m3fn]
+
+
+@pytest.mark.parametrize("qdtype", QDTYPES, ids=["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k", [(1, 4096), (8, 4096), (32, 14336),
+                                 (256, 4096), (5, 200)])
+def test_quantize_rows_kernel_is_bitwise_the_plain_version(device, qdtype,
+                                                           dtype, m, k):
+    from triton_kubernetes_tpu_torch.ops import quantization as qz
+
+    gen = torch.Generator(device=device).manual_seed(m + k)
+    x = (torch.randn((m, k), generator=gen, device=device)
+         * torch.exp(4 * torch.randn((m, 1), generator=gen, device=device))
+         ).to(dtype)
+    x[0] = 0
+    qz.reset_launch_counts()
+    got_q, got_s = qz.quantize_rows(x, qdtype)
+    want_q, want_s = qz.quantize_rows_plain(x, qdtype)
+    torch.cuda.synchronize()
+    assert qz.quantize_rows.launches == 1
+    assert torch.equal(got_q.view(torch.uint8), want_q.view(torch.uint8))
+    assert torch.equal(got_s, want_s)
+
+
+def _w8a8_group(gen, k, ns, qdtype, device):
+    from triton_kubernetes_tpu_torch.ops import quantization as qz
+
+    x = torch.randn((64, k), generator=gen, device=device).to(torch.bfloat16)
+    xq, xs = qz.quantize_rows_plain(x, qdtype)
+    pairs = [qz.quantize_channelwise(
+        torch.randn((k, n), generator=gen, device=device) * 0.02, 0, qdtype)
+        for n in ns]
+    return (xq, xs, [w.t().contiguous() for w, _ in pairs],
+            [sc.reshape(-1).contiguous() for _, sc in pairs])
+
+
+@pytest.mark.parametrize("qdtype", QDTYPES, ids=["int8", "fp8"])
+@pytest.mark.parametrize("k,ns,out", GEMM_8B, ids=GEMM_8B_IDS)
+def test_w8a8_gemm_rows_are_bitwise_and_match_plain(device, qdtype, k, ns,
+                                                    out):
+    """One grouped W8A8 launch at each 8B group: int8 outputs torch.equal
+    to the plain version at every M of 1-64 (exact int32 sums merged in
+    int32), fp8 within one bf16 ulp at M 8 and 32; rows at every M
+    bitwise the rows at M 64; twenty launches bitwise."""
+    from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
+
+    gen = torch.Generator(device=device).manual_seed(k + sum(ns) + 7)
+    xq, xs, ws, scales = _w8a8_group(gen, k, ns, qdtype, device)
+    dg.reset_launch_counts()
+    full = dg.w8a8_gemm_group(xq, xs, ws, scales, out)
+    assert dg.w8a8_gemm_group.launches == 1
+    for m in range(1, 65):
+        got = dg.w8a8_gemm_group(xq[:m].contiguous(), xs[:m].contiguous(),
+                                 ws, scales, out)
+        for a, b in zip(got, full):
+            assert torch.equal(a, b[:m]), m
+        if qdtype == torch.int8 and m in (1, 8, 17, 32, 64):
+            want = dg.w8a8_gemm_group_plain(xq[:m], xs[:m], ws, scales, out)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), m
+    if qdtype != torch.int8:
+        for m in (8, 32):
+            want = dg.w8a8_gemm_group_plain(xq[:m], xs[:m], ws, scales, out)
+            for a, b in zip(full, want):
+                torch.testing.assert_close(a[:m].float(), b.float(),
+                                           **_tol(torch.bfloat16))
+    for _ in range(20):
+        for a, b in zip(dg.w8a8_gemm_group(xq, xs, ws, scales, out), full):
+            assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("qdtype", QDTYPES, ids=["int8", "fp8"])
+def test_quantized_einsum_on_the_card_is_the_cpu_result(device, qdtype):
+    """quantized_einsum on CUDA tensors (kernels A and B, 70 rows: two
+    launches of B) against the same call on CPU tensors (the reference's
+    steps): int8 bitwise, fp8 within one bf16 ulp of the f32 result."""
+    from triton_kubernetes_tpu_torch.ops import quantization as qz
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 35, 64), generator=gen)
+    w = torch.randn((64, 4, 16), generator=gen) * 0.02
+    q, scale = qz.quantize_channelwise(w, 0, qdtype)
+    want = qz.quantized_einsum("bsd,dhk->bshk", x, q, scale)
+    got = qz.quantized_einsum("bsd,dhk->bshk", x.to(device), q.to(device),
+                              scale.to(device))
+    torch.cuda.synchronize()
+    if qdtype == torch.int8:
+        assert torch.equal(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu(), want, atol=1e-2, rtol=2 ** -7)
+    with pytest.raises(ValueError, match="trailing"):
+        qz.quantized_einsum("bds,dhk->bshk",
+                            x.transpose(1, 2).contiguous().to(device),
+                            q.to(device), scale.to(device))
+
+
+def test_w8a8_bindings_refuse(device):
+    """Wrong dtypes, shapes, a K that is not a multiple of 16, a scale of
+    the wrong size, and CPU tensors: the bindings raise before any
+    launch."""
+    from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
+
+    xq = torch.zeros((4, 64), dtype=torch.int8, device=device)
+    xs = torch.ones(4, device=device)
+    w = torch.zeros((32, 64), dtype=torch.int8, device=device)
+    sc = torch.ones(32, device=device)
+    y = torch.empty((4, 32), dtype=torch.bfloat16, device=device)
+    dg.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiple of 16"):
+        _kernels.decode_gemm_w8a8(xq[:, :56].contiguous(), xs,
+                                  [w[:, :56].contiguous()], [sc], [y])
+    with pytest.raises(ValueError, match="scale"):
+        _kernels.decode_gemm_w8a8(xq, xs, [w], [sc[:16]], [y])
+    with pytest.raises(ValueError, match="x_scale"):
+        _kernels.decode_gemm_w8a8(xq, xs[:2], [w], [sc], [y])
+    with pytest.raises(ValueError, match="every w"):
+        _kernels.decode_gemm_w8a8(xq, xs, [w.view(torch.float8_e4m3fn)],
+                                  [sc], [y])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.decode_gemm_w8a8(xq.cpu(), xs.cpu(), [w.cpu()], [sc.cpu()],
+                                  [y.cpu()])
+    with pytest.raises(ValueError, match="int8 or float8"):
+        _kernels.quantize_rows(y, torch.bfloat16)
+    assert dg.w8a8_gemm_group.launches == 0
+
+
+@pytest.mark.parametrize("wd", ["int8", "fp8"])
+def test_small_w8a8_model_verify_rows_are_decode_rows(device, wd):
+    """At llama-test widths (bf16) under W8A8: each verify logits row is
+    torch.equal to the decode logits at its length, the pools end bitwise
+    equal, and every product ran kernels A and B (one quantization a
+    group)."""
+    from triton_kubernetes_tpu_torch.models import (
+        get_config, init_params, paged)
+    from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
+    from triton_kubernetes_tpu_torch.ops import quantization as qz
+
+    cfg = get_config("llama-test", dtype="bfloat16", weight_quant=wd,
+                     matmul_dtype=wd)
+    model = init_params(cfg, seed=2, device=device)
+    bs, per, b, s = 4, 6, 3, 3
+    cache = paged.init_paged_cache(cfg, 1 + b * per, bs, device=device)
+    tables = (torch.arange(b * per, dtype=torch.int32, device=device)
+              .reshape(b, per) + 1)
+    gen = torch.Generator(device=device).manual_seed(6)
+    lengths = [5, 9, 14]
+    with torch.inference_mode():
+        for i, n in enumerate(lengths):
+            toks = torch.randint(0, cfg.vocab_size, (1, 16), generator=gen,
+                                 device=device).to(torch.int32)
+            for off in range(0, n, 8):
+                paged.paged_prefill_chunk(model, toks[:, off:off + 8], off,
+                                          min(8, n - off), cfg, cache,
+                                          tables[i])
+        tok = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                            device=device).to(torch.int32)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+        vcache = paged.PagedKVCache(cache.k.clone(), cache.v.clone())
+        dg.reset_launch_counts()
+        qz.reset_launch_counts()
+        verify, _ = paged.paged_verify_step(model, tok, cfg, vcache, tables,
+                                            lens)
+        assert dg.w8a8_gemm_group.launches == 4 * cfg.num_layers + 1
+        assert qz.quantize_rows.launches == 4 * cfg.num_layers + 1
+        assert dg.decode_gemm_group.launches == 0
+        for j in range(s):
+            row = paged.paged_decode_step(model, tok[:, j].contiguous(), cfg,
+                                          cache, tables, lens + j)
+            assert torch.equal(verify[:, j], row), j
+    assert torch.equal(vcache.k, cache.k) and torch.equal(vcache.v, cache.v)
+
+
+@pytest.mark.parametrize("wd", ["int8", "fp8"])
+def test_small_w8a8_engine_spec_on_tokens_equal_spec_off(device, wd):
+    from triton_kubernetes_tpu_torch.models import get_config, init_params
+    from triton_kubernetes_tpu_torch.serve import Request, ServeEngine
+
+    cfg = get_config("llama-test", dtype="bfloat16")
+    model = init_params(cfg, seed=4, device=device)
+    prompts = [[5, 7, 9, 11, 2, 4, 6, 8] * 3, [3] * 20, [9, 1, 9, 1] * 5]
+
+    def run(spec_k):
+        eng = ServeEngine(model, cfg, block_size=4, num_blocks=64,
+                          max_batch=3, max_model_len=96, prefill_chunk=8,
+                          prefix_cache=True, spec_k=spec_k, weight_dtype=wd,
+                          matmul_dtype=wd, device=device)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(f"r{i}", p, 24))
+        done = {d.request_id: d.tokens for d in eng.run_until_idle()}
+        eng.release_prefix_cache()
+        assert eng.allocator.in_use == 0
+        return done, eng.stats()
+
+    on, stats = run(3)
+    off, _ = run(0)
+    assert stats["verify_steps"] > 0
+    assert on == off
+
+
+@pytest.mark.parametrize("wd", [None, "int8"])
+def test_prefill_windows_pages_do_not_depend_on_the_window(device, wd):
+    """Fault F2 at llama-test widths (bf16): a 100-token prompt written by
+    16-token windows and by 32-token ones leaves the same bytes in every
+    full page, unquantized and under W8A8 int8."""
+    from triton_kubernetes_tpu_torch.models import (
+        get_config, init_params, paged)
+
+    cfg = get_config("llama-test", dtype="bfloat16", max_seq_len=256,
+                     **({} if wd is None else dict(weight_quant=wd,
+                                                   matmul_dtype=wd)))
+    model = init_params(cfg, seed=5, device=device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (100,), generator=gen,
+                           device=device).tolist()
+    pools = []
+    for c in (16, 32):
+        cache = paged.init_paged_cache(cfg, 33, 4, device=device)
+        table = torch.arange(1, 33, dtype=torch.int32, device=device)
+        with torch.inference_mode():
+            for off in range(0, len(prompt), c):
+                clen = min(c, len(prompt) - off)
+                toks = prompt[off:off + clen] + [0] * (c - clen)
+                paged.paged_prefill_chunk(
+                    model, torch.tensor([toks], dtype=torch.int32,
+                                        device=device),
+                    off, clen, cfg, cache, table)
+        pools.append(cache)
+    torch.cuda.synchronize()
+    full = len(prompt) // 4
+    assert torch.equal(pools[0].k[:, 1:1 + full], pools[1].k[:, 1:1 + full])
+    assert torch.equal(pools[0].v[:, 1:1 + full], pools[1].v[:, 1:1 + full])

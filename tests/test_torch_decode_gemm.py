@@ -15,13 +15,23 @@ in range order. That checks what the card cannot be asked here:
   sum of K products obeys), and of the JAX package's ``weight_einsum``;
 * rows at M 1, 3, 8, 17, 33 and 63 bitwise the rows at M 64 (all three
   row-tile variants), which is what keeps a verify row the decode row;
+* a prefill window's M (130 or 256) in one launch, its rows in row tiles
+  of 64 side by side: each row tile bitwise a launch of its rows alone;
 * the same bits whatever order the blocks run in, so the merge does not
   depend on which block arrives last; the arrival counters back at 0;
 * the entries' refusals.
 
-The emulated mma.sync sums its 16 products in order in f32, unlike the
-card's tensor cores, so nothing here is compared with the card's bits.
-The emulation skips only where there is no g++.
+The W8A8 entries (``tk8s_decode_gemm_{s8,e4m3}_{bf16,f32}``: an 8-bit
+activation quantized per row times a weight stored [N, K] quantized per
+column, mma.sync m16n8k32) too: int8 rows bitwise their plain version
+(an exact integer sum, merged in int32) at every M of 1-63 with K forced
+into 1-4 ranges, at both tile widths and in two block orders; fp8 within
+one bf16 ulp of its plain version, rows bitwise the rows at M 64.
+
+The emulated mma.sync sums its 16 (bf16) or 32 (fp8) products in order in
+f32, unlike the card's tensor cores, so nothing here is compared with the
+card's bits (the int8 sum is exact on both). The emulation skips only
+where there is no g++.
 """
 
 import ctypes
@@ -38,6 +48,7 @@ from triton_kubernetes_tpu.models import get_config as jget_config
 from triton_kubernetes_tpu.models import llama as jllama
 from triton_kubernetes_tpu_torch.ops import _kernels
 from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
+from triton_kubernetes_tpu_torch.ops import quantization as qz
 
 EMU = (Path(__file__).resolve().parents[1] / "scripts" / "cuda_emu"
        / "emulate_paged.py")
@@ -55,6 +66,13 @@ GROUPS = [(1024, (200,), None, None), (512, (64, 24, 8), 3, 64),
 TILES = pytest.mark.parametrize("tile_n", [64, 128])
 
 
+def _workspace(ns, m, splits, tile_n):
+    """Words of a launch's workspace, as ``_kernels._gemm_split`` sizes it:
+    one slab of ``splits`` partials a (column tile, row tile) pair."""
+    tiles = sum(-(-n // tile_n) for n in ns) * max(1, -(-m // 64))
+    return max(1, tiles * splits * max(1, min(m, 64)) * tile_n)
+
+
 class EmulatedGemm:
     """The emulated C entries, called as ``_kernels.decode_gemm`` calls
     the real ones; outputs, workspace and unused arguments NaN-poisoned."""
@@ -70,9 +88,8 @@ class EmulatedGemm:
         """The C entry's return code; ``count`` and ``m`` override what
         is passed."""
         ns = [w.shape[1] for w in ws]
-        tiles = sum(-(-n // tile_n) for n in ns)
         rows = x.shape[0] if m is None else m
-        work = torch.full((max(1, tiles * splits * max(rows, 1) * tile_n),),
+        work = torch.full((_workspace(ns, rows, splits, tile_n),),
                           float("nan"))
         pad = _kernels.MAX_GEMM_PROBLEMS - len(ws)
         suffix = _kernels.GEMM_SUFFIXES[(x.dtype, ys[0].dtype)]
@@ -82,6 +99,30 @@ class EmulatedGemm:
             *[0] * pad, len(ws) if count is None else count, rows,
             x.shape[1], tile_n, splits, work.data_ptr(),
             self.counters.data_ptr(), None)
+
+    def w8a8_rc(self, xq, xs, ws, scales, ys, splits, tile_n=64, k=None):
+        """The W8A8 C entry's return code; ``k`` overrides what is
+        passed."""
+        ns = [w.shape[0] for w in ws]
+        work = torch.full((_workspace(ns, xq.shape[0], splits, tile_n),),
+                          -7, dtype=torch.int32)
+        pad = _kernels.MAX_GEMM_PROBLEMS - len(ws)
+        suffix = _kernels.W8A8_SUFFIXES[(xq.dtype, ys[0].dtype)]
+        return getattr(self.lib, f"tk8s_decode_gemm_{suffix}")(
+            xq.data_ptr(), xs.data_ptr(), *[w.data_ptr() for w in ws],
+            *[None] * pad, *[sc.data_ptr() for sc in scales], *[None] * pad,
+            *[y.data_ptr() for y in ys], *[None] * pad, *ns, *[0] * pad,
+            len(ws), xq.shape[0], xq.shape[1] if k is None else k, tile_n,
+            splits, work.data_ptr(), self.counters.data_ptr(), None)
+
+    def w8a8(self, xq, xs, ws, scales, out_dtype, splits, tile_n=64):
+        """The outputs of one W8A8 launch."""
+        ys = [torch.full((xq.shape[0], w.shape[0]), float("nan"),
+                         dtype=out_dtype) for w in ws]
+        rc = self.w8a8_rc(xq, xs, ws, scales, ys, splits, tile_n)
+        assert rc == 0, f"the W8A8 C entry refused ({rc})"
+        assert not self.counters.any(), "arrival counters left non-zero"
+        return ys
 
     def __call__(self, x, ws, out_dtype, splits=None, tile_n=None):
         """The outputs of one launch; S and the tile width default to the
@@ -206,17 +247,16 @@ def test_emulated_gemm_matches_jax_weight_einsum(gemm, dtype):
 
 
 def test_emulated_gemm_entries_refuse(gemm):
-    """A group of 0 or 4 products, M outside 1-64, K or N not a multiple
-    of 8, a tile width other than 64 or 128, S outside 1-16 or past K's k
-    tiles, and S > 1 without a workspace: the entry returns an error and
-    launches nothing."""
+    """A group of 0 or 4 products, M 0, K or N not a multiple of 8, a tile
+    width other than 64 or 128, S outside 1-16 or past K's k tiles, and S
+    > 1 without a workspace: the entry returns an error and launches
+    nothing."""
     _, (x, ws) = _inputs(3, 8, 128, (64, 64, 64), torch.bfloat16)
     ys = [torch.empty((8, 64), dtype=torch.bfloat16) for _ in ws]
     assert gemm.rc(x, ws, ys, 1) == 0
     assert gemm.rc(x, ws, ys, 1, count=0) != 0
     assert gemm.rc(x, ws, ys, 1, count=4) != 0
     assert gemm.rc(x, ws, ys, 1, m=0) != 0
-    assert gemm.rc(x, ws, ys, 1, m=65) != 0
     assert gemm.rc(x, ws, ys, 1, tile_n=96) != 0
     assert gemm.rc(x, ws, ys, 1, tile_n=128) == 0
     assert gemm.rc(x, ws, ys, 0) != 0
@@ -236,3 +276,130 @@ def test_emulated_gemm_entries_refuse(gemm):
     assert getattr(gemm.lib, f"tk8s_decode_gemm_{suffix}")(
         x.data_ptr(), ws[0].data_ptr(), None, None, ys[0].data_ptr(), None,
         None, 64, 0, 0, 1, 8, 128, 64, 2, None, None, None) != 0
+
+
+def _w8a8_inputs(seed, m, k, ns, qdtype):
+    """x [m, k] quantized per row, and weights [k, n] for n in ns
+    quantized per column and stored [n, k], from a seeded numpy
+    generator."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    xq, xs = qz.quantize_rows_plain(x, qdtype)
+    pairs = [qz.quantize_channelwise(torch.from_numpy(
+        (0.05 * rng.standard_normal((k, n))).astype(np.float32)), 0, qdtype)
+        for n in ns]
+    return (xq, xs, [w.t().contiguous() for w, _ in pairs],
+            [sc.reshape(-1).contiguous() for _, sc in pairs])
+
+
+W8A8_OUT = pytest.mark.parametrize("out_dtype", [torch.bfloat16,
+                                                 torch.float32],
+                                   ids=["bf16", "f32"])
+
+
+@pytest.mark.parametrize("out_dtype,rows", [
+    (torch.bfloat16, range(1, 65)), (torch.float32, (1, 8, 17, 32, 63))],
+    ids=["bf16", "f32"])
+def test_emulated_w8a8_int8_rows_are_bitwise_the_plain_version(
+        gemm, out_dtype, rows):
+    """int8 at every M of 1-64 (bf16 out; f32 out at five), K cut into 1-4
+    ranges (forced, S = 1 + M % 4) at both tile widths: each output bitwise
+    ``w8a8_gemm_group_plain`` (exact int32 sums merged in int32, the f32
+    epilogue in the reference's order), so bitwise the rows at M 64."""
+    xq, xs, ws, scales = _w8a8_inputs(5, 64, 512, (24, 136), torch.int8)
+    for m in rows:
+        got = gemm.w8a8(xq[:m].contiguous(), xs[:m].contiguous(), ws,
+                        scales, out_dtype, 1 + m % 4, (64, 128)[m % 2])
+        want = dg.w8a8_gemm_group_plain(xq[:m], xs[:m], ws, scales,
+                                        out_dtype)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), m
+
+
+@W8A8_OUT
+def test_emulated_w8a8_int8_merge_does_not_depend_on_block_order(gemm,
+                                                                 out_dtype):
+    xq, xs, ws, scales = _w8a8_inputs(7, 20, 512, (24, 200), torch.int8)
+    runs = []
+    for seed in (1, 2):
+        gemm.seed(seed)
+        runs.append(gemm.w8a8(xq, xs, ws, scales, out_dtype, 4, 64))
+    gemm.seed(12345)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("splits,tile_n", [(1, 128), (3, 64)])
+@W8A8_OUT
+def test_emulated_w8a8_fp8_matches_plain_and_rows_do_not_depend_on_m(
+        gemm, out_dtype, splits, tile_n):
+    """fp8 within one bf16 ulp plus 1e-2 of its plain version (f32 sums in
+    another order), rows at M 1, 9, 17, 33 and 63 bitwise the rows at M 64,
+    and two block orders bitwise."""
+    xq, xs, ws, scales = _w8a8_inputs(11, 64, 512, (64, 24),
+                                      torch.float8_e4m3fn)
+    full = gemm.w8a8(xq, xs, ws, scales, out_dtype, splits, tile_n)
+    for a, b in zip(full, dg.w8a8_gemm_group_plain(xq, xs, ws, scales,
+                                                   out_dtype)):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a.float(), b.float(), atol=1e-2,
+                                   rtol=2 ** -7)
+    for m in (1, 9, 17, 33, 63):
+        part = gemm.w8a8(xq[:m].contiguous(), xs[:m].contiguous(), ws,
+                         scales, out_dtype, splits, tile_n)
+        for a, b in zip(part, full):
+            assert torch.equal(a, b[:m]), m
+    gemm.seed(3)
+    again = gemm.w8a8(xq, xs, ws, scales, out_dtype, splits, tile_n)
+    gemm.seed(12345)
+    for a, b in zip(again, full):
+        assert torch.equal(a, b)
+
+
+def test_emulated_w8a8_entries_refuse(gemm):
+    """K not a multiple of 16, S past K's 128-wide k tiles, a missing
+    activation or weight scale, and M 0: the entry returns an error and
+    launches nothing."""
+    xq, xs, ws, scales = _w8a8_inputs(3, 8, 256, (64,), torch.int8)
+    ys = [torch.empty((8, 64), dtype=torch.bfloat16)]
+    assert gemm.w8a8_rc(xq, xs, ws, scales, ys, 2) == 0
+    assert gemm.w8a8_rc(xq, xs, ws, scales, ys, 3) != 0  # K 256: 2 tiles
+    assert gemm.w8a8_rc(xq, xs, ws, scales, ys, 1, k=248) != 0
+    suffix = _kernels.W8A8_SUFFIXES[(torch.int8, torch.bfloat16)]
+    entry = getattr(gemm.lib, f"tk8s_decode_gemm_{suffix}")
+
+    def rc(x_scale, w_scale, m):
+        return entry(xq.data_ptr(), x_scale, ws[0].data_ptr(), None, None,
+                     w_scale, None, None, ys[0].data_ptr(), None, None, 64,
+                     0, 0, 1, m, 256, 64, 1, None, None, None)
+
+    assert rc(xs.data_ptr(), scales[0].data_ptr(), 8) == 0
+    assert rc(None, scales[0].data_ptr(), 8) != 0
+    assert rc(xs.data_ptr(), None, 8) != 0
+    assert rc(xs.data_ptr(), scales[0].data_ptr(), 0) != 0
+    assert not gemm.counters.any()
+
+
+@pytest.mark.parametrize("kind,m", [("bf16", 256), ("f32", 130),
+                                    ("int8", 130), ("fp8", 130)])
+def test_emulated_row_tiles_are_bitwise_launches_of_64_rows(gemm, kind, m):
+    """M past 64 in one launch (row tiles of 64 in the grid, K split in
+    two): each row tile's outputs bitwise a launch of those rows alone, for
+    the bf16 and f32 entries and the W8A8 ones."""
+    k, ns = 512, (24, 136)
+    if kind in ("bf16", "f32"):
+        dtype = getattr(torch, {"bf16": "bfloat16", "f32": "float32"}[kind])
+        _, (x, ws) = _inputs(m, m, k, ns, dtype)
+        full = gemm(x, ws, dtype, 2, 64)
+        parts = [gemm(x[r:r + 64].contiguous(), ws, dtype, 2, 64)
+                 for r in range(0, m, 64)]
+    else:
+        qdtype = torch.int8 if kind == "int8" else torch.float8_e4m3fn
+        xq, xs, ws, scales = _w8a8_inputs(m, m, k, ns, qdtype)
+        full = gemm.w8a8(xq, xs, ws, scales, torch.bfloat16, 2, 128)
+        parts = [gemm.w8a8(xq[r:r + 64].contiguous(),
+                           xs[r:r + 64].contiguous(), ws, scales,
+                           torch.bfloat16, 2, 128) for r in range(0, m, 64)]
+    for i, part in enumerate(parts):
+        for a, b in zip(part, full):
+            assert torch.equal(a, b[64 * i:64 * (i + 1)]), i

@@ -260,8 +260,10 @@ def test_decode_and_verify_steps_take_the_row_invariant_ops(monkeypatch):
     final norm), with no residual add and no norm of ``models/llama.py``
     beside them, and 4 L + 1 product calls (wq/wk/wv, wo, w3/w1, w2 a
     layer, and the lm head), seven weights a layer. A prefill window makes
-    the same norm calls and no product call (cuBLAS einsums); the one-shot
-    prefill makes none of them (plain norms and adds)."""
+    the same norm calls and the same product calls but the head's (its one
+    row is a plain product), so that its pages do not depend on the
+    window's width; the one-shot prefill makes none of them (plain norms,
+    adds and einsums)."""
     cfg = get_config("llama-test", dtype="bfloat16")
     model = init_params(cfg, seed=0, device="cpu")
     layers = cfg.num_layers
@@ -305,7 +307,8 @@ def test_decode_and_verify_steps_take_the_row_invariant_ops(monkeypatch):
     fused = {"norm": 1, "fused": 2 * layers, "llama_norm": 0, "adds": 0}
     assert run(paged.paged_prefill_chunk,
                torch.zeros((1, 8), dtype=torch.int32), 0, 5, cfg, cache,
-               tables[0]) == dict(fused, gemm=0, weights=0)
+               tables[0]) == dict(fused, gemm=4 * layers,
+                                  weights=7 * layers)
     want = dict(fused, gemm=4 * layers + 1, weights=7 * layers + 1)
     assert run(paged.paged_decode_step,
                torch.tensor([1, 2], dtype=torch.int32), cfg, cache, tables,
@@ -315,18 +318,16 @@ def test_decode_and_verify_steps_take_the_row_invariant_ops(monkeypatch):
                cache, tables, lens) == want
 
 
-def _unfused_layers(model, x, config, positions, attend, row_invariant):
+def _unfused_layers(model, x, config, positions, attend):
     """``paged._serve_layers`` composed as the steps ran before the fused
     add + norm: ``llama._qkv``, ``project_out`` and ``_mlp`` a layer (each
     norming its input), then the final norm."""
     cos, sin = model.rotary()
     for i, layer in enumerate(model.layers):
-        q, k, v = llama._qkv(x, layer, config, cos, sin, positions,
-                             row_invariant)
-        x = llama.project_out(x, attend(i, q, k, v), layer, config,
-                              row_invariant)
-        x = x + llama._mlp(x, layer, config, row_invariant)
-    return llama.final_norm_hidden(x, model, row_invariant)
+        q, k, v = llama._qkv(x, layer, config, cos, sin, positions, True)
+        x = llama.project_out(x, attend(i, q, k, v), layer, config, True)
+        x = x + llama._mlp(x, layer, config, True)
+    return llama.final_norm_hidden(x, model, True)
 
 
 def _serve_sequence(model, cfg, jax_side=None):

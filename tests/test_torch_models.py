@@ -159,14 +159,15 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_later_slices_raise_not_implemented():
-    """MoE and W8A8 weights are later slices; quantized pools are not."""
+    """MoE is a later slice; quantized pools and W8A8 weights are not."""
     with pytest.raises(NotImplementedError, match="MoE"):
         init_params(get_config("mixtral-test"), device="cpu")
     from triton_kubernetes_tpu_torch.serve import ServeEngine
     cfg = get_config("llama-test")
     model = init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        ServeEngine(model, cfg, device="cpu", weight_dtype="int8")
+    engine = ServeEngine(model, cfg, device="cpu", weight_dtype="int8",
+                         matmul_dtype="int8")
+    assert engine.config.weight_quant == engine.config.matmul_dtype == "int8"
     assert init_paged_cache(cfg, 8, 4, kv_dtype="int8",
                             device="cpu").quantized
 
@@ -174,8 +175,9 @@ def test_later_slices_raise_not_implemented():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every port module, and chip_smoke.py, import without loading
     jax or any module of the JAX package -- the training package, the
-    flash-attention op, the KV quantizers and the self-drafter named
-    first."""
+    flash-attention op, the weight and KV quantizers, the decode GEMM's
+    wrappers, generation, the decode weight policy and the self-drafter
+    named first."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import triton_kubernetes_tpu_torch.train\n"
@@ -183,6 +185,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import triton_kubernetes_tpu_torch.ops.flash_attention\n"
         "import triton_kubernetes_tpu_torch.ops.fused_ce\n"
         "import triton_kubernetes_tpu_torch.ops.quantization\n"
+        "import triton_kubernetes_tpu_torch.ops.decode_gemm\n"
+        "import triton_kubernetes_tpu_torch.models.generate\n"
+        "import triton_kubernetes_tpu_torch.train.precision\n"
         "import triton_kubernetes_tpu_torch.serve.speculation\n"
         "import triton_kubernetes_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"

@@ -2,9 +2,7 @@
 ``constants.py`` (the port imports nothing of that package).
 
 ``KV_DTYPES``, ``WEIGHT_DTYPES`` and ``MATMUL_DTYPES`` are the choices of the
-serving quantization knobs; the port serves every pool dtype and ``auto``
-weights and arithmetic, and the engine raises ``NotImplementedError`` for
-the quantized weight and arithmetic choices (the W8A8 slice).
+serving quantization knobs; the port's engine serves every choice.
 """
 
 from __future__ import annotations

@@ -3,8 +3,22 @@ prefill and sampling, and the paged prefill/decode/verify/rewind the
 serving engine runs (the port of ``triton_kubernetes_tpu/models``)."""
 
 from .config import CONFIGS, ModelConfig, get_config
-from .generate import KVCache, init_cache, prefill, sample_token
-from .llama import Llama, from_numpy_params, init_params
+from .generate import (
+    KVCache,
+    decode_step,
+    generate,
+    init_cache,
+    prefill,
+    sample_token,
+)
+from .llama import (
+    Llama,
+    QuantizedWeight,
+    from_numpy_params,
+    init_params,
+    quantize_weights,
+    to_numpy_params,
+)
 from .paged import (
     PagedKVCache,
     VerifyUndo,
@@ -21,11 +35,16 @@ __all__ = [
     "ModelConfig",
     "get_config",
     "Llama",
+    "QuantizedWeight",
     "init_params",
     "from_numpy_params",
+    "to_numpy_params",
+    "quantize_weights",
     "KVCache",
     "init_cache",
     "prefill",
+    "decode_step",
+    "generate",
     "sample_token",
     "PagedKVCache",
     "init_paged_cache",

@@ -1,9 +1,14 @@
-"""Contiguous-cache prefill and token sampling -- the part of
-``triton_kubernetes_tpu/models/generate.py`` the serving path needs.
+"""Contiguous-cache generation -- the port of
+``triton_kubernetes_tpu/models/generate.py``.
 
 :func:`prefill` runs a prompt through the stack with dense causal
 attention and fills a contiguous ``[L, B, max_len, Hkv, Dh]`` cache in
 place; the whole-prompt paged prefill (``models/paged.py``) builds on it.
+:func:`decode_step` adds one token a sequence, and :func:`generate` is
+prefill then ``max_new_tokens - 1`` decode steps: the plain loop the
+reference pins paged decode against (its greedy tokens are the paged
+engine's). Both run the model's plain ops (no kernel of their own; a
+quantized model's W8A8 products take their kernels on the card).
 :func:`sample_token` is greedy at temperature 0, else temperature with
 top-k then top-p filtering, drawn with an explicit ``torch.Generator``
 (Gumbel-max, the rule ``jax.random.categorical`` uses; the random bits
@@ -12,7 +17,7 @@ differ from JAX's).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -64,7 +69,78 @@ def prefill(model: llama.Llama,
         x = torch.gather(x, 1, idx)  # [B, 1, D]
     elif last_logits_only:
         x = x[:, -1:, :]
-    return llama.unembed(x, model), cache._replace(length=p)
+    return llama.unembed(x, model, config=config), cache._replace(length=p)
+
+
+def decode_step(model: llama.Llama,
+                token: torch.Tensor,  # [B] the latest token
+                config: ModelConfig,
+                cache: KVCache,
+                ) -> Tuple[torch.Tensor, KVCache]:
+    """One autoregressive step: writes the token's K/V at position
+    ``cache.length`` in place and returns (logits [B, V] f32, cache one
+    longer). Slots past the position mask themselves out (their key
+    positions are later than the query's)."""
+    b = token.shape[0]
+    pos, max_len = cache.length, cache.k.shape[2]
+    if pos >= max_len:
+        raise ValueError(f"the cache is full ({max_len} positions)")
+    positions = torch.full((b, 1), pos, device=token.device)
+    k_positions = torch.arange(max_len, device=token.device).expand(
+        b, max_len)
+    cos, sin = model.rotary()
+    x = model.embed[token[:, None]]  # [B, 1, D]
+    for i, layer in enumerate(model.layers):
+        q, k, v = llama._qkv(x, layer, config, cos, sin, positions)
+        cache.k[i, :, pos:pos + 1] = k
+        cache.v[i, :, pos:pos + 1] = v
+        attn = causal_attention(q, cache.k[i], cache.v[i], positions,
+                                k_positions)
+        x = llama.project_out(x, attn, layer, config)
+        x = x + llama._mlp(x, layer, config)
+    logits = llama.unembed(x, model, config=config)[:, 0, :]
+    return logits, cache._replace(length=pos + 1)
+
+
+def generate(model: llama.Llama,
+             prompt: torch.Tensor,  # [B, P]
+             config: ModelConfig,
+             max_new_tokens: int,
+             generator: Optional[torch.Generator] = None,
+             temperature: float = 0.0,
+             top_k: int = 0,
+             top_p: float = 1.0,
+             eos_id: Optional[int] = None,
+             ) -> Dict[str, torch.Tensor]:
+    """Prefill, then ``max_new_tokens - 1`` decode steps; returns
+    ``{"tokens": [B, N], "done": [B]}``. Always runs every step: once a
+    sequence emits ``eos_id`` its later tokens repeat eos (the done mask
+    sticks). Sampling draws from ``generator`` (greedy needs none)."""
+    b, p = prompt.shape
+    max_len = p + max_new_tokens
+    if max_len > config.max_seq_len:
+        raise ValueError(
+            f"prompt ({p}) + max_new_tokens ({max_new_tokens}) exceeds "
+            f"max_seq_len ({config.max_seq_len})")
+
+    def sample(logits, done):
+        tok = sample_token(logits, generator, temperature, top_k, top_p)
+        if eos_id is not None:
+            tok = torch.where(done, torch.full_like(tok, eos_id), tok)
+            done = done | (tok == eos_id)
+        return tok, done
+
+    cache = init_cache(config, b, max_len, device=prompt.device)
+    logits, cache = prefill(model, prompt, config, cache,
+                            last_logits_only=True)
+    tok, done = sample(logits[:, -1, :],
+                       torch.zeros(b, dtype=torch.bool, device=prompt.device))
+    tokens = [tok]
+    for _ in range(max_new_tokens - 1):
+        logits, cache = decode_step(model, tok, config, cache)
+        tok, done = sample(logits, done)
+        tokens.append(tok)
+    return {"tokens": torch.stack(tokens, dim=1), "done": done}
 
 
 def sample_token(logits: torch.Tensor,  # [B, V] f32

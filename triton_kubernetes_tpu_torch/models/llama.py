@@ -37,6 +37,7 @@ raise ``NotImplementedError``.
 from __future__ import annotations
 
 import functools
+from dataclasses import replace
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,6 +53,12 @@ from ..ops.attention import causal_attention
 from ..ops.decode_gemm import decode_gemm_group, decode_gemm_plain
 from ..ops.flash_attention import flash_attention
 from ..ops.norms import rms_norm, rms_norm_rows
+from ..ops.quantization import (
+    fp8_dtype,
+    quantize_channelwise,
+    resolve_matmul_dtype,
+    w8a8_rows,
+)
 from ..ops.rotary import apply_rotary, rotary_tables
 from .config import ModelConfig
 
@@ -61,8 +68,16 @@ AttentionFn = Callable[
 
 _MOE_LATER = ("MoE layers are not ported yet: they come with the MoE slice "
               "of the port (ROADMAP.md)")
-_QUANT_LATER = ("quantized weights are not ported yet: they come with the "
-                "W8A8 weights slice of the port (ROADMAP.md)")
+
+# A layer's weight leaves, in the JAX package's order.
+LAYER_LEAVES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w1", "w3",
+                "w2")
+# Quantized weights -> how many of their leading dims (JAX layout, one
+# layer) the matmul contracts: per-channel scales reduce exactly these (the
+# reference's _QUANT_AXES_LAYERS, without the MoE names). The lm head
+# [D, V] contracts D.
+QUANT_CONTRACT = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w1": 1, "w3": 1,
+                  "w2": 1}
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -82,40 +97,112 @@ def _weight(shape, dtype, device, trainable: bool) -> nn.Parameter:
                         requires_grad=trainable)
 
 
+def quant_dtype(weight_quant: str) -> torch.dtype:
+    """The storage dtype of a ``weight_quant`` mode ("int8" or "fp8")."""
+    if weight_quant == "int8":
+        return torch.int8
+    if weight_quant == "fp8":
+        return fp8_dtype()
+    raise ValueError(f"weight_quant must be 'int8' or 'fp8', got "
+                     f"{weight_quant!r}")
+
+
+class QuantizedWeight(nn.Module):
+    """A weight quantized per output channel: buffers ``q`` [N, K] (int8 or
+    float8_e4m3fn, K-contiguous: the layout the W8A8 kernel reads, the
+    transpose of the JAX layout's flattened [K, N]) and ``scale`` [N] f32,
+    for a weight of JAX-layout ``shape`` whose first ``contract`` dims are
+    the contraction (K their product, N the rest's)."""
+
+    def __init__(self, shape: Sequence[int], contract: int,
+                 dtype: torch.dtype, device: torch.device):
+        super().__init__()
+        self.shape = tuple(shape)
+        self.contract = contract
+        k = int(np.prod(self.shape[:contract]))
+        n = int(np.prod(self.shape[contract:]))
+        self.register_buffer("q", torch.empty((n, k), dtype=dtype,
+                                              device=device))
+        self.register_buffer("scale", torch.empty(n, dtype=torch.float32,
+                                                  device=device))
+
+    def jax_q(self) -> torch.Tensor:
+        """``q`` in the JAX layout (a view)."""
+        return self.q.t().reshape(self.shape)
+
+    def jax_scale(self) -> torch.Tensor:
+        """``scale`` in the JAX layout, the contraction dims size 1."""
+        return self.scale.reshape((1,) * self.contract
+                                  + self.shape[self.contract:])
+
+    def set_jax(self, q: torch.Tensor, scale: torch.Tensor) -> None:
+        """Store a JAX-layout (q, scale) pair (q's bytes as they are)."""
+        k, n = self.q.shape[1], self.q.shape[0]
+        self.q.view(torch.uint8).copy_(
+            q.reshape(k, n).view(torch.uint8).t())
+        self.scale.copy_(scale.reshape(n))
+
+    def quantize_from(self, w: torch.Tensor) -> None:
+        """Quantize a JAX-layout weight into this leaf
+        (``quantize_channelwise`` over the contraction dims)."""
+        self.set_jax(*quantize_channelwise(w, tuple(range(self.contract)),
+                                           self.q.dtype))
+
+    def dequantize(self, dtype: torch.dtype) -> torch.Tensor:
+        """``(q * scale)`` in f32, cast to ``dtype``, in the JAX layout."""
+        return (self.q.float() * self.scale[:, None]).to(dtype).t(
+        ).contiguous().reshape(self.shape)
+
+
+def _leaf(shape, contract: int, dtype, device, trainable: bool,
+          qdtype: Optional[torch.dtype]):
+    if qdtype is None:
+        return _weight(shape, dtype, device, trainable)
+    return QuantizedWeight(shape, contract, qdtype, device)
+
+
 class LlamaBlock(nn.Module):
-    """One decoder layer's weights, in the JAX package's layouts."""
+    """One decoder layer's weights, in the JAX package's layouts; with
+    ``qdtype`` the matmul weights are :class:`QuantizedWeight` s."""
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype,
-                 device: torch.device, trainable: bool = False):
+                 device: torch.device, trainable: bool = False,
+                 qdtype: Optional[torch.dtype] = None):
         super().__init__()
         d, dh, f = config.embed_dim, config.head_dim, config.mlp_dim
         h, hkv = config.num_heads, config.num_kv_heads
         w = functools.partial(_weight, dtype=dtype, device=device,
                               trainable=trainable)
+        shapes = {"wq": (d, h, dh), "wk": (d, hkv, dh), "wv": (d, hkv, dh),
+                  "wo": (h, dh, d), "w1": (d, f), "w3": (d, f), "w2": (f, d)}
         self.attn_norm = w((d,))
-        self.wq = w((d, h, dh))
-        self.wk = w((d, hkv, dh))
-        self.wv = w((d, hkv, dh))
-        self.wo = w((h, dh, d))
         self.mlp_norm = w((d,))
-        self.w1 = w((d, f))
-        self.w3 = w((d, f))
-        self.w2 = w((f, d))
+        for name, shape in shapes.items():
+            setattr(self, name, _leaf(shape, QUANT_CONTRACT[name], dtype,
+                                      device, trainable, qdtype))
 
 
 class Llama(nn.Module):
     """Embedding, ``num_layers`` :class:`LlamaBlock` s, final norm and lm
     head. Build one with :func:`init_params` or :func:`from_numpy_params`.
     ``trainable`` stores ``config.weight_dtype`` masters with gradients
-    instead of activation-dtype weights without."""
+    instead of activation-dtype weights without. A config with
+    ``weight_quant`` "int8"/"fp8" makes the matmul weights and the lm head
+    :class:`QuantizedWeight` s (serving only: ``trainable`` raises); fill
+    them with :func:`quantize_weights` or :func:`from_numpy_params`."""
 
     def __init__(self, config: ModelConfig, device: torch.device | str,
                  trainable: bool = False):
         super().__init__()
         if config.is_moe:
             raise NotImplementedError(_MOE_LATER)
+        qdtype = None
         if config.weight_quant != "none":
-            raise NotImplementedError(_QUANT_LATER)
+            if trainable:
+                raise ValueError(
+                    f"weight_quant {config.weight_quant!r}: quantized "
+                    f"weights serve, they do not train (trainable=True)")
+            qdtype = quant_dtype(config.weight_quant)
         dev = torch.device(device)
         dtype = config.weight_dtype if trainable else config.activation_dtype
         d, v = config.embed_dim, config.vocab_size
@@ -123,10 +210,10 @@ class Llama(nn.Module):
         self.trainable = trainable
         self.embed = _weight((v, d), dtype, dev, trainable)
         self.layers = nn.ModuleList(
-            LlamaBlock(config, dtype, dev, trainable)
+            LlamaBlock(config, dtype, dev, trainable, qdtype)
             for _ in range(config.num_layers))
         self.final_norm = _weight((d,), dtype, dev, trainable)
-        self.lm_head = _weight((d, v), dtype, dev, trainable)
+        self.lm_head = _leaf((d, v), 1, dtype, dev, trainable, qdtype)
         self._rotary: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @property
@@ -147,8 +234,16 @@ def init_params(config: ModelConfig, seed: int = 0,
                 trainable: bool = False) -> Llama:
     """Normal(0.02) init, residual-out projections scaled by 1/sqrt(2L),
     norms at one -- the reference's init rule, drawn from a ``torch``
-    generator on ``device`` (so the values differ from the JAX init)."""
+    generator on ``device`` (so the values differ from the JAX init). A
+    config with ``weight_quant`` set draws the full-precision weights, then
+    quantizes them (:func:`quantize_weights`)."""
     dev = resolve_device(device)
+    if config.weight_quant != "none":
+        full = init_params(replace(config, weight_quant="none",
+                                   matmul_dtype="auto"), seed, dev)
+        model = quantize_weights(full, config.weight_quant)
+        model.config = config
+        return model
     model = Llama(config, dev, trainable)
     gen = torch.Generator(device=dev).manual_seed(seed)
     std = 0.02
@@ -179,18 +274,41 @@ def from_numpy_params(params: Dict[str, Any], config: ModelConfig,
     (``{"embed", "layers": {name: [L, ...]}, "final_norm", "lm_head"}``,
     the stacked layout of the reference's ``init_params``). Leaves are cast
     to the activation dtype, or to ``config.weight_dtype`` masters with
-    gradients when ``trainable``."""
+    gradients when ``trainable``. A quantized tree (the reference's
+    ``quantize_weights``: ``{"q", "scale"}`` leaves) needs
+    ``config.weight_quant`` set to its dtype; its values are taken as their
+    bytes, so fp8 may come as ``ml_dtypes.float8_e4m3fn`` or as uint8."""
     dev = resolve_device(device)
     model = Llama(config, dev, trainable)
 
-    def put(p: nn.Parameter, arr: Any) -> None:
+    def put(p, arr: Any) -> None:
+        if isinstance(p, QuantizedWeight):
+            if not isinstance(arr, dict):
+                raise ValueError(
+                    f"weight_quant {config.weight_quant!r}: expected a "
+                    f"{{'q', 'scale'}} leaf, got an array")
+            q = np.ascontiguousarray(arr["q"])
+            if q.dtype.itemsize != 1 or tuple(q.shape) != p.shape:
+                raise ValueError(f"q leaf {q.dtype} {q.shape} != expected "
+                                 f"one byte {p.shape}")
+            scale = np.array(arr["scale"], dtype=np.float32)
+            p.set_jax(torch.from_numpy(q.view(np.uint8).copy()).view(
+                p.q.dtype), torch.from_numpy(scale))
+            return
         if isinstance(arr, dict):
-            raise NotImplementedError(_QUANT_LATER)
+            raise ValueError(
+                "a quantized {'q', 'scale'} leaf needs config.weight_quant "
+                "set to its dtype")
         a = np.asarray(arr)
         if tuple(a.shape) != tuple(p.shape):
             raise ValueError(
                 f"leaf shape {a.shape} != expected {tuple(p.shape)}")
         p.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
+
+    def layer_leaf(leaf: Any, i: int) -> Any:
+        if isinstance(leaf, dict):
+            return {k: np.asarray(v)[i] for k, v in leaf.items()}
+        return np.asarray(leaf)[i]
 
     with torch.no_grad():
         put(model.embed, params["embed"])
@@ -198,34 +316,92 @@ def from_numpy_params(params: Dict[str, Any], config: ModelConfig,
         put(model.lm_head, params["lm_head"])
         stacked = params["layers"]
         for i, layer in enumerate(model.layers):
-            for name, p in layer.named_parameters():
-                put(p, np.asarray(stacked[name])[i])
+            for name in LAYER_LEAVES:
+                put(getattr(layer, name), layer_leaf(stacked[name], i))
     return model
 
 
 def to_numpy_params(model: Llama) -> Dict[str, Any]:
-    """The model's weights as a JAX-layout parameter tree of f32 numpy
-    arrays, layers stacked on a leading ``L`` axis (the inverse of
-    :func:`from_numpy_params`)."""
+    """The model's weights as a JAX-layout parameter tree, layers stacked on
+    a leading ``L`` axis (the inverse of :func:`from_numpy_params`): f32
+    numpy arrays, and for :class:`QuantizedWeight` s the reference's
+    ``{"q", "scale"}`` leaves -- q int8, or fp8 as its uint8 bytes (numpy
+    has no float8 of its own), scale f32 with the contraction dims size
+    1."""
 
-    def arr(p: torch.Tensor) -> np.ndarray:
+    def arr(p) -> Any:
+        if isinstance(p, QuantizedWeight):
+            q = p.jax_q().contiguous().cpu()
+            return {"q": (q.numpy() if q.dtype == torch.int8
+                          else q.view(torch.uint8).numpy()),
+                    "scale": p.jax_scale().cpu().numpy()}
         return p.detach().float().cpu().numpy()
 
-    names = [n for n, _ in model.layers[0].named_parameters()]
+    def stack(leaves: List[Any]) -> Any:
+        if isinstance(leaves[0], dict):
+            return {k: np.stack([leaf[k] for leaf in leaves])
+                    for k in leaves[0]}
+        return np.stack(leaves)
+
     return {
         "embed": arr(model.embed),
-        "layers": {n: np.stack([arr(getattr(layer, n))
-                                for layer in model.layers])
-                   for n in names},
+        "layers": {n: stack([arr(getattr(layer, n))
+                             for layer in model.layers])
+                   for n in LAYER_LEAVES},
         "final_norm": arr(model.final_norm),
         "lm_head": arr(model.lm_head),
     }
 
 
-def resolve_weight(w: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+def quantize_weights(model: Llama, dtype: str = "int8") -> Llama:
+    """Per-channel symmetric quantization of the big matmul weights: a NEW
+    model whose matmul weights (:data:`QUANT_CONTRACT`) and lm head are
+    :class:`QuantizedWeight` s of ``dtype`` ("int8" or "fp8"), each scale
+    over its contraction dims (the reference's ``quantize_weights``), and
+    whose config records ``weight_quant=dtype``; the embedding and norms
+    are copied as they are. The caller's model is untouched. Idempotent at
+    the same dtype (the model itself comes back); a model already quantized
+    to another dtype raises (rounding losses must not compound)."""
+    if dtype not in ("int8", "fp8"):
+        raise ValueError(
+            f"quantize_weights dtype must be 'int8' or 'fp8', got {dtype!r}")
+    config = model.config
+    if config.weight_quant == dtype:
+        return model
+    if config.weight_quant != "none":
+        raise ValueError(
+            f"the model is already weight_quant={config.weight_quant!r}; "
+            f"re-quantizing to {dtype!r} would compound rounding losses -- "
+            f"quantize from the full-precision model instead")
+    new = Llama(replace(config, weight_quant=dtype), model.device)
+    with torch.no_grad():
+        new.embed.copy_(model.embed)
+        new.final_norm.copy_(model.final_norm)
+        new.lm_head.quantize_from(model.lm_head)
+        for old, layer in zip(model.layers, new.layers):
+            layer.attn_norm.copy_(old.attn_norm)
+            layer.mlp_norm.copy_(old.mlp_norm)
+            for name in QUANT_CONTRACT:
+                getattr(layer, name).quantize_from(getattr(old, name))
+    return new
+
+
+def resolve_weight(w: Any, config: ModelConfig) -> torch.Tensor:
     """The matmul operand of a weight: the weight cast to the activation
-    dtype (a no-op for the serving form, whose weights already are)."""
+    dtype (a no-op for the serving form, whose weights already are), or a
+    :class:`QuantizedWeight` dequantized, ``(q * scale)`` in f32 cast to
+    the activation dtype, in the JAX layout."""
+    if isinstance(w, QuantizedWeight):
+        return w.dequantize(config.activation_dtype)
     return w.to(config.activation_dtype)
+
+
+def matmul_arithmetic(config: ModelConfig, x: torch.Tensor) -> str:
+    """What a quantized weight's product runs on ``x``'s device:
+    ``resolve_matmul_dtype`` of the config, with platform "gpu" for CUDA
+    tensors and "cpu" otherwise ("f32": dequantize; "int8"/"fp8": W8A8)."""
+    return resolve_matmul_dtype(config.matmul_dtype, config.weight_quant,
+                                "gpu" if x.is_cuda else "cpu")
 
 
 def _norm(x: torch.Tensor, scale: torch.Tensor, config: ModelConfig,
@@ -259,23 +435,40 @@ def _row_products(spec: str, x: torch.Tensor,
     return [y.reshape(*lead, *w.shape[c:]) for y, w in zip(ys, ws)]
 
 
-def weight_einsums(spec: str, x: torch.Tensor, ws: Sequence[torch.Tensor],
+def _quantized_products(spec: str, x: torch.Tensor,
+                        ws: Sequence[QuantizedWeight],
+                        out_dtype: torch.dtype) -> List[torch.Tensor]:
+    """W8A8 ``[einsum(spec, x, w) for w in ws]`` for a trailing-by-leading
+    spec: x's rows quantized once, the products in one
+    ``ops.quantization.w8a8_rows`` call."""
+    c = _contracted_dims(spec)
+    lead = x.shape[:x.dim() - c]
+    ys = w8a8_rows(x.reshape(lead.numel(), -1).contiguous(),
+                   [w.q for w in ws], [w.scale for w in ws], out_dtype)
+    return [y.reshape(*lead, *w.shape[c:]) for y, w in zip(ys, ws)]
+
+
+def weight_einsums(spec: str, x: torch.Tensor, ws: Sequence[Any],
                    config: ModelConfig, row_invariant: bool = False
                    ) -> List[torch.Tensor]:
-    """The weight matmuls of one input with each of ``ws`` on the
-    reference's f32 path (``matmul_dtype`` "auto"/"f32" over unquantized
-    leaves): the products of the activation-dtype operands, in the
-    activation dtype. ``row_invariant`` takes them all through one
-    :func:`ops.decode_gemm.decode_gemm_group` call."""
-    if config.weight_quant != "none":
-        raise NotImplementedError(_QUANT_LATER)
+    """The weight matmuls of one input with each of ``ws``, in the
+    activation dtype. On the reference's f32 path (unquantized leaves, or
+    quantized ones with ``matmul_dtype`` resolving to "f32") the products
+    of the activation-dtype operands, quantized leaves dequantized first;
+    ``row_invariant`` takes them all through one
+    :func:`ops.decode_gemm.decode_gemm_group` call. Quantized leaves with
+    ``matmul_dtype`` "int8"/"fp8" contract W8A8, row-invariant on the card
+    whatever ``row_invariant`` says."""
+    if (isinstance(ws[0], QuantizedWeight)
+            and matmul_arithmetic(config, x) != "f32"):
+        return _quantized_products(spec, x, ws, config.activation_dtype)
     ws = [resolve_weight(w, config) for w in ws]
     if row_invariant:
         return _row_products(spec, x, ws)
     return [torch.einsum(spec, x, w) for w in ws]
 
 
-def weight_einsum(spec: str, x: torch.Tensor, w: torch.Tensor,
+def weight_einsum(spec: str, x: torch.Tensor, w: Any,
                   config: ModelConfig,
                   row_invariant: bool = False) -> torch.Tensor:
     """:func:`weight_einsums` of one weight."""
@@ -346,28 +539,40 @@ def final_norm_hidden(x: torch.Tensor, model: Llama,
     return _norm(x, model.final_norm, model.config, row_invariant)
 
 
-def head_weights(model: Llama) -> torch.Tensor:
-    """The lm head matrix in the activation dtype: the exact operand
-    :func:`unembed` contracts with (and the fused-CE head's)."""
-    return resolve_weight(model.lm_head, model.config)
+def head_weights(model: Llama,
+                 config: Optional[ModelConfig] = None) -> torch.Tensor:
+    """The lm head matrix in the activation dtype: the operand
+    :func:`unembed` contracts with on the f32 path (and the fused-CE
+    head's), a quantized head dequantized. ``config`` defaults to the
+    model's."""
+    return resolve_weight(model.lm_head, config or model.config)
 
 
-def unembed(x: torch.Tensor, model: Llama,
-            row_invariant: bool = False) -> torch.Tensor:
+def unembed(x: torch.Tensor, model: Llama, row_invariant: bool = False,
+            config: Optional[ModelConfig] = None) -> torch.Tensor:
     """Final norm + lm head: [B, S, D] -> f32 logits [B, S, V], the
     product accumulated in f32 and kept in f32 (the reference's
     ``preferred_element_type``), never rounded to the activation dtype."""
     return unembed_normed(final_norm_hidden(x, model, row_invariant), model,
-                          row_invariant)
+                          row_invariant, config)
 
 
 def unembed_normed(h: torch.Tensor, model: Llama,
-                   row_invariant: bool = False) -> torch.Tensor:
+                   row_invariant: bool = False,
+                   config: Optional[ModelConfig] = None) -> torch.Tensor:
     """The lm head of the final norm's output: [B, S, D] -> f32 logits
-    [B, S, V], as :func:`unembed`."""
+    [B, S, V], as :func:`unembed`. A quantized head under W8A8 arithmetic
+    (``config.matmul_dtype``; ``config`` defaults to the model's) contracts
+    W8A8 with an f32 out."""
+    config = config or model.config
     b, s, d = h.shape
     h2 = h.reshape(b * s, d)
-    w = head_weights(model)
+    if (isinstance(model.lm_head, QuantizedWeight)
+            and matmul_arithmetic(config, h) != "f32"):
+        out = _quantized_products("md,dv->mv", h2, [model.lm_head],
+                                  torch.float32)[0]
+        return out.reshape(b, s, -1)
+    w = head_weights(model, config)
     if row_invariant:
         out = decode_gemm_group(h2.contiguous(), [w], torch.float32)[0]
     else:
@@ -450,7 +655,7 @@ def forward(model: Llama, tokens: torch.Tensor, config: ModelConfig,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B, S, V] f32, MoE aux loss scalar -- 0 here)."""
     x, aux = forward_hidden(model, tokens, config, attention_fn, positions)
-    return unembed(x, model), aux
+    return unembed(x, model, config=config), aux
 
 
 def forward_hidden(model: Llama, tokens: torch.Tensor, config: ModelConfig,

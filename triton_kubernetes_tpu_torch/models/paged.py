@@ -19,9 +19,12 @@ Per-token math is the block split of ``models/llama.py`` with explicit
 positions, so masked slots (future tokens, pad garbage, trash pages)
 contribute exactly zero. The prefill-window, decode and verify steps carry
 the residual x and its norm h across each layer boundary, the add and the
-norm one ``ops.norms.add_rms_norm_rows`` (one kernel launch on the card);
+norm one ``ops.norms.add_rms_norm_rows`` (one kernel launch on the card),
+and take every weight product through the row-invariant
+``ops.decode_gemm`` (a window's rows in row tiles of 64), so that a row's bits,
+and a full page's bytes, do not depend on how many rows the step holds;
 the one-shot :func:`paged_prefill` runs ``models/generate.prefill``, with
-the plain norm. The attention implementation follows
+the plain norm and ``torch.einsum``. The attention implementation follows
 ``ops.paged_attention.resolve_paged_impl``: the hand-written kernels for
 CUDA tensors, the plain versions for CPU tensors, or the plain versions
 everywhere with ``attention_impl="dense"`` (or ``config.attention ==
@@ -172,30 +175,31 @@ AttendFn = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor],
 
 
 def _serve_layers(model: llama.Llama, x: torch.Tensor, config: ModelConfig,
-                  positions: torch.Tensor, attend: AttendFn,
-                  row_invariant: bool) -> torch.Tensor:
+                  positions: torch.Tensor, attend: AttendFn) -> torch.Tensor:
     """The decoder stack of the serving steps, from the embeddings x
     ([B, S, D]) to the final norm's output, which the head reads. A layer
     boundary's residual add and the norm after it are one
     ``add_rms_norm_rows`` (one kernel launch on the card): x and h = the
-    norm of x are carried across it. ``row_invariant`` takes the weight
-    products through ``decode_gemm`` (decode and verify); the norms take
-    the kernel on CUDA tensors either way."""
+    norm of x are carried across it. The weight products are
+    row-invariant (``decode_gemm``, or W8A8's kernels), and so are the
+    norms on CUDA tensors: a row's bits do not depend on how many rows the
+    step holds."""
     cos, sin = model.rotary()
     eps = config.norm_eps
     layers = model.layers
     h = rms_norm_rows(x, layers[0].attn_norm, eps)
     for i, layer in enumerate(layers):
         q, k, v = llama._qkv_normed(h, layer, config, cos, sin, positions,
-                                    row_invariant)
+                                    row_invariant=True)
         attn = attend(i, q, k, v)
         x, h = add_rms_norm_rows(
-            x, llama.out_projection(attn, layer, config, row_invariant),
+            x, llama.out_projection(attn, layer, config, row_invariant=True),
             layer.mlp_norm, eps)
         after = (layers[i + 1].attn_norm if i + 1 < len(layers)
                  else model.final_norm)
         x, h = add_rms_norm_rows(
-            x, llama._mlp_normed(h, layer, config, row_invariant), after,
+            x, llama._mlp_normed(h, layer, config, row_invariant=True),
+            after,
             eps)
     return h
 
@@ -293,11 +297,14 @@ def paged_prefill_chunk(model: llama.Llama,
         return paged_prefill_attention(q, kp, vp, block_table, offset, ks,
                                        vs, impl=impl)
 
-    h = _serve_layers(model, model.embed[tokens], config, positions, attend,
-                      row_invariant=False)
+    # The window's weight products are row-invariant too (decode_gemm on
+    # the card): a cuBLAS product picks its kernel by the row count, so a
+    # page written by a 128-token window would differ from the same page
+    # written by a 256-token one (fault F2).
+    h = _serve_layers(model, model.embed[tokens], config, positions, attend)
     # The head reads only the last real row.
-    logits = llama.unembed_normed(h[:, chunk_len - 1: chunk_len],
-                                  model)[0, 0]
+    logits = llama.unembed_normed(h[:, chunk_len - 1: chunk_len], model,
+                                  config=config)[0, 0]
     if not with_quant_error:
         return logits
     # [L, 1, C, Hkv, Dh] -> [L, w, Hkv, bs, Dh], the window's pages.
@@ -331,8 +338,9 @@ def paged_decode_step(model: llama.Llama,
                                       ks, vs, impl=impl)
 
     h = _serve_layers(model, model.embed[token[:, None]], config, positions,
-                      attend, row_invariant=True)  # [B, 1, D]
-    return llama.unembed_normed(h, model, row_invariant=True)[:, 0, :]
+                      attend)  # [B, 1, D]
+    return llama.unembed_normed(h, model, row_invariant=True,
+                                config=config)[:, 0, :]
 
 
 class VerifyUndo(NamedTuple):
@@ -378,7 +386,7 @@ def paged_verify_step(model: llama.Llama,
     the same token-at-a-time writes (``scatter_span``), per-row attention
     (``ragged_verify_attention``), and norms and weight products whose rows
     do not depend on the row count (``rms_norm_rows``,
-    ``add_rms_norm_rows``, and with ``row_invariant`` ``decode_gemm``) --
+    ``add_rms_norm_rows``, and ``decode_gemm``) --
     with the weight pass paid once for S positions.
 
     The undo is one gather of every layer's touched slots, taken before
@@ -406,9 +414,10 @@ def paged_verify_step(model: llama.Llama,
         return ragged_verify_attention(q, kp, vp, block_tables, attn_lengths,
                                        ks, vs, impl=impl)
 
-    h = _serve_layers(model, model.embed[tokens], config, positions, attend,
-                      row_invariant=True)  # [B, S, D]
-    return llama.unembed_normed(h, model, row_invariant=True), undo
+    h = _serve_layers(model, model.embed[tokens], config, positions,
+                      attend)  # [B, S, D]
+    return llama.unembed_normed(h, model, row_invariant=True,
+                                config=config), undo
 
 
 def paged_rewind(cache: PagedKVCache,

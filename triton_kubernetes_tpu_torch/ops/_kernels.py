@@ -46,7 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               f"-DTK8S_PAGED_SPAN={PAGED_SPAN_KEYS}")
 KERNELS = ("paged_decode", "paged_verify", "paged_prefill", "flash_fwd",
-           "flash_bwd_dq", "flash_bwd_dkv", "decode_gemm", "rms_norm")
+           "flash_bwd_dq", "flash_bwd_dkv", "decode_gemm", "rms_norm",
+           "quantize_rows")
 PAGED_KERNELS = ("paged_decode", "paged_verify", "paged_prefill")
 
 _P = ctypes.c_void_p
@@ -88,7 +89,13 @@ _SIGNATURES = {
                     _I, _P, _P, _P),
     # x, scale, y, M, D, eps, stream
     "rms_norm": (_P, _P, _P, _I, _I, _F, _P),
+    # x, xq, x_scale, M, K, stream (suffix: x's dtype, then xq's)
+    "quantize_rows": (_P, _P, _P, _I, _I, _P),
 }
+# decode_gemm's W8A8 entries, tk8s_decode_gemm_<W8A8_SUFFIXES value>: xq,
+# x_scale, w0, w1, w2, scale0, scale1, scale2, y0, y1, y2, N0, N1, N2,
+# count, M, K, tile_n, splits, workspace, counters, stream.
+_W8A8_SIGNATURE = (_P,) * 11 + (_I,) * 8 + (_P,) * 3
 # C entries a library holds beside tk8s_<name>_<suffix>, one per suffix:
 # {name: {entry stem: argument types}}.
 _MORE_ENTRIES = {
@@ -140,8 +147,9 @@ def paged_span(dtype: torch.dtype, page_dtype: torch.dtype, bs: int,
             else None)
 
 
-# Most rows one decode_gemm launch takes; ``ops.decode_gemm`` runs larger
-# M in launches of this many rows, each reading the weights once.
+# Rows a decode_gemm block takes (a row tile): a launch of at most this
+# many rows reads each weight once from HBM; a larger M adds row tiles to
+# the grid, side by side, which share the weights' reads through the L2.
 MAX_GEMM_ROWS = 64
 # Most products of one input one decode_gemm launch takes (wq, wk, wv).
 MAX_GEMM_PROBLEMS = 3
@@ -151,6 +159,13 @@ MAX_GEMM_PROBLEMS = 3
 GEMM_SUFFIXES = {(torch.bfloat16, torch.bfloat16): "bf16_bf16",
                  (torch.bfloat16, torch.float32): "bf16_f32",
                  (torch.float32, torch.float32): "f32_f32"}
+# (operand dtype, output dtype) -> suffix of decode_gemm's W8A8 entries:
+# int8 or fp8 operands (the activation quantized per row, the weight per
+# column, stored [N, K]), bf16 or f32 out.
+W8A8_SUFFIXES = {(torch.int8, torch.bfloat16): "s8_bf16",
+                 (torch.int8, torch.float32): "s8_f32",
+                 (torch.float8_e4m3fn, torch.bfloat16): "e4m3_bf16",
+                 (torch.float8_e4m3fn, torch.float32): "e4m3_f32"}
 # decode_gemm's tiles and K split, chosen by the group's shape alone
 # (``scripts/bench_decode_gemm.py`` timed the choices on an H100; PERF.md,
 # Findings). A block takes GEMM_TILE_N or, for groups at least
@@ -300,11 +315,16 @@ def bind(lib: ctypes.CDLL, name: str) -> None:
     """Set the argument and return types of every C entry of the kernel
     library ``name`` (a build of ``csrc/<name>.cu``, also an emulated one)."""
     stems = {name: _SIGNATURES[name], **_MORE_ENTRIES.get(name, {})}
-    for stem, argtypes in stems.items():
-        for suffix in _entry_suffixes(name):
-            fn = getattr(lib, f"tk8s_{stem}_{suffix}")
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+    entries = [(f"tk8s_{stem}_{suffix}", argtypes)
+               for stem, argtypes in stems.items()
+               for suffix in _entry_suffixes(name)]
+    if name == "decode_gemm":
+        entries += [(f"tk8s_decode_gemm_{suffix}", _W8A8_SIGNATURE)
+                    for suffix in W8A8_SUFFIXES.values()]
+    for entry, argtypes in entries:
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
 
 
 def _entry_suffixes(name: str):
@@ -312,6 +332,9 @@ def _entry_suffixes(name: str):
     kernels one more per (q dtype, quantized page dtype) pair."""
     if name == "decode_gemm":
         return list(GEMM_SUFFIXES.values())
+    if name == "quantize_rows":
+        return [f"{x}_{q}" for x in _SUFFIX.values()
+                for q in _PAGE_SUFFIX.values()]
     out = list(_SUFFIX.values())
     if name in PAGED_KERNELS:
         out += [f"{q}_{p}" for q in _SUFFIX.values()
@@ -655,9 +678,10 @@ def decode_gemm(x: torch.Tensor, ws: Sequence[torch.Tensor],
     :data:`MAX_GEMM_PROBLEMS` products of one input: ys[p] [M, N_p] =
     x [M, K] @ ws[p] [K, N_p] with f32 sums, for 1 <= M <=
     :data:`MAX_GEMM_ROWS` and the dtypes of :data:`GEMM_SUFFIXES` (every
-    y of one dtype). A block takes :func:`gemm_tile` columns and K is split
-    into :func:`gemm_splits` ranges, both chosen by the group's widths and
-    K alone, so each output row's bits do not depend on M."""
+    y of one dtype), M >= 1 in row tiles of :data:`MAX_GEMM_ROWS`. A block
+    takes :func:`gemm_tile` columns of one row tile and K is split into
+    :func:`gemm_splits` ranges, both chosen by the group's widths and K
+    alone, so each output row's bits do not depend on M."""
     if not x.is_cuda:
         raise ValueError(f"decode_gemm: the CUDA kernel takes CUDA tensors, "
                          f"got x on {x.device}")
@@ -671,8 +695,7 @@ def decode_gemm(x: torch.Tensor, ws: Sequence[torch.Tensor],
              f"all float32; got x {x.dtype} {tuple(x.shape)} and y "
              f"{ys[0].dtype}")
     m, k = x.shape
-    _require(1 <= m <= MAX_GEMM_ROWS,
-             f"decode_gemm: M {m} must be 1-{MAX_GEMM_ROWS} a launch")
+    _require(m >= 1, "decode_gemm: x must hold a row")
     _require(k % 8 == 0, f"decode_gemm: K {k} must be a multiple of 8 (rows "
              f"are copied in 16-byte pieces)")
     _require(x.is_contiguous() and x.data_ptr() % 16 == 0,
@@ -694,25 +717,129 @@ def decode_gemm(x: torch.Tensor, ws: Sequence[torch.Tensor],
         _require(w.data_ptr() % 16 == 0,
                  "decode_gemm: w must start 16-byte aligned")
     ns = [w.shape[1] for w in ws]
-    tile_n, splits = gemm_tile(sum(ns)), gemm_splits(sum(ns), k)
-    workspace = counters = None
-    if splits > 1:
-        tiles = sum(-(-n // tile_n) for n in ns)
-        workspace = torch.empty(tiles * splits * m * tile_n,
-                                dtype=torch.float32, device=x.device)
-        buf = _gemm_counters.get(x.device)
-        if buf is None or buf.numel() < tiles:
-            buf = torch.zeros(max(tiles, 4096), dtype=torch.int32,
-                              device=x.device)
-            _gemm_counters[x.device] = buf
-        workspace, counters = workspace.data_ptr(), buf.data_ptr()
+    tile_n, splits, workspace, counters = _gemm_split(x.device, ns, m, k,
+                                                      torch.float32)
     pad = MAX_GEMM_PROBLEMS - len(ws)
     rc = getattr(library("decode_gemm"), f"tk8s_decode_gemm_{suffix}")(
         x.data_ptr(), *[w.data_ptr() for w in ws], *[None] * pad,
         *[y.data_ptr() for y in ys], *[None] * pad, *ns, *[0] * pad,
-        len(ws), m, k, tile_n, splits, workspace, counters,
+        len(ws), m, k, tile_n, splits,
+        None if workspace is None else workspace.data_ptr(), counters,
         torch.cuda.current_stream(x.device).cuda_stream)
     _check(rc, "decode_gemm")
+
+
+def _gemm_split(device: torch.device, ns: Sequence[int], m: int, k: int,
+                partial: torch.dtype):
+    """(tile width, S, workspace, counters pointer) of one decode_gemm
+    launch of widths ``ns`` and M rows: :func:`gemm_tile` and
+    :func:`gemm_splits` of the shape, and for S > 1 a fresh workspace
+    tensor of ``partial`` words (the caller holds it across the launch)
+    and the device's arrival counters, one a (column tile, row tile)
+    pair."""
+    tile_n, splits = gemm_tile(sum(ns)), gemm_splits(sum(ns), k)
+    if splits == 1:
+        return tile_n, splits, None, None
+    tiles = sum(-(-n // tile_n) for n in ns) * -(-m // MAX_GEMM_ROWS)
+    workspace = torch.empty(tiles * splits * min(m, MAX_GEMM_ROWS) * tile_n,
+                            dtype=partial, device=device)
+    buf = _gemm_counters.get(device)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=device)
+        _gemm_counters[device] = buf
+    return tile_n, splits, workspace, buf.data_ptr()
+
+
+def decode_gemm_w8a8(xq: torch.Tensor, x_scale: torch.Tensor,
+                     ws: Sequence[torch.Tensor], scales: Sequence[torch.Tensor],
+                     ys: Sequence[torch.Tensor]) -> None:
+    """Launch the W8A8 entry of ``csrc/decode_gemm.cu`` once on the current
+    stream for up to :data:`MAX_GEMM_PROBLEMS` products of one quantized
+    input: ys[p] [M, N_p] = (xq [M, K] ws[p]^T * x_scale[m]) * scales[p][n],
+    ws[p] [N_p, K] int8 (summed in int32, merged in int32) or
+    float8_e4m3fn (f32), for M >= 1 (row tiles of :data:`MAX_GEMM_ROWS`)
+    and bf16 or f32 y. Tile and K split as :func:`decode_gemm`'s, by the
+    shape."""
+    if not xq.is_cuda:
+        raise ValueError(f"decode_gemm_w8a8: the CUDA kernel takes CUDA "
+                         f"tensors, got xq on {xq.device}")
+    ws, scales, ys = list(ws), list(scales), list(ys)
+    _require(1 <= len(ws) <= MAX_GEMM_PROBLEMS
+             and len(ys) == len(scales) == len(ws),
+             f"decode_gemm_w8a8: 1-{MAX_GEMM_PROBLEMS} weights and as many "
+             f"scales and outputs a launch, got {len(ws)}, {len(scales)} "
+             f"and {len(ys)}")
+    suffix = W8A8_SUFFIXES.get((xq.dtype, ys[0].dtype))
+    _require(suffix is not None and xq.dim() == 2,
+             f"decode_gemm_w8a8: xq [M, K] int8 or float8_e4m3fn with "
+             f"bfloat16 or float32 y; got xq {xq.dtype} "
+             f"{tuple(xq.shape)} and y {ys[0].dtype}")
+    m, k = xq.shape
+    _require(m >= 1, "decode_gemm_w8a8: xq must hold a row")
+    _require(k % 16 == 0, f"decode_gemm_w8a8: K {k} must be a multiple of "
+             f"16 (rows are copied in 16-byte pieces)")
+    _require(x_scale.dtype == torch.float32 and x_scale.shape == (m,)
+             and x_scale.is_contiguous() and x_scale.device == xq.device,
+             f"decode_gemm_w8a8: x_scale [{m}] float32 on {xq.device}")
+    _require(xq.is_contiguous() and xq.data_ptr() % 16 == 0,
+             "decode_gemm_w8a8: xq must be contiguous and start 16-byte "
+             "aligned")
+    for w, sc, y in zip(ws, scales, ys):
+        _require(w.dtype == xq.dtype and y.dtype == ys[0].dtype
+                 and sc.dtype == torch.float32
+                 and all(t.device == xq.device for t in (w, sc, y)),
+                 f"decode_gemm_w8a8: every w {xq.dtype}, scale float32 and "
+                 f"y {ys[0].dtype} on {xq.device}, got {w.dtype}, "
+                 f"{sc.dtype} and {y.dtype}")
+        _require(w.dim() == 2 and w.shape[1] == k
+                 and sc.shape == w.shape[:1] and y.shape == (m, w.shape[0]),
+                 f"decode_gemm_w8a8: w [N, {k}], scale [N] and y [{m}, N] "
+                 f"for xq {tuple(xq.shape)}, got {tuple(w.shape)}, "
+                 f"{tuple(sc.shape)} and {tuple(y.shape)}")
+        _require(all(t.is_contiguous() for t in (w, sc, y)),
+                 "decode_gemm_w8a8: w, scale and y must be contiguous")
+        _require(w.shape[0] % 8 == 0,
+                 f"decode_gemm_w8a8: N {w.shape[0]} must be a multiple of 8")
+        _require(w.data_ptr() % 16 == 0,
+                 "decode_gemm_w8a8: w must start 16-byte aligned")
+    ns = [w.shape[0] for w in ws]
+    partial = torch.int32 if xq.dtype == torch.int8 else torch.float32
+    tile_n, splits, workspace, counters = _gemm_split(xq.device, ns, m, k,
+                                                      partial)
+    pad = MAX_GEMM_PROBLEMS - len(ws)
+    rc = getattr(library("decode_gemm"), f"tk8s_decode_gemm_{suffix}")(
+        xq.data_ptr(), x_scale.data_ptr(), *[w.data_ptr() for w in ws],
+        *[None] * pad, *[sc.data_ptr() for sc in scales], *[None] * pad,
+        *[y.data_ptr() for y in ys], *[None] * pad, *ns, *[0] * pad,
+        len(ws), m, k, tile_n, splits,
+        None if workspace is None else workspace.data_ptr(), counters,
+        torch.cuda.current_stream(xq.device).cuda_stream)
+    _check(rc, "decode_gemm_w8a8")
+
+
+def quantize_rows(x: torch.Tensor, dtype: torch.dtype
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/quantize_rows.cu`` once on the current stream: x
+    [M, K], M >= 1, bf16 or f32 -> (xq [M, K] int8 or float8_e4m3fn, x_scale
+    [M] f32), each row quantized against max(amax / qmax, 1e-8)."""
+    if not x.is_cuda:
+        raise ValueError(f"quantize_rows: the CUDA kernel takes CUDA "
+                         f"tensors, got x on {x.device}")
+    _require(x.dtype in _SUFFIX and dtype in _PAGE_SUFFIX and x.dim() == 2,
+             f"quantize_rows: x [M, K] bfloat16 or float32 to int8 or "
+             f"float8_e4m3fn, got x {x.dtype} {tuple(x.shape)} to {dtype}")
+    _require(x.is_contiguous(), "quantize_rows: x must be contiguous")
+    m, k = x.shape
+    _require(m >= 1 and k >= 1, f"quantize_rows: x {tuple(x.shape)} is empty")
+    xq = torch.empty((m, k), dtype=dtype, device=x.device)
+    x_scale = torch.empty(m, dtype=torch.float32, device=x.device)
+    rc = getattr(library("quantize_rows"),
+                 f"tk8s_quantize_rows_{_SUFFIX[x.dtype]}_"
+                 f"{_PAGE_SUFFIX[dtype]}")(
+        x.data_ptr(), xq.data_ptr(), x_scale.data_ptr(), m, k,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _check(rc, "quantize_rows")
+    return xq, x_scale
 
 
 def _check_norm(what: str, scale: torch.Tensor,

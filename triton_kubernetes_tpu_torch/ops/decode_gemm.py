@@ -16,7 +16,9 @@ the group of one:
   operands on the CUDA cores; K split into ranges chosen by the group's
   shape alone, ``_kernels.gemm_splits``, whose f32 partial sums are added
   in one fixed order; every weight element read from HBM once a launch of
-  up to 64 rows). It has no TPU counterpart: the JAX package computes
+  up to 64 rows, and a larger M -- a prefill window's -- in row tiles of
+  64 side by side in one launch, which share the weights' reads through
+  the L2). It has no TPU counterpart: the JAX package computes
   these products with plain XLA matmuls. A build or launch failure
   raises; a CUDA tensor never falls back to the plain version;
 * on CPU tensors it runs :func:`decode_gemm_group_plain`, the products in
@@ -24,10 +26,21 @@ the group of one:
   (``models/llama.weight_einsum`` and ``unembed``), which the CPU tests
   hold against the JAX package.
 
-``decode_gemm_group.launches`` counts kernel launches;
-:func:`reset_launch_counts` zeroes it. Only the paged decode and verify
-steps call these: prefill and training keep their ``torch.einsum``
-products.
+W8A8 (quantized weights with ``matmul_dtype`` int8 or fp8):
+:func:`w8a8_gemm_group` takes up to three products of one quantized input
+(``ops.quantization.quantize_rows``) with weights stored K-contiguous,
+``[N, K]`` int8 or fp8 with f32 per-column scales, through the W8A8
+entries of the same source, with the same tiles, K split and row tiles;
+an int8 row is bitwise its plain version
+(:func:`w8a8_gemm_group_plain`) for any M, and an fp8 row the same
+whatever M is.
+
+``decode_gemm_group.launches`` and ``w8a8_gemm_group.launches`` count
+kernel launches; :func:`reset_launch_counts` zeroes them. The paged
+decode and verify steps and the prefill windows call these (so that a
+page's bytes do not depend on the window's width); the one-shot prefill
+and training keep ``torch.einsum``, except W8A8 products, which take the
+kernels wherever they run on the card.
 """
 
 from __future__ import annotations
@@ -66,17 +79,15 @@ def decode_gemm_group(x: torch.Tensor, ws: Sequence[torch.Tensor],
     """[x [M, K] @ w [K, N_w] for w in ws] -> [M, N_w] each, in
     ``out_dtype`` (default x's dtype), at most
     ``_kernels.MAX_GEMM_PROBLEMS`` weights, each row's bits independent of
-    M: one kernel launch per 64 rows on CUDA tensors, the plain version on
-    CPU tensors."""
+    M: one kernel launch on CUDA tensors (none for M 0), the plain version
+    on CPU tensors."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if not x.is_cuda:
         return decode_gemm_group_plain(x, ws, out_dtype)
-    m, rows = x.shape[0], _kernels.MAX_GEMM_ROWS
-    ys = [torch.empty((m, w.shape[1]), dtype=out_dtype, device=x.device)
-          for w in ws]
-    for r0 in range(0, m, rows):
-        _kernels.decode_gemm(x[r0:r0 + rows], ws,
-                             [y[r0:r0 + rows] for y in ys])
+    ys = [torch.empty((x.shape[0], w.shape[1]), dtype=out_dtype,
+                      device=x.device) for w in ws]
+    if x.shape[0]:
+        _kernels.decode_gemm(x, ws, ys)
         decode_gemm_group.launches += 1
     return ys
 
@@ -90,6 +101,54 @@ def decode_gemm(x: torch.Tensor, w: torch.Tensor,
     return decode_gemm_group(x, [w], out_dtype)[0]
 
 
+
+
+def w8a8_gemm_plain(xq: torch.Tensor, x_scale: torch.Tensor,
+                    wq: torch.Tensor, w_scale: torch.Tensor,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """(xq [M, K] wq [N, K]^T * x_scale[m]) * w_scale[n] in ``out_dtype``:
+    an int8 product summed exactly (in f64, then int32, as the reference's
+    int32 sum), an fp8 one in f32; the f32 epilogue in the reference's
+    order, rounded once."""
+    if xq.dtype == torch.int8:
+        acc = (xq.double() @ wq.double().t()).to(torch.int32)
+    else:
+        acc = xq.float() @ wq.float().t()
+    return ((acc.float() * x_scale[:, None]) * w_scale[None, :]
+            ).to(out_dtype)
+
+
+def w8a8_gemm_group_plain(xq: torch.Tensor, x_scale: torch.Tensor,
+                          wqs: Sequence[torch.Tensor],
+                          w_scales: Sequence[torch.Tensor],
+                          out_dtype: torch.dtype) -> List[torch.Tensor]:
+    """:func:`w8a8_gemm_plain` of each weight in turn."""
+    return [w8a8_gemm_plain(xq, x_scale, w, s, out_dtype)
+            for w, s in zip(wqs, w_scales)]
+
+
+def w8a8_gemm_group(xq: torch.Tensor, x_scale: torch.Tensor,
+                    wqs: Sequence[torch.Tensor],
+                    w_scales: Sequence[torch.Tensor],
+                    out_dtype: torch.dtype) -> List[torch.Tensor]:
+    """[(xq [M, K] w [N_w, K]^T * x_scale) * s for w, s] -> [M, N_w] each
+    in ``out_dtype``, at most ``_kernels.MAX_GEMM_PROBLEMS`` weights: one
+    kernel launch on CUDA tensors (none for M 0), the plain version on CPU
+    tensors."""
+    if not xq.is_cuda:
+        return w8a8_gemm_group_plain(xq, x_scale, wqs, w_scales, out_dtype)
+    ys = [torch.empty((xq.shape[0], w.shape[0]), dtype=out_dtype,
+                      device=xq.device) for w in wqs]
+    if xq.shape[0]:
+        _kernels.decode_gemm_w8a8(xq, x_scale, wqs, w_scales, ys)
+        w8a8_gemm_group.launches += 1
+    return ys
+
+
+w8a8_gemm_group.launches = 0
+
+
 def reset_launch_counts() -> None:
-    """Zero the kernel's launch counter."""
+    """Zero both launch counters."""
     decode_gemm_group.launches = 0
+    w8a8_gemm_group.launches = 0

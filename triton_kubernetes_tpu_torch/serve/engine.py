@@ -48,23 +48,30 @@ plain versions (a reference engine).
 scales); the quantized kernels dequantize as they read, and each prompt's
 final prefill sets the ``tk8s_serve_quant_error`` gauges.
 
-Not ported yet, and raising ``NotImplementedError`` naming the slice:
-quantized weights and arithmetic (``weight_dtype``, ``matmul_dtype`` other
-than auto/f32: the W8A8 slice), the flight recorder and goodput ledger,
-and session handoff, export and import (migration).
+``weight_dtype`` "int8"/"fp8" quantizes the model per channel when the
+engine is built (``train.precision.quantize_for_decode``: a new model, the
+caller's untouched), and ``matmul_dtype`` picks the arithmetic: "auto"
+(the dequantize path off a TPU, as in the reference) or "f32" dequantize
+each weight at its use; "int8"/"fp8" (which need weights stored so) run
+W8A8 -- each product's input quantized per token, the hand-written int8 or
+fp8 GEMM on the card.
+
+Not ported yet, and raising ``NotImplementedError`` naming the slice: the
+flight recorder and goodput ledger, and session handoff, export and import
+(migration).
 """
 
 from __future__ import annotations
 
 import time
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..constants import KV_DTYPES, MATMUL_DTYPES, WEIGHT_DTYPES
+from ..constants import KV_DTYPES, MATMUL_DTYPES
 from ..models.config import ModelConfig
 from ..models.generate import sample_token
 from ..models.llama import Llama, resolve_device
@@ -77,6 +84,7 @@ from ..models.paged import (
     paged_verify_step,
 )
 from ..ops.paged_attention import TRASH_PAGE, blocks_for
+from ..train.precision import quantize_for_decode
 from ..utils import metrics
 from .blocks import BlockAllocator, OutOfBlocksError, PrefixCache
 from .speculation import draft_ngram, longest_agreeing_prefix
@@ -219,10 +227,6 @@ class ServeEngine:
         if kv_dtype not in KV_DTYPES:
             raise ValueError(
                 f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
-        if weight_dtype not in WEIGHT_DTYPES:
-            raise ValueError(
-                f"weight_dtype must be one of {WEIGHT_DTYPES}, got "
-                f"{weight_dtype!r}")
         if matmul_dtype not in MATMUL_DTYPES:
             raise ValueError(
                 f"matmul_dtype must be one of {MATMUL_DTYPES}, got "
@@ -238,9 +242,6 @@ class ServeEngine:
                 "prefix_cache requires prefill_chunk: prefix reuse skips "
                 "whole chunk windows (the absolute-window alignment is "
                 "what keeps sharing ON/OFF outputs identical)")
-        if weight_dtype != "auto" or matmul_dtype not in ("auto", "f32"):
-            raise _later(f"weight_dtype={weight_dtype!r}/matmul_dtype="
-                         f"{matmul_dtype!r}", "W8A8 weights")
         if flight is not None:
             raise _later("the flight recorder", "flight recorder and goodput")
         dev = resolve_device(device)
@@ -250,6 +251,12 @@ class ServeEngine:
                 f"the model lives on {params.device}, the engine was asked "
                 f"to run on {dev}")
         self.device = params.device
+        # The weight policy first, model and config rewritten as one; the
+        # arithmetic after it, so that ModelConfig checks an explicit
+        # int8/fp8 against the storage just set (raising at init, never a
+        # silently dequantizing engine).
+        params, config = quantize_for_decode(params, config, weight_dtype)
+        config = replace(config, matmul_dtype=matmul_dtype)
         self.kv_dtype = kv_dtype
         self.weight_dtype = weight_dtype
         self.matmul_dtype = matmul_dtype

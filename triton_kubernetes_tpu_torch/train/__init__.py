@@ -19,6 +19,7 @@ from .precision import (
     get_policy,
     grads_all_finite,
     policy_of,
+    quantize_for_decode,
     remat_policy_of,
 )
 from .trainer import (

@@ -1,6 +1,5 @@
-"""Mixed-precision policies for the training step -- the port of the
-training half of ``triton_kubernetes_tpu/train/precision.py`` (the
-decode-quantization half comes with the quantized slice).
+"""Mixed-precision policies for the training step, and the decode-time
+weight policy -- the port of ``triton_kubernetes_tpu/train/precision.py``.
 
 bf16 compute over f32 master state: matmul operands and activations in
 bfloat16, while master params, Adam moments, the attention softmax, the
@@ -16,11 +15,13 @@ exponent range needs no loss scaling.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Dict, Iterable, Union
+from typing import Dict, Iterable, Tuple, Union
 
 import torch
 
+from ..constants import WEIGHT_DTYPES
 from ..models.config import ModelConfig
+from ..models.llama import Llama, quantize_weights
 
 
 @dataclass(frozen=True)
@@ -92,3 +93,21 @@ def grads_all_finite(grads: Iterable[torch.Tensor]) -> torch.Tensor:
         leaf = torch.isfinite(g).all()
         ok = leaf if ok is None else ok & leaf
     return ok if ok is not None else torch.tensor(True)
+
+
+def quantize_for_decode(model: Llama, config: ModelConfig,
+                        weight_dtype: str) -> Tuple[Llama, ModelConfig]:
+    """Apply a decode weight policy: returns ``(model, config)``. "auto" is
+    the identity on both; "int8"/"fp8" rewrite both together -- a new model
+    from ``models.llama.quantize_weights`` (the caller's is untouched) and
+    the config with ``weight_quant`` set -- so a half-quantized state
+    cannot exist. Raises ``KeyError`` for a dtype outside
+    ``WEIGHT_DTYPES``."""
+    if weight_dtype not in WEIGHT_DTYPES:
+        raise KeyError(
+            f"unknown weight_dtype {weight_dtype!r}; know "
+            f"{list(WEIGHT_DTYPES)}")
+    if weight_dtype == "auto":
+        return model, config
+    return (quantize_weights(model, weight_dtype),
+            replace(config, weight_quant=weight_dtype))
