@@ -47,7 +47,15 @@ result:
    beside the weight-bytes bound; the plain torch ops' rows at every M
    of 1-64 against their own at M 64, reported; the GEMM at a prefill
    window's M 256 too, against its plain version, each 64-row tile of the
-   launch ``torch.equal`` to a launch of its rows alone. The fused residual add +
+   launch ``torch.equal`` to a launch of its rows alone, and every row of
+   one launch at M 65, 100, 128, 192 and 256 (the wgmma kernel)
+   ``torch.equal`` to the same row through launches of 64 rows (the
+   mma.sync kernel); the wgmma kernel's record is the five groups at M
+   256. Before them, the bit probe: a chain of 8 wgmma k steps against
+   the same chain of mma.sync steps on the same shared tiles and
+   accumulator, bf16, e4m3 and int8 operands over wide exponent ranges,
+   with C 0 and with cancelling products; int8, and every kind whose
+   windows rely on the agreement, must agree bit for bit. The fused residual add +
    RMSNorm at D 4096, bf16 at M 1, 8, 32, 64 and 256 (a lone sequence, a
    decode tick, a verify tick, a GEMM launch, a prefill window) and f32
    at M 8: h and y ``torch.equal`` to torch's ``x + delta`` and the
@@ -62,7 +70,7 @@ result:
    32 and 256: int8 ``torch.equal`` to its plain version, fp8 within one
    bf16 ulp, rows at M 1, 8 and 32 bitwise the rows of a 64-row launch,
    each 64-row tile of the 256-row launch bitwise a launch of its rows
-   alone; timed beside the bytes bound and ``torch._int_mm`` /
+   alone, rows at M 65-256 as the bf16 GEMM's (wgmma records too); timed beside the bytes bound and ``torch._int_mm`` /
    ``torch._scaled_mm`` as yardsticks (at M 8 on 17 / 16 rows, the least
    each takes);
 4. serve  -- ``llama3-8b`` at full width and depth (random bf16 weights
@@ -92,6 +100,7 @@ result:
    verify ticks of a spec_k 3 engine (device busy time and kernels by
    class, idle share, launches per tick, the paged kernels by name, which
    must include the span kernels and the prefill's tensor-core kernel;
+   the window must launch the wgmma GEMM, counted by its wrapper;
    the decode tick and the window must run 2 x layers + 1 norm kernels).
    Then six more runs of those 8 requests plus 4 repetitive ones (one
    seeded token tiled 300-700 times, so the model repeats itself and the
@@ -108,9 +117,10 @@ result:
    junk drafts on one prefilled sequence, rewinds all but the first, and
    checks every rejected slot and scale byte-equal to the pre-verify pool.
    Fault F2: one 800-token prompt prefilled under ``prefill_chunk`` 128
-   and 256 on fresh bf16 pools must leave every full page bitwise equal
-   (the windows' cuBLAS products before the repair are run too, for the
-   before/after count and device time, not asserted). Then W8A8: the 8B
+   and 256 on fresh bf16 pools must leave every full page bitwise equal,
+   its windows' products on the wgmma GEMM (launches counted, asserted
+   above 0; the windows' cuBLAS products before the repair are run too,
+   for the before/after count and device time, not asserted). Then W8A8: the 8B
    model quantized to int8 and to fp8 (``weight_dtype`` = ``matmul_dtype``),
    each served at spec_k 0 and 3 on the 12 requests -- spec-on tokens
    asserted equal to spec-off, launches of kernels A and B counted as
@@ -140,7 +150,9 @@ the per-offset prefill cases included, is also written to
 ``DIR/chip_smoke.json``, and the trainer's report to
 ``DIR/train_report.json``. ``--flash-only`` builds and checks the three
 flash kernels and stops (half a minute: the first run after a change to
-one of them).
+one of them); ``--gemm-only`` builds the GEMM, norm and quantizer,
+runs the bit probe and the GEMM and norm checks of phase 3 and stops
+(``DIR/chip_smoke_gemm.json`` with ``--out``).
 """
 
 from __future__ import annotations
@@ -681,6 +693,14 @@ ROW_TILE = 64
 # decode_gemm (max_batch x (spec_k + 1) <= 64): the plain torch ops are
 # held to their own 64-row result at each, and reported.
 ALL_ROWS = range(1, 65)
+# Row counts of one launch past 64 rows, which the GEMMs take on their
+# wgmma kernel: one row past a tile, a ragged row block, one, one and a
+# half and two blocks of 128 rows. Each row is held bitwise to the same
+# row through launches of at most 64 rows (mma.sync).
+WGMMA_ROWS = (65, 100, 128, 192, 256)
+# The bit probe of wgmma against mma.sync: seeds a case, k steps a chain.
+PROBE_SEEDS = 4
+PROBE_STEPS = 8
 
 
 # Rows of the fused residual add + norm at D 4096: a lone sequence (1), a
@@ -778,6 +798,153 @@ def tiles_differing(fn, x):
                 full[t * ROW_TILE:(t + 1) * ROW_TILE])]
 
 
+def wgmma_rows_differing(fn):
+    """The row counts m of :data:`WGMMA_ROWS` at which fn(0, m) (one
+    launch: the wgmma kernel) is not bitwise the same rows through
+    launches of ROW_TILE rows (the mma.sync kernels); fn(lo, m) is the
+    list of outputs of one launch on rows lo .. lo + m - 1."""
+    tiles = [fn(lo, ROW_TILE)
+             for lo in range(0, max(WGMMA_ROWS), ROW_TILE)]
+    ref = [torch.cat(parts) for parts in zip(*tiles)]
+    return [m for m in WGMMA_ROWS
+            if not all(torch.equal(a, b[:m]) for a, b in zip(fn(0, m),
+                                                              ref))]
+
+
+def probe_operands(kind, seed, case, device):
+    """Operands of one bit probe (``_kernels.gemm_probe``): A [64, K], B
+    and C of ``kind`` (bf16, int8, fp8) for ``case``: "wide", values over
+    a wide exponent range and a nonzero C; "zero", the same with C 0 (a
+    chain's start); "cancel", products that cancel in pairs inside each k
+    step for half the columns, beside large and tiny ones."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    step = 16 if kind == "bf16" else 32
+    k = PROBE_STEPS * step
+
+    def wide(shape):  # sign x 2^[-20, 20] x [1, 2)
+        e = torch.randint(-20, 21, shape, generator=gen, device=device)
+        v = (1 + torch.rand(shape, generator=gen, device=device)) * torch.exp2(
+            e.float())
+        return torch.where(torch.rand(shape, generator=gen, device=device)
+                           < 0.5, -v, v)
+
+    if kind == "bf16":
+        a, b = wide((64, k)).bfloat16(), wide((k, 64)).bfloat16()
+        c = wide((64, 64))
+        if case == "cancel":  # k + 8 repeats k with B negated, cols < 32
+            a = a.view(64, PROBE_STEPS, 2, 8)
+            a[:, :, 1] = a[:, :, 0]
+            a = a.reshape(64, k)
+            b = b.view(PROBE_STEPS, 2, 8, 64)
+            b[:, 1, :, :32] = -b[:, 0, :, :32]
+            b = b.reshape(k, 64)
+    elif kind == "fp8":
+        def bytes_(shape):  # every e4m3 code but the two NaNs
+            v = torch.randint(0, 254, shape, generator=gen, device=device)
+            v = v + (v >= 0x7f).long()
+            return v.to(torch.uint8).view(torch.float8_e4m3fn)
+        a, b, c = bytes_((64, k)), bytes_((64, k)), wide((64, 64))
+        if case == "cancel":  # k + 16 repeats k with B's sign flipped
+            a = a.view(torch.uint8).view(64, PROBE_STEPS, 2, 16)
+            a[:, :, 1] = a[:, :, 0]
+            a = a.reshape(64, k).view(torch.float8_e4m3fn)
+            b = b.view(torch.uint8).view(64, PROBE_STEPS, 2, 16)
+            b[:32, :, 1] = b[:32, :, 0] ^ 0x80
+            b = b.reshape(64, k).view(torch.float8_e4m3fn)
+    else:
+        a = torch.randint(-128, 128, (64, k), generator=gen, device=device
+                          ).to(torch.int8)
+        b = torch.randint(-128, 128, (64, k), generator=gen, device=device
+                          ).to(torch.int8)
+        c = torch.randint(-2 ** 20, 2 ** 20, (64, 64), generator=gen,
+                          device=device).to(torch.int32)
+    if case == "zero":
+        c = torch.zeros_like(c)
+    return a.contiguous(), b.contiguous(), c.contiguous()
+
+
+# (name, operand dtype, wgmma on the operands converted to f16): fp8 is
+# probed both ways, its kernel runs the second.
+PROBE_KINDS = (("bf16", torch.bfloat16, False),
+               ("fp8", torch.float8_e4m3fn, False),
+               ("fp8 as f16", torch.float8_e4m3fn, True),
+               ("int8", torch.int8, False))
+
+
+def gemm_probe_phase(device):
+    """The bit probe: for bf16, fp8 (e4m3; directly, and converted to f16
+    as the fp8 kernel runs it) and int8 operands, a chain of
+    :data:`PROBE_STEPS` wgmma k steps against the same chain of mma.sync
+    steps, from the same shared tiles and the same C, at
+    :data:`PROBE_SEEDS` seeds of each case of :func:`probe_operands`.
+    Counts the output elements whose bits differ. int8 must agree (exact
+    sums); so must every kind whose M > 64 launches keep the mma.sync
+    kernels' chains (``_kernels.gemm_wgmma`` false at M 1): their rows
+    are bitwise the M <= 64 launches' only if one wgmma k step rounds as
+    one mma.sync step. Returns {kind: {case: [differing, of]}}."""
+    from triton_kubernetes_tpu_torch.ops import _kernels
+
+    out = {}
+    for kind, dtype, f16 in PROBE_KINDS:
+        out[kind] = {}
+        for case in ("wide", "zero", "cancel"):
+            differ = total = 0
+            for seed in range(PROBE_SEEDS):
+                a, b, c = probe_operands(kind.split()[0],
+                                         1000 * seed + len(case), case,
+                                         device)
+                dm, dw = _kernels.gemm_probe(a, b, c, f16)
+                torch.cuda.synchronize()
+                same = (dm.view(torch.int32) == dw.view(torch.int32))
+                differ += int((~same).sum())
+                total += same.numel()
+            out[kind][case] = [differ, total]
+    print("probe: wgmma vs mma.sync chains of " + str(PROBE_STEPS)
+          + " k steps, elements differing bitwise: " + "; ".join(
+              f"{kind} " + ", ".join(f"{case} {d}/{n}" for case, (d, n)
+                                     in cases.items())
+              for kind, cases in out.items()), flush=True)
+    for kind, dtype, f16 in PROBE_KINDS:
+        # The fp8 kernel runs the f16 chain: the direct one is reported.
+        keeps_chains = (not _kernels.gemm_wgmma(dtype, 1)
+                        and (dtype != torch.float8_e4m3fn or f16))
+        bad = sum(d for d, _ in out[kind].values())
+        if bad and (kind == "int8" or keeps_chains):
+            raise AssertionError(
+                f"probe: {bad} {kind} elements of the wgmma chain differ "
+                f"from the mma.sync chain, yet M > 64 launches rely on "
+                f"their agreement for row invariance")
+    return out
+
+
+def wgmma_record(name, cases, bw, ops_rate, library_call, variant):
+    """The headline record of a wgmma kernel: its five 8B groups at a
+    prefill window's M (the cases of that M, summed), bound by the larger
+    of bytes over the memory rate and operations over ``ops_rate``."""
+    mine = [c for c in cases if c["M"] == WINDOW_ROWS]
+    total = {f: sum(c[f] for c in mine)
+             for f in ("ms", "plain_ms", "library_ms", "bytes", "flops")}
+    by_bytes, by_ops = total["bytes"] / bw, total["flops"] / ops_rate
+    bound_ms = max(by_bytes, by_ops) * 1e3
+    return dict(
+        name=name, route="cuda",
+        source="triton_kubernetes_tpu_torch/csrc/decode_gemm.cu",
+        replaces="none: plain XLA matmuls in the reference "
+                 "(triton_kubernetes_tpu/models/llama.py:86; W8A8: "
+                 "quantized_einsum, ops/quantization.py:265)",
+        variant=variant,
+        max_abs_err=max(c["max_abs_err"] for c in mine),
+        tolerance=mine[0].get("tolerance"),
+        ms=total["ms"], plain_ms=total["plain_ms"],
+        library_ms=total["library_ms"], library_call=library_call,
+        bound_ms=bound_ms, bound_by="bytes" if by_bytes >= by_ops
+        else "operations", bound_share=bound_ms / total["ms"],
+        achieved_tflops=total["flops"] / (total["ms"] * 1e-3) / 1e12,
+        bytes=total["bytes"], flops=total["flops"],
+        shape=dict(M=WINDOW_ROWS, summed_over=[c["shape"] for c in mine]),
+        cases=mine)
+
+
 def rows_kernel_phase(device, flush, peaks):
     """The row-invariant decode GEMM and RMSNorm against their plain
     versions (torch.mm of each weight in turn, and the plain rms_norm) at
@@ -832,6 +999,12 @@ def rows_kernel_phase(device, flush, peaks):
             raise AssertionError(f"decode_gemm {name} M={WINDOW_ROWS}: row "
                                  f"tiles {bad} are not bitwise a launch of "
                                  f"their rows alone")
+        bad = wgmma_rows_differing(
+            lambda lo, m: launch(x[lo:lo + m].contiguous(), ws, out))
+        if bad:
+            raise AssertionError(f"decode_gemm {name}: rows at M {bad} (the "
+                                 f"wgmma kernel) are not bitwise the same "
+                                 f"rows through launches of {ROW_TILE}")
         torch_rows = rows_differing(lambda t: plain(t, ws, out), x64,
                                     ALL_ROWS)
         n = sum(ns)
@@ -849,6 +1022,7 @@ def rows_kernel_phase(device, flush, peaks):
             tile = _kernels.gemm_tile(n)
             cases.append(dict(
                 kernel="decode_gemm", shape=name, K=k, N=list(ns), M=m,
+                tolerance=f"{ATOL} + {RTOL} * |plain|",
                 tile_n=tile, splits=_kernels.gemm_splits(n, k),
                 blocks=sum(-(-c // tile) for c in ns)
                 * _kernels.gemm_splits(n, k),
@@ -888,7 +1062,9 @@ def rows_kernel_phase(device, flush, peaks):
         split = (f", {c['tile_n']}-column tiles, K split in "
                  f"{c['splits']}, {c['blocks']} blocks"
                  if "splits" in c else "")
-        tiles = (f"; each 64-row tile bitwise a launch of its rows alone"
+        tiles = (f"; each 64-row tile bitwise a launch of its rows alone, "
+                 f"rows at M {'/'.join(map(str, WGMMA_ROWS))} (wgmma) "
+                 f"bitwise launches of {ROW_TILE}"
                  if c["M"] == WINDOW_ROWS else "")
         print(f"kernel {c['kernel']} {c['shape']} M={c['M']} ({c['out']} "
               f"out{split}): max_abs_err={c['max_abs_err']:.6g} kernel_ms="
@@ -944,6 +1120,14 @@ def rows_kernel_phase(device, flush, peaks):
             bytes=total["bytes"], flops=total["flops"],
             shape=dict(M=8, summed_over=[c["shape"] for c in mine]),
             cases=[c for c in cases if c["kernel"] == name]))
+    records.append(wgmma_record(
+        "decode_gemm_wgmma", [c for c in cases
+                              if c["kernel"] == "decode_gemm"],
+        bw, peaks[1], "one torch.mm of x on the group's weights side by "
+        "side (out_dtype float32 for the lm head)",
+        "wgmma m64nNk16 bf16, M > 64: two warpgroups of 64 rows over a "
+        "cp.async ring fed by a third, the M <= 64 kernel's chains of k "
+        "steps, tile width and K split by the shape"))
     return records
 
 
@@ -1053,6 +1237,12 @@ def w8a8_kernel_phase(device, flush, peaks):
                             f"at row {lo} is not bitwise a launch of its "
                             f"rows alone")
             del full
+            bad = wgmma_rows_differing(lambda lo, m: launch(m, lo))
+            if bad:
+                raise AssertionError(f"{name} {group}: rows at M {bad} (the "
+                                     f"wgmma kernel) are not bitwise the "
+                                     f"same rows through launches of "
+                                     f"{ROW_TILE}")
             n = sum(ns)
             w_cat = torch.cat(wqs, dim=0)  # [N, K]: the library's operand
             s_cat = torch.cat(wss)[None, :]
@@ -1091,6 +1281,8 @@ def w8a8_kernel_phase(device, flush, peaks):
                           + m * n * torch.empty((), dtype=out).element_size())
                 cases.append(dict(
                     kernel=name, shape=group, K=k, N=list(ns), M=m,
+                    tolerance=("torch.equal" if qdtype == torch.int8
+                               else f"{ATOL} + {RTOL} * |plain|"),
                     tile_n=_kernels.gemm_tile(n),
                     splits=_kernels.gemm_splits(n, k),
                     out=str(out).removeprefix("torch."), max_abs_err=err,
@@ -1138,9 +1330,12 @@ def w8a8_kernel_phase(device, flush, peaks):
                     "none: plain XLA ops in the reference's quantized_einsum "
                     "(triton_kubernetes_tpu/ops/quantization.py:265-305)"),
                 variant=("cuda_core, one block a row" if source.startswith(
-                    "quantize") else f"tensor_core (mma.sync m16n8k32 "
-                    f"{infix}), one launch a group, tile and K split by the "
-                    f"shape"),
+                    "quantize") else "tensor_core (mma.sync m16n8k32 s8), "
+                    "one launch a group, tile and K split by the shape"
+                    if infix == "s8" else "tensor_core (wgmma m64nNk16 f16 "
+                    "on e4m3 converted in shared memory, the kernel of "
+                    "every M), one launch a group, tile and K split by the "
+                    "shape"),
                 max_abs_err=max(c["max_abs_err"] for c in cases
                                 if c["kernel"] == name),
                 tolerance=("torch.equal" if qdtype == torch.int8
@@ -1159,6 +1354,17 @@ def w8a8_kernel_phase(device, flush, peaks):
                 shape=dict(M=8, summed_over=[c.get("shape", c["K"])
                                              for c in mine]),
                 cases=[c for c in cases if c["kernel"] == name]))
+        records.append(wgmma_record(
+            "decode_gemm_w8a8_wgmma" + suffix, [
+                c for c in cases if c["kernel"] == "decode_gemm_w8a8" + suffix],
+            bw, W8A8_OPS_FACTOR * peaks[1],
+            "torch._int_mm (int32 product alone)" if qdtype == torch.int8
+            else "torch._scaled_mm, row and column scales, bfloat16 out",
+            "wgmma m64nNk32 s8, M > 64: two warpgroups of 64 rows over two "
+            "column tiles, one exact int32 sum" if qdtype == torch.int8 else
+            "wgmma m64nNk16 f16 on the e4m3 operands converted in shared "
+            "memory, every M (two warpgroups of 64 rows; both convert), "
+            "the mma.sync kernel's chains of k steps"))
     return records
 
 
@@ -1450,6 +1656,7 @@ def window_invariance_check(model, cfg, paged, tag, kv_dtype="auto",
     if not row_invariant:
         llama._row_products = lambda spec, x, ws: [torch.einsum(spec, x, w)
                                                    for w in ws]
+    reset_row_counts()
     try:
         for c in F2_CHUNKS:
             windows = -(-n // c)
@@ -1482,6 +1689,11 @@ def window_invariance_check(model, cfg, paged, tag, kv_dtype="auto",
                                   cache.v_scale) if t is not None]
     finally:
         llama._row_products = row_products
+    counts = row_counts()
+    wgmma = counts["decode_gemm_wgmma"] + counts["decode_gemm_w8a8_wgmma"]
+    if row_invariant and not wgmma:
+        raise AssertionError(f"F2 ({tag}): the windows launched no wgmma "
+                             f"GEMM")
     a, b = (pools[c] for c in F2_CHUNKS)
     # A page differs if any layer's K or V bytes (or scale) at it differ.
     differ = torch.zeros(full, dtype=torch.bool, device=dev)
@@ -1494,7 +1706,8 @@ def window_invariance_check(model, cfg, paged, tag, kv_dtype="auto",
     print(f"F2 window invariance ({tag}, weight products {how}, "
           f"{cfg.num_layers} layers, prompt {n} tokens, {full} "
           f"full pages, prefill_chunk {F2_CHUNKS[0]} vs {F2_CHUNKS[1]}): "
-          f"{n_differ} pages differ; a window's device busy / wall ms "
+          f"{n_differ} pages differ, {wgmma} wgmma GEMM launches; a "
+          f"window's device busy / wall ms "
           + ", ".join(
               f"C {c}: {t['device_busy_ms_per_tick']:.3f} / "
               f"{t['wall_ms_per_tick']:.3f} ({t['windows']} windows, "
@@ -1508,6 +1721,7 @@ def window_invariance_check(model, cfg, paged, tag, kv_dtype="auto",
     torch.cuda.empty_cache()
     return dict(tag=tag, row_invariant=row_invariant, prompt_tokens=n,
                 full_pages=full, pages_differing=n_differ,
+                wgmma_launches=wgmma,
                 chunks=list(F2_CHUNKS),
                 windows={str(c): t for c, t in times.items()})
 
@@ -1525,30 +1739,46 @@ def row_counts():
     from triton_kubernetes_tpu_torch.ops import decode_gemm, norms
     from triton_kubernetes_tpu_torch.ops import quantization
     return {"decode_gemm": decode_gemm.decode_gemm_group.launches,
+            "decode_gemm_wgmma": decode_gemm.decode_gemm_group.wgmma_launches,
             "decode_gemm_w8a8": decode_gemm.w8a8_gemm_group.launches,
+            "decode_gemm_w8a8_wgmma":
+                decode_gemm.w8a8_gemm_group.wgmma_launches,
             "quantize_rows": quantization.quantize_rows.launches,
             "rms_norm": norms.rms_norm_rows.launches,
             "add_rms_norm": norms.add_rms_norm_rows.launches}
 
 
-def row_counts_wanted(ticks, windows, cfg, w8a8=False):
+def row_counts_wanted(ticks, windows, cfg, w8a8=None):
     """What ``ticks`` decode or verify ticks and ``windows`` prefill
     windows launch: one launch for each of a layer's four weight-product
     groups (wq+wk+wv, wo, w3+w1, w2), and a tick's lm head (a window's
     head, its one last row, is a plain product, unless W8A8); a tick and a
     window each one norm of the embeddings and a fused residual add + norm
     at each of the 2 L layer boundaries (the last one's norm the final
-    norm). Under W8A8 the products are ``decode_gemm_w8a8`` launches, each
-    group's input (and the head's) quantized by one ``quantize_rows``."""
+    norm). Under W8A8 (``w8a8`` the 8-bit operand dtype) the products are
+    ``decode_gemm_w8a8`` launches, each group's input (and the head's)
+    quantized by one ``quantize_rows``. Of the GEMM launches, those of
+    more than 64 rows -- a window's groups, PREFILL_CHUNK rows -- run the
+    wgmma kernel (``_kernels.gemm_wgmma``), counted apart too."""
+    from triton_kubernetes_tpu_torch.ops import _kernels
+
     per_window = 4 * cfg.num_layers
     groups = ticks * (4 * cfg.num_layers + 1)
+    dtype = torch.bfloat16 if w8a8 is None else w8a8
+    tick_wg = _kernels.gemm_wgmma(dtype, 1)
+    window_wg = _kernels.gemm_wgmma(dtype, PREFILL_CHUNK)
     want = {"decode_gemm": groups + windows * per_window,
-            "decode_gemm_w8a8": 0, "quantize_rows": 0,
+            "decode_gemm_wgmma": (groups * tick_wg
+                                  + windows * per_window * window_wg),
+            "decode_gemm_w8a8": 0, "decode_gemm_w8a8_wgmma": 0,
+            "quantize_rows": 0,
             "rms_norm": ticks + windows,
             "add_rms_norm": (ticks + windows) * 2 * cfg.num_layers}
-    if w8a8:
-        want.update(decode_gemm=0,
+    if w8a8 is not None:
+        want.update(decode_gemm=0, decode_gemm_wgmma=0,
                     decode_gemm_w8a8=groups + windows * (per_window + 1),
+                    decode_gemm_w8a8_wgmma=(groups + windows) * tick_wg
+                    + windows * per_window * window_wg,
                     quantize_rows=(ticks + windows)
                     * (4 * cfg.num_layers + 1))
     return want
@@ -1559,7 +1789,10 @@ TICK_CLASSES = (("paged_decode kernel", "paged_decode_"),
                 ("paged_verify kernel", "paged_verify_"),
                 ("paged_prefill kernel", "paged_prefill_"),
                 ("decode_gemm kernel", "decode_gemm_kernel"),
+                ("decode_gemm_wgmma kernel", "decode_gemm_wgmma_kernel"),
                 ("decode_gemm_w8a8 kernel", "decode_gemm_w8a8_kernel"),
+                ("decode_gemm_w8a8_wgmma kernel",
+                 "decode_gemm_w8a8_wgmma_kernel"),
                 ("quantize_rows kernel", "quantize_rows_kernel"),
                 ("rms_norm kernel", "rms_norm_kernel"))
 
@@ -1614,19 +1847,25 @@ def profile_prefill(engine, cfg, Request, windows_before=2):
         engine.step()
     before = engine.stats()
     torch.cuda.synchronize()
+    reset_row_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = row_counts()
     after = engine.stats()
     if (after["prefill_windows"] != before["prefill_windows"] + 1
             or after["decode_steps"] != before["decode_steps"]):
         raise AssertionError("profile: the profiled tick was not one "
                              "prefill window alone")
+    wgmma = counts["decode_gemm_wgmma"] + counts["decode_gemm_w8a8_wgmma"]
+    if not wgmma:
+        raise AssertionError("profile: the prefill window launched no wgmma "
+                             "GEMM")
     engine.run_until_idle()
-    return tick_profile([prof], 1, wall_ms)
+    return dict(tick_profile([prof], 1, wall_ms), wgmma_launches=wgmma)
 
 
 def profile_decode(engine, cfg, Request, ticks=4):
@@ -1802,7 +2041,7 @@ def serve_phase(card):
             "paged_decode": ticks * cfg.num_layers,
             **row_counts_wanted(ticks, windows, cfg)}
     if launches != want or not all(launches[k] for k in want if k not in (
-            "decode_gemm_w8a8", "quantize_rows")):
+            "decode_gemm_w8a8", "decode_gemm_w8a8_wgmma", "quantize_rows")):
         raise AssertionError(f"launch counts {launches} != expected {want}")
 
     ttft = [done[r.request_id].ttft for r in requests]
@@ -1957,7 +2196,7 @@ def serve_run(model, cfg, kind, spec_k, requests, arrivals,
     engine = ServeEngine(model, cfg, device=SERVE_DEVICE, **dict(
         SERVE_ENGINE_KW, kv_dtype="auto" if kind == "bf16" else kind,
         spec_k=spec_k, weight_dtype=weights[0], matmul_dtype=weights[1]))
-    w8a8 = weights[1] in ("int8", "fp8")
+    w8a8 = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}.get(weights[1])
     engine.submit(Request("warmup", list(range(1, 65)), 2))
     engine.run_until_idle()
     engine.release_prefix_cache()
@@ -2747,6 +2986,13 @@ def main() -> int:
                              "against their plain versions, time them and "
                              "stop: the short first run after a change to "
                              "one of them (prints no device line)")
+    parser.add_argument("--gemm-only", action="store_true",
+                        help="build the decode GEMM, the norm and the "
+                             "quantizer, run the bit probe and hold the "
+                             "GEMMs (mma.sync and wgmma) and the norms "
+                             "against their plain versions, time them and "
+                             "stop: the short first run after a change to "
+                             "the GEMM (prints no device line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on the "
@@ -2778,7 +3024,9 @@ def main() -> int:
     # Phase 2: build, every source at once.
     t0 = time.perf_counter()
     built = (tuple(k for k in _kernels.KERNELS if k.startswith("flash_"))
-             if args.flash_only else _kernels.KERNELS)
+             if args.flash_only else
+             ("decode_gemm", "rms_norm", "quantize_rows") if args.gemm_only
+             else _kernels.KERNELS)
     logs = _kernels.build(built)
     for kernel in built:
         _kernels.library(kernel)
@@ -2789,12 +3037,35 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "warning" in line.lower()):
                 print(f"build: {kernel}: {line.strip()}", flush=True)
+        # Which function each wgmma GEMM or probe line belongs to.
+        fn = None
+        for line in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = m.group(1)
+            elif fn and ("wgmma" in fn or "probe" in fn) and (
+                    "stack frame" in line or "registers" in line):
+                print(f"build: {kernel}: {fn}: {line.strip()}", flush=True)
 
     # Phase 3: kernels against their plain versions.
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=device)
     if args.flash_only:
         print(json.dumps({"kernels": flash_kernel_phase(device, flush,
                                                         peaks)}))
+        return 0
+    probe = gemm_probe_phase(device)
+    print(json.dumps({"probe": probe}), flush=True)
+    if args.gemm_only:
+        records = rows_kernel_phase(device, flush, peaks)
+        records += w8a8_kernel_phase(device, flush, peaks)
+        if args.out is not None:
+            args.out.mkdir(parents=True, exist_ok=True)
+            (args.out / "chip_smoke_gemm.json").write_text(json.dumps(dict(
+                card=card, device=name, probe=probe, kernels=records),
+                indent=1))
+        print(json.dumps({"kernels": [{k: r.get(k) for k in (
+            "name", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_share", "max_abs_err")} for r in records]}))
         return 0
     records = kernel_phase(pa, device, flush, peaks)
     records += flash_kernel_phase(device, flush, peaks)
@@ -2851,6 +3122,24 @@ def main() -> int:
                 sum(run["launches"][k] for run in mine),
                 sum(run["decode_steps"] + run["verify_steps"]
                     + run["prefill_windows"] for run in mine)]
+    # The wgmma GEMMs: launches of more than 64 rows, a window's groups.
+    for k, suffixes in (("decode_gemm_wgmma", (("", "auto"),)),
+                        ("decode_gemm_w8a8_wgmma",
+                         (("", "int8"), ("_fp8", "fp8")))):
+        for suffix, wd in suffixes:
+            dtype = {"auto": torch.bfloat16, "int8": torch.int8,
+                     "fp8": torch.float8_e4m3fn}[wd]
+            every_m = _kernels.gemm_wgmma(dtype, 1)
+            ticks[k] = (None, "decode or verify tick or prefill window"
+                        if every_m else "prefill window")
+            mine = [run for run in runs if run["weights"][1] == wd]
+            first = (launches[k], serve["prefill_windows"] + every_m
+                     * serve["decode_ticks"]) if wd == "auto" else (0, 0)
+            count[k + suffix] = [
+                first[0] + sum(run["launches"][k] for run in mine),
+                first[1] + sum(run["prefill_windows"] + every_m * (
+                    run["decode_steps"] + run["verify_steps"])
+                    for run in mine)]
     count.update({k: [n, TRAIN_STEPS] for k, n in train_launches.items()})
     for r in records:
         n, per = count[r["name"]]
@@ -2863,7 +3152,8 @@ def main() -> int:
 
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(dict(
-            card=card, device=name, build_s=build_s, kernels=records,
+            card=card, device=name, build_s=build_s, probe=probe,
+            kernels=records,
             serve=serve, train=train), indent=1))
     keys = ("name", "route", "source", "replaces", "variant", "launches",
             "launches_per_unit", "launches_per", "max_abs_err", "ms",

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Time the decode GEMM's K split on the card, group by group.
 
-For each launch of the Llama-3-8B decode and verify steps
-(``chip_smoke.GEMM_GROUPS``: wq+wk+wv, wo, w3+w1, w2, the lm head), each
-tile width of ``--tiles`` and each number of K ranges S of ``--splits``,
-at M 8 (a decode tick's rows) and 32 (a verify tick's): one launch of
-``csrc/decode_gemm.cu``'s C entry with that tile and S (in place of
-``_kernels.gemm_tile`` and ``gemm_splits``' choice), held to the
-plain version at ``chip_smoke.py``'s tolerance and its rows at M 8 and 32
-to its rows at M 64 bit for bit, then timed the way ``chip_smoke.py``
+For each launch of the Llama-3-8B decode and verify steps and prefill
+windows (``chip_smoke.GEMM_GROUPS``: wq+wk+wv, wo, w3+w1, w2, the lm
+head), each tile width of ``--tiles`` and each number of K ranges S of
+``--splits``, at M 8 (a decode tick's rows), 32 (a verify tick's), 128
+and 256 (prefill windows, which take the wgmma kernel): one launch of ``csrc/decode_gemm.cu``'s C entry with that
+tile and S (in place of ``_kernels.gemm_tile`` and ``gemm_splits``'
+choice), held to the plain version at ``chip_smoke.py``'s tolerance and
+its rows bit for bit to the same rows through launches of 64 rows, then
+timed the way ``chip_smoke.py``
 times it (CUDA events, median of 30, the L2 flushed before each). Beside
 it: one ``torch.mm`` on the group's weights concatenated, ``torch.mm`` of
 each weight in turn, and the weight-bytes bound. The (build, tile, S)
@@ -46,6 +47,11 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from triton_kubernetes_tpu_torch.ops import _kernels as K  # noqa: E402
 from triton_kubernetes_tpu_torch.ops import decode_gemm as dg  # noqa: E402
+
+
+# Row counts timed: a decode tick's, a verify tick's, and two prefill
+# windows' (the wgmma kernel).
+ROWS = (*cs.GEMM_ROWS, 128, cs.WINDOW_ROWS)
 
 
 def build_variants(variants: dict, out: Path) -> dict:
@@ -90,7 +96,8 @@ def launcher(lib, x, ws, out, tile_n, splits, counters):
 
     def run():
         ys = [torch.empty((m, n), dtype=out, device=x.device) for n in ns]
-        work = torch.empty(cols * splits * m, dtype=torch.float32,
+        work = torch.empty(cols * splits * -(-m // 64) * min(m, 64),
+                           dtype=torch.float32,
                            device=x.device)
         rc = fn(x.data_ptr(), *[w.data_ptr() for w in ws], *[None] * pad,
                 *[y.data_ptr() for y in ys], *[None] * pad, *ns,
@@ -160,28 +167,32 @@ def main() -> int:
         ws = [(torch.randn((k, n), generator=gen, device=device) * 0.02
                ).to(torch.bfloat16) for n in ns]
         w_cat = torch.cat(ws, dim=1) if len(ws) > 1 else ws[0]
-        x = torch.randn((64, k), generator=gen, device=device
+        x = torch.randn((max(ROWS), k), generator=gen, device=device
                         ).to(torch.bfloat16)
         n = sum(ns)
         cases = [(label, t, s) for label in libs for t in args.tiles
                  for s in args.splits if s <= -(-k // K.GEMM_TILE_K)]
-        for m in cs.GEMM_ROWS:
+        # Every row through launches of 64 rows: what any M must give.
+        tiles = {c: torch.cat([torch.cat(launcher(
+            libs[c[0]], x[lo:lo + 64].contiguous(), ws, out, c[1], c[2],
+            counters)(), dim=1) for lo in range(0, x.shape[0], 64)])
+            for c in cases}
+        for m in ROWS:
             xm = x[:m].contiguous()
             want = torch.cat(dg.decode_gemm_group_plain(xm, ws, out), dim=1)
             runs = {}
             for label, t, s in cases:
                 runs[label, t, s] = launcher(libs[label], xm, ws, out, t, s,
                                              counters)
-                full = torch.cat(launcher(libs[label], x, ws, out, t, s,
-                                          counters)(), dim=1)
                 got = torch.cat(runs[label, t, s](), dim=1)
                 torch.cuda.synchronize()
                 cs.check_close(f"{label} {name} M={m} tile {t} S={s}", got,
                                want)
-                if not torch.equal(got, full[:m]):
+                if not torch.equal(got, tiles[label, t, s][:m]):
                     raise AssertionError(f"{label} {name} tile {t} S={s}: "
                                          f"rows at M {m} are not bitwise "
-                                         f"its rows at M 64")
+                                         f"the same rows through launches "
+                                         f"of 64")
             nbytes = (k * n + m * k) * 2 + m * n * want.element_size()
             bound = nbytes / bw * 1e3
             for how in args.flush:
@@ -211,7 +222,7 @@ def main() -> int:
                 best[f"{name} M={m} {how} flush"] = dict(
                     best=f"{top[0]} tile {top[1]} S={top[2]}",
                     chosen=f"tile {K.gemm_tile(n)} S={K.gemm_splits(n, k)}")
-        del ws, w_cat, x
+        del ws, w_cat, x, tiles
     for key, b in best.items():
         print(f"{key}: least time {b['best']}; the port chooses "
               f"{b['chosen']}", flush=True)

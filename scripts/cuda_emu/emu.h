@@ -1,25 +1,38 @@
 // Thread-level CPU emulation of the CUDA features the paged kernels, the
-// decode GEMM (bf16 and W8A8), the norm and the row quantizer use, so that g++ can build and run them on a
-// machine without a card (emulate_paged.py rewrites the sources to include
-// this first). Blocks of a launch run one after another, in a shuffled order
+// decode GEMM (bf16 and W8A8, mma.sync and wgmma), the norm and the row
+// quantizer use, so that g++ can build and run them on a machine without
+// a card (emulate_paged.py rewrites the sources to include this first).
+// Blocks of a launch run one after another, in a shuffled order
 // (emu_set_shuffle_seed picks it; a static __shared__ array is then one
 // array that each block in turn has to itself);
 // each runs as blockDim std::threads with real barriers for
-// __syncthreads; warp collectives (shfl, ldmatrix, mma.sync) exchange
-// their operands through per-warp buffers. cp.async copies at once;
-// shared memory starts as 0xff bytes (NaN) so reads of unwritten shared
-// memory show. mma.sync sums its 16 (bf16) or 32 (e4m3) products in order
-// in f32: the card's tensor cores round differently, so a comparison with
-// the plain version is held to the card's tolerance, not to bits; what the
-// emulation checks is indexing, fragment layouts, masking, the ring and the
-// span merge. The int8 mma sums in int32, exactly, as the card's does.
+// __syncthreads and named barriers (bar.sync); warp collectives (shfl,
+// ldmatrix, mma.sync) exchange their operands through per-warp buffers.
+// cp.async copies at once; shared memory starts as 0xff bytes (NaN) so
+// reads of unwritten shared memory show, and its base is 1,024-byte
+// aligned. mbarriers count arrivals and flip their phase as the card's
+// do (a waiting thread sleeps on the word). wgmma reads its operands
+// through their descriptors and the 128-byte swizzle and runs at once:
+// each thread sums the products of its own accumulator elements
+// (fence, commit, wait, setmaxnreg and the proxy fence are no-ops).
+// mma.sync and wgmma sum a k step's 16 (bf16) or 32 (e4m3) products in
+// order in f32, then add that to the accumulator: the card's tensor cores
+// round differently, so a comparison with the plain version is held to
+// the card's tolerance, not to bits, while an emulated wgmma chain is
+// bitwise the emulated mma.sync chain over the same k steps; what the
+// emulation checks is indexing, fragment and descriptor layouts,
+// masking, the ring and its barriers, and the merges. The int8 products
+// sum in int32, exactly, as the card's do.
 #pragma once
 #include <stdint.h>
 #include <stddef.h>
 #include <string.h>
 #include <math.h>
 #include <algorithm>
+#include <condition_variable>
 #include <barrier>
+#include <memory>
+#include <mutex>
 #include <functional>
 #include <random>
 #include <thread>
@@ -95,6 +108,29 @@ inline __nv_fp8_storage_t __nv_cvt_float_to_fp8(float x, __nv_saturation_t,
   return (unsigned char)(sign | best);
 }
 inline float __fadd_rn(float a, float b) { return a + b; }
+// f16: an e4m3 pair converted exactly (every e4m3 value is a normal f16
+// or zero), and an f16 read back as float.
+struct __half2_raw { unsigned short x, y; };
+typedef unsigned short __nv_fp8x2_storage_t;
+inline unsigned short emu_f16_bits(float v) {
+  const uint32_t u = bits_of_f(v), sign = (u >> 16) & 0x8000u;
+  if (isnan(v)) return 0x7e00;
+  if ((u & 0x7fffffffu) == 0) return (unsigned short)sign;
+  const int e = (int)((u >> 23) & 0xff) - 127 + 15;  // normal in f16
+  return (unsigned short)(sign | (e << 10) | ((u >> 13) & 0x3ffu));
+}
+inline float emu_f16_value(unsigned short h) {
+  const int e = (h >> 10) & 0x1f, m = h & 0x3ff;
+  float v = e == 0 ? ldexpf((float)m, -24)
+            : e == 31 ? (m ? NAN : INFINITY)
+                      : ldexpf((float)(m | 0x400), e - 25);
+  return (h & 0x8000) ? -v : v;
+}
+inline __half2_raw __nv_cvt_fp8x2_to_halfraw2(__nv_fp8x2_storage_t x,
+                                              __nv_fp8_interpretation_t) {
+  return {emu_f16_bits((float)__nv_fp8_e4m3{(unsigned char)(x & 0xff)}),
+          emu_f16_bits((float)__nv_fp8_e4m3{(unsigned char)(x >> 8)})};
+}
 // The card's rsqrtf is within 2 ulp of 1 / sqrt(x); this one rounds twice.
 inline float rsqrtf(float x) { return 1.f / sqrtf(x); }
 inline float __expf(float x) { return expf(x); }
@@ -116,6 +152,47 @@ struct WarpCtx {
 };
 inline thread_local WarpCtx* tls_warp;
 inline thread_local std::barrier<>* tls_block_bar;
+// A block's named barriers (bar.sync id, threads), made by their first
+// caller, and the lock and condition its mbarriers' waiters sleep on.
+struct BlockSync {
+  std::mutex mu;
+  std::condition_variable cv;
+  std::unique_ptr<std::barrier<>> bar[16];
+};
+inline thread_local BlockSync* tls_sync;
+inline void bar_sync(int id, int threads) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> lock(tls_sync->mu);
+    if (!tls_sync->bar[id]) tls_sync->bar[id].reset(new std::barrier<>(threads));
+    b = tls_sync->bar[id].get();
+  }
+  b->arrive_and_wait();
+}
+// mbarrier: bits 0-30 arrivals pending, 32-62 the count, 63 the phase.
+inline void mbar_init(uint64_t* bar, int count) {
+  std::lock_guard<std::mutex> lock(tls_sync->mu);
+  *bar = ((uint64_t)count << 32) | (uint64_t)count;
+}
+inline void mbar_arrive(uint64_t* bar) {
+  std::lock_guard<std::mutex> lock(tls_sync->mu);
+  const uint64_t v = *bar, pend = (v & 0x7fffffffu) - 1;
+  const uint64_t count = (v >> 32) & 0x7fffffffu;
+  if (pend) {
+    *bar = (v & ~(uint64_t)0x7fffffffu) | pend;
+    return;
+  }
+  *bar = ((~v) & (1ull << 63)) | (count << 32) | count;
+  tls_sync->cv.notify_all();
+}
+// The copies landed when they were issued.
+inline void mbar_arrive_copied(uint64_t* bar) { mbar_arrive(bar); }
+// Returns once the phase of this parity has completed (the phase bit
+// differs from it).
+inline void mbar_wait(uint64_t* bar, int parity) {
+  std::unique_lock<std::mutex> lock(tls_sync->mu);
+  tls_sync->cv.wait(lock, [&] { return (int)(*bar >> 63) != parity; });
+}
 inline int lane_id() { return threadIdx.x & 31; }
 inline float __shfl_xor_sync(unsigned, float x, int o) {
   WarpCtx* w = tls_warp; int l = lane_id();
@@ -124,6 +201,7 @@ inline float __shfl_xor_sync(unsigned, float x, int o) {
   return r;
 }
 inline void __syncthreads() { tls_block_bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { tls_warp->bar->arrive_and_wait(); }
 inline void __threadfence() {}
 // Blocks run one at a time: a plain add is atomic here.
 inline int atomicAdd(int* p, int v) { int o = *p; *p += v; return o; }
@@ -213,6 +291,86 @@ inline void mma16832(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t 
 inline void mma16832(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   mma16832_common(c, a, b0, b1, [](uint8_t v) { return (float)__nv_fp8_e4m3{v}; });
 }
+// wgmma. A descriptor holds the operand's offset in the block's shared
+// memory as the card's holds its address: bits 0-13 / 16, the leading
+// byte offset at 16-29, the stride byte offset at 32-45, the swizzle mode
+// at 62-63 (1: 128 bytes).
+inline uint64_t wg_desc(uintptr_t addr, uint32_t lead) {
+  const uintptr_t off = addr - (uintptr_t)tls_smem;
+  if (off >= (1u << 18) || off % 16) abort();
+  return (uint64_t)(off >> 4) | ((uint64_t)(lead >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+// Address of byte `off` of a descriptor's operand, swizzled: the 16-byte
+// chunk bits (4-6) XORed with the row bits (7-9) of the address.
+inline const unsigned char* wg_at(uint64_t desc, size_t off) {
+  if ((desc >> 62) != 1) abort();
+  uintptr_t a = (uintptr_t)tls_smem + ((desc & 0x3fff) << 4) + off;
+  a ^= ((a >> 7) & 7) << 4;
+  return (const unsigned char*)a;
+}
+// Byte offset of (row r, byte b of its 32-byte k step) of a K-major
+// operand, and of (k row kr, column n) of an MN-major bf16 one.
+inline size_t wg_kmajor(uint64_t desc, int r, int b) {
+  return (size_t)(r / 8) * (((desc >> 32) & 0x3fff) << 4) + (r % 8) * 128 + b;
+}
+inline size_t wg_mnmajor(uint64_t desc, int kr, int n) {
+  return (size_t)(kr / 8) * (((desc >> 32) & 0x3fff) << 4) + (kr % 8) * 128 +
+         (size_t)(n / 64) * (((desc >> 16) & 0x3fff) << 4) + 2 * (n % 64);
+}
+// d (64 x 2R) += A B over one k step: thread t of the warpgroup (warp w,
+// lane l) owns register i, row 16 w + l / 4 + 8 ((i / 2) % 2), column
+// 8 (i / 4) + 2 (l % 4) + i % 2; its k step's products summed in order,
+// then added, as the emulated mma.sync does.
+template <typename Acc, int R, typename Prod>
+inline void wg_mma_common(Acc (&d)[R], int steps, Prod prod) {
+  const int t = threadIdx.x % 128, w = t / 32, l = t % 32;
+  for (int i = 0; i < R; ++i) {
+    const int row = 16 * w + l / 4 + 8 * ((i / 2) % 2);
+    const int col = 8 * (i / 4) + 2 * (l % 4) + i % 2;
+    Acc s = 0;
+    for (int k = 0; k < steps; ++k) s += prod(row, col, k);
+    d[i] += s;
+  }
+}
+inline float bf16_at(const unsigned char* p) {
+  uint16_t v;
+  memcpy(&v, p, 2);
+  return f_of_bits((uint32_t)v << 16);
+}
+template <int R>
+inline void wg_mma_bf16(float (&d)[R], uint64_t da, uint64_t db) {
+  wg_mma_common(d, 16, [&](int row, int col, int k) {
+    return bf16_at(wg_at(da, wg_kmajor(da, row, 2 * k))) *
+           bf16_at(wg_at(db, wg_mnmajor(db, k, col)));
+  });
+}
+template <int R>
+inline void wg_mma_e4m3(float (&d)[R], uint64_t da, uint64_t db) {
+  wg_mma_common(d, 32, [&](int row, int col, int k) {
+    return (float)__nv_fp8_e4m3{*wg_at(da, wg_kmajor(da, row, k))} *
+           (float)__nv_fp8_e4m3{*wg_at(db, wg_kmajor(db, col, k))};
+  });
+}
+template <int R>
+inline void wg_mma_f16(float (&d)[R], uint64_t da, uint64_t db) {
+  auto f16_at = [](const unsigned char* p) {
+    uint16_t v;
+    memcpy(&v, p, 2);
+    return emu_f16_value(v);
+  };
+  wg_mma_common(d, 16, [&](int row, int col, int k) {
+    return f16_at(wg_at(da, wg_kmajor(da, row, 2 * k))) *
+           f16_at(wg_at(db, wg_kmajor(db, col, 2 * k)));
+  });
+}
+template <int R>
+inline void wg_mma_s8(int (&d)[R], uint64_t da, uint64_t db) {
+  wg_mma_common(d, 32, [&](int row, int col, int k) {
+    return (int)(int8_t)*wg_at(da, wg_kmajor(da, row, k)) *
+           (int)(int8_t)*wg_at(db, wg_kmajor(db, col, k));
+  });
+}
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
@@ -233,9 +391,10 @@ void emu_launch(dim3 grid, int threads, int smem, F f) {
       for (unsigned x = 0; x < grid.x; ++x) blocks.push_back({x, y, z});
   std::shuffle(blocks.begin(), blocks.end(), emu_rng);
   for (const uint3_& bi : blocks) {
-    std::vector<unsigned char> buf(smem + 64, 0xff);  // NaN bytes: catch uninitialised reads
-    unsigned char* base = (unsigned char*)(((uintptr_t)buf.data() + 63) & ~(uintptr_t)63);
+    std::vector<unsigned char> buf(smem + 1024, 0xff);  // NaN bytes: catch uninitialised reads
+    unsigned char* base = (unsigned char*)(((uintptr_t)buf.data() + 1023) & ~(uintptr_t)1023);
     std::barrier<> block_bar(threads);
+    BlockSync sync;
     std::vector<std::unique_ptr<std::barrier<>>> wbars;
     std::vector<WarpCtx> warps(threads / 32);
     for (int i = 0; i < threads / 32; ++i) {
@@ -250,6 +409,7 @@ void emu_launch(dim3 grid, int threads, int smem, F f) {
         tls_smem = base;
         tls_warp = &warps[t / 32];
         tls_block_bar = &block_bar;
+        tls_sync = &sync;
         f();
         tls_warp->bar->arrive_and_drop();
         block_bar.arrive_and_drop();

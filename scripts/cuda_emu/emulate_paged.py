@@ -62,16 +62,21 @@ KERNELS = ("paged_decode", "paged_verify", "paged_prefill")
 # Device helpers emu.h replaces: their asm bodies are renamed out of the
 # way, and calls resolve to emu.h's versions.
 HELPERS = ("cp_async16", "cp_async_wait_all", "cp_async16_zfill",
-           "ldmatrix_x4", "ldmatrix_x4_trans", "mma16816", "mma16832")
+           "ldmatrix_x4", "ldmatrix_x4_trans", "mma16816", "mma16832",
+           "wg_desc", "mbar_init", "mbar_arrive", "mbar_arrive_copied",
+           "mbar_wait", "bar_sync")
 
 
 def for_host(src: str) -> str:
     """One CUDA source rewritten for g++ with emu.h included first."""
-    for h in ("cuda_bf16.h", "cuda_fp8.h", "cuda_runtime.h"):
+    for h in ("cuda_bf16.h", "cuda_fp16.h", "cuda_fp8.h", "cuda_runtime.h"):
         src = src.replace(f"#include <{h}>", "")
     for name in HELPERS:
-        src = re.sub(rf"void {name}\(", f"void {name}_device(", src)
+        src = re.sub(rf"\b(void|uint64_t) {name}\(", rf"\1 {name}_device(",
+                     src)
     src = src.replace("uint32_t smem_u32(", "uint32_t smem_u32_device(")
+    # The wgmma helpers a macro stamps out for each width: emu.h has them.
+    src = re.sub(r"^TK8S_GM_MMAS\(.*?\)\n", "", src, flags=re.M | re.S)
     src = re.sub(r"asm volatile\(.*?\);", ";", src, flags=re.S)
     src = src.replace(
         "extern __shared__ __align__(16) unsigned char smem_raw[];",

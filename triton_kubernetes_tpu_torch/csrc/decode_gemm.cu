@@ -21,25 +21,27 @@
 //   own kernel at the end of this file (CUDA cores, one fmaf chain over
 //   each K range), in the same grid and with the same merge.
 //
-// What bounds it on this card: bytes. At M <= 64 a product does 2 M FLOPs
-//   per weight element read, far below the ~295 FLOPs a byte at which the
-//   tensor cores and not HBM would limit it, so the bound is the weight
-//   bytes over 3.35 TB/s. Reaching it takes bytes in flight on every SM:
-//   one block per 64 output columns alone gives 16 blocks for wk and 64
-//   for wq or wo on 132 SMs.
+// What bounds it on this card. At M <= 64 (decode and verify ticks) a
+//   product does 2 M FLOPs per weight element read, far below the ~295
+//   FLOPs a byte at which the tensor cores and not HBM would limit it, so
+//   the bound is the weight bytes over 3.35 TB/s. Reaching it takes bytes
+//   in flight on every SM: one block per 64 output columns alone gives 16
+//   blocks for wk and 64 for wq or wo on 132 SMs. A prefill window's M
+//   256 does 256 FLOPs a weight byte (bf16), at the ridge: there the
+//   tensor cores must run near their full rate, which on Hopper only
+//   wgmma reaches, and the operands' traffic from the L2 into the SMs
+//   (each weight tile once per 128 rows, x once per column block) is what
+//   a block's tile shape must keep down.
 //
-// Design: the grid is (problem, output tile, split) flattened, the splits
-//   of a tile adjacent. The caller picks the tile width (64 or 128
-//   columns, `_kernels.gemm_tile`) and S, the number of contiguous ranges
-//   of whole 64-wide k tiles K is cut into (range s = [s nk / S,
+// Design, M <= 64: the grid is (problem, output tile, split) flattened,
+//   the splits of a tile adjacent. The caller picks the tile width (64 or
+//   128 columns, `_kernels.gemm_tile`) and S, the number of contiguous
+//   ranges of whole 64-wide k tiles K is cut into (range s = [s nk / S,
 //   (s + 1) nk / S), `_kernels.gemm_splits`), from the group's N and K
-//   alone, never from M. A block (four warps) takes a row tile -- up to 64
-//   rows of x -- for its column tile and range, so each weight element is
-//   read from HBM once per call for any M <= 64. Larger M (a prefill
-//   window's 256 rows) adds row tiles to the grid, innermost, so the row
-//   tiles of one (column tile, range) run side by side and read its weights
-//   once from HBM and again from the L2. A block walks its range in tiles
-//   of 64 through a ring of
+//   alone, never from M. A block (four warps) takes all the rows -- up to
+//   64 rows of x -- for its column tile and range, so each weight element
+//   is read from HBM once per call. A block walks its range in tiles of
+//   64 through a ring of
 //   shared-memory stages kept full by 16-byte cp.async copies, each row
 //   XOR-swizzled (16-byte chunk c of row r at c ^ r % 8) so that ldmatrix
 //   reads are free of bank conflicts; rows of x past M and columns past N
@@ -57,10 +59,41 @@
 //   which that block sets back to 0) sums the S partials in the order
 //   s = 0, 1, ..., S - 1 and rounds once. An output element is then the
 //   same chains of mma steps over the same k steps, added in the same
-//   order, whatever M is, whichever block came last, whichever tile width
-//   holds its column and whichever row tile its row; and an mma's row does
-//   not see the other rows of its tile, so the number of 16-row tiles
-//   instantiated (MT = 1, 2 or 4, from M) changes no bit of a row.
+//   order, whatever M is, whichever block came last and whichever tile
+//   width holds its column; and an mma's row does not see the other rows
+//   of its tile, so the number of 16-row tiles instantiated (MT = 1, 2 or
+//   4, from M) changes no bit of a row.
+//
+// Design, M > 64 (wgmma): the grid gains row blocks of 128 rows,
+//   innermost, so the blocks that read one weight tile run side by side
+//   and share it through the L2. A block is three warpgroups: one copies
+//   (the same swizzled 128-byte rows, by cp.async, into a ring as deep
+//   as shared memory holds, each stage tracked by a full and an empty
+//   mbarrier, its registers handed to the others by setmaxnreg) and two
+//   multiply, 64 rows each -- wgmma's M -- reading A (x, K-major) and B
+//   (the [k][n] weight tile, MN-major, the trans-b form; [n][k] and
+//   K-major for 8-bit types) straight from shared memory through
+//   descriptors. Both read each weight stage, so it is fetched once per
+//   128 rows. The bits hold because the chains are the M <= 64 kernels':
+//   a warpgroup keeps kKw accumulator sets and sends k step q of a stage
+//   to set q % kKw, each set starting from zeros and always accumulating
+//   as an mma.sync chain does; the sets are added in the order 0, 1, ...,
+//   the K ranges are the same S of the shape and merge in the same slabs
+//   in the same order, and the epilogue is the same one rounding. That
+//   makes a row bitwise its M <= 64 launch's provided one wgmma k step
+//   rounds as one mma.sync step does for the same operands and
+//   accumulator: the bit probe at the end of this file (gemm_probe_kernel)
+//   runs both chains on the same tiles, and chip_smoke.py asserts that
+//   they agree before it relies on them. The int8 sum is exact in any
+//   order, so its warpgroups keep one set and take two column tiles. The
+//   probe found that e4m3 wgmma k steps do not round as mma.sync's, and
+//   the tensor cores keep fewer bits than f32 across a chain of fp8
+//   products (a W8A8 fp8 model's logits drifted past chip_smoke.py's
+//   limit on them), so fp8 runs this kernel at every M (at M <= 64 the
+//   second multiplying warpgroup holds no row and only converts): the
+//   multiplying warpgroups convert each copied e4m3 tile to f16 (exact)
+//   into one of two buffers while the tensor cores multiply the other,
+//   and f16 wgmma sums the exact products in f32, in the kKw chains.
 //
 // Measured on an H100 (scripts/bench_decode_gemm.py; PERF.md, Findings):
 //   merge costs each block a few L2 round trips at its end, so S stays as
@@ -71,6 +104,8 @@
 //   warps (in place of every warp walking every k step of its columns)
 //   took the small groups' verify-row products (M 32) 4-17% faster.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -88,11 +123,6 @@ namespace {
 constexpr int kThreads = 128;  // four warps
 constexpr int kBk = 64;        // k a stage: one 128-byte row of bf16
 constexpr int kMaxRows = 64;   // rows a block (a row tile)
-// Ring depth of the 64-column tile when M is past one row tile (a prefill
-// window): 5 stages of 16 KB (80 KB) let two blocks share an SM, where
-// TK8S_GEMM_STAGES_64's 128 KB leaves one. The depth changes no bit of a
-// row.
-constexpr int kRowTileStages64 = 5;
 constexpr int kMaxProblems = 3;
 constexpr int kMaxSplits = 16;
 
@@ -101,10 +131,6 @@ constexpr int kMaxSplits = 16;
 template <int BN>
 __host__ __device__ constexpr int stages() {
   return BN == 64 ? TK8S_GEMM_STAGES_64 : TK8S_GEMM_STAGES_128;
-}
-template <int BN>
-__host__ __device__ constexpr int row_tile_stages() {
-  return BN == 64 ? kRowTileStages64 : TK8S_GEMM_STAGES_128;
 }
 template <int MT, int BN>
 __host__ __device__ constexpr int stage_bytes() {
@@ -440,9 +466,10 @@ decode_gemm_kernel(const __nv_bfloat16* __restrict__ x,
 // ldmatrix, as the A fragment of x rows. int8 partial sums -- the warps'
 // and the K split's -- are added in int32 (the workspace holds int32), so
 // the int8 sum is exact and its order does not matter: a row is bitwise
-// its plain version for any M and S. fp8 partials are added in f32 in the
-// order of the bf16 kernel (wk = 0, 1, ...; s = 0, 1, ..., S - 1), so an
-// fp8 row too is the same whatever M is.
+// its plain version for any M and S. This kernel takes int8 at M <= 64;
+// e4m3 runs the wgmma kernel below at every M (its wgmma k step does not
+// round as this kernel's mma.sync step does, so one instruction sequence
+// for every M is what keeps an fp8 row the same whatever M is).
 constexpr int kBk8 = 128;  // k a stage: one 128-byte row of 8-bit values
 
 template <bool kInt8> struct Acc8;
@@ -761,6 +788,789 @@ decode_gemm_f32_kernel(const float* __restrict__ x, Group<float, float> g,
     if (i < rows) y[(size_t)(rg + kGroups * i) * n + n0 + col] = acc[i];
 }
 
+// ---------------------------------------------------------------------
+// M > 64 on wgmma (the header note says why and how).
+
+constexpr int kWg = 128;             // threads a warpgroup
+constexpr int kWgRows = 64;          // rows of a warpgroup's product: wgmma's M
+constexpr int kWgAtom = 1024;        // eight 128-byte rows: one swizzle atom
+constexpr int kWgMaxSmem = 232448;   // dynamic shared memory a block may take
+constexpr int kWgMaxStages = 8;      // most stages of its ring
+
+// Descriptor of a 128-byte-swizzled operand at shared address `addr`:
+// bits 0-13 addr / 16, 16-29 the leading byte offset / 16 (read only in
+// the MN-major form: the stride between 64-column blocks), 32-45 the
+// stride byte offset / 16 (1,024: from one eight-row atom to the next),
+// 62-63 layout 1 (128-byte swizzle). Operands start 1,024-byte aligned.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lead) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) |
+         ((uint64_t)(lead >> 4) << 16) |
+         ((uint64_t)(kWgAtom >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of products are in flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// After wg_wait: keeps the compiler from reading an accumulator before
+// the wait (it does not know the products write it asynchronously).
+template <int R>
+__device__ __forceinline__ void wg_landed(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void wg_landed(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+#define TK8S_GM_D8(C, o)                                                \
+  C(d[o]), C(d[o + 1]), C(d[o + 2]), C(d[o + 3]), C(d[o + 4]),          \
+      C(d[o + 5]), C(d[o + 6]), C(d[o + 7])
+#define TK8S_GM_D32(C, o)                                               \
+  TK8S_GM_D8(C, o), TK8S_GM_D8(C, o + 8), TK8S_GM_D8(C, o + 16),        \
+      TK8S_GM_D8(C, o + 24)
+#define TK8S_GM_D64(C, o) TK8S_GM_D32(C, o), TK8S_GM_D32(C, o + 32)
+#define TK8S_GM_D128(C) TK8S_GM_D64(C, 0), TK8S_GM_D64(C, 64)
+#define TK8S_GM_P8(a)                                                   \
+  "%" #a "0, %" #a "1, %" #a "2, %" #a "3, %" #a "4, %" #a "5, %" #a   \
+  "6, %" #a "7, %" #a "8, %" #a "9"
+#define TK8S_GM_P30                                                     \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " TK8S_GM_P8(1) ", "         \
+  TK8S_GM_P8(2)
+#define TK8S_GM_P32 TK8S_GM_P30 ", %30, %31"
+#define TK8S_GM_P64                                                     \
+  TK8S_GM_P30 ", " TK8S_GM_P8(3) ", " TK8S_GM_P8(4) ", " TK8S_GM_P8(5)  \
+  ", %60, %61, %62, %63"
+#define TK8S_GM_P128                                                    \
+  TK8S_GM_P30 ", " TK8S_GM_P8(3) ", " TK8S_GM_P8(4) ", " TK8S_GM_P8(5)  \
+  ", " TK8S_GM_P8(6) ", " TK8S_GM_P8(7) ", " TK8S_GM_P8(8) ", "         \
+  TK8S_GM_P8(9) ", %100, %101, %102, %103, %104, %105, %106, %107, "    \
+  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "  \
+  "%119, %120, %121, %122, %123, %124, %125, %126, %127"
+
+// d (64 x N) += A B, one k step, both operands from shared memory; the
+// accumulator is always added (scale-d 1), so a chain starts from its
+// registers' zeros as mma.sync's does. bf16: A (64 x 16) K-major, B
+// (16 x N) MN-major (the trans-b form, imm-trans-b 1). s8 and e4m3: A
+// (64 x 32) and B (N x 32) both K-major, the only form 8-bit types take.
+// d has N / 2 registers: N = 64, 128 or 256.
+#define TK8S_GM_MMA(NAME, T, C, R, INSTR, TAIL, DREGS, PLIST, IA, IB, IS) \
+  __device__ __forceinline__ void NAME(T (&d)[R], uint64_t da,            \
+                                       uint64_t db) {                     \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IS ", 0;\n" INSTR   \
+                 " {" PLIST "}, %" IA ", %" IB ", p" TAIL ";\n}\n"         \
+                 : DREGS                                                  \
+                 : "l"(da), "l"(db), "r"(1));                             \
+  }
+// The instruction of each operand kind at width N.
+#define TK8S_GM_BF16(N)                                                   \
+  "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16"
+#define TK8S_GM_E4M3(N)                                                   \
+  "wgmma.mma_async.sync.aligned.m64n" #N "k32.f32.e4m3.e4m3"
+#define TK8S_GM_S8(N) "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8"
+#define TK8S_GM_F16(N)                                                    \
+  "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.f16.f16"
+#define TK8S_GM_R32(C) TK8S_GM_D32(C, 0)
+#define TK8S_GM_R64(C) TK8S_GM_D64(C, 0)
+#define TK8S_GM_MMAS(NAME, T, C, INSTR, TAIL, N, R, DREGS, PLIST, IA, IB, \
+                     IS)                                                  \
+  TK8S_GM_MMA(NAME, T, C, R, INSTR(N), TAIL, DREGS(C), PLIST, IA, IB, IS)
+// The widths the kernels take: bf16 and f16 (converted e4m3) N = BN (64,
+// 128), both operands K-major for f16; s8 N = 2 BN (128, 256); e4m3 and
+// s8 at 64 in the probe.
+TK8S_GM_MMAS(wg_mma_bf16, float, "+f", TK8S_GM_BF16, ", 1, 1, 0, 1", 64, 32,
+             TK8S_GM_R32, TK8S_GM_P32, "32", "33", "34")
+TK8S_GM_MMAS(wg_mma_bf16, float, "+f", TK8S_GM_BF16, ", 1, 1, 0, 1", 128,
+             64, TK8S_GM_R64, TK8S_GM_P64, "64", "65", "66")
+TK8S_GM_MMAS(wg_mma_e4m3, float, "+f", TK8S_GM_E4M3, ", 1, 1", 64, 32,
+             TK8S_GM_R32, TK8S_GM_P32, "32", "33", "34")
+TK8S_GM_MMAS(wg_mma_f16, float, "+f", TK8S_GM_F16, ", 1, 1, 0, 0", 64, 32,
+             TK8S_GM_R32, TK8S_GM_P32, "32", "33", "34")
+TK8S_GM_MMAS(wg_mma_f16, float, "+f", TK8S_GM_F16, ", 1, 1, 0, 0", 128, 64,
+             TK8S_GM_R64, TK8S_GM_P64, "64", "65", "66")
+TK8S_GM_MMAS(wg_mma_s8, int, "+r", TK8S_GM_S8, "", 64, 32, TK8S_GM_R32,
+             TK8S_GM_P32, "32", "33", "34")
+TK8S_GM_MMAS(wg_mma_s8, int, "+r", TK8S_GM_S8, "", 128, 64, TK8S_GM_R64,
+             TK8S_GM_P64, "64", "65", "66")
+TK8S_GM_MMAS(wg_mma_s8, int, "+r", TK8S_GM_S8, "", 256, 128, TK8S_GM_D128,
+             TK8S_GM_P128, "128", "129", "130")
+#undef TK8S_GM_MMAS
+#undef TK8S_GM_BF16
+#undef TK8S_GM_E4M3
+#undef TK8S_GM_S8
+#undef TK8S_GM_F16
+#undef TK8S_GM_P30
+#undef TK8S_GM_MMA
+#undef TK8S_GM_R32
+#undef TK8S_GM_R64
+#undef TK8S_GM_D8
+#undef TK8S_GM_D32
+#undef TK8S_GM_D64
+#undef TK8S_GM_D128
+#undef TK8S_GM_P8
+#undef TK8S_GM_P32
+#undef TK8S_GM_P64
+#undef TK8S_GM_P128
+
+// Shared-memory barriers (mbarrier) between the copying warpgroup and
+// the multiplying ones: `mbar_arrive_copied` counts this thread once all
+// the copies it has issued have landed (.noinc: one of the init count);
+// `mbar_wait` spins until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_copied(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// Orders the copies' writes to shared memory (the generic proxy) before
+// this thread's later wgmma reads of it (the async proxy).
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Named barrier `id` (1-15) over `threads` threads.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// Registers move from the copying warpgroup to the multiplying ones.
+template <int N>
+__device__ __forceinline__ void regs_release() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_take() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// The operand kinds: bf16 (f32 sums, [K, N] weights read MN-major) and
+// the W8A8 pair (int32 or f32 sums, [N, K] weights read K-major, the
+// scales' epilogue). A stage is one 128-byte row of k of the inputs in
+// every case: kSteps wgmma k steps. How each sums (the chains an output
+// element is built of):
+//   kChained: the M <= 64 kernels' kKw chains, k step q of a stage into
+//     set (q / kSub) % kKw (kSub wgmma k steps make one of their mma.sync
+//     k steps), each set from zeros, the sets added in order; so a row is
+//     bitwise its M <= 64 launch's where the k steps round alike (bf16:
+//     the bit probe);
+//   kExact: one chain in any order (int8: an exact integer sum);
+//   kConvert (e4m3): an e4m3 wgmma k step does not round as mma.sync's
+//     does, and the tensor cores keep fewer bits than f32 across its fp8
+//     products, so the multiplying warpgroups convert each copied k tile
+//     to f16 (exact: every e4m3 value is an f16) into one of two f16
+//     buffers while the tensor cores run the other, and f16 wgmma sums
+//     the exact products in f32 -- two k16 steps for each of mma.sync's
+//     k32 steps, in its chains.
+struct WgBf16 {
+  using In = __nv_bfloat16;
+  using Acc = float;
+  static constexpr bool kChained = true, kExact = false, kConvert = false;
+  static constexpr bool kScaled = false, kWKMajor = false;
+  // Values of k a copied tile, a 16-byte chunk; wgmma k steps over 128
+  // bytes of k (for kConvert: over each 64-k half of the f16 tile);
+  // wgmma k steps a chain step.
+  static constexpr int kKb = kBk, kChunk = 8, kSteps = 4, kSub = 1;
+  template <int R>
+  static __device__ __forceinline__ void mma(float (&d)[R], uint64_t da,
+                                             uint64_t db) {
+    wg_mma_bf16(d, da, db);
+  }
+};
+struct WgS8 {
+  using In = uint8_t;
+  using Acc = int;
+  static constexpr bool kChained = false, kExact = true, kConvert = false;
+  static constexpr bool kScaled = true, kWKMajor = true;
+  static constexpr int kKb = kBk8, kChunk = 16, kSteps = 4, kSub = 1;
+  template <int R>
+  static __device__ __forceinline__ void mma(int (&d)[R], uint64_t da,
+                                             uint64_t db) {
+    wg_mma_s8(d, da, db);
+  }
+};
+struct WgE4m3 {
+  using In = uint8_t;
+  using Acc = float;
+  static constexpr bool kChained = true, kExact = false, kConvert = true;
+  static constexpr bool kScaled = true, kWKMajor = true;
+  static constexpr int kKb = kBk8, kChunk = 16, kSteps = 4, kSub = 2;
+  template <int R>
+  static __device__ __forceinline__ void mma(float (&d)[R], uint64_t da,
+                                             uint64_t db) {
+    wg_mma_f16(d, da, db);
+  }
+};
+// e4m3 operands straight into an e4m3 wgmma: the bit probe's only.
+struct WgE4m3Direct : WgE4m3 {
+  static constexpr bool kConvert = false;
+  static constexpr int kSub = 1;
+  template <int R>
+  static __device__ __forceinline__ void mma(float (&d)[R], uint64_t da,
+                                             uint64_t db) {
+    wg_mma_e4m3(d, da, db);
+  }
+};
+
+template <bool kInt8> struct W8A8Of { using T = WgS8; };
+template <> struct W8A8Of<false> { using T = WgE4m3; };
+template <bool kInt8> using W8A8Op = typename W8A8Of<kInt8>::T;
+
+// A block's shape: kCons multiplying warpgroups of 64 rows each over
+// kCols = kTiles BN-wide tiles, one copying warpgroup, and a ring of
+// copied k tiles as deep as shared memory holds (beside, for kConvert,
+// two f16 buffers of a tile each: its k 64 h .. 64 h + 63 as half h, in
+// a copied tile's layout). Chained sums keep kSets accumulator sets (the
+// M <= 64 kernels' kKw); the exact one one set over two tiles.
+template <class Op, int BN, int kCons>
+struct WgPlan {
+  static constexpr int kSets = Op::kChained ? 4 * 64 / BN : 1;
+  static constexpr int kTiles = Op::kExact ? 2 : 1;
+  static constexpr int kCols = kTiles * BN;
+  static constexpr int kRegs = kCols / 2;  // accumulator registers a set
+  static constexpr int kXBytes = kCons * kWgRows * 128;
+  static constexpr int kCopyBytes = kXBytes + kCols * 128;  // one k tile
+  static constexpr int kStageBytes = kCopyBytes;
+  static constexpr int kF16Bytes = Op::kConvert ? 4 * kCopyBytes : 0;
+  static constexpr int kFit =
+      (kWgMaxSmem - 2 * kWgAtom - kF16Bytes) / kStageBytes;
+  static constexpr int kStages = kFit < kWgMaxStages ? kFit : kWgMaxStages;
+  static constexpr int kThreads = (kCons + 1) * kWg;
+  // Room to align the rings, the rings, full and empty barriers, the flag.
+  static constexpr int kSmem = kWgAtom + kStages * kStageBytes +
+                               kF16Bytes + 2 * kStages * 8 + 16;
+  static_assert(kSets * kRegs <= 128, "accumulators a thread");
+  static_assert(kStages >= 2 && kSmem <= kWgMaxSmem, "shared memory");
+};
+
+// The copies of k tile kt into one stage, by copying thread t: x rows
+// 0 .. 64 kCons - 1 of the block (zero at or past mb), K-major, 128
+// bytes of k a row; then the weight tile: bf16 [K, N] as kCols / 64
+// column blocks of 64 k rows (MN-major), 8-bit [N, K] as kCols rows of
+// 128 bytes of k (K-major); zero past n and k. Each 128-byte row is
+// swizzled as every other tile of this file (chunk c of row r at c ^ r %
+// 8), which is the 128-byte swizzle wgmma reads.
+template <class Op, int kCons, int kCols>
+__device__ __forceinline__ void load_wg_stage(unsigned char* stage,
+                                              const typename Op::In* x,
+                                              const typename Op::In* w,
+                                              int mb, int n, int k, int n0,
+                                              int kt, int t) {
+  using In = typename Op::In;
+  constexpr int e = Op::kChunk;
+  const int k0 = kt * Op::kKb, c = t % 8, r0 = t / 8;
+  const bool k_live = k0 + e * c < k;
+  // A thread keeps its chunk c and takes every 16th row (every rows-th k
+  // row of a bf16 weight), so its swizzle term is fixed and the source
+  // and destination advance by constants.
+  const size_t step = (size_t)16 * k;
+  const In* src = x + (size_t)r0 * k + k0 + e * c;
+  unsigned char* dst = stage + swz(r0, c);
+#pragma unroll
+  for (int p = 0; p < kCons * kWgRows / 16; ++p) {
+    const bool live = r0 + 16 * p < mb && k_live;
+    cp_async16_zfill(dst + p * 16 * 128, live ? src : x, live);
+    src += step;
+  }
+  unsigned char* wst = stage + kCons * kWgRows * 128;
+  if constexpr (Op::kWKMajor) {
+    src = w + (size_t)(n0 + r0) * k + k0 + e * c;
+    dst = wst + swz(r0, c);
+#pragma unroll
+    for (int p = 0; p < kCols / 16; ++p) {
+      const bool live = k_live && n0 + r0 + 16 * p < n;
+      cp_async16_zfill(dst + p * 16 * 128, live ? src : w, live);
+      src += step;
+    }
+  } else {
+    constexpr int chunks = kCols / 8, rows = kWg / chunks;
+    const int cc = t % chunks, kr0 = t / chunks;
+    const bool n_live = n0 + 8 * cc < n;
+    const size_t wstep = (size_t)rows * n;
+    src = w + (size_t)(k0 + kr0) * n + n0 + 8 * cc;
+    dst = wst + (cc / 8) * (kWgRows * 128) + swz(kr0, cc % 8);
+#pragma unroll
+    for (int p = 0; p < kBk / rows; ++p) {
+      const bool live = n_live && k0 + kr0 + rows * p < k;
+      cp_async16_zfill(dst + p * rows * 128, live ? src : w, live);
+      src += wstep;
+    }
+  }
+}
+
+// 16 e4m3 values (one 16-byte chunk) as 16 f16 (two chunks), exactly.
+__device__ __forceinline__ void e4m3x16_to_f16(uint4 v, uint4& lo,
+                                               uint4& hi) {
+  const uint32_t in[4] = {v.x, v.y, v.z, v.w};
+  uint32_t out[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+        (__nv_fp8x2_storage_t)(in[i / 2] >> (16 * (i % 2))), __NV_E4M3);
+    out[i] = (uint32_t)h.x | ((uint32_t)h.y << 16);
+  }
+  lo = make_uint4(out[0], out[1], out[2], out[3]);
+  hi = make_uint4(out[4], out[5], out[6], out[7]);
+}
+
+// A copied e4m3 tile converted to f16 by the kThreads multiplying
+// threads, thread t taking chunk c = t % 8 (k 16 c .. 16 c + 15) of rows
+// t / 8 + (kThreads / 8) p: into half c / 4 of the f16 buffer, as chunks
+// 2 (c % 4) and 2 (c % 4) + 1 of the same row, swizzled (each half is a
+// copied tile's layout). x rows at or past mb are left as they are
+// (their products are never stored).
+template <int kCons, int kCols, int kCopyBytes>
+__device__ __forceinline__ void convert_wg_stage(const unsigned char* raw,
+                                                 unsigned char* f16, int mb,
+                                                 int t) {
+  constexpr int kThreads = kCons * kWg, kPass = kThreads / 8;
+  constexpr int kRows = kCons * kWgRows + kCols;  // x rows, then w rows
+  // x rows first, then the weight rows after kCons * 64 x rows, each
+  // swizzled by its row index (the parts start a multiple of 8 apart);
+  // a thread's rows are kPass apart, so its swizzle terms are fixed.
+  const int c = t % 8, r0 = t / 8, sw = r0 & 7;
+  const unsigned char* src = raw + r0 * 128 + ((c ^ sw) << 4);
+  unsigned char* half = f16 + (c / 4) * kCopyBytes + r0 * 128;
+  unsigned char* lo_at = half + (((2 * (c % 4)) ^ sw) << 4);
+  unsigned char* hi_at = half + (((2 * (c % 4) + 1) ^ sw) << 4);
+#pragma unroll
+  for (int p = 0; p < kRows / kPass; ++p) {
+    const int r = r0 + kPass * p;
+    if (r < kCons * kWgRows && r >= mb) continue;
+    uint4 lo, hi;
+    e4m3x16_to_f16(
+        *reinterpret_cast<const uint4*>(src + p * kPass * 128), lo, hi);
+    *reinterpret_cast<uint4*>(lo_at + p * kPass * 128) = lo;
+    *reinterpret_cast<uint4*>(hi_at + p * kPass * 128) = hi;
+  }
+}
+
+// One output pair, (y[row][col], y[row][col + 1]), rounded once: bf16
+// stores its f32 sums, W8A8 applies the scales first.
+template <class Op, typename Out, typename Acc>
+__device__ __forceinline__ void wg_emit(Out* y, Acc a, Acc b,
+                                        const float* x_scale,
+                                        const float* w_scale, int row,
+                                        int col) {
+  if constexpr (Op::kScaled) {
+    typename Acc8<Op::kExact>::V v;
+    v.x = a;
+    v.y = b;
+    store_scaled<Out>(y, v, x_scale[row], w_scale + col);
+  } else {
+    store2<Out>(y, a, b);
+  }
+}
+
+template <class Op, int BN, int kCons, typename Out>
+__device__ __forceinline__ void wgmma_gemm(
+    const typename Op::In* __restrict__ x, const float* __restrict__ x_scale,
+    const Group<typename Op::In, Out>& g, const Scales& sc, int m, int k,
+    int splits, void* __restrict__ ws, int* __restrict__ counters) {
+  using P = WgPlan<Op, BN, kCons>;
+  using In = typename Op::In;
+  using Acc = typename Op::Acc;
+  using V = typename Acc8<Op::kExact>::V;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + (kWgAtom - smem_u32(smem_raw) % kWgAtom) % kWgAtom;
+  unsigned char* f16 = ring + P::kStages * P::kStageBytes;  // kConvert
+  uint64_t* full = reinterpret_cast<uint64_t*>(f16 + P::kF16Bytes);
+  uint64_t* empty = full + P::kStages;
+  int* flag = reinterpret_cast<int*>(empty + P::kStages);
+
+  // The grid: (kTiles-tile column block, split, row block of 64 kCons
+  // rows), row blocks innermost, so the blocks that read one weight tile
+  // run side by side and share it through the L2.
+  const int row_blocks = (m + kCons * kWgRows - 1) / (kCons * kWgRows);
+  const int rb = blockIdx.x % row_blocks;
+  const int split = blockIdx.x / row_blocks % splits;
+  const int cb = blockIdx.x / row_blocks / splits;
+  // The block's problem p, and its first BN-wide tile, counted through
+  // the group (a column block does not straddle two problems).
+  int p = 0, t_begin = 0, c_begin = 0;
+#pragma unroll
+  for (int q = 0; q < kMaxProblems - 1; ++q) {
+    const int cq = (g.tile_end[q] - t_begin + P::kTiles - 1) / P::kTiles;
+    if (p == q && cb >= c_begin + cq) {
+      p = q + 1;
+      c_begin += cq;
+      t_begin = g.tile_end[q];
+    }
+  }
+  const In* w = p == 0 ? g.w[0] : p == 1 ? g.w[1] : g.w[2];
+  Out* const y = p == 0 ? g.y[0] : p == 1 ? g.y[1] : g.y[2];
+  const int n = p == 0 ? g.n[0] : p == 1 ? g.n[1] : g.n[2];
+  const float* w_scale = p == 0 ? sc.s[0] : p == 1 ? sc.s[1] : sc.s[2];
+  const int tile0 = t_begin + P::kTiles * (cb - c_begin);
+  const int n0 = (tile0 - t_begin) * BN;
+  const int row0 = rb * kCons * kWgRows;
+  const int nk = (k + Op::kKb - 1) / Op::kKb;
+  const int kt0 = range_start(split, nk, splits);
+  const int len = range_start(split + 1, nk, splits) - kt0;
+  const int wg = threadIdx.x / kWg;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::kStages; ++s) {
+      mbar_init(full + s, kWg);          // the copying threads
+      mbar_init(empty + s, kCons * 4);   // a warp of each multiplying one
+    }
+  }
+  __syncthreads();
+
+  if (wg == kCons) {
+    // ---- the copying warpgroup: keeps the ring full, nothing else.
+    if constexpr (kCons > 1) regs_release<56>();
+    const int t = threadIdx.x - kCons * kWg;
+    const In* xb = x + (size_t)row0 * k;
+    const int mb = min(kCons * kWgRows, m - row0);
+    for (int it = 0; it < len; ++it) {
+      const int s = it % P::kStages;
+      if (it >= P::kStages) mbar_wait(empty + s, (it / P::kStages - 1) & 1);
+      load_wg_stage<Op, kCons, P::kCols>(ring + s * P::kStageBytes, xb, w,
+                                         mb, n, k, n0, kt0 + it, t);
+      mbar_arrive_copied(full + s);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // ---- the multiplying warpgroups, 64 rows each.
+  if constexpr (kCons > 1) regs_take<224>();
+  const int t = threadIdx.x % kWg, lane = t % 32;
+  const int crow0 = row0 + wg * kWgRows;  // this warpgroup's first row
+  const bool live = crow0 < m;            // false: every row past M
+  Acc acc[P::kSets][P::kRegs];
+#pragma unroll
+  for (int q = 0; q < P::kSets; ++q)
+#pragma unroll
+    for (int i = 0; i < P::kRegs; ++i) acc[q][i] = 0;
+  const auto ring_addr = smem_u32(ring);
+  if constexpr (Op::kConvert) {
+    // Copied tile j is converted into f16 buffer j % 2 by all the
+    // multiplying threads, then its copy given back; tile j + 1's
+    // conversion runs while the tensor cores multiply tile j.
+    const int mb = min(kCons * kWgRows, m - row0);
+    auto take = [&](int j) {
+      const int s = j % P::kStages;
+      mbar_wait(full + s, (j / P::kStages) & 1);
+      convert_wg_stage<kCons, P::kCols, P::kCopyBytes>(
+          ring + s * P::kStageBytes, f16 + (j % 2) * 2 * P::kCopyBytes, mb,
+          threadIdx.x);
+      proxy_fence();  // these stores, before wgmma reads them
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+      bar_sync(1, kCons * kWg);  // the whole buffer, before its products
+    };
+    take(0);
+    for (int tile = 0; tile < len; ++tile) {
+      if (live) {
+        wg_fence();
+        const auto buf = smem_u32(f16) + (tile % 2) * 2 * P::kCopyBytes;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int q = 0; q < Op::kSteps; ++q) {
+            const auto half = buf + h * P::kCopyBytes;
+            Op::mma(acc[(h * Op::kSteps + q) / Op::kSub % P::kSets],
+                    wg_desc(half + wg * (kWgRows * 128) + 32 * q, 16),
+                    wg_desc(half + P::kXBytes + 32 * q, 16));
+          }
+        wg_commit();
+      }
+      if (tile + 1 < len) {
+        // The other buffer is free once every warpgroup's products of
+        // tile - 1 are done (at most this tile's in flight).
+        if (live) wg_wait<1>();
+        bar_sync(1, kCons * kWg);
+        take(tile + 1);
+      }
+    }
+  } else {
+    for (int it = 0; it < len; ++it) {
+      const int s = it % P::kStages;
+      mbar_wait(full + s, (it / P::kStages) & 1);
+      if (live) {
+        proxy_fence();
+        wg_fence();
+        const auto st = ring_addr + s * P::kStageBytes;
+#pragma unroll
+        for (int q = 0; q < Op::kSteps; ++q) {
+          // Step q reads 32 bytes of k at 32 q of the stage's 128-byte
+          // rows (bf16 B: 16 k rows at 16 q).
+          const uint64_t da =
+              wg_desc(st + wg * (kWgRows * 128) + 32 * q, 16);
+          const uint64_t db =
+              Op::kWKMajor ? wg_desc(st + P::kXBytes + 32 * q, 16)
+                           : wg_desc(st + P::kXBytes + q * 16 * 128,
+                                     kWgRows * 128);
+          Op::mma(acc[q / Op::kSub % P::kSets], da, db);
+        }
+        wg_commit();
+        wg_wait<1>();
+      }
+      // At most this stage's products are in flight: the last stage's
+      // have read their operands, so one lane a warp gives that stage
+      // back, once every lane of the warp is past this stage's wait (a
+      // lane left behind could otherwise miss a whole phase).
+      __syncwarp();
+      if (it > 0 && lane == 0) mbar_arrive(empty + (it - 1) % P::kStages);
+    }
+  }
+  wg_wait<0>();
+#pragma unroll
+  for (int q = 0; q < P::kSets; ++q) wg_landed(acc[q]);
+  // The chains added in the order q = 0, 1, ...
+#pragma unroll
+  for (int q = 1; q < P::kSets; ++q)
+#pragma unroll
+    for (int i = 0; i < P::kRegs; ++i) acc[0][i] = acc[0][i] + acc[q][i];
+
+  // Accumulator register i holds row 16 (warp) + lane / 4 + 8 ((i / 2) %
+  // 2) of the warpgroup's 64 and column 8 (i / 4) + 2 (lane % 4) + i % 2.
+  const int r_lo = crow0 + 16 * (t / 32) + lane / 4;
+  const int c_lo = n0 + 2 * (lane % 4);
+  if (splits == 1) {
+    if (!live) return;
+#pragma unroll
+    for (int i = 0; i < P::kRegs; i += 2) {
+      const int row = r_lo + 8 * ((i / 2) % 2), col = c_lo + 8 * (i / 4);
+      if (row < m && col < n)
+        wg_emit<Op, Out>(y + (size_t)row * n + col, acc[0][i], acc[0][i + 1],
+                         x_scale, w_scale, row, col);
+    }
+    return;
+  }
+  // K split: this block's partial into the slab of each (BN-wide tile,
+  // 64-row tile) it covers -- [splits][min(M, 64)][BN], as the M <= 64
+  // kernels lay it out -- and the last of the S blocks adds them in the
+  // order s = 0, 1, ..., S - 1.
+  const int rows = min(m, kWgRows), rows64 = (m + kWgRows - 1) / kWgRows;
+  Acc* const slabs = reinterpret_cast<Acc*>(ws);
+  auto slab_of = [&](int row, int col) {
+    const int tile = tile0 + (col - n0) / BN;
+    return slabs + ((size_t)(tile * rows64 + row / kWgRows) * splits *
+                        rows + row % kWgRows) * BN + (col - n0) % BN;
+  };
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < P::kRegs; i += 2) {
+      const int row = r_lo + 8 * ((i / 2) % 2), col = c_lo + 8 * (i / 4);
+      if (row < m && col < n) {
+        V v;
+        v.x = acc[0][i];
+        v.y = acc[0][i + 1];
+        *reinterpret_cast<V*>(slab_of(row, col) + (size_t)split * rows * BN) =
+            v;
+      }
+    }
+  }
+  __threadfence();
+  bar_sync(1, kCons * kWg);
+  const int slot0 = tile0 * rows64 + rb * kCons;
+  if (threadIdx.x == 0) *flag = atomicAdd(counters + slot0, 1) == splits - 1;
+  bar_sync(1, kCons * kWg);
+  if (!*flag || !live) return;
+  __threadfence();
+  if (threadIdx.x == 0) counters[slot0] = 0;
+#pragma unroll
+  for (int i = 0; i < P::kRegs; i += 2) {
+    const int row = r_lo + 8 * ((i / 2) % 2), col = c_lo + 8 * (i / 4);
+    if (row >= m || col >= n) continue;
+    const Acc* slab = slab_of(row, col);
+    V own;
+    own.x = acc[0][i];
+    own.y = acc[0][i + 1];
+    V sum = split == 0 ? own : __ldcg(reinterpret_cast<const V*>(slab));
+    for (int s = 1; s < splits; ++s)
+      sum = add2(sum, s == split ? own
+                                 : __ldcg(reinterpret_cast<const V*>(
+                                       slab + (size_t)s * rows * BN)));
+    wg_emit<Op, Out>(y + (size_t)row * n + col, sum.x, sum.y, x_scale,
+                     w_scale, row, col);
+  }
+}
+
+template <int BN, int kCons, typename Out>
+__global__ void __launch_bounds__((kCons + 1) * kWg, 1)
+decode_gemm_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
+                         Group<__nv_bfloat16, Out> g, int m, int k,
+                         int splits, float* __restrict__ ws,
+                         int* __restrict__ counters) {
+  wgmma_gemm<WgBf16, BN, kCons, Out>(x, nullptr, g, Scales{}, m, k, splits,
+                                     ws, counters);
+}
+
+template <int BN, int kCons, bool kInt8, typename Out>
+__global__ void __launch_bounds__((kCons + 1) * kWg, 1)
+decode_gemm_w8a8_wgmma_kernel(const uint8_t* __restrict__ x,
+                              const float* __restrict__ x_scale,
+                              Group<uint8_t, Out> g, Scales sc, int m, int k,
+                              int splits, void* __restrict__ ws,
+                              int* __restrict__ counters) {
+  wgmma_gemm<W8A8Op<kInt8>, BN, kCons, Out>(x, x_scale, g, sc, m, k, splits,
+                                            ws, counters);
+}
+
+// ---------------------------------------------------------------------
+// The bit probe: do a chain of wgmma k steps and a chain of mma.sync
+// steps give the same bits for the same operands and accumulator? One
+// warpgroup multiplies A [64][K] (row-major) by B -- bf16 [K][64], the
+// weight layout read MN-major; 8-bit [64][K], read K-major -- from the
+// same swizzled shared tiles both ways, each starting from C [64][64]
+// (f32, int32 for s8), in `steps` k steps (1-8; K = 16 steps for bf16,
+// 32 for 8-bit): mma.sync as the M <= 64 kernels issue it (ldmatrix
+// fragments, warp w on rows 16 w .. 16 w + 15, m16n8k16 or m16n8k32) and
+// wgmma as the M > 64 kernel does (m64n64, descriptors). Both results
+// are written out, row-major, for the caller to compare.
+template <class Op>
+__global__ void __launch_bounds__(kWg)
+gemm_probe_kernel(const typename Op::In* __restrict__ a,
+                  const typename Op::In* __restrict__ b,
+                  const typename Op::Acc* __restrict__ c,
+                  typename Op::Acc* __restrict__ d_mma,
+                  typename Op::Acc* __restrict__ d_wg, int steps) {
+  using Acc = typename Op::Acc;
+  constexpr int kTile = kWgRows * 256;  // [64][256 bytes] as two blocks
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* at =
+      smem_raw + (kWgAtom - smem_u32(smem_raw) % kWgAtom) % kWgAtom;
+  unsigned char* bt = at + kTile;
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int kbytes = steps * 32;  // bytes of k: 32 a step either way
+  // A, and 8-bit B, as [64 rows][kbytes] in 128-byte column blocks; bf16
+  // B as [16 steps rows][64 columns] of 128-byte rows.
+  for (int i = t; i < kWgRows * 16; i += kWg) {
+    const int r = i / 16, ch = i % 16;
+    if (ch * 16 >= kbytes) continue;
+    *reinterpret_cast<uint4*>(at + (ch / 8) * (kWgRows * 128) +
+                              swz(r, ch % 8)) =
+        *reinterpret_cast<const uint4*>(
+            reinterpret_cast<const unsigned char*>(a) + r * kbytes + 16 * ch);
+    if (Op::kWKMajor)
+      *reinterpret_cast<uint4*>(bt + (ch / 8) * (kWgRows * 128) +
+                                swz(r, ch % 8)) =
+          *reinterpret_cast<const uint4*>(
+              reinterpret_cast<const unsigned char*>(b) + r * kbytes +
+              16 * ch);
+  }
+  if (!Op::kWKMajor)
+    for (int i = t; i < 16 * steps * 8; i += kWg) {
+      const int r = i / 8, ch = i % 8;
+      *reinterpret_cast<uint4*>(bt + swz(r, ch)) =
+          *reinterpret_cast<const uint4*>(
+              reinterpret_cast<const unsigned char*>(b) + r * 128 + 16 * ch);
+    }
+  proxy_fence();  // this thread's stores, before wgmma reads them
+  __syncthreads();
+
+  // mma.sync: element e of n8 tile nj is row 16 warp + lane / 4 + 8 (e /
+  // 2), column 8 nj + 2 (lane % 4) + e % 2 -- wgmma's register 4 nj + e.
+  const int gr = 16 * warp + lane / 4, gc = 2 * (lane % 4);
+  Acc cm[8][4], cw[32];
+#pragma unroll
+  for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      cw[4 * nj + e] = cm[nj][e] =
+          c[(gr + 8 * (e / 2)) * kWgRows + 8 * nj + gc + e % 2];
+  const int lr = (lane % 8) + 8 * ((lane / 8) % 2), lc = lane / 16;
+  const int br = (lane % 8) + 8 * (lane / 16), bc = (lane / 8) % 2;
+  for (int kk = 0; kk < steps; ++kk) {
+    const unsigned char* ab = at + (kk / 4) * (kWgRows * 128);
+    uint32_t af[4], bf[4][4];
+    ldmatrix_x4(af, smem_u32(ab + swz(16 * warp + lr, 2 * (kk % 4) + lc)));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if constexpr (Op::kWKMajor)
+        ldmatrix_x4(bf[q], smem_u32(bt + (kk / 4) * (kWgRows * 128) +
+                                    swz(16 * q + br, 2 * (kk % 4) + bc)));
+      else
+        ldmatrix_x4_trans(bf[q], smem_u32(bt + swz(16 * kk + lr,
+                                                   2 * q + lc)));
+    }
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj) {
+      if constexpr (Op::kWKMajor)
+        mma16832(cm[nj], af, bf[nj / 2][2 * (nj % 2)],
+                 bf[nj / 2][2 * (nj % 2) + 1]);
+      else
+        mma16816(cm[nj], af, bf[nj / 2][2 * (nj % 2)],
+                 bf[nj / 2][2 * (nj % 2) + 1]);
+    }
+  }
+  unsigned char* a16 = bt + kTile;  // kConvert: A and B as f16, [64][K]
+  unsigned char* b16 = a16 + 2 * kTile;
+  if constexpr (Op::kConvert) {
+    for (int i = t; i < 2 * kWgRows * 16; i += kWg) {
+      const int r = i / 16 % kWgRows, ch = i % 16;
+      if (ch * 16 >= kbytes) continue;
+      const unsigned char* src = i < kWgRows * 16 ? at : bt;
+      unsigned char* dst = (i < kWgRows * 16 ? a16 : b16) +
+                           (ch / 4) * (kWgRows * 128);
+      uint4 lo, hi;
+      e4m3x16_to_f16(*reinterpret_cast<const uint4*>(
+                         src + (ch / 8) * (kWgRows * 128) + swz(r, ch % 8)),
+                     lo, hi);
+      *reinterpret_cast<uint4*>(dst + swz(r, 2 * (ch % 4))) = lo;
+      *reinterpret_cast<uint4*>(dst + swz(r, 2 * (ch % 4) + 1)) = hi;
+    }
+    proxy_fence();
+    __syncthreads();
+  }
+  const auto aa = smem_u32(Op::kConvert ? a16 : at);
+  const auto ba = smem_u32(Op::kConvert ? b16 : bt);
+  wg_fence();
+  // Op::kSub wgmma k steps of 32 bytes (16 f16 values) make one of
+  // mma.sync's k32 steps when the operands were converted to f16.
+  for (int kk = 0; kk < steps * Op::kSub; ++kk) {
+    const uint64_t da =
+        wg_desc(aa + (kk / 4) * (kWgRows * 128) + 32 * (kk % 4), 16);
+    const uint64_t db =
+        Op::kWKMajor
+            ? wg_desc(ba + (kk / 4) * (kWgRows * 128) + 32 * (kk % 4), 16)
+            : wg_desc(ba + kk * 16 * 128, kWgRows * 128);
+    Op::mma(cw, da, db);
+  }
+  wg_commit();
+  wg_wait<0>();
+  wg_landed(cw);
+#pragma unroll
+  for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int at_ = (gr + 8 * (e / 2)) * kWgRows + 8 * nj + gc + e % 2;
+      d_mma[at_] = cm[nj][e];
+      d_wg[at_] = cw[4 * nj + e];
+    }
+}
+
 // Checks the arguments every entry shares and fills the group; returns
 // the grid's block count, or 0 for arguments the kernels do not take.
 template <typename W, typename Out>
@@ -790,6 +1600,71 @@ int make_group(Group<W, Out>& g, const void* const* w, void* const* y,
     g.tile_end[p] = tiles;
   }
   return tiles * splits * ((m + kMaxRows - 1) / kMaxRows);
+}
+
+// Blocks of a wgmma launch: the group's column blocks of P::kTiles tiles
+// (none straddles two problems), its K ranges, its row blocks.
+template <class P, typename W, typename Out>
+int wg_blocks(const Group<W, Out>& g, int m, int splits, int cons) {
+  int blocks = 0, t = 0;
+  for (int p = 0; p < kMaxProblems; ++p) {
+    blocks += (g.tile_end[p] - t + P::kTiles - 1) / P::kTiles;
+    t = g.tile_end[p];
+  }
+  return blocks * splits * ((m + cons * kWgRows - 1) / (cons * kWgRows));
+}
+
+template <int BN, int kCons, typename Out>
+int launch_wg_bf16(const void* x, const Group<__nv_bfloat16, Out>& g,
+                   int m, int k, int splits, void* ws, void* counters,
+                   cudaStream_t stream) {
+  using P = WgPlan<WgBf16, BN, kCons>;
+  const int blocks = wg_blocks<P>(g, m, splits, kCons);
+  cudaError_t e = cudaFuncSetAttribute(
+      decode_gemm_wgmma_kernel<BN, kCons, Out>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  decode_gemm_wgmma_kernel<BN, kCons, Out><<<blocks, P::kThreads, P::kSmem,
+                                             stream>>>(
+      (const __nv_bfloat16*)x, g, m, k, splits, (float*)ws, (int*)counters);
+  return (int)cudaGetLastError();
+}
+
+template <int BN, int kCons, bool kInt8, typename Out>
+int launch_wg_w8a8(const void* x, const void* x_scale,
+                   const Group<uint8_t, Out>& g, const Scales& sc, int m,
+                   int k, int splits, void* ws, void* counters,
+                   cudaStream_t stream) {
+  using P = WgPlan<W8A8Op<kInt8>, BN, kCons>;
+  const int blocks = wg_blocks<P>(g, m, splits, kCons);
+  cudaError_t e = cudaFuncSetAttribute(
+      decode_gemm_w8a8_wgmma_kernel<BN, kCons, kInt8, Out>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  decode_gemm_w8a8_wgmma_kernel<BN, kCons, kInt8, Out><<<
+      blocks, P::kThreads, P::kSmem, stream>>>(
+      (const uint8_t*)x, (const float*)x_scale, g, sc, m, k, splits, ws,
+      (int*)counters);
+  return (int)cudaGetLastError();
+}
+
+template <class Op>
+int launch_probe(const void* a, const void* b, const void* c, void* d_mma,
+                 void* d_wg, int steps, void* stream) {
+  if (steps < 1 || steps > 8 || a == nullptr || b == nullptr ||
+      c == nullptr || d_mma == nullptr || d_wg == nullptr)
+    return (int)cudaErrorInvalidValue;
+  // A and B, then (kConvert) both again as f16.
+  constexpr int smem = kWgAtom + 6 * kWgRows * 256;
+  cudaError_t e = cudaFuncSetAttribute(
+      gemm_probe_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  gemm_probe_kernel<Op><<<1, kWg, smem, (cudaStream_t)stream>>>(
+      (const typename Op::In*)a, (const typename Op::In*)b,
+      (const typename Op::Acc*)c, (typename Op::Acc*)d_mma,
+      (typename Op::Acc*)d_wg, steps);
+  return (int)cudaGetLastError();
 }
 
 template <int MT, int BN, int kStages, typename Out>
@@ -822,8 +1697,7 @@ int launch_rows(const void* x, const Group<__nv_bfloat16, Out>& g,
   if (m <= kMaxRows)
     return launch_bf16<4, BN, kRing, Out>(x, g, blocks, m, k, splits, ws,
                                           counters, s);
-  return launch_bf16<4, BN, row_tile_stages<BN>(), Out>(
-      x, g, blocks, m, k, splits, ws, counters, s);
+  return launch_wg_bf16<BN, 2, Out>(x, g, m, k, splits, ws, counters, s);
 }
 
 template <typename Out>
@@ -879,18 +1753,23 @@ int launch_w8a8_tile(const void* x, const void* x_scale,
                      const Group<uint8_t, Out>& g, const Scales& sc,
                      int blocks, int m, int k, int splits, void* ws,
                      void* counters, cudaStream_t s) {
-  constexpr int kRing = stages<BN>();
-  if (m <= 16)
-    return launch_w8a8_rows<1, BN, kRing, kInt8, Out>(
-        x, x_scale, g, sc, blocks, m, k, splits, ws, counters, s);
-  if (m <= 32)
-    return launch_w8a8_rows<2, BN, kRing, kInt8, Out>(
-        x, x_scale, g, sc, blocks, m, k, splits, ws, counters, s);
-  if (m <= kMaxRows)
-    return launch_w8a8_rows<4, BN, kRing, kInt8, Out>(
-        x, x_scale, g, sc, blocks, m, k, splits, ws, counters, s);
-  return launch_w8a8_rows<4, BN, row_tile_stages<BN>(), kInt8, Out>(
-      x, x_scale, g, sc, blocks, m, k, splits, ws, counters, s);
+  if constexpr (!kInt8) {  // e4m3: every M on wgmma (the note above)
+    return launch_wg_w8a8<BN, 2, false, Out>(x, x_scale, g, sc, m, k, splits,
+                                             ws, counters, s);
+  } else {
+    constexpr int kRing = stages<BN>();
+    if (m <= 16)
+      return launch_w8a8_rows<1, BN, kRing, true, Out>(
+          x, x_scale, g, sc, blocks, m, k, splits, ws, counters, s);
+    if (m <= 32)
+      return launch_w8a8_rows<2, BN, kRing, true, Out>(
+          x, x_scale, g, sc, blocks, m, k, splits, ws, counters, s);
+    if (m <= kMaxRows)
+      return launch_w8a8_rows<4, BN, kRing, true, Out>(
+          x, x_scale, g, sc, blocks, m, k, splits, ws, counters, s);
+    return launch_wg_w8a8<BN, 2, true, Out>(x, x_scale, g, sc, m, k, splits,
+                                            ws, counters, s);
+  }
 }
 
 template <bool kInt8, typename Out>
@@ -985,3 +1864,16 @@ TK8S_W8A8_ENTRY(tk8s_decode_gemm_s8_bf16, true, __nv_bfloat16)
 TK8S_W8A8_ENTRY(tk8s_decode_gemm_s8_f32, true, float)
 TK8S_W8A8_ENTRY(tk8s_decode_gemm_e4m3_bf16, false, __nv_bfloat16)
 TK8S_W8A8_ENTRY(tk8s_decode_gemm_e4m3_f32, false, float)
+
+// The bit probe (gemm_probe_kernel): a [64, 16 steps] (bf16) or [64, 32
+// steps] (s8, e4m3) row-major; b [16 steps, 64] (bf16) or [64, 32 steps]
+// (8-bit); c, d_mma and d_wg [64, 64] f32 (int32 for s8). steps 1-8.
+#define TK8S_PROBE_ENTRY(name, Op)                                         \
+  extern "C" int name(const void* a, const void* b, const void* c,         \
+                      void* d_mma, void* d_wg, int steps, void* stream) {  \
+    return launch_probe<Op>(a, b, c, d_mma, d_wg, steps, stream);          \
+  }
+TK8S_PROBE_ENTRY(tk8s_gemm_probe_bf16, WgBf16)
+TK8S_PROBE_ENTRY(tk8s_gemm_probe_s8, WgS8)
+TK8S_PROBE_ENTRY(tk8s_gemm_probe_e4m3, WgE4m3Direct)
+TK8S_PROBE_ENTRY(tk8s_gemm_probe_e4m3_f16, WgE4m3)

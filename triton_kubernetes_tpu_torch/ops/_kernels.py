@@ -96,6 +96,9 @@ _SIGNATURES = {
 # x_scale, w0, w1, w2, scale0, scale1, scale2, y0, y1, y2, N0, N1, N2,
 # count, M, K, tile_n, splits, workspace, counters, stream.
 _W8A8_SIGNATURE = (_P,) * 11 + (_I,) * 8 + (_P,) * 3
+# decode_gemm's bit probe, tk8s_gemm_probe_<GEMM_PROBE_KINDS value>: a, b,
+# c, d_mma, d_wgmma, steps, stream.
+_PROBE_SIGNATURE = (_P,) * 5 + (_I, _P)
 # C entries a library holds beside tk8s_<name>_<suffix>, one per suffix:
 # {name: {entry stem: argument types}}.
 _MORE_ENTRIES = {
@@ -147,9 +150,9 @@ def paged_span(dtype: torch.dtype, page_dtype: torch.dtype, bs: int,
             else None)
 
 
-# Rows a decode_gemm block takes (a row tile): a launch of at most this
-# many rows reads each weight once from HBM; a larger M adds row tiles to
-# the grid, side by side, which share the weights' reads through the L2.
+# Rows a decode_gemm block of the mma.sync kernel takes: a launch of at
+# most this many rows reads each weight once from HBM; a larger M runs
+# the wgmma kernel (GEMM_WGMMA_ROWS below).
 MAX_GEMM_ROWS = 64
 # Most products of one input one decode_gemm launch takes (wq, wk, wv).
 MAX_GEMM_PROBLEMS = 3
@@ -166,6 +169,28 @@ W8A8_SUFFIXES = {(torch.int8, torch.bfloat16): "s8_bf16",
                  (torch.int8, torch.float32): "s8_f32",
                  (torch.float8_e4m3fn, torch.bfloat16): "e4m3_bf16",
                  (torch.float8_e4m3fn, torch.float32): "e4m3_f32"}
+# Rows past which a decode_gemm launch of bf16 or int8 operands runs the
+# wgmma kernel (blocks of two warpgroups of 64 rows each) in place of the
+# mma.sync one. A bf16 row is bitwise the row of a launch of at most
+# MAX_GEMM_ROWS rows -- the same chains of k steps added in the same
+# order -- because a wgmma k step rounds as an mma.sync step does (the
+# bit probe, ``gemm_probe``, checks that on the card); int8 sums are
+# exact. fp8 launches of every M run the wgmma kernel, its operands
+# converted to f16: an e4m3 wgmma k step neither rounds as mma.sync's nor
+# keeps f32's bits. f32 operands keep the CUDA-core kernel at every M.
+GEMM_WGMMA_ROWS = MAX_GEMM_ROWS
+# Operand dtype -> kind suffix of the bit probe's C entries.
+GEMM_PROBE_KINDS = {torch.bfloat16: "bf16", torch.int8: "s8",
+                    torch.float8_e4m3fn: "e4m3"}
+
+
+def gemm_wgmma(dtype: torch.dtype, m: int) -> bool:
+    """Whether a decode_gemm launch of ``m`` rows of ``dtype`` operands
+    runs the wgmma kernel (as the C entries choose)."""
+    return dtype == torch.float8_e4m3fn or (dtype != torch.float32
+                                            and m > GEMM_WGMMA_ROWS)
+
+
 # decode_gemm's tiles and K split, chosen by the group's shape alone
 # (``scripts/bench_decode_gemm.py`` timed the choices on an H100; PERF.md,
 # Findings). A block takes GEMM_TILE_N or, for groups at least
@@ -321,6 +346,8 @@ def bind(lib: ctypes.CDLL, name: str) -> None:
     if name == "decode_gemm":
         entries += [(f"tk8s_decode_gemm_{suffix}", _W8A8_SIGNATURE)
                     for suffix in W8A8_SUFFIXES.values()]
+        entries += [(f"tk8s_gemm_probe_{kind}", _PROBE_SIGNATURE)
+                    for kind in (*GEMM_PROBE_KINDS.values(), "e4m3_f16")]
     for entry, argtypes in entries:
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
@@ -676,12 +703,12 @@ def decode_gemm(x: torch.Tensor, ws: Sequence[torch.Tensor],
                 ys: Sequence[torch.Tensor]) -> None:
     """Launch ``csrc/decode_gemm.cu`` once on the current stream for up to
     :data:`MAX_GEMM_PROBLEMS` products of one input: ys[p] [M, N_p] =
-    x [M, K] @ ws[p] [K, N_p] with f32 sums, for 1 <= M <=
-    :data:`MAX_GEMM_ROWS` and the dtypes of :data:`GEMM_SUFFIXES` (every
-    y of one dtype), M >= 1 in row tiles of :data:`MAX_GEMM_ROWS`. A block
-    takes :func:`gemm_tile` columns of one row tile and K is split into
-    :func:`gemm_splits` ranges, both chosen by the group's widths and K
-    alone, so each output row's bits do not depend on M."""
+    x [M, K] @ ws[p] [K, N_p] with f32 sums, for M >= 1 (past
+    :data:`GEMM_WGMMA_ROWS` bf16 runs the wgmma kernel) and the dtypes of
+    :data:`GEMM_SUFFIXES` (every y of one dtype). A block takes
+    :func:`gemm_tile` columns and K is split into :func:`gemm_splits`
+    ranges, both chosen by the group's widths and K alone, so each output
+    row's bits do not depend on M."""
     if not x.is_cuda:
         raise ValueError(f"decode_gemm: the CUDA kernel takes CUDA tensors, "
                          f"got x on {x.device}")
@@ -757,9 +784,9 @@ def decode_gemm_w8a8(xq: torch.Tensor, x_scale: torch.Tensor,
     stream for up to :data:`MAX_GEMM_PROBLEMS` products of one quantized
     input: ys[p] [M, N_p] = (xq [M, K] ws[p]^T * x_scale[m]) * scales[p][n],
     ws[p] [N_p, K] int8 (summed in int32, merged in int32) or
-    float8_e4m3fn (f32), for M >= 1 (row tiles of :data:`MAX_GEMM_ROWS`)
-    and bf16 or f32 y. Tile and K split as :func:`decode_gemm`'s, by the
-    shape."""
+    float8_e4m3fn (f32), for M >= 1 (the kernel :func:`gemm_wgmma`
+    names) and bf16 or f32 y. Tile and K split as :func:`decode_gemm`'s,
+    by the shape."""
     if not xq.is_cuda:
         raise ValueError(f"decode_gemm_w8a8: the CUDA kernel takes CUDA "
                          f"tensors, got xq on {xq.device}")
@@ -815,6 +842,45 @@ def decode_gemm_w8a8(xq: torch.Tensor, x_scale: torch.Tensor,
         None if workspace is None else workspace.data_ptr(), counters,
         torch.cuda.current_stream(xq.device).cuda_stream)
     _check(rc, "decode_gemm_w8a8")
+
+
+def gemm_probe(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+               f16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """decode_gemm's bit probe: D = C + A B over K k steps by one
+    warpgroup, once as a chain of mma.sync steps (the M <= 64 kernels')
+    and once as a chain of wgmma steps (the M > 64 kernel's), from the
+    same swizzled shared tiles. a [64, K] bf16 (K = 16 steps), int8 or
+    float8_e4m3fn (K = 32 steps), 1-8 steps; b bf16 [K, 64] (the weight
+    layout), 8-bit [64, K]; c [64, 64] f32 (int32 for int8). ``f16``
+    (float8_e4m3fn only): the wgmma chain on the operands converted to
+    f16, two k16 steps for each k32 step, as the fp8 kernel runs it.
+    Returns (D by mma.sync, D by wgmma)."""
+    kind = GEMM_PROBE_KINDS.get(a.dtype)
+    if f16:
+        _require(a.dtype == torch.float8_e4m3fn,
+                 "gemm_probe: f16 converts float8_e4m3fn operands")
+        kind = "e4m3_f16"
+    step = 16 if a.dtype == torch.bfloat16 else 32
+    acc = torch.int32 if a.dtype == torch.int8 else torch.float32
+    _require(kind is not None and a.is_cuda and a.dim() == 2
+             and a.shape[0] == 64 and a.shape[1] % step == 0
+             and 1 <= a.shape[1] // step <= 8,
+             f"gemm_probe: a [64, {step} steps] (1-8 steps) bf16, int8 or "
+             f"float8_e4m3fn on the card, got {a.dtype} {tuple(a.shape)}")
+    want_b = ((a.shape[1], 64) if a.dtype == torch.bfloat16
+              else (64, a.shape[1]))
+    _require(b.dtype == a.dtype and tuple(b.shape) == want_b
+             and c.dtype == acc and tuple(c.shape) == (64, 64)
+             and all(t.device == a.device and t.is_contiguous()
+                     for t in (a, b, c)),
+             f"gemm_probe: b {want_b} {a.dtype} and c [64, 64] {acc}")
+    d_mma, d_wg = torch.empty_like(c), torch.empty_like(c)
+    rc = getattr(library("decode_gemm"), f"tk8s_gemm_probe_{kind}")(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), d_mma.data_ptr(),
+        d_wg.data_ptr(), a.shape[1] // step,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _check(rc, "gemm_probe")
+    return d_mma, d_wg
 
 
 def quantize_rows(x: torch.Tensor, dtype: torch.dtype

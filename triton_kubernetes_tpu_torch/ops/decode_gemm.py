@@ -16,9 +16,9 @@ the group of one:
   operands on the CUDA cores; K split into ranges chosen by the group's
   shape alone, ``_kernels.gemm_splits``, whose f32 partial sums are added
   in one fixed order; every weight element read from HBM once a launch of
-  up to 64 rows, and a larger M -- a prefill window's -- in row tiles of
-  64 side by side in one launch, which share the weights' reads through
-  the L2). It has no TPU counterpart: the JAX package computes
+  up to 64 rows; a larger M -- a prefill window's -- on a wgmma kernel
+  with the same chains of k steps, so its rows are bitwise those of
+  launches of up to 64). It has no TPU counterpart: the JAX package computes
   these products with plain XLA matmuls. A build or launch failure
   raises; a CUDA tensor never falls back to the plain version;
 * on CPU tensors it runs :func:`decode_gemm_group_plain`, the products in
@@ -30,13 +30,15 @@ W8A8 (quantized weights with ``matmul_dtype`` int8 or fp8):
 :func:`w8a8_gemm_group` takes up to three products of one quantized input
 (``ops.quantization.quantize_rows``) with weights stored K-contiguous,
 ``[N, K]`` int8 or fp8 with f32 per-column scales, through the W8A8
-entries of the same source, with the same tiles, K split and row tiles;
-an int8 row is bitwise its plain version
-(:func:`w8a8_gemm_group_plain`) for any M, and an fp8 row the same
-whatever M is.
+entries of the same source, with the same tiles and K split; an int8
+row is bitwise its plain version (:func:`w8a8_gemm_group_plain`) for
+any M, and an fp8 row (every M on the wgmma kernel, its operands
+converted to f16) the same whatever M is.
 
 ``decode_gemm_group.launches`` and ``w8a8_gemm_group.launches`` count
-kernel launches; :func:`reset_launch_counts` zeroes them. The paged
+kernel launches, and their ``wgmma_launches`` those that ran the wgmma
+kernel (``_kernels.gemm_wgmma``); :func:`reset_launch_counts` zeroes
+them. The paged
 decode and verify steps and the prefill windows call these (so that a
 page's bytes do not depend on the window's width); the one-shot prefill
 and training keep ``torch.einsum``, except W8A8 products, which take the
@@ -89,10 +91,13 @@ def decode_gemm_group(x: torch.Tensor, ws: Sequence[torch.Tensor],
     if x.shape[0]:
         _kernels.decode_gemm(x, ws, ys)
         decode_gemm_group.launches += 1
+        if _kernels.gemm_wgmma(x.dtype, x.shape[0]):
+            decode_gemm_group.wgmma_launches += 1
     return ys
 
 
 decode_gemm_group.launches = 0
+decode_gemm_group.wgmma_launches = 0
 
 
 def decode_gemm(x: torch.Tensor, w: torch.Tensor,
@@ -142,13 +147,18 @@ def w8a8_gemm_group(xq: torch.Tensor, x_scale: torch.Tensor,
     if xq.shape[0]:
         _kernels.decode_gemm_w8a8(xq, x_scale, wqs, w_scales, ys)
         w8a8_gemm_group.launches += 1
+        if _kernels.gemm_wgmma(xq.dtype, xq.shape[0]):
+            w8a8_gemm_group.wgmma_launches += 1
     return ys
 
 
 w8a8_gemm_group.launches = 0
+w8a8_gemm_group.wgmma_launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Zero both launch counters."""
+    """Zero the launch counters."""
     decode_gemm_group.launches = 0
+    decode_gemm_group.wgmma_launches = 0
     w8a8_gemm_group.launches = 0
+    w8a8_gemm_group.wgmma_launches = 0
