@@ -14,7 +14,8 @@ result:
    decode, verify and prefill, each for bf16/f32 queries over bf16/f32,
    int8 and fp8 pages; flash forward, dQ and dK/dV; the row-invariant
    decode GEMM, with its W8A8 int8/fp8 entries, and RMSNorm, with its
-   fused residual add; the per-token quantizer of the W8A8 products) with
+   fused residual add and its quantizing epilogue; the per-token quantizer
+   of the W8A8 products and its fused SwiGLU) with
    ``nvcc`` for ``sm_90a``, all at once, and
    prints the seconds and what ``ptxas`` reports;
 3. kernels -- each kernel against its plain PyTorch version at Llama-3-8B
@@ -62,10 +63,17 @@ result:
    delta-null norm on it, rows bitwise the rows at M 64, y within one
    ulp of its plain version; timed beside the plain version,
    ``F.rms_norm(x + delta)`` (two library calls), the delta-null kernel,
-   ``F.rms_norm`` alone and the bytes bound. The W8A8 kernels: kernel A,
-   the per-token quantizer, at M 1, 8, 32, 256 and K 4096, 14336, bf16
-   and f32 input, int8 and fp8, bytes and scales ``torch.equal`` to its
-   plain version; kernel B, the W8A8 entries of the decode GEMM, at the
+   ``F.rms_norm`` alone and the bytes bound. The W8A8 kernels: first the
+   SiLU probe (every bf16 bit pattern through the fused SwiGLU kernel's
+   SiLU and torch's; 0 may differ, since the kernel computes the SiLU);
+   kernel A, the per-token quantizer, in its three forms -- standalone
+   (wo's input) at K 4096 and 14336, as the epilogue of the norm's
+   delta-null and fused entries at D 4096, and fused with the SwiGLU at
+   F 14336 -- at M 1, 8, 32, 256, bf16 and f32 input, int8 and fp8:
+   bytes, scales (and h) ``torch.equal`` to the producer followed by
+   ``quantize_rows_plain``, rows bitwise the rows at M 64, timed at M 8,
+   32 and 256 beside the plain version and the bytes bound;
+   kernel B, the W8A8 entries of the decode GEMM, at the
    five 8B groups (weights quantized per column, stored [N, K]) at M 8,
    32 and 256: int8 ``torch.equal`` to its plain version, fp8 within one
    bf16 ulp, rows at M 1, 8 and 32 bitwise the rows of a 64-row launch,
@@ -124,15 +132,20 @@ result:
    model quantized to int8 and to fp8 (``weight_dtype`` = ``matmul_dtype``),
    each served at spec_k 0 and 3 on the 12 requests -- spec-on tokens
    asserted equal to spec-off, launches of kernels A and B counted as
-   above -- and its first-token logits: int8 with kernels A and B
-   ``torch.equal`` to their plain versions, and the whole kernel path
+   above (kernel A standalone once a layer, in the norms as often as the
+   norms run, in the SwiGLU once a layer) -- and its first-token logits:
+   int8 with kernels A (every form) and B ``torch.equal`` to their plain
+   versions, and the whole kernel path
    within a fixed limit a dtype of the plain path (0.05 cannot hold: a
    quantizer turns a one-ulp difference upstream into a quantum), which
    two controls in the kernels' place (the product in bf16; W8A16) must
-   exceed; printed against the bf16 model's; F2 again under W8A8 int8; a profiled
-   W8A8 int8 decode tick, which must run kernels A and B and no cuBLAS
-   GEMM; and one weight-only int8 run (``matmul_dtype`` auto: the
-   dequantize path);
+   exceed (with the norms and the SwiGLU handing those arms their
+   unquantized rows, ``plain_row_ops``); printed against the bf16
+   model's; F2 again under W8A8 int8; a profiled W8A8 int8 prefill
+   window and decode tick, each of which must run kernel B, no cuBLAS
+   GEMM, 2 x layers + 1 quantizing norms, and one fused SwiGLU and one
+   standalone kernel A (wo's input) a layer; and one weight-only int8 run
+   (``matmul_dtype`` auto: the dequantize path);
 5. train  -- ``python -m triton_kubernetes_tpu_torch.train``'s ``main`` on
    ``llama3-8b`` at full width cut to 4 layers (fused CE, flash attention,
    bf16 policy, remat full), batch 4 x 2048, 6 AdamW steps; checks finite
@@ -151,7 +164,8 @@ the per-offset prefill cases included, is also written to
 ``DIR/train_report.json``. ``--flash-only`` builds and checks the three
 flash kernels and stops (half a minute: the first run after a change to
 one of them); ``--gemm-only`` builds the GEMM, norm and quantizer,
-runs the bit probe and the GEMM and norm checks of phase 3 and stops
+runs the bit probe, the SiLU probe and the GEMM, norm and quantizer
+checks of phase 3 and stops
 (``DIR/chip_smoke_gemm.json`` with ``--out``).
 """
 
@@ -1150,6 +1164,208 @@ SCALED_MM_ROWS = 16
 W8A8_OPS_FACTOR = 2
 
 
+# The SiLU probe: every bf16 bit pattern.
+SILU_PATTERNS = 2 ** 16
+# The fused SwiGLU's design, which the probe decided once (PERF.md):
+# (a) silu, the mul and kernel A in one pass -- its SiLU gives torch's bits
+# on every bf16 input; (b) would keep torch's silu and fuse only the mul.
+SWIGLU_DESIGN = "a"
+
+
+def silu_probe_phase(device):
+    """The SiLU probe: all 65,536 bf16 bit patterns through the fused
+    SwiGLU kernel's SiLU (``_kernels.silu_probe``) and through torch's
+    ``silu(x.float()).to(bfloat16)``, counting the patterns whose bits
+    differ (two NaNs count as agreeing, reported apart). Design (a) rests
+    on 0: the fused pass computes the SiLU itself. Returns the record,
+    printed as a JSON line."""
+    from triton_kubernetes_tpu_torch.ops import _kernels
+
+    x = torch.arange(-SILU_PATTERNS // 2, SILU_PATTERNS // 2,
+                     dtype=torch.int32, device=device).to(torch.int16).view(
+                         torch.bfloat16)
+    got = _kernels.silu_probe(x)
+    want = torch.nn.functional.silu(x.float()).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    both_nan = got.isnan() & want.isnan()
+    differ = (got.view(torch.int16) != want.view(torch.int16)) & ~both_nan
+    out = dict(differing=int(differ.sum()), of=SILU_PATTERNS,
+               both_nan=int(both_nan.sum()), design=SWIGLU_DESIGN)
+    print(json.dumps({"silu_probe": out}), flush=True)
+    if out["differing"]:
+        raise AssertionError(f"silu probe: {out['differing']} bf16 inputs "
+                             f"give other bits than torch's silu, yet "
+                             f"design (a) computes the SiLU in the kernel")
+    return out
+
+
+# Widths of kernel A's fused forms: the norm's D (the 8B model's embed
+# width) and the SwiGLU's F (its MLP width, w2's input).
+NORM_WIDTH = 4096
+SWIGLU_WIDTH = 14336
+# Kernel A's forms: (record name, source, what it replaces beside the
+# quantizer, design, the shape of its headline case).
+A_FORMS = (
+    ("quantize_rows", "quantize_rows.cu", "",
+     "standalone (wo's input): one block a row, the row's 16-byte chunks "
+     "held in registers (K <= 14336), one barrier, 8-byte stores",
+     f"K {NORM_WIDTH}"),
+    ("rms_norm_quant", "rms_norm.cu", "; rms_norm, ops/norms.py:11",
+     "epilogue of the delta-null norm (rms_norm_quant_kernel): y rounded "
+     "in registers, a second reduction and barrier, y never written",
+     f"D {NORM_WIDTH}"),
+    ("add_rms_norm_quant", "rms_norm.cu",
+     "; the residual add and rms_norm, models/llama.py",
+     "epilogue of the fused residual add + norm (rms_norm_quant_kernel)",
+     f"D {NORM_WIDTH}"),
+    ("swiglu_quant", "quantize_rows.cu",
+     "; the SwiGLU, models/llama.py:298-302",
+     "fused SwiGLU of w2's input (swiglu_quant_kernel, design (a)): silu, "
+     "the mul and the quantizer in one pass over the row held in "
+     "registers", f"F {SWIGLU_WIDTH}"))
+
+
+def bitwise(a, b):
+    """torch.equal of two tensors' bits (8-bit floats compared as bytes)."""
+    if a.element_size() == 1:
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
+    return torch.equal(a, b)
+
+
+def kernel_a_cases(device, flush, bw, gen):
+    """Kernel A in its three forms against their plain compositions, int8
+    and fp8, bf16 and f32 input, at every row count of
+    :data:`QUANT_ROWS`: the standalone kernel (``quantize_rows``) at K
+    4096 and 14,336 against ``quantize_rows_plain``; the norm's quantizing
+    entries at D 4096 (delta null, and the residual add fused) against the
+    norm kernel's entries followed by ``quantize_rows_plain`` (h too); the
+    fused SwiGLU at F 14,336 against torch's ``silu(gate.float()).to(T) *
+    up`` followed by ``quantize_rows_plain`` -- bytes, scales and h
+    ``torch.equal``; and every output's rows at each M bitwise its rows of
+    a launch of 64. bf16 at M 8, 32 and 256 timed beside the plain version
+    (the plain producer, then ``quantize_rows_plain``) and the bytes bound
+    (inputs read once, outputs written once). Returns the timed cases."""
+    from triton_kubernetes_tpu_torch.ops import _kernels, norms
+    from triton_kubernetes_tpu_torch.ops import quantization as qz
+
+    eps, n = 1e-5, max(QUANT_ROWS)
+    cases = []
+    for suffix, qdtype, _ in W8A8_KINDS:
+        for dtype in (torch.bfloat16, torch.float32):
+            elt = torch.empty((), dtype=dtype).element_size()
+
+            def randn(*shape, s=1.0):
+                return (s * torch.randn(shape, generator=gen, device=device)
+                        ).to(dtype)
+
+            # (name, where, fn(m), composition(m), plain(m), bytes(m),
+            # operations(m)): fn and the composition give the same tuple.
+            forms = []
+            for k in QUANT_WIDTHS:
+                x = randn(n, k, s=2.0)
+                forms.append((
+                    "quantize_rows", f"K {k}",
+                    lambda m, x=x: _kernels.quantize_rows(x[:m], qdtype),
+                    lambda m, x=x: qz.quantize_rows_plain(x[:m], qdtype),
+                    lambda m, x=x: qz.quantize_rows_plain(x[:m], qdtype),
+                    lambda m, k=k: m * k * (elt + 1) + 4 * m,
+                    lambda m, k=k: 3 * m * k))
+            d = NORM_WIDTH
+            x, delta = randn(n, d, s=3.0), randn(n, d)
+            scale = (1 + 0.1 * torch.randn((d,), generator=gen,
+                                           device=device)).to(dtype)
+
+            def composed(h, y):
+                return (h, *qz.quantize_rows_plain(y, qdtype))
+
+            forms += [(
+                "rms_norm_quant", f"D {d}",
+                lambda m: _kernels.add_rms_norm_quant(x[:m], None, scale, eps,
+                                                      qdtype)[1:],
+                lambda m: qz.quantize_rows_plain(
+                    _kernels.rms_norm(x[:m], scale, eps), qdtype),
+                lambda m: norms.rms_norm_quant_plain(x[:m], scale, eps,
+                                                     qdtype),
+                lambda m: m * d * (elt + 1) + d * elt + 4 * m,
+                lambda m: 8 * m * d), (
+                "add_rms_norm_quant", f"D {d}",
+                lambda m: _kernels.add_rms_norm_quant(x[:m], delta[:m], scale,
+                                                      eps, qdtype),
+                lambda m: composed(*_kernels.add_rms_norm(
+                    x[:m], delta[:m], scale, eps)),
+                lambda m: norms.add_rms_norm_quant_plain(
+                    x[:m], delta[:m], scale, eps, qdtype),
+                lambda m: m * d * (3 * elt + 1) + d * elt + 4 * m,
+                lambda m: 9 * m * d)]
+            f = SWIGLU_WIDTH
+            gate, up = randn(n, f, s=3.0), randn(n, f)
+            forms.append((
+                "swiglu_quant", f"F {f}",
+                lambda m: _kernels.swiglu_quant(gate[:m], up[:m], qdtype),
+                lambda m: qz.swiglu_quantize_rows_plain(gate[:m], up[:m],
+                                                        qdtype)[:2],
+                lambda m: qz.swiglu_quantize_rows_plain(gate[:m], up[:m],
+                                                        qdtype),
+                lambda m: m * f * (2 * elt + 1) + 4 * m,
+                lambda m: 10 * m * f))
+            for name, where, fn, comp, plain, nbytes, ops in forms:
+                tag = f"{name}{suffix} {where} {dtype}"
+                full = fn(ROW_TILE)
+                for m in QUANT_ROWS:
+                    got = fn(m)
+                    if not all(bitwise(a, b) for a, b in zip(got, comp(m))):
+                        raise AssertionError(f"{tag} M={m}: not bitwise its "
+                                             f"plain composition")
+                    k = min(m, ROW_TILE)
+                    if not all(bitwise(a[:k], b[:k])
+                               for a, b in zip(got, full)):
+                        raise AssertionError(f"{tag} M={m}: rows are not "
+                                             f"bitwise its rows at M "
+                                             f"{ROW_TILE}")
+                    if dtype != torch.bfloat16 or m == 1:
+                        continue
+                    cases.append(dict(
+                        kernel=name + suffix, where=where, M=m,
+                        dtype="bfloat16", max_abs_err=0.0,
+                        ms=time_ms(lambda: fn(m), flush),
+                        plain_ms=time_ms(lambda: plain(m), flush),
+                        library_ms=None, bytes=nbytes(m), flops=ops(m),
+                        bound_ms=nbytes(m) / bw * 1e3))
+            del x, delta, gate, up
+    print(f"kernel A: standalone, in the norm (delta null and fused) and in "
+          f"the SwiGLU, int8 and fp8, bf16 and f32 input, M {QUANT_ROWS}: "
+          f"bytes, scales and h torch.equal to the producer then "
+          f"quantize_rows_plain; rows bitwise the rows at M {ROW_TILE}",
+          flush=True)
+    return cases
+
+
+def kernel_a_records(cases, bw):
+    """One record per form of kernel A and 8-bit kind: its headline case,
+    one launch of bf16 rows at M 8 (a decode tick's) at the form's width
+    on the serving path (the standalone kernel: wo's input, K 4096)."""
+    records = []
+    for suffix, qdtype, _ in W8A8_KINDS:
+        for name, source, also, variant, where in A_FORMS:
+            c = next(c for c in cases if c["kernel"] == name + suffix
+                     and c["M"] == 8 and c["where"] == where)
+            records.append(dict(
+                name=name + suffix, route="cuda",
+                source=f"triton_kubernetes_tpu_torch/csrc/{source}",
+                replaces=("none: plain XLA ops in the reference's "
+                          "quantized_einsum (triton_kubernetes_tpu/ops/"
+                          f"quantization.py:265-305{also})"),
+                variant=variant, max_abs_err=0.0, tolerance="torch.equal",
+                ms=c["ms"], plain_ms=c["plain_ms"], library_ms=None,
+                library_call=None, bound_ms=c["bound_ms"], bound_by="bytes",
+                bound_share=c["bound_ms"] / c["ms"],
+                achieved_tflops=c["flops"] / (c["ms"] * 1e-3) / 1e12,
+                bytes=c["bytes"], flops=c["flops"],
+                shape=dict(M=8, at=where),
+                cases=[d for d in cases if d["kernel"] == name + suffix]))
+    return records
+
+
 def w8a8_kernel_phase(device, flush, peaks):
     """Kernel A (``quantize_rows``) and kernel B (``decode_gemm_w8a8``)
     against their plain versions, int8 and fp8. A: every row count of
@@ -1164,43 +1380,17 @@ def w8a8_kernel_phase(device, flush, peaks):
     product alone, and ``torch._scaled_mm`` with row and column scales; at
     M 8 run at :data:`INT_MM_ROWS` and :data:`SCALED_MM_ROWS` rows, the
     least each takes), which the port never calls.
-    Returns the four records (A and B, int8 and fp8; headline at M 8, a
-    decode tick's rows, summed over the five groups)."""
+    A in its three forms: :func:`kernel_a_cases`.
+    Returns the records (A's forms and B, int8 and fp8; B's headline at M
+    8, a decode tick's rows, summed over the five groups; A's a form's one
+    launch at M 8)."""
     from triton_kubernetes_tpu_torch.ops import _kernels
     from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
     from triton_kubernetes_tpu_torch.ops import quantization as qz
 
     bw = peaks[0]
     gen = torch.Generator(device=device).manual_seed(123)
-    cases = []
-    for suffix, qdtype, _ in W8A8_KINDS:
-        for dtype in (torch.bfloat16, torch.float32):
-            for k in QUANT_WIDTHS:
-                x = (2 * torch.randn((max(QUANT_ROWS), k), generator=gen,
-                                     device=device)).to(dtype)
-                for m in QUANT_ROWS:
-                    xm = x[:m].contiguous()
-                    got, gs = _kernels.quantize_rows(xm, qdtype)
-                    want, ws = qz.quantize_rows_plain(xm, qdtype)
-                    torch.cuda.synchronize()
-                    if not (torch.equal(got.view(torch.uint8),
-                                        want.view(torch.uint8))
-                            and torch.equal(gs, ws)):
-                        raise AssertionError(
-                            f"quantize_rows{suffix} {dtype} M={m} K={k}: "
-                            f"not bitwise its plain version")
-                    if dtype != torch.bfloat16 or m not in (8, 32):
-                        continue
-                    nbytes = m * k * (x.element_size() + 1) + 4 * m
-                    cases.append(dict(
-                        kernel="quantize_rows" + suffix, K=k, M=m,
-                        dtype="bfloat16", max_abs_err=0.0,
-                        ms=time_ms(lambda: _kernels.quantize_rows(
-                            xm, qdtype), flush),
-                        plain_ms=time_ms(lambda: qz.quantize_rows_plain(
-                            xm, qdtype), flush),
-                        library_ms=None, bytes=nbytes, flops=3 * m * k,
-                        bound_ms=nbytes / bw * 1e3))
+    cases = kernel_a_cases(device, flush, bw, gen)
     for suffix, qdtype, _ in W8A8_KINDS:
         name = "decode_gemm_w8a8" + suffix
         for group, k, ns, out in GEMM_GROUPS:
@@ -1294,7 +1484,7 @@ def w8a8_kernel_phase(device, flush, peaks):
             del wqs, wss, w_cat, x, xq
     for c in cases:
         where = (f"{c['shape']} (tile {c['tile_n']}, K split in "
-                 f"{c['splits']})" if "shape" in c else f"K {c['K']}")
+                 f"{c['splits']})" if "shape" in c else c["where"])
         lib = ("not measured" if c["library_ms"] is None
                else f"{c['library_ms']:.4f} ({c['library_call']})")
         print(f"kernel {c['kernel']} {where} M={c['M']}: "
@@ -1303,21 +1493,13 @@ def w8a8_kernel_phase(device, flush, peaks):
               f"{c['ms']:.4f} plain_ms={c['plain_ms']:.4f} library_ms={lib}"
               f" bound_ms={c['bound_ms']:.5f} (bytes; share "
               f"{c['bound_ms'] / c['ms']:.4f})", flush=True)
-    records = []
+    records = kernel_a_records(cases, bw)
     for suffix, qdtype, infix in W8A8_KINDS:
-        for name, source in (("quantize_rows", "quantize_rows.cu"),
-                             ("decode_gemm_w8a8", "decode_gemm.cu")):
+        for name, source in (("decode_gemm_w8a8", "decode_gemm.cu"),):
             name += suffix
-            # A decode tick's five products at M 8: kernel A on each
-            # group's input (K 4096 four times, 14336 once), kernel B on
-            # each group.
-            if name.startswith("quantize_rows"):
-                mine = [c for c in cases if c["kernel"] == name
-                        and c["M"] == 8]
-                mine = [mine[0]] * 4 + [mine[1]]
-            else:
-                mine = [c for c in cases if c["kernel"] == name
-                        and c["M"] == 8]
+            # A decode tick's five products at M 8, one launch a group.
+            mine = [c for c in cases if c["kernel"] == name
+                    and c["M"] == 8]
             total = {f: sum(c[f] for c in mine)
                      for f in ("ms", "plain_ms", "bytes", "flops")}
             lms = [c["library_ms"] for c in mine]
@@ -1329,17 +1511,15 @@ def w8a8_kernel_phase(device, flush, peaks):
                 replaces=(
                     "none: plain XLA ops in the reference's quantized_einsum "
                     "(triton_kubernetes_tpu/ops/quantization.py:265-305)"),
-                variant=("cuda_core, one block a row" if source.startswith(
-                    "quantize") else "tensor_core (mma.sync m16n8k32 s8), "
-                    "one launch a group, tile and K split by the shape"
-                    if infix == "s8" else "tensor_core (wgmma m64nNk16 f16 "
-                    "on e4m3 converted in shared memory, the kernel of "
-                    "every M), one launch a group, tile and K split by the "
-                    "shape"),
+                variant=("tensor_core (mma.sync m16n8k32 s8), one launch "
+                         "a group, tile and K split by the shape"
+                         if infix == "s8" else "tensor_core (wgmma m64nNk16 "
+                         "f16 on e4m3 converted in shared memory, the kernel "
+                         "of every M), one launch a group, tile and K split "
+                         "by the shape"),
                 max_abs_err=max(c["max_abs_err"] for c in cases
                                 if c["kernel"] == name),
                 tolerance=("torch.equal" if qdtype == torch.int8
-                           or source.startswith("quantize")
                            else f"{ATOL} + {RTOL} * |plain|"),
                 ms=total["ms"], plain_ms=total["plain_ms"],
                 library_ms=(None if None in lms else sum(lms)),
@@ -1745,7 +1925,10 @@ def row_counts():
                 decode_gemm.w8a8_gemm_group.wgmma_launches,
             "quantize_rows": quantization.quantize_rows.launches,
             "rms_norm": norms.rms_norm_rows.launches,
-            "add_rms_norm": norms.add_rms_norm_rows.launches}
+            "add_rms_norm": norms.add_rms_norm_rows.launches,
+            "rms_norm_quant": norms.rms_norm_quant_rows.launches,
+            "add_rms_norm_quant": norms.add_rms_norm_quant_rows.launches,
+            "swiglu_quant": quantization.swiglu_quantize_rows.launches}
 
 
 def row_counts_wanted(ticks, windows, cfg, w8a8=None):
@@ -1756,8 +1939,11 @@ def row_counts_wanted(ticks, windows, cfg, w8a8=None):
     window each one norm of the embeddings and a fused residual add + norm
     at each of the 2 L layer boundaries (the last one's norm the final
     norm). Under W8A8 (``w8a8`` the 8-bit operand dtype) the products are
-    ``decode_gemm_w8a8`` launches, each group's input (and the head's)
-    quantized by one ``quantize_rows``. Of the GEMM launches, those of
+    ``decode_gemm_w8a8`` launches, and each input is quantized by the
+    launch that produces it: the norms' quantizing entries (the same
+    counts as the norms') and the fused SwiGLU (one a layer) -- only wo's
+    input, the attention's output, by a standalone ``quantize_rows`` (one
+    a layer). Of the GEMM launches, those of
     more than 64 rows -- a window's groups, PREFILL_CHUNK rows -- run the
     wgmma kernel (``_kernels.gemm_wgmma``), counted apart too."""
     from triton_kubernetes_tpu_torch.ops import _kernels
@@ -1773,14 +1959,18 @@ def row_counts_wanted(ticks, windows, cfg, w8a8=None):
             "decode_gemm_w8a8": 0, "decode_gemm_w8a8_wgmma": 0,
             "quantize_rows": 0,
             "rms_norm": ticks + windows,
-            "add_rms_norm": (ticks + windows) * 2 * cfg.num_layers}
+            "add_rms_norm": (ticks + windows) * 2 * cfg.num_layers,
+            "rms_norm_quant": 0, "add_rms_norm_quant": 0, "swiglu_quant": 0}
     if w8a8 is not None:
         want.update(decode_gemm=0, decode_gemm_wgmma=0,
                     decode_gemm_w8a8=groups + windows * (per_window + 1),
                     decode_gemm_w8a8_wgmma=(groups + windows) * tick_wg
                     + windows * per_window * window_wg,
-                    quantize_rows=(ticks + windows)
-                    * (4 * cfg.num_layers + 1))
+                    quantize_rows=(ticks + windows) * cfg.num_layers,
+                    rms_norm=0, add_rms_norm=0,
+                    rms_norm_quant=want["rms_norm"],
+                    add_rms_norm_quant=want["add_rms_norm"],
+                    swiglu_quant=(ticks + windows) * cfg.num_layers)
     return want
 
 
@@ -1794,6 +1984,8 @@ TICK_CLASSES = (("paged_decode kernel", "paged_decode_"),
                 ("decode_gemm_w8a8_wgmma kernel",
                  "decode_gemm_w8a8_wgmma_kernel"),
                 ("quantize_rows kernel", "quantize_rows_kernel"),
+                ("rms_norm_quant kernel", "rms_norm_quant_kernel"),
+                ("swiglu_quant kernel", "swiglu_quant_kernel"),
                 ("rms_norm kernel", "rms_norm_kernel"))
 
 
@@ -1804,7 +1996,7 @@ def tick_profile(profiles, ticks, wall_ms):
     by_class = {c: 0.0 for c, _ in TICK_CLASSES}
     by_class.update({"GEMM (cuBLAS)": 0.0, "other kernels": 0.0})
     kernels = dict.fromkeys(by_class, 0)
-    launches, names = 0, set()
+    launches, names, others = 0, set(), {}
     for prof in profiles:
         events = prof.events()
         launches += sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
@@ -1818,6 +2010,8 @@ def tick_profile(profiles, ticks, wall_ms):
                 cls = ("GEMM (cuBLAS)"
                        if e.name.startswith(("nvjet", "sm90_xmma", "cutlass"))
                        or "gemm" in e.name.lower() else "other kernels")
+                if cls == "other kernels":
+                    others[e.name[:120]] = others.get(e.name[:120], 0) + 1
             elif cls.startswith("paged_"):
                 m = re.search(r"paged_\w+_kernel(<[^()]*>)?", e.name)
                 names.add(m.group(0) if m else e.name)
@@ -1831,7 +2025,10 @@ def tick_profile(profiles, ticks, wall_ms):
                 device_ms_per_tick_by_class=by_class,
                 kernels_per_tick_by_class={k: v / ticks
                                            for k, v in kernels.items()},
-                paged_kernels=sorted(names))
+                paged_kernels=sorted(names),
+                other_kernels_per_tick={
+                    k: v / ticks for k, v in sorted(
+                        others.items(), key=lambda kv: -kv[1])[:16]})
 
 
 def profile_prefill(engine, cfg, Request, windows_before=2):
@@ -1865,7 +2062,8 @@ def profile_prefill(engine, cfg, Request, windows_before=2):
         raise AssertionError("profile: the prefill window launched no wgmma "
                              "GEMM")
     engine.run_until_idle()
-    return dict(tick_profile([prof], 1, wall_ms), wgmma_launches=wgmma)
+    return dict(tick_profile([prof], 1, wall_ms), wgmma_launches=wgmma,
+                row_launches_per_tick=counts)
 
 
 def profile_decode(engine, cfg, Request, ticks=4):
@@ -1890,6 +2088,7 @@ def profile_decode(engine, cfg, Request, ticks=4):
         raise AssertionError("profile: the batch never reached decode")
     engine.step()
     torch.cuda.synchronize()
+    reset_row_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1897,8 +2096,11 @@ def profile_decode(engine, cfg, Request, ticks=4):
             engine.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    counts = row_counts()
     engine.run_until_idle()
-    return tick_profile([prof], ticks, wall_ms)
+    return dict(tick_profile([prof], ticks, wall_ms),
+                row_launches_per_tick={k: v / ticks
+                                       for k, v in counts.items()})
 
 
 def profile_verify(model, cfg, Request, ticks=2, max_steps=60):
@@ -2041,7 +2243,8 @@ def serve_phase(card):
             "paged_decode": ticks * cfg.num_layers,
             **row_counts_wanted(ticks, windows, cfg)}
     if launches != want or not all(launches[k] for k in want if k not in (
-            "decode_gemm_w8a8", "decode_gemm_w8a8_wgmma", "quantize_rows")):
+            "decode_gemm_w8a8", "decode_gemm_w8a8_wgmma", "quantize_rows",
+            "rms_norm_quant", "add_rms_norm_quant", "swiglu_quant")):
         raise AssertionError(f"launch counts {launches} != expected {want}")
 
     ttft = [done[r.request_id].ttft for r in requests]
@@ -2390,24 +2593,40 @@ def plain_row_ops(w8a8_only=False, w8a8_rows=plain_w8a8_rows):
     and ``w8a8_gemm_group_plain``), and unless ``w8a8_only`` the decode
     GEMM (``decode_gemm_group_plain``) and the norms on their plain
     versions too -- with ``attention_impl="dense"``, a model's plain path
-    end to end."""
+    end to end. The launches that quantize a product's input as they
+    produce it (the norms' quantizing entries, the fused SwiGLU) hand
+    ``w8a8_rows`` their unquantized rows instead -- the norm's (kernel or
+    plain) and torch's ``silu(gate.float()).to(T) * up`` -- so kernel A
+    runs nowhere but in ``w8a8_rows``, and a control that takes bf16 rows
+    gets them."""
     from triton_kubernetes_tpu_torch.models import llama, paged
     from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
     from triton_kubernetes_tpu_torch.ops import norms
+    from triton_kubernetes_tpu_torch.ops import quantization as qz
 
-    saved = (llama.decode_gemm_group, llama.w8a8_rows, paged.rms_norm_rows,
-             paged.add_rms_norm_rows)
+    saved = (llama.decode_gemm_group, llama.w8a8_rows,
+             llama.swiglu_quantize_rows, paged.rms_norm_rows,
+             paged.add_rms_norm_rows, paged.rms_norm_quant_rows,
+             paged.add_rms_norm_quant_rows)
     llama.w8a8_rows = w8a8_rows
+    llama.swiglu_quantize_rows = lambda gate, up, dtype: qz.swiglu(gate, up)
     if not w8a8_only:
         llama.decode_gemm_group = lambda x, ws, out=None: (
             dg.decode_gemm_group_plain(x, ws, out or x.dtype))
         paged.rms_norm_rows, paged.add_rms_norm_rows = (norms.rms_norm,
                                                         norms.add_rms_norm)
+    norm, add_norm = paged.rms_norm_rows, paged.add_rms_norm_rows
+    paged.rms_norm_quant_rows = lambda x, scale, eps, dtype: norm(x, scale,
+                                                                  eps)
+    paged.add_rms_norm_quant_rows = (
+        lambda x, delta, scale, eps, dtype: add_norm(x, delta, scale, eps))
     try:
         yield
     finally:
-        (llama.decode_gemm_group, llama.w8a8_rows, paged.rms_norm_rows,
-         paged.add_rms_norm_rows) = saved
+        (llama.decode_gemm_group, llama.w8a8_rows,
+         llama.swiglu_quantize_rows, paged.rms_norm_rows,
+         paged.add_rms_norm_rows, paged.rms_norm_quant_rows,
+         paged.add_rms_norm_quant_rows) = saved
 
 
 def w8a8_phase(model, cfg, card, requests, bf16_logits):
@@ -2530,20 +2749,42 @@ def w8a8_phase(model, cfg, card, requests, bf16_logits):
             engine = ServeEngine(qmodel, cfg, device=SERVE_DEVICE,
                                  weight_dtype=wd, matmul_dtype=wd,
                                  **SERVE_ENGINE_KW)
+            pprof = profile_prefill(engine, cfg, Request)
             prof = profile_decode(engine, cfg, Request)
             del engine
+            print_tick_profile(f"W8A8 int8 prefill window ({PREFILL_CHUNK} "
+                               f"tokens at offset {2 * PREFILL_CHUNK}, one "
+                               f"sequence)", pprof, card)
             print_tick_profile("W8A8 int8 decode tick (8 x ~600-token "
                                "contexts)", prof, card)
-            ran = prof["kernels_per_tick_by_class"]
-            if prof["device_idle_share"] is not None and not (
-                    ran["quantize_rows kernel"] and ran["decode_gemm_w8a8 "
-                                                         "kernel"]
-                    and not ran["GEMM (cuBLAS)"]
-                    and not ran["decode_gemm kernel"]):
-                raise AssertionError(f"W8A8 int8 decode tick: kernels by "
-                                     f"class {ran}: want quantize_rows and "
-                                     f"decode_gemm_w8a8, no other GEMM")
+            # Every W8A8 input but wo's is quantized by the launch that
+            # produces it: a norm at each of the 2 L + 1 norms, the SwiGLU
+            # once a layer; wo's by the standalone kernel A (the launch
+            # counters, exact); the profile must see those kernels run and
+            # no bf16 norm or GEMM, no cuBLAS.
+            layers = cfg.num_layers
+            want = {"rms_norm_quant": 1, "add_rms_norm_quant": 2 * layers,
+                    "swiglu_quant": layers, "quantize_rows": layers,
+                    "rms_norm": 0, "add_rms_norm": 0, "decode_gemm": 0}
+            for what, p in (("decode tick", prof), ("prefill window", pprof)):
+                got = {k: p["row_launches_per_tick"][k] for k in want}
+                if got != want:
+                    raise AssertionError(f"W8A8 int8 {what}: launches a "
+                                         f"tick {got}, want {want}")
+                ran = p["kernels_per_tick_by_class"]
+                if p["device_idle_share"] is not None and not (
+                        all(ran[k + " kernel"] for k in (
+                            "rms_norm_quant", "swiglu_quant",
+                            "quantize_rows", "decode_gemm_w8a8"))
+                        and not any(ran[k] for k in (
+                            "rms_norm kernel", "decode_gemm kernel",
+                            "GEMM (cuBLAS)"))):
+                    raise AssertionError(f"W8A8 int8 {what}: kernels by "
+                                         f"class {ran}: want kernel A's "
+                                         f"three forms and decode_gemm_w8a8,"
+                                         f" no bf16 norm or GEMM")
             record["decode_tick_profile"] = prof
+            record["window_profile"] = pprof
         del qmodel
         gc.collect()
         torch.cuda.empty_cache()
@@ -3055,14 +3296,15 @@ def main() -> int:
         return 0
     probe = gemm_probe_phase(device)
     print(json.dumps({"probe": probe}), flush=True)
+    silu = silu_probe_phase(device)
     if args.gemm_only:
         records = rows_kernel_phase(device, flush, peaks)
         records += w8a8_kernel_phase(device, flush, peaks)
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
             (args.out / "chip_smoke_gemm.json").write_text(json.dumps(dict(
-                card=card, device=name, probe=probe, kernels=records),
-                indent=1))
+                card=card, device=name, probe=probe, silu_probe=silu,
+                kernels=records), indent=1))
         print(json.dumps({"kernels": [{k: r.get(k) for k in (
             "name", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_share", "max_abs_err")} for r in records]}))
@@ -3100,21 +3342,21 @@ def main() -> int:
             c = count.setdefault(k + suffix, [0, 0])
             c[0] += run["launches"][k]
             c[1] += run[field]
-    # The row-invariant kernels, on every serve run: a decode or verify
-    # tick is the GEMM's unit, and the norms' a tick or a prefill window.
+    # The row-invariant kernels, per decode or verify tick or prefill
+    # window (the GEMM: 4 L + 1 a tick, 4 L a window) of every serve run
+    # that is not W8A8 (a W8A8 run launches them no time).
     runs = serve["spec_quant_runs"]
+    bf16_runs = [run for run in runs
+                 if run["weights"][1] not in ("int8", "fp8")]
     for k in ("decode_gemm", "rms_norm", "add_rms_norm"):
-        per_window = k != "decode_gemm"
-        ticks[k] = (None, "decode or verify tick" + (
-            " or prefill window" if per_window else ""))
+        ticks[k] = (None, "decode or verify tick or prefill window")
         count[k] = [launches[k] + sum(run["launches"][k] for run in runs),
-                    serve["decode_ticks"] + sum(
+                    serve["decode_ticks"] + serve["prefill_windows"] + sum(
                         run["decode_steps"] + run["verify_steps"]
-                        for run in runs) + per_window * (
-                        serve["prefill_windows"] + sum(
-                            run["prefill_windows"] for run in runs))]
+                        + run["prefill_windows"] for run in bf16_runs)]
     # The W8A8 kernels, on the W8A8 serve runs of their dtype.
-    for k in ("quantize_rows", "decode_gemm_w8a8"):
+    for k in ("quantize_rows", "rms_norm_quant", "add_rms_norm_quant",
+              "swiglu_quant", "decode_gemm_w8a8"):
         ticks[k] = (None, "decode or verify tick or prefill window")
         for suffix, wd in (("", "int8"), ("_fp8", "fp8")):
             mine = [run for run in runs if run["weights"][1] == wd]
@@ -3153,7 +3395,7 @@ def main() -> int:
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(dict(
             card=card, device=name, build_s=build_s, probe=probe,
-            kernels=records,
+            silu_probe=silu, kernels=records,
             serve=serve, train=train), indent=1))
     keys = ("name", "route", "source", "replaces", "variant", "launches",
             "launches_per_unit", "launches_per", "max_abs_err", "ms",

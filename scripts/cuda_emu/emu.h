@@ -22,7 +22,11 @@
 // bitwise the emulated mma.sync chain over the same k steps; what the
 // emulation checks is indexing, fragment and descriptor layouts,
 // masking, the ring and its barriers, and the merges. The int8 products
-// sum in int32, exactly, as the card's do.
+// sum in int32, exactly, as the card's do. Math functions are the host's
+// (math.h): `expf` is glibc's, which need not round as the card's does,
+// so a kernel that calls it (the fused SwiGLU's SiLU) is held to its own
+// emulated composition, not to torch. A block may hold up to 1,024
+// threads and cross any number of barriers.
 #pragma once
 #include <stdint.h>
 #include <stddef.h>
@@ -57,6 +61,7 @@ struct float2 { float x, y; };
 struct int2 { int x, y; };
 inline int2 make_int2(int a, int b) { return {a, b}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a,b,c,d}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a,b,c,d}; }
 inline float2 make_float2(float a, float b) { return {a,b}; }
 inline float f_of_bits(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }

@@ -33,8 +33,12 @@ unlike the card's tensor cores, and nothing here is timed.
 :func:`build` takes any kernel of ``_kernels.KERNELS`` whose source needs
 only what ``emu.h`` emulates: ``tests/test_torch_decode_gemm.py`` builds
 ``decode_gemm.cu`` with it and drives the GEMM's C entries on the CPU,
-``tests/test_torch_norms.py`` ``rms_norm.cu`` and the norm's,
-``tests/test_torch_quantize_rows.py`` ``quantize_rows.cu``.
+``tests/test_torch_norms.py`` ``rms_norm.cu`` and the norm's (its
+quantizing entries held to the emulated ``quantize_rows.cu``),
+``tests/test_torch_quantize_rows.py`` and
+``tests/test_torch_swiglu_quant.py`` ``quantize_rows.cu`` (the standalone
+quantizer, the fused SwiGLU and the SiLU probe). Every ``.cuh`` of
+``csrc/`` is rewritten beside the sources.
 """
 
 from __future__ import annotations
@@ -95,8 +99,8 @@ def build(out: Path, names=KERNELS) -> dict:
     CDLL}."""
     csrc = K.CSRC
     out.mkdir(parents=True, exist_ok=True)
-    (out / "paged_common.cuh").write_text(
-        for_host((csrc / "paged_common.cuh").read_text()))
+    for header in csrc.glob("*.cuh"):
+        (out / header.name).write_text(for_host(header.read_text()))
     procs = {}
     for name in names:
         (out / f"{name}.cpp").write_text(

@@ -24,7 +24,9 @@ rows at M 1-256 bitwise, D past the 8192 a thread keeps), a small model's
 verify logits rows against
 its decode rows, and the wrappers' refusals; and the W8A8 kernels --
 the per-token quantizer (bytes and scales ``torch.equal`` to its plain
-version) and the int8/fp8 GEMM entries (int8 ``torch.equal`` to its plain
+version), standalone, as the norm's epilogue and fused with the SwiGLU
+(whose SiLU gives torch's bits on every bf16 input), and the int8/fp8
+GEMM entries (int8 ``torch.equal`` to its plain
 version at every M of 1-64, fp8 within one bf16 ulp, rows bitwise, K
 split by the shape), ``quantized_einsum`` on CUDA tensors, a small W8A8
 model's verify rows against its decode rows and its spec-on tokens against
@@ -985,6 +987,123 @@ def test_quantize_rows_kernel_is_bitwise_the_plain_version(device, qdtype,
     assert torch.equal(got_s, want_s)
 
 
+def _bits(t):
+    return t.view(torch.uint8) if t.element_size() == 1 else t
+
+
+@pytest.mark.parametrize("qdtype", QDTYPES, ids=["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [4096, 8704])
+def test_norm_quant_entries_are_the_norm_kernels_then_the_quantizer(
+        device, qdtype, dtype, d):
+    """Kernel A as the norm's epilogue: h, xq and x_scale torch.equal to
+    the norm kernel's entries followed by ``quantize_rows_plain`` at M 1,
+    8, 32 and 256, D 4096 and 8704 (past the chunks a thread holds), rows
+    bitwise across M; the wrappers count one launch each."""
+    from triton_kubernetes_tpu_torch.ops import norms
+    from triton_kubernetes_tpu_torch.ops import quantization as qz
+
+    gen = torch.Generator(device=device).manual_seed(d)
+    x = (3 * torch.randn((256, d), generator=gen, device=device)).to(dtype)
+    delta = torch.randn((256, d), generator=gen, device=device).to(dtype)
+    scale = (1 + 0.1 * torch.randn((d,), generator=gen, device=device)
+             ).to(dtype)
+    _, q256, s256 = _kernels.add_rms_norm_quant(x, delta, scale, 1e-5,
+                                                qdtype)
+    for m in (1, 8, 32, 256):
+        h, xq, xs = _kernels.add_rms_norm_quant(x[:m], delta[:m], scale,
+                                                1e-5, qdtype)
+        want_h, y = _kernels.add_rms_norm(x[:m], delta[:m], scale, 1e-5)
+        want_q, want_s = qz.quantize_rows_plain(y, qdtype)
+        assert torch.equal(h, want_h), m
+        assert torch.equal(_bits(xq), _bits(want_q)), m
+        assert torch.equal(xs, want_s), m
+        assert torch.equal(_bits(xq), _bits(q256[:m])), m
+        assert torch.equal(xs, s256[:m]), m
+        none, xq, xs = _kernels.add_rms_norm_quant(x[:m], None, scale, 1e-5,
+                                                   qdtype)
+        want_q, want_s = qz.quantize_rows_plain(
+            _kernels.rms_norm(x[:m], scale, 1e-5), qdtype)
+        assert none is None
+        assert torch.equal(_bits(xq), _bits(want_q)), m
+        assert torch.equal(xs, want_s), m
+    norms.reset_launch_counts()
+    rows = norms.rms_norm_quant_rows(x[:8].view(2, 4, d), scale, 1e-5,
+                                     qdtype)
+    h, rows2 = norms.add_rms_norm_quant_rows(x[:8].view(2, 4, d),
+                                             delta[:8].view(2, 4, d), scale,
+                                             1e-5, qdtype)
+    torch.cuda.synchronize()
+    assert rows.lead == rows2.lead == (2, 4) and h.shape == (2, 4, d)
+    assert norms.rms_norm_quant_rows.launches == 1
+    assert norms.add_rms_norm_quant_rows.launches == 1
+
+
+@pytest.mark.parametrize("qdtype", QDTYPES, ids=["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("f", [14336, 16392])
+def test_swiglu_quant_kernel_is_bitwise_the_plain_version(device, qdtype,
+                                                          dtype, f):
+    """The fused SwiGLU's bytes and scales torch.equal to torch's
+    ``silu(gate.float()).to(T) * up`` followed by ``quantize_rows_plain``
+    at M 1, 8, 32 and 256 (F 16392: past the chunks a thread holds), rows
+    bitwise across M; one launch counted a call."""
+    from triton_kubernetes_tpu_torch.ops import quantization as qz
+
+    gen = torch.Generator(device=device).manual_seed(f)
+    gate = (4 * torch.randn((256, f), generator=gen, device=device)
+            ).to(dtype)
+    up = torch.randn((256, f), generator=gen, device=device).to(dtype)
+    q256, s256 = _kernels.swiglu_quant(gate, up, qdtype)
+    for m in (1, 8, 32, 256):
+        xq, xs = _kernels.swiglu_quant(gate[:m], up[:m], qdtype)
+        want = qz.swiglu_quantize_rows_plain(gate[:m], up[:m], qdtype)
+        assert torch.equal(_bits(xq), _bits(want.xq)), m
+        assert torch.equal(xs, want.x_scale), m
+        assert torch.equal(_bits(xq), _bits(q256[:m])), m
+    qz.reset_launch_counts()
+    rows = qz.swiglu_quantize_rows(gate[:8].view(2, 4, f),
+                                   up[:8].view(2, 4, f), qdtype)
+    torch.cuda.synchronize()
+    assert rows.lead == (2, 4) and qz.swiglu_quantize_rows.launches == 1
+
+
+def test_silu_probe_matches_torch_on_every_bf16_input(device):
+    """The fused SwiGLU's SiLU gives torch's bits on all 65,536 bf16
+    inputs (two NaNs agree): what lets one pass replace torch's SiLU."""
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32,
+                     device=device).to(torch.int16).view(torch.bfloat16)
+    got = _kernels.silu_probe(x)
+    want = torch.nn.functional.silu(x.float()).to(torch.bfloat16)
+    same = (got.view(torch.int16) == want.view(torch.int16)) | (
+        got.isnan() & want.isnan())
+    assert bool(same.all()), int((~same).sum())
+
+
+def test_kernel_a_bindings_refuse(device):
+    """Widths that are not a multiple of 8, shapes or dtypes that differ,
+    a dtype that is not 8-bit, CPU tensors: refused before any launch."""
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device=device)
+    sc = torch.ones(64, dtype=torch.bfloat16, device=device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        _kernels.quantize_rows(x[:, :60].contiguous(), torch.int8)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        _kernels.swiglu_quant(x[:, :60].contiguous(),
+                              x[:, :60].contiguous(), torch.int8)
+    with pytest.raises(ValueError, match="one dtype"):
+        _kernels.swiglu_quant(x, x.float(), torch.int8)
+    with pytest.raises(ValueError, match="one dtype"):
+        _kernels.swiglu_quant(x, x[:2], torch.int8)
+    with pytest.raises(ValueError, match="int8 or float8"):
+        _kernels.swiglu_quant(x, x, torch.bfloat16)
+    with pytest.raises(ValueError, match="int8 or float8"):
+        _kernels.add_rms_norm_quant(x, x, sc, 1e-5, torch.bfloat16)
+    with pytest.raises(ValueError, match="share a dtype"):
+        _kernels.add_rms_norm_quant(x, x.float(), sc, 1e-5, torch.int8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.swiglu_quant(x.cpu(), x.cpu(), torch.int8)
+
+
 def _w8a8_group(gen, k, ns, qdtype, device):
     from triton_kubernetes_tpu_torch.ops import quantization as qz
 
@@ -1093,10 +1212,11 @@ def test_small_w8a8_model_verify_rows_are_decode_rows(device, wd):
     """At llama-test widths (bf16) under W8A8: each verify logits row is
     torch.equal to the decode logits at its length, the pools end bitwise
     equal, and every product ran kernels A and B (one quantization a
-    group)."""
+    group: the norms' and the SwiGLU's own, wo's standalone)."""
     from triton_kubernetes_tpu_torch.models import (
         get_config, init_params, paged)
     from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
+    from triton_kubernetes_tpu_torch.ops import norms
     from triton_kubernetes_tpu_torch.ops import quantization as qz
 
     cfg = get_config("llama-test", dtype="bfloat16", weight_quant=wd,
@@ -1122,10 +1242,18 @@ def test_small_w8a8_model_verify_rows_are_decode_rows(device, wd):
         vcache = paged.PagedKVCache(cache.k.clone(), cache.v.clone())
         dg.reset_launch_counts()
         qz.reset_launch_counts()
+        norms.reset_launch_counts()
         verify, _ = paged.paged_verify_step(model, tok, cfg, vcache, tables,
                                             lens)
         assert dg.w8a8_gemm_group.launches == 4 * cfg.num_layers + 1
-        assert qz.quantize_rows.launches == 4 * cfg.num_layers + 1
+        # Kernel A: wo's input standalone, every other input inside the
+        # launch that produces it.
+        assert qz.quantize_rows.launches == cfg.num_layers
+        assert qz.swiglu_quantize_rows.launches == cfg.num_layers
+        assert norms.rms_norm_quant_rows.launches == 1
+        assert norms.add_rms_norm_quant_rows.launches == 2 * cfg.num_layers
+        assert norms.rms_norm_rows.launches == 0
+        assert norms.add_rms_norm_rows.launches == 0
         assert dg.decode_gemm_group.launches == 0
         for j in range(s):
             row = paged.paged_decode_step(model, tok[:, j].contiguous(), cfg,

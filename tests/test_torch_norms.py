@@ -21,7 +21,13 @@ in registers) and 8704 (past it: h read back):
 * rows at M 1, 8, 32 and 256 bitwise the rows at M 64;
 * y within one bf16 ulp of the plain version (f32: 1e-6 relative; the
   sum is taken in another order, and the emulated rsqrtf rounds twice);
-* the entries' refusals.
+* the entries' refusals;
+* the quantizing entries (kernel A as the epilogue, for a W8A8 product):
+  bytes and scales bitwise the emulated quantizer (``quantize_rows.cu``)
+  on the y the norm entries write, h bitwise the fused entry's, at M 1, 8
+  and 32 (and a prefill window's 256 at D 4096), int8 and fp8; and on CPU
+  tensors ``rms_norm_quant_rows`` / ``add_rms_norm_quant_rows`` bitwise
+  the plain norm followed by ``quantize_rows_plain``.
 
 The emulation skips only where there is no g++.
 """
@@ -37,6 +43,7 @@ import torch
 
 from triton_kubernetes_tpu.ops import norms as jnorms
 from triton_kubernetes_tpu_torch.ops import _kernels, norms
+from triton_kubernetes_tpu_torch.ops import quantization as qz
 
 EMU = (Path(__file__).resolve().parents[1] / "scripts" / "cuda_emu"
        / "emulate_paged.py")
@@ -88,6 +95,38 @@ def test_add_rms_norm_matches_jax(dtype):
                                np.asarray(jy).astype(np.float32), **tol)
 
 
+QDTYPES = pytest.mark.parametrize("qdtype",
+                                  [torch.int8, torch.float8_e4m3fn],
+                                  ids=["int8", "fp8"])
+
+
+def _bitwise(a, b):
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@QDTYPES
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_quantizing_norm_rows_plain_is_the_norm_then_the_quantizer(dtype,
+                                                                   qdtype):
+    _, (x, delta, scale) = _inputs(7, 12, 64, dtype)
+    x3, d3 = x.reshape(3, 4, 64), delta.reshape(3, 4, 64)
+    norms.reset_launch_counts()
+    got = norms.rms_norm_quant_rows(x3, scale, EPS, qdtype)
+    want_q, want_s = qz.quantize_rows_plain(norms.rms_norm(x, scale, EPS),
+                                            qdtype)
+    assert got.lead == (3, 4) and got.dtype == qdtype
+    assert _bitwise(got.xq, want_q) and torch.equal(got.x_scale, want_s)
+    h, got = norms.add_rms_norm_quant_rows(x3, d3, scale, EPS, qdtype)
+    want_h, y = norms.add_rms_norm(x, delta, scale, EPS)
+    want_q, want_s = qz.quantize_rows_plain(y, qdtype)
+    assert torch.equal(h, want_h.reshape(3, 4, 64)) and got.lead == (3, 4)
+    assert _bitwise(got.xq, want_q) and torch.equal(got.x_scale, want_s)
+    assert norms.rms_norm_quant_rows.launches == 0  # no kernel on the CPU
+    assert norms.add_rms_norm_quant_rows.launches == 0
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.add_rms_norm_quant(x, None, scale, EPS, qdtype)
+
+
 def test_add_rms_norm_wrapper_refuses_cpu_tensors():
     x = torch.zeros(2, 8)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -111,8 +150,8 @@ class EmulatedNorm:
     """The emulated C entries, called as the wrappers call the real ones;
     outputs NaN-poisoned."""
 
-    def __init__(self, lib):
-        self.lib = lib
+    def __init__(self, lib, quant):
+        self.lib, self.quant = lib, quant
 
     def add(self, x, delta, scale, m=None, d=None):
         """(rc, h, y) of the fused entry; ``m``/``d`` override what is
@@ -136,17 +175,45 @@ class EmulatedNorm:
                 x.shape[1] if d is None else d, EPS, None)
         return rc, y
 
+    def add_quant(self, x, delta, scale, qdtype):
+        """(rc, h, xq, x_scale) of the quantizing entry (delta None: the
+        delta-null norm, h not written)."""
+        h = torch.full_like(x, float("nan"))
+        xq = torch.full(x.shape, 0x55, dtype=torch.uint8).view(qdtype)
+        xs = torch.full((x.shape[0],), float("nan"))
+        fn = getattr(self.lib, f"tk8s_add_rms_norm_quant_"
+                               f"{_kernels._SUFFIX[x.dtype]}_"
+                               f"{_kernels._PAGE_SUFFIX[qdtype]}")
+        rc = fn(x.data_ptr(), None if delta is None else delta.data_ptr(),
+                scale.data_ptr(), None if delta is None else h.data_ptr(),
+                xq.data_ptr(), xs.data_ptr(), x.shape[0], x.shape[1], EPS,
+                None)
+        return rc, h, xq, xs
+
+    def quantize(self, x, qdtype):
+        """(xq, x_scale) of the emulated standalone quantizer."""
+        xq = torch.full(x.shape, 0x55, dtype=torch.uint8).view(qdtype)
+        xs = torch.full((x.shape[0],), float("nan"))
+        fn = getattr(self.quant, f"tk8s_quantize_rows_"
+                                 f"{_kernels._SUFFIX[x.dtype]}_"
+                                 f"{_kernels._PAGE_SUFFIX[qdtype]}")
+        assert fn(x.data_ptr(), xq.data_ptr(), xs.data_ptr(), x.shape[0],
+                  x.shape[1], None) == 0
+        return xq, xs
+
 
 @pytest.fixture(scope="module")
 def emu(tmp_path_factory):
-    """rms_norm.cu built with g++ against emu.h."""
+    """rms_norm.cu (and quantize_rows.cu, the quantizer its quantizing
+    entries are held to) built with g++ against emu.h."""
     if shutil.which("g++") is None:
         pytest.skip("the CUDA emulation builds with g++, which is missing")
     spec = importlib.util.spec_from_file_location("emulate_paged", EMU)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    lib = mod.build(tmp_path_factory.mktemp("emu"), ("rms_norm",))
-    return EmulatedNorm(lib["rms_norm"])
+    lib = mod.build(tmp_path_factory.mktemp("emu"),
+                    ("rms_norm", "quantize_rows"))
+    return EmulatedNorm(lib["rms_norm"], lib["quantize_rows"])
 
 
 _runs = {}
@@ -213,6 +280,36 @@ def test_emulated_norm_within_one_ulp_of_plain(emu, dtype, d):
         assert (err <= _ulp(want)).all(), float(err.max())
     else:
         assert (err <= 1e-6 * want.abs()).all(), float(err.max())
+
+
+@QDTYPES
+@CASES
+def test_emulated_quantizing_entries_are_the_norm_then_the_quantizer(
+        emu, dtype, d, qdtype):
+    """xq and x_scale bitwise the emulated quantizer on the y that the
+    fused entry (and the delta-null entry on torch's x + delta) writes, h
+    bitwise the fused entry's, at M 1, 8 and 32 -- and a prefill window's
+    256 for bf16 int8 at D 4096 -- with rows bitwise across M."""
+    (x, delta, scale), out, y_null = _run(emu, dtype, d)
+    want = emu.quantize(out[32][1], qdtype)
+    want_null = emu.quantize(y_null[:32].contiguous(), qdtype)
+    h64 = (x[:64] + delta[:64]).contiguous()
+    rows = (1, 8, 32) + ((256,) if (dtype, d, qdtype) == (
+        torch.bfloat16, 4096, torch.int8) else ())
+    for m in rows:
+        rc, h, xq, xs = emu.add_quant(x[:m], delta[:m], scale, qdtype)
+        assert rc == 0 and torch.equal(h, out[m][0]), m
+        wq, ws = (want if m <= 32 else emu.quantize(out[m][1], qdtype))
+        k = min(m, 32)
+        assert _bitwise(xq[:k], wq[:k]) and torch.equal(xs[:k], ws[:k]), m
+        if m > 32:
+            assert _bitwise(xq, wq) and torch.equal(xs, ws)
+        if m > 32:
+            continue
+        rc, h, xq, xs = emu.add_quant(h64[:m], None, scale, qdtype)
+        assert rc == 0 and h.isnan().all(), m  # h is not written
+        assert _bitwise(xq, want_null[0][:m]), m
+        assert torch.equal(xs, want_null[1][:m]), m
 
 
 @pytest.mark.parametrize("what,m,d", [("no row", 0, 64),

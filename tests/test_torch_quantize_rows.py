@@ -12,7 +12,9 @@ bytes and scales must be ``torch.equal`` to the plain version
 (``quantize_rows_plain``, torch's ops), which is itself bitwise the JAX
 package's activation quantization (``tests/test_torch_w8a8.py``): int8 and
 fp8, bf16 and f32 input, rows of zeros (the scale floor), rows whose
-values land on rounding ties, widths that are not a multiple of the block.
+values land on rounding ties, widths that are not a multiple of the block,
+the serving widths (K 4096, 5120, 14,336: the most a thread holds in
+registers) and a width past them (chunks read again after the barrier).
 The emulation skips only where there is no g++.
 """
 
@@ -73,7 +75,8 @@ def _rows(seed, m, k, dtype):
 
 @QDTYPES
 @DTYPES
-@pytest.mark.parametrize("m,k", [(1, 64), (7, 200), (33, 4096), (3, 14336)])
+@pytest.mark.parametrize("m,k", [(1, 64), (7, 200), (33, 4096), (4, 5120),
+                                 (3, 14336), (2, 16392)])
 def test_emulated_quantize_rows_is_bitwise_the_plain_version(lib, qdtype,
                                                              dtype, m, k):
     x = _rows(m + k, m, k, dtype)
@@ -99,6 +102,13 @@ def test_emulated_quantize_rows_refuses_empty_rows(lib):
     x = _rows(1, 4, 64, torch.float32)
     assert _run(lib, x, torch.int8, m=0)[0] != 0
     assert _run(lib, x, torch.int8)[0] == 0
+
+
+def test_emulated_quantize_rows_refuses_ragged_widths(lib):
+    """K must be a multiple of 8: the kernel moves 16-byte chunks."""
+    x = _rows(1, 2, 60, torch.bfloat16)
+    rc, xq, scale = _run(lib, x, torch.int8)
+    assert rc != 0 and scale.isnan().all()
 
 
 def test_quantize_rows_wrapper_runs_the_plain_version_on_cpu_tensors():

@@ -426,6 +426,69 @@ def test_w8a8_engine_tokens_match_the_jax_engine(dtype, trees):
     assert got == want
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_quantizing_seams_keep_the_serving_logits(dtype, monkeypatch):
+    """The serving steps hand every W8A8 product but wo's the rows that
+    their producer quantized (the norms' quantizing entries, the fused
+    SwiGLU). On the CPU (bf16 llama-test, W8A8) a prefill window's, a
+    decode step's and a verify step's logits are bitwise those of the
+    composition before the seams -- the producers' bf16 rows, then the
+    standalone quantizer -- and each seam ran as often as the steps need
+    it: the first norm once, the boundaries twice a layer, the SwiGLU once
+    a layer, the standalone quantizer once a layer (wo's input)."""
+    from triton_kubernetes_tpu_torch.models import paged
+    from triton_kubernetes_tpu_torch.ops import norms
+
+    cfg = get_config("llama-test", dtype="bfloat16", weight_quant=dtype,
+                     matmul_dtype=dtype)
+    model = quantize_weights(init_params(get_config("llama-test",
+                                                    dtype="bfloat16"),
+                                         seed=3, device="cpu"), dtype)
+    table = torch.arange(1, 9, dtype=torch.int32)
+
+    def steps():
+        cache = paged.init_paged_cache(cfg, 9, 4, device="cpu")
+        toks = torch.tensor([[5, 7, 9, 11, 2, 4, 6, 8, 1, 3] + [0] * 6],
+                            dtype=torch.int32)
+        window = paged.paged_prefill_chunk(model, toks, 0, 10, cfg, cache,
+                                           table)
+        lens = torch.tensor([10], dtype=torch.int32)
+        decode = paged.paged_decode_step(model, torch.tensor(
+            [6], dtype=torch.int32), cfg, cache, table[None], lens)
+        verify, _ = paged.paged_verify_step(model, torch.tensor(
+            [[6, 2, 9]], dtype=torch.int32), cfg, cache, table[None],
+            lens + 1)
+        return window, decode, verify
+
+    seams = {"rms_norm_quant_rows": (paged, 0), "add_rms_norm_quant_rows":
+             (paged, 0), "swiglu_quantize_rows": (llama, 0),
+             "quantize_rows": (q, 0)}
+    for name, (mod, _) in seams.items():
+        fn = getattr(mod, name)
+
+        def counted(*a, _fn=fn, _name=name):
+            seams[_name] = (seams[_name][0], seams[_name][1] + 1)
+            return _fn(*a)
+        monkeypatch.setattr(mod, name, counted)
+    fused = steps()
+    runs = 3  # a window, a decode step and a verify step
+    layers = cfg.num_layers
+    assert {k: n for k, (_, n) in seams.items()} == {
+        "rms_norm_quant_rows": runs, "add_rms_norm_quant_rows":
+        2 * layers * runs, "swiglu_quantize_rows": layers * runs,
+        "quantize_rows": layers * runs}
+    monkeypatch.setattr(paged, "rms_norm_quant_rows",
+                        lambda x, s, eps, dt: norms.rms_norm_rows(x, s, eps))
+    monkeypatch.setattr(paged, "add_rms_norm_quant_rows",
+                        lambda x, d, s, eps, dt: norms.add_rms_norm_rows(
+                            x, d, s, eps))
+    monkeypatch.setattr(llama, "swiglu_quantize_rows",
+                        lambda g, u, dt: q.swiglu(g, u))
+    unfused = steps()
+    for a, b in zip(fused, unfused):
+        assert torch.equal(a, b)
+
+
 def test_engine_refuses_mismatched_weights_and_unknown_dtypes(trees):
     _, model = trees
     with pytest.raises(ValueError, match="matmul_dtype"):

@@ -41,61 +41,27 @@
 //   two-pass kernel this one replaced (its bits are unchanged), and a
 //   fused row is bitwise that norm of torch's add. D must be a multiple
 //   of 8 (the wrapper checks).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+//
+// The W8A8 epilogue (rms_norm_quant_kernel, the entries
+// tk8s_add_rms_norm_quant_*): where the norm's output feeds W8A8 products
+// only, y is not written. Its row -- rounded to T in registers, the values
+// the plain path quantizes -- goes through kernel A's arithmetic
+// (rows_common.cuh): a second reduction (the amax) and a second barrier,
+// then xq and x_scale, bitwise quantize_rows of the y the entries above
+// write. A layer boundary before a W8A8 product is then one launch, not a
+// norm and a quantizer. Chunks past kHeld form y again after each barrier
+// from h (or x) as written, in the same operations.
+#include "rows_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kStride = 8 * kThreads;  // elements between a thread's chunks
-constexpr int kHeld = 4;               // chunks a thread keeps: D <= 8192
+using namespace rows;
 
-// Eight elements of T as they are loaded: one 16-byte word of bf16, two
-// of f32.
-template <typename T> struct Pack;
-template <> struct Pack<__nv_bfloat16> { uint4 u; };
-template <> struct Pack<float> { float4 a, b; };
+constexpr int kHeld = 4;  // chunks a thread keeps: D <= 8192
+// What a row's epilogue writes: y (kY), or y's row quantized to int8
+// (kS8) or e4m3 (kE4m3) with its scale.
+enum Out { kY, kS8, kE4m3 };
 
-__device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                     Pack<__nv_bfloat16>& v) {
-  v.u = *reinterpret_cast<const uint4*>(p);
-}
-__device__ __forceinline__ void load(const float* p, Pack<float>& v) {
-  v.a = *reinterpret_cast<const float4*>(p);
-  v.b = *reinterpret_cast<const float4*>(p + 4);
-}
-__device__ __forceinline__ void unpack(const Pack<__nv_bfloat16>& v,
-                                       float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v.u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-__device__ __forceinline__ void unpack(const Pack<float>& v, float (&f)[8]) {
-  f[0] = v.a.x; f[1] = v.a.y; f[2] = v.a.z; f[3] = v.a.w;
-  f[4] = v.b.x; f[5] = v.b.y; f[6] = v.b.z; f[7] = v.b.w;
-}
-template <typename T>
-__device__ __forceinline__ void load8(const T* p, float (&f)[8]) {
-  Pack<T> v;
-  load(p, v);
-  unpack(v, f);
-}
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&f)[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-__device__ __forceinline__ void store8(float* p, const float (&f)[8]) {
-  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(f[4], f[5], f[6], f[7]);
-}
 // h += d, as torch adds two tensors of T: an f32 add (never contracted
 // into an FMA), rounded once to T.
 __device__ __forceinline__ void add_round(__nv_bfloat16*, float (&h)[8],
@@ -110,12 +76,17 @@ __device__ __forceinline__ void add_round(float*, float (&h)[8],
   for (int e = 0; e < 8; ++e) h[e] = __fadd_rn(h[e], d[e]);
 }
 
-// kAdd: h = x + delta is formed and written; otherwise h is x.
-template <typename T, bool kAdd>
-__global__ void __launch_bounds__(kThreads)
-rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ delta,
-                const T* __restrict__ scale, T* __restrict__ h_out,
-                T* __restrict__ y, int d, float eps) {
+// One row of the norm: kAdd forms and writes h = x + delta (otherwise h
+// is x); kOut says what the epilogue writes (y, or xq and x_scale).
+template <typename T, bool kAdd, Out kOut>
+__device__ __forceinline__ void norm_row(const T* __restrict__ x,
+                                         const T* __restrict__ delta,
+                                         const T* __restrict__ scale,
+                                         T* __restrict__ h_out,
+                                         T* __restrict__ y,
+                                         uint8_t* __restrict__ xq,
+                                         float* __restrict__ x_scale, int d,
+                                         float eps) {
   __shared__ float warp_sums[kThreads / 32];
   const size_t row = (size_t)blockIdx.x * d;
   const int t = threadIdx.x;
@@ -169,26 +140,95 @@ rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ delta,
 #pragma unroll
   for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
   const float r = rsqrtf(total * (1.f / (float)d) + eps);
+  const T* h_back = kAdd ? (const T*)h_out : x;  // chunks past kHeld
+  if constexpr (kOut == kY) {
+#pragma unroll
+    for (int j = 0; j < kHeld; ++j) {
+      const int i = 8 * t + kStride * j;
+      if (i < d) {
+        float s[8];
+        unpack(sv[j], s);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          h[j][e] = __fmul_rn(__fmul_rn(h[j][e], r), s[e]);
+        store8(y + row + i, h[j]);
+      }
+    }
+    for (int i = 8 * t + kStride * kHeld; i < d; i += kStride) {
+      float f[8], s[8];
+      load8(h_back + row + i, f);
+      load8(scale + i, s);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] = __fmul_rn(__fmul_rn(f[e], r), s[e]);
+      store8(y + row + i, f);
+    }
+    return;
+  }
+  // Quantized out: y as the kY epilogue forms it, rounded to T in
+  // registers (the values the plain path quantizes: the norm's output),
+  // its row's amax by a second reduction, then y's bytes; y itself is not
+  // written. Chunks past kHeld form y again after the barrier.
+  __shared__ float warp_max[kWarps];
+  constexpr bool kInt8 = kOut == kS8;
+  float amax = 0.f;
 #pragma unroll
   for (int j = 0; j < kHeld; ++j) {
-    const int i = 8 * t + kStride * j;
-    if (i < d) {
+    if (8 * t + kStride * j < d) {
       float s[8];
       unpack(sv[j], s);
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        h[j][e] = __fmul_rn(__fmul_rn(h[j][e], r), s[e]);
-      store8(y + row + i, h[j]);
+        h[j][e] = round_to((T*)nullptr,
+                           __fmul_rn(__fmul_rn(h[j][e], r), s[e]));
+      amax = amax8(amax, h[j]);
     }
   }
   for (int i = 8 * t + kStride * kHeld; i < d; i += kStride) {
     float f[8], s[8];
-    load8((kAdd ? (const T*)h_out : x) + row + i, f);
+    load8(h_back + row + i, f);
     load8(scale + i, s);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) f[e] = __fmul_rn(__fmul_rn(f[e], r), s[e]);
-    store8(y + row + i, f);
+    for (int e = 0; e < 8; ++e)
+      f[e] = round_to((T*)nullptr, __fmul_rn(__fmul_rn(f[e], r), s[e]));
+    amax = amax8(amax, f);
   }
+  const float qs = row_scale<kInt8>(block_max(amax, warp_max));
+  if (t == 0) x_scale[blockIdx.x] = qs;
+#pragma unroll
+  for (int j = 0; j < kHeld; ++j) {
+    const int i = 8 * t + kStride * j;
+    if (i < d) store_q8<kInt8>(xq + row + i, h[j], qs);
+  }
+  for (int i = 8 * t + kStride * kHeld; i < d; i += kStride) {
+    float f[8], s[8];
+    load8(h_back + row + i, f);
+    load8(scale + i, s);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      f[e] = round_to((T*)nullptr, __fmul_rn(__fmul_rn(f[e], r), s[e]));
+    store_q8<kInt8>(xq + row + i, f, qs);
+  }
+}
+
+template <typename T, bool kAdd>
+__global__ void __launch_bounds__(kThreads)
+rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ delta,
+                const T* __restrict__ scale, T* __restrict__ h_out,
+                T* __restrict__ y, int d, float eps) {
+  norm_row<T, kAdd, kY>(x, delta, scale, h_out, y, nullptr, nullptr, d, eps);
+}
+
+// The norm with kernel A, the W8A8 products' per-token quantizer, as its
+// epilogue (a name apart from rms_norm_kernel, so a profile counts it
+// apart).
+template <typename T, bool kAdd, Out kOut>
+__global__ void __launch_bounds__(kThreads)
+rms_norm_quant_kernel(const T* __restrict__ x, const T* __restrict__ delta,
+                      const T* __restrict__ scale, T* __restrict__ h_out,
+                      uint8_t* __restrict__ xq, float* __restrict__ x_scale,
+                      int d, float eps) {
+  norm_row<T, kAdd, kOut>(x, delta, scale, h_out, nullptr, xq, x_scale, d,
+                          eps);
 }
 
 template <typename T>
@@ -202,6 +242,25 @@ int launch(const void* x, const void* delta, const void* scale, void* h,
     rms_norm_kernel<T, true><<<m, kThreads, 0, (cudaStream_t)stream>>>(
         (const T*)x, (const T*)delta, (const T*)scale, (T*)h, (T*)y, d,
         eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, Out kOut>
+int launch_quant(const void* x, const void* delta, const void* scale,
+                 void* h, void* xq, void* x_scale, int m, int d, float eps,
+                 void* stream) {
+  if (m < 1 || d < 8 || d % 8 != 0 || xq == nullptr || x_scale == nullptr ||
+      (delta != nullptr && h == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (delta == nullptr)
+    rms_norm_quant_kernel<T, false, kOut><<<m, kThreads, 0, s>>>(
+        (const T*)x, nullptr, (const T*)scale, nullptr, (uint8_t*)xq,
+        (float*)x_scale, d, eps);
+  else
+    rms_norm_quant_kernel<T, true, kOut><<<m, kThreads, 0, s>>>(
+        (const T*)x, (const T*)delta, (const T*)scale, (T*)h, (uint8_t*)xq,
+        (float*)x_scale, d, eps);
   return (int)cudaGetLastError();
 }
 
@@ -230,3 +289,18 @@ extern "C" int tk8s_add_rms_norm_f32(const void* x, const void* delta,
                                      int m, int d, float eps, void* stream) {
   return launch<float>(x, delta, scale, h, y, m, d, eps, stream);
 }
+// The entries above with y quantized per row for a W8A8 product: h as
+// above (delta null: h is x and not written), and in y's place xq [m, d]
+// (int8 or float8_e4m3fn, the suffix's second part) and x_scale [m] f32,
+// bitwise quantize_rows of the y those entries write.
+#define TK8S_NORM_QUANT(suffix, T, kOut)                                     \
+  extern "C" int tk8s_add_rms_norm_quant_##suffix(                          \
+      const void* x, const void* delta, const void* scale, void* h,         \
+      void* xq, void* x_scale, int m, int d, float eps, void* stream) {     \
+    return launch_quant<T, kOut>(x, delta, scale, h, xq, x_scale, m, d, eps, \
+                                 stream);                                   \
+  }
+TK8S_NORM_QUANT(bf16_int8, __nv_bfloat16, kS8)
+TK8S_NORM_QUANT(bf16_fp8, __nv_bfloat16, kE4m3)
+TK8S_NORM_QUANT(f32_int8, float, kS8)
+TK8S_NORM_QUANT(f32_fp8, float, kE4m3)

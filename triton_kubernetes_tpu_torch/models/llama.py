@@ -38,7 +38,8 @@ from __future__ import annotations
 
 import functools
 from dataclasses import replace
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -54,9 +55,11 @@ from ..ops.decode_gemm import decode_gemm_group, decode_gemm_plain
 from ..ops.flash_attention import flash_attention
 from ..ops.norms import rms_norm, rms_norm_rows
 from ..ops.quantization import (
+    QuantizedRows,
     fp8_dtype,
     quantize_channelwise,
     resolve_matmul_dtype,
+    swiglu_quantize_rows,
     w8a8_rows,
 )
 from ..ops.rotary import apply_rotary, rotary_tables
@@ -404,6 +407,23 @@ def matmul_arithmetic(config: ModelConfig, x: torch.Tensor) -> str:
                                 "gpu" if x.is_cuda else "cpu")
 
 
+def w8a8_dtype(ws: Sequence[Any], config: ModelConfig,
+               x: Union[torch.Tensor, QuantizedRows]
+               ) -> Optional[torch.dtype]:
+    """The 8-bit dtype in which the products of x with the weight group
+    ``ws`` contract here -- every leaf a :class:`QuantizedWeight` and
+    ``matmul_dtype`` resolving to "int8"/"fp8" on x's device (W8A8) -- or
+    None: the f32 path. :func:`weight_einsums` routes by it, and the
+    producers of a group's input ask it: a norm or the SwiGLU hands its
+    consumers :class:`ops.quantization.QuantizedRows` only where it is not
+    None."""
+    device_of = x.xq if isinstance(x, QuantizedRows) else x
+    if not (all(isinstance(w, QuantizedWeight) for w in ws)
+            and matmul_arithmetic(config, device_of) != "f32"):
+        return None
+    return ws[0].q.dtype
+
+
 def _norm(x: torch.Tensor, scale: torch.Tensor, config: ModelConfig,
           row_invariant: bool) -> torch.Tensor:
     norm = rms_norm_rows if row_invariant else rms_norm
@@ -435,33 +455,39 @@ def _row_products(spec: str, x: torch.Tensor,
     return [y.reshape(*lead, *w.shape[c:]) for y, w in zip(ys, ws)]
 
 
-def _quantized_products(spec: str, x: torch.Tensor,
+def _quantized_products(spec: str, x: Union[torch.Tensor, QuantizedRows],
                         ws: Sequence[QuantizedWeight],
                         out_dtype: torch.dtype) -> List[torch.Tensor]:
     """W8A8 ``[einsum(spec, x, w) for w in ws]`` for a trailing-by-leading
-    spec: x's rows quantized once, the products in one
-    ``ops.quantization.w8a8_rows`` call."""
+    spec: x's rows quantized once (or already, :class:`QuantizedRows`),
+    the products in one ``ops.quantization.w8a8_rows`` call."""
     c = _contracted_dims(spec)
-    lead = x.shape[:x.dim() - c]
-    ys = w8a8_rows(x.reshape(lead.numel(), -1).contiguous(),
-                   [w.q for w in ws], [w.scale for w in ws], out_dtype)
+    if isinstance(x, QuantizedRows):
+        lead, rows = x.lead, x
+    else:
+        lead = tuple(x.shape[:x.dim() - c])
+        rows = x.reshape(-1, x.shape[x.dim() - c:].numel()).contiguous()
+    ys = w8a8_rows(rows, [w.q for w in ws], [w.scale for w in ws],
+                   out_dtype)
     return [y.reshape(*lead, *w.shape[c:]) for y, w in zip(ys, ws)]
 
 
-def weight_einsums(spec: str, x: torch.Tensor, ws: Sequence[Any],
-                   config: ModelConfig, row_invariant: bool = False
-                   ) -> List[torch.Tensor]:
+def weight_einsums(spec: str, x: Union[torch.Tensor, QuantizedRows],
+                   ws: Sequence[Any], config: ModelConfig,
+                   row_invariant: bool = False) -> List[torch.Tensor]:
     """The weight matmuls of one input with each of ``ws``, in the
     activation dtype. On the reference's f32 path (unquantized leaves, or
     quantized ones with ``matmul_dtype`` resolving to "f32") the products
     of the activation-dtype operands, quantized leaves dequantized first;
     ``row_invariant`` takes them all through one
     :func:`ops.decode_gemm.decode_gemm_group` call. Quantized leaves with
-    ``matmul_dtype`` "int8"/"fp8" contract W8A8, row-invariant on the card
-    whatever ``row_invariant`` says."""
-    if (isinstance(ws[0], QuantizedWeight)
-            and matmul_arithmetic(config, x) != "f32"):
+    ``matmul_dtype`` "int8"/"fp8" contract W8A8 (:func:`w8a8_dtype`),
+    row-invariant on the card whatever ``row_invariant`` says; only they
+    take x as :class:`QuantizedRows`."""
+    if w8a8_dtype(ws, config, x) is not None:
         return _quantized_products(spec, x, ws, config.activation_dtype)
+    if isinstance(x, QuantizedRows):
+        raise TypeError("quantized rows feed W8A8 products only")
     ws = [resolve_weight(w, config) for w in ws]
     if row_invariant:
         return _row_products(spec, x, ws)
@@ -504,6 +530,11 @@ def _mlp_normed(h: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
         raise NotImplementedError(_MOE_LATER)
     gate, up = weight_einsums("bsd,df->bsf", h, [layer.w3, layer.w1],
                               config, row_invariant)
+    qdtype = w8a8_dtype([layer.w2], config, gate)
+    if qdtype is not None:  # w2's input quantized in the same pass
+        return weight_einsum("bsf,fd->bsd",
+                             swiglu_quantize_rows(gate, up, qdtype),
+                             layer.w2, config, row_invariant)
     gate = torch.nn.functional.silu(gate.float()).to(config.activation_dtype)
     return weight_einsum("bsf,fd->bsd", gate * up, layer.w2, config,
                          row_invariant)
@@ -557,21 +588,20 @@ def unembed(x: torch.Tensor, model: Llama, row_invariant: bool = False,
                           row_invariant, config)
 
 
-def unembed_normed(h: torch.Tensor, model: Llama,
+def unembed_normed(h: Union[torch.Tensor, QuantizedRows], model: Llama,
                    row_invariant: bool = False,
                    config: Optional[ModelConfig] = None) -> torch.Tensor:
     """The lm head of the final norm's output: [B, S, D] -> f32 logits
     [B, S, V], as :func:`unembed`. A quantized head under W8A8 arithmetic
     (``config.matmul_dtype``; ``config`` defaults to the model's) contracts
-    W8A8 with an f32 out."""
+    W8A8 with an f32 out, and takes the final norm's output as
+    :class:`QuantizedRows` too."""
     config = config or model.config
+    if w8a8_dtype([model.lm_head], config, h) is not None:
+        return _quantized_products("bsd,dv->bsv", h, [model.lm_head],
+                                   torch.float32)[0]
     b, s, d = h.shape
     h2 = h.reshape(b * s, d)
-    if (isinstance(model.lm_head, QuantizedWeight)
-            and matmul_arithmetic(config, h) != "f32"):
-        out = _quantized_products("md,dv->mv", h2, [model.lm_head],
-                                  torch.float32)[0]
-        return out.reshape(b, s, -1)
     w = head_weights(model, config)
     if row_invariant:
         out = decode_gemm_group(h2.contiguous(), [w], torch.float32)[0]

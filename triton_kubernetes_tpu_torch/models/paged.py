@@ -46,7 +46,12 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 import torch
 
 from ..constants import KV_DTYPES
-from ..ops.norms import add_rms_norm_rows, rms_norm_rows
+from ..ops.norms import (
+    add_rms_norm_quant_rows,
+    add_rms_norm_rows,
+    rms_norm_quant_rows,
+    rms_norm_rows,
+)
 from ..ops.paged_attention import (
     TRASH_PAGE,
     byte_view,
@@ -58,7 +63,12 @@ from ..ops.paged_attention import (
     scatter_token,
     table_slots,
 )
-from ..ops.quantization import KV_QUANT_DTYPES, kv_quant_error, quantize_kv_pages
+from ..ops.quantization import (
+    KV_QUANT_DTYPES,
+    QuantizedRows,
+    kv_quant_error,
+    quantize_kv_pages,
+)
 from . import llama
 from .config import ModelConfig
 from .generate import init_cache, prefill
@@ -175,32 +185,51 @@ AttendFn = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor],
 
 
 def _serve_layers(model: llama.Llama, x: torch.Tensor, config: ModelConfig,
-                  positions: torch.Tensor, attend: AttendFn) -> torch.Tensor:
+                  positions: torch.Tensor, attend: AttendFn
+                  ) -> Union[torch.Tensor, QuantizedRows]:
     """The decoder stack of the serving steps, from the embeddings x
     ([B, S, D]) to the final norm's output, which the head reads. A layer
     boundary's residual add and the norm after it are one
     ``add_rms_norm_rows`` (one kernel launch on the card): x and h = the
-    norm of x are carried across it. The weight products are
-    row-invariant (``decode_gemm``, or W8A8's kernels), and so are the
-    norms on CUDA tensors: a row's bits do not depend on how many rows the
-    step holds."""
+    norm of x are carried across it. Where the products that read h
+    contract W8A8 (``llama.w8a8_dtype``), h crosses as the rows quantized
+    by the same launch (``add_rms_norm_quant_rows``, and
+    ``rms_norm_quant_rows`` for the first norm): ``QuantizedRows``. The
+    weight products are row-invariant (``decode_gemm``, or W8A8's
+    kernels), and so are the norms on CUDA tensors: a row's bits do not
+    depend on how many rows the step holds."""
     cos, sin = model.rotary()
     eps = config.norm_eps
     layers = model.layers
-    h = rms_norm_rows(x, layers[0].attn_norm, eps)
+
+    def boundary(x, delta, scale, readers):
+        """x + delta (delta None: x) and its norm, quantized where its
+        readers contract W8A8."""
+        qdtype = llama.w8a8_dtype(readers, config, x)
+        if delta is None:
+            return x, (rms_norm_rows(x, scale, eps) if qdtype is None
+                       else rms_norm_quant_rows(x, scale, eps, qdtype))
+        if qdtype is None:
+            return add_rms_norm_rows(x, delta, scale, eps)
+        return add_rms_norm_quant_rows(x, delta, scale, eps, qdtype)
+
+    def qkv(layer):
+        return [layer.wq, layer.wk, layer.wv]
+
+    x, h = boundary(x, None, layers[0].attn_norm, qkv(layers[0]))
     for i, layer in enumerate(layers):
         q, k, v = llama._qkv_normed(h, layer, config, cos, sin, positions,
                                     row_invariant=True)
         attn = attend(i, q, k, v)
-        x, h = add_rms_norm_rows(
+        x, h = boundary(
             x, llama.out_projection(attn, layer, config, row_invariant=True),
-            layer.mlp_norm, eps)
-        after = (layers[i + 1].attn_norm if i + 1 < len(layers)
-                 else model.final_norm)
-        x, h = add_rms_norm_rows(
+            layer.mlp_norm, [layer.w3, layer.w1])
+        after, readers = ((layers[i + 1].attn_norm, qkv(layers[i + 1]))
+                          if i + 1 < len(layers)
+                          else (model.final_norm, [model.lm_head]))
+        x, h = boundary(
             x, llama._mlp_normed(h, layer, config, row_invariant=True),
-            after,
-            eps)
+            after, readers)
     return h
 
 
@@ -302,9 +331,12 @@ def paged_prefill_chunk(model: llama.Llama,
     # page written by a 128-token window would differ from the same page
     # written by a 256-token one (fault F2).
     h = _serve_layers(model, model.embed[tokens], config, positions, attend)
-    # The head reads only the last real row.
-    logits = llama.unembed_normed(h[:, chunk_len - 1: chunk_len], model,
-                                  config=config)[0, 0]
+    # The head reads only the last real row (quantized rows are quantized
+    # each by itself: the slice is bitwise the row's own).
+    last = (h.positions(chunk_len - 1, chunk_len)
+            if isinstance(h, QuantizedRows)
+            else h[:, chunk_len - 1: chunk_len])
+    logits = llama.unembed_normed(last, model, config=config)[0, 0]
     if not with_quant_error:
         return logits
     # [L, 1, C, Hkv, Dh] -> [L, w, Hkv, bs, Dh], the window's pages.

@@ -104,11 +104,24 @@ _PROBE_SIGNATURE = (_P,) * 5 + (_I, _P)
 _MORE_ENTRIES = {
     # x, delta (null: the entry above), scale, h, y, M, D, eps, stream
     "rms_norm": {"add_rms_norm": (_P, _P, _P, _P, _P, _I, _I, _F, _P)},
+    # gate, up, xq, x_scale, M, F, stream
+    "quantize_rows": {"swiglu_quant": (_P, _P, _P, _P, _I, _I, _P)},
 }
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # Page dtypes of quantized pools -> the suffix the paged kernels' entries
-# append to q's (``tk8s_paged_decode_bf16_int8``).
+# append to q's (``tk8s_paged_decode_bf16_int8``); also the quantized
+# dtype of kernel A's entries.
 _PAGE_SUFFIX = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
+# Suffixes of kernel A's entries: the input's dtype, then the quantized
+# one (``tk8s_quantize_rows_bf16_int8``).
+_QUANT_SUFFIXES = tuple(f"{x}_{q}" for x in _SUFFIX.values()
+                        for q in _PAGE_SUFFIX.values())
+# rms_norm.cu's entries with kernel A as the epilogue, one per suffix of
+# _QUANT_SUFFIXES: x, delta (null: the delta-null norm), scale, h (null
+# with delta), xq, x_scale, M, D, eps, stream.
+_NORM_QUANT_SIGNATURE = (_P,) * 6 + (_I, _I, _F, _P)
+# quantize_rows.cu's SiLU probe, tk8s_silu_probe_bf16: x, y, n, stream.
+_SILU_PROBE_SIGNATURE = (_P, _P, _I, _P)
 # Most query rows (S * group) one verify block takes.
 MAX_VERIFY_ROWS = 32
 
@@ -343,6 +356,11 @@ def bind(lib: ctypes.CDLL, name: str) -> None:
     entries = [(f"tk8s_{stem}_{suffix}", argtypes)
                for stem, argtypes in stems.items()
                for suffix in _entry_suffixes(name)]
+    if name == "rms_norm":
+        entries += [(f"tk8s_add_rms_norm_quant_{suffix}",
+                     _NORM_QUANT_SIGNATURE) for suffix in _QUANT_SUFFIXES]
+    if name == "quantize_rows":
+        entries.append(("tk8s_silu_probe_bf16", _SILU_PROBE_SIGNATURE))
     if name == "decode_gemm":
         entries += [(f"tk8s_decode_gemm_{suffix}", _W8A8_SIGNATURE)
                     for suffix in W8A8_SUFFIXES.values()]
@@ -360,8 +378,7 @@ def _entry_suffixes(name: str):
     if name == "decode_gemm":
         return list(GEMM_SUFFIXES.values())
     if name == "quantize_rows":
-        return [f"{x}_{q}" for x in _SUFFIX.values()
-                for q in _PAGE_SUFFIX.values()]
+        return list(_QUANT_SUFFIXES)
     out = list(_SUFFIX.values())
     if name in PAGED_KERNELS:
         out += [f"{q}_{p}" for q in _SUFFIX.values()
@@ -883,22 +900,48 @@ def gemm_probe(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return d_mma, d_wg
 
 
+def _check_rows(what: str, names: str, *rows: torch.Tensor) -> Tuple[int,
+                                                                   int]:
+    """Device, dtype, shape, contiguity and alignment checks of kernel
+    A's [M, K] inputs ``rows`` (one dtype, bf16 or f32, one shape, K a
+    multiple of 8, 16-byte aligned); returns (M, K)."""
+    x = rows[0]
+    if not x.is_cuda:
+        raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors, got "
+                         f"{names.split(',')[0]} on {x.device}")
+    _require(x.dtype in _SUFFIX and x.dim() == 2
+             and all(t.dtype == x.dtype and t.device == x.device
+                     and t.shape == x.shape for t in rows),
+             f"{what}: {names} [M, K] of one dtype (bfloat16 or float32) "
+             f"on {x.device}, got {[(t.dtype, tuple(t.shape)) for t in rows]}")
+    _require(all(t.is_contiguous() for t in rows),
+             f"{what}: {names} must be contiguous")
+    m, k = x.shape
+    _require(m >= 1 and k >= 1, f"{what}: {names} {tuple(x.shape)} is empty")
+    _require(k % 8 == 0, f"{what}: K {k} must be a multiple of 8")
+    _require(all(t.data_ptr() % 16 == 0 for t in rows),
+             f"{what}: {names} must start 16-byte aligned")
+    return m, k
+
+
+def _quant_out(what: str, m: int, k: int, dtype: torch.dtype,
+               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel A's outputs, fresh: xq [M, K] of ``dtype`` (int8 or
+    float8_e4m3fn) and x_scale [M] f32."""
+    _require(dtype in _PAGE_SUFFIX, f"{what}: quantizes to int8 or "
+                                    f"float8_e4m3fn, not {dtype}")
+    return (torch.empty((m, k), dtype=dtype, device=device),
+            torch.empty(m, dtype=torch.float32, device=device))
+
+
 def quantize_rows(x: torch.Tensor, dtype: torch.dtype
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/quantize_rows.cu`` once on the current stream: x
-    [M, K], M >= 1, bf16 or f32 -> (xq [M, K] int8 or float8_e4m3fn, x_scale
-    [M] f32), each row quantized against max(amax / qmax, 1e-8)."""
-    if not x.is_cuda:
-        raise ValueError(f"quantize_rows: the CUDA kernel takes CUDA "
-                         f"tensors, got x on {x.device}")
-    _require(x.dtype in _SUFFIX and dtype in _PAGE_SUFFIX and x.dim() == 2,
-             f"quantize_rows: x [M, K] bfloat16 or float32 to int8 or "
-             f"float8_e4m3fn, got x {x.dtype} {tuple(x.shape)} to {dtype}")
-    _require(x.is_contiguous(), "quantize_rows: x must be contiguous")
-    m, k = x.shape
-    _require(m >= 1 and k >= 1, f"quantize_rows: x {tuple(x.shape)} is empty")
-    xq = torch.empty((m, k), dtype=dtype, device=x.device)
-    x_scale = torch.empty(m, dtype=torch.float32, device=x.device)
+    [M, K], M >= 1, K a multiple of 8, bf16 or f32 -> (xq [M, K] int8 or
+    float8_e4m3fn, x_scale [M] f32), each row quantized against max(amax /
+    qmax, 1e-8)."""
+    m, k = _check_rows("quantize_rows", "x", x)
+    xq, x_scale = _quant_out("quantize_rows", m, k, dtype, x.device)
     rc = getattr(library("quantize_rows"),
                  f"tk8s_quantize_rows_{_SUFFIX[x.dtype]}_"
                  f"{_PAGE_SUFFIX[dtype]}")(
@@ -906,6 +949,40 @@ def quantize_rows(x: torch.Tensor, dtype: torch.dtype
         torch.cuda.current_stream(x.device).cuda_stream)
     _check(rc, "quantize_rows")
     return xq, x_scale
+
+
+def swiglu_quant(gate: torch.Tensor, up: torch.Tensor, dtype: torch.dtype
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/quantize_rows.cu``'s fused SwiGLU entry once on the
+    current stream: gate and up [M, F] (bf16 or f32, F a multiple of 8) ->
+    (xq [M, F] int8 or float8_e4m3fn, x_scale [M] f32) of ``silu(gate)``
+    rounded to the input dtype, times up, rounded again, quantized per
+    row."""
+    m, f = _check_rows("swiglu_quant", "gate, up", gate, up)
+    xq, x_scale = _quant_out("swiglu_quant", m, f, dtype, gate.device)
+    rc = getattr(library("quantize_rows"),
+                 f"tk8s_swiglu_quant_{_SUFFIX[gate.dtype]}_"
+                 f"{_PAGE_SUFFIX[dtype]}")(
+        gate.data_ptr(), up.data_ptr(), xq.data_ptr(), x_scale.data_ptr(),
+        m, f, torch.cuda.current_stream(gate.device).cuda_stream)
+    _check(rc, "swiglu_quant")
+    return xq, x_scale
+
+
+def silu_probe(x: torch.Tensor) -> torch.Tensor:
+    """The SiLU of the fused SwiGLU entry on each element of x (bf16 on
+    the card, contiguous): bf16(silu(float(x))), to hold against torch's
+    ``silu(x.float()).to(bfloat16)`` bit for bit."""
+    _require(x.is_cuda and x.dtype == torch.bfloat16 and x.is_contiguous()
+             and x.numel() >= 1,
+             f"silu_probe: a contiguous bfloat16 CUDA tensor, got "
+             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    y = torch.empty_like(x)
+    rc = library("quantize_rows").tk8s_silu_probe_bf16(
+        x.data_ptr(), y.data_ptr(), x.numel(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _check(rc, "silu_probe")
+    return y
 
 
 def _check_norm(what: str, scale: torch.Tensor,
@@ -968,3 +1045,29 @@ def add_rms_norm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     _check(rc, "add_rms_norm")
     return h, y
+
+
+def add_rms_norm_quant(x: torch.Tensor, delta: Optional[torch.Tensor],
+                       scale: torch.Tensor, eps: float, dtype: torch.dtype
+                       ) -> Tuple[Optional[torch.Tensor], torch.Tensor,
+                                  torch.Tensor]:
+    """Launch ``csrc/rms_norm.cu``'s quantizing entry once on the current
+    stream: (h, xq, x_scale), h = x + delta as :func:`add_rms_norm` forms
+    it (None where ``delta`` is None: the delta-null norm of x) and the
+    norm's output, never written, quantized per row to ``dtype`` (int8 or
+    float8_e4m3fn): xq [M, D] and x_scale [M] f32, bitwise
+    :func:`quantize_rows` of the y :func:`add_rms_norm` (or
+    :func:`rms_norm`) writes."""
+    what = "add_rms_norm_quant" if delta is not None else "rms_norm_quant"
+    m, d = _check_norm(what, scale, *((x,) if delta is None else (x, delta)))
+    xq, x_scale = _quant_out(what, m, d, dtype, x.device)
+    h = None if delta is None else torch.empty_like(x)
+    rc = getattr(library("rms_norm"),
+                 f"tk8s_add_rms_norm_quant_{_SUFFIX[x.dtype]}_"
+                 f"{_PAGE_SUFFIX[dtype]}")(
+        x.data_ptr(), None if delta is None else delta.data_ptr(),
+        scale.data_ptr(), None if h is None else h.data_ptr(),
+        xq.data_ptr(), x_scale.data_ptr(), m, d, float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _check(rc, what)
+    return h, xq, x_scale

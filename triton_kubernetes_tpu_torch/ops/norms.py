@@ -15,6 +15,16 @@ launch does a layer boundary's add and norm. On CPU tensors both run their
 plain versions (:func:`rms_norm`, :func:`add_rms_norm`); a CUDA tensor
 never falls back to them. ``rms_norm_rows.launches`` and
 ``add_rms_norm_rows.launches`` count kernel launches.
+
+Where the norm's output feeds W8A8 products only, the steps call
+:func:`rms_norm_quant_rows` and :func:`add_rms_norm_quant_rows` instead:
+the same kernel with kernel A, the per-token quantizer, as its epilogue
+(``rms_norm_quant_kernel``), which hands the product
+``ops.quantization.QuantizedRows`` and never writes the norm's output --
+bitwise the entries above followed by ``quantize_rows_plain``. Their plain
+versions (:func:`rms_norm_quant_plain`, :func:`add_rms_norm_quant_plain`)
+are the plain norms followed by ``quantize_rows_plain``; they count
+launches as ``.launches`` too.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from typing import Tuple
 import torch
 
 from . import _kernels
+from .quantization import QuantizedRows, quantize_rows_plain
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -80,7 +91,69 @@ def add_rms_norm_rows(x: torch.Tensor, delta: torch.Tensor,
 add_rms_norm_rows.launches = 0
 
 
+def _quantized(y: torch.Tensor, dtype: torch.dtype) -> QuantizedRows:
+    xq, x_scale = quantize_rows_plain(y.reshape(-1, y.shape[-1]), dtype)
+    return QuantizedRows(xq, x_scale, tuple(y.shape[:-1]))
+
+
+def rms_norm_quant_plain(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                         dtype: torch.dtype) -> QuantizedRows:
+    """:func:`rms_norm` of x, its rows quantized to ``dtype`` by
+    ``quantize_rows_plain``."""
+    return _quantized(rms_norm(x, scale, eps), dtype)
+
+
+def add_rms_norm_quant_plain(x: torch.Tensor, delta: torch.Tensor,
+                             scale: torch.Tensor, eps: float,
+                             dtype: torch.dtype
+                             ) -> Tuple[torch.Tensor, QuantizedRows]:
+    """(h, the norm of h quantized): :func:`add_rms_norm`, its y's rows
+    quantized to ``dtype`` by ``quantize_rows_plain``."""
+    h, y = add_rms_norm(x, delta, scale, eps)
+    return h, _quantized(y, dtype)
+
+
+def rms_norm_quant_rows(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                        dtype: torch.dtype) -> QuantizedRows:
+    """:func:`rms_norm_rows` quantized per row to ``dtype`` (int8 or
+    float8_e4m3fn) for a W8A8 product: one kernel launch on CUDA tensors,
+    bitwise ``quantize_rows_plain`` of :func:`rms_norm_rows`; the plain
+    version on CPU tensors."""
+    if not x.is_cuda:
+        return rms_norm_quant_plain(x, scale, eps, dtype)
+    _, xq, x_scale = _kernels.add_rms_norm_quant(
+        x.reshape(-1, x.shape[-1]).contiguous(), None, scale, eps, dtype)
+    rms_norm_quant_rows.launches += 1
+    return QuantizedRows(xq, x_scale, tuple(x.shape[:-1]))
+
+
+rms_norm_quant_rows.launches = 0
+
+
+def add_rms_norm_quant_rows(x: torch.Tensor, delta: torch.Tensor,
+                            scale: torch.Tensor, eps: float,
+                            dtype: torch.dtype
+                            ) -> Tuple[torch.Tensor, QuantizedRows]:
+    """:func:`add_rms_norm_rows` with the norm's output quantized per row
+    to ``dtype`` for a W8A8 product, and not formed as a tensor: (h, the
+    quantized rows), one kernel launch on CUDA tensors (contiguous: it
+    raises rather than copy), bitwise h and ``quantize_rows_plain`` of y of
+    :func:`add_rms_norm_rows`; the plain version on CPU tensors."""
+    if not x.is_cuda:
+        return add_rms_norm_quant_plain(x, delta, scale, eps, dtype)
+    d = x.shape[-1]
+    h, xq, x_scale = _kernels.add_rms_norm_quant(
+        x.view(-1, d), delta.view(-1, d), scale, eps, dtype)
+    add_rms_norm_quant_rows.launches += 1
+    return h.view(x.shape), QuantizedRows(xq, x_scale, tuple(x.shape[:-1]))
+
+
+add_rms_norm_quant_rows.launches = 0
+
+
 def reset_launch_counts() -> None:
-    """Zero both kernel launch counters."""
+    """Zero the norms' kernel launch counters."""
     rms_norm_rows.launches = 0
     add_rms_norm_rows.launches = 0
+    rms_norm_quant_rows.launches = 0
+    add_rms_norm_quant_rows.launches = 0

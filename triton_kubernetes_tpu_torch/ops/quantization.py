@@ -21,15 +21,21 @@ with it in low precision, W8A8 -- the activation quantized per token
 or an fp8 x fp8 product summed in f32, and both scales folded in an f32
 epilogue, ``(acc * x_scale) * w_scale``. CPU tensors run the plain
 versions, the reference's steps. On CUDA tensors :func:`quantize_rows` launches the
-hand-written ``csrc/quantize_rows.cu`` (the per-token quantizer, bitwise
-its plain version :func:`quantize_rows_plain`) and the product the W8A8
-entries of ``csrc/decode_gemm.cu`` (``ops.decode_gemm.w8a8_gemm_group``);
-there is no fallback to the plain versions and no library product.
+hand-written ``csrc/quantize_rows.cu`` (kernel A, the per-token
+quantizer, bitwise its plain version :func:`quantize_rows_plain`) and the
+product the W8A8 entries of ``csrc/decode_gemm.cu``
+(``ops.decode_gemm.w8a8_gemm_group``); there is no fallback to the plain
+versions and no library product. Kernel A also runs inside the kernel
+that produces a product's input, which then hands the product
+:class:`QuantizedRows` rather than bf16 rows: the norms
+(``ops.norms.rms_norm_quant_rows``, ``add_rms_norm_quant_rows``) and
+:func:`swiglu_quantize_rows`, w2's input in one pass; each is bitwise its
+producer followed by :func:`quantize_rows_plain`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -220,6 +226,29 @@ def quantize_rows_plain(x: torch.Tensor, dtype: torch.dtype
     return quantize_with_scale(xf, scale, dtype), scale[..., 0]
 
 
+class QuantizedRows(NamedTuple):
+    """Rows quantized per token for a W8A8 product: xq [M, K] (int8 or
+    float8_e4m3fn) and x_scale [M] f32, of rows whose leading shape was
+    ``lead`` (M its product)."""
+    xq: torch.Tensor
+    x_scale: torch.Tensor
+    lead: Tuple[int, ...]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.xq.dtype
+
+    def positions(self, lo: int, hi: int) -> "QuantizedRows":
+        """The rows at positions lo .. hi - 1 of the second leading dim
+        (``rows[:, lo:hi]`` of rows [B, S, K]): bitwise the quantization of
+        those rows alone, since each row is quantized by itself."""
+        b, s = self.lead
+        k = self.xq.shape[-1]
+        return QuantizedRows(
+            self.xq.view(b, s, k)[:, lo:hi].reshape(-1, k),
+            self.x_scale.view(b, s)[:, lo:hi].reshape(-1), (b, hi - lo))
+
+
 def quantize_rows(x: torch.Tensor, dtype: torch.dtype
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`quantize_rows_plain` of x [M, K] (bf16 or f32) to int8 or
@@ -235,19 +264,62 @@ def quantize_rows(x: torch.Tensor, dtype: torch.dtype
 quantize_rows.launches = 0
 
 
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """w2's input, as the reference forms it: ``silu(gate)`` in f32,
+    rounded to the activation dtype, times up."""
+    return torch.nn.functional.silu(gate.float()).to(gate.dtype) * up
+
+
+def swiglu_quantize_rows_plain(gate: torch.Tensor, up: torch.Tensor,
+                               dtype: torch.dtype) -> QuantizedRows:
+    """:func:`swiglu` of gate and up [..., F], then
+    :func:`quantize_rows_plain` of its rows: the plain version of the fused
+    SwiGLU entry of ``csrc/quantize_rows.cu``."""
+    p = swiglu(gate, up)
+    xq, x_scale = quantize_rows_plain(p.reshape(-1, p.shape[-1]), dtype)
+    return QuantizedRows(xq, x_scale, tuple(p.shape[:-1]))
+
+
+def swiglu_quantize_rows(gate: torch.Tensor, up: torch.Tensor,
+                         dtype: torch.dtype) -> QuantizedRows:
+    """w2's quantized input from gate and up [..., F] (the w3 and w1
+    products, bf16 or f32): one launch of the fused SwiGLU entry on CUDA
+    tensors (contiguous: it raises rather than copy), bitwise
+    :func:`swiglu_quantize_rows_plain`, which CPU tensors run."""
+    if not gate.is_cuda:
+        return swiglu_quantize_rows_plain(gate, up, dtype)
+    f = gate.shape[-1]
+    xq, x_scale = _kernels.swiglu_quant(gate.view(-1, f), up.view(-1, f),
+                                        dtype)
+    swiglu_quantize_rows.launches += 1
+    return QuantizedRows(xq, x_scale, tuple(gate.shape[:-1]))
+
+
+swiglu_quantize_rows.launches = 0
+
+
 def reset_launch_counts() -> None:
-    """Zero the quantizer's launch counter."""
+    """Zero the quantizers' launch counters."""
     quantize_rows.launches = 0
+    swiglu_quantize_rows.launches = 0
 
 
-def w8a8_rows(x: torch.Tensor, qs: Sequence[torch.Tensor],
-              scales: Sequence[torch.Tensor],
+def w8a8_rows(x: Union[torch.Tensor, QuantizedRows],
+              qs: Sequence[torch.Tensor], scales: Sequence[torch.Tensor],
               out_dtype: torch.dtype) -> list:
-    """W8A8 products of x [M, K] with up to three weights of one dtype,
-    each stored K-contiguous (q [N, K], scale [N] f32): one activation
-    quantization, then ``(acc * x_scale[m]) * scale[n]`` in ``out_dtype``
-    for each weight, in one ``w8a8_gemm_group`` call."""
-    xq, x_scale = quantize_rows(x, qs[0].dtype)
+    """W8A8 products of x with up to three weights of one dtype, each
+    stored K-contiguous (q [N, K], scale [N] f32): x's rows [M, K]
+    quantized once -- bf16 or f32 rows by :func:`quantize_rows`;
+    :class:`QuantizedRows` as they come -- then ``(acc * x_scale[m]) *
+    scale[n]`` in ``out_dtype`` for each weight, in one
+    ``w8a8_gemm_group`` call."""
+    if isinstance(x, QuantizedRows):
+        if x.dtype != qs[0].dtype:
+            raise ValueError(f"w8a8_rows: rows quantized to {x.dtype} for "
+                             f"weights of {qs[0].dtype}")
+        xq, x_scale = x.xq, x.x_scale
+    else:
+        xq, x_scale = quantize_rows(x, qs[0].dtype)
     return w8a8_gemm_group(xq, x_scale, qs, scales, out_dtype)
 
 
