@@ -121,7 +121,30 @@ result:
    equal the spec-off run of its pool kind -- asserted: all of them,
    since a verify row is bitwise the decode row (fault F1 of ROADMAP.md).
    The 8-bit kernels' first-token logits are held to their plain versions
-   on the same pool kind. A rewind probe per bf16 and int8 pool verifies
+   on the same pool kind. Then tracing and migration, on those 12 requests
+   with those runs as the baselines: the bf16 runs at spec_k 0 and 3 again
+   with a ``FlightRecorder`` writing a JSONL trace and a serve
+   ``GoodputRecorder`` (tokens and every kernel's launches equal to the
+   untraced run's, each request's phases summing to its e2e within 1e-9 s,
+   the goodput categories to the recorder's wall within 1e-6 s, the trace
+   passing the goodput partition check and, merged, the Chrome-trace
+   validator; the wall per tick traced against untraced, the useful share
+   and the category seconds printed); then two engines of 2,048 pages each
+   on the card: handoff in every pool kind at spec_k 0 and 3 (each request
+   finishes "handoff" after its first token on the source, is exported,
+   imported into the destination and released, and decodes there to the
+   end: its stream must equal the baseline's, 384/384), the prefix check
+   (a request sharing only r0's 512-token prefix served on the destination
+   first, then r0 imported: 32 pages mapped by reference, the rest written
+   as shipped, the baseline's tokens), drains on bf16 pages at spec_k 3
+   and int8 at spec_k 0 (after 8 decode ticks every exportable session
+   moves; both engines run to the end, 384/384), and in the first drain a
+   torn transfer (a bit flipped in the middle of the pages, a copy cut
+   there: each refused with ``TornPayloadError``, the destination's pool
+   ``torch.equal`` to before and its pages in use unchanged, the session
+   then resumed on the source to the baseline's tokens); a ``migration``
+   JSON line gives payload bytes, export and import ms and GB/s and
+   sha256 alone, by pool kind. A rewind probe per bf16 and int8 pool verifies
    junk drafts on one prefilled sequence, rewinds all but the first, and
    checks every rejected slot and scale byte-equal to the pre-verify pool.
    Fault F2: one 800-token prompt prefilled under ``prefill_chunk`` 128
@@ -148,7 +171,11 @@ result:
    (``matmul_dtype`` auto: the dequantize path);
 5. train  -- ``python -m triton_kubernetes_tpu_torch.train``'s ``main`` on
    ``llama3-8b`` at full width cut to 4 layers (fused CE, flash attention,
-   bf16 policy, remat full), batch 4 x 2048, 6 AdamW steps; checks finite
+   bf16 policy, remat full), batch 4 x 2048, 6 AdamW steps, with
+   ``--trace-jsonl`` (the goodput ledger: step, compile -- the first step,
+   which builds and warms -- host_sync, data_wait and idle must partition
+   the recorded wall within 1e-6 s and pass the partition check; the
+   categories are printed); checks finite
    losses and gradient norms and the flash launch counters (forward 2 x 4
    layers a step, each backward kernel 4 a step); prints step times,
    tokens/s, MFU (the reference's formula), peak memory and the losses;
@@ -166,7 +193,9 @@ flash kernels and stops (half a minute: the first run after a change to
 one of them); ``--gemm-only`` builds the GEMM, norm and quantizer,
 runs the bit probe, the SiLU probe and the GEMM, norm and quantizer
 checks of phase 3 and stops
-(``DIR/chip_smoke_gemm.json`` with ``--out``).
+(``DIR/chip_smoke_gemm.json`` with ``--out``); ``--migration-only`` builds
+every kernel, runs the six spec/quant serve runs of phase 4 and then its
+traced and migration runs, and stops (``DIR/chip_smoke_migration.json``).
 """
 
 from __future__ import annotations
@@ -2338,6 +2367,14 @@ def serve_phase(card):
                                  f"kernels a tick, not "
                                  f"{2 * cfg.num_layers + 1}")
     runs = spec_quant_phase(model, cfg, card, requests)
+    # Tracing and migration, on the 12 requests of those runs, which are
+    # their baselines.
+    t_new = time.perf_counter()
+    traced, tracing_cost = traced_phase(model, cfg, card, requests, runs)
+    migrations, migration = migration_phase(model, cfg, card, requests, runs)
+    new_phases_s = time.perf_counter() - t_new
+    print(f"serve: the traced and migration runs took {new_phases_s:.1f} s "
+          f"[{card}]", flush=True)
     probes = [rewind_probe(model, cfg, kind, requests[4].tokens)
               for kind in ("bf16", "int8")]
     # Fault F2: full pages the same under two window widths; the cuBLAS
@@ -2354,7 +2391,10 @@ def serve_phase(card):
     peak = torch.cuda.max_memory_allocated()
     return launches, dict(
         f1_probe=probe_ops, verify_rows_vs_decode=rows_check,
-        spec_quant_runs=runs, rewind_probes=probes,
+        spec_quant_runs=runs, rewind_probes=probes, traced_runs=traced,
+        tracing_cost_us=tracing_cost,
+        migration_runs=migrations, migration=migration,
+        traced_and_migration_s=new_phases_s,
         window_invariance=f2 + w8a8.pop("window_invariance"), w8a8=w8a8,
         requests=len(requests), prompt_tokens=prompt_tokens,
         prefix_hit_tokens=hits, prefill_windows=windows, decode_ticks=ticks,
@@ -2372,6 +2412,27 @@ def serve_phase(card):
         peak_memory_bytes=peak)
 
 
+def migration_only(card):
+    """``--migration-only``: the 8B model, the six spec/quant serve runs
+    (the baselines), then the traced and the migration runs."""
+    from triton_kubernetes_tpu_torch.models import get_config, init_params
+    from triton_kubernetes_tpu_torch.serve import Request
+
+    cfg = get_config("llama3-8b")
+    model = init_params(cfg, seed=0, device="cuda")
+    requests = make_requests(cfg, Request)
+    runs = spec_quant_phase(model, cfg, card, requests)
+    t0 = time.perf_counter()
+    traced, tracing_cost = traced_phase(model, cfg, card, requests, runs)
+    migrations, migration = migration_phase(model, cfg, card, requests, runs)
+    took = time.perf_counter() - t0
+    print(f"serve: the traced and migration runs took {took:.1f} s "
+          f"[{card}]", flush=True)
+    return dict(spec_quant_runs=runs, traced_runs=traced,
+                tracing_cost_us=tracing_cost, migration_runs=migrations, migration=migration,
+                traced_and_migration_s=took)
+
+
 def repetitive_requests(cfg, Request):
     """4 prompts of 300-700 copies of one seeded token: a motif tiled so far
     that this random-weight model settles into repeating its own output,
@@ -2384,17 +2445,26 @@ def repetitive_requests(cfg, Request):
                     * int(rng.integers(300, 701)), 32) for i in range(4)]
 
 
+# When each of the 12 requests of the spec/quant, traced and migration runs
+# arrives (tick: request indices).
+SPEC_ARRIVALS = {0: [0, 4, 5, 8, 9], 5: [1, 2, 3], 6: [6, 7, 10, 11]}
+
+
 def serve_run(model, cfg, kind, spec_k, requests, arrivals,
-              weights=("auto", "auto")):
+              weights=("auto", "auto"), traced=None):
     """One engine run of ``requests`` on a pool of ``kind`` pages with
     ``spec_k`` and ``weights`` = (weight_dtype, matmul_dtype); the
     kernels' launch counts are zeroed just before it and read just after.
     Checks completions, pool drain, launches = ticks x layers for each
     kernel, drafts where speculating and a finite quant error on 8-bit
-    pools. Returns the run's record."""
+    pools. ``traced`` (a JSONL path) attaches a ``FlightRecorder`` with a
+    ``TraceWriter`` there and a ``GoodputRecorder("serve")`` on the same
+    writer after the warm-up; the record then carries each request's
+    phases and the goodput snapshot. Returns the run's record."""
     from triton_kubernetes_tpu_torch.ops import paged_attention as pa
     from triton_kubernetes_tpu_torch.serve import Request, ServeEngine
     from triton_kubernetes_tpu_torch.utils import metrics
+    from triton_kubernetes_tpu_torch.utils import trace
 
     engine = ServeEngine(model, cfg, device=SERVE_DEVICE, **dict(
         SERVE_ENGINE_KW, kv_dtype="auto" if kind == "bf16" else kind,
@@ -2405,6 +2475,12 @@ def serve_run(model, cfg, kind, spec_k, requests, arrivals,
     engine.release_prefix_cache()
     metrics.configure()
     base = engine.stats()
+    writer = goodput = None
+    if traced is not None:
+        writer = trace.TraceWriter(str(traced), "replica-0")
+        engine.flight = trace.FlightRecorder(writer=writer)
+        engine.goodput = goodput = trace.GoodputRecorder("serve",
+                                                         writer=writer)
     pa.reset_launch_counts()
     reset_row_counts()
     torch.cuda.synchronize()
@@ -2413,10 +2489,11 @@ def serve_run(model, cfg, kind, spec_k, requests, arrivals,
     while engine.has_work or tick <= max(arrivals):
         for i in arrivals.get(tick, []):
             engine.submit(requests[i])
-        verifies = engine.stats()["verify_steps"]
+        # The counter itself: stats() would also snapshot the recorder.
+        verifies = engine._verify_steps
         for d in engine.step():
             done[d.request_id] = d
-        if engine.stats()["verify_steps"] > verifies:
+        if engine._verify_steps > verifies:
             per_verify.append(metrics.gauge(
                 "tk8s_serve_spec_tokens_per_step").value())
         tick += 1
@@ -2424,6 +2501,9 @@ def serve_run(model, cfg, kind, spec_k, requests, arrivals,
             raise AssertionError("engine did not drain")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if traced is not None:
+        goodput.close()
+        writer.close()
     launches = {"paged_decode": pa.ragged_paged_attention.launches,
                 "paged_verify": pa.ragged_verify_attention.launches,
                 "paged_prefill": pa.paged_prefill_attention.launches,
@@ -2471,9 +2551,22 @@ def serve_run(model, cfg, kind, spec_k, requests, arrivals,
     ttft = [done[r.request_id].ttft for r in requests]
     tpot = [done[r.request_id].tpot for r in requests]
     generated = sum(len(done[r.request_id].tokens) for r in requests)
+    extra = {}
+    if traced is not None:
+        extra = dict(
+            phases={r.request_id: done[r.request_id].phases
+                    for r in requests},
+            phase_sum_err=max(
+                abs(sum(done[r.request_id].phases.values())
+                    - (done[r.request_id].finished_at
+                       - done[r.request_id].submitted_at))
+                for r in requests),
+            goodput=goodput.snapshot(),
+            goodput_sum_err=abs(goodput.accounted_seconds()
+                                - goodput.wall_seconds()))
     return dict(
         kind=kind, weights=list(weights), spec_k=spec_k, launches=launches,
-        **counts,
+        **counts, ticks=tick, **extra,
         wall_s=wall, ttft_s=ttft, tpot_s=tpot, generated_tokens=generated,
         tokens_per_s=generated / wall, proposed=proposed, accepted=accepted,
         accept_rate=accepted / proposed if proposed else None,
@@ -2496,7 +2589,7 @@ def spec_quant_phase(model, cfg, card, requests):
     from triton_kubernetes_tpu_torch.serve import Request
 
     reqs = list(requests) + repetitive_requests(cfg, Request)
-    arrivals = {0: [0, 4, 5, 8, 9], 5: [1, 2, 3], 6: [6, 7, 10, 11]}
+    arrivals = SPEC_ARRIVALS
     runs = []
     for kind in KV_KINDS:
         for spec_k in (0, SPEC_K):
@@ -2540,6 +2633,480 @@ def spec_quant_phase(model, cfg, card, requests):
               f"{err:.5f} (bound {LOGITS_REL_L2}), same argmax: "
               f"{int(lk.argmax()) == int(ld.argmax())}", flush=True)
     return runs
+
+
+def tokens_equal(run, base, reqs):
+    """How many of ``run``'s tokens equal ``base``'s, position by position
+    (and the first differing positions)."""
+    same, first = 0, []
+    for r in reqs:
+        got, want = run["tokens"][r.request_id], base["tokens"][r.request_id]
+        same += sum(x == y for x, y in zip(got, want))
+        if got != want:
+            first.append(f"{r.request_id}@" + str(next(
+                (i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                min(len(got), len(want)))))
+    return same, first
+
+
+def baseline_run(runs, kind, spec_k):
+    return next(r for r in runs if r["kind"] == kind
+                and r["spec_k"] == spec_k and r["weights"] == ["auto", "auto"])
+
+
+def traced_phase(model, cfg, card, requests, runs):
+    """The 12 requests again on bf16 pages at spec_k 0 and 3, with a
+    ``FlightRecorder`` writing JSONL and a serve ``GoodputRecorder``: tokens
+    and every kernel's launches must equal the untraced run's (the recorder
+    adds no device work), each request's phases must sum to its e2e, the
+    goodput categories to the recorder's wall time, and the trace must pass
+    the goodput partition check and, merged, the Chrome-trace validator.
+    Prints the wall ms per tick traced against untraced, the useful share
+    and the category seconds (not asserted)."""
+    from triton_kubernetes_tpu_torch.serve import Request
+    from triton_kubernetes_tpu_torch.utils import trace
+
+    reqs = list(requests) + repetitive_requests(cfg, Request)
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for spec_k in (0, SPEC_K):
+            base = baseline_run(runs, "bf16", spec_k)
+            path = Path(tmp) / f"serve_spec{spec_k}.jsonl"
+            run = serve_run(model, cfg, "bf16", spec_k, reqs, SPEC_ARRIVALS,
+                            traced=path)
+            tag = f"traced bf16 pages, spec_k={spec_k}"
+            same, first = tokens_equal(run, base, reqs)
+            if same != run["generated_tokens"]:
+                raise AssertionError(f"{tag}: {same}/{run['generated_tokens']}"
+                                     f" tokens equal to untraced, first "
+                                     f"differences {first}")
+            if run["launches"] != base["launches"]:
+                raise AssertionError(f"{tag}: launches {run['launches']} != "
+                                     f"untraced {base['launches']}")
+            if run["phase_sum_err"] > 1e-9:
+                raise AssertionError(f"{tag}: phases miss e2e by "
+                                     f"{run['phase_sum_err']} s")
+            if run["goodput_sum_err"] > 1e-6:
+                raise AssertionError(f"{tag}: goodput categories miss the "
+                                     f"wall by {run['goodput_sum_err']} s")
+            problems = trace.validate_goodput_trace([str(path)])
+            problems += trace.validate_chrome_trace(
+                trace.merge_trace_files([str(path)]))
+            if problems:
+                raise AssertionError(f"{tag}: trace problems {problems[:5]}")
+            chaos = trace.validate_chaos_trace([str(path)])
+            summary = trace.summarize_goodput([str(path)])["processes"][0]
+            lines = sum(1 for _ in open(path))
+            traced_ms = run["wall_s"] / run["ticks"] * 1e3
+            plain_ms = base["wall_s"] / base["ticks"] * 1e3
+            cats = ", ".join(f"{c} {v:.4f} s"
+                             for c, v in summary["seconds"].items())
+            print(f"serve[{tag}]: {same}/{run['generated_tokens']} tokens "
+                  f"and every launch count equal to untraced; wall per tick "
+                  f"{traced_ms:.3f} ms traced vs {plain_ms:.3f} ms untraced "
+                  f"({run['ticks']} / {base['ticks']} ticks), {lines} trace "
+                  f"lines, phases sum to e2e within "
+                  f"{run['phase_sum_err']:.3g} s; goodput useful share "
+                  f"{summary['useful_fraction']:.4f}: {cats} (wall "
+                  f"{summary['wall_s']:.4f} s); chaos-trace check problems: "
+                  f"{len(chaos)} [{card}]", flush=True)
+            out.append(dict(
+                spec_k=spec_k, trace_lines_per_tick=lines / run["ticks"],
+                tokens_equal=same, launches=run["launches"],
+                ticks=run["ticks"], untraced_ticks=base["ticks"],
+                wall_s=run["wall_s"], untraced_wall_s=base["wall_s"],
+                wall_ms_per_tick=traced_ms,
+                untraced_wall_ms_per_tick=plain_ms, trace_lines=lines,
+                phase_sum_err=run["phase_sum_err"],
+                goodput_sum_err=run["goodput_sum_err"],
+                goodput=summary, chaos_problems=chaos[:5],
+                ttft_s=run["ttft_s"], tpot_s=run["tpot_s"]))
+    cost = tracing_cost_us()
+    for run in out:
+        run["tracing_host_us_per_tick"] = (run["trace_lines_per_tick"]
+                                           * cost["us_per_line"])
+    print(f"serve: the recorder's host cost on this machine: "
+          f"{cost['us_per_event']:.2f} us a request event, "
+          f"{cost['us_per_transition']:.2f} us a goodput segment (span + "
+          f"counter); at "
+          + " / ".join(f"{r['trace_lines_per_tick']:.2f}" for r in out)
+          + " lines a tick (spec_k 0 / 3): "
+          + " / ".join(f"{r['tracing_host_us_per_tick']:.1f}" for r in out)
+          + f" us a tick [{card}]", flush=True)
+    return out, cost
+
+
+def tracing_cost_us(n=20_000):
+    """The host's cost of the recorder alone: ``n`` request events through
+    a ``FlightRecorder`` with a ``TraceWriter``, and ``n`` goodput segments
+    (a span line and a counter tick each), per call."""
+    from triton_kubernetes_tpu_torch.utils import trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        w = trace.TraceWriter(str(Path(tmp) / "cost.jsonl"), "cost")
+        fr = trace.FlightRecorder(writer=w)
+        fr.begin("r0", "t0", 0.0)
+        t0 = time.perf_counter()
+        for i in range(n):
+            fr.event("r0", "serve.verify", float(i), proposed=3, accepted=1)
+        event = (time.perf_counter() - t0) / n * 1e6
+        g = trace.GoodputRecorder("serve", writer=w)
+        t0 = time.perf_counter()
+        for i in range(n):
+            g.transition("decode" if i % 2 else "prefill")
+        segment = (time.perf_counter() - t0) / n * 1e6
+        w.close()
+    return dict(us_per_event=event, us_per_transition=segment,
+                us_per_line=max(event, segment))
+
+
+# The drains of the migration phase: (pool kind, spec_k), and how many decode
+# or verify ticks the source runs first.
+MIGRATION_DRAINS = (("bf16", SPEC_K), ("int8", 0))
+DRAIN_AFTER_TICKS = 8
+
+
+def engine_pair(model, cfg, kind, spec_k):
+    """A source and a destination engine, each with its own pool."""
+    from triton_kubernetes_tpu_torch.serve import ServeEngine
+
+    kw = dict(SERVE_ENGINE_KW, kv_dtype="auto" if kind == "bf16" else kind,
+              spec_k=spec_k)
+    return (ServeEngine(model, cfg, device=SERVE_DEVICE, **kw),
+            ServeEngine(model, cfg, device=SERVE_DEVICE, **kw))
+
+
+def ship(src, dst, rid, reason, rec):
+    """Export ``rid`` from ``src``, import it into ``dst`` under the same
+    id, release it on ``src``; times the export (gather, device to host,
+    pack, sha256) and the import (digest, unpack, host to device, write)
+    from a drained queue, and sha256 alone over the blob."""
+    import hashlib
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = src.export_session(rid, reason=reason)
+    t1 = time.perf_counter()
+    dst.import_session(blob, request_id=rid, reason=reason)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    hashlib.sha256(blob).digest()
+    t3 = time.perf_counter()
+    src.release_session(rid)
+    rec["bytes"].append(len(blob))
+    rec["export_ms"].append((t1 - t0) * 1e3)
+    rec["import_ms"].append((t2 - t1) * 1e3)
+    rec["sha256_ms"].append((t3 - t2) * 1e3)
+    return blob
+
+
+def export_breakdown(engine, rid):
+    """One parked session's export taken apart (ms): the indexed read of
+    the pool and the device-to-host copy, pack_session (the join copy and
+    sha256), and sha256 alone over the blob. Reads only."""
+    import hashlib
+
+    from triton_kubernetes_tpu_torch.ops.paged_attention import byte_view
+    from triton_kubernetes_tpu_torch.serve import pack_session
+
+    seq = engine.parked[rid]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = torch.tensor(seq.pages, dtype=torch.long, device=SERVE_DEVICE)
+    arrays = {n: byte_view(p)[:, idx].cpu().view(p.dtype)
+              for n, p in engine._components().items()}
+    t1 = time.perf_counter()
+    blob = pack_session(model="m", kv_dtype=engine.kv_dtype,
+                        block_size=engine.block_size, arrays=arrays,
+                        request={}, generated=[1], prefilled=1, target=1,
+                        preemptions=0)
+    t2 = time.perf_counter()
+    hashlib.sha256(blob).digest()
+    t3 = time.perf_counter()
+    return dict(bytes=len(blob), gather_d2h_ms=(t1 - t0) * 1e3,
+                pack_ms=(t2 - t1) * 1e3, sha256_ms=(t3 - t2) * 1e3)
+
+
+def _new_ship_record():
+    return dict(bytes=[], export_ms=[], import_ms=[], sha256_ms=[])
+
+
+def _check_migrated(tag, done, reqs, base, launches, spec_k):
+    """Every request finished, its tokens the baseline's; the paged kernels
+    ran (decode and verify on imported pages)."""
+    missing = [r.request_id for r in reqs if r.request_id not in done]
+    if missing:
+        raise AssertionError(f"{tag}: {missing} never finished")
+    same, first = tokens_equal({"tokens": done}, base, reqs)
+    total = sum(len(done[r.request_id]) for r in reqs)
+    if same != total or total != base["generated_tokens"]:
+        raise AssertionError(f"{tag}: {same}/{total} tokens equal to the "
+                             f"unmigrated run, first differences {first}")
+    ran = ["paged_prefill", "paged_decode"] + (["paged_verify"]
+                                              if spec_k else [])
+    if not all(launches[k] for k in ran):
+        raise AssertionError(f"{tag}: launches {launches}")
+    return same, total
+
+
+def _drained(tag, *engines):
+    for e in engines:
+        e.release_prefix_cache()
+        if e.allocator.in_use:
+            raise AssertionError(f"{tag}: {e.allocator.in_use} pages leaked")
+
+
+def handoff_run(model, cfg, kind, spec_k, reqs, base, prefix_check=False):
+    """The source serves the 12 requests with ``handoff=True``: each
+    finishes with "handoff" after its first token and is shipped to the
+    destination as it finishes, which decodes it to the end, both engines
+    stepping in one loop."""
+    from triton_kubernetes_tpu_torch.ops import paged_attention as pa
+
+    tag = f"handoff, {kind} pages, spec_k={spec_k}"
+    src, dst = engine_pair(model, cfg, kind, spec_k)
+    hreqs = [dataclasses.replace(r, handoff=True) for r in reqs]
+    rec = _new_ship_record()
+    pa.reset_launch_counts()
+    reset_row_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, done, tick = {}, {}, 0
+    while src.has_work or dst.has_work or tick <= max(SPEC_ARRIVALS):
+        for i in SPEC_ARRIVALS.get(tick, []):
+            src.submit(hreqs[i])
+        for d in src.step():
+            if d.finish_reason != "handoff":
+                raise AssertionError(f"{tag}: {d.request_id} finished "
+                                     f"{d.finish_reason} on the source")
+            first[d.request_id] = d.tokens
+            if not rec["bytes"]:
+                rec["breakdown"] = export_breakdown(src, d.request_id)
+            ship(src, dst, d.request_id, "handoff", rec)
+        for d in dst.step():
+            done[d.request_id] = d.tokens
+            if d.tokens[:1] != first[d.request_id]:
+                raise AssertionError(f"{tag}: {d.request_id}'s stream does "
+                                     f"not start with the source's token")
+        tick += 1
+        if tick > 10_000:
+            raise AssertionError(f"{tag}: engines did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_decode": pa.ragged_paged_attention.launches,
+                "paged_verify": pa.ragged_verify_attention.launches,
+                "paged_prefill": pa.paged_prefill_attention.launches,
+                **row_counts()}
+    same, total = _check_migrated(tag, done, reqs, base, launches, spec_k)
+    prefix = prefix_reference_check(src, dst, reqs, base) \
+        if prefix_check else None
+    _drained(tag, src, dst)
+    del src, dst
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(what="handoff", kind=kind, spec_k=spec_k, tokens_equal=same,
+                tokens=total, wall_s=wall, launches=launches, prefix=prefix, **rec)
+
+
+def prefix_reference_check(src, dst, reqs, base):
+    """The destination first serves one request that shares only r0's
+    512-token prefix; then r0, handed off by the source, is imported: its
+    32 prefix pages must be mapped by reference (already indexed, no fresh
+    page, bytes as shipped -- F2: the same windows wrote them on either
+    engine), the rest written fresh, and its tokens the baseline's."""
+    from triton_kubernetes_tpu_torch.serve import Request, unpack_session
+
+    _drained("prefix check", src, dst)
+    r0 = reqs[0]
+    n_prefix = 512
+    rng = np.random.default_rng(5)
+    warm = Request("warm", r0.tokens[:n_prefix] + rng.integers(
+        0, dst.config.vocab_size, 100).tolist(), 2)
+    dst.submit(warm)
+    dst.run_until_idle()
+    cached = set(dst.prefix.indexed_pages())
+    in_use = dst.allocator.in_use
+    src.submit(dataclasses.replace(r0, request_id="p0", handoff=True))
+    (handed,) = src.run_until_idle()
+    blob = src.export_session("p0")
+    sp = unpack_session(blob)
+    dst.import_session(blob, request_id="p0")
+    src.release_session("p0")
+    seq = next(s for s in dst.waiting if s.request.request_id == "p0")
+    reused = sum(p in cached for p in seq.pages)
+    fresh = dst.allocator.in_use - in_use
+    idx = torch.tensor(seq.pages, dtype=torch.long, device=SERVE_DEVICE)
+    landed = all(torch.equal(pool[:, idx], sp.arrays[name].to(SERVE_DEVICE))
+                 for name, pool in (("k", dst.cache.k), ("v", dst.cache.v)))
+    want_reused = n_prefix // BS
+    if (reused != want_reused or fresh != sp.pages - want_reused
+            or not landed):
+        raise AssertionError(f"prefix pages: {reused} reused (want "
+                             f"{want_reused}), {fresh} fresh of "
+                             f"{sp.pages}, pool bytes as shipped: {landed}")
+    (d,) = dst.run_until_idle()
+    if handed.tokens + d.tokens[1:] != base["tokens"][r0.request_id] \
+            or d.tokens != base["tokens"][r0.request_id]:
+        raise AssertionError("prefix pages: tokens differ from the "
+                             "unmigrated run's")
+    return dict(pages=sp.pages, reused_pages=reused, fresh_pages=fresh,
+                bytes=len(blob))
+
+
+def drain_run(model, cfg, kind, spec_k, reqs, base, torn_check=False):
+    """The source serves the 12 requests; after DRAIN_AFTER_TICKS decode or
+    verify ticks every id in ``exportable_sessions()`` is exported,
+    imported into the destination and released on the source, and both run
+    to the end (with ``torn_check``, once two sessions are exportable). With
+    ``torn_check`` the first session's payload is first
+    damaged (a bit flipped in the middle of the pages, and a copy cut
+    there): each must raise ``TornPayloadError`` with the destination's
+    pool ``torch.equal`` to a clone taken before and its pages in use
+    unchanged, and the source then resumes that session to the end."""
+    from triton_kubernetes_tpu_torch.ops import paged_attention as pa
+    from triton_kubernetes_tpu_torch.serve import TornPayloadError, corrupt
+
+    tag = f"drain, {kind} pages, spec_k={spec_k}"
+    src, dst = engine_pair(model, cfg, kind, spec_k)
+    rec = _new_ship_record()
+    pa.reset_launch_counts()
+    reset_row_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, tick, drained, torn = {}, 0, [], None
+    while src.has_work or dst.has_work or tick <= max(SPEC_ARRIVALS):
+        for i in SPEC_ARRIVALS.get(tick, []):
+            src.submit(reqs[i])
+        for eng in (src, dst):
+            for d in eng.step():
+                done[d.request_id] = d.tokens
+        # The torn check keeps its session on the source: drain once a
+        # second one can move too.
+        if not drained and (src.stats()["decode_steps"]
+                            + src.stats()["verify_steps"]
+                            >= DRAIN_AFTER_TICKS) and len(
+                src.exportable_sessions()) > int(torn_check):
+            drained = src.exportable_sessions()
+            for rid in drained:
+                if torn_check and torn is None:
+                    torn = torn_transfer_check(src, dst, rid, corrupt,
+                                               TornPayloadError)
+                    src.resume_session(rid)
+                    continue
+                ship(src, dst, rid, "drain", rec)
+            if not rec["bytes"]:
+                raise AssertionError(f"{tag}: {drained} exportable after "
+                                     f"{DRAIN_AFTER_TICKS} ticks: none "
+                                     f"left to ship")
+        tick += 1
+        if tick > 10_000:
+            raise AssertionError(f"{tag}: engines did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_decode": pa.ragged_paged_attention.launches,
+                "paged_verify": pa.ragged_verify_attention.launches,
+                "paged_prefill": pa.paged_prefill_attention.launches,
+                **row_counts()}
+    same, total = _check_migrated(tag, done, reqs, base, launches, spec_k)
+    _drained(tag, src, dst)
+    del src, dst
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(what="drain", kind=kind, spec_k=spec_k, tokens_equal=same,
+                tokens=total, drained=drained, torn=torn, wall_s=wall, launches=launches,
+                **rec)
+
+
+def torn_transfer_check(src, dst, rid, corrupt, TornPayloadError):
+    blob = src.export_session(rid, reason="drain")
+    hdr_end = 12 + int.from_bytes(blob[8:12], "big")
+    mid = hdr_end + (len(blob) - 32 - hdr_end) // 2
+    before = {n: t.clone() for n, t in dst._components().items()}
+    in_use = dst.allocator.in_use
+    for mode in ("bitflip", "truncate"):
+        try:
+            dst.import_session(corrupt(blob, mode=mode, offset=mid))
+        except TornPayloadError:
+            pass
+        else:
+            raise AssertionError(f"torn transfer: a {mode} payload was "
+                                 f"imported")
+        if dst.allocator.in_use != in_use or not all(
+                torch.equal(t, before[n])
+                for n, t in dst._components().items()):
+            raise AssertionError(f"torn transfer: the {mode} attempt "
+                                 f"changed the destination")
+    del before
+    return dict(session=rid, bytes=len(blob), damaged_at=mid,
+                refused=["bitflip", "truncate"])
+
+
+def migration_phase(model, cfg, card, requests, runs):
+    """KV-session migration between two engines on the card (each with its
+    own 2,048-page pool): handoff in every pool kind at spec_k 0 and 3,
+    with the prefix-by-reference check after the bf16 spec_k 0 one; drains
+    of MIGRATION_DRAINS, the first with the torn-transfer check. Every
+    stream must equal the unmigrated run's, 384/384. Prints and returns the
+    payload bytes, export and import times and rates by pool kind."""
+    from triton_kubernetes_tpu_torch.serve import Request
+
+    reqs = list(requests) + repetitive_requests(cfg, Request)
+    out = []
+    for kind in KV_KINDS:
+        for spec_k in (0, SPEC_K):
+            run = handoff_run(model, cfg, kind, spec_k, reqs,
+                              baseline_run(runs, kind, spec_k),
+                              prefix_check=(kind, spec_k) == ("bf16", 0))
+            out.append(run)
+            print(f"migrate[{run['what']}, {kind} pages, spec_k={spec_k}]: "
+                  f"{run['tokens_equal']}/{run['tokens']} tokens equal to "
+                  f"the unmigrated run; {len(run['bytes'])} "
+                  f"sessions, {statistics.mean(run['bytes']) / 1e6:.2f} MB "
+                  f"each, export median "
+                  f"{statistics.median(run['export_ms']):.2f} ms, import "
+                  f"median {statistics.median(run['import_ms']):.2f} ms, "
+                  f"sha256 alone {statistics.median(run['sha256_ms']):.2f} "
+                  f"ms; wall {run['wall_s']:.3f} s"
+                  + (f"; prefix pages {run['prefix']}" if run['prefix']
+                     else "") + f" [{card}]", flush=True)
+    for i, (kind, spec_k) in enumerate(MIGRATION_DRAINS):
+        run = drain_run(model, cfg, kind, spec_k, reqs,
+                        baseline_run(runs, kind, spec_k), torn_check=i == 0)
+        out.append(run)
+        print(f"migrate[drain, {kind} pages, spec_k={spec_k}]: "
+              f"{run['tokens_equal']}/{run['tokens']} tokens equal to the "
+              f"unmigrated run; {len(run['bytes'])} sessions shipped, "
+              f"drained {run['drained']}, torn transfer {run['torn']}; "
+              f"wall {run['wall_s']:.3f} s [{card}]", flush=True)
+    summary = {}
+    for kind in KV_KINDS:
+        mine = [r for r in out if r["kind"] == kind]
+        nbytes = sum(sum(r["bytes"]) for r in mine)
+        exp = sum(sum(r["export_ms"]) for r in mine)
+        imp = sum(sum(r["import_ms"]) for r in mine)
+        sha = sum(sum(r["sha256_ms"]) for r in mine)
+        summary[kind] = dict(
+            sessions=sum(len(r["bytes"]) for r in mine),
+            payload_bytes_per_session=nbytes / max(1, sum(
+                len(r["bytes"]) for r in mine)),
+            export_ms_median=statistics.median(
+                [x for r in mine for x in r["export_ms"]]),
+            import_ms_median=statistics.median(
+                [x for r in mine for x in r["import_ms"]]),
+            sha256_ms_median=statistics.median(
+                [x for r in mine for x in r["sha256_ms"]]),
+            export_gb_per_s=nbytes / 1e6 / exp,
+            import_gb_per_s=nbytes / 1e6 / imp,
+            sha256_gb_per_s=nbytes / 1e6 / sha)
+    for kind in KV_KINDS:
+        parts = [r["breakdown"] for r in out
+                 if r["kind"] == kind and r.get("breakdown")]
+        summary[kind]["export_breakdown_first_session"] = parts
+    prefix = next(r["prefix"] for r in out if r["prefix"])
+    summary["prefix_pages_by_reference"] = prefix
+    summary["card"] = card
+    print(json.dumps({"migration": summary}), flush=True)
+    return out, summary
 
 
 def plain_w8a8_rows(x, qs, scales, out):
@@ -3135,14 +3702,30 @@ def train_phase(card, out_dir: Path):
         apply_policy, init_state, make_optimizer, make_train_step,
         synthetic_batches)
     from triton_kubernetes_tpu_torch.train import __main__ as train_main
+    from triton_kubernetes_tpu_torch.utils import trace
 
     report_path = out_dir / "train_report.json"
+    trace_path = out_dir / "train_trace.jsonl"
     fa.reset_launch_counts()
-    rc = train_main.main(TRAIN_ARGV + ["--report-json", str(report_path)])
+    rc = train_main.main(TRAIN_ARGV + ["--report-json", str(report_path),
+                                       "--trace-jsonl", str(trace_path)])
     launches = dict(fa.flash_attention.launches)
     if rc != 0:
         raise AssertionError(f"trainer exited {rc}")
     rep = json.loads(report_path.read_text())
+    # The goodput ledger of the traced run: the five categories of this
+    # loop must partition its recorded wall time.
+    problems = trace.validate_goodput_trace([str(trace_path)])
+    (ledger,) = trace.summarize_goodput([str(trace_path)])["processes"]
+    cats = ("step", "compile", "host_sync", "data_wait", "idle")
+    if problems or set(ledger["seconds"]) - set(cats) or abs(
+            sum(ledger["seconds"].values()) - ledger["wall_s"]) > 1e-6:
+        raise AssertionError(f"trainer goodput: {problems}, {ledger}")
+    print(f"train: goodput ledger (--trace-jsonl) "
+          + ", ".join(f"{c} {ledger['seconds'].get(c, 0.0):.4f} s"
+                      for c in cats)
+          + f" = wall {ledger['wall_s']:.4f} s, useful share "
+          f"{ledger['useful_fraction']:.4f} [{card}]", flush=True)
     vals = rep["losses"] + rep["grad_norms"]
     if rep["steps"] != TRAIN_STEPS or not all(np.isfinite(vals)):
         raise AssertionError(f"trainer: {rep['steps']} steps, losses "
@@ -3212,7 +3795,7 @@ def train_phase(card, out_dir: Path):
           f"differ by {check['floor_loss_rel_diff']:.3g} in loss and "
           f"{check['floor_grad_max_rel_l2']:.4g} in the worst leaf",
           flush=True)
-    return launches, dict(report=rep, step_seconds=step_s,
+    return launches, dict(report=rep, goodput=ledger, step_seconds=step_s,
                           steady_tokens_per_sec=tps, mfu=mfu,
                           launches=launches, profile=prof,
                           cross_check=check)
@@ -3234,6 +3817,13 @@ def main() -> int:
                              "against their plain versions, time them and "
                              "stop: the short first run after a change to "
                              "the GEMM (prints no device line)")
+    parser.add_argument("--migration-only", action="store_true",
+                        help="build every kernel, run the six serve runs "
+                             "of the 12 requests on the 8B model, then the "
+                             "traced and the migration runs against them, "
+                             "and stop: the short first run after a change "
+                             "to tracing or migration (prints no device "
+                             "line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on the "
@@ -3287,6 +3877,14 @@ def main() -> int:
             elif fn and ("wgmma" in fn or "probe" in fn) and (
                     "stack frame" in line or "registers" in line):
                 print(f"build: {kernel}: {fn}: {line.strip()}", flush=True)
+
+    if args.migration_only:
+        serve = migration_only(card)
+        if args.out is not None:
+            args.out.mkdir(parents=True, exist_ok=True)
+            (args.out / "chip_smoke_migration.json").write_text(json.dumps(
+                dict(card=card, device=name, **serve), indent=1))
+        return 0
 
     # Phase 3: kernels against their plain versions.
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=device)

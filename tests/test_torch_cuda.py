@@ -31,7 +31,9 @@ version at every M of 1-64, fp8 within one bf16 ulp, rows bitwise, K
 split by the shape), ``quantized_einsum`` on CUDA tensors, a small W8A8
 model's verify rows against its decode rows and its spec-on tokens against
 spec-off, and a prefill window's full pages the same under two window
-widths (fault F2), bf16 and W8A8 int8.
+widths (fault F2), bf16 and W8A8 int8; and KV-session migration between
+two small engines on the card (handoff and drain keep the tokens, a torn
+payload leaves the destination's pool unchanged).
 """
 
 import pytest
@@ -1321,3 +1323,70 @@ def test_prefill_windows_pages_do_not_depend_on_the_window(device, wd):
     full = len(prompt) // 4
     assert torch.equal(pools[0].k[:, 1:1 + full], pools[1].k[:, 1:1 + full])
     assert torch.equal(pools[0].v[:, 1:1 + full], pools[1].v[:, 1:1 + full])
+
+
+@pytest.mark.parametrize("kv", ["auto", "int8", "fp8"])
+@pytest.mark.parametrize("spec_k", [0, 3])
+def test_small_engine_handoff_and_drain_keep_the_tokens(device, kv, spec_k):
+    """KV-session migration between two engines on the card (bf16
+    llama-test): each session handed off after its first token, or drained
+    mid-stream, continues on the destination to the unmigrated engine's
+    tokens; a torn payload leaves the destination's pool ``torch.equal``
+    to before and the source resumes it to the same tokens."""
+    from triton_kubernetes_tpu_torch.models import get_config, init_params
+    from triton_kubernetes_tpu_torch.serve import (
+        Request, ServeEngine, TornPayloadError, corrupt)
+
+    cfg = get_config("llama-test", dtype="bfloat16")
+    model = init_params(cfg, seed=6, device=device)
+    prompts = [[5, 7, 9, 11, 2, 4, 6, 8] * 3, [3] * 20, [9, 1, 9, 1] * 5]
+    kw = dict(block_size=4, num_blocks=64, max_batch=3, max_model_len=96,
+              prefill_chunk=8, prefix_cache=True, spec_k=spec_k,
+              kv_dtype=kv, device=device)
+
+    def engine():
+        return ServeEngine(model, cfg, **kw)
+
+    base = engine()
+    for i, p in enumerate(prompts):
+        base.submit(Request(f"r{i}", p, 24))
+    want = {d.request_id: d.tokens for d in base.run_until_idle()}
+
+    # Handoff: first token on the source, the rest on the destination.
+    src, dst = engine(), engine()
+    for i, p in enumerate(prompts):
+        src.submit(Request(f"r{i}", p, 24, handoff=True))
+    got = {}
+    for d in src.run_until_idle():
+        assert d.finish_reason == "handoff"
+        got[d.request_id] = d.tokens
+        dst.import_session(src.export_session(d.request_id),
+                           request_id=d.request_id)
+        assert src.release_session(d.request_id) is None
+    for d in dst.run_until_idle():
+        assert got[d.request_id] == d.tokens[:1]
+        got[d.request_id] = d.tokens
+    assert got == want
+
+    # Drain after a few decode ticks; a torn copy first, then the real one.
+    src, dst = engine(), engine()
+    for i, p in enumerate(prompts):
+        src.submit(Request(f"r{i}", p, 24))
+    done = {}
+    for _ in range(8):
+        done.update({d.request_id: d.tokens for d in src.step()})
+    sessions = src.exportable_sessions()
+    assert sessions
+    for rid in sessions:
+        blob = src.export_session(rid, reason="drain")
+        pool = {n: t.clone() for n, t in dst._components().items()}
+        with pytest.raises(TornPayloadError):
+            dst.import_session(corrupt(blob, mode="bitflip",
+                                       offset=len(blob) // 2))
+        assert all(torch.equal(t, pool[n])
+                   for n, t in dst._components().items())
+        dst.import_session(blob, request_id=rid, reason="drain")
+        assert src.release_session(rid).finish_reason == "migrated"
+    done.update({d.request_id: d.tokens for d in src.run_until_idle()})
+    done.update({d.request_id: d.tokens for d in dst.run_until_idle()})
+    assert done == want

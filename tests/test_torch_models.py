@@ -174,10 +174,11 @@ def test_later_slices_raise_not_implemented():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every port module, and chip_smoke.py, import without loading
-    jax or any module of the JAX package -- the training package, the
-    flash-attention op, the weight and KV quantizers, the decode GEMM's
-    wrappers, generation, the decode weight policy and the self-drafter
-    named first."""
+    jax, ml_dtypes or any module of the JAX package -- the training
+    package, the flash-attention op, the weight and KV quantizers, the
+    decode GEMM's wrappers, generation, the decode weight policy, the
+    self-drafter, the migration wire format, the trace module and the two
+    tools named first."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import triton_kubernetes_tpu_torch.train\n"
@@ -189,12 +190,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import triton_kubernetes_tpu_torch.models.generate\n"
         "import triton_kubernetes_tpu_torch.train.precision\n"
         "import triton_kubernetes_tpu_torch.serve.speculation\n"
+        "import triton_kubernetes_tpu_torch.serve.migration\n"
+        "import triton_kubernetes_tpu_torch.utils.trace\n"
+        "import triton_kubernetes_tpu_torch.tools.trace\n"
+        "import triton_kubernetes_tpu_torch.tools.goodput\n"
         "import triton_kubernetes_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k == 'jax'"
-        " or k.startswith('jax.') or k == 'triton_kubernetes_tpu'"
+        " or k.startswith('jax.') or k == 'ml_dtypes'"
+        " or k.startswith('ml_dtypes.') or k == 'triton_kubernetes_tpu'"
         " or k.startswith('triton_kubernetes_tpu.'))\n"
         "print(len([k for k in sys.modules"
         " if k.startswith('triton_kubernetes_tpu_torch')]), bad)\n"

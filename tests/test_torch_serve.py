@@ -37,6 +37,7 @@ from triton_kubernetes_tpu_torch.serve import (
     ServeEngine,
 )
 from triton_kubernetes_tpu_torch.utils import metrics
+from triton_kubernetes_tpu_torch.utils.trace import FlightRecorder
 
 CHURN = [
     ([5, 7, 9, 11, 2, 4, 6, 8], 16),
@@ -205,9 +206,23 @@ def test_engine_validates_and_refuses_later_slices(models):
         eng.submit(Request("r", [1] * 30, 10))
     with pytest.raises(ValueError, match="KV blocks"):
         eng.submit(Request("r", [1] * 20, 10))
-    with pytest.raises(NotImplementedError, match="migration"):
-        eng.submit(Request("r", [1, 2], 2, handoff=True))
-    with pytest.raises(NotImplementedError, match="slice"):
-        ServeEngine(model, cfg, device="cpu", flight=object())
+    # Handoff and the flight recorder are ported: a handoff request
+    # finishes after its first token with its pages parked, and a
+    # FlightRecorder is accepted and records the lifecycle.
+    eng.submit(Request("r", [1, 2], 2, handoff=True))
+    done = eng.run_until_idle()
+    assert [d.finish_reason for d in done] == ["handoff"]
+    assert list(eng.parked) == ["r"] and eng.parked["r"].pages
+    assert eng.allocator.in_use == len(eng.parked["r"].pages)
+    flight = FlightRecorder()
+    traced = ServeEngine(model, cfg, block_size=4, num_blocks=8,
+                         max_model_len=32, device="cpu", flight=flight,
+                         clock=ManualClock(tick=0.001))
+    traced.submit(Request("t", [1, 2, 3], 2))
+    (fin,) = traced.run_until_idle()
+    assert fin.trace_id == "t" and fin.phases is not None
+    assert abs(sum(fin.phases.values()) - (fin.finished_at
+                                           - fin.submitted_at)) < 1e-9
+    assert [r.outcome for r in flight.finished] == ["length"]
     with pytest.raises(KeyError, match="weight_dtype"):
         ServeEngine(model, cfg, device="cpu", weight_dtype="fp4")

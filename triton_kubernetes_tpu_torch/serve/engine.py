@@ -56,9 +56,26 @@ each weight at its use; "int8"/"fp8" (which need weights stored so) run
 W8A8 -- each product's input quantized per token, the hand-written int8 or
 fp8 GEMM on the card.
 
-Not ported yet, and raising ``NotImplementedError`` naming the slice: the
-flight recorder and goodput ledger, and session handoff, export and import
-(migration).
+Tracing: ``flight=`` takes a :class:`~..utils.trace.FlightRecorder`, which
+records each request's lifecycle (the same events, at the same clock reads,
+as the JAX engine) and folds it into ``FinishedRequest.phases``; with a
+``TraceWriter`` on the recorder each tick also lands as a ``serve.step``
+span. ``engine.goodput`` takes a ``GoodputRecorder("serve")``, into which
+every tick books its compute (prefill/decode/verify/recompute, migration)
+with the rest of the wall window falling to idle. Both read host time: on a
+card a phase's attribution follows where the host blocks (the token read in
+sampling), and neither adds a device synchronization. With ``flight=None``
+and no goodput the engine reads the clock no more often than untraced.
+
+Migration (``serve/migration.py``): a ``handoff`` request finishes right
+after its first token with its pages parked; ``export_session`` packs a
+parked or live decoding session into the wire unit (one indexed read of the
+pool and one device-to-host copy a component), ``import_session`` verifies
+and installs one (one host-to-device copy and one indexed write a
+component, into fresh pages only: pages the local prefix cache already
+holds for the same tokens are shared by reference), ``release_session`` /
+``resume_session`` settle the source after the transfer succeeded or
+failed.
 """
 
 from __future__ import annotations
@@ -66,7 +83,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass, field, replace
-from typing import Callable, Deque, Dict, List, Optional
+from typing import Any, Callable, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -83,20 +100,23 @@ from ..models.paged import (
     paged_rewind,
     paged_verify_step,
 )
-from ..ops.paged_attention import TRASH_PAGE, blocks_for
+from ..ops.paged_attention import TRASH_PAGE, blocks_for, byte_view
 from ..train.precision import quantize_for_decode
 from ..utils import metrics
+from ..utils.trace import FlightRecorder
 from .blocks import BlockAllocator, OutOfBlocksError, PrefixCache
+from .migration import (
+    MigrationError,
+    TornPayloadError,
+    check_compatible,
+    dtype_name,
+    pack_session,
+    unpack_session,
+)
 from .speculation import draft_ngram, longest_agreeing_prefix
 
 # Ticks of pool-utilization history behind the stats() kv_pressure signal.
 _PRESSURE_WINDOW = 32
-
-
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the {slice_name} slice of "
-        f"the port (ROADMAP.md)")
 
 
 class ManualClock:
@@ -119,8 +139,8 @@ class ManualClock:
 class Request:
     """One generation request. ``seed`` keys this request's sampling
     stream independently of batch composition (solo == batched).
-    ``handoff`` mirrors the JAX engine's request; a handoff request is
-    refused until the migration slice lands."""
+    ``trace_id`` is the fleet-wide correlation id (None falls back to the
+    request id in the flight recorder)."""
 
     request_id: str
     tokens: List[int]
@@ -130,6 +150,10 @@ class Request:
     top_p: float = 1.0
     eos_id: Optional[int] = None
     seed: int = 0
+    trace_id: Optional[str] = None
+    # Disaggregated prefill/decode: a handoff request finishes right after
+    # its first token (finish_reason "handoff") with its KV pages PARKED for
+    # export_session instead of freed.
     handoff: bool = False
 
 
@@ -138,11 +162,20 @@ class FinishedRequest:
     request_id: str
     prompt_len: int
     tokens: List[int]  # generated only
-    finish_reason: str  # "eos" | "length"
+    finish_reason: str  # "eos" | "length" | "handoff" | "migrated"
     submitted_at: float
     first_token_at: float
     finished_at: float
     preemptions: int = 0
+    # Tracing ride-alongs (None with the flight recorder off): the trace id
+    # and the per-phase latency attribution (the phases sum to e2e).
+    trace_id: Optional[str] = None
+    phases: Optional[Dict[str, float]] = None
+    spec: Optional[Dict[str, int]] = None
+    # Where a "migrated" session now lives, for a caller that follows it
+    # (the HTTP layer sets these).
+    migrated_to: Optional[str] = None
+    dest_request_id: Optional[str] = None
 
     @property
     def ttft(self) -> float:
@@ -176,6 +209,13 @@ class _Sequence:
     # This tick's self-drafted proposal (spec_k > 0): made during page
     # growth, consumed by the verify, dropped on preemption.
     draft: List[int] = field(default_factory=list)
+    # Migration state: handed_off -- the lifecycle closed with a "handoff"
+    # FinishedRequest (pages parked for export); imported -- it arrived
+    # through import_session (its TTFT was measured on the source);
+    # migrate_reason -- the reason label its migration counters carry.
+    handed_off: bool = False
+    imported: bool = False
+    migrate_reason: str = ""
 
     @property
     def length(self) -> int:
@@ -215,7 +255,7 @@ class ServeEngine:
         prefix_cache: bool = False,
         spec_k: int = 0,
         clock: Callable[[], float] = time.monotonic,
-        flight: Optional[object] = None,
+        flight: Optional[FlightRecorder] = None,
         device: torch.device | str = "cuda",
     ):
         if block_size < 1:
@@ -242,8 +282,6 @@ class ServeEngine:
                 "prefix_cache requires prefill_chunk: prefix reuse skips "
                 "whole chunk windows (the absolute-window alignment is "
                 "what keeps sharing ON/OFF outputs identical)")
-        if flight is not None:
-            raise _later("the flight recorder", "flight recorder and goodput")
         dev = resolve_device(device)
         if params.device.type != dev.type or (
                 dev.index is not None and params.device.index != dev.index):
@@ -270,6 +308,12 @@ class ServeEngine:
         self.prefill_chunk = prefill_chunk
         self.spec_k = spec_k
         self.clock = clock
+        # Optional per-request lifecycle recorder. None means no tracing
+        # work and no extra clock() reads: the untraced engine is unchanged.
+        self.flight = flight
+        # Optional process-level goodput ledger (GoodputRecorder, source
+        # "serve"), attached after construction; opt-in for the same reason.
+        self.goodput: Optional[Any] = None
         # One table width serves prefill and decode: enough pages for a
         # full-length sequence -- under chunked prefill padded up to whole
         # chunk windows, so every absolute window sits inside the table.
@@ -286,6 +330,10 @@ class ServeEngine:
                                       kv_dtype=kv_dtype, device=self.device)
         self.waiting: Deque[_Sequence] = deque()
         self.slots: List[Optional[_Sequence]] = [None] * max_batch
+        # Sessions frozen out of the scheduler with their pages intact:
+        # handed-off sequences awaiting export, and live sequences
+        # mid-migration (a torn transfer resumes them via resume_session).
+        self.parked: Dict[str, _Sequence] = {}
         self._admit_counter = 0
         self._steps = 0
         self._prefill_windows = 0
@@ -328,12 +376,15 @@ class ServeEngine:
                 f"{request.request_id}: needs "
                 f"{blocks_for(total, self.block_size)} KV blocks, pool "
                 f"capacity is {self.allocator.capacity}")
-        if request.handoff:
-            raise _later("prefill/decode handoff", "migration")
 
     def submit(self, request: Request) -> None:
         self.validate_request(request)
-        self.waiting.append(_Sequence(request, submitted_at=self.clock()))
+        t = self.clock()
+        self.waiting.append(_Sequence(request, submitted_at=t))
+        if self.flight is not None:
+            # One shared clock read: the queue phase starts at exactly the
+            # submitted_at the TTFT math uses.
+            self.flight.begin(request.request_id, request.trace_id, t)
 
     @property
     def has_work(self) -> bool:
@@ -346,6 +397,11 @@ class ServeEngine:
     # ----------------------------------------------------------- stepping
     def step(self) -> List[FinishedRequest]:
         """One scheduler tick; returns requests that completed in it."""
+        # Tick spans only when a JSONL writer rides along; the recorder
+        # alone never pays the extra clock reads.
+        tick_span = (self.flight is not None
+                     and self.flight.writer is not None)
+        t0 = self.clock() if tick_span else 0.0
         finished: List[FinishedRequest] = []
         with torch.inference_mode():
             self._admit(finished)
@@ -360,6 +416,12 @@ class ServeEngine:
                     self._decode_once(finished)
         self._steps += 1
         self._update_gauges()
+        if self.goodput is not None:
+            # Close the tick's last compute segment: whatever follows is
+            # idle time.
+            self.goodput.transition("idle")
+        if tick_span:
+            self.flight.step(t0, self.clock() - t0, len(finished))
         return finished
 
     def run_until_idle(self, max_steps: int = 100_000,
@@ -386,6 +448,22 @@ class ServeEngine:
             if slot is None:
                 return
             seq = self.waiting[0]
+            if seq.pages:
+                # A resumed or imported session: its pages hold the whole
+                # history, so admission only grants the slot and it rejoins
+                # decode directly.
+                self.waiting.popleft()
+                seq.admit_seq = self._admit_counter
+                self._admit_counter += 1
+                self.slots[slot] = seq
+                if self.flight is not None:
+                    now = self.clock()
+                    rid = seq.request.request_id
+                    self.flight.event(rid, "serve.admitted", now,
+                                      slot=slot, reused_pages=0,
+                                      recompute=False, deferred=True)
+                    self.flight.event(rid, "serve.resume", now)
+                continue
             prompt = list(seq.request.tokens) + list(seq.generated)
             need = blocks_for(len(prompt), self.block_size)
             reuse: List[int] = []
@@ -411,6 +489,15 @@ class ServeEngine:
             seq.target = len(prompt)
             seq.prefilled = len(reuse) * self.block_size
             self.slots[slot] = seq
+            if self.flight is not None:
+                # recompute=True re-prefills a preempted sequence's own
+                # history; deferred=True (chunked mode) only grants the
+                # slot, compute starting at the first serve.prefill window.
+                self.flight.event(
+                    seq.request.request_id, "serve.admitted",
+                    self.clock(), slot=slot, reused_pages=len(reuse),
+                    recompute=seq.preemptions > 0,
+                    deferred=self.prefill_chunk is not None)
             if seq.prefilled:
                 metrics.counter(
                     "tk8s_serve_prefix_hit_tokens_total").inc(seq.prefilled)
@@ -449,6 +536,14 @@ class ServeEngine:
         c = self.prefill_chunk
         off = seq.prefilled
         clen = min(c, seq.target - off)
+        if self.goodput is not None:
+            # A preempted sequence's re-prefill is work done once already:
+            # waste, booked as recompute.
+            self.goodput.transition(
+                "recompute" if seq.preemptions > 0 else "prefill")
+        if self.flight is not None:
+            self.flight.event(seq.request.request_id, "serve.prefill",
+                              self.clock(), offset=off, tokens=clen)
         toks = prompt[off:off + clen] + [0] * (c - clen)
         # The quant-error gauge reads the final window only: earlier
         # windows' values would be overwritten, so they are not computed.
@@ -461,6 +556,12 @@ class ServeEngine:
         seq.prefilled = off + clen
         metrics.counter("tk8s_serve_tokens_total").inc(clen, kind="prefill")
         if seq.prefilled < seq.target:
+            if self.flight is not None:
+                # Window over, more to run: the wait for the next one is
+                # queue time.
+                self.flight.event(seq.request.request_id,
+                                  "serve.prefill_yield", self.clock(),
+                                  offset=seq.prefilled)
             return
         logits = self._set_quant_error(out)
         if self.prefix is not None:
@@ -468,11 +569,29 @@ class ServeEngine:
             # their existing nodes).
             self.prefix.insert(prompt, seq.pages)
         seq.generated.append(self._sample(seq, logits[None, :]))
-        if seq.first_token_at is None:
-            seq.first_token_at = self.clock()
+        self._first_token_or_resume(seq)
         self._maybe_finish(i, finished)
 
+    def _first_token_or_resume(self, seq: _Sequence) -> None:
+        """After a prompt's last window: the first token (TTFT stops here),
+        or the end of a preempted sequence's re-prefill (its recompute
+        phase ends here)."""
+        if seq.first_token_at is None:
+            seq.first_token_at = self.clock()
+            if self.flight is not None:
+                self.flight.event(seq.request.request_id,
+                                  "serve.first_token", seq.first_token_at)
+        elif self.flight is not None:
+            self.flight.event(seq.request.request_id, "serve.resume",
+                              self.clock())
+
     def _prefill_sequence(self, seq: _Sequence, prompt: List[int]) -> None:
+        if self.goodput is not None:
+            self.goodput.transition(
+                "recompute" if seq.preemptions > 0 else "prefill")
+        if self.flight is not None:
+            self.flight.event(seq.request.request_id, "serve.prefill",
+                              self.clock(), offset=0, tokens=len(prompt))
         padded = prompt + [0] * (self.prefill_width - len(prompt))
         logits = self._set_quant_error(paged_prefill(
             self.params, self._tensor([padded]), len(prompt), self.config,
@@ -480,8 +599,7 @@ class ServeEngine:
             with_quant_error=self.cache.quantized))
         seq.prefilled = seq.target = len(prompt)
         seq.generated.append(self._sample(seq, logits[None, :]))
-        if seq.first_token_at is None:
-            seq.first_token_at = self.clock()
+        self._first_token_or_resume(seq)
 
     def _set_quant_error(self, out) -> torch.Tensor:
         """A prefill's logits; on a quantized pool, ``out`` also carries
@@ -504,10 +622,12 @@ class ServeEngine:
             seq = self.slots[i]
             if seq is None or seq.prefilled < seq.target:
                 continue  # still prefilling: its pages cover the prompt
+            grew = 0
             while blocks_for(seq.length + 1,
                              self.block_size) > len(seq.pages):
                 try:
                     seq.pages.extend(self.allocator.alloc(1))
+                    grew += 1
                 except OutOfBlocksError:
                     if self.prefix is not None and self.prefix.evict(1):
                         continue
@@ -518,6 +638,10 @@ class ServeEngine:
                     self._preempt(victim)
                     if victim == i:
                         break  # preempted ourselves; re-admit later
+            if grew and self.flight is not None \
+                    and self.slots[i] is seq:
+                self.flight.event(seq.request.request_id, "serve.grow",
+                                  self.clock(), pages=grew)
         if self.spec_k > 0:
             # Speculative pages come in a second pass, after every
             # sequence's mandatory page: interleaved, an early sequence's
@@ -533,6 +657,7 @@ class ServeEngine:
     def _preempt(self, slot: int) -> None:
         seq = self.slots[slot]
         assert seq is not None
+        freed = len(seq.pages)
         self.allocator.free(seq.pages)
         seq.pages = []
         seq.admit_seq = -1
@@ -542,6 +667,9 @@ class ServeEngine:
         self.slots[slot] = None
         self.waiting.appendleft(seq)
         metrics.counter("tk8s_serve_preemptions_total").inc()
+        if self.flight is not None:
+            self.flight.event(seq.request.request_id, "serve.preempt",
+                              self.clock(), pages_freed=freed)
 
     def _draft_and_grow(self, seq: _Sequence) -> None:
         """Self-draft this tick's proposal and allocate the pages its
@@ -571,6 +699,8 @@ class ServeEngine:
 
     # ------------------------------------------------------------ decode
     def _decode_once(self, finished: List[FinishedRequest]) -> None:
+        if self.goodput is not None:
+            self.goodput.transition("decode")
         tokens = [0] * self.max_batch
         lengths = [0] * self.max_batch
         tables = [[TRASH_PAGE] * self.blocks_per_seq
@@ -617,6 +747,8 @@ class ServeEngine:
             # weight pass less.
             self._decode_once(finished)
             return
+        if self.goodput is not None:
+            self.goodput.transition("verify")
         s_width = self.spec_k + 1
         tokens = [[0] * s_width for _ in range(self.max_batch)]
         lengths = [0] * self.max_batch
@@ -669,6 +801,10 @@ class ServeEngine:
             keep[i] = cut
             proposed += nd
             accepted += min(a, cut)
+            if self.flight is not None and nd:
+                self.flight.event(r.request_id, "serve.verify",
+                                  self.clock(), proposed=nd,
+                                  accepted=min(a, cut))
         if any(keep[i] < s_width for i in active):
             # Roll back every rejected (and pad) write BEFORE any page can
             # be freed or handed out again.
@@ -724,9 +860,20 @@ class ServeEngine:
             reason = "eos"
         elif len(seq.generated) >= r.max_new_tokens:
             reason = "length"
+        # Handoff parks AFTER the genuine-completion checks: a request that
+        # is already done has nothing left to hand off.
+        if reason is None and r.handoff and seq.prefilled >= seq.target:
+            reason = "handoff"
         if reason is None:
             return False
-        self.allocator.free(seq.pages)
+        if reason == "handoff":
+            # The decode half runs elsewhere: keep the pages (parked, off
+            # the scheduler) for export_session, give back only the slot.
+            seq.handed_off = True
+            seq.draft = []
+            self.parked[r.request_id] = seq
+        else:
+            self.allocator.free(seq.pages)
         self.slots[slot] = None
         now = self.clock()
         done = FinishedRequest(
@@ -735,11 +882,25 @@ class ServeEngine:
             submitted_at=seq.submitted_at,
             first_token_at=seq.first_token_at or now,
             finished_at=now, preemptions=seq.preemptions)
+        if self.flight is not None:
+            rec = self.flight.finish(r.request_id, now, reason)
+            if rec is not None:
+                done.trace_id = rec.trace_id
+                done.phases = dict(rec.phases)
+                if rec.spec_proposed:
+                    done.spec = {"proposed": rec.spec_proposed,
+                                 "accepted": rec.spec_accepted}
         finished.append(done)
         metrics.counter("tk8s_serve_requests_total").inc(outcome=reason)
-        metrics.histogram("tk8s_serve_ttft_seconds").observe(done.ttft)
+        # The trace id rides the latency observations as an exemplar. An
+        # imported session's first token was sampled on its source, so only
+        # its decode pace is observed here.
+        if not seq.imported:
+            metrics.histogram("tk8s_serve_ttft_seconds").observe(
+                done.ttft, exemplar=done.trace_id)
         if len(done.tokens) > 1:
-            metrics.histogram("tk8s_serve_tpot_seconds").observe(done.tpot)
+            metrics.histogram("tk8s_serve_tpot_seconds").observe(
+                done.tpot, exemplar=done.trace_id)
         return True
 
     # ------------------------------------------------------------ metrics
@@ -790,7 +951,21 @@ class ServeEngine:
             "prefix_cache": self.prefix is not None,
             "prefix_cache_pages": (self.prefix.pages
                                    if self.prefix is not None else 0),
+            # Migration surface: what a drain could ship away now, and what
+            # is frozen awaiting a transfer verdict.
+            "parked": sorted(self.parked),
+            "sessions": self.exportable_sessions(),
+            "tracing": (self.flight.snapshot()
+                        if self.flight is not None else None),
         }
+
+    def abort_inflight(self, error: str) -> int:
+        """Flush every in-flight request's lifecycle as ``aborted`` (the
+        engine loop died): their partial phase attribution survives into
+        the recorder and the JSONL trace. Returns the number flushed."""
+        if self.flight is None:
+            return 0
+        return len(self.flight.flush_aborted(self.clock(), error))
 
     def release_prefix_cache(self) -> int:
         """Drop every cache-held page reference; returns pages the cache
@@ -799,3 +974,285 @@ class ServeEngine:
         if self.prefix is None:
             return 0
         return self.prefix.clear()
+
+    # --------------------------------------------------------- migration
+    def _components(self) -> Dict[str, torch.Tensor]:
+        """The pool arrays a session ships, by wire name."""
+        c = self.cache
+        pool = {"k": c.k, "v": c.v}
+        if c.quantized:
+            pool["k_scale"], pool["v_scale"] = c.k_scale, c.v_scale
+        return pool
+
+    def exportable_sessions(self) -> List[str]:
+        """Request ids a migration could ship now: parked sessions plus
+        fully prefilled live ones (a mid-prefill sequence has no complete
+        state to pack)."""
+        live = [s.request.request_id for s in self.slots
+                if s is not None and s.prefilled >= s.target
+                and s.generated]
+        return sorted(self.parked) + live
+
+    def _trace_id(self, seq: _Sequence) -> str:
+        return seq.request.trace_id or seq.request.request_id
+
+    def export_session(self, request_id: str,
+                       reason: str = "handoff") -> bytes:
+        """Pack one session into the wire unit (``serve/migration.py``).
+        Non-destructive: the pages stay allocated and the session stays
+        parked until the destination confirms the import
+        (``release_session``) or the transfer fails (``resume_session``).
+
+        A live decoding session (drain) is parked here first, freezing it
+        out of the scheduler so the shipped snapshot stays authoritative.
+        Each component leaves the card in one indexed read of the pool and
+        one device-to-host copy."""
+        seq = self.parked.get(request_id)
+        if seq is None:
+            slot = next(
+                (i for i, s in enumerate(self.slots)
+                 if s is not None and s.request.request_id == request_id),
+                None)
+            if slot is None:
+                raise MigrationError(
+                    f"no exportable session {request_id!r} (not parked, "
+                    f"not in a decode slot)")
+            seq = self.slots[slot]
+            if seq.prefilled < seq.target or not seq.generated:
+                raise MigrationError(
+                    f"session {request_id!r} is still prefilling -- drain "
+                    f"re-lands it via recompute, not migration")
+            seq.draft = []  # drafts are per-tick state; they never ship
+            self.slots[slot] = None
+            self.parked[request_id] = seq
+        seq.migrate_reason = reason
+        t0 = self.clock()
+        if self.goodput is not None:
+            self.goodput.transition("migrate_out")
+        pages = torch.tensor(seq.pages, dtype=torch.long, device=self.device)
+        arrays = {}
+        for name, pool in self._components().items():
+            # fp8 has no indexing kernel: gather its bytes, view them back.
+            host = byte_view(pool)[:, pages].cpu()
+            arrays[name] = host.view(pool.dtype)
+        r = seq.request
+        blob = pack_session(
+            model=self.config.name, kv_dtype=self.kv_dtype,
+            block_size=self.block_size, arrays=arrays,
+            request={"request_id": r.request_id,
+                     "tokens": list(r.tokens),
+                     "max_new_tokens": r.max_new_tokens,
+                     "temperature": r.temperature, "top_k": r.top_k,
+                     "top_p": r.top_p, "eos_id": r.eos_id,
+                     "seed": r.seed, "trace_id": r.trace_id},
+            generated=list(seq.generated), prefilled=seq.prefilled,
+            target=seq.target, preemptions=seq.preemptions)
+        if self.goodput is not None:
+            self.goodput.transition("idle")
+        metrics.counter("tk8s_serve_migration_bytes_total").inc(
+            len(blob), direction="out", exemplar=self._trace_id(seq))
+        if self.flight is not None:
+            now = self.clock()
+            if seq.handed_off:
+                # The handoff lifecycle already closed: the pack lands as a
+                # writer-only span so the timeline still shows it.
+                self.flight.migration(
+                    "serve.migrate_out", t0, now - t0,
+                    trace=self._trace_id(seq), request=request_id,
+                    bytes=len(blob), pages=len(seq.pages), reason=reason)
+            else:
+                self.flight.event(
+                    request_id, "serve.migrate_out", t0,
+                    bytes=len(blob), pages=len(seq.pages), reason=reason)
+        return blob
+
+    def release_session(self, request_id: str,
+                        ) -> Optional[FinishedRequest]:
+        """The destination confirmed the import: free the parked pages
+        (pages the prefix cache shares survive under its own references).
+        A drained session's lifecycle closes here with finish_reason
+        ``migrated``; a handed-off one already answered and returns None."""
+        seq = self.parked.pop(request_id, None)
+        if seq is None:
+            raise MigrationError(f"no parked session {request_id!r}")
+        self.allocator.free(seq.pages)
+        seq.pages = []
+        metrics.counter("tk8s_serve_migrations_total").inc(
+            direction="out", reason=seq.migrate_reason or "handoff",
+            status="ok", exemplar=self._trace_id(seq))
+        if seq.handed_off:
+            return None
+        now = self.clock()
+        done = FinishedRequest(
+            request_id=request_id, prompt_len=len(seq.request.tokens),
+            tokens=list(seq.generated), finish_reason="migrated",
+            submitted_at=seq.submitted_at,
+            first_token_at=seq.first_token_at or now,
+            finished_at=now, preemptions=seq.preemptions)
+        if self.flight is not None:
+            rec = self.flight.finish(request_id, now, "migrated")
+            if rec is not None:
+                done.trace_id = rec.trace_id
+                done.phases = dict(rec.phases)
+        metrics.counter("tk8s_serve_requests_total").inc(
+            outcome="migrated")
+        if not seq.imported:
+            metrics.histogram("tk8s_serve_ttft_seconds").observe(
+                done.ttft, exemplar=done.trace_id)
+        return done
+
+    def resume_session(self, request_id: str) -> None:
+        """The transfer failed: un-park the session with everything intact
+        and let it finish HERE. Clears the handoff flag so it decodes to
+        genuine completion instead of re-parking."""
+        seq = self.parked.pop(request_id, None)
+        if seq is None:
+            raise MigrationError(f"no parked session {request_id!r}")
+        seq.request.handoff = False
+        seq.admit_seq = -1
+        self.waiting.appendleft(seq)
+
+    def import_session(self, payload: bytes,
+                       request_id: Optional[str] = None,
+                       reason: str = "handoff") -> str:
+        """Verify, unpack and install a shipped session byte for byte.
+
+        The digest check runs first: a torn payload raises
+        :class:`~.migration.TornPayloadError` with this pool untouched.
+        Full prompt pages the local prefix cache already indexes transfer
+        by reference (incref, no write); the rest are allocated fresh and
+        their bytes written in: one host-to-device copy and one indexed
+        write a component. The session rejoins decode on the next tick and
+        samples with its own (seed, position) keys, so its tokens are the
+        never-migrated stream's. ``request_id`` renames it on arrival."""
+        t0 = self.clock()
+        if self.goodput is not None:
+            self.goodput.transition("migrate_in")
+        mig = metrics.counter("tk8s_serve_migrations_total")
+        try:
+            sp = unpack_session(payload)
+            check_compatible(
+                sp, model=self.config.name, kv_dtype=self.kv_dtype,
+                block_size=self.block_size,
+                expect_arrays=tuple(self._components()))
+            self._check_importable(sp)
+        except MigrationError as e:
+            status = ("torn" if isinstance(e, TornPayloadError)
+                      else "error")
+            mig.inc(direction="in", reason=reason, status=status)
+            if self.goodput is not None:
+                self.goodput.transition("idle")
+            raise
+        req_state = dict(sp.request)
+        rid = request_id or str(req_state["request_id"])
+        if (rid in self.parked
+                or any(s is not None and s.request.request_id == rid
+                       for s in self.slots)
+                or any(s.request.request_id == rid
+                       for s in self.waiting)):
+            mig.inc(direction="in", reason=reason, status="error")
+            if self.goodput is not None:
+                self.goodput.transition("idle")
+            raise MigrationError(
+                f"request id {rid!r} is already live on this replica -- "
+                f"import under a fresh id")
+        request = Request(
+            request_id=rid, tokens=[int(t) for t in req_state["tokens"]],
+            max_new_tokens=int(req_state["max_new_tokens"]),
+            temperature=float(req_state["temperature"]),
+            top_k=int(req_state["top_k"]),
+            top_p=float(req_state["top_p"]),
+            eos_id=(None if req_state["eos_id"] is None
+                    else int(req_state["eos_id"])),
+            seed=int(req_state["seed"]),
+            trace_id=req_state.get("trace_id"), handoff=False)
+        n_pages = sp.pages
+        # The refcount handshake: full prompt pages the local radix cache
+        # indexes hold the same bytes (the same windows of the same tokens
+        # wrote them; F2 makes that hold whatever the window width), so
+        # they are mapped by reference and their payload bytes not written.
+        reuse: List[int] = []
+        if self.prefix is not None and n_pages:
+            matched = self.prefix.lookup(request.tokens)
+            cap = min(len(matched), len(request.tokens) // self.block_size,
+                      n_pages)
+            reuse = matched[:cap]
+            self.allocator.incref(reuse)
+        try:
+            fresh = self.allocator.alloc(n_pages - len(reuse))
+        except OutOfBlocksError:
+            if reuse:
+                self.allocator.free(reuse)
+            mig.inc(direction="in", reason=reason, status="error")
+            if self.goodput is not None:
+                self.goodput.transition("idle")
+            raise MigrationError(
+                f"pool pressure: session needs {n_pages - len(reuse)} "
+                f"fresh pages, {self.allocator.available} available")
+        pages = reuse + fresh
+        if fresh:
+            dest = torch.tensor(fresh, dtype=torch.long, device=self.device)
+            for name, pool in self._components().items():
+                pool = byte_view(pool)
+                # The reused pages are a prefix of the table: ship the
+                # rest, in one copy to the card.
+                src = sp.arrays[name][:, len(reuse):]
+                pool.index_copy_(1, dest, src.view(pool.dtype).to(
+                    self.device))
+        if self.prefix is not None:
+            # Index the imported prompt pages as a local final window would
+            # have: the next session sharing this prompt maps them.
+            self.prefix.insert(list(request.tokens), pages)
+        seq = _Sequence(
+            request, submitted_at=t0,
+            generated=[int(t) for t in sp.header["generated"]],
+            first_token_at=t0, preemptions=int(sp.header["preemptions"]),
+            pages=pages, prefilled=int(sp.header["prefilled"]),
+            target=int(sp.header["target"]), imported=True,
+            migrate_reason=reason)
+        self.waiting.append(seq)
+        if self.flight is not None:
+            self.flight.begin(rid, request.trace_id, t0)
+            self.flight.event(rid, "serve.migrate_in", t0,
+                              bytes=sp.nbytes, pages=n_pages,
+                              reused_pages=len(reuse), reason=reason)
+        mig.inc(direction="in", reason=reason, status="ok",
+                exemplar=self._trace_id(seq))
+        metrics.counter("tk8s_serve_migration_bytes_total").inc(
+            sp.nbytes, direction="in", exemplar=self._trace_id(seq))
+        if self.goodput is not None:
+            self.goodput.transition("idle")
+        return rid
+
+    def _check_importable(self, sp) -> None:
+        """Geometry/dtype gate beyond the header identity check: raw bytes
+        land only in arrays of the same dtype and per-page shape (a cast
+        would break the bitwise contract), and the session must fit."""
+        for name, arr in self._components().items():
+            meta = sp.header["arrays"].get(name, {})
+            want = (arr.shape[0], sp.pages) + tuple(arr.shape[2:])
+            got = tuple(meta.get("shape", ()))
+            if meta.get("dtype") != dtype_name(arr.dtype):
+                raise MigrationError(
+                    f"component {name!r}: payload dtype "
+                    f"{meta.get('dtype')!r} != pool dtype "
+                    f"{dtype_name(arr.dtype)!r}")
+            if got != want:
+                raise MigrationError(
+                    f"component {name!r}: payload shape {list(got)} != "
+                    f"expected {list(want)}")
+        if sp.pages > self.blocks_per_seq:
+            raise MigrationError(
+                f"session spans {sp.pages} pages, this pool's table "
+                f"width is {self.blocks_per_seq}")
+        h = sp.header
+        total = len(h["request"]["tokens"]) + int(
+            h["request"]["max_new_tokens"])
+        if total > self.max_model_len:
+            raise MigrationError(
+                f"session needs {total} positions, max_model_len is "
+                f"{self.max_model_len}")
+        if int(h["prefilled"]) < int(h["target"]) or not h["generated"]:
+            raise MigrationError(
+                "session is not fully prefilled -- only decode-ready "
+                "sessions migrate")

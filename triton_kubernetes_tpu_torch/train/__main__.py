@@ -9,6 +9,19 @@ tokens/s and MFU at every sync window. It writes no checkpoint. Runs on the
 card unless ``--device cpu`` is given (the plain versions of the kernels
 then run instead, for rehearsals at small sizes).
 
+``--trace-jsonl PATH`` writes ``train.*`` spans and the goodput ledger (the
+train categories partitioning the run's wall window) as JSON lines, as the
+reference does; merge them with ``python -m
+triton_kubernetes_tpu_torch.tools.trace merge`` and report them with
+``python -m triton_kubernetes_tpu_torch.tools.goodput report``. One
+difference: the reference compiles its step ahead of time and books that
+as ``compile`` with a ``train.compile`` span (lower_s/compile_s). The port
+has no ahead-of-time compile -- its kernels build at their first launch --
+so its first step is booked as ``compile`` (through the loop's
+``goodput_step_category``) and the ``train.compile`` span covers that
+step's dispatch (a ``first_step_s`` field); the steps after it are
+``step``.
+
 Distributed training, checkpoints and resilience (and their flags), the
 packed/sharded data pipelines and the profiler flag are later slices.
 """
@@ -79,6 +92,12 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="write a run report (per-step losses and grad "
                         "norms, window times, tokens/s, MFU, peak memory) "
                         "to this path")
+    p.add_argument("--trace-jsonl", default="",
+                   help="append train.* span events and the goodput "
+                        "ledger (chip-time categories partitioning the "
+                        "run's wall window) as JSON lines to this path; "
+                        "merge with `python -m "
+                        "triton_kubernetes_tpu_torch.tools.trace merge`")
     return p
 
 
@@ -120,6 +139,19 @@ def main(argv: Optional[list] = None) -> int:
          params=config.num_params(), device=device, batch=batch_size,
          seq_len=seq_len, steps=args.steps)
 
+    # The training flight recorder: a clock-anchored trace file and the
+    # goodput ledger over it (flush_each: a killed run leaves its booked
+    # ledger on disk).
+    tracer = goodput = None
+    if args.trace_jsonl:
+        from ..utils.trace import GoodputRecorder, TraceWriter
+
+        tracer = TraceWriter(args.trace_jsonl, "trainer:rank0",
+                             clock=time.perf_counter)
+        goodput = GoodputRecorder("train", clock=time.perf_counter,
+                                  writer=tracer, flush_each=True)
+        _log("trace jsonl", path=args.trace_jsonl)
+
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     opt = make_optimizer(
@@ -147,10 +179,36 @@ def main(argv: Optional[list] = None) -> int:
         _log("train", **fields)
 
     batches = synthetic_batches(config.vocab_size, batch_size, seq_len)
-    state, report = run_pipelined(
-        step_fn, state, batches, sync_every=sync_every, max_steps=args.steps,
-        tokens_per_step=tokens_per_step, config_name=config.name,
-        on_sync=on_sync)
+    loop_step, step_category = step_fn, None
+    if goodput is not None:
+        first = [True]
+
+        def loop_step(cur_state, batch):
+            out = step_fn(cur_state, batch)
+            if first[0]:
+                # The first step builds the kernels: its span is the
+                # compile segment the loop opened for it.
+                first[0] = False
+                t1 = goodput.clock()
+                tracer.event("train.compile", goodput.state_since,
+                             t1 - goodput.state_since,
+                             first_step_s=round(t1 - goodput.state_since, 6))
+            return out
+
+        def step_category(n):
+            return "compile" if n == 1 else "step"
+    try:
+        state, report = run_pipelined(
+            loop_step, state, batches, sync_every=sync_every,
+            max_steps=args.steps, tokens_per_step=tokens_per_step,
+            config_name=config.name, on_sync=on_sync, goodput=goodput,
+            goodput_step_category=step_category)
+    finally:
+        if goodput is not None:
+            # Closing is what makes the categories tile the recorded
+            # window exactly; it matters most on a run that dies.
+            goodput.close()
+            tracer.close()
 
     steady = report.windows[1:]  # the first window carries first-call setup
     s_steps = sum(n for n, _ in steady)
@@ -172,7 +230,8 @@ def main(argv: Optional[list] = None) -> int:
         mfu=(mfu(steady_tps, config, seq_len, peak)
              if peak and steady_tps else None),
         peak_memory_bytes=(torch.cuda.max_memory_allocated(device)
-                           if device.type == "cuda" else None))
+                           if device.type == "cuda" else None),
+        goodput=goodput.snapshot() if goodput is not None else None)
     if args.report_json:
         parent = os.path.dirname(os.path.abspath(args.report_json))
         os.makedirs(parent, exist_ok=True)

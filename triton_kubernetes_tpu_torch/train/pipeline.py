@@ -8,6 +8,14 @@ metrics stay device scalars, and the host syncs once per window of
 ``sync_every`` steps -- one transfer of the window's metrics, which also
 drains the queue and so bounds how far the host runs ahead. Per-step
 losses are the same whatever the cadence; only when the host waits moves.
+
+With a ``GoodputRecorder("train")`` the loop partitions its own wall time
+as the reference's does: ``data_wait`` while pulling the next batch, the
+step's category (``step``, or what ``goodput_step_category`` says) across
+its dispatch, ``host_sync`` across each window's drain, ``idle`` at the
+end, and one ``train.window`` span per window on the recorder's writer.
+Host time: a step's device work lands in whichever category the host is
+in when it blocks, the window's ``host_sync`` as a rule.
 """
 
 from __future__ import annotations
@@ -47,6 +55,8 @@ def run_pipelined(
     tokens_per_step: int = 0,
     config_name: str = "",
     on_sync: Optional[Callable[[int, Any, List[float], float], None]] = None,
+    goodput: Any = None,
+    goodput_step_category: Optional[Callable[[int], str]] = None,
 ) -> Tuple[Any, LoopReport]:
     """Issue every step, sync every ``sync_every``.
 
@@ -55,7 +65,14 @@ def run_pipelined(
     ``on_sync(step, state, window_losses, window_seconds)`` runs at each
     sync point, the only place for logging. Each window's metrics (every
     key of every step) come back in one transfer: ``report.history`` holds
-    them per step, ``report.windows`` each window's (steps, seconds)."""
+    them per step, ``report.windows`` each window's (steps, seconds).
+
+    ``goodput`` is an optional :class:`..utils.trace.GoodputRecorder`
+    (``train`` vocabulary); the loop then times itself on the recorder's
+    clock, so its segments and spans share one timeline.
+    ``goodput_step_category(n)`` (``n`` = 1-based step index within this
+    call) books a step under another category than ``step`` (the trainer
+    books its first step, which builds the kernels, as ``compile``)."""
     if sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {sync_every}")
     if isinstance(batches, (list, tuple)):
@@ -73,21 +90,24 @@ def run_pipelined(
     syncs_total = _metrics.counter("tk8s_train_host_syncs_total")
     inflight_gauge = _metrics.gauge("tk8s_train_steps_in_flight")
 
+    clock = goodput.clock if goodput is not None else time.perf_counter
     report = LoopReport()
     window: List[Dict[str, torch.Tensor]] = []
-    t_start = time.perf_counter()
+    t_start = clock()
     t_window = t_start
 
     def sync() -> None:
         nonlocal t_window
         if not window:
             return
+        if goodput is not None:
+            goodput.transition("host_sync")
         inflight_gauge.set(len(window))
         # THE host sync: one transfer of every metric of the window.
         keys = sorted(window[0])
         rows = torch.stack([torch.stack([m[k].float() for k in keys])
                             for m in window]).tolist()
-        dt = time.perf_counter() - t_window
+        dt = clock() - t_window
         steps = [dict(zip(keys, row)) for row in rows]
         window_losses = [s["loss"] for s in steps]
         report.history.extend(steps)
@@ -102,19 +122,36 @@ def run_pipelined(
                              config=config_name)
         syncs_total.inc(config=config_name)
         inflight_gauge.set(0)
+        n_window = len(window)
         window.clear()
+        if goodput is not None and goodput.writer is not None:
+            goodput.writer.event("train.window", t_window, dt,
+                                 steps=n_window, loss=window_losses[-1])
         if on_sync is not None:
             on_sync(report.steps, state, window_losses, dt)
-        t_window = time.perf_counter()
+        t_window = clock()
 
-    for batch in batches_it:
+    it = iter(batches_it)
+    _end = object()
+    while True:
+        if goodput is not None:
+            goodput.transition("data_wait")
+        batch = next(it, _end)
+        if batch is _end:
+            break
+        if goodput is not None:
+            goodput.transition(
+                goodput_step_category(report.steps + 1)
+                if goodput_step_category is not None else "step")
         state, step_metrics = step_fn(state, batch)
         window.append(step_metrics)
         report.steps += 1
         if len(window) >= sync_every:
             sync()
     sync()
-    report.wall_seconds = max(time.perf_counter() - t_start, 1e-9)
+    if goodput is not None:
+        goodput.transition("idle")
+    report.wall_seconds = max(clock() - t_start, 1e-9)
     report.steps_per_sec = report.steps / report.wall_seconds
     report.tokens_per_sec = (
         report.steps * tokens_per_step / report.wall_seconds)

@@ -1,8 +1,12 @@
 """Process-wide metrics: counters, gauges, histograms, Prometheus text --
 the port's copy of ``triton_kubernetes_tpu/utils/metrics.py``, holding the
 registry, its exposition, the ``tk8s_serve_*`` families the serving
-engine updates and the ``tk8s_train_*`` families of the training loop, so
-they behave exactly as the JAX package's do.
+engine updates (its KV-session migration's among them), the
+``tk8s_train_*`` families of the training loop and the goodput ledger's
+``tk8s_goodput_seconds_total``, so they behave exactly as the JAX package's
+do, and the Prometheus text parser (``parse_prometheus``,
+``histogram_quantile``, ``merge_histogram_series``) that reads a saved
+scrape back.
 
 Families are create-or-get by name (``metrics.counter(name).inc(...)``);
 help text, label names and buckets come from :data:`CATALOG`. The registry
@@ -13,6 +17,7 @@ is thread-safe, and one process-default instance is reachable from anywhere
 from __future__ import annotations
 
 import math
+import re
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -88,6 +93,28 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...], Optional[Tuple[float, ...]]]
         "gauge", "Tokens emitted per decoding sequence by the most "
         "recent verify step (1.0 = plain-decode pace, up to spec_k + 1 "
         "when every draft accepts)", (), None),
+    # ------------------------------- serve/engine.py (KV-session migration)
+    "tk8s_serve_migrations_total": (
+        "counter", "KV-page session migrations by direction (out = "
+        "packed and shipped, in = unpacked into the local pool), reason "
+        "(handoff = prefill->decode disaggregation, drain / rebalance = "
+        "operator actuation), and status (ok, torn = digest rejected a "
+        "damaged payload, error = ship/import failed); exemplar-linked "
+        "to the migrated session's trace id", ("direction", "reason",
+        "status"), None),
+    "tk8s_serve_migration_bytes_total": (
+        "counter", "Serialized bytes shipped (direction=out) or "
+        "accepted (direction=in) by KV-page session migration — raw "
+        "quantized pages ship as-is, so int8/fp8 pools move ~4x/~2x "
+        "fewer bytes than bf16/f32; exemplar-linked to the migrated "
+        "session's trace id", ("direction",), None),
+    "tk8s_serve_migration_transfer_seconds": (
+        "histogram", "Wall seconds a migration payload spent on the "
+        "wire (the outbound /migrate/in POST, including any simulated "
+        "DCN bytes/sec + RTT cost when a transfer model is configured "
+        "— loopback tests otherwise pretend the ship is free); "
+        "exemplar-linked to the migrated session's trace id", (),
+        (0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0)),
     # ---------------------------------- train/pipeline.py (one process:
     # the reference's process_id label has one value here and is dropped)
     "tk8s_train_step_duration_seconds": (
@@ -103,6 +130,15 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...], Optional[Tuple[float, ...]]]
     "tk8s_train_steps_in_flight": (
         "gauge", "Dispatched-but-unsynced steps currently in flight in "
         "the pipelined training loop", (), None),
+    # ----------------------------------------- goodput ledger (fleet-wide)
+    "tk8s_goodput_seconds_total": (
+        "counter", "Chip-seconds attributed by the goodput ledger, by "
+        "source (serve/train/route) and category — ticked from the same "
+        "closed segments that land as <source>.goodput trace spans, so "
+        "the categories partition each process's recorded wall window "
+        "exactly (GOODPUT_CATEGORIES in utils/trace.py is the closed "
+        "vocabulary; lint rule TK8S113 pins it)",
+        ("source", "category", "process_id"), None),
 }
 
 _VALID_KINDS = ("counter", "gauge", "histogram")
@@ -584,3 +620,212 @@ def histogram(name: str, help: Optional[str] = None,
               labelnames: Optional[Sequence[str]] = None,
               buckets: Optional[Sequence[float]] = None) -> Histogram:
     return get_registry().histogram(name, help, labelnames, buckets)
+
+
+# ---------------------------------------------------------------------------
+# Prometheus text parsing (the scrape side)
+# ---------------------------------------------------------------------------
+#
+# The read half of :meth:`MetricsRegistry.render_prometheus`: a saved
+# ``/metrics`` body parses back into the snapshot shape (``goodput report
+# --metrics`` folds its ``tk8s_goodput_seconds_total`` samples in beside the
+# trace-derived ledger). Dependency-free and strict: a malformed line raises
+# with its line number, since a scrape that half-parses would feed its
+# reader silent garbage.
+
+_SAMPLE_RE = re.compile(
+    r"^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)"
+    r"(?:\{(?P<labels>.*)\})?"
+    r"\s+(?P<value>[^\s]+)"
+    r"(?:\s+(?P<ts>-?\d+))?\s*$")
+_LABEL_RE = re.compile(
+    r'(?P<name>[a-zA-Z_][a-zA-Z0-9_]*)="(?P<value>(?:[^"\\]|\\.)*)"')
+
+
+class PrometheusParseError(ValueError):
+    """A scrape body does not parse as Prometheus text exposition 0.0.4.
+    Carries the 1-based line number so an operator log names the exact
+    offending line of the replica's /metrics response."""
+
+    def __init__(self, lineno: int, line: str, reason: str):
+        super().__init__(f"line {lineno}: {reason}: {line!r}")
+        self.lineno = lineno
+        self.line = line
+
+
+def _unescape_label(value: str) -> str:
+    out: List[str] = []
+    i = 0
+    while i < len(value):
+        c = value[i]
+        if c == "\\" and i + 1 < len(value):
+            nxt = value[i + 1]
+            out.append({"n": "\n", "\\": "\\", '"': '"'}.get(nxt, nxt))
+            i += 2
+        else:
+            out.append(c)
+            i += 1
+    return "".join(out)
+
+
+def _parse_labels(raw: str, lineno: int, line: str) -> Dict[str, str]:
+    labels: Dict[str, str] = {}
+    pos = 0
+    raw = raw.strip()
+    while pos < len(raw):
+        m = _LABEL_RE.match(raw, pos)
+        if m is None:
+            raise PrometheusParseError(lineno, line, "malformed label pair")
+        labels[m.group("name")] = _unescape_label(m.group("value"))
+        pos = m.end()
+        if pos < len(raw):
+            if raw[pos] != ",":
+                raise PrometheusParseError(
+                    lineno, line, "expected ',' between labels")
+            pos += 1
+    return labels
+
+
+def _parse_value(raw: str, lineno: int, line: str) -> float:
+    if raw == "+Inf":
+        return math.inf
+    if raw == "-Inf":
+        return -math.inf
+    if raw == "NaN":
+        return math.nan
+    try:
+        return float(raw)
+    except ValueError:
+        raise PrometheusParseError(
+            lineno, line, f"sample value {raw!r} is not a number") from None
+
+
+def parse_prometheus(text: str) -> Dict[str, Dict[str, Any]]:
+    """Parse Prometheus text exposition into a snapshot-shaped dict:
+    ``{family: {"type", "help", "series": [...]}}``.
+
+    Plain families carry ``series: [{"labels", "value"}]``; histogram
+    families (``# TYPE ... histogram``) are reassembled from their
+    ``_bucket``/``_sum``/``_count`` samples into
+    ``[{"labels", "buckets": {le: cumulative}, "sum", "count"}]`` — the
+    exact shape :meth:`Histogram.samples` emits, so a render -> parse
+    round trip is an identity on the series content. Untyped samples
+    (no ``# TYPE``) are treated as plain. Raises
+    :class:`PrometheusParseError` on any malformed line.
+    """
+    families: Dict[str, Dict[str, Any]] = {}
+    types: Dict[str, str] = {}
+
+    def family(name: str) -> Dict[str, Any]:
+        return families.setdefault(
+            name, {"type": types.get(name, "untyped"), "help": "",
+                   "series": []})
+
+    def hist_series(fam: Dict[str, Any],
+                    labels: Dict[str, str]) -> Dict[str, Any]:
+        for s in fam["series"]:
+            if s["labels"] == labels:
+                return s
+        s = {"labels": labels, "buckets": {}, "sum": 0.0, "count": 0}
+        fam["series"].append(s)
+        return s
+
+    for lineno, line in enumerate(text.splitlines(), start=1):
+        stripped = line.strip()
+        if not stripped:
+            continue
+        if stripped.startswith("#"):
+            parts = stripped.split(None, 3)
+            if len(parts) >= 3 and parts[1] == "TYPE":
+                kind = parts[3] if len(parts) > 3 else ""
+                if kind not in _VALID_KINDS + ("untyped", "summary"):
+                    raise PrometheusParseError(
+                        lineno, line, f"unknown metric type {kind!r}")
+                types[parts[2]] = kind
+                family(parts[2])["type"] = kind
+            elif len(parts) >= 3 and parts[1] == "HELP":
+                family(parts[2])["help"] = parts[3] if len(parts) > 3 else ""
+            # Other comments are legal and ignored.
+            continue
+        m = _SAMPLE_RE.match(stripped)
+        if m is None:
+            raise PrometheusParseError(lineno, line, "malformed sample line")
+        name = m.group("name")
+        labels = _parse_labels(m.group("labels") or "", lineno, line)
+        value = _parse_value(m.group("value"), lineno, line)
+        base = name
+        for suffix in ("_bucket", "_sum", "_count"):
+            if name.endswith(suffix) and \
+                    types.get(name[: -len(suffix)]) == "histogram":
+                base = name[: -len(suffix)]
+                break
+        if base != name:
+            fam = family(base)
+            if name.endswith("_bucket"):
+                if "le" not in labels:
+                    raise PrometheusParseError(
+                        lineno, line, "histogram bucket without le label")
+                le = labels.pop("le")
+                hist_series(fam, labels)["buckets"][le] = value
+            elif name.endswith("_sum"):
+                hist_series(fam, labels)["sum"] = value
+            else:
+                hist_series(fam, labels)["count"] = int(value)
+        else:
+            family(name)["series"].append(
+                {"labels": labels, "value": value})
+    return families
+
+
+def histogram_quantile(buckets: Dict[str, float], q: float) -> float:
+    """Prometheus-style quantile from cumulative buckets
+    (``{le: cumulative_count}``, ``le`` as exposition strings incl.
+    ``"+Inf"``), with linear interpolation inside the landing bucket.
+
+    Matches PromQL ``histogram_quantile`` semantics: the answer for a
+    quantile that lands in the ``+Inf`` bucket is the highest finite
+    bound (the histogram cannot see past its buckets), and an empty
+    histogram returns 0.0. The lower edge of the first bucket is 0 —
+    these are latency histograms.
+    """
+    if not 0.0 <= q <= 1.0:
+        raise ValueError(f"quantile must be in [0, 1], got {q}")
+    def is_inf(le: str) -> bool:
+        # Any overflow-bucket spelling: "+Inf", "inf", "+INF", ...
+        return le.lstrip("+").lower() == "inf"
+
+    finite = sorted(
+        (float(le), float(cum)) for le, cum in buckets.items()
+        if not is_inf(le))
+    overflow = [float(cum) for le, cum in buckets.items() if is_inf(le)]
+    total = (max(overflow) if overflow
+             else (finite[-1][1] if finite else 0.0))
+    if total <= 0:
+        return 0.0
+    rank = q * total
+    prev_le, prev_cum = 0.0, 0.0
+    for le, cum in finite:
+        if cum >= rank:
+            if cum <= prev_cum:
+                return le
+            frac = (rank - prev_cum) / (cum - prev_cum)
+            return prev_le + (le - prev_le) * frac
+        prev_le, prev_cum = le, cum
+    # Landed past every finite bucket: report the highest finite bound.
+    return finite[-1][0] if finite else 0.0
+
+
+def merge_histogram_series(series: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Sum several parsed histogram series (e.g. one per scraped
+    replica) into one: cumulative buckets added per ``le``, sums and
+    counts added. The fleet-wide TTFT distribution the autoscaler
+    quantiles is exactly this merge."""
+    buckets: Dict[str, float] = {}
+    total_sum, total_count = 0.0, 0
+    for s in series:
+        for le, cum in s.get("buckets", {}).items():
+            buckets[le] = buckets.get(le, 0.0) + float(cum)
+        total_sum += float(s.get("sum", 0.0))
+        total_count += int(s.get("count", 0))
+    return {"labels": {}, "buckets": buckets, "sum": total_sum,
+            "count": total_count}
