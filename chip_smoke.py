@@ -109,7 +109,9 @@ result:
    class, idle share, launches per tick, the paged kernels by name, which
    must include the span kernels and the prefill's tensor-core kernel;
    the window must launch the wgmma GEMM, counted by its wrapper;
-   the decode tick and the window must run 2 x layers + 1 norm kernels).
+   the decode tick and the window must run 2 x layers + 1 norm kernels;
+   those two are profiled again, up to three times, while a trace holds
+   fewer device kernels than launches: the profiler drops events at times).
    Then six more runs of those 8 requests plus 4 repetitive ones (one
    seeded token tiled 300-700 times, so the model repeats itself and the
    drafter fires): bf16, int8 and fp8 pools, each
@@ -144,7 +146,23 @@ result:
    ``torch.equal`` to before and its pages in use unchanged, the session
    then resumed on the source to the baseline's tokens); a ``migration``
    JSON line gives payload bytes, export and import ms and GB/s and
-   sha256 alone, by pool kind. A rewind probe per bf16 and int8 pool verifies
+   sha256 alone, by pool kind. Then HTTP serving on the same 12 requests
+   (``http_phase``): A, the 12 fired at once at one ``ServeHTTPServer``
+   replica behind a ``RouterHTTPServer``, then at two replicas in this
+   process sharing the weights (a 2,048-page bf16 pool each), then a seeded
+   Poisson open loop (2 requests/s, 48 requests of 200-1,000 prompt tokens,
+   32 new) through the two; B, a prefill and a decode replica (int8 pools,
+   spec_k 3) behind a router with a decode pool, every request handed off
+   over ``/migrate``; C, two ``python -m
+   triton_kubernetes_tpu_torch.tools.serve`` processes and a ``tools.route``
+   over them, the 12 at once and the same open loop, then SIGTERM (exit
+   143, every trace file closed). A's and B's tokens must equal the
+   engine-level bf16 spec_k 0 and int8 spec_k 3 runs, 384/384; every
+   response 200 and no engine loop dead; kernels 4 and 5 (6 in B), the GEMM
+   and the fused norm launched in every arm (C's from each replica's
+   ``/stats``); TTFT, TPOT, the client's latency, the time outside the
+   engine and tokens/s printed per run, B's transfer histogram from a
+   ``/metrics`` scrape. A rewind probe per bf16 and int8 pool verifies
    junk drafts on one prefilled sequence, rewinds all but the first, and
    checks every rejected slot and scale byte-equal to the pre-verify pool.
    Fault F2: one 800-token prompt prefilled under ``prefill_chunk`` 128
@@ -195,7 +213,9 @@ runs the bit probe, the SiLU probe and the GEMM, norm and quantizer
 checks of phase 3 and stops
 (``DIR/chip_smoke_gemm.json`` with ``--out``); ``--migration-only`` builds
 every kernel, runs the six spec/quant serve runs of phase 4 and then its
-traced and migration runs, and stops (``DIR/chip_smoke_migration.json``).
+traced and migration runs, and stops (``DIR/chip_smoke_migration.json``);
+``--http-only`` the same six runs and then the HTTP phase
+(``DIR/chip_smoke_http.json``).
 """
 
 from __future__ import annotations
@@ -1945,19 +1965,16 @@ def reset_row_counts():
 
 def row_counts():
     """Launches of the row-invariant kernels since reset_row_counts."""
-    from triton_kubernetes_tpu_torch.ops import decode_gemm, norms
-    from triton_kubernetes_tpu_torch.ops import quantization
-    return {"decode_gemm": decode_gemm.decode_gemm_group.launches,
-            "decode_gemm_wgmma": decode_gemm.decode_gemm_group.wgmma_launches,
-            "decode_gemm_w8a8": decode_gemm.w8a8_gemm_group.launches,
-            "decode_gemm_w8a8_wgmma":
-                decode_gemm.w8a8_gemm_group.wgmma_launches,
-            "quantize_rows": quantization.quantize_rows.launches,
-            "rms_norm": norms.rms_norm_rows.launches,
-            "add_rms_norm": norms.add_rms_norm_rows.launches,
-            "rms_norm_quant": norms.rms_norm_quant_rows.launches,
-            "add_rms_norm_quant": norms.add_rms_norm_quant_rows.launches,
-            "swiglu_quant": quantization.swiglu_quantize_rows.launches}
+    return {k: n for k, n in launch_counts().items()
+            if not k.startswith("paged_")}
+
+
+def launch_counts():
+    """Launches of every serving kernel since the counters were reset:
+    the serving front end's own count (``/stats`` reports it too)."""
+    from triton_kubernetes_tpu_torch.serve.server import kernel_launches
+
+    return kernel_launches()
 
 
 def row_counts_wanted(ticks, windows, cfg, w8a8=None):
@@ -2025,7 +2042,7 @@ def tick_profile(profiles, ticks, wall_ms):
     by_class = {c: 0.0 for c, _ in TICK_CLASSES}
     by_class.update({"GEMM (cuBLAS)": 0.0, "other kernels": 0.0})
     kernels = dict.fromkeys(by_class, 0)
-    launches, names, others = 0, set(), {}
+    launches, names, others, device_kernels = 0, set(), {}, 0
     for prof in profiles:
         events = prof.events()
         launches += sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
@@ -2033,6 +2050,7 @@ def tick_profile(profiles, ticks, wall_ms):
         for e in events:
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
+            device_kernels += not e.name.startswith(("Memcpy", "Memset"))
             us = e.time_range.elapsed_us()
             cls = next((c for c, key in TICK_CLASSES if key in e.name), None)
             if cls is None:
@@ -2051,6 +2069,7 @@ def tick_profile(profiles, ticks, wall_ms):
     return dict(wall_ms_per_tick=wall_ms, device_busy_ms_per_tick=busy_ms,
                 device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
                 launches_per_tick=launches / ticks,
+                device_kernels_per_tick=device_kernels / ticks,
                 device_ms_per_tick_by_class=by_class,
                 kernels_per_tick_by_class={k: v / ticks
                                            for k, v in kernels.items()},
@@ -2058,6 +2077,28 @@ def tick_profile(profiles, ticks, wall_ms):
                 other_kernels_per_tick={
                     k: v / ticks for k, v in sorted(
                         others.items(), key=lambda kv: -kv[1])[:16]})
+
+
+# torch.profiler on the card at times drops a few device events from a
+# trace (a decode tick's once held 1,492 of its 1,511 kernels), and a check
+# that counts a tick's kernels by class would read each lost event as a
+# launch that did not happen: such a profile is taken again.
+PROFILE_ATTEMPTS = 3
+
+
+def complete_profile(engine, run):
+    """``run()``'s :func:`tick_profile` record, taken again (on a released
+    prefix cache) while its trace holds fewer device kernels than the
+    launches it recorded, at most PROFILE_ATTEMPTS times; the last is
+    returned either way, with the number of attempts."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        if attempt > 1:
+            engine.release_prefix_cache()
+        prof = run()
+        kernels = prof["device_kernels_per_tick"]
+        if not kernels or kernels >= prof["launches_per_tick"]:
+            break
+    return dict(prof, attempts=attempt)
 
 
 def profile_prefill(engine, cfg, Request, windows_before=2):
@@ -2191,8 +2232,11 @@ def print_tick_profile(what, prof, card):
     print(f"serve: {what} profiled: wall {prof['wall_ms_per_tick']:.3f} ms, "
           f"device busy {prof['device_busy_ms_per_tick']:.3f} ms (idle "
           f"share {prof['device_idle_share']:.3f}), "
-          f"{prof['launches_per_tick']:.0f} launches; {classes}; paged "
-          f"kernels {prof['paged_kernels']} [{card}]", flush=True)
+          f"{prof['launches_per_tick']:.0f} launches, "
+          f"{prof['device_kernels_per_tick']:.2f} kernels in the trace"
+          f"{' (attempt %d)' % prof['attempts'] if 'attempts' in prof else ''}"
+          f"; {classes}; paged kernels {prof['paged_kernels']} [{card}]",
+          flush=True)
 
 
 def serve_phase(card):
@@ -2337,10 +2381,12 @@ def serve_phase(card):
           f", same argmax: {int(lk.argmax()) == int(ld.argmax())}"
           f" (plain top-2 gap {gap:.5f}); {same}/32 tokens equal to the "
           f"plain-version engine", flush=True)
-    pprof = profile_prefill(engine, cfg, Request)
+    pprof = complete_profile(
+        engine, lambda: profile_prefill(engine, cfg, Request))
     print_tick_profile(f"prefill window ({PREFILL_CHUNK} tokens at offset "
                        f"{2 * PREFILL_CHUNK}, one sequence)", pprof, card)
-    prof = profile_decode(engine, cfg, Request)
+    prof = complete_profile(
+        engine, lambda: profile_decode(engine, cfg, Request))
     del engine, dense
     gc.collect()
     torch.cuda.empty_cache()
@@ -2375,6 +2421,7 @@ def serve_phase(card):
     new_phases_s = time.perf_counter() - t_new
     print(f"serve: the traced and migration runs took {new_phases_s:.1f} s "
           f"[{card}]", flush=True)
+    http = http_phase(model, cfg, card, requests, runs)
     probes = [rewind_probe(model, cfg, kind, requests[4].tokens)
               for kind in ("bf16", "int8")]
     # Fault F2: full pages the same under two window widths; the cuBLAS
@@ -2394,7 +2441,7 @@ def serve_phase(card):
         spec_quant_runs=runs, rewind_probes=probes, traced_runs=traced,
         tracing_cost_us=tracing_cost,
         migration_runs=migrations, migration=migration,
-        traced_and_migration_s=new_phases_s,
+        traced_and_migration_s=new_phases_s, http=http,
         window_invariance=f2 + w8a8.pop("window_invariance"), w8a8=w8a8,
         requests=len(requests), prompt_tokens=prompt_tokens,
         prefix_hit_tokens=hits, prefill_windows=windows, decode_ticks=ticks,
@@ -2412,9 +2459,10 @@ def serve_phase(card):
         peak_memory_bytes=peak)
 
 
-def migration_only(card):
+def migration_only(card, http_only=False):
     """``--migration-only``: the 8B model, the six spec/quant serve runs
-    (the baselines), then the traced and the migration runs."""
+    (the baselines), then the traced and the migration runs;
+    ``--http-only`` (``http_only``): the baselines, then the HTTP phase."""
     from triton_kubernetes_tpu_torch.models import get_config, init_params
     from triton_kubernetes_tpu_torch.serve import Request
 
@@ -2422,6 +2470,9 @@ def migration_only(card):
     model = init_params(cfg, seed=0, device="cuda")
     requests = make_requests(cfg, Request)
     runs = spec_quant_phase(model, cfg, card, requests)
+    if http_only:
+        return dict(spec_quant_runs=runs,
+                    http=http_phase(model, cfg, card, requests, runs))
     t0 = time.perf_counter()
     traced, tracing_cost = traced_phase(model, cfg, card, requests, runs)
     migrations, migration = migration_phase(model, cfg, card, requests, runs)
@@ -2504,10 +2555,7 @@ def serve_run(model, cfg, kind, spec_k, requests, arrivals,
     if traced is not None:
         goodput.close()
         writer.close()
-    launches = {"paged_decode": pa.ragged_paged_attention.launches,
-                "paged_verify": pa.ragged_verify_attention.launches,
-                "paged_prefill": pa.paged_prefill_attention.launches,
-                **row_counts()}
+    launches = launch_counts()
     stats = engine.stats()
     counts = {k: stats[k] - base[k] for k in
               ("prefill_windows", "decode_steps", "verify_steps")}
@@ -2766,14 +2814,19 @@ MIGRATION_DRAINS = (("bf16", SPEC_K), ("int8", 0))
 DRAIN_AFTER_TICKS = 8
 
 
-def engine_pair(model, cfg, kind, spec_k):
-    """A source and a destination engine, each with its own pool."""
+def served_engine(model, cfg, kind="bf16", spec_k=0):
+    """An engine of SERVE_ENGINE_KW with its own pool of ``kind`` pages."""
     from triton_kubernetes_tpu_torch.serve import ServeEngine
 
-    kw = dict(SERVE_ENGINE_KW, kv_dtype="auto" if kind == "bf16" else kind,
-              spec_k=spec_k)
-    return (ServeEngine(model, cfg, device=SERVE_DEVICE, **kw),
-            ServeEngine(model, cfg, device=SERVE_DEVICE, **kw))
+    return ServeEngine(model, cfg, device=SERVE_DEVICE, **dict(
+        SERVE_ENGINE_KW, kv_dtype="auto" if kind == "bf16" else kind,
+        spec_k=spec_k))
+
+
+def engine_pair(model, cfg, kind, spec_k):
+    """A source and a destination engine, each with its own pool."""
+    return (served_engine(model, cfg, kind, spec_k),
+            served_engine(model, cfg, kind, spec_k))
 
 
 def ship(src, dst, rid, reason, rec):
@@ -2893,10 +2946,7 @@ def handoff_run(model, cfg, kind, spec_k, reqs, base, prefix_check=False):
             raise AssertionError(f"{tag}: engines did not drain")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_decode": pa.ragged_paged_attention.launches,
-                "paged_verify": pa.ragged_verify_attention.launches,
-                "paged_prefill": pa.paged_prefill_attention.launches,
-                **row_counts()}
+    launches = launch_counts()
     same, total = _check_migrated(tag, done, reqs, base, launches, spec_k)
     prefix = prefix_reference_check(src, dst, reqs, base) \
         if prefix_check else None
@@ -3003,10 +3053,7 @@ def drain_run(model, cfg, kind, spec_k, reqs, base, torn_check=False):
             raise AssertionError(f"{tag}: engines did not drain")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_decode": pa.ragged_paged_attention.launches,
-                "paged_verify": pa.ragged_verify_attention.launches,
-                "paged_prefill": pa.paged_prefill_attention.launches,
-                **row_counts()}
+    launches = launch_counts()
     same, total = _check_migrated(tag, done, reqs, base, launches, spec_k)
     _drained(tag, src, dst)
     del src, dst
@@ -3107,6 +3154,417 @@ def migration_phase(model, cfg, card, requests, runs):
     summary["card"] = card
     print(json.dumps({"migration": summary}), flush=True)
     return out, summary
+
+
+# The HTTP phase: the open loop that arms A and C replay (the port's copy of
+# the reference's seeded Poisson schedule; vocab_size is the model's), how
+# long a client waits on one response, and how long a replica subprocess
+# may take to print its URL (torch import, 8B init, kernel load, pool).
+HTTP_POISSON = dict(rate=2.0, n=48, prompt_len_range=(200, 1000),
+                    max_new_tokens=32, seed=0)
+HTTP_TIMEOUT_S = 300.0
+HTTP_START_S = 300.0
+# Arm C's replicas: the entry point's flags for the 8B model.
+HTTP_SERVE_ARGS = ["--model", "llama3-8b", "--num-blocks", "2048",
+                   "--max-batch", "8", "--max-model-len", "2048"]
+# What every HTTP arm must have launched: kernels 4 and 5, the row-invariant
+# GEMM and the fused residual add + norm.
+SERVED_KERNELS = ["paged_decode", "paged_prefill", "decode_gemm",
+                  "add_rms_norm"]
+
+
+def http_call(url, payload=None):
+    """(status, JSON body) of a GET (``payload`` None) or a JSON POST; an
+    HTTP error status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def http_metrics(url):
+    """A ``/metrics`` scrape, parsed by the port's ``parse_prometheus``."""
+    import urllib.request
+
+    from triton_kubernetes_tpu_torch.utils.metrics import parse_prometheus
+
+    with urllib.request.urlopen(url + "/metrics",
+                                timeout=HTTP_TIMEOUT_S) as r:
+        return parse_prometheus(r.read().decode())
+
+
+def route_counts(router_url):
+    """The router's placements so far, by reason (its /metrics)."""
+    fam = http_metrics(router_url).get("tk8s_route_requests_total")
+    out = {}
+    for s in (fam or {}).get("series", []):
+        reason = s["labels"]["reason"]
+        out[reason] = out.get(reason, 0) + int(s["value"])
+    return out
+
+
+def generate_payload(r):
+    """The /generate body of an engine ``Request`` (sampling fields too)."""
+    return {"tokens": list(r.tokens), "max_new_tokens": r.max_new_tokens,
+            "temperature": r.temperature, "top_k": r.top_k,
+            "top_p": r.top_p, "seed": r.seed}
+
+
+def fire(url, payloads, at=None):
+    """POST each payload to ``url``/generate on a thread of its own: all at
+    once, or each ``at[i]`` seconds after the start (an open loop). Returns
+    [(status, body, sent_s, done_s)] in payload order."""
+    import threading
+
+    out = [None] * len(payloads)
+    t0 = time.perf_counter()
+
+    def one(i):
+        if at is not None:
+            time.sleep(max(0.0, t0 + at[i] - time.perf_counter()))
+        sent = time.perf_counter()
+        status, body = http_call(url + "/generate", payloads[i])
+        out[i] = (status, body, sent - t0, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    deadline = time.perf_counter() + HTTP_TIMEOUT_S + max(at or [0]) + 60
+    for t in threads:
+        t.join(max(0.0, deadline - time.perf_counter()))
+    missing = [i for i, o in enumerate(out) if o is None]
+    if missing:
+        raise AssertionError(f"requests {missing} never returned")
+    return out
+
+
+def load_stats(tag, results, n_tokens, card):
+    """Checks every response is 200 with ``n_tokens`` tokens, then TTFT and
+    TPOT (the replica's clock, from the bodies), the client's end-to-end
+    latency, the time outside the engine (client e2e - the replica's e2e:
+    HTTP, the router and the wait in the engine loop's inbox; for a
+    handoff the replica's e2e is the decode replica's, so this holds the
+    prefill and the transfer too) and the generated tokens/s from the
+    first send to the last answer. Prints them."""
+    from triton_kubernetes_tpu_torch.serve.loadgen import percentile
+
+    bad = [(i, s, b) for i, (s, b, _, _) in enumerate(results)
+           if s != 200 or len(b.get("tokens", ())) != n_tokens]
+    if bad:
+        raise AssertionError(f"{tag}: {len(bad)} bad responses, first "
+                             f"{bad[0][:2]} {str(bad[0][2])[:300]}")
+    ttft = [b["ttft_s"] for _, b, _, _ in results]
+    tpot = [b["tpot_s"] for _, b, _, _ in results]
+    e2e = [done - sent for _, _, sent, done in results]
+    outside = [(done - sent) - b["e2e_s"] for _, b, sent, done in results]
+    wall = (max(done for *_, done in results)
+            - min(sent for _, _, sent, _ in results))
+    tokens = sum(len(b["tokens"]) for _, b, _, _ in results)
+
+    def pct(v):
+        return {"p50": percentile(v, 50), "p99": percentile(v, 99)}
+
+    out = dict(requests=len(results), generated_tokens=tokens, wall_s=wall,
+               tokens_per_s=tokens / wall, ttft_s=pct(ttft),
+               tpot_s=pct(tpot), client_e2e_s=pct(e2e),
+               outside_engine_s=pct(outside))
+    print(f"http[{tag}]: {len(results)} requests all 200, {tokens} tokens "
+          f"in {wall:.3f} s = {out['tokens_per_s']:.2f} tokens/s; TTFT p50 "
+          f"{out['ttft_s']['p50']:.4f} p99 {out['ttft_s']['p99']:.4f} s, "
+          f"TPOT p50 {out['tpot_s']['p50']:.5f} p99 "
+          f"{out['tpot_s']['p99']:.5f} s, client e2e p50 "
+          f"{out['client_e2e_s']['p50']:.4f} p99 "
+          f"{out['client_e2e_s']['p99']:.4f} s, outside the engine p50 "
+          f"{out['outside_engine_s']['p50'] * 1e3:.2f} p99 "
+          f"{out['outside_engine_s']['p99'] * 1e3:.2f} ms [{card}]",
+          flush=True)
+    return out
+
+
+def poisson_payloads(cfg):
+    from triton_kubernetes_tpu_torch.serve.loadgen import PoissonSchedule
+
+    sched = list(PoissonSchedule(vocab_size=cfg.vocab_size, **HTTP_POISSON))
+    return ([{"tokens": r.tokens, "max_new_tokens": r.max_new_tokens}
+             for r in sched], [r.at for r in sched])
+
+
+def poisson_run(tag, router_url, cfg, card):
+    """The open loop through a router: load stats and placements."""
+    payloads, at = poisson_payloads(cfg)
+    before = route_counts(router_url)
+    stats = load_stats(tag, fire(router_url, payloads, at),
+                       HTTP_POISSON["max_new_tokens"], card)
+    after = route_counts(router_url)
+    stats["placements"] = {k: after.get(k, 0) - before.get(k, 0)
+                           for k in after}
+    print(f"http[{tag}]: router placements {stats['placements']} [{card}]",
+          flush=True)
+    return stats
+
+
+def http_tokens_check(tag, results, reqs, base):
+    """Every response 200; the streams equal the engine-level baseline's."""
+    bad = [(r.request_id, s) for r, (s, *_) in zip(reqs, results) if s != 200]
+    if bad:
+        raise AssertionError(f"{tag}: non-200 responses {bad}: "
+                             f"{[b for s, b, *_ in results if s != 200][:1]}")
+    run = {"tokens": {r.request_id: b["tokens"]
+                      for r, (_, b, *_) in zip(reqs, results)}}
+    same, first = tokens_equal(run, base, reqs)
+    total = sum(len(t) for t in run["tokens"].values())
+    if same != base["generated_tokens"] or total != same:
+        raise AssertionError(f"{tag}: {same}/{total} tokens equal to the "
+                             f"engine-level run, first differences {first}")
+    return same
+
+
+def kernels_reached(tag, launches, wanted):
+    """The served path ran the hand-written kernels: each of ``wanted``
+    launched at least once."""
+    idle = [k for k in wanted if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"{tag}: kernels {idle} never launched: "
+                             f"{launches}")
+
+
+@contextlib.contextmanager
+def http_fleet(engines, decode_engines=()):
+    """Replicas (``ServeHTTPServer``) over ``engines`` and
+    ``decode_engines``, all on loopback, behind one ``RouterHTTPServer``
+    (the second list its decode pool). Yields (router, replicas); on exit
+    checks no engine loop died and stops everything."""
+    from triton_kubernetes_tpu_torch.serve import (RouterHTTPServer,
+                                                   ServeHTTPServer)
+
+    replicas = [ServeHTTPServer(e).start() for e in engines]
+    decoders = [ServeHTTPServer(e).start() for e in decode_engines]
+    router = RouterHTTPServer([s.url for s in replicas],
+                              decode_urls=[s.url for s in decoders] or None,
+                              health_interval_s=0.5).start()
+    try:
+        yield router, replicas + decoders
+        died = [s.loop_error for s in replicas + decoders if s.loop_error]
+        if died:
+            raise AssertionError(f"engine loops died: {died}")
+    finally:
+        router.stop()
+        for s in replicas + decoders:
+            s.stop()
+
+
+def start_entry_point(args, log):
+    """A ``python -m triton_kubernetes_tpu_torch.tools.<...>`` subprocess
+    and the URL of its first line (``... on http://host:port ...``)."""
+    import threading
+
+    with open(log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", *args],
+            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+            stderr=err, text=True)
+    line = []
+    reader = threading.Thread(target=lambda: line.append(
+        proc.stdout.readline()), daemon=True)
+    reader.start()
+    reader.join(HTTP_START_S)
+    if not line or " on http://" not in line[0]:
+        proc.kill()
+        raise AssertionError(f"{args[0]} did not start: "
+                             f"{line[:1]} {Path(log).read_text()[-2000:]}")
+    return proc, line[0].split(" on ")[1].split()[0]
+
+
+def http_phase(model, cfg, card, requests, runs):
+    """Serving through HTTP on the card (``serve/server.py``,
+    ``serve/router.py``, the two entry points), on the 12 requests of the
+    spec/quant runs, whose engine-level runs are the token reference: arms
+    A (``http_fleet_arm``), B (``http_disagg_arm``) and C
+    (``http_entry_point_arm``). Launch counters are zeroed before each arm;
+    kernels 4 and 5 (6 in B), the GEMM and the fused norm must have run."""
+    from triton_kubernetes_tpu_torch.serve import Request
+
+    reqs = list(requests) + repetitive_requests(cfg, Request)
+    t0 = time.perf_counter()
+    out = dict(A=http_fleet_arm(model, cfg, card, reqs, runs),
+               B=http_disagg_arm(model, cfg, card, reqs, runs))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["C"] = http_entry_point_arm(
+        cfg, card, [generate_payload(r) for r in reqs])
+    out["phase_s"] = time.perf_counter() - t0
+    out["gil"] = dict(
+        burst_tokens_per_s_one_replica=out["A"]["single_replica"][
+            "tokens_per_s"],
+        burst_tokens_per_s_two_in_one_process=out["A"]["burst"][
+            "tokens_per_s"],
+        burst_tokens_per_s_two_processes=out["C"]["burst"]["tokens_per_s"],
+        poisson_tokens_per_s_two_in_one_process=out["A"]["poisson"][
+            "tokens_per_s"],
+        poisson_tokens_per_s_two_processes=out["C"]["poisson"][
+            "tokens_per_s"])
+    out["card"] = card
+    print(json.dumps({"http": {k: out[k] for k in ("gil", "phase_s")}}),
+          flush=True)
+    print(f"http: the phase took {out['phase_s']:.1f} s [{card}]",
+          flush=True)
+    return out
+
+
+def reset_counts():
+    """Zero the kernels' launch counters and the metrics registry."""
+    from triton_kubernetes_tpu_torch.ops import paged_attention as pa
+    from triton_kubernetes_tpu_torch.utils import metrics
+
+    pa.reset_launch_counts()
+    reset_row_counts()
+    metrics.configure()
+
+
+def http_fleet_arm(model, cfg, card, reqs, runs):
+    """A: the 12 fired at once at one replica behind the router, then at
+    two replicas in this process sharing the model's weights, each with its
+    own 2,048-page bf16 pool (both from cold prefix caches; tokens = the
+    bf16 spec_k 0 run, 384/384 each time), then the Poisson open loop
+    through the two."""
+    payloads = [generate_payload(r) for r in reqs]
+    base = baseline_run(runs, "bf16", 0)
+    reset_counts()
+    with http_fleet([served_engine(model, cfg)]) as (router, _):
+        results = fire(router.url, payloads)
+        same = http_tokens_check("A, one replica", results, reqs, base)
+        single = load_stats("A: 12 at once, one replica", results, 32, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with http_fleet([served_engine(model, cfg),
+                     served_engine(model, cfg)]) as (router, _):
+        results = fire(router.url, payloads)
+        same += http_tokens_check("A, two replicas", results, reqs, base)
+        burst = load_stats("A: 12 at once, 2 replicas in one process",
+                           results, 32, card)
+        poisson = poisson_run("A: Poisson 2 req/s x 48, 2 replicas in one "
+                              "process", router.url, cfg, card)
+        launches = launch_counts()
+    kernels_reached("arm A", launches, SERVED_KERNELS)
+    print(f"http[A]: {same}/{2 * len(reqs) * 32} tokens equal to the "
+          f"engine-level bf16 spec_k=0 run; launches {launches} [{card}]",
+          flush=True)
+    return dict(tokens_equal=same, burst=burst, single_replica=single,
+                poisson=poisson, launches=launches)
+
+
+def http_disagg_arm(model, cfg, card, reqs, runs):
+    """B: a prefill and a decode replica, int8 pools, spec_k 3, behind a
+    router with a decode pool: every request goes /generate (handoff) ->
+    /migrate/out -> /migrate/in -> /await (tokens = the int8 spec_k 3
+    run); the transfer histogram from a /metrics scrape."""
+    reset_counts()
+    engines = [served_engine(model, cfg, "int8", SPEC_K) for _ in range(2)]
+    with http_fleet(engines[:1], engines[1:]) as (router, replicas):
+        results = fire(router.url, [generate_payload(r) for r in reqs])
+        same = http_tokens_check("B, disaggregated", results, reqs,
+                                 baseline_run(runs, "int8", SPEC_K))
+        handoffs = [b.get("decode_replica") for _, b, *_ in results]
+        if handoffs != ["d0"] * len(reqs):
+            raise AssertionError(f"B: decode replicas {handoffs}")
+        burst = load_stats("B: 12 at once, prefill -> decode, int8 pages, "
+                           f"spec_k={SPEC_K}", results, 32, card)
+        hist = http_metrics(replicas[0].url)[
+            "tk8s_serve_migration_transfer_seconds"]["series"][0]
+        launches = launch_counts()
+    kernels_reached("arm B", launches, SERVED_KERNELS + ["paged_verify"])
+    if hist["count"] != len(reqs):
+        raise AssertionError(f"B: {hist['count']} transfers observed")
+    out = dict(tokens_equal=same, burst=burst, launches=launches,
+               transfer_count=hist["count"],
+               transfer_seconds_sum=hist["sum"],
+               transfer_ms_mean=hist["sum"] / hist["count"] * 1e3)
+    print(f"http[B]: {same}/{len(reqs) * 32} tokens equal to the "
+          f"engine-level int8 spec_k={SPEC_K} run; "
+          f"tk8s_serve_migration_transfer_seconds count {hist['count']} sum "
+          f"{hist['sum']:.4f} s ({out['transfer_ms_mean']:.2f} ms a "
+          f"transfer); launches {launches} [{card}]", flush=True)
+    return out
+
+
+def http_entry_point_arm(cfg, card, payloads):
+    """C: two ``tools.serve`` subprocesses (``HTTP_SERVE_ARGS``: their own
+    8B init at seed 0, 2,048-page pools) and a ``tools.route`` over them:
+    /healthz, one greedy request at each replica (identical tokens: the
+    same seed), the 12 at once, the Poisson open loop, each replica's
+    kernel launches from /stats, then SIGTERM: exit 143 each, and every
+    ``--trace-jsonl`` closed (the goodput ledgers validate)."""
+    import signal
+
+    from triton_kubernetes_tpu_torch.utils.trace import \
+        validate_goodput_trace
+
+    t0 = time.perf_counter()
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        traces = [str(Path(tmp) / f"{n}.jsonl") for n in ("s0", "s1", "r")]
+        try:
+            urls = []
+            for i in range(2):
+                proc, url = start_entry_point(
+                    ["triton_kubernetes_tpu_torch.tools.serve",
+                     *HTTP_SERVE_ARGS, "--port", "0",
+                     "--trace-jsonl", traces[i]], Path(tmp) / f"s{i}.log")
+                procs.append(proc)
+                urls.append(url)
+            proc, rurl = start_entry_point(
+                ["triton_kubernetes_tpu_torch.tools.route", "--port", "0",
+                 "--trace-jsonl", traces[2]]
+                + [a for u in urls for a in ("--replica", u)],
+                Path(tmp) / "r.log")
+            procs.append(proc)
+            started = time.perf_counter() - t0
+            for u in urls + [rurl]:
+                status, body = http_call(u + "/healthz")
+                if status != 200 or not body.get("ok"):
+                    raise AssertionError(f"C: {u}/healthz {status} {body}")
+            greedy = [http_call(u + "/generate", payloads[0]) for u in urls]
+            if not (all(s == 200 for s, _ in greedy)
+                    and greedy[0][1]["tokens"] == greedy[1][1]["tokens"]
+                    and len(greedy[0][1]["tokens"]) == 32):
+                raise AssertionError(f"C: greedy requests differ: {greedy}")
+            burst = load_stats("C: 12 at once, 2 replica processes",
+                               fire(rurl, payloads), 32, card)
+            poisson = poisson_run("C: Poisson 2 req/s x 48, 2 replica "
+                                  "processes", rurl, cfg, card)
+            stats = [http_call(u + "/stats")[1] for u in urls]
+            launches = {k: sum(s["kernel_launches"][k] for s in stats)
+                        for k in stats[0]["kernel_launches"]}
+            kernels_reached("arm C", launches, SERVED_KERNELS)
+            for proc in procs[::-1]:
+                proc.send_signal(signal.SIGTERM)
+            codes = [proc.wait(60) for proc in procs]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(60)
+        if codes != [143, 143, 143]:
+            raise AssertionError(f"C: exit codes on SIGTERM {codes}")
+        problems = validate_goodput_trace(traces[:2])
+        problems += validate_goodput_trace(traces[2:])
+        if problems:
+            raise AssertionError(f"C: trace files after SIGTERM: "
+                                 f"{problems[:5]}")
+    print(f"http[C]: 3 processes listening after {started:.1f} s; greedy "
+          f"tokens identical on both replicas; launches {launches}; "
+          f"SIGTERM exit codes {codes}, trace files closed [{card}]",
+          flush=True)
+    return dict(start_s=started, burst=burst, poisson=poisson,
+                launches=launches, exit_codes=codes)
 
 
 def plain_w8a8_rows(x, qs, scales, out):
@@ -3824,6 +4282,14 @@ def main() -> int:
                              "and stop: the short first run after a change "
                              "to tracing or migration (prints no device "
                              "line)")
+    parser.add_argument("--http-only", action="store_true",
+                        help="build every kernel, run the six serve runs "
+                             "of the 12 requests on the 8B model, then the "
+                             "HTTP phase against them (an in-process fleet "
+                             "behind the router, disaggregated prefill -> "
+                             "decode, the serve and route entry points), "
+                             "and stop: the short first run after a change "
+                             "to the HTTP layer (prints no device line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on the "
@@ -3878,11 +4344,12 @@ def main() -> int:
                     "stack frame" in line or "registers" in line):
                 print(f"build: {kernel}: {fn}: {line.strip()}", flush=True)
 
-    if args.migration_only:
-        serve = migration_only(card)
+    if args.migration_only or args.http_only:
+        serve = migration_only(card, http_only=args.http_only)
         if args.out is not None:
             args.out.mkdir(parents=True, exist_ok=True)
-            (args.out / "chip_smoke_migration.json").write_text(json.dumps(
+            which = "http" if args.http_only else "migration"
+            (args.out / f"chip_smoke_{which}.json").write_text(json.dumps(
                 dict(card=card, device=name, **serve), indent=1))
         return 0
 
@@ -3981,6 +4448,18 @@ def main() -> int:
                     run["decode_steps"] + run["verify_steps"])
                     for run in mine)]
     count.update({k: [n, TRAIN_STEPS] for k, n in train_launches.items()})
+    # Launches on the HTTP arms, each counted from zero: the paged kernels
+    # on their arm's page kind (bf16 in A and C, int8 in B), the rest on
+    # every arm.
+    http = serve["http"]
+    arm_kind = {"A": "bf16", "B": "int8", "C": "bf16"}
+    for r in records:
+        base = r["name"].removesuffix("_int8").removesuffix("_fp8")
+        kind = r["name"][len(base) + 1:] or "bf16"
+        r["http_launches"] = sum(
+            http[arm]["launches"].get(base, 0)
+            for arm, k in arm_kind.items()
+            if base not in _kernels.PAGED_KERNELS or k == kind)
     for r in records:
         n, per = count[r["name"]]
         if not n:
@@ -3996,9 +4475,10 @@ def main() -> int:
             silu_probe=silu, kernels=records,
             serve=serve, train=train), indent=1))
     keys = ("name", "route", "source", "replaces", "variant", "launches",
-            "launches_per_unit", "launches_per", "max_abs_err", "ms",
-            "plain_ms", "plain_note", "bound_ms", "bound_by", "bound_share",
-            "achieved_tflops", "library_ms", "library_call")
+            "launches_per_unit", "launches_per", "http_launches",
+            "max_abs_err", "ms", "plain_ms", "plain_note", "bound_ms",
+            "bound_by", "bound_share", "achieved_tflops", "library_ms",
+            "library_call")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys}
                                   for r in records]}))
     print(json.dumps({"ok": True, "device": {

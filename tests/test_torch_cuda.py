@@ -33,7 +33,8 @@ model's verify rows against its decode rows and its spec-on tokens against
 spec-off, and a prefill window's full pages the same under two window
 widths (fault F2), bf16 and W8A8 int8; and KV-session migration between
 two small engines on the card (handoff and drain keep the tokens, a torn
-payload leaves the destination's pool unchanged).
+payload leaves the destination's pool unchanged), and two engines stepping
+on two threads of one process (each request keeps its tokens).
 """
 
 import pytest
@@ -1390,3 +1391,48 @@ def test_small_engine_handoff_and_drain_keep_the_tokens(device, kv, spec_k):
     done.update({d.request_id: d.tokens for d in src.run_until_idle()})
     done.update({d.request_id: d.tokens for d in dst.run_until_idle()})
     assert done == want
+
+
+def test_two_engine_threads_keep_their_tokens(device):
+    """Two engines stepping on two threads of one process, as two HTTP
+    replicas do, launch on the device's default stream in turns: each
+    request gets the tokens one engine alone gives it. The span walk's
+    workspace (bf16 queries, D 64, bs 16: the tensor-core walk) is held
+    until its launch is enqueued: freed before it, it went to the other
+    thread's tensors (fault F4 of ROADMAP.md)."""
+    import threading
+
+    from triton_kubernetes_tpu_torch.models import get_config, init_params
+    from triton_kubernetes_tpu_torch.serve import Request, ServeEngine
+
+    cfg = get_config("llama-test", dtype="bfloat16", embed_dim=256,
+                     num_heads=8, num_kv_heads=2, head_dim=64, mlp_dim=512,
+                     max_seq_len=1024)
+    assert _kernels.paged_variant(torch.bfloat16, torch.bfloat16, 16,
+                                  64) == "tensor_core"
+    model = init_params(cfg, seed=3, device=device)
+    gen = torch.Generator().manual_seed(0)
+    reqs = [Request(f"r{i}", torch.randint(0, cfg.vocab_size, (n,),
+                                           generator=gen).tolist(), 24)
+            for i, n in enumerate((300, 450, 600, 200, 500, 350, 250, 400))]
+    kw = dict(block_size=16, num_blocks=512, max_batch=4, max_model_len=1024,
+              prefill_chunk=64, prefix_cache=True, device=device)
+
+    def run(engine, mine, out):
+        for r in mine:
+            engine.submit(r)
+        out.update({d.request_id: d.tokens for d in engine.run_until_idle()})
+
+    want = {}
+    run(ServeEngine(model, cfg, **kw), reqs, want)
+    for _ in range(3):
+        got = [{}, {}]
+        threads = [threading.Thread(target=run, args=(
+            ServeEngine(model, cfg, **kw), reqs[i::2], got[i]))
+            for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        assert {**got[0], **got[1]} == want

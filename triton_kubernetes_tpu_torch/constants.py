@@ -7,8 +7,9 @@ serving quantization knobs; the port's engine serves every choice.
 
 from __future__ import annotations
 
-# The serving endpoint port.
+# The serving endpoint port, and the router's beside it.
 SERVE_PORT = 8000
+ROUTE_PORT = 8001
 
 KV_DTYPES = ("auto", "bf16", "int8", "fp8")
 WEIGHT_DTYPES = ("auto", "int8", "fp8")

@@ -312,7 +312,12 @@ def paged_prefill_chunk(model: llama.Llama,
     if with_quant_error and not cache.quantized:
         raise ValueError("with_quant_error only applies to quantized pools")
     impl = attention_impl if attention_impl is not None else config.attention
-    positions = offset + torch.arange(c, device=tokens.device)[None]
+    # A window's pad rows past the model's last position (a chunk wider
+    # than max_seq_len, whose table is padded to whole windows) rotate at
+    # the last one: the reference's gather clamps such indices, and those
+    # rows are masked out of every real one.
+    positions = (offset + torch.arange(c, device=tokens.device)[None]
+                 ).clamp_(max=config.max_seq_len - 1)
     w = c // bs
     window = block_table[offset // bs: offset // bs + w]
     exact = ([], [])

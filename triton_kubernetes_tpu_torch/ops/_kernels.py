@@ -29,6 +29,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, NamedTuple, Optional, Sequence, Tuple
 
@@ -49,6 +50,9 @@ KERNELS = ("paged_decode", "paged_verify", "paged_prefill", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv", "decode_gemm", "rms_norm",
            "quantize_rows")
 PAGED_KERNELS = ("paged_decode", "paged_verify", "paged_prefill")
+# What a serving engine launches: the paged kernels, the row-invariant
+# GEMM and norm, and W8A8's quantizer.
+SERVE_KERNELS = PAGED_KERNELS + ("decode_gemm", "rms_norm", "quantize_rows")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -276,6 +280,9 @@ def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
             else "cuda_core")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# Serving replicas in one process run their engine loops on threads of their
+# own: one builds and binds a library while the others wait for it.
+_load_lock = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -340,12 +347,16 @@ def library(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is not None:
         return lib
-    path = _library_path(name)
-    if not path.exists():
-        build([name])
-    lib = ctypes.CDLL(str(path))
-    bind(lib, name)
-    _loaded[name] = lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        path = _library_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        bind(lib, name)
+        _loaded[name] = lib
     return lib
 
 
@@ -471,12 +482,19 @@ def _scale_ptrs(k_scale: Optional[torch.Tensor],
 _span_counters: Dict[torch.device, torch.Tensor] = {}
 
 
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def _span_buffers(q: torch.Tensor, page_dtype: torch.dtype, b: int,
                   hkv: int, rows: int, d: int, bs: int, tw: int):
-    """(variant code, workspace pointer, counters pointer) of one decode or
-    verify launch. The span walk gets an f32 workspace for its spans'
-    partial (acc, m, l) of every row, [B, Hkv, spans, rows, D + 2], made
-    here with ``torch.empty`` (the kernel allocates nothing)."""
+    """(variant code, workspace, counters) of one decode or verify launch.
+    The span walk gets an f32 workspace for its spans' partial (acc, m, l)
+    of every row, [B, Hkv, spans, rows, D + 2], made here with
+    ``torch.empty`` (the kernel allocates nothing). The caller holds both
+    tensors until the launch is enqueued: freed before it, their memory
+    could go to another thread's tensor ahead of the launch (two serving
+    engines in one process)."""
     variant = paged_variant(q.dtype, page_dtype, bs, d)
     if variant != "tensor_core":
         return PAGED_VARIANTS[variant], None, None
@@ -488,7 +506,7 @@ def _span_buffers(q: torch.Tensor, page_dtype: torch.dtype, b: int,
         counters = torch.zeros(max(b * hkv, 1024), dtype=torch.int32,
                                device=q.device)
         _span_counters[q.device] = counters
-    return PAGED_VARIANTS[variant], ws.data_ptr(), counters.data_ptr()
+    return PAGED_VARIANTS[variant], ws, counters
 
 
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
@@ -519,8 +537,9 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     rc = _entry("paged_decode", q.dtype, k_pages.dtype)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         *_scale_ptrs(k_scale, v_scale),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws,
-        counters, b, hkv, hq // hkv, d, bs, tw, d ** -0.5, variant,
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        _ptr(ws), _ptr(counters), b, hkv, hq // hkv, d, bs, tw, d ** -0.5,
+        variant,
         torch.cuda.current_stream(q.device).cuda_stream)
     _check(rc, "paged_decode")
     return out
@@ -557,8 +576,9 @@ def paged_verify(q: torch.Tensor, k_pages: torch.Tensor,
     rc = _entry("paged_verify", q.dtype, k_pages.dtype)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         *_scale_ptrs(k_scale, v_scale),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws,
-        counters, b, s, hkv, hq // hkv, d, bs, tw, d ** -0.5, variant,
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        _ptr(ws), _ptr(counters), b, s, hkv, hq // hkv, d, bs, tw,
+        d ** -0.5, variant,
         torch.cuda.current_stream(q.device).cuda_stream)
     _check(rc, "paged_verify")
     return out
@@ -768,19 +788,19 @@ def decode_gemm(x: torch.Tensor, ws: Sequence[torch.Tensor],
         x.data_ptr(), *[w.data_ptr() for w in ws], *[None] * pad,
         *[y.data_ptr() for y in ys], *[None] * pad, *ns, *[0] * pad,
         len(ws), m, k, tile_n, splits,
-        None if workspace is None else workspace.data_ptr(), counters,
+        _ptr(workspace), _ptr(counters),
         torch.cuda.current_stream(x.device).cuda_stream)
     _check(rc, "decode_gemm")
 
 
 def _gemm_split(device: torch.device, ns: Sequence[int], m: int, k: int,
                 partial: torch.dtype):
-    """(tile width, S, workspace, counters pointer) of one decode_gemm
+    """(tile width, S, workspace, counters) of one decode_gemm
     launch of widths ``ns`` and M rows: :func:`gemm_tile` and
     :func:`gemm_splits` of the shape, and for S > 1 a fresh workspace
-    tensor of ``partial`` words (the caller holds it across the launch)
-    and the device's arrival counters, one a (column tile, row tile)
-    pair."""
+    tensor of ``partial`` words and the device's arrival counters, one a
+    (column tile, row tile) pair; the caller holds both until the launch
+    is enqueued, as :func:`_span_buffers`'s."""
     tile_n, splits = gemm_tile(sum(ns)), gemm_splits(sum(ns), k)
     if splits == 1:
         return tile_n, splits, None, None
@@ -791,7 +811,7 @@ def _gemm_split(device: torch.device, ns: Sequence[int], m: int, k: int,
     if buf is None or buf.numel() < tiles:
         buf = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=device)
         _gemm_counters[device] = buf
-    return tile_n, splits, workspace, buf.data_ptr()
+    return tile_n, splits, workspace, buf
 
 
 def decode_gemm_w8a8(xq: torch.Tensor, x_scale: torch.Tensor,
@@ -856,7 +876,7 @@ def decode_gemm_w8a8(xq: torch.Tensor, x_scale: torch.Tensor,
         *[None] * pad, *[sc.data_ptr() for sc in scales], *[None] * pad,
         *[y.data_ptr() for y in ys], *[None] * pad, *ns, *[0] * pad,
         len(ws), m, k, tile_n, splits,
-        None if workspace is None else workspace.data_ptr(), counters,
+        _ptr(workspace), _ptr(counters),
         torch.cuda.current_stream(xq.device).cuda_stream)
     _check(rc, "decode_gemm_w8a8")
 

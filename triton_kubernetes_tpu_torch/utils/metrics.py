@@ -1,7 +1,8 @@
 """Process-wide metrics: counters, gauges, histograms, Prometheus text --
 the port's copy of ``triton_kubernetes_tpu/utils/metrics.py``, holding the
 registry, its exposition, the ``tk8s_serve_*`` families the serving
-engine updates (its KV-session migration's among them), the
+engine and its HTTP front end update (its KV-session migration's among
+them), the router's ``tk8s_route_*``, the
 ``tk8s_train_*`` families of the training loop and the goodput ledger's
 ``tk8s_goodput_seconds_total``, so they behave exactly as the JAX package's
 do, and the Prometheus text parser (``parse_prometheus``,
@@ -69,6 +70,9 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...], Optional[Tuple[float, ...]]]
         "gauge", "Mean relative dequantization error of the most "
         "recent quantized prefill's scattered KV pages, by tensor "
         "(k/v); stays 0 when the pool is unquantized", ("tensor",), None),
+    "tk8s_serve_http_requests_total": (
+        "counter", "Serving HTTP requests by route, method, and "
+        "response code", ("route", "method", "code"), None),
     "tk8s_serve_prefix_hit_tokens_total": (
         "counter", "Prompt tokens served from the shared radix prefix "
         "cache instead of prefill compute — the O(users) -> O(1) "
@@ -115,6 +119,16 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...], Optional[Tuple[float, ...]]]
         "— loopback tests otherwise pretend the ship is free); "
         "exemplar-linked to the migrated session's trace id", (),
         (0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0)),
+    # ------------------------------------------------- serve/router.py
+    "tk8s_route_requests_total": (
+        "counter", "Requests the router placed, by replica and routing "
+        "reason (affine = consistent-hash owner, spill = owner over the "
+        "in-flight threshold, eject = owner unhealthy/ejected)",
+        ("replica", "reason"), None),
+    "tk8s_route_replica_healthy": (
+        "gauge", "Replica health as the router sees it (1 = in "
+        "rotation, 0 = ejected; /healthz probes re-admit on recovery)",
+        ("replica",), None),
     # ---------------------------------- train/pipeline.py (one process:
     # the reference's process_id label has one value here and is dropped)
     "tk8s_train_step_duration_seconds": (
