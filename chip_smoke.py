@@ -200,7 +200,32 @@ result:
    profiles one step (device time by kernel class); cross-checks one
    step's loss and gradients at B 1, S 2048, kernels vs the plain flash
    versions, beside the noise floor of two plain paths (dense vs plain
-   flash).
+   flash). Then kill and resume, each arm a ``python -m
+   triton_kubernetes_tpu_torch.train`` subprocess on the same full-width
+   cut at 2 layers (a checkpoint is 17.8 GB: f32 masters and both
+   moments; the script keeps its disk writes under 40 GB, which two
+   4-layer checkpoints, 46 GB, exceed), 12 steps synced every 2,
+   ``DevicePrefetch`` staging, JSON logs, a trace; the process's own
+   caching allocator emptied first and the disk for two checkpoints
+   checked free, else it raises with the bytes: A uninterrupted; B with
+   ``--checkpoint-every 4`` (one scheduled step before the kill) and
+   ``--emergency-dir``, sent SIGTERM once it logs step 6 -- it must
+   land an emergency save and exit 75; C ``--resume`` from the emergency
+   directory -- it must restore B's emergency step and finish at step 12,
+   writing nothing; D ``--resume`` over a copy (hard links) of both
+   directories in which the emergency step has one byte of one leaf
+   flipped -- it must quarantine that step as ``checksum-mismatch`` and
+   fall back to the scheduled step, writing nothing. B's losses before
+   the kill are held to A's, and C's after the restore to A's: bitwise
+   when B's are bitwise A's, else within twice B's difference. Each
+   arm's flash launches must be exactly 4, 2 and 2 a step, B's and C's
+   goodput ledgers must pass the partition check with ``checkpoint`` and
+   ``preempted_lost`` (B) and ``rollback_replay`` (C) booked, and the
+   arms must build no kernel. It prints each save's pinning,
+   device-to-host copy, write and sha256 seconds and GB/s, each
+   restore's verify, read and copy seconds, SIGTERM-to-exit, the prefetch
+   wait per window, the ledgers, and A's step times and MFU; the
+   checkpoints are deleted at the end.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. With ``--out DIR`` everything measured,
@@ -215,7 +240,9 @@ checks of phase 3 and stops
 every kernel, runs the six spec/quant serve runs of phase 4 and then its
 traced and migration runs, and stops (``DIR/chip_smoke_migration.json``);
 ``--http-only`` the same six runs and then the HTTP phase
-(``DIR/chip_smoke_http.json``).
+(``DIR/chip_smoke_http.json``); ``--train-only`` builds and checks the
+three flash kernels, then runs phase 5 with its kill and resume arms
+(``DIR/chip_smoke_train.json``, the arms' reports and traces beside it).
 """
 
 from __future__ import annotations
@@ -239,7 +266,9 @@ import torch
 # The training slice's cut of Llama-3-8B: full width, 4 of 32 layers (the
 # f32 masters, gradients and two Adam moments of 32 layers, 128 GB, do not
 # fit one 80 GB card), fused CE, flash attention, bf16 compute over f32
-# masters, full remat; batch 4 x 2048, 6 steps (2 warm-up).
+# masters, full remat; batch 4 x 2048, 6 steps (2 warm-up); batches made
+# inline, as before the trainer had DevicePrefetch (the kill-and-resume
+# arms below run with it).
 TRAIN_MODEL, TRAIN_DEVICE = "llama3-8b", "cuda"
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 4, 4, 2048, 6, 2
 TRAIN_ARGV = [
@@ -248,7 +277,10 @@ TRAIN_ARGV = [
     "--precision", "bf16", "--remat-policy", "full",
     "--steps", str(TRAIN_STEPS), "--batch-size", str(TRAIN_BATCH),
     "--seq-len", str(TRAIN_SEQ), "--learning-rate", "3e-4",
-    "--warmup-steps", "1", "--log-every", "1", "--device", TRAIN_DEVICE]
+    "--warmup-steps", "1", "--log-every", "1", "--device", TRAIN_DEVICE,
+    "--prefetch", "0"]
+# Flash launches a layer a training step (remat full: the forward twice).
+FLASH_PER_LAYER = {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
 FLASH_SHAPES = [(4, 2048), (1, 1000), (1, 1280), (1, 4096)]
 # Besides the Llama-3-8B heads (bf16, D 128: the tensor-core design), one
 # case per other branch of ``_kernels.flash_variant``, (B, S, Hq, Hkv, D):
@@ -4189,9 +4221,8 @@ def train_phase(card, out_dir: Path):
         raise AssertionError(f"trainer: {rep['steps']} steps, losses "
                              f"{rep['losses']}, grad norms "
                              f"{rep['grad_norms']}")
-    want = {"flash_fwd": 2 * TRAIN_LAYERS * TRAIN_STEPS,
-            "flash_bwd_dq": TRAIN_LAYERS * TRAIN_STEPS,
-            "flash_bwd_dkv": TRAIN_LAYERS * TRAIN_STEPS}
+    want = {k: n * TRAIN_LAYERS * TRAIN_STEPS
+            for k, n in FLASH_PER_LAYER.items()}
     if launches != want:
         raise AssertionError(f"flash launch counts {launches} != {want} "
                              f"(remat full: forward twice a layer)")
@@ -4259,6 +4290,349 @@ def train_phase(card, out_dir: Path):
                           cross_check=check)
 
 
+
+# Phase 5's kill and resume: subprocesses of the entry point, so SIGTERM
+# is a real signal. A runs DURABLE_STEPS uninterrupted; B checkpoints
+# every DURABLE_CKPT_EVERY and is sent SIGTERM once it logs step
+# DURABLE_KILL_AT (past its first checkpoint, step 4); C resumes from the
+# emergency directory; D resumes over a
+# copy of both directories whose newest step has one leaf corrupted.
+# Checkpoints go to DURABLE_DIR in the checkout, deleted at the end.
+#
+# The script keeps its disk writes under 40 GB (hosts that run it cap a
+# run's writes near 45 GiB), and a full-width checkpoint is 12.6 GB of
+# embedding and head (f32 masters and two moments) plus 2.6 GB a layer:
+# at phase 5's 4 layers B's two saves alone write 46 GB. So the arms cut
+# depth to DURABLE_LAYERS (17.8 GB a checkpoint, 35.7 GB for B's two)
+# and only B writes: C and D restore and save nothing (C is given no
+# scheduled directory, D stops at the step it restores).
+DURABLE_LAYERS = 2
+DURABLE_STEPS, DURABLE_SYNC, DURABLE_CKPT_EVERY, DURABLE_KILL_AT = 12, 2, 4, 6
+DURABLE_DIR = Path(__file__).resolve().parent / "_durable"
+DURABLE_ARM_TIMEOUT_S = 420
+DURABLE_CHECKPOINTS_ON_DISK = 2  # B's scheduled and emergency steps
+
+
+def durable_argv():
+    """The arms' command line: phase 5's cut at DURABLE_LAYERS,
+    DURABLE_STEPS steps synced every DURABLE_SYNC, the trainer's default
+    DevicePrefetch, JSON logs."""
+    head = TRAIN_ARGV[:TRAIN_ARGV.index("--steps")]
+    head[head.index(f"num_layers={TRAIN_LAYERS}")] = \
+        f"num_layers={DURABLE_LAYERS}"
+    return head + [
+        "--steps", str(DURABLE_STEPS), "--batch-size", str(TRAIN_BATCH),
+        "--seq-len", str(TRAIN_SEQ), "--learning-rate", "3e-4",
+        "--warmup-steps", "1", "--sync-every", str(DURABLE_SYNC),
+        "--log-every", str(DURABLE_SYNC), "--device", TRAIN_DEVICE,
+        "--json-logs"]
+
+
+def run_arm(name, extra, out_dir, kill_at=None):
+    """One trainer subprocess: (exit code, its JSON log records, report,
+    seconds from SIGTERM to exit or None). With ``kill_at`` it is sent
+    SIGTERM once it logs that step."""
+    import signal
+    import threading
+
+    report = out_dir / f"train_arm_{name}.json"
+    trace_path = out_dir / f"train_arm_{name}.jsonl"
+    trace_path.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "triton_kubernetes_tpu_torch.train",
+           *durable_argv(), "--report-json", str(report), "--trace-jsonl",
+           str(trace_path), *extra]
+    proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    watchdog = threading.Timer(DURABLE_ARM_TIMEOUT_S, proc.kill)
+    watchdog.start()
+    lines, t_kill = [], None
+    try:
+        for line in proc.stderr:
+            lines.append(line)
+            if kill_at is None or t_kill is not None \
+                    or not line.startswith("{"):
+                continue
+            rec = json.loads(line)
+            if rec.get("msg") == "train" and rec["step"] >= kill_at:
+                t_kill = time.perf_counter()
+                proc.send_signal(signal.SIGTERM)
+        rc = proc.wait()
+        t_exit = time.perf_counter()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    records = [json.loads(l) for l in lines if l.startswith("{")]
+    if not report.exists():
+        raise AssertionError(f"train arm {name}: exit {rc}, no report; "
+                             f"stderr tail:\n{''.join(lines[-30:])}")
+    return (rc, records, json.loads(report.read_text()), trace_path,
+            None if t_kill is None else t_exit - t_kill, lines)
+
+
+def arm_goodput(name, trace_path, must_book):
+    """The arm's goodput ledger: partition-checked, the categories it must
+    have booked present."""
+    from triton_kubernetes_tpu_torch.utils import trace
+
+    problems = trace.validate_goodput_trace([str(trace_path)])
+    (ledger,) = trace.summarize_goodput([str(trace_path)])["processes"]
+    secs = ledger["seconds"]
+    if problems or abs(sum(secs.values()) - ledger["wall_s"]) > 1e-6 or [
+            c for c in must_book if secs.get(c, 0.0) <= 0.0]:
+        raise AssertionError(f"train arm {name} goodput: {problems}, "
+                             f"{ledger} (must book {must_book})")
+    return ledger
+
+
+def corrupt_copy(src_dirs, copy_root, torn):
+    """A copy of each checkpoint directory in ``src_dirs`` under
+    ``copy_root`` (hard links: no bytes written), in which the step
+    directory ``torn`` (a path under one of ``src_dirs``) has its smallest
+    tensor leaf, a norm weight, replaced by a copy with one byte flipped;
+    returns the copies and that file's name."""
+    import os
+    import shutil
+
+    shutil.rmtree(copy_root, ignore_errors=True)
+    copies = []
+    for src in src_dirs:
+        dst = copy_root / src.name
+        copies.append(dst)
+        for d in src.iterdir():
+            if d.name.isdigit():
+                (dst / d.name).mkdir(parents=True)
+                for f in d.iterdir():
+                    os.link(f, dst / d.name / f.name)
+    step_dir = copy_root / torn.parent.name / torn.name
+    victim = min((f for f in step_dir.iterdir()
+                  if f.name != "manifest.json" and f.stat().st_size > 8),
+                 key=lambda f: (f.stat().st_size, f.name))
+    data = bytearray(victim.read_bytes())
+    data[len(data) // 2] ^= 0xFF
+    victim.unlink()  # breaks the link: the original stays intact
+    victim.write_bytes(bytes(data))
+    return copies, victim.name
+
+
+def durability_phase(card, out_dir: Path):
+    """Phase 5's kill and resume (module constants above): A, B, C and the
+    torn copy D, each a trainer subprocess on the 4-layer cut; checks
+    exit codes, the emergency save, the restore and the fallback, the
+    losses, every arm's flash launches and goodput ledger."""
+    import shutil
+
+    from triton_kubernetes_tpu_torch.models import get_config
+    from triton_kubernetes_tpu_torch.ops import _kernels
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train: durability: before the arms this process holds "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB of the card "
+          f"(memory_reserved)", flush=True)
+    cfg = get_config(TRAIN_MODEL, num_layers=DURABLE_LAYERS)
+    ckpt_bytes = 12 * cfg.num_params()  # f32 masters and two moments
+    DURABLE_DIR.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(DURABLE_DIR).free
+    need = DURABLE_CHECKPOINTS_ON_DISK * ckpt_bytes
+    print(f"train: durability: a checkpoint is {ckpt_bytes / 1e9:.2f} GB; "
+          f"the arms need {need / 1e9:.2f} GB of disk, "
+          f"{free / 1e9:.2f} GB free at {DURABLE_DIR}", flush=True)
+    if free < need:
+        raise AssertionError(
+            f"durability arms need {need} bytes of disk at {DURABLE_DIR} "
+            f"({DURABLE_CHECKPOINTS_ON_DISK} checkpoints of {ckpt_bytes}), "
+            f"{free} free")
+    built = sorted(p.name for p in _kernels.BUILD_DIR.glob("*.so"))
+    sched, emerg = DURABLE_DIR / "ckpt", DURABLE_DIR / "emergency"
+    ckpt_args = ["--checkpoint-dir", str(sched), "--checkpoint-every",
+                 str(DURABLE_CKPT_EVERY), "--emergency-dir", str(emerg)]
+    per_step = {k: n * DURABLE_LAYERS for k, n in FLASH_PER_LAYER.items()}
+
+    def check_launches(name, rep):
+        want = {k: n * rep["steps"] for k, n in per_step.items()}
+        if rep["kernel_launches"] != want or not rep["steps"]:
+            raise AssertionError(f"train arm {name}: flash launches "
+                                 f"{rep['kernel_launches']} != {want}")
+
+    arms = {}
+    try:
+        t0 = time.perf_counter()
+        rc, _, a, a_trace, _, lines = run_arm("A", [], out_dir)
+        if rc != 0 or a["steps"] != DURABLE_STEPS or not all(
+                np.isfinite(a["losses"])):
+            raise AssertionError(f"arm A: exit {rc}, report {a}\n"
+                                 + "".join(lines[-20:]))
+        check_launches("A", a)
+        arms["A"] = dict(report=a, seconds=time.perf_counter() - t0)
+
+        t0 = time.perf_counter()
+        rc, recs, b, b_trace, kill_s, lines = run_arm(
+            "B", ckpt_args, out_dir, kill_at=DURABLE_KILL_AT)
+        em = b["emergency_step"]
+        msgs = [r["msg"] for r in recs]
+        if (rc != 75 or b["outcome"] != "preempted" or em is None
+                or em < DURABLE_KILL_AT
+                or "emergency checkpoint saved" not in msgs):
+            raise AssertionError(f"arm B: exit {rc} (want 75), emergency "
+                                 f"step {em}, outcome {b['outcome']}\n"
+                                 + "".join(lines[-30:]))
+        manifest = json.loads((emerg / str(em) / "manifest.json")
+                              .read_text())
+        if manifest["kind"] != "emergency":
+            raise AssertionError(f"arm B: step {em} manifest {manifest}")
+        check_launches("B", b)
+        b_ledger = arm_goodput("B", b_trace, ("checkpoint",
+                                              "preempted_lost"))
+        arms["B"] = dict(report=b, seconds=time.perf_counter() - t0,
+                         sigterm_to_exit_s=kill_s, goodput=b_ledger)
+
+        t0 = time.perf_counter()
+        rc, recs, c, c_trace, _, lines = run_arm(
+            "C", ["--emergency-dir", str(emerg), "--resume"], out_dir)
+        resumed = [r for r in recs if r["msg"] == "resumed"]
+        if (rc != 0 or not resumed or resumed[0]["step"] != em
+                or resumed[0]["emergency"] is not True
+                or c["start_step"] != em
+                or c["steps"] != DURABLE_STEPS - em):
+            raise AssertionError(f"arm C: exit {rc}, resumed {resumed}, "
+                                 f"report start {c['start_step']} steps "
+                                 f"{c['steps']}\n" + "".join(lines[-30:]))
+        check_launches("C", c)
+        c_ledger = arm_goodput("C", c_trace, ("rollback_replay",))
+        arms["C"] = dict(report=c, seconds=time.perf_counter() - t0,
+                         goodput=c_ledger)
+
+        # Losses: B before the kill against A, then C after the restore.
+        ref = a["losses"]
+        b_diff = max(abs(x - y) / abs(y) for x, y in
+                     zip(b["losses"], ref))
+        c_diff = max(abs(x - y) / abs(y) for x, y in
+                     zip(c["losses"], ref[em:]))
+        bitwise = b["losses"] == ref[:len(b["losses"])]
+        if bitwise:
+            ok = c["losses"] == ref[em:]
+            bound = "bitwise"
+        else:
+            # A step that is not deterministic on the card: C may differ
+            # from A by what two runs of the same steps differ by (B vs A),
+            # grown by the steps after the restore, at most 2x.
+            bound = 2 * b_diff
+            ok = c_diff <= bound
+        if not ok:
+            raise AssertionError(
+                f"arm C's losses after the restore vs A's (bound {bound}): "
+                f"{c['losses']} vs {ref[em:]}; B vs A {b_diff}")
+
+        # D: the torn step. A copy of both directories whose newest step,
+        # B's emergency step, has one leaf flipped: the restore across the
+        # two must quarantine it and fall back to B's scheduled step (D
+        # asks for no more steps than that, so it saves nothing).
+        scheduled = max(int(p.name) for p in sched.iterdir()
+                        if p.name.isdigit())
+        (copy_sched, copy_emerg), victim = corrupt_copy(
+            [sched, emerg], DURABLE_DIR / "torn", emerg / str(em))
+        t0 = time.perf_counter()
+        rc, recs, d, _, _, lines = run_arm(
+            "D", ["--checkpoint-dir", str(copy_sched), "--emergency-dir",
+                  str(copy_emerg), "--resume", "--steps", str(scheduled)],
+            out_dir)
+        quarantined = sorted(p.name for p in
+                             (copy_emerg / "quarantine").iterdir())
+        resumed = [r for r in recs if r["msg"] == "resumed"]
+        if (rc != 0 or quarantined != [f"{em}-checksum-mismatch"]
+                or not resumed or resumed[0]["step"] != scheduled
+                or resumed[0]["emergency"] is not False):
+            raise AssertionError(f"arm D (torn step {em}, {victim}): "
+                                 f"exit {rc}, quarantined {quarantined}, "
+                                 f"resumed {resumed}\n"
+                                 + "".join(lines[-30:]))
+        arms["D"] = dict(report=d, seconds=time.perf_counter() - t0,
+                         torn_step=em, torn_file=victim,
+                         quarantined=quarantined, fell_back_to=scheduled)
+        rebuilt = sorted(p.name for p in _kernels.BUILD_DIR.glob("*.so"))
+        if rebuilt != built:
+            raise AssertionError(f"the arms rebuilt kernels: {built} -> "
+                                 f"{rebuilt}")
+    finally:
+        shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+
+    # What it prints: the saves and restores, split; the emergency
+    # latency; the prefetch wait; the ledgers; A's rate.
+    gb = 1e9
+    for arm in ("B", "C"):
+        for s in arms[arm]["report"]["checkpoints"]:
+            print(f"train: durability: arm {arm} {s['kind']} save of step "
+                  f"{s['step']}: {s['bytes'] / gb:.3f} GB; pin "
+                  f"{s['pin_s']:.3f} s, wait for the staging "
+                  f"{s['stage_wait_s']:.3f} s, device-to-host "
+                  f"{s['d2h_s']:.3f} s ({s['bytes'] / gb / max(s['d2h_s'], 1e-9):.2f} "
+                  f"GB/s), save() returned after {s['save_call_s']:.3f} s; "
+                  f"write {s['write_s']:.3f} s "
+                  f"({s['bytes'] / gb / max(s['write_s'], 1e-9):.3f} GB/s), "
+                  f"sha256 {s['sha256_s']:.3f} s of hashing threads "
+                  f"({s['bytes'] / gb / max(s['sha256_s'], 1e-9):.3f} GB/s), "
+                  f"writer {s['writer_s']:.3f} s, committed after "
+                  f"{s['commit_s']:.3f} s [{card}]", flush=True)
+    for arm in ("C", "D"):
+        r = arms[arm]["report"]["resumed"]
+        print(f"train: durability: arm {arm} restore of step {r['step']}: "
+              f"{r['bytes'] / gb:.3f} GB; verify (read + sha256) "
+              f"{r['verify_s']:.3f} s "
+              f"({r['bytes'] / gb / max(r['verify_s'], 1e-9):.3f} GB/s), "
+              f"read {r['read_s']:.3f} s "
+              f"({r['bytes'] / gb / max(r['read_s'], 1e-9):.3f} GB/s), "
+              f"waits on host-to-device copies {r['h2d_wait_s']:.3f} s, "
+              f"load {r['seconds']:.3f} s [{card}]", flush=True)
+    print(f"train: durability: arm B SIGTERM after step {DURABLE_KILL_AT} "
+          f"logged -> emergency save of step {em} -> exit 75 in "
+          f"{arms['B']['sigterm_to_exit_s']:.3f} s [{card}]", flush=True)
+    waits = a["prefetch_wait_seconds"]
+    per_window = [w1 - w0 for w0, w1 in zip([0.0] + waits[:-1], waits)]
+    print(f"train: durability: arm A DevicePrefetch wait per window (s) "
+          f"{[round(w, 6) for w in per_window]}", flush=True)
+    for arm in ("B", "C"):
+        ledger = arms[arm]["goodput"]
+        print(f"train: durability: arm {arm} goodput "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in
+                          sorted(ledger["seconds"].items()))
+              + f" = wall {ledger['wall_s']:.4f} s (partition check "
+              f"passed), useful share {ledger['useful_fraction']:.4f} "
+              f"[{card}]", flush=True)
+    step_s = [dt / n for n, dt in a["windows"]]
+    steady = step_s[1:]
+    tps = TRAIN_BATCH * TRAIN_SEQ * len(steady) / sum(steady)
+    a_mfu = (tps * a["flops_per_token"] / (a["peak_bf16_tflops"] * 1e12)
+             if a["peak_bf16_tflops"] else float("nan"))
+    print(f"train: durability: arm A ({DURABLE_LAYERS} layers, prefetch "
+          f"2, sync every {DURABLE_SYNC}) step ms by window "
+          f"{[round(x * 1e3, 3) for x in step_s]}; steady "
+          f"{statistics.median(steady) * 1e3:.3f} ms, {tps:.1f} tokens/s, "
+          f"MFU {a_mfu:.4f}; memory_stats temp "
+          f"{(a['memory'] or {}).get('temp_bytes', 0) / gb:.2f} GB, peak "
+          f"{(a['memory'] or {}).get('peak_bytes', 0) / gb:.2f} GB "
+          f"[{card}]", flush=True)
+    print(f"train: durability: losses, B (before the kill) vs A: "
+          f"{'bitwise' if bitwise else f'max rel diff {b_diff:.3g}'}; "
+          f"C (after the restore of step {em}) vs A: "
+          f"{'bitwise' if c['losses'] == ref[em:] else f'max rel diff {c_diff:.3g}'}"
+          f" (bound {bound}); D quarantined {arms['D']['quarantined']} "
+          f"(one byte of {arms['D']['torn_file']} flipped) and restored "
+          f"the scheduled step {arms['D']['fell_back_to']}; arms took "
+          + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in arms.items()),
+          flush=True)
+    return dict(checkpoint_bytes=ckpt_bytes, arms={
+        k: {kk: vv for kk, vv in v.items()} for k, v in arms.items()},
+        losses_bitwise=bitwise, b_vs_a_max_rel=b_diff,
+        c_vs_a_max_rel=c_diff, bound=bound,
+        prefetch_wait_per_window=per_window, a_steady_tokens_per_sec=tps,
+        a_mfu=a_mfu, launches={k: {kk: arms[k]["report"]["kernel_launches"]
+                                   [kk] for kk in per_step}
+                               for k in ("A", "B", "C")})
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", type=Path, default=None,
@@ -4282,6 +4656,13 @@ def main() -> int:
                              "and stop: the short first run after a change "
                              "to tracing or migration (prints no device "
                              "line)")
+    parser.add_argument("--train-only", action="store_true",
+                        help="build the three flash kernels, hold them "
+                             "against their plain versions, then run phase "
+                             "5 with its kill and resume arms, and stop: "
+                             "the short run after a change to the train "
+                             "path (DIR/chip_smoke_train.json with --out; "
+                             "prints no device line)")
     parser.add_argument("--http-only", action="store_true",
                         help="build every kernel, run the six serve runs "
                              "of the 12 requests on the 8B model, then the "
@@ -4321,7 +4702,7 @@ def main() -> int:
     # Phase 2: build, every source at once.
     t0 = time.perf_counter()
     built = (tuple(k for k in _kernels.KERNELS if k.startswith("flash_"))
-             if args.flash_only else
+             if args.flash_only or args.train_only else
              ("decode_gemm", "rms_norm", "quantize_rows") if args.gemm_only
              else _kernels.KERNELS)
     logs = _kernels.build(built)
@@ -4359,6 +4740,22 @@ def main() -> int:
         print(json.dumps({"kernels": flash_kernel_phase(device, flush,
                                                         peaks)}))
         return 0
+    if args.train_only:
+        records = flash_kernel_phase(device, flush, peaks)
+        del flush
+        with tempfile.TemporaryDirectory() as tmp:
+            out_dir = args.out if args.out is not None else Path(tmp)
+            out_dir.mkdir(parents=True, exist_ok=True)
+            train_launches, train = train_phase(card, out_dir)
+            durable = durability_phase(card, out_dir)
+        if args.out is not None:
+            (args.out / "chip_smoke_train.json").write_text(json.dumps(dict(
+                card=card, device=name, kernels=records, train=train,
+                durability=durable), indent=1, default=str))
+        print(json.dumps({"durability": {k: durable[k] for k in (
+            "losses_bitwise", "b_vs_a_max_rel", "c_vs_a_max_rel",
+            "launches")}}))
+        return 0
     probe = gemm_probe_phase(device)
     print(json.dumps({"probe": probe}), flush=True)
     silu = silu_probe_phase(device)
@@ -4390,6 +4787,7 @@ def main() -> int:
         out_dir = args.out if args.out is not None else Path(tmp)
         out_dir.mkdir(parents=True, exist_ok=True)
         train_launches, train = train_phase(card, out_dir)
+        train["durability"] = durable = durability_phase(card, out_dir)
     # Each kernel's launches on the serve runs of its page kind (the first
     # serve run and the bf16 runs for bf16 pages) or on training, and per
     # unit of that path: a decode tick, a verify tick, a prefill window, a
@@ -4461,6 +4859,11 @@ def main() -> int:
             for arm, k in arm_kind.items()
             if base not in _kernels.PAGED_KERNELS or k == kind)
     for r in records:
+        if r["name"] in durable["launches"]["A"]:
+            r["durability_launches"] = {
+                arm: launches[r["name"]]
+                for arm, launches in durable["launches"].items()}
+    for r in records:
         n, per = count[r["name"]]
         if not n:
             raise AssertionError(f"{r['name']}: launched no time on the "
@@ -4473,10 +4876,11 @@ def main() -> int:
         (args.out / "chip_smoke.json").write_text(json.dumps(dict(
             card=card, device=name, build_s=build_s, probe=probe,
             silu_probe=silu, kernels=records,
-            serve=serve, train=train), indent=1))
+            serve=serve, train=train), indent=1, default=str))
     keys = ("name", "route", "source", "replaces", "variant", "launches",
             "launches_per_unit", "launches_per", "http_launches",
-            "max_abs_err", "ms", "plain_ms", "plain_note", "bound_ms",
+            "durability_launches", "max_abs_err", "ms", "plain_ms",
+            "plain_note", "bound_ms",
             "bound_by", "bound_share", "achieved_tflops", "library_ms",
             "library_call")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys}

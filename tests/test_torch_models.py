@@ -175,7 +175,8 @@ def test_later_slices_raise_not_implemented():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every port module, and chip_smoke.py, import without loading
     jax, ml_dtypes or any module of the JAX package -- the training
-    package, the flash-attention op, the weight and KV quantizers, the
+    package (its checkpoints, resilient loop and data pipelines among
+    it), the flash-attention op, the weight and KV quantizers, the
     decode GEMM's wrappers, generation, the decode weight policy, the
     self-drafter, the migration wire format, the trace module and the two
     tools named first."""
@@ -183,6 +184,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import importlib, pkgutil, sys\n"
         "import triton_kubernetes_tpu_torch.train\n"
         "import triton_kubernetes_tpu_torch.train.__main__\n"
+        "import triton_kubernetes_tpu_torch.train.checkpoint\n"
+        "import triton_kubernetes_tpu_torch.train.resilience\n"
+        "import triton_kubernetes_tpu_torch.train.data\n"
+        "import triton_kubernetes_tpu_torch.utils.logging\n"
         "import triton_kubernetes_tpu_torch.ops.flash_attention\n"
         "import triton_kubernetes_tpu_torch.ops.fused_ce\n"
         "import triton_kubernetes_tpu_torch.ops.quantization\n"

@@ -10,11 +10,30 @@ fully masked row stays NaN-free.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 NEG_INF = -1e30
+
+
+def auto_attention(platform: Optional[str] = None) -> Optional[Callable]:
+    """Best full-sequence causal attention for the platform (default: the
+    card when one is present, else the CPU).
+
+    On CUDA returns the ported flash kernels (``ops/flash_attention.py``)
+    as an attention fn ``(q, k, v, positions) -> out`` -- the dense path
+    materializes [Sq, Sk] f32 logits, which dominates the step at training
+    lengths. Elsewhere returns None, i.e. the model's dense default, as
+    the reference returns its Pallas kernel only on the TPU. Only valid
+    for standard positions (0..S-1)."""
+    if platform is None:
+        platform = "cuda" if torch.cuda.is_available() else "cpu"
+    if platform in ("cuda", "gpu"):
+        from .flash_attention import flash_attention
+
+        return lambda q, k, v, positions: flash_attention(q, k, v)
+    return None
 
 
 def causal_attention(

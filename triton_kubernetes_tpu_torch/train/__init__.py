@@ -1,16 +1,30 @@
 """Training on one device -- the port of ``triton_kubernetes_tpu/train``:
 precision policies, the train step with the reference's optimizer, the
-step-pipelined loop, MFU accounting, synthetic data and the
-``python -m triton_kubernetes_tpu_torch.train`` entry point.
+step-pipelined loop and the resilient driver over it (preemption,
+loss-anomaly rollback), verified checkpoints, MFU accounting, the
+synthetic, packed and sharded data pipelines with device prefetch, and the
+``python -m triton_kubernetes_tpu_torch.train`` entry point. Exports what
+the reference's ``train/__init__.py`` exports, less the distributed
+slice's names (``CompileTimings``, ``aot_compile_step``,
+``enable_compile_cache``: the port has no ahead-of-time compile), plus the
+port's own.
 
-Checkpointing, resilience, the packed/sharded data pipelines, GPipe and
-multi-process training are later slices (ROADMAP.md).
+GPipe and multi-process training are a later slice (ROADMAP.md).
 """
 
-from .data import synthetic_batches
+from .checkpoint import (
+    CheckpointIntegrityError,
+    CheckpointManager,
+    MeshMismatchError,
+    ReshapeError,
+    mesh_spec_of,
+    peek_newest_manifest,
+    restore_newest_verified,
+)
+from .data import DevicePrefetch, PrefetchProducerError, synthetic_batches
 from .measure import ThroughputReport, measure_throughput, \
     measure_tokens_per_sec
-from .mfu import flops_per_token, mfu
+from .mfu import flops_per_token, mfu, tokens_per_sec_for_mfu
 from .pipeline import LoopReport, run_pipelined
 from .precision import (
     POLICIES,
@@ -22,8 +36,18 @@ from .precision import (
     quantize_for_decode,
     remat_policy_of,
 )
+from .resilience import (
+    EXIT_RESUME,
+    AnomalyAbortedError,
+    LossAnomalyGuard,
+    PreemptionGuard,
+    ResilienceReport,
+    negotiate_mesh_config,
+    run_resilient,
+)
 from .trainer import (
     AdamWState,
+    MemoryStats,
     Optimizer,
     TrainState,
     init_state,
@@ -31,18 +55,38 @@ from .trainer import (
     make_eval_step,
     make_optimizer,
     make_train_step,
+    memory_stats,
     state_for,
 )
 
 __all__ = [
-    "synthetic_batches",
-    "ThroughputReport",
-    "measure_throughput",
-    "measure_tokens_per_sec",
     "flops_per_token",
     "mfu",
+    "tokens_per_sec_for_mfu",
+    "TrainState",
+    "make_optimizer",
+    "make_train_step",
+    "init_state",
+    "CheckpointManager",
+    "CheckpointIntegrityError",
+    "MeshMismatchError",
+    "ReshapeError",
+    "mesh_spec_of",
+    "peek_newest_manifest",
+    "negotiate_mesh_config",
+    "restore_newest_verified",
+    "DevicePrefetch",
+    "PrefetchProducerError",
     "LoopReport",
     "run_pipelined",
+    "EXIT_RESUME",
+    "AnomalyAbortedError",
+    "LossAnomalyGuard",
+    "PreemptionGuard",
+    "ResilienceReport",
+    "run_resilient",
+    "MemoryStats",
+    "memory_stats",
     "POLICIES",
     "PrecisionPolicy",
     "apply_policy",
@@ -50,13 +94,13 @@ __all__ = [
     "grads_all_finite",
     "policy_of",
     "remat_policy_of",
+    "synthetic_batches",
+    "ThroughputReport",
+    "measure_throughput",
+    "measure_tokens_per_sec",
     "AdamWState",
     "Optimizer",
-    "TrainState",
-    "init_state",
     "loss_fn",
     "make_eval_step",
-    "make_optimizer",
-    "make_train_step",
     "state_for",
 ]

@@ -3,32 +3,46 @@
 The single-process path of ``python -m triton_kubernetes_tpu.train``
 (``train/__main__.py:main`` in the JAX package): build the model config
 (``--model`` plus ``--model-opt K=V`` overrides, ``--precision``,
-``--remat-policy``), initialise f32 masters from a seed, and train on the
-synthetic Markov data through the step-pipelined loop, logging loss,
-tokens/s and MFU at every sync window. It writes no checkpoint. Runs on the
-card unless ``--device cpu`` is given (the plain versions of the kernels
-then run instead, for rehearsals at small sizes).
+``--remat-policy``), initialise f32 masters from a seed, and train through
+the resilient step-pipelined loop (``train/resilience.py``), logging loss,
+tokens/s and MFU at every sync window. Data comes from the sharded token
+pipeline when ``--data-dir`` is given (the native library when built,
+else the Python path), else from the synthetic Markov generator, staged
+onto the device ahead of the step by ``DevicePrefetch`` (``--prefetch``).
+Runs on the card unless ``--device cpu`` is given (the plain versions of
+the kernels then run instead, for rehearsals at small sizes).
+
+The loop is the reference's resilient one: SIGTERM (the preemption
+warning) syncs the window, writes a synchronous emergency checkpoint and
+exits with ``EXIT_RESUME`` (75) so a restart policy resumes instead of
+failing; ``--resume`` restores the newest verified step across
+``--checkpoint-dir`` and ``--emergency-dir`` (a torn step is quarantined
+and the restore falls back) and replays the data stream from that step;
+``--anomaly-factor`` arms a loss guard that rolls back to the last good
+checkpoint instead of training through a NaN, exiting ``EXIT_ANOMALY``
+(4) when ``--max-rollbacks`` runs out. Bad flags, and a checkpoint whose
+recorded mesh one card cannot hold under ``--elastic``, exit
+``EXIT_CONFIG`` (2).
 
 ``--trace-jsonl PATH`` writes ``train.*`` spans and the goodput ledger (the
 train categories partitioning the run's wall window) as JSON lines, as the
-reference does; merge them with ``python -m
-triton_kubernetes_tpu_torch.tools.trace merge`` and report them with
-``python -m triton_kubernetes_tpu_torch.tools.goodput report``. One
-difference: the reference compiles its step ahead of time and books that
-as ``compile`` with a ``train.compile`` span (lower_s/compile_s). The port
-has no ahead-of-time compile -- its kernels build at their first launch --
-so its first step is booked as ``compile`` (through the loop's
-``goodput_step_category``) and the ``train.compile`` span covers that
-step's dispatch (a ``first_step_s`` field); the steps after it are
-``step``.
-
-Distributed training, checkpoints and resilience (and their flags), the
-packed/sharded data pipelines and the profiler flag are later slices.
+reference does: ``checkpoint`` across every save, ``rollback_replay``
+across a restore and the steps it replays, ``preempted_lost`` from the
+warning to exit, ``reshard`` for an elastic restore that changed shape.
+One difference: the reference compiles its step ahead of time and books
+that as ``compile`` with a ``train.compile`` span (lower_s/compile_s). The
+port has no ahead-of-time compile -- its kernels build at their first
+launch (into ``triton_kubernetes_tpu_torch/_build/``, which is what
+``--compile-cache-dir`` would otherwise point at) -- so its first step is
+booked as ``compile``, the ``train.compile`` span covers it (a
+``first_step_s`` field), and on the card that step is also the one
+``memory_stats`` measures.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -36,6 +50,8 @@ import time
 from typing import Any, Optional
 
 import torch
+
+from ..constants import EXIT_ANOMALY, EXIT_CONFIG
 
 
 def parse_scalar(s: str) -> Any:
@@ -66,13 +82,44 @@ def _build_parser() -> argparse.ArgumentParser:
                    metavar="K=V",
                    help="ModelConfig override, repeatable (e.g. "
                         "--model-opt num_layers=4 --model-opt "
-                        "fused_ce=true)")
+                        "fused_ce=true); values coerce like YAML scalars")
     p.add_argument("--steps", type=int, default=100)
-    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--batch-size", type=int, default=0,
+                   help="global batch (0 = the batch the newest "
+                        "checkpoint recorded under --elastic, else 4: "
+                        "4 per data*fsdp shard, one shard on one card)")
     p.add_argument("--seq-len", type=int, default=0,
                    help="0 = the model's max_seq_len")
     p.add_argument("--learning-rate", type=float, default=3e-4)
     p.add_argument("--warmup-steps", type=int, default=100)
+    p.add_argument("--data-dir", default="",
+                   help="dir of *.bin token shards; empty = synthetic data")
+    p.add_argument("--checkpoint-dir", default="")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="steps between saves (0 = only at the end)")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--elastic", action="store_true",
+                   help="negotiate the mesh shape from the newest "
+                        "checkpoint manifest (schema v2 records the saved "
+                        "mesh) instead of requiring the flags to match "
+                        "it; on one card any recorded ICI x stage block "
+                        "above 1 is a config error (exit 2); requires "
+                        "--resume to have any effect")
+    p.add_argument("--emergency-dir", default="",
+                   help="directory for preemption emergency checkpoints "
+                        "(default: the checkpoint dir); --resume considers "
+                        "both and restores the newest verified step")
+    p.add_argument("--anomaly-factor", type=float, default=0.0,
+                   help="loss-anomaly guard: roll back to the last good "
+                        "checkpoint when a synced loss exceeds this factor "
+                        "times the running median (NaN/Inf always trip); "
+                        "0 disables the guard")
+    p.add_argument("--max-rollbacks", type=int, default=3,
+                   help="abort (exit 4) after this many consecutive "
+                        "anomaly rollbacks without a clean window")
+    p.add_argument("--skip-anomalous-window", action="store_true",
+                   help="on anomaly rollback, resume the data stream after "
+                        "the offending window instead of replaying it")
     p.add_argument("--precision", choices=["auto", "f32", "bf16"],
                    default="auto",
                    help="precision policy (train/precision.py): f32 "
@@ -83,27 +130,63 @@ def _build_parser() -> argparse.ArgumentParser:
                    default="",
                    help="rematerialization of the transformer block; "
                         "default: the model config's policy")
+    p.add_argument("--profile-dir", default="",
+                   help="write a torch.profiler trace (Chrome JSON, "
+                        "train_trace.json) of one steady sync window -- "
+                        "the second; the first when the run has one -- "
+                        "into this directory")
+    p.add_argument("--sync-every", type=int, default=0,
+                   help="steps between device->host metric syncs; also "
+                        "the in-flight bound of the pipelined loop "
+                        "(0 = --log-every)")
+    p.add_argument("--prefetch", type=int, default=2,
+                   help="device-prefetch buffer depth (0 disables the "
+                        "background producer and the staged host->device "
+                        "copies)")
+    p.add_argument("--compile-cache-dir", default="",
+                   help="accepted for the reference's command line; the "
+                        "port has no ahead-of-time compile to cache (its "
+                        "kernels build once, at their first launch, into "
+                        "triton_kubernetes_tpu_torch/_build/, which later "
+                        "runs reuse)")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without a card) or cpu")
     p.add_argument("--log-every", type=int, default=10,
                    help="steps between logs, which are the loop's "
-                        "device->host syncs")
+                        "device->host syncs unless --sync-every is set")
+    p.add_argument("--json-logs", action="store_true",
+                   help="log one JSON object a line (ts, level, msg, "
+                        "fields) on standard error")
+    p.add_argument("--device-ms-per-row", type=float, default=0.0,
+                   help="deterministic per-step device-time floor: this "
+                        "many milliseconds per batch row, slept off "
+                        "(remainder only -- real compute overlaps it) "
+                        "before each dispatch; 0 = off")
     p.add_argument("--report-json", default="",
                    help="write a run report (per-step losses and grad "
-                        "norms, window times, tokens/s, MFU, peak memory) "
-                        "to this path")
+                        "norms, window times, tokens/s, MFU, peak memory, "
+                        "checkpoint and restore times, the preemption "
+                        "outcome, kernel launches) to this path")
     p.add_argument("--trace-jsonl", default="",
                    help="append train.* span events and the goodput "
                         "ledger (chip-time categories partitioning the "
                         "run's wall window) as JSON lines to this path; "
                         "merge with `python -m "
                         "triton_kubernetes_tpu_torch.tools.trace merge`")
+    p.add_argument("--dry-run", action="store_true",
+                   help="build everything, run one step, exit")
     return p
 
 
-def _log(msg: str, **fields: Any) -> None:
-    print(" ".join([f"[train] {msg}"] + [f"{k}={v}" for k, v in
-                                          fields.items()]), flush=True)
+def _batches(args, config, batch_size: int, seq_len: int):
+    if args.data_dir:
+        from .data import ShardedTokenPipeline
+
+        return ShardedTokenPipeline(
+            args.data_dir, batch_size, seq_len).batches()
+    from .data import synthetic_batches
+
+    return synthetic_batches(config.vocab_size, batch_size, seq_len)
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -111,12 +194,21 @@ def main(argv: Optional[list] = None) -> int:
 
     from ..models import get_config
     from ..models.llama import resolve_device
-    from .data import synthetic_batches
+    from ..ops import flash_attention as fa
+    from ..utils.logging import Logger
+    from .checkpoint import (
+        CheckpointManager, HostStaging, ReshapeError, mesh_spec_of,
+        peek_newest_manifest, restore_newest_verified)
+    from .data import DevicePrefetch
     from .mfu import flops_per_token, mfu, peak_bf16_tflops
-    from .pipeline import run_pipelined
     from .precision import apply_policy, policy_of, remat_policy_of
-    from .trainer import init_state, make_optimizer, make_train_step
+    from .resilience import (
+        EXIT_RESUME, AnomalyAbortedError, LossAnomalyGuard, PreemptionGuard,
+        negotiate_mesh_config, run_resilient)
+    from .trainer import (
+        init_state, make_optimizer, make_train_step, memory_stats)
 
+    log = Logger(json_mode=args.json_logs)
     overrides = {}
     for item in args.model_opt:
         key, sep, value = item.partition("=")
@@ -124,20 +216,76 @@ def main(argv: Optional[list] = None) -> int:
             raise SystemExit(f"--model-opt expects K=V, got {item!r}")
         overrides[key] = parse_scalar(value)
     if args.remat_policy:
+        # The dedicated flag wins outright: it both selects the policy and
+        # arms or disarms remat.
         overrides["remat_policy"] = args.remat_policy
         overrides["remat"] = args.remat_policy != "none"
     config = apply_policy(get_config(args.model, **overrides),
                           args.precision)
     device = resolve_device(args.device)
     seq_len = args.seq_len or config.max_seq_len
-    batch_size = args.batch_size
-    _log("precision policy", policy=policy_of(config),
-         compute_dtype=config.dtype, param_dtype=config.param_dtype,
-         remat=remat_policy_of(config), attention=config.attention,
-         fused_ce=config.fused_ce)
-    _log("trainer starting", model=config.name, layers=config.num_layers,
-         params=config.num_params(), device=device, batch=batch_size,
-         seq_len=seq_len, steps=args.steps)
+    bad = [f"{flag} must be >= 0, got {value}" for flag, value in (
+        ("--steps", args.steps), ("--batch-size", args.batch_size),
+        ("--checkpoint-every", args.checkpoint_every),
+        ("--sync-every", args.sync_every), ("--prefetch", args.prefetch),
+        ("--max-rollbacks", args.max_rollbacks),
+        ("--device-ms-per-row", args.device_ms_per_row)) if value < 0]
+    if seq_len > config.max_seq_len:
+        bad.append(f"--seq-len {seq_len} exceeds the model's max_seq_len "
+                   f"{config.max_seq_len}")
+    if bad:
+        log.log("error", "bad flags", errors="; ".join(bad))
+        return EXIT_CONFIG
+    log.log("info", "precision policy", policy=policy_of(config),
+            compute_dtype=config.dtype, param_dtype=config.param_dtype,
+            remat=remat_policy_of(config), attention=config.attention,
+            fused_ce=config.fused_ce)
+    if args.compile_cache_dir:
+        log.log("info", "persistent compile cache",
+                dir="(none in the port: kernels build into "
+                    "triton_kubernetes_tpu_torch/_build/)")
+
+    # --elastic: the shape is negotiated from the newest manifest's
+    # recorded mesh, not taken from the flags. One card holds data=1
+    # with every other axis 1; anything else is a typed config error.
+    elastic_reshard = None
+    elastic_batch = 0
+    if args.elastic and args.resume and (
+            args.checkpoint_dir or args.emergency_dir):
+        peeked = peek_newest_manifest(
+            args.checkpoint_dir or None, args.emergency_dir or None)
+        saved_mesh = peeked[1].get("mesh") if peeked else None
+        if saved_mesh is None:
+            log.log("warn", "--elastic: no recorded mesh to negotiate "
+                    "from (no checkpoint yet, or a format-1 manifest); "
+                    "using the flag-derived shape")
+        else:
+            try:
+                negotiated = negotiate_mesh_config(
+                    saved_mesh, n_processes=1, n_devices=1)
+            except ReshapeError as e:
+                log.log("error", "elastic shape negotiation failed",
+                        error=str(e))
+                return EXIT_CONFIG
+            elastic_batch = int(saved_mesh.get("global_batch") or 0)
+            saved_shape = dict(saved_mesh.get("axes") or {})
+            reshaped = (int(saved_mesh.get("n_devices") or 0) != 1
+                        or int(saved_mesh.get("n_processes") or 0) != 1)
+            if reshaped:
+                elastic_reshard = {
+                    "step": int(peeked[0]), "from_axes": saved_shape,
+                    "from_devices": int(saved_mesh.get("n_devices") or 0),
+                    "from_processes": int(
+                        saved_mesh.get("n_processes") or 0),
+                    "to_devices": 1, "to_processes": 1}
+            log.log("info", "elastic mesh negotiated",
+                    saved_axes=saved_shape, negotiated=repr(negotiated),
+                    reshaped=reshaped, step=int(peeked[0]))
+    batch_size = args.batch_size or elastic_batch or 4
+    log.log("info", "trainer starting", model=config.name,
+            layers=config.num_layers, params=config.num_params(),
+            device=str(device), batch=batch_size, seq_len=seq_len,
+            steps=args.steps)
 
     # The training flight recorder: a clock-anchored trace file and the
     # goodput ledger over it (flush_each: a killed run leaves its booked
@@ -150,7 +298,7 @@ def main(argv: Optional[list] = None) -> int:
                              clock=time.perf_counter)
         goodput = GoodputRecorder("train", clock=time.perf_counter,
                                   writer=tracer, flush_each=True)
-        _log("trace jsonl", path=args.trace_jsonl)
+        log.log("info", "trace jsonl", path=args.trace_jsonl)
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -162,88 +310,332 @@ def main(argv: Optional[list] = None) -> int:
     step_fn = make_train_step(config, opt)
     init_s = time.perf_counter() - t0
 
+    # Every save records the run's shape (manifest v2): one card, every
+    # axis 1, and the global batch the data stream is cut for. The two
+    # managers share one pinned staging, so the process pins one
+    # checkpoint's bytes at most.
+    live_spec = mesh_spec_of(None, n_processes=1, global_batch=batch_size)
+    staging = HostStaging()
+    ckpt = em_ckpt = None
+    if args.checkpoint_dir:
+        ckpt = CheckpointManager(args.checkpoint_dir, mesh_spec=live_spec,
+                                 staging=staging)
+    if args.emergency_dir and (
+            ckpt is None
+            or os.path.abspath(args.emergency_dir) != ckpt.directory):
+        em_ckpt = CheckpointManager(args.emergency_dir, mesh_spec=live_spec,
+                                    staging=staging)
+    start_is_checkpointed = False
+    resumed = None
+    if args.resume and (ckpt is not None or em_ckpt is not None):
+        # A resume restore is recovery work: booked rollback_replay, or
+        # reshard when --elastic changed the shape.
+        restore_cat = ("reshard" if elastic_reshard is not None
+                       else "rollback_replay")
+        t_restore = time.perf_counter()
+        if goodput is not None:
+            goodput.transition(restore_cat)
+        try:
+            state, best, best_step = restore_newest_verified(
+                state, ckpt, em_ckpt)
+        except FileNotFoundError:
+            pass  # nothing saved yet: a fresh start under --resume is fine
+        else:
+            start_is_checkpointed = best is ckpt
+            resumed = dict(best.restore_stats[-1], source=best.directory,
+                           emergency=best is em_ckpt)
+            if elastic_reshard is not None:
+                elastic_reshard["seconds"] = round(
+                    time.perf_counter() - t_restore, 6)
+                if tracer is not None:
+                    tracer.event("train.reshard", goodput.clock(),
+                                 step=int(state.step), **{
+                                     k: v for k, v in elastic_reshard.items()
+                                     if k not in ("from_axes", "step")})
+            if tracer is not None:
+                tracer.event("train.restore", goodput.clock(),
+                             step=int(state.step), rollback=False)
+            log.log("info", "resumed", step=int(state.step),
+                    source=best.directory, emergency=best is em_ckpt,
+                    seconds=round(time.perf_counter() - t_restore, 3))
+        if goodput is not None:
+            goodput.transition("idle")
+
     fpt = flops_per_token(config, seq_len)
     device_name = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu")
     peak = peak_bf16_tflops(device_name)  # 0 off the card: no MFU then
     tokens_per_step = batch_size * seq_len
-    sync_every = max(args.log_every, 1)
+    start_step = int(state.step)
+    max_steps = max(args.steps - start_step, 0)
+    if args.dry_run:
+        max_steps = min(max_steps, 1)
+    target_step = start_step + max_steps
+    sync_every = 1 if args.dry_run else \
+        max(args.sync_every or args.log_every, 1)
+    step_floor = args.device_ms_per_row * batch_size / 1e3
 
-    def on_sync(step, cur_state, window_losses, window_dt):
-        tps = tokens_per_step * len(window_losses) / max(window_dt, 1e-9)
-        fields = dict(step=step, loss=round(window_losses[-1], 4),
+    # The resilient driver rebuilds the stream at a rolled-back or resumed
+    # step by deterministic replay: same source, same seed, skip to the
+    # step index.
+    live = {"pf": None}
+
+    def make_batches(start: int):
+        gen = _batches(args, config, batch_size, seq_len)
+        if start:
+            log.log("info", "skipping consumed batches", count=start)
+            for _ in range(start):
+                next(gen)
+        host = ({"tokens": b["tokens"]} for b in gen)
+        if args.prefetch > 0:
+            pf = DevicePrefetch(host, device=device,
+                                buffer_size=args.prefetch)
+            live["pf"] = pf
+            return pf, pf
+        live["pf"] = None
+        return host, None
+
+    # The first step builds and warms the kernels: it is booked compile,
+    # and on the card it is the step memory_stats measures.
+    first = {"pending": True, "memory": None}
+    window_metrics: list = []
+
+    def loop_step(cur_state, batch):
+        if not first["pending"]:
+            out = step_fn(cur_state, batch)
+            window_metrics.append(out[1])
+            return out
+        first["pending"] = False
+        prev = goodput.state if goodput is not None else None
+        t1 = time.perf_counter()
+        if goodput is not None:
+            goodput.transition("compile", t1)
+        mem, cur_state, metrics = memory_stats(step_fn, cur_state, batch)
+        t2 = time.perf_counter()
+        if goodput is not None:
+            tracer.event("train.compile", t1, t2 - t1,
+                         first_step_s=round(t2 - t1, 6))
+            goodput.transition(prev, t2)
+        fields = {}
+        if mem is not None:
+            first["memory"] = dict(dataclasses.asdict(mem),
+                                   peak_bytes=mem.peak_bytes)
+            fields = dict(temp_mib=round(mem.temp_bytes / 2**20, 1),
+                          peak_mib=round(mem.peak_bytes / 2**20, 1))
+        log.log("info", "train step compiled",
+                first_step_s=round(t2 - t1, 3), **fields)
+        window_metrics.append(metrics)
+        return cur_state, metrics
+
+    sync_windows: list = []
+    grad_norms: dict = {}
+    last_loss = None  # None until the first sync: never log a fake NaN
+    profiler = {"prof": None, "done": False}
+
+    def start_profile():
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        profiler["prof"] = profile(activities=acts)
+        profiler["prof"].__enter__()
+        log.log("info", "profiler tracing", dir=args.profile_dir)
+
+    def stop_profile():
+        prof, profiler["prof"] = profiler["prof"], None
+        if prof is None:
+            return
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        prof.__exit__(None, None, None)
+        profiler["done"] = True
+        os.makedirs(args.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(args.profile_dir, "train_trace.json"))
+        log.log("info", "profiler trace written", dir=args.profile_dir)
+
+    def on_sync(gstep, cur_state, window_losses, window_dt):
+        nonlocal last_loss
+        n = len(window_losses)
+        # The window's grad norms: the loop's sync already drained these
+        # steps, so this small transfer does not wait on the card.
+        norms = torch.stack([torch.as_tensor(m["grad_norm"]).float()
+                             for m in window_metrics[-n:]]).tolist()
+        window_metrics.clear()
+        for i, g in enumerate(norms):
+            grad_norms[gstep - n + 1 + i] = g
+        wait = live["pf"].wait_seconds if live["pf"] is not None else None
+        sync_windows.append((n, window_dt, wait))
+        last_loss = window_losses[-1]
+        tps = tokens_per_step * n / max(window_dt, 1e-9)
+        fields = dict(step=gstep, loss=round(last_loss, 4),
                       tokens_per_sec=round(tps, 1),
                       tflops=round(tps * fpt / 1e12, 2))
         if peak:
             fields["mfu"] = round(mfu(tps, config, seq_len, peak), 4)
-        _log("train", **fields)
+        if wait is not None:
+            fields["prefetch_wait_s"] = round(wait, 4)
+        log.log("info", "train", **fields)
+        if args.profile_dir and not profiler["done"]:
+            if profiler["prof"] is not None:
+                stop_profile()
+            elif gstep < target_step:
+                start_profile()  # the next window: the first steady one
 
-    batches = synthetic_batches(config.vocab_size, batch_size, seq_len)
-    loop_step, step_category = step_fn, None
-    if goodput is not None:
-        first = [True]
+    def on_checkpoint(gstep, kind):
+        msg = ("emergency checkpoint saved" if kind == "emergency"
+               else "checkpoint saved")
+        log.log("info" if kind != "emergency" else "warn", msg, step=gstep)
 
-        def loop_step(cur_state, batch):
-            out = step_fn(cur_state, batch)
-            if first[0]:
-                # The first step builds the kernels: its span is the
-                # compile segment the loop opened for it.
-                first[0] = False
-                t1 = goodput.clock()
-                tracer.event("train.compile", goodput.state_since,
-                             t1 - goodput.state_since,
-                             first_step_s=round(t1 - goodput.state_since, 6))
-            return out
-
-        def step_category(n):
-            return "compile" if n == 1 else "step"
+    guard = (LossAnomalyGuard(factor=args.anomaly_factor)
+             if args.anomaly_factor > 0 else None)
+    preempt = PreemptionGuard()
     try:
-        state, report = run_pipelined(
-            loop_step, state, batches, sync_every=sync_every,
-            max_steps=args.steps, tokens_per_step=tokens_per_step,
-            config_name=config.name, on_sync=on_sync, goodput=goodput,
-            goodput_step_category=step_category)
+        preempt.install()
+    except ValueError:  # not the main thread (embedded run): unguarded
+        preempt = None
+
+    report = None
+    aborted = None
+    run_t0 = time.perf_counter()
+
+    def steady_tokens_per_sec() -> Optional[float]:
+        steady = sync_windows[1:]  # the first window carries the build
+        secs = sum(dt for _, dt, _ in steady)
+        return (tokens_per_step * sum(n for n, _, _ in steady) / secs
+                if secs else None)
+
+    def write_report(outcome: str) -> None:
+        if not args.report_json:
+            return
+        wall = max(time.perf_counter() - run_t0, 1e-9)
+        steps_done = report.steps if report is not None else 0
+        losses = list(report.losses) if report is not None else []
+        steady_tps = steady_tokens_per_sec()
+        data = dict(
+            schema=1, model=config.name, num_layers=config.num_layers,
+            embed_dim=config.embed_dim, vocab_size=config.vocab_size,
+            num_params=config.num_params(), precision=policy_of(config),
+            remat=remat_policy_of(config), attention=config.attention,
+            fused_ce=config.fused_ce, device=device_name, n_processes=1,
+            devices=1, global_batch=batch_size, batch_size=batch_size,
+            seq_len=seq_len, device_ms_per_row=args.device_ms_per_row,
+            start_step=start_step, target_step=target_step,
+            steps=steps_done, init_seconds=init_s, losses=losses,
+            grad_norms=[grad_norms.get(start_step + 1 + i)
+                        for i in range(len(losses))],
+            sync_points=report.sync_points if report is not None else 0,
+            rollbacks=report.rollbacks if report is not None else 0,
+            interrupted=bool(report is not None and report.interrupted),
+            emergency_step=(report.emergency_step
+                            if report is not None else None),
+            windows=[(n, dt) for n, dt, _ in sync_windows],
+            prefetch_wait_seconds=[w for _, _, w in sync_windows],
+            wall_seconds=wall, steps_per_sec=steps_done / wall,
+            tokens_per_sec=steps_done * tokens_per_step / wall,
+            steady_tokens_per_sec=steady_tps, flops_per_token=fpt,
+            peak_bf16_tflops=peak,
+            mfu=(mfu(steady_tps, config, seq_len, peak)
+                 if peak and steady_tps else None),
+            peak_memory_bytes=(torch.cuda.max_memory_allocated(device)
+                               if device.type == "cuda" else None),
+            memory=first["memory"], outcome=outcome,
+            elastic=bool(args.elastic), reshard=elastic_reshard,
+            resumed=resumed,
+            checkpoints=[s for m in (ckpt, em_ckpt) if m is not None
+                         for s in m.save_stats],
+            kernel_launches=dict(fa.flash_attention.launches),
+            goodput=goodput.snapshot() if goodput is not None else None)
+        parent = os.path.dirname(os.path.abspath(args.report_json))
+        os.makedirs(parent, exist_ok=True)
+        tmp = args.report_json + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(data, f, indent=1)
+            f.write("\n")
+        os.replace(tmp, args.report_json)
+        log.log("info", "run report written", path=args.report_json)
+
+    try:
+        if max_steps:
+            if args.profile_dir and max_steps <= sync_every:
+                start_profile()  # one window: trace it whole
+            try:
+                state, report = run_resilient(
+                    loop_step, state, make_batches,
+                    ckpt=ckpt, emergency_ckpt=em_ckpt or ckpt,
+                    target_step=target_step, start_step=start_step,
+                    sync_every=sync_every,
+                    checkpoint_every=(args.checkpoint_every if ckpt else 0),
+                    guard=guard, max_rollbacks=args.max_rollbacks,
+                    skip_anomalous_window=args.skip_anomalous_window,
+                    start_is_checkpointed=start_is_checkpointed,
+                    preemption=preempt, tokens_per_step=tokens_per_step,
+                    config_name=config.name, on_sync=on_sync,
+                    on_checkpoint=on_checkpoint,
+                    step_floor_seconds=step_floor, goodput=goodput)
+            except AnomalyAbortedError as e:
+                aborted = e
+                log.log("error", "anomaly guard aborted the run",
+                        error=str(e), step=e.anomaly.step,
+                        reason=e.anomaly.reason)
+            else:
+                if report.rollbacks:
+                    log.log("warn", "anomaly rollbacks taken",
+                            rollbacks=report.rollbacks,
+                            restored_steps=report.restored_steps)
+                if report.steps < max_steps and not report.interrupted:
+                    log.log("warn", "data exhausted before requested steps",
+                            done=start_step + report.steps, want=args.steps)
     finally:
+        if live["pf"] is not None:
+            live["pf"].close()
+        stop_profile()
+        if preempt is not None:
+            preempt.uninstall()
         if goodput is not None:
             # Closing is what makes the categories tile the recorded
             # window exactly; it matters most on a run that dies.
             goodput.close()
             tracer.close()
 
-    steady = report.windows[1:]  # the first window carries first-call setup
-    s_steps = sum(n for n, _ in steady)
-    s_secs = sum(dt for _, dt in steady)
-    steady_tps = tokens_per_step * s_steps / s_secs if s_secs else None
-    summary = dict(
-        model=config.name, num_layers=config.num_layers,
-        embed_dim=config.embed_dim, vocab_size=config.vocab_size,
-        num_params=config.num_params(), precision=policy_of(config),
-        remat=remat_policy_of(config), attention=config.attention,
-        fused_ce=config.fused_ce, device=device_name, batch_size=batch_size,
-        seq_len=seq_len, steps=report.steps, init_seconds=init_s,
-        losses=report.losses,
-        grad_norms=[h["grad_norm"] for h in report.history],
-        windows=report.windows, wall_seconds=report.wall_seconds,
-        tokens_per_sec=report.tokens_per_sec,
-        steady_tokens_per_sec=steady_tps, flops_per_token=fpt,
-        peak_bf16_tflops=peak,
-        mfu=(mfu(steady_tps, config, seq_len, peak)
-             if peak and steady_tps else None),
-        peak_memory_bytes=(torch.cuda.max_memory_allocated(device)
-                           if device.type == "cuda" else None),
-        goodput=goodput.snapshot() if goodput is not None else None)
-    if args.report_json:
-        parent = os.path.dirname(os.path.abspath(args.report_json))
-        os.makedirs(parent, exist_ok=True)
-        with open(args.report_json, "w") as f:
-            json.dump(summary, f, indent=1)
-            f.write("\n")
-    _log("trainer done", steps=report.steps,
-         final_loss=round(report.losses[-1], 4) if report.losses else "n/a",
-         steady_tokens_per_sec=(round(steady_tps, 1) if steady_tps
-                                else "n/a"),
-         mfu=(round(summary["mfu"], 4) if summary["mfu"] is not None
-              else "not measured"))
+    final_loss = round(last_loss, 4) if last_loss is not None else "n/a"
+    if aborted is not None:
+        # The live state trained into the failed window: no final save --
+        # the last good checkpoint is the artifact.
+        for mgr in (ckpt, em_ckpt):
+            if mgr is not None:
+                mgr.close()
+        write_report("anomaly-abort")
+        log.log("info", "trainer done", final_loss=final_loss,
+                outcome="anomaly-abort")
+        return EXIT_ANOMALY
+    if report is not None and report.interrupted:
+        # Preemption warning honoured: the emergency checkpoint is
+        # committed; exit with the resume code.
+        for mgr in (ckpt, em_ckpt):
+            if mgr is not None:
+                mgr.close()
+        log.log("warn", "trainer preempted; exiting for resume",
+                step=start_step + report.steps,
+                emergency_step=report.emergency_step,
+                exit_code=EXIT_RESUME)
+        write_report("preempted")
+        log.log("info", "trainer done", final_loss=final_loss,
+                outcome="preempted")
+        return EXIT_RESUME
+    if ckpt:
+        if ckpt.latest_step() != int(state.step):
+            ckpt.save(int(state.step), state, wait=True, kind="final")
+            log.log("info", "final checkpoint", step=int(state.step))
+        ckpt.close()
+    if em_ckpt is not None:
+        em_ckpt.close()
+    write_report("ok")
+    steady_tps = steady_tokens_per_sec()
+    log.log("info", "trainer done", final_loss=final_loss,
+            steps=report.steps if report is not None else 0,
+            mfu=(round(mfu(steady_tps, config, seq_len, peak), 4)
+                 if peak and steady_tps else "not measured"))
     return 0
 
 

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -242,3 +242,64 @@ def make_eval_step(config: ModelConfig):
         return metrics
 
     return step
+
+
+@dataclass(frozen=True)
+class MemoryStats:
+    """Device byte accounting of one train step, with the fields of the
+    reference's (``argument_bytes``, ``output_bytes``, ``temp_bytes``,
+    ``alias_bytes``). ``temp_bytes`` is the number a rematerialization
+    policy moves (live activations, gradients, optimizer temporaries);
+    ``argument_bytes`` what a precision policy's storage dtypes move;
+    ``peak_bytes`` the fit-in-memory total."""
+
+    argument_bytes: int
+    output_bytes: int
+    temp_bytes: int
+    alias_bytes: int
+
+    @property
+    def peak_bytes(self) -> int:
+        return (self.argument_bytes + self.temp_bytes
+                + max(self.output_bytes - self.alias_bytes, 0))
+
+
+def _state_bytes(state: TrainState) -> int:
+    tensors = (list(state.model.parameters()) + state.opt_state.mu
+               + state.opt_state.nu)
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def memory_stats(step: Callable, state: TrainState, batch: Any
+                 ) -> Tuple[Optional[MemoryStats], TrainState,
+                            Dict[str, torch.Tensor]]:
+    """Run one step of ``step`` (it advances ``state``: the caller counts
+    it as a training step) and return ``(stats, state, metrics)``.
+
+    Where the reference reads XLA's ``compiled.memory_analysis()`` -- an
+    ahead-of-time plan of one compiled program, before it runs -- the port
+    has no compiled program to ask, so it *measures* this step on the card
+    under ``torch.cuda.reset_peak_memory_stats``: ``argument_bytes`` are
+    the state's bytes (f32 masters and both moments) plus the batch's;
+    the step updates them in place, so ``output_bytes`` = ``alias_bytes``
+    = ``argument_bytes``; ``temp_bytes`` is the caching allocator's peak
+    during the step less what was allocated when it began. That counts
+    allocator blocks, not XLA's buffer assignment, so it includes
+    fragmentation and excludes cuBLAS's own workspace and the CUDA
+    context. Off the card ``stats`` is None, as the reference returns None
+    where no analysis exists."""
+    device = state.model.device
+    if device.type != "cuda":
+        state, metrics = step(state, batch)
+        return None, state, metrics
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize(device)
+    peak = torch.cuda.max_memory_allocated(device)
+    tokens = torch.as_tensor(batch["tokens"])
+    args = _state_bytes(state) + tokens.numel() * tokens.element_size()
+    return MemoryStats(argument_bytes=args, output_bytes=args,
+                       temp_bytes=max(peak - base, 0),
+                       alias_bytes=args), state, metrics

@@ -3,7 +3,8 @@ the port's copy of ``triton_kubernetes_tpu/utils/metrics.py``, holding the
 registry, its exposition, the ``tk8s_serve_*`` families the serving
 engine and its HTTP front end update (its KV-session migration's among
 them), the router's ``tk8s_route_*``, the
-``tk8s_train_*`` families of the training loop and the goodput ledger's
+``tk8s_train_*`` families of the training loop, its checkpoints and its
+anomaly guard, and the goodput ledger's
 ``tk8s_goodput_seconds_total``, so they behave exactly as the JAX package's
 do, and the Prometheus text parser (``parse_prometheus``,
 ``histogram_quantile``, ``merge_histogram_series``) that reads a saved
@@ -129,8 +130,9 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...], Optional[Tuple[float, ...]]]
         "gauge", "Replica health as the router sees it (1 = in "
         "rotation, 0 = ejected; /healthz probes re-admit on recovery)",
         ("replica",), None),
-    # ---------------------------------- train/pipeline.py (one process:
-    # the reference's process_id label has one value here and is dropped)
+    # -------- train/pipeline.py, checkpoint.py, resilience.py (one
+    # process: the reference's process_id label has one value here and is
+    # dropped)
     "tk8s_train_step_duration_seconds": (
         "histogram", "Per-step wall-clock duration, amortized over each "
         "sync window of the pipelined training loop", ("config",),
@@ -144,6 +146,37 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...], Optional[Tuple[float, ...]]]
     "tk8s_train_steps_in_flight": (
         "gauge", "Dispatched-but-unsynced steps currently in flight in "
         "the pipelined training loop", (), None),
+    "tk8s_train_prefetch_wait_seconds": (
+        "gauge", "Seconds the training loop has spent blocked waiting on "
+        "the device-prefetch iterator (cumulative; ~0 means host input "
+        "fully overlaps device compute)", (), None),
+    # --------------------------------- train/checkpoint.py (integrity)
+    "tk8s_train_checkpoint_save_duration_seconds": (
+        "histogram", "Wall clock from checkpoint-save dispatch to "
+        "manifest commit, by save kind (scheduled/emergency/final)",
+        ("kind",), DEFAULT_BUCKETS),
+    "tk8s_train_checkpoint_bytes_total": (
+        "counter", "Bytes committed to manifest-verified checkpoints, "
+        "by save kind", ("kind",), None),
+    "tk8s_train_checkpoint_verify_failures_total": (
+        "counter", "Checkpoint manifest verification failures, by "
+        "reason (missing-manifest/torn-manifest/digest-mismatch/"
+        "truncated/checksum-mismatch/missing-file/missing-step)",
+        ("reason",), None),
+    "tk8s_train_checkpoint_emergency_saves_total": (
+        "counter", "Synchronous emergency checkpoints written on a "
+        "preemption warning", (), None),
+    "tk8s_train_checkpoint_fallback_restores_total": (
+        "counter", "Restores that quarantined a bad step and fell back "
+        "to an earlier verified one", (), None),
+    # --------------------------------- train/resilience.py (anomaly guard)
+    "tk8s_train_anomaly_rollbacks_total": (
+        "counter", "Loss-anomaly rollbacks taken by the guarded "
+        "training loop, by trip reason (non-finite/spike)",
+        ("reason",), None),
+    "tk8s_train_anomaly_aborts_total": (
+        "counter", "Guarded-loop aborts after the consecutive-rollback "
+        "budget was exhausted", (), None),
     # ----------------------------------------- goodput ledger (fleet-wide)
     "tk8s_goodput_seconds_total": (
         "counter", "Chip-seconds attributed by the goodput ledger, by "
