@@ -187,6 +187,35 @@ result:
    GEMM, 2 x layers + 1 quantizing norms, and one fused SwiGLU and one
    standalone kernel A (wo's input) a layer; and one weight-only int8 run
    (``matmul_dtype`` auto: the dequantize path);
+4b. mixtral -- ``mixtral-8x7b`` at full width (D 4096, F 14336, E 8,
+   K 2, V 32000), random bf16 weights from seed 0, capacity factor 4.0
+   (E / K: dropless). Serve, cut to 16 of 32 layers (46.4 GB of
+   weights): the serving MoE layer (``ops.moe.moe_layer_rows``, the
+   router on the f32 decode GEMM, each expert's w3+w1 and w2 on the bf16
+   one) on layer 0, its rows at M 1, 8 and 32 bitwise its rows at M 256
+   (and the router's gates alone), each M within ``1e-2 + 2^-7 |plain|``
+   of ``moe_layer``; the expert products of a decode tick (E 8, C 8)
+   timed beside their plain version, ``torch.bmm`` and the bytes bound;
+   verify rows bitwise decode rows; the 12 requests on bf16 pages at
+   spec_k 0 and 3 (spec-on tokens equal to spec-off, 384/384; launches
+   counted as above, 3 + 2 E decode GEMM launches a layer a tick or
+   window, of which the router's one and the experts' 2 E are counted
+   apart); the first-token logits within 0.05 of the plain attention
+   path on the same expert choices (the kernels' replayed: an ulp of
+   attention can move a token across a top-2 boundary, a discrete change;
+   the plain path routing for itself, the choices it moved, and two plain
+   paths reported); F2 (0 pages differing); a profiled prefill window and
+   decode tick (305 decode GEMM launches a tick). Train, cut to 2 layers
+   (3.17B parameters, 50.6 GB of f32 masters, gradients and moments),
+   through ``python -m triton_kubernetes_tpu_torch.train --model
+   mixtral-8x7b --expert 1``: batch 4 x 2048, fused CE, flash, bf16,
+   remat full, 6 steps synced every 2; finite losses, each step's aux
+   loss between 0.99 and E a layer, ``auto`` dispatch ``sort``, flash
+   launches 4/2/2 a step; step ms, tokens/s, MFU over active parameters,
+   peak memory; then one step at B 1 against plain flash on a fresh
+   model with the kernels' expert choices replayed (loss and gradients
+   within the train phase's bounds), plain flash routing for itself
+   reported beside it;
 5. train  -- ``python -m triton_kubernetes_tpu_torch.train``'s ``main`` on
    ``llama3-8b`` at full width cut to 4 layers (fused CE, flash attention,
    bf16 policy, remat full), batch 4 x 2048, 6 AdamW steps, with
@@ -242,7 +271,9 @@ traced and migration runs, and stops (``DIR/chip_smoke_migration.json``);
 ``--http-only`` the same six runs and then the HTTP phase
 (``DIR/chip_smoke_http.json``); ``--train-only`` builds and checks the
 three flash kernels, then runs phase 5 with its kill and resume arms
-(``DIR/chip_smoke_train.json``, the arms' reports and traces beside it).
+(``DIR/chip_smoke_train.json``, the arms' reports and traces beside it);
+``--mixtral-only`` builds every kernel and runs phase 4b
+(``DIR/chip_smoke_mixtral.json``).
 """
 
 from __future__ import annotations
@@ -360,7 +391,7 @@ def card_peaks(name: str):
 
 
 def time_ms(fn, flush: torch.Tensor, runs: int = 30, warmup: int = 3,
-            read_flush: bool = False):
+            read_flush: bool = False, spin_cycles: int = 0):
     """Median of ``runs`` CUDA-event timings of ``fn``, the 50 MB L2
     flushed before each (the serving path reads every layer's pages
     cold). The flush is enqueued :data:`FLUSH_PASSES` times: the card is
@@ -370,7 +401,10 @@ def time_ms(fn, flush: torch.Tensor, runs: int = 30, warmup: int = 3,
     flush ran once). It zeroes the flush buffer, which leaves the L2 full
     of dirty lines that ``fn``'s reads must write back; ``read_flush``
     reads it instead, leaving clean lines (as a decode tick's kernels,
-    which write little, leave them)."""
+    which write little, leave them). ``spin_cycles`` holds the card in a
+    spin of that many clock cycles after the flush, for an ``fn`` of many
+    launches whose enqueue outlasts the flush: the events then bracket
+    the device's time, not the host's."""
     words = flush.view(torch.int32)
     for _ in range(warmup):
         fn()
@@ -383,6 +417,8 @@ def time_ms(fn, flush: torch.Tensor, runs: int = 30, warmup: int = 3,
                 words.sum()
             else:
                 flush.zero_()
+        if spin_cycles:
+            torch.cuda._sleep(spin_cycles)
         start.record()
         fn()
         end.record()
@@ -1987,12 +2023,20 @@ def window_invariance_check(model, cfg, paged, tag, kv_dtype="auto",
                 windows={str(c): t for c, t in times.items()})
 
 
+# decode_gemm launches made by ops/moe.py while the Mixtral phase's
+# counting wrapper (``counting_moe_gemms``) is installed: the router's
+# (f32 operands) apart from the experts' (bf16). Zeroed with the
+# row-invariant kernels' counters.
+MOE_GEMMS = {"router": 0, "experts": 0}
+
+
 def reset_row_counts():
     from triton_kubernetes_tpu_torch.ops import decode_gemm, norms
     from triton_kubernetes_tpu_torch.ops import quantization
     decode_gemm.reset_launch_counts()
     norms.reset_launch_counts()
     quantization.reset_launch_counts()
+    MOE_GEMMS.update(router=0, experts=0)
 
 
 def row_counts():
@@ -2023,17 +2067,24 @@ def row_counts_wanted(ticks, windows, cfg, w8a8=None):
     input, the attention's output, by a standalone ``quantize_rows`` (one
     a layer). Of the GEMM launches, those of
     more than 64 rows -- a window's groups, PREFILL_CHUNK rows -- run the
-    wgmma kernel (``_kernels.gemm_wgmma``), counted apart too."""
+    wgmma kernel (``_kernels.gemm_wgmma``), counted apart too. An MoE
+    layer (dropless: an expert's C slots are the step's rows) launches
+    wq+wk+wv, wo, the router (f32 operands: never wgmma) and, for each
+    of E experts, w3+w1 and w2 (bf16, not W8A8)."""
     from triton_kubernetes_tpu_torch.ops import _kernels
 
-    per_window = 4 * cfg.num_layers
-    groups = ticks * (4 * cfg.num_layers + 1)
+    if cfg.is_moe and w8a8 is not None:
+        raise ValueError("the MoE layer's products are never W8A8")
+    per_layer = 3 + 2 * cfg.num_experts if cfg.is_moe else 4
+    per_window = per_layer * cfg.num_layers
+    groups = ticks * (per_window + 1)
     dtype = torch.bfloat16 if w8a8 is None else w8a8
     tick_wg = _kernels.gemm_wgmma(dtype, 1)
     window_wg = _kernels.gemm_wgmma(dtype, PREFILL_CHUNK)
+    window_wg_groups = (per_layer - cfg.is_moe) * cfg.num_layers
     want = {"decode_gemm": groups + windows * per_window,
             "decode_gemm_wgmma": (groups * tick_wg
-                                  + windows * per_window * window_wg),
+                                  + windows * window_wg_groups * window_wg),
             "decode_gemm_w8a8": 0, "decode_gemm_w8a8_wgmma": 0,
             "quantize_rows": 0,
             "rms_norm": ticks + windows,
@@ -2057,6 +2108,7 @@ TICK_CLASSES = (("paged_decode kernel", "paged_decode_"),
                 ("paged_verify kernel", "paged_verify_"),
                 ("paged_prefill kernel", "paged_prefill_"),
                 ("decode_gemm kernel", "decode_gemm_kernel"),
+                ("decode_gemm_f32 kernel", "decode_gemm_f32_kernel"),
                 ("decode_gemm_wgmma kernel", "decode_gemm_wgmma_kernel"),
                 ("decode_gemm_w8a8 kernel", "decode_gemm_w8a8_kernel"),
                 ("decode_gemm_w8a8_wgmma kernel",
@@ -2198,7 +2250,8 @@ def profile_decode(engine, cfg, Request, ticks=4):
             engine.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
-    counts = row_counts()
+    counts = dict(row_counts(), **{f"moe_{k}": n
+                                   for k, n in MOE_GEMMS.items()})
     engine.run_until_idle()
     return dict(tick_profile([prof], ticks, wall_ms),
                 row_launches_per_tick={k: v / ticks
@@ -3946,6 +3999,452 @@ def rewind_probe(model, cfg, kind, prompt):
     return dict(kind=kind, prompt_tokens=n, kept_slot_vs_decode=kept)
 
 
+# Phase 4b: the Mixtral MoE family. Mixtral-8x7B at full width (D 4096,
+# F 14336, E 8, K 2, V 32000) with random bf16 weights from seed 0. The
+# whole model, 93.4 GB in bf16, does not fit one 80 GB card, so serving
+# cuts it to 16 of 32 layers (46.4 GB of weights, 2.1 GB of pool) and
+# training to 2 (3.17B parameters at 16 bytes each: f32 masters,
+# gradients and two Adam moments, 50.6 GB; 3 layers would need 73.9 GB
+# before activations). Capacity factor 4.0 = E / K: dropless routing, which
+# generate requires and which makes the serving layer's rows independent
+# of the row count (an expert's C slots are then the step's rows).
+MIXTRAL_MODEL = "mixtral-8x7b"
+MIXTRAL_SERVE_LAYERS = 16
+MIXTRAL_CF = 4.0
+# Row counts of the serving MoE layer's bitwise check: a lone sequence, a
+# decode tick, a verify tick, a prefill window.
+MOE_ROWS = (1, 8, 32, 256)
+# The decode tick's shape of the expert products: E experts of C = 8
+# slots (dropless at B 8).
+MOE_TICK_SLOTS = 8
+# Clock cycles of the spin ahead of each timed expert-products call (~2 ms
+# at the H100's 1.98 GHz boost clock).
+MOE_SPIN_CYCLES = 4_000_000
+MIXTRAL_TRAIN_LAYERS, MIXTRAL_TRAIN_STEPS, MIXTRAL_TRAIN_SYNC = 2, 6, 2
+MIXTRAL_TRAIN_ARGV = [
+    "--model", MIXTRAL_MODEL, "--model-opt",
+    f"num_layers={MIXTRAL_TRAIN_LAYERS}", "--expert", "1",
+    "--model-opt", "fused_ce=true", "--model-opt", "attention=flash",
+    "--precision", "bf16", "--remat-policy", "full",
+    "--steps", str(MIXTRAL_TRAIN_STEPS), "--batch-size", str(TRAIN_BATCH),
+    "--seq-len", str(TRAIN_SEQ), "--sync-every", str(MIXTRAL_TRAIN_SYNC),
+    "--log-every", str(MIXTRAL_TRAIN_SYNC), "--learning-rate", "3e-4",
+    "--warmup-steps", "1", "--device", TRAIN_DEVICE, "--prefetch", "0"]
+# A layer's aux loss lies between 0.99 (the reference test's floor; 1 is
+# perfectly balanced routing) and E (every token's first choice on one
+# expert that holds all the probability).
+AUX_PER_LAYER = 0.99
+
+
+@contextlib.contextmanager
+def counting_moe_gemms():
+    """Count ops/moe.py's decode_gemm launches into MOE_GEMMS while the
+    block runs: the router's (f32 operands) and the experts' (bf16)."""
+    from triton_kubernetes_tpu_torch.ops import moe
+
+    real = moe.decode_gemm_group
+
+    def counted(x, ws, out_dtype=None):
+        if x.shape[0]:
+            MOE_GEMMS["router" if x.dtype == torch.float32
+                      else "experts"] += 1
+        return real(x, ws, out_dtype)
+
+    moe.decode_gemm_group = counted
+    try:
+        yield MOE_GEMMS
+    finally:
+        moe.decode_gemm_group = real
+
+
+def moe_rows_check(model, cfg, flush, peaks, card):
+    """The serving MoE layer (``moe_layer_rows``: the router on the f32
+    decode GEMM, each expert's w3+w1 and w2 on the bf16 one) on layer 0's
+    weights: its rows at M 1, 8 and 32 bitwise its rows at M 256, the
+    router's gates alone too; each M within ATOL + RTOL |plain| of the
+    plain ``moe_layer``; then the expert products of a decode tick (E 8,
+    C 8) timed as the layer launches them (2 E launches), as the plain
+    version (``torch.mm`` each product in turn) and as ``torch.bmm`` (one
+    call a weight over the experts), beside the bytes bound: device time,
+    the host's enqueue hidden behind a spin."""
+    from triton_kubernetes_tpu_torch.models import llama
+    from triton_kubernetes_tpu_torch.ops import moe
+    from triton_kubernetes_tpu_torch.ops.decode_gemm import (
+        decode_gemm_group, decode_gemm_group_plain)
+
+    layer = model.layers[0]
+    ad = cfg.activation_dtype
+    e, d, f = cfg.num_experts, cfg.embed_dim, cfg.mlp_dim
+    dev = SERVE_DEVICE
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((max(MOE_ROWS), d), generator=gen, device=dev).to(ad)
+
+    def rows(xx):
+        return llama._mlp_normed(xx[None], layer, cfg,
+                                 row_invariant=True)[0][0]
+
+    def gates(xx):
+        top_p, top_i, _ = moe._gates(moe.router_logits_rows(xx, layer.router),
+                                     cfg.num_selected)
+        return torch.cat([top_p, top_i.float()], dim=1)
+
+    with torch.inference_mode():
+        differing = rows_differing(rows, x, MOE_ROWS[:-1])
+        gates_differing = rows_differing(gates, x, MOE_ROWS[:-1])
+        errs = {m: check_close(
+            f"MoE serve layer at {m} rows vs moe_layer", rows(x[:m]),
+            llama._mlp_normed(x[:m][None], layer, cfg)[0][0])
+            for m in MOE_ROWS}
+        c = MOE_TICK_SLOTS
+        xe = torch.randn((e, c, d), generator=gen, device=dev).to(ad)
+        act = torch.randn((e, c, f), generator=gen, device=dev).to(ad)
+        w1, w3, w2 = layer.moe_w1, layer.moe_w3, layer.moe_w2
+
+        def kernel():
+            return [decode_gemm_group(xe[i], [w3[i], w1[i]])
+                    + decode_gemm_group(act[i], [w2[i]]) for i in range(e)]
+
+        def plain():
+            return [decode_gemm_group_plain(xe[i], [w3[i], w1[i]], ad)
+                    + decode_gemm_group_plain(act[i], [w2[i]], ad)
+                    for i in range(e)]
+
+        def library():
+            return torch.bmm(xe, w3), torch.bmm(xe, w1), torch.bmm(act, w2)
+
+        product_err = max(check_close(f"expert {i} product {j}", g, p)
+                          for i, (gs, ps) in enumerate(zip(kernel(), plain()))
+                          for j, (g, p) in enumerate(zip(gs, ps)))
+        # 16 and 24 wrapped launches take the host longer to enqueue than
+        # the flush takes the card: a spin of ~2 ms hides the enqueue.
+        ms, plain_ms, library_ms = (
+            time_ms(fn, flush, spin_cycles=MOE_SPIN_CYCLES)
+            for fn in (kernel, plain, library))
+    nbytes = 2 * (3 * e * d * f + e * c * (d + f) + e * c * (2 * f + d))
+    flops = 2 * 3 * e * c * d * f
+    bound_ms = max(nbytes / peaks[0], flops / peaks[1]) * 1e3
+    print(f"mixtral: MoE serve layer (layer 0, cf {cfg.capacity_factor}): "
+          f"rows at M {list(MOE_ROWS[:-1])} differing from M "
+          f"{MOE_ROWS[-1]}: {differing} (router gates alone: "
+          f"{gates_differing}); max abs err vs moe_layer {errs} (bound "
+          f"{ATOL} + {RTOL} |plain|)", flush=True)
+    print(f"mixtral: expert products of a decode tick (E {e}, C {c}, D {d}, "
+          f"F {f}; 2 E = {2 * e} decode_gemm launches): {ms:.4f} ms, plain "
+          f"(torch.mm each in turn) {plain_ms:.4f} ms, torch.bmm "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes {nbytes}; "
+          f"share {bound_ms / ms:.4f}), max abs err vs plain {product_err} "
+          f"[{card}]", flush=True)
+    if differing or gates_differing:
+        raise AssertionError(f"MoE serve layer: rows at M {differing} (gates "
+                             f"at {gates_differing}) are not bitwise the "
+                             f"rows at M {MOE_ROWS[-1]}")
+    return dict(rows=list(MOE_ROWS), rows_differing=differing,
+                gates_rows_differing=gates_differing,
+                max_abs_err_vs_plain={str(m): v for m, v in errs.items()},
+                expert_products=dict(
+                    experts=e, slots=c, launches=2 * e, ms=ms,
+                    plain_ms=plain_ms, bmm_ms=library_ms, bound_ms=bound_ms,
+                    bound_by="bytes" if nbytes / peaks[0] > flops / peaks[1]
+                    else "operations", bytes=nbytes, max_abs_err=product_err))
+
+
+def first_token_check(model, cfg, paged, probe):
+    """A prompt's first-token logits through its prefill windows, the
+    kernels against the plain attention path, with the kernels' expert
+    choices replayed in the plain path (``routing``): asserted within
+    LOGITS_REL_L2 and LOGITS_REL_MAX. An ulp of attention can move a token
+    across a top-2 boundary at some layer, and a moved choice sends that
+    token through another expert: a discrete change no bound on the
+    kernels can hold. So the plain path routing for itself is reported
+    beside it, with the choices that moved, and so are two plain paths
+    (the whole-prompt prefill against the windows), which differ the same
+    way."""
+    choices, own = [], []
+    with routing("record", choices):
+        lk = first_token_logits(model, cfg, probe.tokens, None, paged)
+    with routing("replay", choices):
+        ld = first_token_logits(model, cfg, probe.tokens, "dense", paged)
+    with routing("record", own):
+        lo = first_token_logits(model, cfg, probe.tokens, "dense", paged)
+    moved = sum(int((a != b).any(dim=1).sum()) for a, b in zip(choices, own))
+    n = len(probe.tokens)
+    width = -(-n // BS) * BS
+    cache = paged.init_paged_cache(cfg, width // BS + 1, BS,
+                                   device=SERVE_DEVICE)
+    with torch.inference_mode():
+        lw = paged.paged_prefill(
+            model, torch.tensor([probe.tokens + [0] * (width - n)],
+                                dtype=torch.int32, device=SERVE_DEVICE),
+            n, cfg, cache, torch.arange(1, width // BS + 1, dtype=torch.int32,
+                                        device=SERVE_DEVICE))
+    del cache
+    out = dict(rel_l2=rel_l2(lk, ld),
+               max_abs_diff=float((lk - ld).abs().max()),
+               max_abs=float(ld.abs().max()),
+               same_argmax=int(lk.argmax()) == int(ld.argmax()),
+               own_routing_rel_l2=rel_l2(lk, lo), choices_moved=moved,
+               rows_routed=sum(int(c.shape[0]) for c in choices),
+               plain_paths_rel_l2=rel_l2(lw, lo))
+    print(f"mixtral: {probe.request_id} ({n} tokens) first-token logits, "
+          f"kernels vs plain attention on the kernels' expert choices: "
+          f"relative L2 {out['rel_l2']:.5f} (bound {LOGITS_REL_L2}), max abs "
+          f"diff {out['max_abs_diff']:.5f} (max |logit| {out['max_abs']:.4f})"
+          f", same argmax {out['same_argmax']}; the plain path routing for "
+          f"itself: relative L2 {out['own_routing_rel_l2']:.5f}, {moved} of "
+          f"{out['rows_routed']} token routings moved; two plain paths "
+          f"(whole prompt vs windows, each routing for itself) "
+          f"{out['plain_paths_rel_l2']:.5f}", flush=True)
+    if (not bool(torch.isfinite(lk).all()) or out["rel_l2"] > LOGITS_REL_L2
+            or out["max_abs_diff"] > LOGITS_REL_MAX * out["max_abs"]):
+        raise AssertionError(f"mixtral first-token logits, kernels vs plain "
+                             f"on the same expert choices: {out}")
+    return out
+
+
+def mixtral_serve(card):
+    """Mixtral-8x7B cut to MIXTRAL_SERVE_LAYERS layers, served: the MoE
+    rows check, verify rows against decode, the 12 requests on bf16 pages
+    at spec_k 0 and 3 (spec-on tokens equal to spec-off; every kernel's
+    launches per tick -- ``serve_run`` asserts the attention's, one a
+    layer, and the decode GEMM's -- and the experts' 2 E a layer, the
+    router's one), the first-token logits against the plain attention
+    path (``first_token_check``), F2 and a profiled prefill window and
+    decode tick."""
+    from triton_kubernetes_tpu_torch.models import get_config, init_params
+    from triton_kubernetes_tpu_torch.models import paged
+    from triton_kubernetes_tpu_torch.serve import Request, ServeEngine
+
+    cfg = get_config(MIXTRAL_MODEL, num_layers=MIXTRAL_SERVE_LAYERS,
+                     capacity_factor=MIXTRAL_CF)
+    _, peaks = card_peaks(torch.cuda.get_device_name(0))
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=SERVE_DEVICE)
+    torch.cuda.synchronize()
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 1e9
+    print(f"mixtral: {MIXTRAL_MODEL} cut to {cfg.num_layers} layers (width "
+          f"{cfg.embed_dim}, mlp {cfg.mlp_dim}, {cfg.num_experts} experts, "
+          f"top {cfg.num_selected}, vocab {cfg.vocab_size}, capacity factor "
+          f"{cfg.capacity_factor}): {cfg.num_params() / 1e9:.3f}B params, "
+          f"{weight_gb:.2f} GB, initialised in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8,
+                        device=SERVE_DEVICE)
+    rows = moe_rows_check(model, cfg, flush, peaks, card)
+    del flush
+    with counting_moe_gemms():
+        rows_check = verify_rows_check(model, cfg, paged)
+        requests = make_requests(cfg, Request)
+        reqs = requests + repetitive_requests(cfg, Request)
+        runs = []
+        for spec_k in (0, SPEC_K):
+            run = serve_run(model, cfg, "bf16", spec_k, reqs, SPEC_ARRIVALS)
+            run["moe_gemms"] = dict(MOE_GEMMS)
+            units = (run["decode_steps"] + run["verify_steps"]
+                     + run["prefill_windows"])
+            want = {"router": units * cfg.num_layers,
+                    "experts": units * 2 * cfg.num_experts * cfg.num_layers}
+            if run["moe_gemms"] != want:
+                raise AssertionError(f"mixtral spec_k={spec_k}: MoE GEMM "
+                                     f"launches {run['moe_gemms']} != {want}")
+            run["launches_per_decode_tick"] = {
+                "paged_decode": (run["launches"]["paged_decode"]
+                                 / max(run["decode_steps"], 1)),
+                "moe_experts": 2 * cfg.num_experts * cfg.num_layers,
+                "moe_router": cfg.num_layers,
+                "decode_gemm": (3 + 2 * cfg.num_experts) * cfg.num_layers + 1}
+            agree = ""
+            if spec_k:
+                same, first = tokens_equal(run, runs[0], reqs)
+                run["tokens_equal_to_spec_off"] = same
+                agree = (f"; {same}/{run['generated_tokens']} tokens equal "
+                         f"to spec_k=0, first differences {first}")
+                if same != run["generated_tokens"]:
+                    raise AssertionError(f"mixtral spec_k={spec_k}: greedy "
+                                         f"tokens must equal spec_k=0's"
+                                         + agree)
+            runs.append(run)
+            print_serve_run("mixtral bf16 pages", run, reqs,
+                            run["kv_pool_bytes"], card, agree)
+            print(f"mixtral[spec_k={spec_k}]: MoE GEMM launches "
+                  f"{run['moe_gemms']} over {units} ticks and windows; per "
+                  f"decode tick {run['launches_per_decode_tick']}",
+                  flush=True)
+
+        logits = first_token_check(model, cfg, paged, requests[4])
+        f2 = window_invariance_check(model, cfg, paged,
+                                     "mixtral bf16 weights, bf16 pages")
+        if f2["pages_differing"]:
+            raise AssertionError(f"mixtral F2: {f2['pages_differing']} full "
+                                 f"pages differ between prefill_chunk "
+                                 f"{F2_CHUNKS}")
+        engine = ServeEngine(model, cfg, device=SERVE_DEVICE,
+                             **SERVE_ENGINE_KW)
+        engine.submit(Request("warmup", list(range(1, 65)), 2))
+        engine.run_until_idle()
+        engine.release_prefix_cache()
+        pprof = complete_profile(
+            engine, lambda: profile_prefill(engine, cfg, Request))
+        prof = complete_profile(
+            engine, lambda: profile_decode(engine, cfg, Request))
+    del engine
+    print_tick_profile(f"mixtral prefill window ({PREFILL_CHUNK} tokens at "
+                       f"offset {2 * PREFILL_CHUNK}, one sequence)", pprof,
+                       card)
+    print_tick_profile("mixtral decode tick (8 x ~600-token contexts)", prof,
+                       card)
+    tick = prof["row_launches_per_tick"]
+    want_tick = {"moe_experts": 2 * cfg.num_experts * cfg.num_layers,
+                 "moe_router": cfg.num_layers,
+                 "decode_gemm": (3 + 2 * cfg.num_experts) * cfg.num_layers
+                 + 1}
+    if any(tick[k] != v for k, v in want_tick.items()):
+        raise AssertionError(f"mixtral profiled decode tick: launches "
+                             f"{tick} != {want_tick}")
+    peak = torch.cuda.max_memory_allocated()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.num_layers, capacity_factor=cfg.capacity_factor,
+                weight_gb=weight_gb, moe_rows=rows,
+                verify_rows_vs_decode=rows_check, runs=runs,
+                first_token_logits=logits, window_invariance=f2,
+                prefill_window_profile=pprof, decode_tick_profile=prof,
+                peak_memory_bytes=peak)
+
+
+@contextlib.contextmanager
+def routing(mode, log):
+    """Record (``mode`` "record") every ``ops.moe._top_k`` call's expert
+    choices into ``log``, or replay them in order ("replay"): the same
+    experts, their probabilities gathered from this run's softmax. Two
+    runs of one step then route alike, whatever ulps their attention
+    differs by."""
+    from triton_kubernetes_tpu_torch.ops import moe
+
+    real = moe._top_k
+    replay = iter(list(log))
+
+    def top_k(probs, k):
+        if mode == "record":
+            vals, idx = real(probs, k)
+            log.append(idx)
+            return vals, idx
+        idx = next(replay)
+        return probs.gather(-1, idx), idx
+
+    moe._top_k = top_k
+    try:
+        yield log
+    finally:
+        moe._top_k = real
+
+
+def mixtral_train(card, out_dir: Path):
+    """``python -m triton_kubernetes_tpu_torch.train --model mixtral-8x7b
+    --expert 1`` on the MIXTRAL_TRAIN_LAYERS-layer cut, B TRAIN_BATCH x
+    TRAIN_SEQ: finite losses, aux losses in range, the dispatch ``auto``
+    chose, flash launches 4/2/2 a step, step times, tokens/s, MFU over
+    active parameters and peak memory; then one step against plain flash
+    on a fresh model (``step_cross_check``)."""
+    from triton_kubernetes_tpu_torch.models import get_config, llama
+    from triton_kubernetes_tpu_torch.ops import flash_attention as fa
+    from triton_kubernetes_tpu_torch.train import apply_policy
+    from triton_kubernetes_tpu_torch.train import __main__ as train_main
+
+    report_path = out_dir / "mixtral_train_report.json"
+    fa.reset_launch_counts()
+    rc = train_main.main(MIXTRAL_TRAIN_ARGV
+                         + ["--report-json", str(report_path)])
+    launches = dict(fa.flash_attention.launches)
+    if rc != 0:
+        raise AssertionError(f"mixtral trainer exited {rc}")
+    rep = json.loads(report_path.read_text())
+    layers = MIXTRAL_TRAIN_LAYERS
+    experts = get_config(MIXTRAL_MODEL).num_experts
+    vals = rep["losses"] + rep["grad_norms"] + rep["aux_losses"]
+    if rep["steps"] != MIXTRAL_TRAIN_STEPS or not all(np.isfinite(vals)):
+        raise AssertionError(f"mixtral trainer: {rep['steps']} steps, "
+                             f"losses {rep['losses']}, grad norms "
+                             f"{rep['grad_norms']}, aux {rep['aux_losses']}")
+    if not all(AUX_PER_LAYER * layers <= a <= experts * layers
+               for a in rep["aux_losses"]):
+        raise AssertionError(f"mixtral aux losses {rep['aux_losses']} "
+                             f"outside [{AUX_PER_LAYER * layers}, "
+                             f"{experts * layers}]")
+    if rep["moe_dispatch"] != "sort":
+        raise AssertionError(f"mixtral: auto dispatch chose "
+                             f"{rep['moe_dispatch']} at T "
+                             f"{TRAIN_BATCH * TRAIN_SEQ}")
+    want = {k: n * layers * MIXTRAL_TRAIN_STEPS
+            for k, n in FLASH_PER_LAYER.items()}
+    if launches != want:
+        raise AssertionError(f"mixtral flash launches {launches} != {want}")
+    steady = rep["windows"][1:]  # the first window carries the first step
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tps = tokens * sum(n for n, _ in steady) / sum(dt for _, dt in steady)
+    mfu = tps * rep["flops_per_token"] / (rep["peak_bf16_tflops"] * 1e12)
+    step_ms = [dt / n * 1e3 for n, dt in rep["windows"]]
+    peak_gb = (rep["peak_memory_bytes"] or 0) / 1e9
+    print(f"mixtral train: {MIXTRAL_MODEL} cut to {layers} layers "
+          f"({rep['num_params'] / 1e9:.3f}B params, "
+          f"{rep['active_params'] / 1e9:.3f}B active, f32 masters, bf16 "
+          f"compute, remat {rep['remat']}, fused CE, flash), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {rep['steps']} steps synced every "
+          f"{MIXTRAL_TRAIN_SYNC}, dispatch {rep['moe_dispatch']}; losses "
+          f"{[round(x, 5) for x in rep['losses']]}, aux "
+          f"{[round(x, 5) for x in rep['aux_losses']]}; step ms by window "
+          f"{[round(x, 3) for x in step_ms]}, steady {tps:.1f} tokens/s, "
+          f"MFU {mfu:.4f} over active parameters "
+          f"({rep['flops_per_token'] / 1e9:.3f} GFLOP/token against "
+          f"{rep['peak_bf16_tflops']:.0f} TFLOP/s), peak memory "
+          f"{peak_gb:.2f} GB, flash launches {launches} [{card}]",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = apply_policy(get_config(
+        MIXTRAL_MODEL, num_layers=layers, fused_ce=True, attention="flash",
+        remat=True, remat_policy="full"), "bf16")
+    model = llama.init_params(cfg, seed=1, device=TRAIN_DEVICE,
+                              trainable=True)
+    check = step_cross_check(model, cfg)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"mixtral train: step at B 1, S {TRAIN_SEQ}, kernels vs plain "
+          f"flash on the same expert choices: loss rel diff "
+          f"{check['loss_rel_diff']:.3g} (bound {STEP_LOSS_REL}), worst "
+          f"gradient leaf rel L2 {check['grad_max_rel_l2']:.4g} (bound "
+          f"{STEP_GRAD_REL_L2}); dense vs plain flash "
+          f"{check['floor_loss_rel_diff']:.3g} / "
+          f"{check['floor_grad_max_rel_l2']:.4g}; plain flash routing for "
+          f"itself moves {check['own_routing_tokens_moved']} token choices "
+          f"of {check['routing_calls']} routing calls, giving "
+          f"{check['own_routing_loss_rel_diff']:.3g} / "
+          f"{check['own_routing_grad_max_rel_l2']:.4g} [{card}]",
+          flush=True)
+    return launches, dict(report=rep, steady_tokens_per_sec=tps, mfu=mfu,
+                          step_ms=step_ms, peak_memory_gb=peak_gb,
+                          launches=launches, cross_check=check)
+
+
+def mixtral_phase(card, out_dir: Path):
+    """Phase 4b: serve, then train, the Mixtral family. Returns (each
+    kernel's launches on the Mixtral path, the record)."""
+    serve = mixtral_serve(card)
+    train_launches, train = mixtral_train(card, out_dir)
+    launches = {k: sum(run["launches"][k] for run in serve["runs"])
+                for k in serve["runs"][0]["launches"]}
+    launches.update(train_launches)
+    used = ("paged_decode", "paged_verify", "paged_prefill", "decode_gemm",
+            "decode_gemm_wgmma", "rms_norm", "add_rms_norm",
+            *FLASH_PER_LAYER)
+    idle = [k for k in used if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"mixtral: kernels launched no time: {idle}")
+    return launches, dict(serve=serve, train=train, launches=launches)
+
+
 def flash_check(tag, q, k, v, do, errs):
     """Kernels 1-3 on one set of bf16 operands against their plain
     versions (the plain forward at the key tile of the kernel that runs);
@@ -4138,44 +4637,67 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def step_cross_check(state, cfg):
-    """One step's loss and gradients at B 1, S 2048 on the same weights
-    and batch: flash kernels, plain flash versions, dense attention."""
+def step_cross_check(model, cfg):
+    """One step's loss and gradients at B 1, S TRAIN_SEQ on the same
+    weights and batch: flash kernels, plain flash versions, dense
+    attention. An MoE model's expert choices are the kernels' in every
+    arm (the kernels' run records them, the others replay them:
+    ``routing``): an ulp of attention can move a token across a top-2
+    boundary, which changes an expert's gradient by that token's whole
+    share. For an MoE model, plain flash routing for itself is reported
+    too, with the choices it moved."""
     from triton_kubernetes_tpu_torch.models import llama
     from triton_kubernetes_tpu_torch.ops import flash_attention as fa
     from triton_kubernetes_tpu_torch.train import loss_fn, synthetic_batches
 
-    model = state.model
     params = list(model.parameters())
     tokens = torch.from_numpy(next(synthetic_batches(
         cfg.vocab_size, 1, TRAIN_SEQ, seed=99))["tokens"]).to(model.device)
-    arms = {"kernels": llama.resolve_attention(cfg, model.device),
-            "plain flash": lambda q, k, v, pos: fa.flash_attention_plain(
-                q, k, v),
-            "dense": llama._dense_attention}
-    results = {}
-    for arm, attn in arms.items():
+
+    def plain_flash(q, k, v, pos):
+        return fa.flash_attention_plain(q, k, v)
+
+    def step(attn, mode, log):
         for p in params:
             p.grad = None
-        total, metrics = loss_fn(model, tokens, cfg, attn)
-        total.backward()
-        results[arm] = (float(metrics["loss"]), [p.grad for p in params])
-    for p in params:
-        p.grad = None
-    torch.cuda.synchronize()
+        with routing(mode, log):
+            total, metrics = loss_fn(model, tokens, cfg, attn)
+            total.backward()
+        grads = [p.grad for p in params]
+        for p in params:
+            p.grad = None
+        return float(metrics["loss"]), grads
 
     def compare(a, b):
-        (la, ga), (lb, gb) = results[a], results[b]
-        return (abs(la - lb) / abs(lb),
-                max(rel_l2(x, y) for x, y in zip(ga, gb)))
+        (la, ga), (lb, gb) = a, b
+        return abs(la - lb) / abs(lb), max(rel_l2(x, y)
+                                           for x, y in zip(ga, gb))
 
-    loss_rel, grad_rel = compare("kernels", "plain flash")
-    floor_loss, floor_grad = compare("dense", "plain flash")
-    out = dict(loss_kernels=results["kernels"][0],
-               loss_plain_flash=results["plain flash"][0],
-               loss_dense=results["dense"][0],
-               loss_rel_diff=loss_rel, grad_max_rel_l2=grad_rel,
-               floor_loss_rel_diff=floor_loss, floor_grad_max_rel_l2=floor_grad)
+    choices = []
+    kern = step(llama.resolve_attention(cfg, model.device), "record",
+                choices)
+    plain = step(plain_flash, "replay", choices)
+    dense = step(llama._dense_attention, "replay", choices)
+    loss_rel, grad_rel = compare(kern, plain)
+    floor_loss, floor_grad = compare(dense, plain)
+    out = dict(loss_kernels=kern[0], loss_plain_flash=plain[0],
+               loss_dense=dense[0], loss_rel_diff=loss_rel,
+               grad_max_rel_l2=grad_rel, floor_loss_rel_diff=floor_loss,
+               floor_grad_max_rel_l2=floor_grad)
+    del plain, dense
+    if cfg.is_moe:
+        own_choices = []
+        own = step(plain_flash, "record", own_choices)
+        out.update(
+            zip(("own_routing_loss_rel_diff", "own_routing_grad_max_rel_l2"),
+                compare(kern, own)),
+            own_routing_tokens_moved=sum(
+                int((a != b).any(dim=1).sum())
+                for a, b in zip(choices, own_choices)),
+            routing_calls=len(choices))
+        del own
+    del kern
+    torch.cuda.synchronize()
     if not (loss_rel <= STEP_LOSS_REL and grad_rel <= STEP_GRAD_REL_L2):
         raise AssertionError(
             f"train step, kernels vs plain flash: loss rel diff {loss_rel} "
@@ -4274,7 +4796,7 @@ def train_phase(card, out_dir: Path):
     state.opt_state = None
     gc.collect()
     torch.cuda.empty_cache()
-    check = step_cross_check(state, cfg)
+    check = step_cross_check(state.model, cfg)
     print(f"train: step at B 1, S {TRAIN_SEQ}, kernels vs plain flash: "
           f"loss {check['loss_kernels']:.6f} vs "
           f"{check['loss_plain_flash']:.6f} (rel diff "
@@ -4671,6 +5193,12 @@ def main() -> int:
                              "decode, the serve and route entry points), "
                              "and stop: the short first run after a change "
                              "to the HTTP layer (prints no device line)")
+    parser.add_argument("--mixtral-only", action="store_true",
+                        help="build every kernel, run the Mixtral phase "
+                             "(serve 16 layers, train 2 through the entry "
+                             "point) and stop: the short run after a change "
+                             "to the MoE path (DIR/chip_smoke_mixtral.json "
+                             "with --out; prints no device line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on the "
@@ -4724,6 +5252,18 @@ def main() -> int:
             elif fn and ("wgmma" in fn or "probe" in fn) and (
                     "stack frame" in line or "registers" in line):
                 print(f"build: {kernel}: {fn}: {line.strip()}", flush=True)
+
+    if args.mixtral_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            out_dir = args.out if args.out is not None else Path(tmp)
+            out_dir.mkdir(parents=True, exist_ok=True)
+            mixtral_launches, mixtral = mixtral_phase(card, out_dir)
+        if args.out is not None:
+            (args.out / "chip_smoke_mixtral.json").write_text(json.dumps(
+                dict(card=card, device=name, mixtral=mixtral), indent=1,
+                default=str))
+        print(json.dumps({"mixtral_launches": mixtral_launches}))
+        return 0
 
     if args.migration_only or args.http_only:
         serve = migration_only(card, http_only=args.http_only)
@@ -4782,10 +5322,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # Phase 5: train.
     with tempfile.TemporaryDirectory() as tmp:
         out_dir = args.out if args.out is not None else Path(tmp)
         out_dir.mkdir(parents=True, exist_ok=True)
+        # Phase 4b: the Mixtral family, served and trained.
+        mixtral_launches, mixtral = mixtral_phase(card, out_dir)
+        # Phase 5: train.
         train_launches, train = train_phase(card, out_dir)
         train["durability"] = durable = durability_phase(card, out_dir)
     # Each kernel's launches on the serve runs of its page kind (the first
@@ -4859,6 +5401,10 @@ def main() -> int:
             for arm, k in arm_kind.items()
             if base not in _kernels.PAGED_KERNELS or k == kind)
     for r in records:
+        base = r["name"].removesuffix("_int8").removesuffix("_fp8")
+        if base == r["name"] or base not in _kernels.PAGED_KERNELS:
+            r["mixtral_launches"] = mixtral_launches.get(base, 0)
+    for r in records:
         if r["name"] in durable["launches"]["A"]:
             r["durability_launches"] = {
                 arm: launches[r["name"]]
@@ -4876,11 +5422,12 @@ def main() -> int:
         (args.out / "chip_smoke.json").write_text(json.dumps(dict(
             card=card, device=name, build_s=build_s, probe=probe,
             silu_probe=silu, kernels=records,
-            serve=serve, train=train), indent=1, default=str))
+            serve=serve, mixtral=mixtral, train=train), indent=1,
+            default=str))
     keys = ("name", "route", "source", "replaces", "variant", "launches",
             "launches_per_unit", "launches_per", "http_launches",
-            "durability_launches", "max_abs_err", "ms", "plain_ms",
-            "plain_note", "bound_ms",
+            "durability_launches", "mixtral_launches", "max_abs_err", "ms",
+            "plain_ms", "plain_note", "bound_ms",
             "bound_by", "bound_share", "achieved_tflops", "library_ms",
             "library_call")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys}

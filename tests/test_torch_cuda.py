@@ -33,8 +33,10 @@ model's verify rows against its decode rows and its spec-on tokens against
 spec-off, and a prefill window's full pages the same under two window
 widths (fault F2), bf16 and W8A8 int8; and KV-session migration between
 two small engines on the card (handoff and drain keep the tokens, a torn
-payload leaves the destination's pool unchanged), and two engines stepping
-on two threads of one process (each request keeps its tokens).
+payload leaves the destination's pool unchanged), two engines stepping
+on two threads of one process (each request keeps its tokens), and the
+serving MoE layer (rows bitwise across row counts, within one bf16 ulp
+of ``moe_layer``).
 """
 
 import pytest
@@ -1436,3 +1438,40 @@ def test_two_engine_threads_keep_their_tokens(device):
             t.join(timeout=300)
         assert not any(t.is_alive() for t in threads)
         assert {**got[0], **got[1]} == want
+
+
+# ------------------------------------------------------------------- MoE
+@pytest.mark.parametrize("e,d,f", [(8, 256, 512), (4, 128, 256)])
+def test_moe_serve_layer_rows_are_bitwise_and_match_plain(device, e, d, f):
+    """The serving MoE layer (``moe_layer_rows``: the router on the f32
+    decode GEMM, padded to 8 columns where E is 4; each expert's w3+w1 and
+    w2 on the bf16 one), dropless (cf E / K): its rows at M 1, 8 and 32
+    bitwise its rows at M 256 -- on the mma.sync and the wgmma kernels --
+    and each M within one bf16 ulp plus 1e-2 of the plain ``moe_layer``;
+    the router and 2 E expert launches a call."""
+    from triton_kubernetes_tpu_torch.ops import decode_gemm as dg
+    from triton_kubernetes_tpu_torch.ops import moe
+
+    gen = torch.Generator(device=device).manual_seed(e + d)
+    params = {"router": torch.randn((d, e), generator=gen, device=device)
+              * 0.05,
+              **{k: (torch.randn(shape, generator=gen, device=device)
+                     * 0.05).to(torch.bfloat16)
+                 for k, shape in (("w1", (e, d, f)), ("w3", (e, d, f)),
+                                  ("w2", (e, f, d)))}}
+    x = torch.randn((256, d), generator=gen, device=device).to(torch.bfloat16)
+    cf = e / 2
+
+    def rows(xx):
+        return moe.moe_layer_rows(xx[None], params, 2, cf)[0][0]
+
+    full = rows(x)
+    for m in (1, 8, 32):
+        assert torch.equal(rows(x[:m].contiguous()), full[:m]), m
+    for m in (1, 8, 32, 256):
+        want = moe.moe_layer(x[:m][None], params, 2, cf)[0][0]
+        torch.testing.assert_close(rows(x[:m].contiguous()), want,
+                                   **_tol(torch.bfloat16))
+    dg.reset_launch_counts()
+    rows(x[:8].contiguous())
+    assert dg.decode_gemm_group.launches == 1 + 2 * e

@@ -326,7 +326,7 @@ def _unfused_layers(model, x, config, positions, attend):
     for i, layer in enumerate(model.layers):
         q, k, v = llama._qkv(x, layer, config, cos, sin, positions, True)
         x = llama.project_out(x, attend(i, q, k, v), layer, config, True)
-        x = x + llama._mlp(x, layer, config, True)
+        x = x + llama._mlp(x, layer, config, True)[0]
     return llama.final_norm_hidden(x, model, True)
 
 

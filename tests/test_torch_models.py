@@ -159,9 +159,14 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_later_slices_raise_not_implemented():
-    """MoE is a later slice; quantized pools and W8A8 weights are not."""
-    with pytest.raises(NotImplementedError, match="MoE"):
-        init_params(get_config("mixtral-test"), device="cpu")
+    """Expert parallelism is a later slice (it needs the mesh of
+    distributed training); MoE models, quantized pools and W8A8 weights
+    are not."""
+    from triton_kubernetes_tpu_torch.train.__main__ import main as train
+    with pytest.raises(NotImplementedError, match="mesh"):
+        train(["--model", "mixtral-test", "--expert", "4", "--device", "cpu"])
+    moe = init_params(get_config("mixtral-test"), device="cpu")
+    assert moe.layers[0].moe_w1.shape == (4, 64, 128)
     from triton_kubernetes_tpu_torch.serve import ServeEngine
     cfg = get_config("llama-test")
     model = init_params(cfg, device="cpu")

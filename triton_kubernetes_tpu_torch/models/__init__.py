@@ -1,6 +1,7 @@
-"""The Llama-3 family in PyTorch: config registry, model, contiguous
-prefill and sampling, and the paged prefill/decode/verify/rewind the
-serving engine runs (the port of ``triton_kubernetes_tpu/models``)."""
+"""The Llama-3 dense family and the Mixtral MoE family in PyTorch: config
+registry, model, contiguous prefill and sampling, and the paged
+prefill/decode/verify/rewind the serving engine runs (the port of
+``triton_kubernetes_tpu/models``)."""
 
 from .config import CONFIGS, ModelConfig, get_config
 from .generate import (
@@ -29,6 +30,7 @@ from .paged import (
     paged_rewind,
     paged_verify_step,
 )
+from . import mixtral
 
 __all__ = [
     "CONFIGS",
@@ -40,6 +42,7 @@ __all__ = [
     "from_numpy_params",
     "to_numpy_params",
     "quantize_weights",
+    "mixtral",
     "KVCache",
     "init_cache",
     "prefill",

@@ -61,7 +61,7 @@ def prefill(model: llama.Llama,
         q, k, v = llama._qkv(x, layer, config, cos, sin, positions)
         attn = causal_attention(q, k, v, positions, positions)
         x = llama.project_out(x, attn, layer, config)
-        x = x + llama._mlp(x, layer, config)
+        x = x + llama._mlp(x, layer, config)[0]
         cache.k[i, :, :p] = k
         cache.v[i, :, :p] = v
     if last_position is not None:
@@ -97,7 +97,7 @@ def decode_step(model: llama.Llama,
         attn = causal_attention(q, cache.k[i], cache.v[i], positions,
                                 k_positions)
         x = llama.project_out(x, attn, layer, config)
-        x = x + llama._mlp(x, layer, config)
+        x = x + llama._mlp(x, layer, config)[0]
     logits = llama.unembed(x, model, config=config)[:, 0, :]
     return logits, cache._replace(length=pos + 1)
 
@@ -115,13 +115,25 @@ def generate(model: llama.Llama,
     """Prefill, then ``max_new_tokens - 1`` decode steps; returns
     ``{"tokens": [B, N], "done": [B]}``. Always runs every step: once a
     sequence emits ``eos_id`` its later tokens repeat eos (the done mask
-    sticks). Sampling draws from ``generator`` (greedy needs none)."""
+    sticks). Sampling draws from ``generator`` (greedy needs none). An MoE
+    config must route dropless (``capacity_factor >= num_experts /
+    num_selected``), else it raises: capacity drops depend on how many
+    tokens a step holds, so cached decode would leave the forward."""
     b, p = prompt.shape
     max_len = p + max_new_tokens
     if max_len > config.max_seq_len:
         raise ValueError(
             f"prompt ({p}) + max_new_tokens ({max_new_tokens}) exceeds "
             f"max_seq_len ({config.max_seq_len})")
+    if config.is_moe and (config.capacity_factor
+                          < config.num_experts / config.num_selected):
+        raise ValueError(
+            "MoE generation needs dropless routing (capacity-based token "
+            f"dropping is sequence-length-dependent, so cached decode would "
+            f"diverge from the training forward): set capacity_factor >= "
+            f"num_experts/num_selected = "
+            f"{config.num_experts / config.num_selected}, got "
+            f"{config.capacity_factor}")
 
     def sample(logits, done):
         tok = sample_token(logits, generator, temperature, top_k, top_p)

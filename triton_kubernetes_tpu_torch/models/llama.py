@@ -30,8 +30,23 @@ norms of these functions through ``ops.norms.rms_norm_rows`` -- whose rows
 do not depend on the row count (a verify row is then bitwise the decode
 row, as the reference pins); everything else keeps the plain ``rms_norm``
 and ``torch.einsum``.
-MoE layers and quantized weight leaves are later slices of the port and
-raise ``NotImplementedError``.
+
+An MoE config (``num_experts > 0``, the Mixtral family) swaps the dense
+SwiGLU for the expert layer of ``ops/moe.py``: ``router [D, E]``,
+``moe_w1``/``moe_w3 [E, D, F]`` and ``moe_w2 [E, F, D]``, the reference's
+layouts. :func:`_mlp` returns the layer's aux loss beside its delta, and
+:func:`forward` sums it over the layers. The row-invariant steps run
+``ops.moe.moe_layer_rows`` (the router and every expert's products on
+``decode_gemm``), everything else ``ops.moe.moe_layer``. The router's
+product is f32 in the reference (``x.float() @ router.float()``), so the
+router is kept in f32 in the serving form too.
+
+With ``config.weight_quant`` "int8"/"fp8" the matmul weights are
+:class:`QuantizedWeight` s, one scale per output channel (and per expert
+for the expert weights; the router stays full precision), contracted W8A8
+where ``config.matmul_dtype`` says so (:func:`w8a8_dtype`; never the
+expert products, which dequantize at use as the reference's
+``resolve_weight`` does) and dequantized otherwise.
 """
 
 from __future__ import annotations
@@ -53,6 +68,7 @@ from torch.utils.checkpoint import (
 from ..ops.attention import causal_attention
 from ..ops.decode_gemm import decode_gemm_group, decode_gemm_plain
 from ..ops.flash_attention import flash_attention
+from ..ops.moe import moe_layer, moe_layer_rows
 from ..ops.norms import rms_norm, rms_norm_rows
 from ..ops.quantization import (
     QuantizedRows,
@@ -69,18 +85,36 @@ from .config import ModelConfig
 AttentionFn = Callable[
     [torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
-_MOE_LATER = ("MoE layers are not ported yet: they come with the MoE slice "
-              "of the port (ROADMAP.md)")
-
-# A layer's weight leaves, in the JAX package's order.
+# A layer's weight leaves, in the JAX package's order: a dense layer's,
+# and an MoE layer's.
 LAYER_LEAVES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w1", "w3",
                 "w2")
-# Quantized weights -> how many of their leading dims (JAX layout, one
-# layer) the matmul contracts: per-channel scales reduce exactly these (the
-# reference's _QUANT_AXES_LAYERS, without the MoE names). The lm head
-# [D, V] contracts D.
+MOE_LAYER_LEAVES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
+                    "router", "moe_w1", "moe_w3", "moe_w2")
+# Quantized weights of a dense layer -> how many of their leading dims (JAX
+# layout, one layer) the matmul contracts: per-channel scales reduce
+# exactly these (the reference's _QUANT_AXES_LAYERS). The lm head [D, V]
+# contracts D.
 QUANT_CONTRACT = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w1": 1, "w3": 1,
                   "w2": 1}
+# The expert weights ([E, D, F], [E, F, D]): the expert dim leads, then one
+# contracted dim, so a scale per (expert, output column).
+MOE_QUANT_CONTRACT = {"moe_w1": 1, "moe_w3": 1, "moe_w2": 1}
+
+
+def layer_leaves(config: ModelConfig) -> Tuple[str, ...]:
+    """The weight leaves of one of ``config``'s layers."""
+    return MOE_LAYER_LEAVES if config.is_moe else LAYER_LEAVES
+
+
+def quantized_leaves(config: ModelConfig) -> Dict[str, Tuple[int, int]]:
+    """The layer leaves :func:`quantize_weights` quantizes -> (leading
+    batch dims, contracted dims after them)."""
+    out = {n: (0, c) for n, c in QUANT_CONTRACT.items()
+           if n in layer_leaves(config)}
+    if config.is_moe:
+        out.update({n: (1, c) for n, c in MOE_QUANT_CONTRACT.items()})
+    return out
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -111,78 +145,95 @@ def quant_dtype(weight_quant: str) -> torch.dtype:
 
 
 class QuantizedWeight(nn.Module):
-    """A weight quantized per output channel: buffers ``q`` [N, K] (int8 or
-    float8_e4m3fn, K-contiguous: the layout the W8A8 kernel reads, the
-    transpose of the JAX layout's flattened [K, N]) and ``scale`` [N] f32,
-    for a weight of JAX-layout ``shape`` whose first ``contract`` dims are
-    the contraction (K their product, N the rest's)."""
+    """A weight quantized per output channel: buffers ``q`` [*B, N, K]
+    (int8 or float8_e4m3fn, K-contiguous: the layout the W8A8 kernel
+    reads, the transpose of the JAX layout's flattened [K, N]) and
+    ``scale`` [*B, N] f32, for a weight of JAX-layout ``shape`` whose first
+    ``batch`` dims index separate matrices (the experts of an MoE weight)
+    and whose next ``contract`` dims are the contraction (K their product,
+    N the rest's)."""
 
     def __init__(self, shape: Sequence[int], contract: int,
-                 dtype: torch.dtype, device: torch.device):
+                 dtype: torch.dtype, device: torch.device, batch: int = 0):
         super().__init__()
         self.shape = tuple(shape)
         self.contract = contract
-        k = int(np.prod(self.shape[:contract]))
-        n = int(np.prod(self.shape[contract:]))
-        self.register_buffer("q", torch.empty((n, k), dtype=dtype,
+        self.batch = batch
+        lead = self.shape[:batch]
+        k = int(np.prod(self.shape[batch:batch + contract]))
+        n = int(np.prod(self.shape[batch + contract:]))
+        self.register_buffer("q", torch.empty(lead + (n, k), dtype=dtype,
                                               device=device))
-        self.register_buffer("scale", torch.empty(n, dtype=torch.float32,
+        self.register_buffer("scale", torch.empty(lead + (n,),
+                                                  dtype=torch.float32,
                                                   device=device))
 
     def jax_q(self) -> torch.Tensor:
         """``q`` in the JAX layout (a view)."""
-        return self.q.t().reshape(self.shape)
+        return self.q.transpose(-1, -2).reshape(self.shape)
 
     def jax_scale(self) -> torch.Tensor:
         """``scale`` in the JAX layout, the contraction dims size 1."""
-        return self.scale.reshape((1,) * self.contract
-                                  + self.shape[self.contract:])
+        b = self.batch
+        return self.scale.reshape(self.shape[:b] + (1,) * self.contract
+                                  + self.shape[b + self.contract:])
 
     def set_jax(self, q: torch.Tensor, scale: torch.Tensor) -> None:
         """Store a JAX-layout (q, scale) pair (q's bytes as they are)."""
-        k, n = self.q.shape[1], self.q.shape[0]
+        n, k = self.q.shape[-2:]
+        lead = self.q.shape[:-2]
         self.q.view(torch.uint8).copy_(
-            q.reshape(k, n).view(torch.uint8).t())
-        self.scale.copy_(scale.reshape(n))
+            q.reshape(lead + (k, n)).view(torch.uint8).transpose(-1, -2))
+        self.scale.copy_(scale.reshape(lead + (n,)))
 
     def quantize_from(self, w: torch.Tensor) -> None:
         """Quantize a JAX-layout weight into this leaf
         (``quantize_channelwise`` over the contraction dims)."""
-        self.set_jax(*quantize_channelwise(w, tuple(range(self.contract)),
-                                           self.q.dtype))
+        b = self.batch
+        self.set_jax(*quantize_channelwise(
+            w, tuple(range(b, b + self.contract)), self.q.dtype))
 
     def dequantize(self, dtype: torch.dtype) -> torch.Tensor:
         """``(q * scale)`` in f32, cast to ``dtype``, in the JAX layout."""
-        return (self.q.float() * self.scale[:, None]).to(dtype).t(
-        ).contiguous().reshape(self.shape)
+        return (self.q.float() * self.scale[..., None]).to(dtype).transpose(
+            -1, -2).contiguous().reshape(self.shape)
 
 
 def _leaf(shape, contract: int, dtype, device, trainable: bool,
-          qdtype: Optional[torch.dtype]):
+          qdtype: Optional[torch.dtype], batch: int = 0):
     if qdtype is None:
         return _weight(shape, dtype, device, trainable)
-    return QuantizedWeight(shape, contract, qdtype, device)
+    return QuantizedWeight(shape, contract, qdtype, device, batch)
 
 
 class LlamaBlock(nn.Module):
-    """One decoder layer's weights, in the JAX package's layouts; with
-    ``qdtype`` the matmul weights are :class:`QuantizedWeight` s."""
+    """One decoder layer's weights, in the JAX package's layouts: the
+    dense SwiGLU's ``w1``/``w3``/``w2``, or for an MoE config the
+    ``router`` (f32 in the serving form, whose product the reference
+    computes in f32) and the experts' ``moe_w1``/``moe_w3``/``moe_w2``.
+    With ``qdtype`` the matmul weights are :class:`QuantizedWeight` s (the
+    router stays full precision)."""
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype,
                  device: torch.device, trainable: bool = False,
                  qdtype: Optional[torch.dtype] = None):
         super().__init__()
         d, dh, f = config.embed_dim, config.head_dim, config.mlp_dim
-        h, hkv = config.num_heads, config.num_kv_heads
+        h, hkv, e = config.num_heads, config.num_kv_heads, config.num_experts
         w = functools.partial(_weight, dtype=dtype, device=device,
                               trainable=trainable)
         shapes = {"wq": (d, h, dh), "wk": (d, hkv, dh), "wv": (d, hkv, dh),
-                  "wo": (h, dh, d), "w1": (d, f), "w3": (d, f), "w2": (f, d)}
+                  "wo": (h, dh, d), "w1": (d, f), "w3": (d, f), "w2": (f, d),
+                  "moe_w1": (e, d, f), "moe_w3": (e, d, f),
+                  "moe_w2": (e, f, d)}
         self.attn_norm = w((d,))
         self.mlp_norm = w((d,))
-        for name, shape in shapes.items():
-            setattr(self, name, _leaf(shape, QUANT_CONTRACT[name], dtype,
-                                      device, trainable, qdtype))
+        if config.is_moe:
+            self.router = _weight((d, e), dtype if trainable
+                                  else torch.float32, device, trainable)
+        for name, (batch, contract) in quantized_leaves(config).items():
+            setattr(self, name, _leaf(shapes[name], contract, dtype, device,
+                                      trainable, qdtype, batch))
 
 
 class Llama(nn.Module):
@@ -197,8 +248,6 @@ class Llama(nn.Module):
     def __init__(self, config: ModelConfig, device: torch.device | str,
                  trainable: bool = False):
         super().__init__()
-        if config.is_moe:
-            raise NotImplementedError(_MOE_LATER)
         qdtype = None
         if config.weight_quant != "none":
             if trainable:
@@ -258,13 +307,16 @@ def init_params(config: ModelConfig, seed: int = 0,
 
     with torch.no_grad():
         fill(model.embed, std)
+        # Residual-out projections (wo, w2 or moe_w2) at out_std.
+        mlp, mlp_out = ((("router", "moe_w1", "moe_w3"), "moe_w2")
+                        if config.is_moe else (("w1", "w3"), "w2"))
         for layer in model.layers:
             layer.attn_norm.fill_(1.0)
             layer.mlp_norm.fill_(1.0)
-            for name in ("wq", "wk", "wv", "w1", "w3"):
+            for name in ("wq", "wk", "wv") + mlp:
                 fill(getattr(layer, name), std)
             fill(layer.wo, out_std)
-            fill(layer.w2, out_std)
+            fill(getattr(layer, mlp_out), out_std)
         model.final_norm.fill_(1.0)
         fill(model.lm_head, std)
     return model
@@ -319,7 +371,7 @@ def from_numpy_params(params: Dict[str, Any], config: ModelConfig,
         put(model.lm_head, params["lm_head"])
         stacked = params["layers"]
         for i, layer in enumerate(model.layers):
-            for name in LAYER_LEAVES:
+            for name in layer_leaves(config):
                 put(getattr(layer, name), layer_leaf(stacked[name], i))
     return model
 
@@ -350,7 +402,7 @@ def to_numpy_params(model: Llama) -> Dict[str, Any]:
         "embed": arr(model.embed),
         "layers": {n: stack([arr(getattr(layer, n))
                              for layer in model.layers])
-                   for n in LAYER_LEAVES},
+                   for n in layer_leaves(model.config)},
         "final_norm": arr(model.final_norm),
         "lm_head": arr(model.lm_head),
     }
@@ -358,13 +410,15 @@ def to_numpy_params(model: Llama) -> Dict[str, Any]:
 
 def quantize_weights(model: Llama, dtype: str = "int8") -> Llama:
     """Per-channel symmetric quantization of the big matmul weights: a NEW
-    model whose matmul weights (:data:`QUANT_CONTRACT`) and lm head are
+    model whose matmul weights (:func:`quantized_leaves`: the dense MLP's
+    or the experts', and the attention's) and lm head are
     :class:`QuantizedWeight` s of ``dtype`` ("int8" or "fp8"), each scale
     over its contraction dims (the reference's ``quantize_weights``), and
-    whose config records ``weight_quant=dtype``; the embedding and norms
-    are copied as they are. The caller's model is untouched. Idempotent at
-    the same dtype (the model itself comes back); a model already quantized
-    to another dtype raises (rounding losses must not compound)."""
+    whose config records ``weight_quant=dtype``; the embedding, the norms
+    and the MoE router are copied as they are. The caller's model is
+    untouched. Idempotent at the same dtype (the model itself comes back);
+    a model already quantized to another dtype raises (rounding losses must
+    not compound)."""
     if dtype not in ("int8", "fp8"):
         raise ValueError(
             f"quantize_weights dtype must be 'int8' or 'fp8', got {dtype!r}")
@@ -377,15 +431,17 @@ def quantize_weights(model: Llama, dtype: str = "int8") -> Llama:
             f"re-quantizing to {dtype!r} would compound rounding losses -- "
             f"quantize from the full-precision model instead")
     new = Llama(replace(config, weight_quant=dtype), model.device)
+    quantized = quantized_leaves(config)
     with torch.no_grad():
         new.embed.copy_(model.embed)
         new.final_norm.copy_(model.final_norm)
         new.lm_head.quantize_from(model.lm_head)
         for old, layer in zip(model.layers, new.layers):
-            layer.attn_norm.copy_(old.attn_norm)
-            layer.mlp_norm.copy_(old.mlp_norm)
-            for name in QUANT_CONTRACT:
-                getattr(layer, name).quantize_from(getattr(old, name))
+            for name in layer_leaves(config):
+                if name in quantized:
+                    getattr(layer, name).quantize_from(getattr(old, name))
+                else:  # the norms and the router
+                    getattr(layer, name).copy_(getattr(old, name))
     return new
 
 
@@ -522,28 +578,57 @@ def _qkv(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
     return _qkv_normed(h, layer, config, cos, sin, positions, row_invariant)
 
 
-def _mlp_normed(h: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
-                row_invariant: bool = False) -> torch.Tensor:
-    """Dense SwiGLU of the MLP norm's output. Returns the residual
-    delta."""
+def mlp_readers(layer: LlamaBlock, config: ModelConfig) -> List[Any]:
+    """The weights whose products read the MLP norm's output: w3 and w1,
+    or for an MoE layer the router and the experts' w3 and w1 (never W8A8:
+    the router stays full precision)."""
     if config.is_moe:
-        raise NotImplementedError(_MOE_LATER)
+        return [layer.router, layer.moe_w3, layer.moe_w1]
+    return [layer.w3, layer.w1]
+
+
+def _moe_normed(h: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
+                row_invariant: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert layer of the MLP norm's output: ``ops.moe.moe_layer_rows``
+    where ``row_invariant``, else ``moe_layer``. Expert weights take part
+    as :func:`resolve_weight` gives them (quantized ones dequantized: the
+    expert products are never W8A8, as in the reference)."""
+    params = {"router": layer.router,
+              "w1": resolve_weight(layer.moe_w1, config),
+              "w3": resolve_weight(layer.moe_w3, config),
+              "w2": resolve_weight(layer.moe_w2, config)}
+    if row_invariant:
+        return moe_layer_rows(h, params, config.num_selected,
+                              config.capacity_factor)
+    return moe_layer(h, params, config.num_selected, config.capacity_factor,
+                     dispatch_mode=config.moe_dispatch)
+
+
+def _mlp_normed(h: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
+                row_invariant: bool = False
+                ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
+    """Dense SwiGLU or the expert layer of the MLP norm's output. Returns
+    (residual delta, aux loss: the float 0.0 for a dense layer, which
+    costs the serving steps no kernel launch)."""
+    if config.is_moe:
+        return _moe_normed(h, layer, config, row_invariant)
     gate, up = weight_einsums("bsd,df->bsf", h, [layer.w3, layer.w1],
                               config, row_invariant)
     qdtype = w8a8_dtype([layer.w2], config, gate)
     if qdtype is not None:  # w2's input quantized in the same pass
         return weight_einsum("bsf,fd->bsd",
                              swiglu_quantize_rows(gate, up, qdtype),
-                             layer.w2, config, row_invariant)
+                             layer.w2, config, row_invariant), 0.0
     gate = torch.nn.functional.silu(gate.float()).to(config.activation_dtype)
     return weight_einsum("bsf,fd->bsd", gate * up, layer.w2, config,
-                         row_invariant)
+                         row_invariant), 0.0
 
 
 def _mlp(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
-         row_invariant: bool = False) -> torch.Tensor:
-    """Post-attention half of the block: norm + dense SwiGLU. Returns the
-    residual delta."""
+         row_invariant: bool = False
+         ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
+    """Post-attention half of the block: norm + SwiGLU (dense or MoE).
+    Returns (residual delta, aux loss)."""
     h = _norm(x, layer.mlp_norm, config, row_invariant)
     return _mlp_normed(h, layer, config, row_invariant)
 
@@ -672,18 +757,21 @@ def remat_block(body: Callable, config: ModelConfig) -> Callable:
 
 def _block(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
            cos: torch.Tensor, sin: torch.Tensor, positions: torch.Tensor,
-           attention_fn: AttentionFn) -> torch.Tensor:
+           attention_fn: AttentionFn
+           ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
     q, k, v = _qkv(x, layer, config, cos, sin, positions)
     attn = attention_fn(q, k, v, positions)
     x = project_out(x, attn, layer, config)
-    return x + _mlp(x, layer, config)
+    y, aux = _mlp(x, layer, config)
+    return x + y, aux
 
 
 def forward(model: Llama, tokens: torch.Tensor, config: ModelConfig,
             attention_fn: Optional[AttentionFn] = None,
             positions: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits [B, S, V] f32, MoE aux loss scalar -- 0 here)."""
+    """Returns (logits [B, S, V] f32, MoE aux loss scalar: the layers'
+    sum, 0 for a dense model)."""
     x, aux = forward_hidden(model, tokens, config, attention_fn, positions)
     return unembed(x, model, config=config), aux
 
@@ -712,10 +800,12 @@ def forward_hidden(model: Llama, tokens: torch.Tensor, config: ModelConfig,
     # is scattered in the activation dtype and cast back to the master's.
     x = resolve_weight(model.embed, config)[tokens.long()]
 
-    def body(x: torch.Tensor, layer: LlamaBlock) -> torch.Tensor:
+    def body(x: torch.Tensor, layer: LlamaBlock):
         return _block(x, layer, config, cos, sin, positions, attention_fn)
 
     body = remat_block(body, config)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
-        x = body(x, layer)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = body(x, layer)
+        aux_total = aux_total + aux
+    return x, aux_total

@@ -197,7 +197,10 @@ def _serve_layers(model: llama.Llama, x: torch.Tensor, config: ModelConfig,
     ``rms_norm_quant_rows`` for the first norm): ``QuantizedRows``. The
     weight products are row-invariant (``decode_gemm``, or W8A8's
     kernels), and so are the norms on CUDA tensors: a row's bits do not
-    depend on how many rows the step holds."""
+    depend on how many rows the step holds. An MoE layer's MLP is
+    ``ops.moe.moe_layer_rows`` (the router and each expert on
+    ``decode_gemm``; its readers never contract W8A8, so h reaches it
+    unquantized), row-invariant where routing is dropless."""
     cos, sin = model.rotary()
     eps = config.norm_eps
     layers = model.layers
@@ -223,12 +226,12 @@ def _serve_layers(model: llama.Llama, x: torch.Tensor, config: ModelConfig,
         attn = attend(i, q, k, v)
         x, h = boundary(
             x, llama.out_projection(attn, layer, config, row_invariant=True),
-            layer.mlp_norm, [layer.w3, layer.w1])
+            layer.mlp_norm, llama.mlp_readers(layer, config))
         after, readers = ((layers[i + 1].attn_norm, qkv(layers[i + 1]))
                           if i + 1 < len(layers)
                           else (model.final_norm, [model.lm_head]))
         x, h = boundary(
-            x, llama._mlp_normed(h, layer, config, row_invariant=True),
+            x, llama._mlp_normed(h, layer, config, row_invariant=True)[0],
             after, readers)
     return h
 

@@ -24,6 +24,10 @@ checkpoint instead of training through a NaN, exiting ``EXIT_ANOMALY``
 recorded mesh one card cannot hold under ``--elastic``, exit
 ``EXIT_CONFIG`` (2).
 
+``--expert`` is the reference's expert-parallel degree for an MoE model
+(the Mixtral family): recorded in every checkpoint's mesh section, and 1
+on one card -- more raises until the port has a mesh.
+
 ``--trace-jsonl PATH`` writes ``train.*`` spans and the goodput ledger (the
 train categories partitioning the run's wall window) as JSON lines, as the
 reference does: ``checkpoint`` across every save, ``rollback_replay``
@@ -163,16 +167,23 @@ def _build_parser() -> argparse.ArgumentParser:
                         "(remainder only -- real compute overlaps it) "
                         "before each dispatch; 0 = off")
     p.add_argument("--report-json", default="",
-                   help="write a run report (per-step losses and grad "
-                        "norms, window times, tokens/s, MFU, peak memory, "
-                        "checkpoint and restore times, the preemption "
-                        "outcome, kernel launches) to this path")
+                   help="write a run report (per-step losses, grad "
+                        "norms and MoE aux losses, window times, tokens/s, "
+                        "MFU, peak memory, checkpoint and restore times, "
+                        "the preemption outcome, kernel launches) to this "
+                        "path")
     p.add_argument("--trace-jsonl", default="",
                    help="append train.* span events and the goodput "
                         "ledger (chip-time categories partitioning the "
                         "run's wall window) as JSON lines to this path; "
                         "merge with `python -m "
                         "triton_kubernetes_tpu_torch.tools.trace merge`")
+    p.add_argument("--expert", type=int, default=1,
+                   help="expert-parallel degree of an MoE model, recorded "
+                        "in the checkpoint's mesh section; one card holds "
+                        "every expert, so only 1 runs: more raises until "
+                        "the port has a mesh (distributed training, "
+                        "ROADMAP.md)")
     p.add_argument("--dry-run", action="store_true",
                    help="build everything, run one step, exit")
     return p
@@ -195,6 +206,7 @@ def main(argv: Optional[list] = None) -> int:
     from ..models import get_config
     from ..models.llama import resolve_device
     from ..ops import flash_attention as fa
+    from ..ops.moe import dispatch_mode_of
     from ..utils.logging import Logger
     from .checkpoint import (
         CheckpointManager, HostStaging, ReshapeError, mesh_spec_of,
@@ -208,6 +220,12 @@ def main(argv: Optional[list] = None) -> int:
     from .trainer import (
         init_state, make_optimizer, make_train_step, memory_stats)
 
+    if args.expert > 1:
+        raise NotImplementedError(
+            f"--expert {args.expert}: expert parallelism shards the experts "
+            f"over a mesh of devices, and the port has no mesh yet "
+            f"(distributed training, ROADMAP.md section 1 item 4); one card "
+            f"runs --expert 1")
     log = Logger(json_mode=args.json_logs)
     overrides = {}
     for item in args.model_opt:
@@ -230,6 +248,8 @@ def main(argv: Optional[list] = None) -> int:
         ("--sync-every", args.sync_every), ("--prefetch", args.prefetch),
         ("--max-rollbacks", args.max_rollbacks),
         ("--device-ms-per-row", args.device_ms_per_row)) if value < 0]
+    if args.expert < 1:
+        bad.append(f"--expert must be >= 1, got {args.expert}")
     if seq_len > config.max_seq_len:
         bad.append(f"--seq-len {seq_len} exceeds the model's max_seq_len "
                    f"{config.max_seq_len}")
@@ -314,7 +334,8 @@ def main(argv: Optional[list] = None) -> int:
     # axis 1, and the global batch the data stream is cut for. The two
     # managers share one pinned staging, so the process pins one
     # checkpoint's bytes at most.
-    live_spec = mesh_spec_of(None, n_processes=1, global_batch=batch_size)
+    live_spec = mesh_spec_of({"expert": args.expert}, n_processes=1,
+                             global_batch=batch_size)
     staging = HostStaging()
     ckpt = em_ckpt = None
     if args.checkpoint_dir:
@@ -362,6 +383,11 @@ def main(argv: Optional[list] = None) -> int:
             goodput.transition("idle")
 
     fpt = flops_per_token(config, seq_len)
+    # The dispatch an MoE layer runs at this step's token count.
+    moe_dispatch = (dispatch_mode_of(
+        config.moe_dispatch, batch_size * seq_len, config.num_experts,
+        config.num_selected, config.capacity_factor)
+        if config.is_moe else None)
     device_name = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu")
     peak = peak_bf16_tflops(device_name)  # 0 off the card: no MFU then
@@ -429,6 +455,7 @@ def main(argv: Optional[list] = None) -> int:
 
     sync_windows: list = []
     grad_norms: dict = {}
+    aux_losses: dict = {}
     last_loss = None  # None until the first sync: never log a fake NaN
     profiler = {"prof": None, "done": False}
 
@@ -457,13 +484,17 @@ def main(argv: Optional[list] = None) -> int:
     def on_sync(gstep, cur_state, window_losses, window_dt):
         nonlocal last_loss
         n = len(window_losses)
-        # The window's grad norms: the loop's sync already drained these
-        # steps, so this small transfer does not wait on the card.
-        norms = torch.stack([torch.as_tensor(m["grad_norm"]).float()
-                             for m in window_metrics[-n:]]).tolist()
+        # The window's grad norms and MoE aux losses: the loop's sync
+        # already drained these steps, so this small transfer does not
+        # wait on the card.
+        norms, auxs = torch.stack([
+            torch.stack([torch.as_tensor(m[key]).float()
+                         for m in window_metrics[-n:]])
+            for key in ("grad_norm", "aux_loss")]).tolist()
         window_metrics.clear()
-        for i, g in enumerate(norms):
+        for i, (g, a) in enumerate(zip(norms, auxs)):
             grad_norms[gstep - n + 1 + i] = g
+            aux_losses[gstep - n + 1 + i] = a
         wait = live["pf"].wait_seconds if live["pf"] is not None else None
         sync_windows.append((n, window_dt, wait))
         last_loss = window_losses[-1]
@@ -515,7 +546,9 @@ def main(argv: Optional[list] = None) -> int:
         data = dict(
             schema=1, model=config.name, num_layers=config.num_layers,
             embed_dim=config.embed_dim, vocab_size=config.vocab_size,
-            num_params=config.num_params(), precision=policy_of(config),
+            num_params=config.num_params(),
+            active_params=config.active_params(), expert=args.expert,
+            moe_dispatch=moe_dispatch, precision=policy_of(config),
             remat=remat_policy_of(config), attention=config.attention,
             fused_ce=config.fused_ce, device=device_name, n_processes=1,
             devices=1, global_batch=batch_size, batch_size=batch_size,
@@ -523,6 +556,8 @@ def main(argv: Optional[list] = None) -> int:
             start_step=start_step, target_step=target_step,
             steps=steps_done, init_seconds=init_s, losses=losses,
             grad_norms=[grad_norms.get(start_step + 1 + i)
+                        for i in range(len(losses))],
+            aux_losses=[aux_losses.get(start_step + 1 + i)
                         for i in range(len(losses))],
             sync_points=report.sync_points if report is not None else 0,
             rollbacks=report.rollbacks if report is not None else 0,
