@@ -5155,6 +5155,414 @@ def durability_phase(card, out_dir: Path):
                                for k in ("A", "B", "C")})
 
 
+# Phase 6: distributed training on one card. Full width at phase 5's cut
+# (llama3-8b, 4 layers, bf16 policy, full remat, batch 4 x 2048): GPipe
+# with every stage on the card, the ring at n = 1 and the entry point
+# under a one-rank NCCL world as subprocesses of the trainer, blockwise
+# attention against the flash kernels, and the fused exchange against the
+# sharded step. It writes no checkpoint.
+DIST_DEVICE = "cuda"
+DIST_STAGES, DIST_MICROBATCHES = 2, 4
+DIST_TIMED_STEPS = 3
+DIST_ARM_TIMEOUT_S = 300
+BLOCKWISE_SHAPE = (1, 4096)
+# Blockwise keeps p and dS in f32 where the flash kernels round them to
+# bf16 (the reference's XLA twin keeps them in f32 too), so its gradients
+# sit two roundings from the kernels'. The forward (out, lse) is held to
+# phase 3's bounds as they are; dQ, dK and dV to twice phase 3's ATOL +
+# RTOL |kernel|. blockwise_check prints what that bound sits between: the
+# kernels' and blockwise's own errors against f32 dense attention (in
+# units of the single bound), and a control the doubled bound must still
+# refuse -- blockwise with its last key block's values zeroed.
+BLOCKWISE_GRAD_FACTOR = 2
+FUSED_STEPS = 2
+
+
+def dist_config():
+    from triton_kubernetes_tpu_torch.models import get_config
+    from triton_kubernetes_tpu_torch.train import apply_policy
+
+    return apply_policy(get_config(
+        TRAIN_MODEL, num_layers=TRAIN_LAYERS, fused_ce=True,
+        attention="flash", remat=True, remat_policy="full"), "bf16")
+
+
+def gpipe_check(card):
+    """GPipe (2 stages, 4 microbatches, every stage on the card) against
+    the sequential step on the same weights and batch: loss and every
+    gradient leaf within phase 5's kernels-vs-plain bounds, flash launches
+    exact for the schedule, and both steps' times."""
+    from triton_kubernetes_tpu_torch.models import llama
+    from triton_kubernetes_tpu_torch.ops import flash_attention as fa
+    from triton_kubernetes_tpu_torch.train import (
+        init_state, loss_fn, make_optimizer, synthetic_batches)
+
+    cfg = dist_config()
+    opt = make_optimizer(learning_rate=3e-4, warmup_steps=1,
+                         decay_steps=TRAIN_STEPS)
+    state = init_state(cfg, opt, seed=2, device=DIST_DEVICE)
+    model = state.model
+    params = list(model.parameters())
+    tokens = torch.from_numpy(next(synthetic_batches(
+        cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=98))["tokens"]).to(
+        DIST_DEVICE)
+    attn = llama.resolve_attention(cfg, DIST_DEVICE)
+
+    def stages_of(pipelined):
+        return ((DIST_STAGES, DIST_MICROBATCHES) if pipelined else (1, 1))
+
+    def grads(pipelined):
+        for p in params:
+            p.grad = None
+        fa.reset_launch_counts()
+        total, metrics = loss_fn(model, tokens, cfg, attn,
+                                 *stages_of(pipelined))
+        total.backward()
+        torch.cuda.synchronize()
+        launches = dict(fa.flash_attention.launches)
+        out = [p.grad for p in params]
+        for p in params:
+            p.grad = None
+        return float(metrics["loss"]), out, launches
+
+    seq_loss, seq_grads, seq_launches = grads(False)
+    pipe_loss, pipe_grads, pipe_launches = grads(True)
+    loss_rel = abs(pipe_loss - seq_loss) / abs(seq_loss)
+    grad_rel = max(rel_l2(a, b) for a, b in zip(pipe_grads, seq_grads))
+    del seq_grads, pipe_grads
+    # The schedule runs each layer once a microbatch (bubbles skipped),
+    # the forward twice under full remat.
+    want = {k: n * TRAIN_LAYERS * DIST_MICROBATCHES
+            for k, n in FLASH_PER_LAYER.items()}
+    want_seq = {k: n * TRAIN_LAYERS for k, n in FLASH_PER_LAYER.items()}
+    if pipe_launches != want or seq_launches != want_seq:
+        raise AssertionError(f"flash launches: pipelined {pipe_launches} "
+                             f"!= {want}, sequential {seq_launches} != "
+                             f"{want_seq}")
+    if not (loss_rel <= STEP_LOSS_REL and grad_rel <= STEP_GRAD_REL_L2):
+        raise AssertionError(
+            f"GPipe vs sequential: loss rel diff {loss_rel} (bound "
+            f"{STEP_LOSS_REL}), worst gradient leaf rel L2 {grad_rel} "
+            f"(bound {STEP_GRAD_REL_L2})")
+
+    def step(pipelined):
+        for p in params:
+            p.grad = None
+        total, _ = loss_fn(model, tokens, cfg, attn, *stages_of(pipelined))
+        total.backward()
+        opt.update(params, [p.grad for p in params], state.opt_state)
+
+    times = {}
+    for pipelined in (False, True):
+        step(pipelined)  # warm-up
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(DIST_TIMED_STEPS):
+            t0 = time.perf_counter()
+            step(pipelined)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        times["pipelined" if pipelined else "sequential"] = ms
+    for p in params:
+        p.grad = None
+    del state, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(loss_sequential=seq_loss, loss_pipelined=pipe_loss,
+               loss_rel_diff=loss_rel, grad_max_rel_l2=grad_rel,
+               launches=pipe_launches, launches_sequential=seq_launches,
+               step_ms=times,
+               step_ms_median={k: statistics.median(v)
+                               for k, v in times.items()})
+    print(f"distributed: GPipe (stages {DIST_STAGES}, microbatches "
+          f"{DIST_MICROBATCHES}, all on the card) vs the sequential step: "
+          f"loss {pipe_loss:.6f} vs {seq_loss:.6f} (rel diff "
+          f"{loss_rel:.3g}, bound {STEP_LOSS_REL}), worst gradient leaf "
+          f"rel L2 {grad_rel:.4g} (bound {STEP_GRAD_REL_L2}); flash "
+          f"launches a pipelined step {pipe_launches} (sequential "
+          f"{seq_launches}); step ms pipelined "
+          f"{[round(x, 3) for x in times['pipelined']]} vs sequential "
+          f"{[round(x, 3) for x in times['sequential']]} [{card}]",
+          flush=True)
+    return out
+
+
+def blockwise_check(card, flush):
+    """Blockwise attention against the flash kernels at (1, 4096), 8B
+    heads, bf16: forward and backward, with both times."""
+    from triton_kubernetes_tpu_torch.ops import blockwise_attention as bw
+    from triton_kubernetes_tpu_torch.ops import flash_attention as fa
+
+    b, s = BLOCKWISE_SHAPE
+    gen = torch.Generator(device=DIST_DEVICE).manual_seed(6)
+    q, k, v, do = (torch.randn((b, s, h, D), generator=gen, device=DIST_DEVICE
+                               ).to(torch.bfloat16)
+                   for h in (HQ, HKV, HKV, HQ))
+
+    from triton_kubernetes_tpu_torch.ops.attention import causal_attention
+
+    def run(fn, inputs=(q, k, v), grad_out=do):
+        ts = [t.detach().requires_grad_(True) for t in inputs]
+        o = fn(*ts)
+        o.backward(grad_out)
+        return [o.detach()] + [t.grad for t in ts]
+
+    names = ("out", "dq", "dk", "dv")
+    factors = (1,) + (BLOCKWISE_GRAD_FACTOR,) * 3
+
+    def ratios(got, want, units):
+        """max |got - want| / (unit x (ATOL + RTOL |want|)) of each."""
+        return {n: float(((a.float() - w.float()).abs()
+                          / (u * (ATOL + RTOL * w.float().abs()))).max())
+                for n, a, w, u in zip(names, got, want, units)}
+
+    got = run(bw.blockwise_attention)
+    want = run(fa.flash_attention)
+    errs = {}
+    for name, a, w, factor in zip(names, got, want, factors):
+        err = (a.float() - w.float()).abs()
+        ratio = float((err / (factor * (ATOL + RTOL * w.float().abs())))
+                      .max())
+        errs[name] = dict(max_abs_err=float(err.max()), bound_ratio=ratio)
+        if not ratio <= 1:
+            raise AssertionError(
+                f"blockwise {name} vs the flash kernels: {ratio:.4g} of "
+                f"{factor} x (ATOL + RTOL |kernel|)")
+    # What the doubled bound sits between, in units of the single bound:
+    # each against f32 dense attention on the same (bf16-valued) inputs.
+    pos = torch.arange(s, device=DIST_DEVICE).expand(b, s)
+    truth = run(lambda q_, k_, v_: causal_attention(q_, k_, v_, pos, pos),
+                [t.float() for t in (q, k, v)], do.float())
+    del pos
+    spread = dict(kernels_vs_blockwise=ratios(want, got, (1,) * 4),
+                  kernels_vs_f32=ratios(want, truth, (1,) * 4),
+                  blockwise_vs_f32=ratios(got, truth, (1,) * 4))
+    del truth
+    # The control: the last key block's values zeroed, which the bound
+    # (as the check above applies it) must refuse.
+    v_drop = v.clone()
+    v_drop[:, -bw.DEFAULT_BLOCK_K:] = 0
+    control = ratios(run(bw.blockwise_attention, (q, k, v_drop)), want,
+                     factors)
+    del v_drop
+    if not max(control.values()) > 1:
+        raise AssertionError(f"blockwise control (last key block's values "
+                             f"zeroed) passes the bound: {control}")
+    spread["control_dropped_block"] = control
+    # How fine the bound is: a softmax scale 2^-6 off (q scaled),
+    # reported only.
+    spread["control_scale_off_2^-6"] = ratios(
+        run(bw.blockwise_attention, ((q.float() * (1 + 2.0 ** -6)).to(
+            q.dtype), k, v)), want, factors)
+    _, lse = bw._forward(q, k, v, None, bw.DEFAULT_BLOCK_K)
+    from triton_kubernetes_tpu_torch.ops import _kernels
+
+    _, klse = _kernels.flash_fwd(q, k, v)
+    lse_err = float((lse.reshape(klse.shape) - klse).abs().max())
+    if not lse_err <= LSE_ATOL:
+        raise AssertionError(f"blockwise lse vs flash_fwd: {lse_err} > "
+                             f"{LSE_ATOL}")
+    errs["lse"] = dict(max_abs_err=lse_err)
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def fwd_bwd(fn):
+        def go():
+            o = fn(qs, ks, vs)
+            torch.autograd.grad(o, (qs, ks, vs), do)
+        return go
+
+    with torch.no_grad():
+        times = dict(
+            blockwise_fwd=time_ms(lambda: bw.blockwise_attention(q, k, v),
+                                  flush, runs=5, warmup=1),
+            flash_fwd=time_ms(lambda: fa.flash_attention(q, k, v), flush,
+                              runs=5, warmup=1))
+    times["blockwise_fwd_bwd"] = time_ms(fwd_bwd(bw.blockwise_attention),
+                                         flush, runs=5, warmup=1)
+    times["flash_fwd_bwd"] = time_ms(fwd_bwd(fa.flash_attention), flush,
+                                     runs=5, warmup=1)
+    del got, want, q, k, v, do, qs, ks, vs
+    torch.cuda.empty_cache()
+    print(f"distributed: blockwise attention (B, S) = {BLOCKWISE_SHAPE}, "
+          f"Hq {HQ}, Hkv {HKV}, D {D}, bf16, block {bw.DEFAULT_BLOCK_K} vs "
+          f"the flash kernels: "
+          + ", ".join(f"{n} max abs err {e['max_abs_err']:.4g}"
+                      + (f" ({e['bound_ratio']:.3f} of its bound)"
+                         if "bound_ratio" in e else "")
+                      for n, e in errs.items())
+          + f"; forward ms blockwise {times['blockwise_fwd']:.4f} vs flash "
+          f"{times['flash_fwd']:.4f}, forward + backward ms blockwise "
+          f"{times['blockwise_fwd_bwd']:.4f} vs flash "
+          f"{times['flash_fwd_bwd']:.4f} [{card}]", flush=True)
+    print("distributed: blockwise bound spread (out, dq, dk, dv; the "
+          "controls in units of the bound as applied, the rest of the "
+          "single bound): " + "; ".join(
+              f"{k} " + ", ".join(f"{r:.4g}" for r in v.values())
+              for k, v in spread.items()), flush=True)
+    return dict(errors=errs, ms=times, bound_spread=spread)
+
+
+def train_arm(name, argv, out_dir, env=None):
+    """The trainer entry point as a subprocess (phase 5's flags plus
+    ``argv``): its report, its log tail."""
+    import os
+
+    report = out_dir / f"train_dist_{name}.json"
+    report.unlink(missing_ok=True)
+    proc = subprocess.run(
+        [sys.executable, "-m", "triton_kubernetes_tpu_torch.train",
+         *TRAIN_ARGV, "--report-json", str(report), *argv],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=DIST_ARM_TIMEOUT_S, env=dict(os.environ, **(env or {})))
+    if proc.returncode != 0 or not report.exists():
+        raise AssertionError(f"trainer arm {name}: exit {proc.returncode}; "
+                             f"stderr tail:\n{proc.stderr[-3000:]}")
+    return json.loads(report.read_text()), proc.stderr
+
+
+def steady_ms(rep):
+    step_s = [dt / n for n, dt in rep["windows"]]
+    return statistics.median(step_s[TRAIN_WARMUP:]) * 1e3
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def fused_check(card):
+    """``make_fused_dcn_step`` against the sharded (XLA-path) step on a
+    one-rank mesh, FUSED_STEPS steps from the same init: losses, grad
+    norms and every parameter bitwise."""
+    from triton_kubernetes_tpu_torch.parallel import MeshConfig, create_mesh
+    from triton_kubernetes_tpu_torch.parallel.multihost import \
+        make_fused_dcn_step
+    from triton_kubernetes_tpu_torch.train import (
+        init_state, make_optimizer, make_train_step, synthetic_batches)
+
+    cfg = dist_config()
+    mesh = create_mesh(MeshConfig(fsdp=1), world=1, device_type=DIST_DEVICE)
+    runs = {}
+    for name in ("fused", "xla"):
+        opt = make_optimizer(learning_rate=3e-4, warmup_steps=1,
+                             decay_steps=TRAIN_STEPS)
+        if name == "fused":
+            state = init_state(cfg, opt, seed=3, device=DIST_DEVICE)
+            step = make_fused_dcn_step(cfg, mesh, opt)
+        else:
+            state = init_state(cfg, opt, seed=3, device=DIST_DEVICE, mesh=mesh)
+            step = make_train_step(cfg, opt, mesh=mesh)
+        metrics = []
+        batches = synthetic_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                                    seed=97)
+        for _ in range(FUSED_STEPS):
+            state, m = step(state, next(batches))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[name] = (metrics, [p.detach().cpu()
+                                for p in state.model.parameters()])
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    (fm, fp), (xm, xp) = runs["fused"], runs["xla"]
+    same = sum(torch.equal(a, b) for a, b in zip(fp, xp))
+    if fm != xm or same != len(fp):
+        raise AssertionError(f"fused vs sharded step: metrics {fm} vs {xm},"
+                             f" {same}/{len(fp)} leaves bitwise")
+    print(f"distributed: fused exchange vs the sharded step, {FUSED_STEPS} "
+          f"steps on a one-rank mesh: (loss, grad norm) {fm} both, "
+          f"{same}/{len(fp)} parameters bitwise [{card}]", flush=True)
+    return dict(metrics=fm, leaves_bitwise=same, leaves=len(fp))
+
+
+def distributed_phase(card, out_dir: Path, flash_report=None):
+    """Phase 6. ``flash_report`` is phase 5's run report (the flash
+    baseline); without it the phase runs phase 5's trainer itself."""
+    from triton_kubernetes_tpu_torch.ops import flash_attention as fa
+    from triton_kubernetes_tpu_torch.train import __main__ as train_main
+
+    t0 = time.perf_counter()
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=DIST_DEVICE)
+    if flash_report is None:
+        path = out_dir / "train_dist_flash.json"
+        fa.reset_launch_counts()
+        if train_main.main(TRAIN_ARGV + ["--report-json", str(path)]) != 0:
+            raise AssertionError("phase 5's trainer run failed")
+        flash_report = json.loads(path.read_text())
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = dict(flash_losses=flash_report["losses"],
+               flash_steady_ms=steady_ms(flash_report))
+    out["blockwise"] = blockwise_check(card, flush)
+    del flush
+    # The main path: GPipe in this process, counted from zero.
+    fa.reset_launch_counts()
+    out["gpipe"] = gpipe_check(card)
+    launches = dict(out["gpipe"]["launches"])
+
+    # The ring at n = 1 through the entry point.
+    ring, _ = train_arm("ring", ["--ring-attention"], out_dir)
+    ring_rel = max(abs(a - b) / abs(b) for a, b in zip(
+        ring["losses"], flash_report["losses"]))
+    if (len(ring["losses"]) != TRAIN_STEPS
+            or not all(np.isfinite(ring["losses"] + ring["grad_norms"]))
+            or not ring_rel <= STEP_LOSS_REL):
+        raise AssertionError(f"ring at n = 1: losses {ring['losses']} vs "
+                             f"flash {flash_report['losses']} (worst rel "
+                             f"diff {ring_rel}, bound {STEP_LOSS_REL})")
+    if any(ring["kernel_launches"].values()):
+        raise AssertionError(f"ring run launched flash kernels: "
+                             f"{ring['kernel_launches']}")
+    out["ring"] = dict(losses=ring["losses"], max_loss_rel_diff=ring_rel,
+                       steady_ms=steady_ms(ring), report=ring)
+    print(f"distributed: ring attention at n = 1 (--ring-attention, "
+          f"{TRAIN_STEPS} steps): losses {[round(x, 5) for x in ring['losses']]}"
+          f", worst rel diff to the flash run {ring_rel:.3g} (bound "
+          f"{STEP_LOSS_REL}); steady step ms ring {steady_ms(ring):.3f} vs "
+          f"flash {out['flash_steady_ms']:.3f} [{card}]", flush=True)
+
+    # The entry point under a one-rank NCCL world: bitwise phase 5.
+    env = {"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}",
+           "NUM_TPU_WORKERS": "1", "TPU_WORKER_ID": "0"}
+    entry, log = train_arm("entry", ["--distributed", "on"], out_dir, env)
+    from triton_kubernetes_tpu_torch.parallel.multihost import backend_for
+
+    if f"backend={backend_for(DIST_DEVICE)}" not in log:
+        raise AssertionError(f"the entry point joined no "
+                             f"{backend_for(DIST_DEVICE)} world:\n"
+                             f"{log[-2000:]}")
+    same = (entry["losses"] == flash_report["losses"]
+            and entry["grad_norms"] == flash_report["grad_norms"])
+    want = {k: n * TRAIN_LAYERS * TRAIN_STEPS
+            for k, n in FLASH_PER_LAYER.items()}
+    if not same or entry["kernel_launches"] != want:
+        raise AssertionError(
+            f"--distributed on (NCCL, world 1): losses {entry['losses']} "
+            f"vs phase 5's {flash_report['losses']}, grad norms "
+            f"{entry['grad_norms']} vs {flash_report['grad_norms']}; "
+            f"launches {entry['kernel_launches']} (want {want})")
+    for k, n in entry["kernel_launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    out["entry"] = dict(mesh=entry["mesh"], dcn_sync=entry["dcn_sync"],
+                        n_processes=entry["n_processes"],
+                        losses_bitwise=same, steady_ms=steady_ms(entry),
+                        launches=entry["kernel_launches"], report=entry)
+    print(f"distributed: --distributed on under NCCL, world 1 "
+          f"({TRAIN_STEPS} steps): report mesh {entry['mesh']}, dcn_sync "
+          f"{entry['dcn_sync']}, n_processes {entry['n_processes']}; "
+          f"losses and grad norms bitwise phase 5's: {same}; steady step ms "
+          f"{steady_ms(entry):.3f} vs {out['flash_steady_ms']:.3f}; flash "
+          f"launches {entry['kernel_launches']} [{card}]", flush=True)
+
+    out["fused"] = fused_check(card)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    print(f"distributed: phase 6 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", type=Path, default=None,
@@ -5193,6 +5601,15 @@ def main() -> int:
                              "decode, the serve and route entry points), "
                              "and stop: the short first run after a change "
                              "to the HTTP layer (prints no device line)")
+    parser.add_argument("--distributed-only", action="store_true",
+                        help="build the three flash kernels, hold them "
+                             "against their plain versions, then run phase "
+                             "6 (GPipe, the ring at n = 1, blockwise "
+                             "attention, the entry point under a one-rank "
+                             "NCCL world, the fused exchange; it runs phase "
+                             "5's trainer once for its baseline) and stop "
+                             "(DIR/chip_smoke_distributed.json with --out; "
+                             "prints no device line)")
     parser.add_argument("--mixtral-only", action="store_true",
                         help="build every kernel, run the Mixtral phase "
                              "(serve 16 layers, train 2 through the entry "
@@ -5230,7 +5647,8 @@ def main() -> int:
     # Phase 2: build, every source at once.
     t0 = time.perf_counter()
     built = (tuple(k for k in _kernels.KERNELS if k.startswith("flash_"))
-             if args.flash_only or args.train_only else
+             if args.flash_only or args.train_only
+             or args.distributed_only else
              ("decode_gemm", "rms_norm", "quantize_rows") if args.gemm_only
              else _kernels.KERNELS)
     logs = _kernels.build(built)
@@ -5279,6 +5697,22 @@ def main() -> int:
     if args.flash_only:
         print(json.dumps({"kernels": flash_kernel_phase(device, flush,
                                                         peaks)}))
+        return 0
+    if args.distributed_only:
+        records = flash_kernel_phase(device, flush, peaks)
+        del flush
+        with tempfile.TemporaryDirectory() as tmp:
+            out_dir = args.out if args.out is not None else Path(tmp)
+            out_dir.mkdir(parents=True, exist_ok=True)
+            dist = distributed_phase(card, out_dir)
+        if args.out is not None:
+            (args.out / "chip_smoke_distributed.json").write_text(
+                json.dumps(dict(card=card, device=name, kernels=records,
+                                distributed=dist), indent=1, default=str))
+        print(json.dumps({"distributed": {
+            "launches": dist["launches"], "seconds": dist["seconds"],
+            "entry": {k: dist["entry"][k] for k in (
+                "mesh", "dcn_sync", "losses_bitwise")}}}))
         return 0
     if args.train_only:
         records = flash_kernel_phase(device, flush, peaks)
@@ -5330,6 +5764,11 @@ def main() -> int:
         # Phase 5: train.
         train_launches, train = train_phase(card, out_dir)
         train["durability"] = durable = durability_phase(card, out_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # Phase 6: distributed training on one card.
+        train["distributed"] = dist = distributed_phase(
+            card, out_dir, flash_report=train["report"])
     # Each kernel's launches on the serve runs of its page kind (the first
     # serve run and the bf16 runs for bf16 pages) or on training, and per
     # unit of that path: a decode tick, a verify tick, a prefill window, a
@@ -5410,6 +5849,9 @@ def main() -> int:
                 arm: launches[r["name"]]
                 for arm, launches in durable["launches"].items()}
     for r in records:
+        if r["name"] in dist["launches"]:
+            r["distributed_launches"] = dist["launches"][r["name"]]
+    for r in records:
         n, per = count[r["name"]]
         if not n:
             raise AssertionError(f"{r['name']}: launched no time on the "
@@ -5426,7 +5868,8 @@ def main() -> int:
             default=str))
     keys = ("name", "route", "source", "replaces", "variant", "launches",
             "launches_per_unit", "launches_per", "http_launches",
-            "durability_launches", "mixtral_launches", "max_abs_err", "ms",
+            "durability_launches", "mixtral_launches", "distributed_launches",
+            "max_abs_err", "ms",
             "plain_ms", "plain_note", "bound_ms",
             "bound_by", "bound_share", "achieved_tflops", "library_ms",
             "library_call")

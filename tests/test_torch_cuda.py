@@ -1475,3 +1475,28 @@ def test_moe_serve_layer_rows_are_bitwise_and_match_plain(device, e, d, f):
     dg.reset_launch_counts()
     rows(x[:8].contiguous())
     assert dg.decode_gemm_group.launches == 1 + 2 * e
+
+
+def test_f32_head_product_trains_on_the_card(device):
+    """The lm head's f32-out product (``decode_gemm_plain``, which the
+    pipeline's logits take) carries gradients on the card: those of the
+    f32 product of the same bf16 operands, cast to each operand's dtype."""
+    from triton_kubernetes_tpu_torch.ops.decode_gemm import decode_gemm_plain
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn((64, 256), generator=gen, device=device).to(
+        torch.bfloat16).requires_grad_(True)
+    w = torch.randn((256, 512), generator=gen, device=device).to(
+        torch.bfloat16).requires_grad_(True)
+    g = torch.randn((64, 512), generator=gen, device=device)
+    out = decode_gemm_plain(x, w, torch.float32)
+    assert out.dtype == torch.float32
+    out.backward(g)
+    # Two f32 sums of the same 256 exact bf16 products, in different
+    # orders (cuBLAS's and the f32 GEMM's): 1.3e-5 apart at worst on the
+    # H100, where assert_close's f32 default (1.3e-6 relative) is for one
+    # rounding.
+    torch.testing.assert_close(out.detach(), x.float() @ w.float(),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(x.grad, (g @ w.float().t()).to(x.dtype))
+    torch.testing.assert_close(w.grad, (x.float().t() @ g).to(w.dtype))

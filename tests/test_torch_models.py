@@ -183,8 +183,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     package (its checkpoints, resilient loop and data pipelines among
     it), the flash-attention op, the weight and KV quantizers, the
     decode GEMM's wrappers, generation, the decode weight policy, the
-    self-drafter, the migration wire format, the trace module and the two
-    tools named first."""
+    self-drafter, the migration wire format, the trace module, the two
+    tools, and the distributed layer (mesh, sharding, collectives,
+    multihost, ring and blockwise attention, the sharded step) named
+    first."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import triton_kubernetes_tpu_torch.train\n"
@@ -204,6 +206,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import triton_kubernetes_tpu_torch.utils.trace\n"
         "import triton_kubernetes_tpu_torch.tools.trace\n"
         "import triton_kubernetes_tpu_torch.tools.goodput\n"
+        "import triton_kubernetes_tpu_torch.parallel\n"
+        "import triton_kubernetes_tpu_torch.parallel.mesh\n"
+        "import triton_kubernetes_tpu_torch.parallel.sharding\n"
+        "import triton_kubernetes_tpu_torch.parallel.collectives\n"
+        "import triton_kubernetes_tpu_torch.parallel.multihost\n"
+        "import triton_kubernetes_tpu_torch.ops.ring_attention\n"
+        "import triton_kubernetes_tpu_torch.ops.blockwise_attention\n"
+        "import triton_kubernetes_tpu_torch.parallel.placement\n"
         "import triton_kubernetes_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"

@@ -79,11 +79,16 @@ from ..ops.quantization import (
     w8a8_rows,
 )
 from ..ops.rotary import apply_rotary, rotary_tables
+from ..parallel.placement import LOCAL, Placement
 from .config import ModelConfig
 
 # attention_fn(q, k, v, positions) -> out; positions is [B, S] int.
 AttentionFn = Callable[
     [torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+# The JAX package's parameter tree: {"embed", "layers": {name: [L, ...]},
+# "final_norm", "lm_head"} (numpy leaves where the port takes one).
+Params = Dict[str, Any]
 
 # A layer's weight leaves, in the JAX package's order: a dense layer's,
 # and an MoE layer's.
@@ -100,6 +105,44 @@ QUANT_CONTRACT = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w1": 1, "w3": 1,
 # The expert weights ([E, D, F], [E, F, D]): the expert dim leads, then one
 # contracted dim, so a scale per (expert, output column).
 MOE_QUANT_CONTRACT = {"moe_w1": 1, "moe_w3": 1, "moe_w2": 1}
+
+
+# Each leaf's logical axes in the port's layout: the reference's
+# ``logical_axes`` less the leading "layers" axis of a stacked leaf (a layer
+# of the port is its own tensor; the layer index maps to the stage axis).
+LEAF_AXES: Dict[str, Tuple[Optional[str], ...]] = {
+    "embed": ("vocab", "embed"),
+    "final_norm": ("norm",),
+    "lm_head": ("embed", "vocab"),
+    "attn_norm": ("norm",),
+    "mlp_norm": ("norm",),
+    "wq": ("embed", "heads", "head_dim"),
+    "wk": ("embed", "kv_heads", "head_dim"),
+    "wv": ("embed", "kv_heads", "head_dim"),
+    "wo": ("heads", "head_dim", "embed"),
+    "w1": ("embed", "mlp"),
+    "w3": ("embed", "mlp"),
+    "w2": ("mlp", "embed"),
+    "router": ("embed", None),
+    "moe_w1": ("expert", "embed", "mlp"),
+    "moe_w3": ("expert", "embed", "mlp"),
+    "moe_w2": ("expert", "mlp", "embed"),
+}
+
+
+def logical_axes(config: ModelConfig) -> Params:
+    """The reference's ``logical_axes``: the JAX parameter tree's
+    structure (the layout :func:`from_numpy_params` and
+    :func:`to_numpy_params` use), leaves logical-axis tuples; a stacked
+    layer leaf leads with "layers", which the rules map to the stage
+    axis."""
+    return {
+        "embed": LEAF_AXES["embed"],
+        "layers": {n: ("layers",) + LEAF_AXES[n]
+                   for n in layer_leaves(config)},
+        "final_norm": LEAF_AXES["final_norm"],
+        "lm_head": LEAF_AXES["lm_head"],
+    }
 
 
 def layer_leaves(config: ModelConfig) -> Tuple[str, ...]:
@@ -243,7 +286,20 @@ class Llama(nn.Module):
     instead of activation-dtype weights without. A config with
     ``weight_quant`` "int8"/"fp8" makes the matmul weights and the lm head
     :class:`QuantizedWeight` s (serving only: ``trainable`` raises); fill
-    them with :func:`quantize_weights` or :func:`from_numpy_params`."""
+    them with :func:`quantize_weights` or :func:`from_numpy_params`.
+
+    A model built over a mesh (``init_params``/``from_numpy_params`` with
+    ``mesh=``) holds one rank's blocks: its stage's layers (numbered from
+    0) and, of every leaf, the block :func:`..parallel.sharding.
+    local_slices` gives the rank. ``mesh`` is then that mesh and ``layout``
+    maps each parameter's name to ``(global name, full shape, spec)``;
+    ``config`` stays the whole model's. ``placement`` says where the
+    leaves live (``parallel/placement.py``): the forward and the train
+    step read every leaf through it."""
+
+    mesh = None
+    layout: Optional[Dict[str, Tuple[str, Tuple[int, ...], Any]]] = None
+    placement: Placement = LOCAL
 
     def __init__(self, config: ModelConfig, device: torch.device | str,
                  trainable: bool = False):
@@ -281,50 +337,151 @@ class Llama(nn.Module):
         return self._rotary
 
 
+def _init_draws(config: ModelConfig):
+    """(parameter name, std; None for a norm's ones) in the order the
+    init rule draws them from the generator."""
+    std = 0.02
+    out_std = 0.02 / (2 * config.num_layers) ** 0.5
+    # Residual-out projections (wo, w2 or moe_w2) at out_std.
+    mlp, mlp_out = ((("router", "moe_w1", "moe_w3"), "moe_w2")
+                    if config.is_moe else (("w1", "w3"), "w2"))
+    yield "embed", std
+    for i in range(config.num_layers):
+        yield f"layers.{i}.attn_norm", None
+        yield f"layers.{i}.mlp_norm", None
+        for name in ("wq", "wk", "wv") + mlp:
+            yield f"layers.{i}.{name}", std
+        yield f"layers.{i}.wo", out_std
+        yield f"layers.{i}.{mlp_out}", out_std
+    yield "final_norm", None
+    yield "lm_head", std
+
+
 def init_params(config: ModelConfig, seed: int = 0,
                 device: torch.device | str = "cuda",
-                trainable: bool = False) -> Llama:
+                trainable: bool = False, mesh=None) -> Llama:
     """Normal(0.02) init, residual-out projections scaled by 1/sqrt(2L),
     norms at one -- the reference's init rule, drawn from a ``torch``
     generator on ``device`` (so the values differ from the JAX init). A
     config with ``weight_quant`` set draws the full-precision weights, then
-    quantizes them (:func:`quantize_weights`)."""
+    quantizes them (:func:`quantize_weights`).
+
+    With ``mesh`` the model holds this rank's blocks only (see
+    :class:`Llama`): every leaf is still drawn whole, in the same order
+    from the same generator, and cut to the rank's block, so the values are
+    those of the one-device model at any mesh shape, and the transient
+    memory is one whole leaf."""
     dev = resolve_device(device)
     if config.weight_quant != "none":
+        if mesh is not None:
+            raise ValueError("a quantized model serves on one device")
         full = init_params(replace(config, weight_quant="none",
                                    matmul_dtype="auto"), seed, dev)
         model = quantize_weights(full, config.weight_quant)
         model.config = config
         return model
-    model = Llama(config, dev, trainable)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    std = 0.02
-    out_std = 0.02 / (2 * config.num_layers) ** 0.5
 
-    def fill(p: nn.Parameter, s: float) -> None:
-        p.copy_(torch.randn(p.shape, generator=gen, device=dev,
-                            dtype=torch.float32) * s)
+    def draw(shape, s: Optional[float]) -> torch.Tensor:
+        if s is None:
+            return torch.ones(shape, dtype=torch.float32, device=dev)
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32) * s
 
+    if mesh is not None:
+        shapes = dict(_global_shapes(config))
+        return _sharded_model(config, mesh, dev, trainable, (
+            (name, draw(shapes[name], s))
+            for name, s in _init_draws(config)))
+    model = Llama(config, dev, trainable)
     with torch.no_grad():
-        fill(model.embed, std)
-        # Residual-out projections (wo, w2 or moe_w2) at out_std.
-        mlp, mlp_out = ((("router", "moe_w1", "moe_w3"), "moe_w2")
-                        if config.is_moe else (("w1", "w3"), "w2"))
-        for layer in model.layers:
-            layer.attn_norm.fill_(1.0)
-            layer.mlp_norm.fill_(1.0)
-            for name in ("wq", "wk", "wv") + mlp:
-                fill(getattr(layer, name), std)
-            fill(layer.wo, out_std)
-            fill(getattr(layer, mlp_out), out_std)
-        model.final_norm.fill_(1.0)
-        fill(model.lm_head, std)
+        for name, s in _init_draws(config):
+            p = model.get_parameter(name)
+            if s is None:
+                p.fill_(1.0)
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev,
+                                    dtype=torch.float32) * s)
+    return model
+
+
+def _global_shapes(config: ModelConfig):
+    """(name, shape) of every parameter of the whole model, in
+    ``named_parameters`` order (a model on the meta device)."""
+    for name, p in Llama(config, "meta", trainable=True).named_parameters():
+        yield name, tuple(p.shape)
+
+
+def shard_layout(config: ModelConfig, mesh, rules=None
+                 ) -> Dict[str, Tuple[str, Tuple[int, ...], Any]]:
+    """This rank's parameters under ``mesh``: local name -> (global name,
+    full shape, spec). The stage axis takes contiguous groups of
+    ``L / stage`` layers (the reference's ``_stage_params``)."""
+    from ..parallel.sharding import logical_to_spec
+
+    stages = mesh.shape["stage"]
+    if config.num_layers % stages:
+        raise ValueError(
+            f"num_layers ({config.num_layers}) must divide evenly into "
+            f"{stages} pipeline stages")
+    per = config.num_layers // stages
+    first = mesh.coordinate()["stage"] * per
+    out = {}
+    for name, shape in _global_shapes(replace(config, num_layers=per)):
+        parts = name.split(".")
+        glob = (f"layers.{first + int(parts[1])}.{parts[2]}"
+                if parts[0] == "layers" else name)
+        out[name] = (glob, shape,
+                     logical_to_spec(LEAF_AXES[parts[-1]], rules, mesh))
+    return out
+
+
+def _sharded_model(config: ModelConfig, mesh, dev: torch.device,
+                   trainable: bool, values) -> Llama:
+    """A model of this rank's blocks from ``values``, (global name, whole
+    leaf) pairs -- tensors or numpy arrays, taken one at a time; leaves
+    of other stages are skipped."""
+    from ..parallel.placement import MeshPlacement
+    from ..parallel.sharding import local_slices
+
+    if config.is_moe and mesh.shape["expert"] > 1:
+        raise NotImplementedError(
+            "expert parallelism (expert axis > 1) is the next slice's work "
+            "(ROADMAP.md section 1 item 4)")
+    layout = shard_layout(config, mesh)
+    local = {glob: (name, shape, spec)
+             for name, (glob, shape, spec) in layout.items()}
+    per = config.num_layers // mesh.shape["stage"]
+    model = Llama(replace(config, num_layers=per), "meta", trainable)
+    model.config = config
+    dtype = config.weight_dtype if trainable else config.activation_dtype
+    with torch.no_grad():
+        for glob, full in values:
+            if glob not in local:
+                continue
+            name, shape, spec = local.pop(glob)
+            if tuple(full.shape) != shape:
+                raise ValueError(f"leaf {glob} shape {tuple(full.shape)} "
+                                 f"!= expected {shape}")
+            block = full[local_slices(shape, spec, mesh)]
+            if not isinstance(block, torch.Tensor):
+                block = torch.from_numpy(np.array(block, dtype=np.float32))
+            block = block.to(device=dev, dtype=dtype).clone(
+                memory_format=torch.contiguous_format)
+            owner, _, leaf = name.rpartition(".")
+            setattr(model.get_submodule(owner), leaf,
+                    nn.Parameter(block, requires_grad=trainable))
+    if local:
+        raise ValueError(f"no value for {sorted(local)[:4]}")
+    model.mesh = mesh
+    model.layout = layout
+    model.placement = MeshPlacement(mesh, layout, model.named_parameters())
     return model
 
 
 def from_numpy_params(params: Dict[str, Any], config: ModelConfig,
                       device: torch.device | str = "cuda",
-                      trainable: bool = False) -> Llama:
+                      trainable: bool = False, mesh=None) -> Llama:
     """The port's model from a JAX parameter tree given as numpy arrays
     (``{"embed", "layers": {name: [L, ...]}, "final_norm", "lm_head"}``,
     the stacked layout of the reference's ``init_params``). Leaves are cast
@@ -332,8 +489,20 @@ def from_numpy_params(params: Dict[str, Any], config: ModelConfig,
     gradients when ``trainable``. A quantized tree (the reference's
     ``quantize_weights``: ``{"q", "scale"}`` leaves) needs
     ``config.weight_quant`` set to its dtype; its values are taken as their
-    bytes, so fp8 may come as ``ml_dtypes.float8_e4m3fn`` or as uint8."""
+    bytes, so fp8 may come as ``ml_dtypes.float8_e4m3fn`` or as uint8.
+
+    With ``mesh`` the model holds this rank's blocks only (see
+    :class:`Llama`; full-precision trees)."""
     dev = resolve_device(device)
+    if mesh is not None:
+        def leaf(name: str) -> np.ndarray:
+            parts = name.split(".")
+            if parts[0] == "layers":
+                return np.asarray(params["layers"][parts[2]])[int(parts[1])]
+            return np.asarray(params[name])
+
+        return _sharded_model(config, mesh, dev, trainable, (
+            (name, leaf(name)) for name, _ in _global_shapes(config)))
     model = Llama(config, dev, trainable)
 
     def put(p, arr: Any) -> None:
@@ -557,14 +726,29 @@ def weight_einsum(spec: str, x: torch.Tensor, w: Any,
     return weight_einsums(spec, x, [w], config, row_invariant)[0]
 
 
+def _placed_products(spec: str, h: torch.Tensor, ws: Sequence[Any],
+                     config: ModelConfig, row_invariant: bool,
+                     place: Placement) -> List[torch.Tensor]:
+    """:func:`weight_einsums` of ``h`` with each of ``ws`` as ``place``
+    has them read: each leaf as :meth:`Placement.weight` gives it, each
+    product fed what :meth:`Placement.feed` gives it (one call for the
+    products that share an input)."""
+    xs = place.feed(h, ws)
+    ws = [place.weight(w) for w in ws]
+    if all(x is xs[0] for x in xs):
+        return weight_einsums(spec, xs[0], ws, config, row_invariant)
+    return [weight_einsum(spec, x, w, config, row_invariant)
+            for x, w in zip(xs, ws)]
+
+
 def _qkv_normed(h: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
                 cos: torch.Tensor, sin: torch.Tensor, positions: torch.Tensor,
-                row_invariant: bool = False):
+                row_invariant: bool = False, place: Placement = LOCAL):
     """Projected + rotary-encoded q/k/v from the attention norm's output
     ([B, S, D])."""
-    q, k, v = weight_einsums("bsd,dhk->bshk", h,
-                             [layer.wq, layer.wk, layer.wv], config,
-                             row_invariant)
+    q, k, v = _placed_products("bsd,dhk->bshk", h,
+                               [layer.wq, layer.wk, layer.wv], config,
+                               row_invariant, place)
     q = apply_rotary(q, cos, sin, positions)
     k = apply_rotary(k, cos, sin, positions)
     return q, k, v
@@ -572,10 +756,11 @@ def _qkv_normed(h: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
 
 def _qkv(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
          cos: torch.Tensor, sin: torch.Tensor, positions: torch.Tensor,
-         row_invariant: bool = False):
+         row_invariant: bool = False, place: Placement = LOCAL):
     """Projected + rotary-encoded q/k/v for a block input ([B, S, D])."""
     h = _norm(x, layer.attn_norm, config, row_invariant)
-    return _qkv_normed(h, layer, config, cos, sin, positions, row_invariant)
+    return _qkv_normed(h, layer, config, cos, sin, positions, row_invariant,
+                       place)
 
 
 def mlp_readers(layer: LlamaBlock, config: ModelConfig) -> List[Any]:
@@ -588,15 +773,19 @@ def mlp_readers(layer: LlamaBlock, config: ModelConfig) -> List[Any]:
 
 
 def _moe_normed(h: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
-                row_invariant: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                row_invariant: bool, place: Placement = LOCAL
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The expert layer of the MLP norm's output: ``ops.moe.moe_layer_rows``
     where ``row_invariant``, else ``moe_layer``. Expert weights take part
     as :func:`resolve_weight` gives them (quantized ones dequantized: the
-    expert products are never W8A8, as in the reference)."""
-    params = {"router": layer.router,
-              "w1": resolve_weight(layer.moe_w1, config),
-              "w3": resolve_weight(layer.moe_w3, config),
-              "w2": resolve_weight(layer.moe_w2, config)}
+    expert products are never W8A8, as in the reference), each whole."""
+    params = {"router": place.weight(layer.router),
+              "w1": resolve_weight(place.weight(layer.moe_w1, whole=True),
+                                   config),
+              "w3": resolve_weight(place.weight(layer.moe_w3, whole=True),
+                                   config),
+              "w2": resolve_weight(place.weight(layer.moe_w2, whole=True),
+                                   config)}
     if row_invariant:
         return moe_layer_rows(h, params, config.num_selected,
                               config.capacity_factor)
@@ -605,48 +794,53 @@ def _moe_normed(h: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
 
 
 def _mlp_normed(h: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
-                row_invariant: bool = False
+                row_invariant: bool = False, place: Placement = LOCAL
                 ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
     """Dense SwiGLU or the expert layer of the MLP norm's output. Returns
     (residual delta, aux loss: the float 0.0 for a dense layer, which
     costs the serving steps no kernel launch)."""
     if config.is_moe:
-        return _moe_normed(h, layer, config, row_invariant)
-    gate, up = weight_einsums("bsd,df->bsf", h, [layer.w3, layer.w1],
-                              config, row_invariant)
-    qdtype = w8a8_dtype([layer.w2], config, gate)
+        return _moe_normed(h, layer, config, row_invariant, place)
+    gate, up = _placed_products("bsd,df->bsf", h, [layer.w3, layer.w1],
+                                config, row_invariant, place)
+    w2 = place.weight(layer.w2)
+    qdtype = w8a8_dtype([w2], config, gate)
     if qdtype is not None:  # w2's input quantized in the same pass
-        return weight_einsum("bsf,fd->bsd",
-                             swiglu_quantize_rows(gate, up, qdtype),
-                             layer.w2, config, row_invariant), 0.0
-    gate = torch.nn.functional.silu(gate.float()).to(config.activation_dtype)
-    return weight_einsum("bsf,fd->bsd", gate * up, layer.w2, config,
-                         row_invariant), 0.0
+        y = weight_einsum("bsf,fd->bsd",
+                          swiglu_quantize_rows(gate, up, qdtype), w2,
+                          config, row_invariant)
+    else:
+        gate = torch.nn.functional.silu(gate.float()).to(
+            config.activation_dtype)
+        y = weight_einsum("bsf,fd->bsd", gate * up, w2, config,
+                          row_invariant)
+    return place.reduce(y, layer.w2), 0.0
 
 
 def _mlp(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
-         row_invariant: bool = False
+         row_invariant: bool = False, place: Placement = LOCAL
          ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
     """Post-attention half of the block: norm + SwiGLU (dense or MoE).
     Returns (residual delta, aux loss)."""
     h = _norm(x, layer.mlp_norm, config, row_invariant)
-    return _mlp_normed(h, layer, config, row_invariant)
+    return _mlp_normed(h, layer, config, row_invariant, place)
 
 
 def out_projection(attn: torch.Tensor, layer: LlamaBlock,
-                   config: ModelConfig, row_invariant: bool = False
-                   ) -> torch.Tensor:
+                   config: ModelConfig, row_invariant: bool = False,
+                   place: Placement = LOCAL) -> torch.Tensor:
     """Attention output projection: the residual delta of the attention
     half."""
-    return weight_einsum("bshk,hkd->bsd", attn, layer.wo, config,
-                         row_invariant)
+    y = weight_einsum("bshk,hkd->bsd", place.heads(attn, layer.wo),
+                      place.weight(layer.wo), config, row_invariant)
+    return place.reduce(y, layer.wo)
 
 
 def project_out(x: torch.Tensor, attn: torch.Tensor, layer: LlamaBlock,
-                config: ModelConfig, row_invariant: bool = False
-                ) -> torch.Tensor:
+                config: ModelConfig, row_invariant: bool = False,
+                place: Placement = LOCAL) -> torch.Tensor:
     """Attention output projection + residual add."""
-    return x + out_projection(attn, layer, config, row_invariant)
+    return x + out_projection(attn, layer, config, row_invariant, place)
 
 
 def final_norm_hidden(x: torch.Tensor, model: Llama,
@@ -659,9 +853,10 @@ def head_weights(model: Llama,
                  config: Optional[ModelConfig] = None) -> torch.Tensor:
     """The lm head matrix in the activation dtype: the operand
     :func:`unembed` contracts with on the f32 path (and the fused-CE
-    head's), a quantized head dequantized. ``config`` defaults to the
-    model's."""
-    return resolve_weight(model.lm_head, config or model.config)
+    head's), a quantized head dequantized, the whole head of a model
+    built over a mesh. ``config`` defaults to the model's."""
+    return resolve_weight(model.placement.weight(model.lm_head, whole=True),
+                          config or model.config)
 
 
 def unembed(x: torch.Tensor, model: Llama, row_invariant: bool = False,
@@ -757,13 +952,23 @@ def remat_block(body: Callable, config: ModelConfig) -> Callable:
 
 def _block(x: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
            cos: torch.Tensor, sin: torch.Tensor, positions: torch.Tensor,
-           attention_fn: AttentionFn
+           attention_fn: AttentionFn, place: Placement = LOCAL
            ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
-    q, k, v = _qkv(x, layer, config, cos, sin, positions)
+    q, k, v = _qkv(x, layer, config, cos, sin, positions, place=place)
     attn = attention_fn(q, k, v, positions)
-    x = project_out(x, attn, layer, config)
-    y, aux = _mlp(x, layer, config)
+    x = project_out(x, attn, layer, config, place=place)
+    y, aux = _mlp(x, layer, config, place=place)
     return x + y, aux
+
+
+def embed(model: Llama, tokens: torch.Tensor,
+          config: ModelConfig) -> torch.Tensor:
+    """The token embeddings [B, S, D]. Cast, then gather, as the
+    reference does: the embedding's gradient is scattered in the
+    activation dtype and cast back to the master's."""
+    place = model.placement
+    table = resolve_weight(place.weight(model.embed), config)
+    return place.lookup(table, tokens, model.embed)
 
 
 def forward(model: Llama, tokens: torch.Tensor, config: ModelConfig,
@@ -796,12 +1001,11 @@ def forward_hidden(model: Llama, tokens: torch.Tensor, config: ModelConfig,
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     cos, sin = model.rotary()
-    # Cast, then gather, as the reference does: the embedding's gradient
-    # is scattered in the activation dtype and cast back to the master's.
-    x = resolve_weight(model.embed, config)[tokens.long()]
+    x = embed(model, tokens, config)
 
     def body(x: torch.Tensor, layer: LlamaBlock):
-        return _block(x, layer, config, cos, sin, positions, attention_fn)
+        return _block(x, layer, config, cos, sin, positions, attention_fn,
+                      model.placement)
 
     body = remat_block(body, config)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -54,17 +54,38 @@ import torch
 from . import _kernels
 
 
+class _F32Product(torch.autograd.Function):
+    """``torch.mm(x, w, out_dtype=float32)``, which has no derivative of
+    its own, with the f32 cotangent products of the fused CE head
+    (``ops/fused_ce.py``): dx = g w^T and dw = x^T g in f32, each cast to
+    its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return ((g @ w.float().t()).to(x.dtype),
+                (x.float().t() @ g).to(w.dtype))
+
+
 def decode_gemm_plain(x: torch.Tensor, w: torch.Tensor,
                       out_dtype: torch.dtype) -> torch.Tensor:
     """x [M, K] @ w [K, N] in ``out_dtype``, as the model computes it off
     the decode path: the product of the activation-dtype operands in their
-    dtype, or, for f32 out (the lm head), accumulated and kept in f32."""
+    dtype, or, for f32 out (the lm head), accumulated and kept in f32 --
+    differentiable, so the head trains through it (the pipeline's logits)."""
     if out_dtype == x.dtype:
         return torch.mm(x, w)
     if out_dtype != torch.float32:
         raise ValueError(f"decode_gemm: out_dtype {out_dtype} must be x's "
                          f"dtype {x.dtype} or float32")
     if x.is_cuda:
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return _F32Product.apply(x, w)
         return torch.mm(x, w, out_dtype=torch.float32)
     return x.float() @ w.float()
 

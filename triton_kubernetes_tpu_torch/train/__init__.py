@@ -1,15 +1,14 @@
-"""Training on one device -- the port of ``triton_kubernetes_tpu/train``:
-precision policies, the train step with the reference's optimizer, the
-step-pipelined loop and the resilient driver over it (preemption,
+"""Training -- the port of ``triton_kubernetes_tpu/train``: precision
+policies, the train step with the reference's optimizer on one device or
+over a mesh (``trainer.py``), GPipe and the step-pipelined
+loop (``pipeline.py``) and the resilient loop over it (preemption,
 loss-anomaly rollback), verified checkpoints, MFU accounting, the
 synthetic, packed and sharded data pipelines with device prefetch, and the
-``python -m triton_kubernetes_tpu_torch.train`` entry point. Exports what
-the reference's ``train/__init__.py`` exports, less the distributed
-slice's names (``CompileTimings``, ``aot_compile_step``,
-``enable_compile_cache``: the port has no ahead-of-time compile), plus the
-port's own.
-
-GPipe and multi-process training are a later slice (ROADMAP.md).
+``python -m triton_kubernetes_tpu_torch.train`` entry point (one process,
+or a ``torch.distributed`` world). Exports what the reference's
+``train/__init__.py`` exports, less ``CompileTimings``,
+``aot_compile_step`` and ``enable_compile_cache`` (the port compiles
+nothing ahead of time; ROADMAP.md), plus the port's own.
 """
 
 from .checkpoint import (
@@ -25,7 +24,8 @@ from .data import DevicePrefetch, PrefetchProducerError, synthetic_batches
 from .measure import ThroughputReport, measure_throughput, \
     measure_tokens_per_sec
 from .mfu import flops_per_token, mfu, tokens_per_sec_for_mfu
-from .pipeline import LoopReport, run_pipelined
+from .pipeline import (LoopReport, pipeline_degree, pipeline_forward,
+                       run_pipelined)
 from .precision import (
     POLICIES,
     PrecisionPolicy,
@@ -50,12 +50,14 @@ from .trainer import (
     MemoryStats,
     Optimizer,
     TrainState,
+    batch_spec,
     init_state,
     loss_fn,
     make_eval_step,
     make_optimizer,
     make_train_step,
     memory_stats,
+    param_shardings,
     state_for,
 )
 
@@ -103,4 +105,8 @@ __all__ = [
     "loss_fn",
     "make_eval_step",
     "state_for",
+    "batch_spec",
+    "param_shardings",
+    "pipeline_forward",
+    "pipeline_degree",
 ]

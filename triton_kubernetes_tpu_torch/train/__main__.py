@@ -24,9 +24,36 @@ checkpoint instead of training through a NaN, exiting ``EXIT_ANOMALY``
 recorded mesh one card cannot hold under ``--elastic``, exit
 ``EXIT_CONFIG`` (2).
 
+**Across processes.** ``--distributed on`` (or ``auto`` with the
+variables set) joins a ``torch.distributed`` world from the variables the
+JobSet injects (``topology/jobset.py``): ``JAX_COORDINATOR_ADDRESS``
+(host:port of rank 0), ``TPU_WORKER_ID`` (or ``JOB_COMPLETION_INDEX``) and
+``NUM_TPU_WORKERS`` -- torch cannot discover a world size, so without it
+the run exits ``EXIT_UNSUPPORTED`` (69) with a typed reason instead of
+hanging, as it does when the device has no collectives backend (NCCL on
+the card, gloo on the CPU; nothing falls back). Each process drives one
+device (``cuda:rank``). The mesh flags ``--data`` (0 = the processes the
+other axes leave), ``--stage``, ``--fsdp`` (-1 absorbs the rest),
+``--seq``, ``--tensor`` lay the ranks out (``parallel/mesh.py``);
+``--microbatches`` feeds GPipe under ``--stage``; ``--ring-attention``
+takes ring attention on an unsplit sequence (a seq axis above 1 takes it
+anyway). Under a world the step is the sharded one (the model's
+placement, ``parallel/placement.py``) even at one rank, or with ``--dcn-sync fused`` (``auto`` under several
+processes on a pure data-parallel mesh) the replica step with one
+all-reduce (``parallel/multihost.make_fused_dcn_step``). Every rank reads
+the same global stream and stages its own rows; checkpoints are written
+by rank 0 through ``CoordinatedCheckpoint``; the preemption stop is a
+cross-process agreement; logs carry ``process=N`` and metrics
+``process_id``; rank 0 writes the report (with ``n_processes``,
+``dcn_sync`` and ``mesh``) and each rank its own ``--trace-jsonl``
+(``.rankN`` before the extension). A batch the batch axes do not divide,
+and a fused exchange asked for where it cannot run, exit ``EXIT_CONFIG``
+(2). ``TK8S_TEST_CRASH_RANK=N`` makes rank N exit 3 at startup (the
+launcher's fail-fast test).
+
 ``--expert`` is the reference's expert-parallel degree for an MoE model
-(the Mixtral family): recorded in every checkpoint's mesh section, and 1
-on one card -- more raises until the port has a mesh.
+(the Mixtral family), recorded in every checkpoint's mesh section; above 1
+it raises: expert parallelism is the next distributed-training PR's.
 
 ``--trace-jsonl PATH`` writes ``train.*`` spans and the goodput ledger (the
 train categories partitioning the run's wall window) as JSON lines, as the
@@ -55,7 +82,136 @@ from typing import Any, Optional
 
 import torch
 
-from ..constants import EXIT_ANOMALY, EXIT_CONFIG
+from dataclasses import dataclass
+from typing import Mapping
+
+from ..constants import (COORDINATOR_PORT, EXIT_ANOMALY, EXIT_CONFIG,
+                         EXIT_UNSUPPORTED)
+
+
+class DistributedEnvError(ValueError):
+    """The JobSet-injected distributed variables are malformed (a
+    non-integer worker id, an out-of-range rank, a coordinator address
+    with no port). Raised before any rendezvous, so the operator gets one
+    clean line instead of a hang or traceback."""
+
+
+@dataclass(frozen=True)
+class DistributedEnv:
+    """Parsed multi-process identity (topology/jobset.py injects these;
+    the local launcher in parallel/multihost.py injects the same)."""
+
+    coordinator: str               # host:port of worker 0
+    process_id: int                # this worker's rank
+    num_processes: Optional[int]   # None = not given
+
+
+def parse_distributed_env(
+        environ: Optional[Mapping[str, str]] = None,
+) -> Optional[DistributedEnv]:
+    """Distributed identity from the environment, or None when no
+    coordinator is advertised (single-process run).
+
+    ``JAX_COORDINATOR_ADDRESS`` selects JobSet mode; the worker id comes
+    from ``TPU_WORKER_ID`` falling back to ``JOB_COMPLETION_INDEX``
+    falling back to 0; world size from ``NUM_TPU_WORKERS`` (0/unset = not
+    given). Malformed values raise :class:`DistributedEnvError` -- never a
+    downstream hang."""
+    env = os.environ if environ is None else environ
+    coord = (env.get("JAX_COORDINATOR_ADDRESS") or "").strip()
+    if not coord:
+        return None
+    _, sep, port = coord.rpartition(":")
+    if not sep or not port.isdigit():
+        raise DistributedEnvError(
+            f"JAX_COORDINATOR_ADDRESS={coord!r} must be host:port "
+            f"(the JobSet injects e.g. name-0.name.ns.svc:"
+            f"{COORDINATOR_PORT})")
+    wid_raw = (env.get("TPU_WORKER_ID") or "").strip() or (
+        env.get("JOB_COMPLETION_INDEX") or "").strip() or "0"
+    try:
+        wid = int(wid_raw)
+    except ValueError:
+        raise DistributedEnvError(
+            f"TPU_WORKER_ID/JOB_COMPLETION_INDEX={wid_raw!r} is not an "
+            f"integer") from None
+    if wid < 0:
+        raise DistributedEnvError(f"TPU_WORKER_ID={wid} must be >= 0")
+    num_raw = (env.get("NUM_TPU_WORKERS") or "").strip()
+    num: Optional[int] = None
+    if num_raw and num_raw != "0":
+        try:
+            num = int(num_raw)
+        except ValueError:
+            raise DistributedEnvError(
+                f"NUM_TPU_WORKERS={num_raw!r} is not an integer") from None
+        if num < 1:
+            raise DistributedEnvError(
+                f"NUM_TPU_WORKERS={num} must be >= 1")
+        if wid >= num:
+            raise DistributedEnvError(
+                f"TPU_WORKER_ID={wid} out of range for "
+                f"NUM_TPU_WORKERS={num}")
+    return DistributedEnv(coordinator=coord, process_id=wid,
+                          num_processes=num)
+
+
+def _maybe_init_distributed(mode: str, device_type: str, log) -> bool:
+    """Join the world the JobSet variables describe; True when a process
+    group is up. Raises :class:`DistributedEnvError` on malformed
+    variables and ``parallel.multihost.MultiHostUnavailable`` (typed
+    reason) when the environment cannot host the run: no world size
+    (torch, unlike ``jax.distributed``, cannot discover one), or no
+    collectives backend for the device (NCCL for the card, gloo for the
+    CPU; nothing falls back)."""
+    if mode == "off":
+        return False
+    denv = parse_distributed_env()
+    if mode == "auto" and denv is None:
+        return False
+    import torch.distributed as dist
+
+    from ..parallel.multihost import (REASON_NO_WORLD_SIZE,
+                                      MultiHostUnavailable, backend_for,
+                                      require_multihost)
+
+    if denv is None or denv.num_processes is None:
+        raise MultiHostUnavailable(
+            "--distributed on needs JAX_COORDINATOR_ADDRESS and "
+            "NUM_TPU_WORKERS: torch cannot discover a world size",
+            REASON_NO_WORLD_SIZE)
+    require_multihost(device_type)
+    backend = backend_for(device_type)
+    if device_type == "cuda":
+        torch.cuda.set_device(denv.process_id % torch.cuda.device_count())
+    log.log("info", "distributed init", backend=backend,
+            coordinator=denv.coordinator, process_id=denv.process_id,
+            num_processes=denv.num_processes)
+    dist.init_process_group(backend,
+                            init_method=f"tcp://{denv.coordinator}",
+                            rank=denv.process_id,
+                            world_size=denv.num_processes)
+    return True
+
+
+def _distributed_shutdown() -> None:
+    """Synchronized teardown on every exit path once a world is up: a
+    barrier, so no rank leaves while a peer still needs it, then
+    ``destroy_process_group``."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    try:
+        if dist.get_world_size() > 1:
+            dist.barrier()
+    # A peer crashed mid-barrier: exiting with our own rc is what is left.
+    except Exception:
+        pass
+    try:
+        dist.destroy_process_group()
+    except Exception:
+        pass
 
 
 def parse_scalar(s: str) -> Any:
@@ -178,12 +334,39 @@ def _build_parser() -> argparse.ArgumentParser:
                         "run's wall window) as JSON lines to this path; "
                         "merge with `python -m "
                         "triton_kubernetes_tpu_torch.tools.trace merge`")
+    # Mesh axes: -1 absorbs remaining devices (at most one axis).
+    p.add_argument("--data", type=int, default=0,
+                   help="data-parallel axis; 0 = auto: 1 single-process, "
+                        "under --distributed the processes the other axes "
+                        "leave")
+    p.add_argument("--stage", type=int, default=1)
+    p.add_argument("--fsdp", type=int, default=-1)
+    p.add_argument("--seq", type=int, default=1)
+    p.add_argument("--tensor", type=int, default=1)
     p.add_argument("--expert", type=int, default=1,
                    help="expert-parallel degree of an MoE model, recorded "
-                        "in the checkpoint's mesh section; one card holds "
-                        "every expert, so only 1 runs: more raises until "
-                        "the port has a mesh (distributed training, "
-                        "ROADMAP.md)")
+                        "in the checkpoint's mesh section; only 1 runs: "
+                        "expert parallelism is the next distributed-"
+                        "training PR's (ROADMAP.md)")
+    p.add_argument("--microbatches", type=int, default=0,
+                   help="pipeline microbatches (0 = stage count)")
+    p.add_argument("--ring-attention", action="store_true",
+                   help="sequence-parallel (ring) attention, also on an "
+                        "unsplit sequence (a seq axis above 1 takes it "
+                        "anyway)")
+    p.add_argument("--distributed", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="join a torch.distributed world from "
+                        "JAX_COORDINATOR_ADDRESS, TPU_WORKER_ID and "
+                        "NUM_TPU_WORKERS (auto: when they are set)")
+    p.add_argument("--dcn-sync", choices=["auto", "fused", "xla"],
+                   default="auto",
+                   help="cross-process gradient exchange: 'fused' is one "
+                        "all-reduce of every gradient per step "
+                        "(parallel/multihost.make_fused_dcn_step; needs a "
+                        "pure data-parallel mesh), 'xla' the sharded step's "
+                        "per-leaf exchange, 'auto' fused whenever the mesh "
+                        "allows it under several processes")
     p.add_argument("--dry-run", action="store_true",
                    help="build everything, run one step, exit")
     return p
@@ -203,11 +386,50 @@ def _batches(args, config, batch_size: int, seq_len: int):
 def main(argv: Optional[list] = None) -> int:
     args = _build_parser().parse_args(argv)
 
+    from ..utils.logging import Logger
+
+    if args.expert > 1:
+        raise NotImplementedError(
+            f"--expert {args.expert}: expert parallelism (the experts split "
+            f"over the mesh's expert axis, all_to_all dispatch) is the next "
+            f"distributed-training PR's work (ROADMAP.md section 1 item "
+            f"4); --expert 1 runs")
+    log = Logger(json_mode=args.json_logs)
+    crash_rank = os.environ.get("TK8S_TEST_CRASH_RANK")
+    if crash_rank is not None and crash_rank == os.environ.get(
+            "TPU_WORKER_ID"):
+        # Deterministic startup-death injection (tests only): a worker
+        # lost before it joins the world, so its peers see the launcher's
+        # fail-fast reap, not a burned timeout.
+        log.log("error", "TK8S_TEST_CRASH_RANK: injected startup crash",
+                rank=crash_rank)
+        return 3
+    from ..parallel.multihost import MultiHostUnavailable
+
+    try:
+        distributed = _maybe_init_distributed(
+            args.distributed, torch.device(args.device).type, log)
+    except DistributedEnvError as e:
+        log.log("error", "malformed distributed environment", error=str(e))
+        return EXIT_CONFIG
+    except MultiHostUnavailable as e:
+        # A loud, typed skip: the environment cannot host the run.
+        log.log("error", "multi-process run unavailable; skipping",
+                reason=e.reason, error=str(e))
+        return EXIT_UNSUPPORTED
+    try:
+        return _train(args, log, distributed)
+    finally:
+        _distributed_shutdown()
+
+
+def _train(args, log, distributed: bool) -> int:
     from ..models import get_config
     from ..models.llama import resolve_device
     from ..ops import flash_attention as fa
     from ..ops.moe import dispatch_mode_of
-    from ..utils.logging import Logger
+    from ..parallel import multihost
+    from ..parallel.mesh import MeshConfig, create_mesh, describe_mesh
     from .checkpoint import (
         CheckpointManager, HostStaging, ReshapeError, mesh_spec_of,
         peek_newest_manifest, restore_newest_verified)
@@ -218,15 +440,9 @@ def main(argv: Optional[list] = None) -> int:
         EXIT_RESUME, AnomalyAbortedError, LossAnomalyGuard, PreemptionGuard,
         negotiate_mesh_config, run_resilient)
     from .trainer import (
-        init_state, make_optimizer, make_train_step, memory_stats)
+        batch_spec, init_state, make_optimizer, make_train_step,
+        memory_stats)
 
-    if args.expert > 1:
-        raise NotImplementedError(
-            f"--expert {args.expert}: expert parallelism shards the experts "
-            f"over a mesh of devices, and the port has no mesh yet "
-            f"(distributed training, ROADMAP.md section 1 item 4); one card "
-            f"runs --expert 1")
-    log = Logger(json_mode=args.json_logs)
     overrides = {}
     for item in args.model_opt:
         key, sep, value = item.partition("=")
@@ -241,6 +457,13 @@ def main(argv: Optional[list] = None) -> int:
     config = apply_policy(get_config(args.model, **overrides),
                           args.precision)
     device = resolve_device(args.device)
+    n_processes, rank = 1, 0
+    if distributed:
+        import torch.distributed as dist
+
+        n_processes, rank = dist.get_world_size(), dist.get_rank()
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
     seq_len = args.seq_len or config.max_seq_len
     bad = [f"{flag} must be >= 0, got {value}" for flag, value in (
         ("--steps", args.steps), ("--batch-size", args.batch_size),
@@ -250,6 +473,8 @@ def main(argv: Optional[list] = None) -> int:
         ("--device-ms-per-row", args.device_ms_per_row)) if value < 0]
     if args.expert < 1:
         bad.append(f"--expert must be >= 1, got {args.expert}")
+    if args.microbatches < 0:
+        bad.append(f"--microbatches must be >= 0, got {args.microbatches}")
     if seq_len > config.max_seq_len:
         bad.append(f"--seq-len {seq_len} exceeds the model's max_seq_len "
                    f"{config.max_seq_len}")
@@ -265,9 +490,14 @@ def main(argv: Optional[list] = None) -> int:
                 dir="(none in the port: kernels build into "
                     "triton_kubernetes_tpu_torch/_build/)")
 
+    mesh_cfg = MeshConfig(
+        data=args.data or (0 if n_processes > 1 else 1), stage=args.stage,
+        fsdp=args.fsdp, seq=args.seq, expert=args.expert,
+        tensor=args.tensor)
     # --elastic: the shape is negotiated from the newest manifest's
-    # recorded mesh, not taken from the flags. One card holds data=1
-    # with every other axis 1; anything else is a typed config error.
+    # recorded mesh, not taken from the flags: the recorded model axes
+    # are kept and the data axis absorbs the fleet; a recorded block the
+    # fleet cannot hold is a typed config error.
     elastic_reshard = None
     elastic_batch = 0
     if args.elastic and args.resume and (
@@ -282,30 +512,80 @@ def main(argv: Optional[list] = None) -> int:
         else:
             try:
                 negotiated = negotiate_mesh_config(
-                    saved_mesh, n_processes=1, n_devices=1)
+                    saved_mesh, n_processes=n_processes,
+                    n_devices=n_processes)
             except ReshapeError as e:
                 log.log("error", "elastic shape negotiation failed",
                         error=str(e))
                 return EXIT_CONFIG
+            if distributed:
+                mesh_cfg = MeshConfig(**dataclasses.asdict(negotiated))
             elastic_batch = int(saved_mesh.get("global_batch") or 0)
             saved_shape = dict(saved_mesh.get("axes") or {})
-            reshaped = (int(saved_mesh.get("n_devices") or 0) != 1
-                        or int(saved_mesh.get("n_processes") or 0) != 1)
+            reshaped = (
+                int(saved_mesh.get("n_devices") or 0) != n_processes
+                or int(saved_mesh.get("n_processes") or 0) != n_processes)
             if reshaped:
                 elastic_reshard = {
                     "step": int(peeked[0]), "from_axes": saved_shape,
                     "from_devices": int(saved_mesh.get("n_devices") or 0),
                     "from_processes": int(
                         saved_mesh.get("n_processes") or 0),
-                    "to_devices": 1, "to_processes": 1}
+                    "to_devices": n_processes, "to_processes": n_processes}
             log.log("info", "elastic mesh negotiated",
                     saved_axes=saved_shape, negotiated=repr(negotiated),
                     reshaped=reshaped, step=int(peeked[0]))
-    batch_size = args.batch_size or elastic_batch or 4
+    # The mesh: under a world, every process a device of it (a world of
+    # one included); a single process runs the one-device step, whose
+    # only mesh is one device.
+    mesh = None
+    if distributed:
+        if n_processes > 1:
+            # Rank-tag every log line and tk8s_train_* series.
+            from ..utils import metrics as _metrics_mod
+
+            log.bind(process=rank)
+            _metrics_mod.set_default_labels(process_id=str(rank))
+        try:
+            mesh = multihost.create_hybrid_mesh(
+                multihost.default_mesh_config(mesh_cfg, n_processes),
+                device_type=device.type)
+        except multihost.MeshPlacementError as e:
+            log.log("error", "mesh placement rejected", error=str(e))
+            return EXIT_CONFIG
+        batch_shards = mesh.shape["data"] * mesh.shape["fsdp"]
+    else:
+        try:
+            mesh_cfg.resolve(1)
+        except ValueError as e:
+            log.log("error", "mesh rejected: one process drives one device "
+                    "(--distributed for more)", error=str(e))
+            return EXIT_CONFIG
+        batch_shards = 1
+    mesh_desc = describe_mesh(mesh) if mesh is not None \
+        else "mesh(single-device)"
+    batch_size = args.batch_size or elastic_batch or 4 * batch_shards
     log.log("info", "trainer starting", model=config.name,
             layers=config.num_layers, params=config.num_params(),
-            device=str(device), batch=batch_size, seq_len=seq_len,
-            steps=args.steps)
+            device=str(device), mesh=mesh_desc, processes=n_processes,
+            batch=batch_size, seq_len=seq_len, steps=args.steps)
+    if batch_size % batch_shards:
+        log.log("error", "global batch must divide the data*fsdp axes",
+                batch=batch_size, shards=batch_shards)
+        return EXIT_CONFIG
+    stages = mesh.shape["stage"] if mesh is not None else 1
+    if stages > 1:
+        m = args.microbatches or stages
+        if batch_size % m or (batch_size // m) % batch_shards:
+            log.log("error",
+                    "batch/microbatches must divide the data*fsdp axes "
+                    "under pipeline stages",
+                    batch=batch_size, microbatches=m, shards=batch_shards)
+            return EXIT_CONFIG
+    if mesh is not None and seq_len % mesh.shape["seq"]:
+        log.log("error", "--seq-len must divide the seq axis",
+                seq_len=seq_len, seq=mesh.shape["seq"])
+        return EXIT_CONFIG
 
     # The training flight recorder: a clock-anchored trace file and the
     # goodput ledger over it (flush_each: a killed run leaves its booked
@@ -314,28 +594,76 @@ def main(argv: Optional[list] = None) -> int:
     if args.trace_jsonl:
         from ..utils.trace import GoodputRecorder, TraceWriter
 
-        tracer = TraceWriter(args.trace_jsonl, "trainer:rank0",
+        trace_path = args.trace_jsonl
+        if n_processes > 1:  # every rank its own file
+            root, ext = os.path.splitext(trace_path)
+            trace_path = f"{root}.rank{rank}{ext or '.jsonl'}"
+        tracer = TraceWriter(trace_path, f"trainer:rank{rank}",
                              clock=time.perf_counter)
         goodput = GoodputRecorder("train", clock=time.perf_counter,
                                   writer=tracer, flush_each=True)
-        log.log("info", "trace jsonl", path=args.trace_jsonl)
+        log.log("info", "trace jsonl", path=trace_path)
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     opt = make_optimizer(
         learning_rate=args.learning_rate, warmup_steps=args.warmup_steps,
         decay_steps=max(args.steps, args.warmup_steps + 1))
+    attention_fn = None
+    if args.ring_attention and (mesh is None or mesh.shape["seq"] == 1):
+        # A seq axis above 1 takes the ring anyway (trainer.
+        # _resolve_attention); this is the ring on an unsplit sequence: one
+        # block, the reference's train/__main__.py:564-569.
+        from ..ops.ring_attention import make_ring_attention
+
+        ring = make_ring_attention(mesh or create_mesh(
+            MeshConfig(fsdp=1), world=1, device_type=device.type))
+        attention_fn = lambda q, k, v, positions: ring(q, k, v)  # noqa
+    # The gradient exchange: under several processes a pure data-parallel
+    # mesh takes the fused step (one all-reduce a step); everything it
+    # cannot honour blocks it, loudly when it was asked for.
+    dcn_sync = "xla"
+    if args.dcn_sync != "xla" and n_processes > 1:
+        blockers = []
+        if attention_fn is not None:
+            blockers.append("--ring-attention (the fused step computes the "
+                            "model's own attention)")
+        if args.microbatches > 1:
+            blockers.append("--microbatches > 1 (the fused step takes one "
+                            "backward per step)")
+        if not multihost.supports_fused_dcn(mesh):
+            blockers.append("a non-pure-data-parallel mesh (every non-data "
+                            "axis must be 1)")
+        if not blockers:
+            dcn_sync = "fused"
+        elif args.dcn_sync == "fused":
+            log.log("error", "fused DCN sync unavailable: "
+                    + "; ".join(blockers), mesh=mesh_desc)
+            return EXIT_CONFIG
+    if n_processes > 1:
+        log.log("info", "dcn gradient sync", mode=dcn_sync)
     t0 = time.perf_counter()
-    state = init_state(config, opt, seed=0, device=device)
-    step_fn = make_train_step(config, opt)
+    if dcn_sync == "fused":
+        # Replicas: every rank holds the whole model.
+        state = init_state(config, opt, seed=0, device=device)
+        step_fn = multihost.make_fused_dcn_step(config, mesh, opt)
+    else:
+        state = init_state(config, opt, seed=0, device=device, mesh=mesh)
+        kw = {} if mesh is None else dict(mesh=mesh,
+                                          microbatches=args.microbatches)
+        if attention_fn is not None:
+            kw["attention_fn"] = attention_fn
+        step_fn = make_train_step(config, opt, **kw)
     init_s = time.perf_counter() - t0
 
-    # Every save records the run's shape (manifest v2): one card, every
-    # axis 1, and the global batch the data stream is cut for. The two
-    # managers share one pinned staging, so the process pins one
-    # checkpoint's bytes at most.
-    live_spec = mesh_spec_of({"expert": args.expert}, n_processes=1,
-                             global_batch=batch_size)
+    # Every save records the run's shape (manifest v2): the mesh's axes,
+    # the process count, and the global batch the data stream is cut for.
+    # The two managers share one pinned staging, so the process pins one
+    # checkpoint's bytes at most; under several processes rank 0 writes
+    # (CoordinatedCheckpoint).
+    live_spec = mesh_spec_of(
+        mesh if mesh is not None else {"expert": args.expert},
+        n_processes=n_processes, global_batch=batch_size)
     staging = HostStaging()
     ckpt = em_ckpt = None
     if args.checkpoint_dir:
@@ -346,6 +674,11 @@ def main(argv: Optional[list] = None) -> int:
             or os.path.abspath(args.emergency_dir) != ckpt.directory):
         em_ckpt = CheckpointManager(args.emergency_dir, mesh_spec=live_spec,
                                     staging=staging)
+    if n_processes > 1:
+        if ckpt is not None:
+            ckpt = multihost.CoordinatedCheckpoint(ckpt)
+        if em_ckpt is not None:
+            em_ckpt = multihost.CoordinatedCheckpoint(em_ckpt)
     start_is_checkpointed = False
     resumed = None
     if args.resume and (ckpt is not None or em_ckpt is not None):
@@ -399,7 +732,11 @@ def main(argv: Optional[list] = None) -> int:
     target_step = start_step + max_steps
     sync_every = 1 if args.dry_run else \
         max(args.sync_every or args.log_every, 1)
-    step_floor = args.device_ms_per_row * batch_size / 1e3
+    # The floor scales with the rows THIS rank computes.
+    local_rows = (multihost.local_batch_rows(mesh, batch_spec(), batch_size)
+                  if mesh is not None else batch_size)
+    step_floor = args.device_ms_per_row * local_rows / 1e3
+    place = multihost.make_batch_placer(mesh) if mesh is not None else None
 
     # The resilient driver rebuilds the stream at a rolled-back or resumed
     # step by deterministic replay: same source, same seed, skip to the
@@ -413,6 +750,10 @@ def main(argv: Optional[list] = None) -> int:
             for _ in range(start):
                 next(gen)
         host = ({"tokens": b["tokens"]} for b in gen)
+        if place is not None:
+            # Every rank runs the same global stream and stages only its
+            # own rows.
+            host = (place(b) for b in host)
         if args.prefetch > 0:
             pf = DevicePrefetch(host, device=device,
                                 buffer_size=args.prefetch)
@@ -520,7 +861,8 @@ def main(argv: Optional[list] = None) -> int:
 
     guard = (LossAnomalyGuard(factor=args.anomaly_factor)
              if args.anomaly_factor > 0 else None)
-    preempt = PreemptionGuard()
+    preempt = (multihost.SyncedPreemptionGuard() if n_processes > 1
+               else PreemptionGuard())
     try:
         preempt.install()
     except ValueError:  # not the main thread (embedded run): unguarded
@@ -537,7 +879,7 @@ def main(argv: Optional[list] = None) -> int:
                 if secs else None)
 
     def write_report(outcome: str) -> None:
-        if not args.report_json:
+        if not args.report_json or rank != 0:
             return
         wall = max(time.perf_counter() - run_t0, 1e-9)
         steps_done = report.steps if report is not None else 0
@@ -550,8 +892,12 @@ def main(argv: Optional[list] = None) -> int:
             active_params=config.active_params(), expert=args.expert,
             moe_dispatch=moe_dispatch, precision=policy_of(config),
             remat=remat_policy_of(config), attention=config.attention,
-            fused_ce=config.fused_ce, device=device_name, n_processes=1,
-            devices=1, global_batch=batch_size, batch_size=batch_size,
+            fused_ce=config.fused_ce, device=device_name,
+            n_processes=n_processes, devices=n_processes, mesh=mesh_desc,
+            mesh_axes=dict(mesh.shape) if mesh is not None else None,
+            dcn_sync=dcn_sync, ring_attention=attention_fn is not None,
+            microbatches=args.microbatches,
+            global_batch=batch_size, batch_size=batch_size,
             seq_len=seq_len, device_ms_per_row=args.device_ms_per_row,
             start_step=start_step, target_step=target_step,
             steps=steps_done, init_seconds=init_s, losses=losses,

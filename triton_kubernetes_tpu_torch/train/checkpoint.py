@@ -28,7 +28,10 @@ the f32 master parameters by their ``nn.Module`` names
 and ``.opt_state.nu.<name>``. Any other tree of dicts, lists and tuples
 over tensors, numpy arrays and Python scalars saves too (paths in the
 reference's ``keystr`` form, ``['w']``), which is what the tests hold
-against the reference.
+against the reference; so does a :class:`HostTree`, a list of (path,
+leaf) pairs taken as it is, which is how a state sharded over ranks is
+written with the paths, shapes and order of the one-device state
+(``parallel/multihost.CoordinatedCheckpoint``).
 
 **Asynchronous saves, and why the copy is not.** JAX arrays are
 immutable, so the reference's async save can hold the state while the
@@ -46,9 +49,10 @@ emergency managers do), reused save after save and held by one save at a
 time, so a process pins one checkpoint's bytes at most.
 
 **Mesh.** The manifest's ``mesh`` section is the reference's for the run
-that wrote it. On one card that is every axis 1, ``n_processes`` 1,
-``n_devices`` 1 and the global batch (:func:`mesh_spec_of`), so
-``peek_newest_manifest`` and ``--elastic`` read it as the reference would.
+that wrote it: every axis's size, ``n_processes``, ``n_devices`` and the
+global batch (:func:`mesh_spec_of`), so ``peek_newest_manifest`` and
+``--elastic`` read it as the reference would. Under several processes
+one rank writes, through ``parallel/multihost.CoordinatedCheckpoint``.
 Restore copies into the tensors of an existing tree with ``copy_`` and
 raises :class:`MeshMismatchError` -- before verifying or quarantining
 anything -- when a leaf's path, shape or dtype differs from the manifest.
@@ -130,9 +134,18 @@ def _dtype_name(leaf: Any) -> str:
 _SCALAR_NP = {"int": np.int64, "float": np.float64, "bool": np.bool_}
 
 
+@dataclasses.dataclass
+class HostTree:
+    """A saved tree given as its (path, leaf) pairs, in order."""
+
+    leaves: List[Tuple[str, Any]]
+
+
 def _leaves(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     """(path, leaf) pairs in a fixed order: the TrainState's named layout,
     else dict keys sorted and sequences in order (jax's flatten order)."""
+    if isinstance(tree, HostTree):
+        return list(tree.leaves)
     if isinstance(tree, TrainState):
         named = list(tree.model.named_parameters())
         opt = tree.opt_state
@@ -160,6 +173,8 @@ def _rebuild(tree: Any, values: Dict[str, Any], prefix: str = "") -> Any:
     """``tree`` with its leaves replaced by ``values`` (path -> value).
     Tensors were already filled in place; scalars and numpy leaves are
     new objects."""
+    if isinstance(tree, HostTree):
+        return HostTree([(path, values[path]) for path, _ in tree.leaves])
     if isinstance(tree, TrainState):
         tree.step = values[".step"]
         tree.opt_state.count = values[".opt_state.count"]
@@ -212,13 +227,14 @@ def _manifest_digest(manifest: Dict[str, Any]) -> str:
         json.dumps(body, sort_keys=True).encode()).hexdigest()
 
 
-def mesh_spec_of(mesh: Optional[Dict[str, int]] = None, n_processes: int = 1,
+def mesh_spec_of(mesh: Any = None, n_processes: int = 1,
                  global_batch: int = 0) -> Dict[str, Any]:
     """The manifest-v2 ``mesh`` section: every axis of the reference's
-    mesh (sizes from ``mesh``, a mapping of axis name to size, 1 for the
-    rest: the one-card run), the fleet size, and the global batch the data
-    stream was cut for."""
-    axes = {name: int((mesh or {}).get(name, 1)) for name in MESH_AXES}
+    mesh (sizes from ``mesh`` -- a ``parallel.mesh.Mesh``, or a mapping of
+    axis name to size -- 1 for the rest), the fleet size, and the global
+    batch the data stream was cut for."""
+    sizes = getattr(mesh, "shape", mesh) or {}
+    axes = {name: int(sizes.get(name, 1)) for name in MESH_AXES}
     n_devices = 1
     for size in axes.values():
         n_devices *= size
@@ -405,13 +421,8 @@ class CheckpointManager:
     """
 
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 single_controller: bool = False,
                  mesh_spec: Optional[Dict[str, Any]] = None,
                  staging: Optional[HostStaging] = None):
-        if single_controller:
-            raise CheckpointError(
-                "single-controller (multi-process) checkpointing is the "
-                "distributed slice's work; the port trains on one card")
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         # The manifest-v2 mesh section (mesh_spec_of); assignable after

@@ -1,6 +1,24 @@
-"""The step-pipelined training loop -- the port of ``run_pipelined`` in
-``triton_kubernetes_tpu/train/pipeline.py`` (its GPipe schedule is the
-distributed slice's work).
+"""GPipe over the ``stage`` mesh axis and the step-pipelined training
+loop -- the port of ``triton_kubernetes_tpu/train/pipeline.py``
+(``pipeline_forward``, ``pipeline_degree``, ``run_pipelined``).
+
+**GPipe.** :func:`pipeline_forward` splits the layers into S contiguous
+stages of L/S and runs M microbatches through them on the reference's
+schedule: T = M + S - 1 ticks; at each tick the stage buffer shifts
+(``concatenate([inject, buf[:-1]])``: stage 0 takes the next microbatch,
+stage s the output stage s-1 made at the tick before) and every stage
+applies its layers; the last stage's outputs are collected and unembedded.
+With no mesh, or a stage axis of 1, every stage runs in this process (the
+reference's ``vmap`` branch). With stage > 1 rank s holds stage s (a model
+built over the mesh holds only its layers) and the shift is a
+:func:`..parallel.collectives.ppermute` along ``stage``.
+
+The reference computes its bubbles -- (stage, tick) pairs that hold no
+microbatch -- on zero activations and masks their aux loss out; the port
+skips them, which gives the same logits and aux. Across ranks a bubble
+still takes part in the shift (its output is its input times 0) and the
+last tick's unsent outputs feed the aux term times 0, so every rank runs
+the backward of every shift and the permutes pair up.
 
 PyTorch queues CUDA work asynchronously, so the fast loop is the one that
 never forces a device->host sync: steps are issued back to back, their
@@ -35,6 +53,132 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import torch
 
 from ..utils import metrics as _metrics
+
+
+def _stage_params(layers: List[Any], num_stages: int) -> List[List[Any]]:
+    """The L layers as S contiguous groups of L/S."""
+    n = len(layers)
+    if n % num_stages:
+        raise ValueError(
+            f"num_layers ({n}) must divide evenly into "
+            f"{num_stages} pipeline stages")
+    per = n // num_stages
+    return [layers[i * per:(i + 1) * per] for i in range(num_stages)]
+
+
+def pipeline_forward(model, tokens: torch.Tensor, config, num_stages: int,
+                     microbatches: int, attention_fn=None,
+                     positions: Optional[torch.Tensor] = None, mesh=None):
+    """Pipelined equivalent of ``models.llama.forward``: (logits [B, S, V]
+    f32, MoE aux loss / microbatches). On a mesh with stage > 1 the
+    logits exist on the last stage only (None elsewhere) and each rank's
+    aux is its own stage's share (the sum over the stage axis is the
+    reference's).
+
+    For dense configs this is the sequential forward up to summation
+    order. For MoE configs routing and capacity run per microbatch, as in
+    the reference."""
+    from ..models import llama
+    from ..parallel.collectives import ppermute
+
+    attention_fn = attention_fn or llama._dense_attention
+    b, s = tokens.shape
+    if b % microbatches:
+        raise ValueError(
+            f"batch ({b}) must divide into {microbatches} microbatches")
+    if microbatches % num_stages:
+        raise ValueError(
+            f"microbatches ({microbatches}) must be a multiple of "
+            f"stages ({num_stages})")
+    staged = mesh is not None and mesh.shape["stage"] > 1
+    if staged and mesh.shape["stage"] != num_stages:
+        raise ValueError(
+            f"num_stages ({num_stages}) must equal the mesh stage axis "
+            f"({mesh.shape['stage']})")
+    m_count, mb = microbatches, b // microbatches
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+    cos, sin = model.rotary()
+    pos_mb = positions.reshape(m_count, mb, s)
+    ticks = m_count + num_stages - 1
+
+    def stage_apply(layers_s, x, pos):
+        def body(x, layer):
+            return llama._block(x, layer, config, cos, sin, pos,
+                                attention_fn, model.placement)
+
+        body = llama.remat_block(body, config)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in layers_s:
+            x, a = body(x, layer)
+            aux = aux + a
+        return x, aux
+
+    outputs: List[Optional[torch.Tensor]] = [None] * m_count
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    me = mesh.coordinate()["stage"] if staged else None
+    if staged:
+        layers_here = list(model.layers)
+        if len(layers_here) * num_stages != config.num_layers:
+            raise ValueError(
+                f"this rank holds {len(layers_here)} layers, not "
+                f"{config.num_layers} / {num_stages}: build the model over "
+                f"the mesh")
+        # Microbatch embeddings up front, on the first stage only.
+        x = (llama.embed(model, tokens, config).reshape(m_count, mb, s, -1)
+             if me == 0 else None)
+        d = config.embed_dim
+        dtype = config.activation_dtype
+        shift = [(j, j + 1) for j in range(num_stages - 1)]
+        prev = torch.zeros((mb, s, d), dtype=dtype, device=tokens.device,
+                           requires_grad=torch.is_grad_enabled())
+        prev_pos = torch.zeros_like(pos_mb[0])
+        for t in range(ticks):
+            recv = ppermute(prev, mesh, "stage", shift)
+            recv_pos = ppermute(prev_pos, mesh, "stage", shift)
+            if me == 0:
+                inject = x[t] if t < m_count else torch.zeros_like(recv)
+                cur = inject + recv * 0  # stage 0 reads no neighbour
+                cur_pos = pos_mb[t] if t < m_count else recv_pos
+            else:
+                cur, cur_pos = recv, recv_pos
+            m = t - me
+            if 0 <= m < m_count:
+                out, aux = stage_apply(layers_here, cur, cur_pos)
+                aux_total = aux_total + aux
+                if me == num_stages - 1:
+                    outputs[m] = out
+            else:  # a bubble: nothing to compute
+                out = cur * 0
+            prev, prev_pos = out, cur_pos
+        if me != num_stages - 1 and prev.requires_grad:
+            aux_total = aux_total + prev.float().sum() * 0.0
+        if me != num_stages - 1:
+            return None, aux_total / m_count
+    else:
+        stages = _stage_params(list(model.layers), num_stages)
+        x = llama.embed(model, tokens, config).reshape(m_count, mb, s, -1)
+        # buf[s]: (microbatch, activation) stage s holds, or None.
+        buf: List[Optional[Tuple[int, torch.Tensor]]] = [None] * num_stages
+        for t in range(ticks):
+            buf = [(t, x[t]) if t < m_count else None] + buf[:-1]
+            for si, held in enumerate(buf):
+                if held is None:
+                    continue
+                m, act = held
+                out, aux = stage_apply(stages[si], act, pos_mb[m])
+                aux_total = aux_total + aux
+                buf[si] = (m, out)
+            if buf[-1] is not None and t >= num_stages - 1:
+                outputs[buf[-1][0]] = buf[-1][1]
+    h = torch.cat(outputs, dim=0).reshape(b, s, -1)
+    # Each microbatch's aux is a mean-over-its-tokens estimate of the same
+    # batch-level balance loss; average them to match the sequential scale.
+    return llama.unembed(h, model, config=config), aux_total / m_count
+
+
+def pipeline_degree(mesh) -> int:
+    return mesh.shape["stage"]
 
 
 @dataclass

@@ -1,7 +1,19 @@
-"""The single-device train step -- the port of
-``triton_kubernetes_tpu/train/trainer.py`` (``make_optimizer``,
-``init_state``, ``loss_fn``, ``make_train_step``, ``make_eval_step``) on one
-device: no mesh, no sharding, no pipeline stages.
+"""The train step -- the port of ``triton_kubernetes_tpu/train/trainer.py``
+(``make_optimizer``, ``init_state``, ``loss_fn``, ``make_train_step``,
+``make_eval_step``, ``batch_spec``, ``param_shardings``,
+``_resolve_attention``), on one device or over a mesh.
+
+Over a mesh (``mesh=``, ``parallel/mesh.py``) the state's model holds this
+rank's blocks (``models.llama`` built with ``mesh=``) and so do both Adam
+moments (ZeRO: the reference's ``_constrain_opt_state``); the step takes
+this rank's batch rows (``batch_spec``: the batch splits over ``data`` and
+``fsdp``, data-major; ``parallel.multihost.make_batch_placer`` cuts them
+from the global batch), cuts its ``seq`` part of the tokens, runs the
+model's one forward on its blocks (``models/llama.py`` through the
+model's placement, ``parallel/placement.py``; GPipe over ``stage``,
+``train/pipeline.py``), sums the gradients over the axes each leaf is
+replicated along, and updates its blocks with the global norm of the
+whole gradient. Every rank of the mesh calls the step in lockstep.
 
 The optimizer is the reference's ``optax.chain(clip_by_global_norm,
 adamw(warmup_cosine_decay_schedule))`` written out with its exact
@@ -26,6 +38,7 @@ loop (``train/pipeline.py``) syncs once per window, not once per step.
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -36,6 +49,17 @@ from ..models import llama
 from ..models.config import ModelConfig
 from ..ops.fused_ce import cross_entropy_with_integer_labels, \
     fused_cross_entropy
+from ..ops.attention import causal_attention
+from ..parallel.collectives import (all_gather, all_reduce_sum,
+                                    broadcast_from, gather_replicated,
+                                    mean_over, select)
+from ..parallel.mesh import (AXIS_DATA, AXIS_FSDP, AXIS_SEQ, AXIS_STAGE,
+                             AXIS_TENSOR)
+from ..parallel.sharding import DEFAULT_RULES, spec_tree_from_logical
+from .pipeline import pipeline_degree, pipeline_forward
+
+# The axes a loss is partitioned over (ranks hold different tokens).
+PARTITION_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_SEQ)
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
@@ -96,11 +120,14 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               state: AdamWState) -> torch.Tensor:
+               state: AdamWState,
+               norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One update of ``params`` in place; returns the gradients'
-        global norm before clipping (a device scalar)."""
-        norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                              for g in grads))
+        global norm before clipping (a device scalar). A sharded step
+        passes ``norm``, the norm of the whole gradient across ranks."""
+        if norm is None:
+            norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                  for g in grads))
         keep = norm < self.max_grad_norm
         lr = self.schedule(state.count)
         count = state.count + 1
@@ -145,12 +172,26 @@ class TrainState:
 
 
 def init_state(config: ModelConfig, optimizer: Optimizer, seed: int = 0,
-               device: torch.device | str = "cuda") -> TrainState:
+               device: torch.device | str = "cuda", mesh=None) -> TrainState:
     """A trainable model from the reference's init rule (``torch``
-    generator, seeded) and a fresh optimizer state, on ``device``."""
+    generator, seeded) and a fresh optimizer state, on ``device``; over
+    ``mesh`` this rank's blocks of both (the values are the one-device
+    model's at any mesh shape)."""
     model = llama.init_params(config, seed=seed, device=device,
-                              trainable=True)
+                              trainable=True, mesh=mesh)
     return state_for(model, optimizer)
+
+
+def batch_spec() -> Tuple[Any, ...]:
+    """The token batch's spec: rows over (data, fsdp), tokens whole."""
+    return ((AXIS_DATA, AXIS_FSDP), None)
+
+
+def param_shardings(mesh, config: ModelConfig, rules=None) -> Any:
+    """The spec of every leaf of the JAX parameter tree on ``mesh``
+    (what the reference's ``NamedSharding`` s carry)."""
+    return spec_tree_from_logical(llama.logical_axes(config),
+                                  rules or DEFAULT_RULES, mesh=mesh)
 
 
 def state_for(model: llama.Llama, optimizer: Optimizer) -> TrainState:
@@ -162,26 +203,76 @@ def state_for(model: llama.Llama, optimizer: Optimizer) -> TrainState:
 
 
 def loss_fn(model: llama.Llama, tokens: torch.Tensor, config: ModelConfig,
-            attention_fn: Optional[llama.AttentionFn] = None
+            attention_fn: Optional[llama.AttentionFn] = None,
+            num_stages: int = 1, microbatches: int = 1
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token CE of ``tokens`` [B, S+1] (plus the MoE aux term,
-    0 here): (total, {"loss", "aux_loss"})."""
+    """Mean next-token CE of ``tokens`` [B, S+1] plus the MoE aux term:
+    (total, {"loss", "aux_loss"}). ``num_stages`` > 1 runs the GPipe
+    schedule (the logits then pass through the plain CE, as in the
+    reference).
+
+    A model built over a mesh takes this rank's rows as ``tokens`` and
+    keeps its ``seq`` part of them; ``total`` is then its local mean times
+    ``1 / (data * fsdp * seq)``, so the ranks' shares sum to the global
+    mean, and the metrics are the global batch's on every rank."""
+    mesh = model.mesh
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    if config.fused_ce:
+    positions = None
+    if mesh is not None:
+        inputs, targets, positions = _seq_part(inputs, targets, mesh)
+    if num_stages > 1:
+        logits, aux = pipeline_forward(
+            model, inputs, config, num_stages, microbatches,
+            attention_fn=attention_fn, positions=positions, mesh=mesh)
+        # Off the last stage of a mesh there are no logits.
+        ce = (cross_entropy_with_integer_labels(logits, targets)
+              if logits is not None
+              else torch.zeros((), device=tokens.device))
+    elif config.fused_ce:
         hidden, aux = llama.forward_hidden(model, inputs, config,
-                                           attention_fn=attention_fn)
+                                           attention_fn, positions)
         hidden = llama.final_norm_hidden(hidden, model)
         b, s, d = hidden.shape
         ce = fused_cross_entropy(
-            hidden.reshape(b * s, d), llama.head_weights(model),
+            hidden.reshape(b * s, d), llama.head_weights(model, config),
             targets.reshape(-1), config.ce_chunk)
     else:
-        logits, aux = llama.forward(model, inputs, config,
-                                    attention_fn=attention_fn)
+        logits, aux = llama.forward(model, inputs, config, attention_fn,
+                                    positions)
         ce = cross_entropy_with_integer_labels(logits, targets)
     ce = ce.mean()
     total = ce + config.aux_loss_weight * aux
-    return total, {"loss": ce.detach(), "aux_loss": aux.detach()}
+    metrics = {"loss": ce.detach(), "aux_loss": aux.detach()}
+    if mesh is None:
+        return total, metrics
+    if num_stages > 1:
+        metrics = {
+            "loss": broadcast_from(metrics["loss"], mesh, (AXIS_STAGE,),
+                                   num_stages - 1),
+            "aux_loss": all_reduce_sum(metrics["aux_loss"].clone(), mesh,
+                                       (AXIS_STAGE,))}
+    n = mesh.axes_size(mesh.live_axes(PARTITION_AXES))
+    if n > 1:
+        total = total / n
+    return total, {k: mean_over(v, mesh, PARTITION_AXES)
+                   for k, v in metrics.items()}
+
+
+def _seq_part(inputs: torch.Tensor, targets: torch.Tensor, mesh
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """This rank's ``seq`` part of its rows, and its tokens' positions."""
+    b, s = inputs.shape
+    n_seq = mesh.shape[AXIS_SEQ]
+    if s % n_seq:
+        raise ValueError(f"sequence length {s} must divide the seq axis "
+                         f"({n_seq})")
+    r, sl = mesh.coordinate()[AXIS_SEQ], s // n_seq
+    if n_seq > 1:
+        inputs = inputs[:, r * sl:(r + 1) * sl]
+        targets = targets[:, r * sl:(r + 1) * sl]
+    positions = torch.arange(r * sl, (r + 1) * sl,
+                             device=inputs.device).expand(b, sl)
+    return inputs, targets, positions
 
 
 def _tokens(batch: Dict[str, np.ndarray], device: torch.device
@@ -205,40 +296,145 @@ def _check_model(model: llama.Llama, config: ModelConfig) -> None:
             f"(policy-applied) config")
 
 
-def make_train_step(config: ModelConfig, optimizer: Optimizer):
+def _dense_attention(mesh):
+    """The dense einsum on this rank's shards; with the sequence split,
+    keys and values (and their positions) are gathered along ``seq`` first
+    (GSPMD's all-gathers of the reference's dense arm)."""
+
+    def attn(q, k, v, positions):
+        if mesh.shape[AXIS_SEQ] == 1:
+            return causal_attention(q, k, v, positions, positions)
+        k_all = all_gather(k, mesh, (AXIS_SEQ,), 1)
+        v_all = all_gather(v, mesh, (AXIS_SEQ,), 1)
+        pos_all = all_gather(positions, mesh, (AXIS_SEQ,), 1)
+        return causal_attention(q, k_all, v_all, positions, pos_all)
+
+    return attn
+
+
+def _local_heads(base, mesh, config: ModelConfig):
+    """``base`` on this rank's heads: q and k/v heads both split run as
+    they are; k/v heads fewer than the tensor axis (computed whole) give
+    each rank the one head its query heads read (the reference's GQA
+    repeat, ``trainer.py:127-131``). Past that -- the tensor axis divides
+    neither head count, or q's but not k/v's and k/v cannot be repeated to
+    cover it -- ``base`` runs on whole heads (q gathered), the same
+    attention on every rank of the axis, and ``wo``'s block takes this
+    rank's heads (``parallel.placement``). That costs ``tensor`` times the
+    attention work, so it is loud (``attn.forfeits``, a warning), as the
+    reference's dense fallback is; the kernels still run."""
+    t = mesh.shape[AXIS_TENSOR]
+
+    def attn(q, k, v, positions):
+        hq, hkv = config.num_heads, config.num_kv_heads
+        q_split, kv_split = q.shape[2] != hq, k.shape[2] != hkv
+        if q_split and kv_split:
+            return base(q, k, v, positions)
+        if q_split and t % hkv == 0:
+            idx = mesh.coordinate()[AXIS_TENSOR] // (t // hkv)
+            k = select(k, mesh, (AXIS_TENSOR,), 2, idx, 1)
+            v = select(v, mesh, (AXIS_TENSOR,), 2, idx, 1)
+            return base(q, k, v, positions)
+        reason = (f"attention runs on whole heads on every rank of the "
+                  f"tensor axis: head counts (hq={hq}, hkv={hkv}) are not "
+                  f"divisible by it ({t}) and kv heads cannot be repeated "
+                  f"to cover it; expect {t}x attention cost")
+        if not attn.forfeits:
+            warnings.warn(reason, stacklevel=2)
+        attn.forfeits.append(reason)
+        if q_split:
+            q = gather_replicated(q, mesh, (AXIS_TENSOR,), 2)
+        return base(q, k, v, positions)
+
+    attn.forfeits = []
+    return attn
+
+
+def _resolve_attention(attention_fn, mesh, config: ModelConfig):
+    """The attention of a step over ``mesh``: ``attention_fn`` if given,
+    else ring attention when the seq axis is sharded (it is the blockwise
+    flash recurrence, distributed); the dense einsum when
+    ``config.attention`` is "dense" (keys gathered along ``seq`` when it
+    is sharded); otherwise the model's choice (``llama.resolve_attention``:
+    the flash kernels on the card). Past one rank it runs on this rank's
+    local heads (:func:`_local_heads`)."""
+    if attention_fn is None and mesh.size == 1:
+        return llama.resolve_attention(config, mesh.device_type)
+    base = attention_fn
+    if base is None and config.attention == "dense":
+        base = _dense_attention(mesh)
+    elif base is None and mesh.shape[AXIS_SEQ] > 1:
+        from ..ops.ring_attention import make_ring_attention
+
+        # The positions operand carries what a rank index would compute,
+        # which is what lets the ring nest under the pipeline.
+        base = make_ring_attention(mesh)
+    elif base is None:
+        base = (llama.resolve_attention(config, mesh.device_type)
+                or _dense_attention(mesh))
+    if mesh.shape[AXIS_TENSOR] == 1:
+        return base
+    return _local_heads(base, mesh, config)
+
+
+def make_train_step(config: ModelConfig, optimizer: Optimizer, mesh=None,
+                    attention_fn=None, microbatches: int = 0):
     """Returns ``step(state, batch) -> (state, metrics)``: the loss and
     its gradients, then one optimizer update, all in place. ``metrics``
     (loss, aux_loss, grad_norm) stay device scalars. The state must have
-    been built against the same (policy-applied) config."""
+    been built against the same (policy-applied) config.
+
+    ``mesh`` (a state built over it) makes it the sharded step: ``batch``
+    holds this rank's rows, a mesh with ``stage`` > 1 runs GPipe with
+    ``microbatches`` (default the stage count), the gradients are summed
+    over the axes each leaf is replicated along and the update takes the
+    whole gradient's norm (the model's placement,
+    ``parallel/placement.py``), and the metrics are the global batch's on
+    every rank; the model's blocks follow ``DEFAULT_RULES``."""
+    num_stages = pipeline_degree(mesh) if mesh is not None else 1
+    microbatches = microbatches or num_stages
+    if mesh is not None:
+        attention_fn = _resolve_attention(attention_fn, mesh, config)
 
     def step(state: TrainState, batch: Dict[str, np.ndarray]):
         model = state.model
         _check_model(model, config)
+        if model.mesh is not mesh:
+            raise ValueError("the state was not built over the step's mesh "
+                             "(init_state(..., mesh=mesh))")
         params = list(model.parameters())
         for p in params:
             p.grad = None
-        attn = llama.resolve_attention(config, model.device)
-        total, metrics = loss_fn(model, _tokens(batch, model.device), config,
-                                 attn)
+        attn = attention_fn or llama.resolve_attention(config, model.device)
+        total, metrics = loss_fn(model, _tokens(batch, model.device),
+                                 config, attn, num_stages, microbatches)
         total.backward()
-        grads = [p.grad for p in params]
-        metrics["grad_norm"] = optimizer.update(params, grads,
-                                                state.opt_state)
+        place = model.placement
+        grads = place.sync_grads(params)
+        metrics["grad_norm"] = optimizer.update(
+            params, grads, state.opt_state,
+            norm=place.global_norm(params, grads))
         state.step += 1
         return state, metrics
 
+    step.attention_fn = attention_fn
     return step
 
 
-def make_eval_step(config: ModelConfig):
+def make_eval_step(config: ModelConfig, mesh=None, attention_fn=None,
+                   microbatches: int = 0):
     """Returns ``eval(model, batch) -> metrics`` without gradients."""
+    num_stages = pipeline_degree(mesh) if mesh is not None else 1
+    microbatches = microbatches or num_stages
+    if mesh is not None:
+        attention_fn = _resolve_attention(attention_fn, mesh, config)
 
     @torch.no_grad()
     def step(model: llama.Llama, batch: Dict[str, np.ndarray]):
         _check_model(model, config)
-        attn = llama.resolve_attention(config, model.device)
+        attn = attention_fn or llama.resolve_attention(config, model.device)
         _, metrics = loss_fn(model, _tokens(batch, model.device), config,
-                             attn)
+                             attn, num_stages, microbatches)
         return metrics
 
     return step
