@@ -255,6 +255,18 @@ result:
    restore's verify, read and copy seconds, SIGTERM-to-exit, the prefetch
    wait per window, the ledgers, and A's step times and MFU; the
    checkpoints are deleted at the end.
+6. distributed -- phase 5's cut as GPipe on the card, the ring at n = 1,
+   the entry point under a one-rank NCCL world, blockwise attention
+   against the flash kernels, the fused exchange against the sharded step;
+7. expert -- ``mixtral-8x7b`` at full width cut to 2 layers, B 1 x 2048:
+   the expert-1 step in this process (its expert choices recorded, its
+   gradients kept), freed, then a gloo world of two processes on cuda:0
+   at ``expert`` 2 (``chip_smoke.py --expert-worker``), each rank holding
+   4 of the 8 experts: its first step on the recorded choices, loss
+   bitwise or within 1e-6 relative of the expert-1 step's, the routers',
+   wq's and its first expert's gradients within phase 4b's bound, flash
+   launches 4/2/2; the choices that move when it routes for itself; each
+   rank's step ms and peak memory.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. With ``--out DIR`` everything measured,
@@ -273,7 +285,8 @@ traced and migration runs, and stops (``DIR/chip_smoke_migration.json``);
 three flash kernels, then runs phase 5 with its kill and resume arms
 (``DIR/chip_smoke_train.json``, the arms' reports and traces beside it);
 ``--mixtral-only`` builds every kernel and runs phase 4b
-(``DIR/chip_smoke_mixtral.json``).
+(``DIR/chip_smoke_mixtral.json``); ``--expert-only`` builds and checks the
+three flash kernels and runs phase 7 (``DIR/chip_smoke_expert.json``).
 """
 
 from __future__ import annotations
@@ -5563,6 +5576,304 @@ def distributed_phase(card, out_dir: Path, flash_report=None):
     return out
 
 
+
+# Phase 7: expert parallelism on one card. Mixtral-8x7B at full width, cut
+# to EXPERT_LAYERS layers (a rank of expert 2 holds 1.75B parameters:
+# 28 GB of f32 masters, gradients and moments; two ranks 56 GB, the
+# expert-1 run alone 50.6 GB, each before activations), batch 1 x 2048,
+# bf16 policy, full remat, fused CE, flash; capacity factor 1.25 (the
+# model's), so tokens drop. NCCL refuses two ranks on one device, so the
+# world is gloo over two processes on cuda:0 (the port's API, as the CPU
+# tests' workers join theirs); the expert layer needs only all_reduce
+# (and, under batch-split axes, all_gather) on CUDA tensors, which the
+# workers probe first. No checkpoint is written: elastic restart and the
+# goodput harness are checked in gloo worlds on the CPU.
+EXPERT_DEVICE = "cuda"
+EXPERT_DEGREE = 2
+EXPERT_LAYERS = 2
+EXPERT_SEED = 11
+EXPERT_STEPS = 3  # the first held to the expert-1 step, the rest timed
+EXPERT_WORLD_TIMEOUT_S = 600
+# The first step's loss against the expert-1 step's: bitwise, or within
+# this relative bound (the experts' batched products run on E / expert
+# experts, which cuBLAS may tile otherwise).
+EXPERT_LOSS_REL = 1e-6
+
+
+def expert_config():
+    from triton_kubernetes_tpu_torch.models import get_config
+    from triton_kubernetes_tpu_torch.train import apply_policy
+
+    return apply_policy(get_config(
+        MIXTRAL_MODEL, num_layers=EXPERT_LAYERS, fused_ce=True,
+        attention="flash", remat=True, remat_policy="full"), "bf16")
+
+
+def expert_batch():
+    """Phase 7's batch, on the host (the step stages it)."""
+    from triton_kubernetes_tpu_torch.train import synthetic_batches
+
+    return next(synthetic_batches(expert_config().vocab_size, 1, TRAIN_SEQ,
+                                  seed=98))
+
+
+def expert_leaves(rank, held):
+    """(name, index) of the gradient leaves phase 7 compares on ``rank``:
+    both routers, layer 0's wq, and layer 0's w1 and w2 of the rank's first
+    expert (global index ``rank * held``)."""
+    out = [(f"layers.{i}.router", None) for i in range(EXPERT_LAYERS)]
+    out.append(("layers.0.wq", None))
+    out += [(f"layers.0.{w}", rank * held) for w in ("moe_w1", "moe_w2")]
+    return out
+
+
+def expert_reference(card, out_dir: Path):
+    """The expert-1 step on one device, in this process: its loss, its
+    expert choices (recorded), flash launches, and the compared gradient
+    leaves, saved to ``out_dir`` for the world's ranks; then freed."""
+    from triton_kubernetes_tpu_torch.models import llama
+    from triton_kubernetes_tpu_torch.ops import flash_attention as fa
+    from triton_kubernetes_tpu_torch.train import (make_optimizer,
+                                                   make_train_step,
+                                                   state_for)
+
+    cfg = expert_config()
+    torch.cuda.reset_peak_memory_stats()
+    model = llama.init_params(cfg, seed=EXPERT_SEED, device=EXPERT_DEVICE,
+                              trainable=True)
+    opt = make_optimizer(learning_rate=3e-4, warmup_steps=1,
+                         decay_steps=EXPERT_STEPS)
+    state = state_for(model, opt)
+    step = make_train_step(cfg, opt)
+    batch = expert_batch()
+    choices = []
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with routing("record", choices):
+        state, m = step(state, batch)
+    loss = float(m["loss"])
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fa.flash_attention.launches)
+    held = cfg.num_experts // EXPERT_DEGREE
+    grads = {}
+    for rank in range(EXPERT_DEGREE):
+        for name, e in expert_leaves(rank, held):
+            g = model.get_parameter(name).grad
+            grads[(name, e)] = (g if e is None else g[e]).detach().cpu()
+    torch.save(dict(loss=loss, aux=float(m["aux_loss"]),
+                    choices=[c.cpu() for c in choices], grads=grads),
+               out_dir / "expert_reference.pt")
+    step_ms = []
+    for _ in range(EXPERT_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    del state, model, step, m, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {k: n * EXPERT_LAYERS for k, n in FLASH_PER_LAYER.items()}
+    if launches != want:
+        raise AssertionError(f"expert 1 step: flash launches {launches} "
+                             f"!= {want}")
+    print(f"expert: {MIXTRAL_MODEL} cut to {EXPERT_LAYERS} layers, expert 1 "
+          f"on one device, B 1 x {TRAIN_SEQ}: first step loss {loss!r}, "
+          f"{ms:.1f} ms (the first step of the process), then step ms "
+          f"{[round(x, 1) for x in step_ms]}; peak memory "
+          f"{peak / 1e9:.2f} GB, flash launches {launches} [{card}]",
+          flush=True)
+    return dict(loss=loss, first_step_ms=ms, step_ms=step_ms,
+                peak_memory_bytes=peak, launches=launches)
+
+
+def expert_worker(rank: int, port: int, out_dir: Path) -> None:
+    """One rank of phase 7's world (``chip_smoke.py --expert-worker RANK
+    PORT DIR``): gloo over ``EXPERT_DEGREE`` processes, every one on
+    cuda:0. Probes gloo's all_reduce and all_gather on CUDA tensors, builds
+    its blocks of the expert-1 model (the same seed: the same values),
+    routes the first step on the recorded expert choices and holds its
+    loss and gradients to the expert-1 step's, counts how many choices
+    move when it routes for itself, then times the remaining steps.
+    Writes ``expert_rank{RANK}.json``."""
+    import torch.distributed as dist
+
+    from triton_kubernetes_tpu_torch.models import llama
+    from triton_kubernetes_tpu_torch.ops import flash_attention as fa
+    from triton_kubernetes_tpu_torch.parallel import MeshConfig, create_mesh
+    from triton_kubernetes_tpu_torch.parallel.multihost import \
+        make_batch_placer
+    from triton_kubernetes_tpu_torch.train import (loss_fn, make_optimizer,
+                                                   make_train_step,
+                                                   state_for)
+
+    if EXPERT_DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=EXPERT_DEGREE)
+    try:
+        # Gloo on CUDA tensors: refused means the phase fails.
+        x = torch.full((4,), float(rank + 1), device=EXPERT_DEVICE)
+        dist.all_reduce(x)
+        gathered = torch.empty(4 * EXPERT_DEGREE, device=EXPERT_DEVICE)
+        dist.all_gather_into_tensor(gathered, torch.full(
+            (4,), float(rank), device=EXPERT_DEVICE))
+        want_sum = EXPERT_DEGREE * (EXPERT_DEGREE + 1) / 2
+        probe = bool(torch.all(x == want_sum)) and gathered.tolist() == [
+            float(r) for r in range(EXPERT_DEGREE) for _ in range(4)]
+        if not probe:
+            raise AssertionError(f"gloo on CUDA tensors: all_reduce "
+                                 f"{x.tolist()}, all_gather "
+                                 f"{gathered.tolist()}")
+        ref = torch.load(out_dir / "expert_reference.pt")
+        cfg = expert_config()
+        mesh = create_mesh(MeshConfig(expert=EXPERT_DEGREE, fsdp=1),
+                           device_type=EXPERT_DEVICE)
+        torch.cuda.reset_peak_memory_stats()
+        model = llama.init_params(cfg, seed=EXPERT_SEED, device=EXPERT_DEVICE,
+                                  trainable=True, mesh=mesh)
+        held = model.layers[0].moe_w1.shape[0]
+        opt = make_optimizer(learning_rate=3e-4, warmup_steps=1,
+                             decay_steps=EXPERT_STEPS)
+        state = state_for(model, opt)
+        step = make_train_step(cfg, opt, mesh=mesh)
+        batch = make_batch_placer(mesh)(expert_batch())
+        choices = [c.to(EXPERT_DEVICE) for c in ref["choices"]]
+        # Routing for itself, forward only: the choices that move.
+        own = []
+        with torch.no_grad(), routing("record", own):
+            _, own_m = loss_fn(model, torch.as_tensor(
+                batch["tokens"], device=EXPERT_DEVICE), cfg,
+                step.attention_fn)
+        moved = sum(int((a != b).any(dim=1).sum())
+                    for a, b in zip(choices, own))
+        # The compared step, on the expert-1 run's choices, counted from 0.
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with routing("replay", choices):
+            state, m = step(state, batch)
+        loss = float(m["loss"])
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(fa.flash_attention.launches)
+        grads = {}
+        for name, e in expert_leaves(rank, held):
+            g = model.get_parameter(name).grad
+            got = g if e is None else g[e - rank * held]
+            want = ref["grads"][(name, e)].to(EXPERT_DEVICE)
+            grads[f"{name}[{e}]" if e is not None else name] = dict(
+                rel_l2=rel_l2(got, want),
+                max_abs=float((got.float() - want.float()).abs().max()),
+                bitwise=bool(torch.equal(got, want)))
+        step_ms = []
+        for _ in range(EXPERT_STEPS - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m2 = step(state, batch)
+            float(m2["loss"])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        out = dict(rank=rank, held=held, gloo_cuda_probe=probe,
+                   loss=loss, aux=float(m["aux_loss"]),
+                   loss_bitwise=loss == ref["loss"],
+                   loss_rel_diff=abs(loss - ref["loss"]) / abs(ref["loss"]),
+                   own_routing_loss=float(own_m["loss"]),
+                   own_routing_moved=moved, routing_calls=len(own),
+                   grads=grads, first_step_ms=first_ms, step_ms=step_ms,
+                   later_losses=[float(m2["loss"])],
+                   launches=launches,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   mesh=repr(mesh.shape))
+        (out_dir / f"expert_rank{rank}.json").write_text(json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def expert_phase(card, out_dir: Path):
+    """Phase 7: the expert-1 step in this process, then a gloo world of
+    ``EXPERT_DEGREE`` ranks on cuda:0 at ``--expert`` EXPERT_DEGREE (the
+    experts split over the mesh's expert axis), each rank held to it.
+    The reference gradients and the ranks' records pass through a
+    temporary directory (they are large); the ranks' records are copied
+    to ``out_dir``. Returns (flash launches summed over the ranks'
+    compared steps, the record)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, out = _expert_phase(card, Path(tmp))
+        for r in range(EXPERT_DEGREE):
+            name = f"expert_rank{r}.json"
+            (out_dir / name).write_text((Path(tmp) / name).read_text())
+    return launches, out
+
+
+def _expert_phase(card, out_dir: Path):
+    t0 = time.perf_counter()
+    ref = expert_reference(card, out_dir)
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--expert-worker",
+         str(r), str(port), str(out_dir)],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for r in range(EXPERT_DEGREE)]
+    logs = []
+    try:
+        deadline = time.monotonic() + EXPERT_WORLD_TIMEOUT_S
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(r, p.returncode, log[-3000:])
+           for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode]
+    if bad:
+        raise AssertionError(f"expert world: ranks failed: {bad}")
+    ranks = [json.loads((out_dir / f"expert_rank{r}.json").read_text())
+             for r in range(EXPERT_DEGREE)]
+    want = {k: n * EXPERT_LAYERS for k, n in FLASH_PER_LAYER.items()}
+    cfg = expert_config()
+    for r in ranks:
+        grad_rel = max(g["rel_l2"] for g in r["grads"].values())
+        problems = []
+        if r["held"] != cfg.num_experts // EXPERT_DEGREE:
+            problems.append(f"holds {r['held']} experts")
+        if not (r["loss_bitwise"] or r["loss_rel_diff"] <= EXPERT_LOSS_REL):
+            problems.append(f"loss {r['loss']!r} vs {ref['loss']!r}")
+        if not grad_rel <= STEP_GRAD_REL_L2:
+            problems.append(f"worst gradient rel L2 {grad_rel}")
+        if r["launches"] != want:
+            problems.append(f"flash launches {r['launches']} != {want}")
+        if not all(np.isfinite([r["loss"], r["aux"]] + r["later_losses"])):
+            problems.append("non-finite loss")
+        if problems:
+            raise AssertionError(f"expert rank {r['rank']}: "
+                                 + "; ".join(problems))
+        print(f"expert: rank {r['rank']} of {EXPERT_DEGREE} (gloo on cuda:0, "
+              f"mesh {r['mesh']}, experts {r['rank'] * r['held']}.."
+              f"{(r['rank'] + 1) * r['held'] - 1}): first step loss "
+              f"{r['loss']!r} vs expert 1 {ref['loss']!r}: "
+              f"{'bitwise' if r['loss_bitwise'] else 'rel diff %.3g (bound %g)' % (r['loss_rel_diff'], EXPERT_LOSS_REL)}"
+              f"; gradients on the replayed choices (rel L2, bound "
+              f"{STEP_GRAD_REL_L2}; bitwise): "
+              f"{ {k: (round(g['rel_l2'], 9), g['bitwise']) for k, g in r['grads'].items()} }"
+              f"; routing for itself moves {r['own_routing_moved']} token "
+              f"choices of the forward's {r['routing_calls']} routing calls "
+              f"(loss "
+              f"{r['own_routing_loss']!r}); flash launches {r['launches']}; "
+              f"step ms {[round(x, 1) for x in r['step_ms']]} (both ranks "
+              f"share the card), first step {r['first_step_ms']:.1f} ms; "
+              f"peak memory {r['peak_memory_bytes'] / 1e9:.2f} GB [{card}]",
+              flush=True)
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in want}
+    seconds = time.perf_counter() - t0
+    print(f"expert: phase 7 took {seconds:.1f} s [{card}]", flush=True)
+    return launches, dict(reference=ref, ranks=ranks, launches=launches,
+                          seconds=seconds)
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", type=Path, default=None,
@@ -5610,6 +5921,16 @@ def main() -> int:
                              "5's trainer once for its baseline) and stop "
                              "(DIR/chip_smoke_distributed.json with --out; "
                              "prints no device line)")
+    parser.add_argument("--expert-only", action="store_true",
+                        help="build the three flash kernels, hold them "
+                             "against their plain versions, then run phase "
+                             "7 (Mixtral-8x7B, 2 layers, the expert-1 step, "
+                             "then a gloo world of two ranks on the card at "
+                             "expert 2) and stop (DIR/chip_smoke_expert.json "
+                             "with --out; prints no device line)")
+    parser.add_argument("--expert-worker", nargs=3, default=None,
+                        metavar=("RANK", "PORT", "DIR"),
+                        help=argparse.SUPPRESS)
     parser.add_argument("--mixtral-only", action="store_true",
                         help="build every kernel, run the Mixtral phase "
                              "(serve 16 layers, train 2 through the entry "
@@ -5617,6 +5938,10 @@ def main() -> int:
                              "to the MoE path (DIR/chip_smoke_mixtral.json "
                              "with --out; prints no device line)")
     args = parser.parse_args()
+    if args.expert_worker is not None and torch.cuda.is_available():
+        rank, port, out_dir = args.expert_worker
+        expert_worker(int(rank), int(port), Path(out_dir))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on the "
               "card", file=sys.stderr)
@@ -5648,7 +5973,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = (tuple(k for k in _kernels.KERNELS if k.startswith("flash_"))
              if args.flash_only or args.train_only
-             or args.distributed_only else
+             or args.distributed_only or args.expert_only else
              ("decode_gemm", "rms_norm", "quantize_rows") if args.gemm_only
              else _kernels.KERNELS)
     logs = _kernels.build(built)
@@ -5714,6 +6039,20 @@ def main() -> int:
             "entry": {k: dist["entry"][k] for k in (
                 "mesh", "dcn_sync", "losses_bitwise")}}}))
         return 0
+    if args.expert_only:
+        records = flash_kernel_phase(device, flush, peaks)
+        del flush
+        with tempfile.TemporaryDirectory() as tmp:
+            out_dir = args.out if args.out is not None else Path(tmp)
+            out_dir.mkdir(parents=True, exist_ok=True)
+            expert_launches, expert = expert_phase(card, out_dir)
+        if args.out is not None:
+            (args.out / "chip_smoke_expert.json").write_text(json.dumps(
+                dict(card=card, device=name, kernels=records,
+                     expert=expert), indent=1, default=str))
+        print(json.dumps({"expert": {"launches": expert_launches,
+                                     "seconds": expert["seconds"]}}))
+        return 0
     if args.train_only:
         records = flash_kernel_phase(device, flush, peaks)
         del flush
@@ -5769,6 +6108,10 @@ def main() -> int:
         # Phase 6: distributed training on one card.
         train["distributed"] = dist = distributed_phase(
             card, out_dir, flash_report=train["report"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        # Phase 7: expert parallelism, a world of two ranks on the card.
+        train["expert"] = expert = expert_phase(card, out_dir)[1]
     # Each kernel's launches on the serve runs of its page kind (the first
     # serve run and the bf16 runs for bf16 pages) or on training, and per
     # unit of that path: a decode tick, a verify tick, a prefill window, a
@@ -5851,6 +6194,8 @@ def main() -> int:
     for r in records:
         if r["name"] in dist["launches"]:
             r["distributed_launches"] = dist["launches"][r["name"]]
+        if r["name"] in expert["launches"]:
+            r["expert_launches"] = expert["launches"][r["name"]]
     for r in records:
         n, per = count[r["name"]]
         if not n:
@@ -5869,6 +6214,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "variant", "launches",
             "launches_per_unit", "launches_per", "http_launches",
             "durability_launches", "mixtral_launches", "distributed_launches",
+            "expert_launches",
             "max_abs_err", "ms",
             "plain_ms", "plain_note", "bound_ms",
             "bound_by", "bound_share", "achieved_tflops", "library_ms",

@@ -434,6 +434,56 @@ def test_tensor_core_prefill_rows_do_not_depend_on_the_window(device, kind):
         assert torch.equal(whole[:, c - c2:], part), (c, offset)
 
 
+def test_prefill_windows_launch_from_threads(device):
+    """Serving replicas in one process prefill on threads of their own, and
+    the tensor-core design's shared memory grows with the window's last
+    page. Short windows at offset 0 and long ones deep in the table, each
+    launched through the C entry over and over from threads of their own
+    (little Python between calls, so the calls overlap): every launch
+    succeeds, and each window's output is torch.equal to the wrapper's
+    output for it alone."""
+    import threading
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    tw, hkv, group, d, bs = 160, 8, 4, 128, 16
+    kp, vp, _, _ = _prefill_pages(gen, None, tw, hkv, bs, d, device)
+    table = (torch.randperm(tw, device=device) + 1).to(torch.int32)
+    windows = [(16, 0), (64, 2400), (8, 8), (128, 2048)]
+    qs = [torch.randn((1, c, hkv * group, d), generator=gen, device=device
+                      ).to(torch.bfloat16) for c, _ in windows]
+    want = [pa.paged_prefill_attention(q, kp, vp, table, offset)
+            for q, (_, offset) in zip(qs, windows)]
+    outs = [torch.empty_like(q) for q in qs]
+    torch.cuda.synchronize()
+    entry = _kernels._entry("paged_prefill", torch.bfloat16, torch.bfloat16)
+    code = _kernels.PAGED_VARIANTS[_kernels.paged_variant(
+        torch.bfloat16, torch.bfloat16, bs, d)]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    failed = []
+
+    def run(i):
+        c, offset = windows[i]
+        args = (qs[i].data_ptr(), kp.data_ptr(), vp.data_ptr(), None, None,
+                table.data_ptr(), outs[i].data_ptr(), c, hkv, group, d, bs,
+                tw, offset, d ** -0.5, code, stream)
+        for _ in range(2000):
+            rc = entry(*args)
+            if rc:
+                failed.append((windows[i], rc))
+                return
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(windows))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not failed, failed[:4]
+    for window, got, w in zip(windows, outs, want):
+        assert torch.equal(got, w), window
+
+
 def test_prefill_variant_reaches_the_c_entry(device, monkeypatch):
     """The prefill wrapper hands its C entry the code of the design the
     table names -- bf16 at bs 16 / D 128 the tensor cores, f32 and the

@@ -159,12 +159,14 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_later_slices_raise_not_implemented():
-    """Expert parallelism is a later slice (it needs the mesh of
-    distributed training); MoE models, quantized pools and W8A8 weights
-    are not."""
+    """Nothing of these slices raises any more: expert parallelism needs
+    a world of processes (one drives one device, so ``--expert 4`` on one
+    is a config error, exit 2; tests/test_torch_elastic.py trains it in a
+    world of four), and MoE models, quantized pools and W8A8 weights
+    build."""
     from triton_kubernetes_tpu_torch.train.__main__ import main as train
-    with pytest.raises(NotImplementedError, match="mesh"):
-        train(["--model", "mixtral-test", "--expert", "4", "--device", "cpu"])
+    assert train(["--model", "mixtral-test", "--expert", "4", "--device",
+                  "cpu"]) == 2
     moe = init_params(get_config("mixtral-test"), device="cpu")
     assert moe.layers[0].moe_w1.shape == (4, 64, 128)
     from triton_kubernetes_tpu_torch.serve import ServeEngine

@@ -26,6 +26,7 @@ from triton_kubernetes_tpu_torch.constants import (COORDINATOR_PORT,
                                                    EXIT_CONFIG,
                                                    EXIT_UNSUPPORTED)
 from triton_kubernetes_tpu_torch.models import get_config, llama
+from triton_kubernetes_tpu_torch.ops import moe
 from triton_kubernetes_tpu_torch.parallel import mesh as pmesh
 from triton_kubernetes_tpu_torch.parallel import sharding as psharding
 from triton_kubernetes_tpu_torch.parallel.mesh import Mesh
@@ -103,6 +104,68 @@ def test_shard_pytree_blocks_are_jax_device_blocks(shape):
                 axes, mesh=jm))
             want = arr[sharding.devices_indices_map(arr.shape)[device]]
             np.testing.assert_array_equal(block, want, err_msg=str(path))
+
+
+EXPERT_MESHES = [dict(expert=2), dict(expert=4), dict(expert=2, tensor=2),
+                 dict(fsdp=2, expert=2), dict(data=2, expert=2, tensor=2)]
+
+
+@pytest.mark.parametrize("sizes", EXPERT_MESHES, ids=str)
+def test_expert_leaves_split_as_jax_places_them(sizes):
+    """On a mesh with an ``expert`` axis every ``mixtral-test`` leaf's spec
+    is JAX's, and every rank's block is the slice JAX's
+    ``devices_indices_map`` gives the device at its mesh position: the
+    expert leaves hold ``E / expert`` experts (their ``embed`` and ``mlp``
+    dims split over ``fsdp`` and ``tensor`` as before), the router none
+    of the expert axis."""
+    from jax.sharding import NamedSharding
+
+    n = int(np.prod(list(sizes.values())))
+    jm = jmesh.create_mesh(jmesh.MeshConfig(**dict(dict(fsdp=1), **sizes)),
+                           devices=jax.devices()[:n])
+    cfg = jget_config("mixtral-test")
+    params = jax.tree.map(np.asarray, jllama.init_params(
+        cfg, jax.random.PRNGKey(0)))
+    tree = llama.logical_axes(get_config("mixtral-test"))
+    for rank, device in enumerate(jm.devices.flat):
+        pm = Mesh(dict(zip(jm.axis_names, jm.devices.shape)), rank, "cpu")
+        blocks = psharding.shard_pytree(params, tree, pm)
+        for (path, arr), (_, axes), (_, block) in zip(
+                _leaves(params), _leaves(tree), _leaves(blocks)):
+            spec = jsharding.logical_to_spec(axes, mesh=jm)
+            assert psharding.logical_to_spec(axes, mesh=pm) == tuple(spec)
+            want = arr[NamedSharding(jm, spec).devices_indices_map(
+                arr.shape)[device]]
+            np.testing.assert_array_equal(block, want, err_msg=str(path))
+            if path[-1].startswith("moe_w"):
+                assert block.shape[1] == cfg.num_experts // sizes["expert"]
+
+
+def test_expert_axis_that_divides_no_expert_count_keeps_them_whole():
+    """``expert`` 3 over 4 experts: the spec is JAX's (the rules do not
+    look at sizes), and the port keeps the expert dim whole on every rank,
+    as it keeps any dim its axes do not divide (``sharding.py``): each
+    rank then runs every expert, and the MoE layer's placement sums
+    nothing over ``expert``."""
+    jm = jmesh.create_mesh(jmesh.MeshConfig(fsdp=1, expert=3),
+                           devices=jax.devices()[:3])
+    cfg = get_config("mixtral-test")
+    tree = llama.logical_axes(cfg)
+    for r in range(3):
+        pm = Mesh(dict(expert=3), r, "cpu")
+        for leaf in ("moe_w1", "moe_w3", "moe_w2"):
+            axes = tree["layers"][leaf]
+            spec = psharding.logical_to_spec(axes, mesh=pm)
+            assert spec == tuple(jsharding.logical_to_spec(axes, mesh=jm))
+            assert spec[1] == "expert"
+            shape = (2, cfg.num_experts, 64, 128)
+            assert psharding.local_shape(shape, spec, pm) == shape
+        layout = llama.shard_layout(cfg, pm)
+        assert all(shape == layout[name][1] for name, (_, shape, _) in
+                   layout.items())
+        model = llama.init_params(cfg, device="cpu", trainable=True,
+                                  mesh=pm)
+        assert model.placement.routing(model.layers[0].moe_w1) is moe.LOCAL
 
 
 @pytest.mark.parametrize("cfg", [

@@ -84,11 +84,19 @@
 //   P V. A running max per stage rather than per page would cut the folds
 //   and shuffles 4x, at the price of a plain version that differs from the
 //   reference's.
+#include <mutex>
 #include <type_traits>
 
 #include "paged_common.cuh"
 
 namespace {
+
+// Serving replicas in one process launch from threads of their own, and a
+// kernel's dynamic shared-memory limit belongs to the kernel, not the call:
+// the tensor-core design's need grows with the window's last page. Setting
+// the limit and launching under one lock keeps another thread's smaller
+// limit from landing in between (the launch would fail, invalid value).
+std::mutex launch_mutex;
 
 // ---- cuda_core: the products on the CUDA cores in f32 ----
 //
@@ -295,6 +303,7 @@ int launch_bs(const T* q, const KV* k_pages, const KV* v_pages,
       sizeof(float) * ((size_t)(kRows + kKeys) * (d + 4) +
                        2 * (size_t)kRows * (kKeys + 1) +
                        (size_t)kRows * (kKeys / BS) + 2 * kRows);
+  std::lock_guard<std::mutex> hold(launch_mutex);
   cudaError_t e = cudaFuncSetAttribute(
       paged_prefill_kernel<T, KV, BS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -675,6 +684,7 @@ int launch_mma(const void* q, const void* k_pages, const void* v_pages,
   // The longest walk's pages size the page-id (and scale) table.
   const int n_pages = (offset + chunk - 1) / BS + 1;
   const size_t smem = L::kFixedBytes + (size_t)L::kPageBytes * n_pages;
+  std::lock_guard<std::mutex> hold(launch_mutex);
   cudaError_t e = cudaFuncSetAttribute(
       paged_prefill_mma_kernel<KV, D, BS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -444,10 +444,6 @@ def _sharded_model(config: ModelConfig, mesh, dev: torch.device,
     from ..parallel.placement import MeshPlacement
     from ..parallel.sharding import local_slices
 
-    if config.is_moe and mesh.shape["expert"] > 1:
-        raise NotImplementedError(
-            "expert parallelism (expert axis > 1) is the next slice's work "
-            "(ROADMAP.md section 1 item 4)")
     layout = shard_layout(config, mesh)
     local = {glob: (name, shape, spec)
              for name, (glob, shape, spec) in layout.items()}
@@ -778,7 +774,10 @@ def _moe_normed(h: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
     """The expert layer of the MLP norm's output: ``ops.moe.moe_layer_rows``
     where ``row_invariant``, else ``moe_layer``. Expert weights take part
     as :func:`resolve_weight` gives them (quantized ones dequantized: the
-    expert products are never W8A8, as in the reference), each whole."""
+    expert products are never W8A8, as in the reference), with their
+    ``embed`` and ``mlp`` dims whole and their expert dim as the rank
+    holds it: on a mesh ``moe_layer`` takes the placement's routing
+    (:meth:`Placement.routing`), which runs the rank's experts."""
     params = {"router": place.weight(layer.router),
               "w1": resolve_weight(place.weight(layer.moe_w1, whole=True),
                                    config),
@@ -790,7 +789,8 @@ def _moe_normed(h: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
         return moe_layer_rows(h, params, config.num_selected,
                               config.capacity_factor)
     return moe_layer(h, params, config.num_selected, config.capacity_factor,
-                     dispatch_mode=config.moe_dispatch)
+                     dispatch_mode=config.moe_dispatch,
+                     routing=place.routing(layer.moe_w1))
 
 
 def _mlp_normed(h: torch.Tensor, layer: LlamaBlock, config: ModelConfig,
@@ -900,6 +900,11 @@ def _dense_attention(q, k, v, positions):
 
 def _flash(q, k, v, positions):
     return flash_attention(q, k, v)
+
+
+# The kernels it launches (those whose launches ``flash_attention``
+# counts), which a step's compile builds ahead (``trainer.step_kernels``).
+_flash.kernels = tuple(flash_attention.launches)
 
 
 def resolve_attention(config: ModelConfig,

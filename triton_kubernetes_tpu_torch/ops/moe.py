@@ -14,7 +14,16 @@ contiguous ``generate`` run, with the reference's two dispatches: "dense"
 (one-hot ``[T, E, C]`` einsums in f32) and "sort" (a stable sort of the
 choice-major assignments by expert); "auto" takes sort once the dense
 dispatch tensors pass 64 MiB. Gradients flow through the gates and the
-aux loss.
+aux loss. It has one body, which asks a :class:`Routing` where its tokens
+and experts sit: the one-device :class:`Routing` (every hook the identity)
+holds the whole batch and every expert; on a mesh the rank's rows and
+tokens are part of the global batch and its experts part of all of them,
+and the layer computes what the reference computes on the global batch --
+capacity, seats, drops and the aux loss's means over every token, then the
+rank's experts on the slots they kept, the partial outputs summed over the
+expert ranks (``parallel/placement.MeshRouting``). :func:`top_k_router`
+and :func:`sort_router` are the reference's two routers, kept with its
+names and outputs.
 
 :func:`moe_layer_rows` is the layer of the paged serving steps
 (``row_invariant=True`` in ``models/llama.py``): the same routing and
@@ -28,7 +37,7 @@ is no TPU kernel to port here.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,10 +55,12 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[:, :k], idx[:, :k]
 
 
-def _gates(logits: torch.Tensor, num_selected: int
+def _gates(logits: torch.Tensor, num_selected: int,
+           routing: Optional["Routing"] = None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Routing from f32 router logits [T, E]: (top_p [T, K] renormalized
-    gates, top_i [T, K] expert ids, aux loss)."""
+    gates, top_i [T, K] expert ids, aux loss). The aux loss's two means
+    are ``routing``'s (:meth:`Routing.mean`; default this batch's)."""
     e = logits.shape[1]
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = _top_k(probs, num_selected)
@@ -60,8 +71,10 @@ def _gates(logits: torch.Tensor, num_selected: int
         total = total + top_p[:, j]
     top_p = top_p / total[:, None]
     # Load-balancing aux loss (Switch/Mixtral): E * <frac routed> . <mean p>
-    frac_routed = F.one_hot(top_i[:, 0], e).float().mean(dim=0)
-    aux = e * torch.sum(frac_routed * probs.mean(dim=0))
+    first = F.one_hot(top_i[:, 0], e).float()
+    routing = routing or LOCAL
+    frac_routed, mean_p = routing.mean(first), routing.mean(probs)
+    aux = e * torch.sum(frac_routed * mean_p)
     return top_p, top_i, aux
 
 
@@ -179,43 +192,137 @@ def _dispatch_sorted(x2: torch.Tensor, token_idx: torch.Tensor,
     return buf[:-1].reshape(e, capacity, x2.shape[1])
 
 
+def _positions(top_i: torch.Tensor) -> torch.Tensor:
+    """Each assignment's position within its expert [T, K], in the seating
+    order of :func:`_seat` (choice-major, ties to the lower token id)."""
+    t, k = top_i.shape
+    flat_e = top_i.t().reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    idx = torch.arange(t * k, device=top_i.device)
+    pos = torch.empty_like(idx)
+    pos[order] = idx - torch.searchsorted(sorted_e, sorted_e, side="left")
+    return pos.reshape(k, t).t()
+
+
+class Routing:
+    """Where an MoE layer's tokens and experts sit, as :func:`moe_layer`
+    asks. This class is the one-device layer's: it holds every token of
+    the batch and every expert, and each hook is the identity. The
+    reference computes the layer on the global [B, S] batch with every
+    expert, and GSPMD keeps that meaning on any mesh; a rank of the port
+    holds some of the rows and tokens (``data``, ``fsdp``, ``seq``) and,
+    with the ``expert`` axis, some of the experts (``w1``/``w3``/``w2``
+    lead with the ``held`` experts from :meth:`experts` on), and every
+    rank of the ``expert`` axis holds the same tokens. A mesh's subclass
+    (``parallel/placement.MeshRouting``) answers for the global batch: how
+    many tokens it has (the capacity and the "auto" dispatch are the
+    global ones), the means of the aux loss over them, and each of the
+    rank's assignments' seat in the global priority order; the layer then
+    runs its own experts on the assignments they kept, and the partial
+    outputs are summed over the expert ranks."""
+
+    def tokens(self, t: int) -> int:
+        """The global batch's token count, of ``t`` local ones."""
+        return t
+
+    def mean(self, v: torch.Tensor) -> torch.Tensor:
+        """The mean of ``v`` [T, E] over the global batch's tokens, with
+        its gradient back to every rank's rows."""
+        return v.mean(dim=0)
+
+    def positions(self, top_i: torch.Tensor) -> torch.Tensor:
+        """Each assignment of ``top_i`` [B, S, K] (this rank's tokens):
+        its position within its expert in the global batch's seating
+        (:func:`_positions` of the global [B * S, K]), as [B * S, K]."""
+        b, s, k = top_i.shape
+        return _positions(top_i.reshape(b * s, k))
+
+    def experts(self, e: int, held: int) -> int:
+        """The first of the ``held`` experts (of ``e``) this rank holds."""
+        return 0
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """A value every expert rank holds alike, as the experts read it:
+        itself, its gradient summed over the expert ranks."""
+        return x
+
+    def combine(self, y: torch.Tensor) -> torch.Tensor:
+        """The layer's f32 output from this rank's partial one: summed
+        over the expert ranks (the same on each)."""
+        return y
+
+
+LOCAL = Routing()
+
+
 def moe_layer(x: torch.Tensor, params: Params, num_selected: int = 2,
-              capacity_factor: float = 1.25, dispatch_mode: str = "auto"
+              capacity_factor: float = 1.25, dispatch_mode: str = "auto",
+              routing: Routing = LOCAL
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SwiGLU experts on x [B, S, D] (``params``: router [D, E], w1/w3
-    [E, D, F], w2 [E, F, D] in x's dtype): returns (y [B, S, D], aux
+    [E', D, F], w2 [E', F, D] in x's dtype): returns (y [B, S, D], aux
     scalar). ``dispatch_mode``: "dense", "sort" or "auto" (sort past 64 MiB
-    of dense dispatch tensors)."""
+    of dense dispatch tensors). ``routing`` (:class:`Routing`; a mesh's
+    from its placement): x is its part of the global batch and the E'
+    expert weights its experts; the layer computes the global batch's
+    routing (seats, drops, aux loss) and its part of the output."""
     b, s, d = x.shape
     e = params["router"].shape[1]
+    held = params["w1"].shape[0]
     t = b * s
-    capacity = _capacity(capacity_factor, num_selected, t, e)
     x2 = x.reshape(t, d)
-    dispatch_mode = dispatch_mode_of(dispatch_mode, t, e, num_selected,
-                                     capacity_factor)
-    if dispatch_mode == "sort":
-        token_idx, slot, gate, keep, aux = sort_router(
-            x2, params["router"], num_selected, capacity)
-        expert_in = _dispatch_sorted(x2, token_idx, slot, keep, e, capacity)
+    top_p, top_i, aux = _gates(x2.float() @ params["router"].float(),
+                               num_selected, routing)
+    t_all = routing.tokens(t)
+    capacity = _capacity(capacity_factor, num_selected, t_all, e)
+    mode = dispatch_mode_of(dispatch_mode, t_all, e, num_selected,
+                            capacity_factor)
+    if mode not in ("dense", "sort"):
+        raise ValueError(
+            f"dispatch_mode must be auto|dense|sort, got {dispatch_mode!r}")
+    local = top_i - routing.experts(e, held)
+    keep = ((routing.positions(top_i.reshape(b, s, num_selected))
+             < capacity) & (local >= 0) & (local < held))
+    # The kept assignments of the held experts in their slots, in the
+    # global seating's order: an expert keeps at most min(capacity, t) of
+    # them (a token picks an expert once). Everything else sorts last.
+    slots = min(capacity, t)
+    flat = torch.where(keep, local, torch.full_like(local, held)).t(
+        ).reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    sorted_k = flat[order]
+    pos = (torch.arange(t * num_selected, device=x.device)
+           - torch.searchsorted(sorted_k, sorted_k, side="left"))
+    kept = sorted_k < held
+    slot = torch.where(kept, sorted_k * slots + pos, torch.zeros_like(pos))
+    token_idx = order % t
+    gate = routing.enter(top_p).t().reshape(-1)[order] * kept
+    x_in = routing.enter(x2)
+    if mode == "sort":
+        expert_in = _dispatch_sorted(x_in, token_idx, slot, kept, held,
+                                     slots)
         expert_out = _expert_mlp(expert_in, params, x.dtype)
-        contrib = expert_out.reshape(e * capacity, d)[slot].float()
-        contrib = contrib * (gate * keep)[:, None]
-        # index_add_ of duplicate indices is unordered on CUDA; a token
+        contrib = expert_out.reshape(held * slots, d)[slot].float()
+        # index_add of duplicate indices is unordered on CUDA; a token
         # has K = 2 contributions added to 0, and 0 + a + b == 0 + b + a
         # exactly. (Not so for K > 2.)
         y2 = torch.zeros((t, d), dtype=torch.float32,
-                         device=x.device).index_add(0, token_idx, contrib)
-        return y2.reshape(b, s, d).to(x.dtype), aux
-
-    if dispatch_mode != "dense":
-        raise ValueError(
-            f"dispatch_mode must be auto|dense|sort, got {dispatch_mode!r}")
-    dispatch, combine, aux = top_k_router(x2, params["router"],
-                                          num_selected, capacity)
-    expert_in = torch.einsum("tec,td->ecd", dispatch, x2.float())
-    expert_out = _expert_mlp(expert_in.to(x.dtype), params, x.dtype)
-    y2 = torch.einsum("tec,ecd->td", combine, expert_out.float())
-    return y2.reshape(b, s, d).to(x.dtype), aux
+                         device=x.device).index_add(
+            0, token_idx, contrib * gate[:, None])
+    else:
+        zeros = torch.zeros((t, held * slots), dtype=torch.float32,
+                            device=x.device)
+        dispatch = zeros.index_put((token_idx, slot), kept.float(),
+                                   accumulate=True)
+        combine = zeros.index_put((token_idx, slot), gate, accumulate=True)
+        expert_in = torch.einsum("tec,td->ecd",
+                                 dispatch.view(t, held, slots),
+                                 x_in.float())
+        expert_out = _expert_mlp(expert_in.to(x.dtype), params, x.dtype)
+        y2 = torch.einsum("tec,ecd->td", combine.view(t, held, slots),
+                          expert_out.float())
+    return routing.combine(y2).reshape(b, s, d).to(x.dtype), aux
 
 
 # The decode GEMM takes widths in multiples of 8: a router with fewer

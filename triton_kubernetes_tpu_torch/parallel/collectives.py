@@ -14,8 +14,9 @@ Two conventions meet here, and each function says which it serves:
   different rows or tokens, the global loss is the sum of the ranks'
   shares, and the adjoint of a linear collective is its transpose
   (:func:`ppermute` -> the inverse permutation, :func:`all_gather` ->
-  reduce-scatter);
-* **replicated** (``tensor``, Megatron): every rank of the group computes
+  reduce-scatter, :func:`psum` -> psum);
+* **replicated** (``tensor`` and ``expert``, Megatron): every rank of the
+  group computes
   the same loss once, so a replicated activation's gradient is the full
   gradient on every rank. :func:`copy_to` (identity; all-reduce back) and
   :func:`reduce_from` (all-reduce; identity back) are Megatron's f and g;
@@ -228,6 +229,26 @@ def ppermute(x: torch.Tensor, mesh: Mesh, axis: str,
     if not x.requires_grad:
         return _permute(x, mesh, axis, perm)
     return _PPermute.apply(x, mesh, axis, list(perm))
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def psum(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]) -> torch.Tensor:
+    """Partitioned: ``lax.psum`` -- the sum over ``axes`` of each rank's
+    part, on every rank; backward sums the cotangent over ``axes`` too,
+    since every rank's share of the loss reads the total (an MoE layer's
+    routed fractions and mean probabilities over the global batch)."""
+    group = mesh.group(axes)
+    return x if group is None else _PSum.apply(x, group)
 
 
 def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]

@@ -1,7 +1,7 @@
 """Multi-process training: the hybrid mesh, per-process batch rows, the
-fused gradient exchange, coordinated checkpoints and a local launcher --
-the port of ``triton_kubernetes_tpu/parallel/multihost.py`` (its
-elastic-restart and goodput harness are the next slice's).
+fused gradient exchange, coordinated checkpoints, a local launcher and,
+over it, the elastic-restart storyline and the goodput harness -- the
+port of ``triton_kubernetes_tpu/parallel/multihost.py``.
 
 In the port one process drives one device, and ranks meet through
 ``torch.distributed``: gloo for ``cpu``, NCCL for ``cuda``. The reference's
@@ -44,9 +44,11 @@ REASON_NO_CPU_COLLECTIVES = "no-cpu-collectives"
 REASON_NO_COLLECTIVES_FLAG = "no-cpu-collectives-flag"
 REASON_NO_PROCESS_ARRAY = "no-process-local-array-api"
 REASON_HOST_CEILING = "host-parallel-ceiling"
-# The port's own: a card without NCCL, and a world size nobody gave.
+# The port's own: a card without NCCL, a world size nobody gave, and a
+# fleet shape that asks a process for more than one device.
 REASON_NO_NCCL = "no-nccl"
 REASON_NO_WORLD_SIZE = "no-world-size"
+REASON_DEVICES_PER_PROCESS = "one-device-per-process"
 
 
 class MultiHostUnavailable(RuntimeError):
@@ -744,6 +746,17 @@ def _device_type_of(args: Sequence[str]) -> str:
     return "cuda"
 
 
+def require_one_device_per_process(devices_per_process: int) -> None:
+    """A port process drives one device (``cuda:rank``, or the CPU):
+    anything else is :class:`MultiHostUnavailable`, reason
+    ``one-device-per-process``."""
+    if devices_per_process != 1:
+        raise MultiHostUnavailable(
+            f"devices_per_process={devices_per_process}: a process of the "
+            f"port drives one device; give a fleet of N devices as "
+            f"n_processes=N", REASON_DEVICES_PER_PROCESS)
+
+
 def launch_trainers(trainer_args: Sequence[str], *, n_processes: int = 2,
                     run_dir: str,
                     tag: str = "", port: Optional[int] = None,
@@ -853,3 +866,189 @@ def launch_trainers(trainer_args: Sequence[str], *, n_processes: int = 2,
     return LaunchReport(
         returncodes=[p.returncode for p in procs], workers=workers,
         wall_seconds=wall, killed=killed, report=report)
+
+
+# ------------------------------------------------------- elastic restart
+
+@dataclass
+class ElasticPhase:
+    """One fleet shape in an elastic restart storyline: how many worker
+    processes (and devices each: always 1 in the port), plus per-phase
+    trainer-arg overrides (e.g. a larger ``--steps`` target) and an
+    optional preemption marker ending the phase early."""
+
+    n_processes: int
+    devices_per_process: int = 1
+    extra_args: Sequence[str] = ()
+    preempt_after_marker: Optional[str] = None
+    preempt_grace: float = 120.0
+
+
+def elastic_restart(
+    trainer_args: Sequence[str],
+    *,
+    phases: Sequence[ElasticPhase],
+    run_dir: str,
+    tag: str = "",
+    timeout: float = 600.0,
+    env_extra: Optional[Dict[str, str]] = None,
+    pin_cores: bool = True,
+) -> List[LaunchReport]:
+    """Run the trainer through a sequence of differently-sized fleets --
+    the 4 -> 2 -> 4 storyline as one call.
+
+    Phase 0 launches fresh; every later phase appends ``--resume
+    --elastic`` so the restart negotiates its mesh from the newest
+    manifest's recorded shape instead of its flags (the trainer args must
+    therefore carry ``--checkpoint-dir``/``--emergency-dir``): the model
+    axes are kept and ``data`` absorbs the fleet, and the coordinated
+    checkpoint's one-device tree re-slices onto the new mesh. Each phase
+    gets its own ``run_dir/phase-N-PxD`` directory and coordinator port.
+    Stops early when a phase neither finished nor exited for resume (rc
+    75). Every phase's ``devices_per_process`` is checked before the first
+    launch (:func:`require_one_device_per_process`)."""
+    from ..train.resilience import EXIT_RESUME
+
+    for ph in phases:
+        require_one_device_per_process(ph.devices_per_process)
+    reports: List[LaunchReport] = []
+    for idx, ph in enumerate(phases):
+        args = list(trainer_args) + list(ph.extra_args)
+        if idx and "--resume" not in args:
+            args.append("--resume")
+        if idx and "--elastic" not in args:
+            args.append("--elastic")
+        phase_dir = os.path.join(
+            run_dir,
+            f"phase-{idx}-{ph.n_processes}x{ph.devices_per_process}")
+        rep = launch_trainers(
+            args, n_processes=ph.n_processes, run_dir=phase_dir, tag=f"{tag or run_dir}-p{idx}",
+            env_extra=env_extra, timeout=timeout, pin_cores=pin_cores,
+            preempt_after_marker=ph.preempt_after_marker,
+            preempt_grace=ph.preempt_grace)
+        reports.append(rep)
+        if not all(rc in (0, EXIT_RESUME) for rc in rep.returncodes):
+            break
+    return reports
+
+
+# ------------------------------------------------------------------ goodput
+
+@dataclass
+class GoodputReport:
+    """Useful-steps/s including the recovery window -- the honest
+    scale-out metric ("Podracer architectures", PAPERS.md section
+    goodput). ``useful_steps`` counts only steps that survived into the
+    final state; steps trained past the last durable checkpoint and then
+    replayed after the kill are ``wasted_steps`` and still cost wall
+    clock, which is what goodput charges for."""
+
+    n_processes: int = 0
+    target_steps: int = 0
+    useful_steps: int = 0
+    wasted_steps: int = 0
+    wall_seconds: float = 0.0            # both phases + relaunch overhead
+    goodput_steps_per_sec: float = 0.0   # useful_steps / wall_seconds
+    raw_steps_per_sec: float = 0.0       # uninterrupted phase-2 rate
+    emergency_step: Optional[int] = None
+    resumed_step: Optional[int] = None
+    phases: List[Dict[str, Any]] = field(default_factory=list)
+
+    def to_json(self) -> Dict[str, Any]:
+        return {
+            "n_processes": self.n_processes,
+            "target_steps": self.target_steps,
+            "useful_steps": self.useful_steps,
+            "wasted_steps": self.wasted_steps,
+            "wall_seconds": round(self.wall_seconds, 3),
+            "goodput_steps_per_sec": round(self.goodput_steps_per_sec, 4),
+            "raw_steps_per_sec": round(self.raw_steps_per_sec, 4),
+            "emergency_step": self.emergency_step,
+            "resumed_step": self.resumed_step,
+            "phases": self.phases,
+        }
+
+
+def run_goodput(
+    trainer_args: Sequence[str],
+    *,
+    n_processes: int = 2,
+    devices_per_process: int = 1,
+    run_dir: str,
+    target_steps: int,
+    kill_marker: str = "checkpoint saved",
+    tag: str = "goodput",
+    timeout: float = 600.0,
+    env_extra: Optional[Dict[str, str]] = None,
+) -> GoodputReport:
+    """One kill -> emergency-checkpoint -> verified-restore -> continue
+    cycle across processes, timed end to end.
+
+    Phase 1 launches the trainers and SIGTERMs every worker once
+    ``kill_marker`` appears in rank 0's log (by default the first
+    scheduled checkpoint's commit, so the kill lands mid-run with durable
+    progress behind it). Workers emergency-checkpoint and exit 75. Phase 2
+    relaunches with ``--resume``; the trainer restores the newest
+    *verified* step (the emergency save) and finishes. The clock never
+    stops: recovery time, replayed steps and relaunch overhead all land in
+    the denominator.
+
+    ``trainer_args`` must NOT contain ``--resume``/``--steps``; pass
+    ``target_steps`` instead. Raises :class:`MultiHostUnavailable` (typed)
+    when the environment cannot host the run, or for a
+    ``devices_per_process`` other than 1, and ``RuntimeError`` when a
+    phase breaks protocol (wrong exit codes, no emergency checkpoint, lost
+    steps)."""
+    from ..train.resilience import EXIT_RESUME
+
+    require_one_device_per_process(devices_per_process)
+    base = list(trainer_args) + ["--steps", str(target_steps)]
+    t0 = time.perf_counter()
+    phase1 = launch_trainers(
+        base, n_processes=n_processes,
+        run_dir=os.path.join(run_dir, "phase1"), tag=f"{tag}-1",
+        timeout=timeout, preempt_after_marker=kill_marker,
+        env_extra=env_extra)
+    if not phase1.killed:
+        raise RuntimeError(
+            f"phase 1 finished before the kill marker {kill_marker!r} "
+            f"appeared -- lower --checkpoint-every or raise --steps "
+            f"(rcs={phase1.returncodes})")
+    if any(rc != EXIT_RESUME for rc in phase1.returncodes):
+        tails = "\n".join(w.tail for w in phase1.workers
+                          if w.returncode != EXIT_RESUME)
+        raise RuntimeError(
+            f"preempted workers must exit {EXIT_RESUME}, got "
+            f"{phase1.returncodes}:\n{tails}")
+    p1 = phase1.report or {}
+    phase2 = launch_trainers(
+        base + ["--resume"], n_processes=n_processes,
+        run_dir=os.path.join(run_dir, "phase2"), tag=f"{tag}-2",
+        timeout=timeout, env_extra=env_extra)
+    wall = time.perf_counter() - t0
+    if any(rc != 0 for rc in phase2.returncodes):
+        tails = "\n".join(w.tail for w in phase2.workers if w.returncode)
+        raise RuntimeError(
+            f"resumed run failed (rcs={phase2.returncodes}):\n{tails}")
+    p2 = phase2.report or {}
+    resumed = int(p2.get("start_step", 0))
+    done = resumed + int(p2.get("steps", 0))
+    if done != target_steps:
+        raise RuntimeError(
+            f"resumed run ended at step {done}, wanted {target_steps}")
+    wasted = max(int(p1.get("steps", 0)) - resumed, 0)
+    return GoodputReport(
+        n_processes=n_processes, target_steps=target_steps,
+        useful_steps=done, wasted_steps=wasted, wall_seconds=wall,
+        goodput_steps_per_sec=done / max(wall, 1e-9),
+        raw_steps_per_sec=float(p2.get("steps_per_sec", 0.0)),
+        emergency_step=p1.get("emergency_step"),
+        resumed_step=resumed,
+        phases=[
+            {"phase": "preempted", "returncodes": phase1.returncodes,
+             "steps": p1.get("steps"), "losses": p1.get("losses"),
+             "wall_seconds": round(phase1.wall_seconds, 3)},
+            {"phase": "resumed", "returncodes": phase2.returncodes,
+             "steps": p2.get("steps"), "losses": p2.get("losses"),
+             "wall_seconds": round(phase2.wall_seconds, 3)},
+        ])

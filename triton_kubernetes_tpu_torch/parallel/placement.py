@@ -25,13 +25,19 @@ between. Per axis:
   way. A dim its axes do not divide stays whole (``sharding.py``): heads
   computed whole on every rank go through ``select`` to the heads this
   rank's ``wo`` block holds;
+* ``expert`` splits the expert weights' leading dim; tokens are
+  replicated along it. An MoE layer routes the global batch's tokens
+  (seats gathered over ``data``, ``fsdp`` and ``seq``) and runs this
+  rank's experts between a ``copy_to`` and a ``reduce_from`` over
+  ``expert`` (:class:`MeshRouting`), so every other gradient is whole on
+  every expert rank, as under ``tensor``;
 * ``stage``: each rank holds a contiguous group of layers
   (``train/pipeline.py``).
 
 After the backward, :meth:`MeshPlacement.sync_grads` sums every gradient
 over the partitioned axes its leaf is replicated along (``data`` and
 ``seq`` always, ``fsdp`` unless the leaf is split over it, ``stage``
-unless it is a layer's); :meth:`MeshPlacement.global_norm` sums each
+unless it is a layer's; never ``tensor`` or ``expert``); :meth:`MeshPlacement.global_norm` sums each
 leaf's squares once, on the ranks at coordinate 0 of every axis the leaf
 is replicated along. On a mesh of one rank every collective is skipped and
 each hook computes what :class:`Placement`'s does, operation for
@@ -44,13 +50,19 @@ from typing import Any, Dict, Iterable, List, Sequence, Tuple
 
 import torch
 
+from ..ops.moe import LOCAL as LOCAL_ROUTING
+from ..ops.moe import Routing, _positions
 from .collectives import (all_gather, all_reduce_sum, copy_to,
-                          gather_replicated, reduce_from, select)
-from .mesh import (AXIS_DATA, AXIS_FSDP, AXIS_SEQ, AXIS_STAGE, AXIS_TENSOR,
-                   MESH_AXES, Mesh)
+                          gather_replicated, psum, reduce_from, select)
+from .mesh import (AXIS_DATA, AXIS_EXPERT, AXIS_FSDP, AXIS_SEQ, AXIS_STAGE,
+                   AXIS_TENSOR, MESH_AXES, Mesh)
 from .sharding import dim_split, sharded_axes
 
 TENSOR = (AXIS_TENSOR,)
+EXPERT = (AXIS_EXPERT,)
+# The axes that split the batch's tokens, and those of its rows.
+BATCH = (AXIS_DATA, AXIS_FSDP, AXIS_SEQ)
+ROWS = (AXIS_DATA, AXIS_FSDP)
 
 
 class Placement:
@@ -83,6 +95,12 @@ class Placement:
         """The rows of ``tokens`` in the embedding ``table`` (``leaf`` as
         :meth:`weight` read it)."""
         return table[tokens.long()]
+
+    def routing(self, experts: Any) -> Routing:
+        """The hooks of an MoE layer whose expert leaf is ``experts``
+        (``ops.moe.Routing``): here the identity's, the layer holds every
+        token of the batch and every expert."""
+        return LOCAL_ROUTING
 
     def sync_grads(self, params: List[torch.Tensor]) -> List[torch.Tensor]:
         """The gradients the update takes."""
@@ -154,6 +172,12 @@ class MeshPlacement(Placement):
         x = table[ids.clamp(0, rows - 1)] * keep[..., None].to(table.dtype)
         return reduce_from(x, self.mesh, TENSOR)
 
+    def routing(self, experts):
+        split = AXIS_EXPERT in self._split(experts, 0)
+        if not split and not self.mesh.live_axes(BATCH):
+            return LOCAL_ROUTING
+        return MeshRouting(self.mesh, split)
+
     # -- after the backward ----------------------------------------------
     def _axes(self, p: torch.Tensor) -> Tuple[Tuple[str, ...],
                                                Tuple[str, ...]]:
@@ -194,3 +218,60 @@ class MeshPlacement(Placement):
             owned.append(sq if own else torch.zeros_like(sq))
         vec = all_reduce_sum(torch.stack(owned), self.mesh, MESH_AXES)
         return torch.sqrt(sum(vec.unbind()))
+
+
+class MeshRouting(Routing):
+    """An MoE layer's hooks on ``mesh`` (``ops.moe.Routing``). Tokens are
+    split over ``data``, ``fsdp`` (rows) and ``seq``, and replicated over
+    ``expert``, as the reference's ``batch_spec`` places them. The seating
+    gathers every rank's expert ids, K integers a token, over the batch
+    axes and seats the global [B, S, K] in its row-major order, as the
+    reference's one program does; the aux loss's means are :func:`psum` s
+    over the same axes. With ``split`` (the expert leaves' leading dim
+    split over ``expert``) each rank runs its own experts: the gates and
+    the expert inputs enter through :func:`copy_to` and the output leaves
+    through :func:`reduce_from`, Megatron's pair over ``expert``, so the
+    router, everything before the layer and the aux loss get the whole
+    gradient on every expert rank and nothing is summed over ``expert``
+    after the backward."""
+
+    def __init__(self, mesh: Mesh, split: bool):
+        self.mesh = mesh
+        self.batch = mesh.live_axes(BATCH)
+        self.split = split
+
+    def tokens(self, t):
+        return t * self.mesh.axes_size(self.batch)
+
+    def mean(self, v):
+        if not self.batch:
+            return super().mean(v)
+        return psum(v.sum(dim=0), self.mesh, self.batch) / self.tokens(
+            v.shape[0])
+
+    def positions(self, top_i):
+        if not self.batch:
+            return super().positions(top_i)
+        b, s, k = top_i.shape
+        mesh = self.mesh
+        rows = mesh.live_axes(ROWS)
+        n_rows, n_seq = mesh.axes_size(rows), mesh.shape[AXIS_SEQ]
+        # Blocks in group order (rows major, then seq) -> the global
+        # [B, S, K], rows of rank blocks, each row's seq parts in order.
+        ids = all_gather(top_i.contiguous(), mesh, self.batch, 0)
+        ids = ids.reshape(n_rows, n_seq, b, s, k).permute(0, 2, 1, 3, 4)
+        pos = _positions(ids.reshape(-1, k))
+        dev = top_i.device
+        row = mesh.axes_index(rows) * b + torch.arange(b, device=dev)
+        tok = mesh.coordinate()[AXIS_SEQ] * s + torch.arange(s, device=dev)
+        return pos[(row[:, None] * (n_seq * s) + tok[None, :]).reshape(-1)]
+
+    def experts(self, e, held):
+        return self.mesh.coordinate()[AXIS_EXPERT] * held if self.split \
+            else 0
+
+    def enter(self, x):
+        return copy_to(x, self.mesh, EXPERT) if self.split else x
+
+    def combine(self, y):
+        return reduce_from(y, self.mesh, EXPERT) if self.split else y

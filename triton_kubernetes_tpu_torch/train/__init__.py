@@ -6,9 +6,9 @@ loss-anomaly rollback), verified checkpoints, MFU accounting, the
 synthetic, packed and sharded data pipelines with device prefetch, and the
 ``python -m triton_kubernetes_tpu_torch.train`` entry point (one process,
 or a ``torch.distributed`` world). Exports what the reference's
-``train/__init__.py`` exports, less ``CompileTimings``,
-``aot_compile_step`` and ``enable_compile_cache`` (the port compiles
-nothing ahead of time; ROADMAP.md), plus the port's own.
+``train/__init__.py`` exports, plus the port's own. ``CompileTimings``,
+``aot_compile_step`` and ``enable_compile_cache`` speak of the kernels'
+builds: the port traces nothing ahead of time.
 """
 
 from .checkpoint import (
@@ -47,10 +47,13 @@ from .resilience import (
 )
 from .trainer import (
     AdamWState,
+    CompileTimings,
     MemoryStats,
     Optimizer,
     TrainState,
+    aot_compile_step,
     batch_spec,
+    enable_compile_cache,
     init_state,
     loss_fn,
     make_eval_step,
@@ -89,6 +92,9 @@ __all__ = [
     "run_resilient",
     "MemoryStats",
     "memory_stats",
+    "CompileTimings",
+    "aot_compile_step",
+    "enable_compile_cache",
     "POLICIES",
     "PrecisionPolicy",
     "apply_policy",

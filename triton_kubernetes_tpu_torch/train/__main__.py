@@ -21,8 +21,8 @@ and the restore falls back) and replays the data stream from that step;
 ``--anomaly-factor`` arms a loss guard that rolls back to the last good
 checkpoint instead of training through a NaN, exiting ``EXIT_ANOMALY``
 (4) when ``--max-rollbacks`` runs out. Bad flags, and a checkpoint whose
-recorded mesh one card cannot hold under ``--elastic``, exit
-``EXIT_CONFIG`` (2).
+recorded mesh the fleet cannot hold under ``--elastic`` (its model axes
+must divide the process count), exit ``EXIT_CONFIG`` (2).
 
 **Across processes.** ``--distributed on`` (or ``auto`` with the
 variables set) joins a ``torch.distributed`` world from the variables the
@@ -51,9 +51,13 @@ and a fused exchange asked for where it cannot run, exit ``EXIT_CONFIG``
 (2). ``TK8S_TEST_CRASH_RANK=N`` makes rank N exit 3 at startup (the
 launcher's fail-fast test).
 
-``--expert`` is the reference's expert-parallel degree for an MoE model
-(the Mixtral family), recorded in every checkpoint's mesh section; above 1
-it raises: expert parallelism is the next distributed-training PR's.
+``--expert`` is the expert-parallel degree of an MoE model (the Mixtral
+family): under a world of that many processes or more, each rank holds
+``E / expert`` experts and runs them on the slots they kept, every rank
+routing the same tokens to the same global seats (``ops/moe.py``,
+``parallel/placement.MeshRouting``); the partial outputs are summed over
+the expert ranks (no ``all_to_all``). It is recorded in every
+checkpoint's mesh section.
 
 ``--trace-jsonl PATH`` writes ``train.*`` spans and the goodput ledger (the
 train categories partitioning the run's wall window) as JSON lines, as the
@@ -62,12 +66,14 @@ across a restore and the steps it replays, ``preempted_lost`` from the
 warning to exit, ``reshard`` for an elastic restore that changed shape.
 One difference: the reference compiles its step ahead of time and books
 that as ``compile`` with a ``train.compile`` span (lower_s/compile_s). The
-port has no ahead-of-time compile -- its kernels build at their first
-launch (into ``triton_kubernetes_tpu_torch/_build/``, which is what
-``--compile-cache-dir`` would otherwise point at) -- so its first step is
-booked as ``compile``, the ``train.compile`` span covers it (a
-``first_step_s`` field), and on the card that step is also the one
-``memory_stats`` measures.
+port traces nothing: ``trainer.aot_compile_step`` builds and loads the
+step's kernels (``compile_s``; ``lower_s`` is 0), and the first step runs
+inside the same ``compile`` booking, which the ``train.compile`` span
+covers (``first_step_s``); on the card that step is also the one
+``memory_stats`` measures (published as ``tk8s_train_memory_bytes``).
+``--compile-cache-dir`` points the kernels' build directory there
+(``trainer.enable_compile_cache``; default
+``triton_kubernetes_tpu_torch/_build/``).
 """
 
 from __future__ import annotations
@@ -262,9 +268,10 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="negotiate the mesh shape from the newest "
                         "checkpoint manifest (schema v2 records the saved "
                         "mesh) instead of requiring the flags to match "
-                        "it; on one card any recorded ICI x stage block "
-                        "above 1 is a config error (exit 2); requires "
-                        "--resume to have any effect")
+                        "it: the recorded model axes are kept and data "
+                        "absorbs the fleet; a recorded block the process "
+                        "count does not divide is a config error (exit "
+                        "2); requires --resume to have any effect")
     p.add_argument("--emergency-dir", default="",
                    help="directory for preemption emergency checkpoints "
                         "(default: the checkpoint dir); --resume considers "
@@ -304,11 +311,10 @@ def _build_parser() -> argparse.ArgumentParser:
                         "background producer and the staged host->device "
                         "copies)")
     p.add_argument("--compile-cache-dir", default="",
-                   help="accepted for the reference's command line; the "
-                        "port has no ahead-of-time compile to cache (its "
-                        "kernels build once, at their first launch, into "
-                        "triton_kubernetes_tpu_torch/_build/, which later "
-                        "runs reuse)")
+                   help="build the CUDA kernels into this directory "
+                        "(default triton_kubernetes_tpu_torch/_build/); "
+                        "libraries are keyed by their sources' hash, so "
+                        "later runs reuse them")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without a card) or cpu")
     p.add_argument("--log-every", type=int, default=10,
@@ -344,10 +350,9 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seq", type=int, default=1)
     p.add_argument("--tensor", type=int, default=1)
     p.add_argument("--expert", type=int, default=1,
-                   help="expert-parallel degree of an MoE model, recorded "
-                        "in the checkpoint's mesh section; only 1 runs: "
-                        "expert parallelism is the next distributed-"
-                        "training PR's (ROADMAP.md)")
+                   help="expert-parallel degree of an MoE model: each rank "
+                        "holds E / expert experts (under --distributed); "
+                        "recorded in the checkpoint's mesh section")
     p.add_argument("--microbatches", type=int, default=0,
                    help="pipeline microbatches (0 = stage count)")
     p.add_argument("--ring-attention", action="store_true",
@@ -388,12 +393,6 @@ def main(argv: Optional[list] = None) -> int:
 
     from ..utils.logging import Logger
 
-    if args.expert > 1:
-        raise NotImplementedError(
-            f"--expert {args.expert}: expert parallelism (the experts split "
-            f"over the mesh's expert axis, all_to_all dispatch) is the next "
-            f"distributed-training PR's work (ROADMAP.md section 1 item "
-            f"4); --expert 1 runs")
     log = Logger(json_mode=args.json_logs)
     crash_rank = os.environ.get("TK8S_TEST_CRASH_RANK")
     if crash_rank is not None and crash_rank == os.environ.get(
@@ -435,13 +434,14 @@ def _train(args, log, distributed: bool) -> int:
         peek_newest_manifest, restore_newest_verified)
     from .data import DevicePrefetch
     from .mfu import flops_per_token, mfu, peak_bf16_tflops
+    from .pipeline import require_global_microbatches
     from .precision import apply_policy, policy_of, remat_policy_of
     from .resilience import (
         EXIT_RESUME, AnomalyAbortedError, LossAnomalyGuard, PreemptionGuard,
         negotiate_mesh_config, run_resilient)
     from .trainer import (
-        batch_spec, init_state, make_optimizer, make_train_step,
-        memory_stats)
+        aot_compile_step, batch_spec, enable_compile_cache, init_state,
+        make_optimizer, make_train_step, memory_stats, publish_memory_stats)
 
     overrides = {}
     for item in args.model_opt:
@@ -487,8 +487,7 @@ def _train(args, log, distributed: bool) -> int:
             fused_ce=config.fused_ce)
     if args.compile_cache_dir:
         log.log("info", "persistent compile cache",
-                dir="(none in the port: kernels build into "
-                    "triton_kubernetes_tpu_torch/_build/)")
+                dir=enable_compile_cache(args.compile_cache_dir))
 
     mesh_cfg = MeshConfig(
         data=args.data or (0 if n_processes > 1 else 1), stage=args.stage,
@@ -510,10 +509,14 @@ def _train(args, log, distributed: bool) -> int:
                     "from (no checkpoint yet, or a format-1 manifest); "
                     "using the flag-derived shape")
         else:
+            # The reference's rule keeps its ICI block (fsdp x seq x
+            # expert x tensor) inside one process's devices. A port process
+            # is one device and every axis spans processes, so the fleet is
+            # given as one host of n devices: the recorded model axes must
+            # divide it, and data absorbs the rest.
             try:
                 negotiated = negotiate_mesh_config(
-                    saved_mesh, n_processes=n_processes,
-                    n_devices=n_processes)
+                    saved_mesh, n_processes=1, n_devices=n_processes)
             except ReshapeError as e:
                 log.log("error", "elastic shape negotiation failed",
                         error=str(e))
@@ -550,6 +553,7 @@ def _train(args, log, distributed: bool) -> int:
             mesh = multihost.create_hybrid_mesh(
                 multihost.default_mesh_config(mesh_cfg, n_processes),
                 device_type=device.type)
+            require_global_microbatches(config, mesh)
         except multihost.MeshPlacementError as e:
             log.log("error", "mesh placement rejected", error=str(e))
             return EXIT_CONFIG
@@ -777,19 +781,26 @@ def _train(args, log, distributed: bool) -> int:
         t1 = time.perf_counter()
         if goodput is not None:
             goodput.transition("compile", t1)
+        _, timings = aot_compile_step(step_fn, cur_state, batch,
+                                      config_name=config.name)
         mem, cur_state, metrics = memory_stats(step_fn, cur_state, batch)
         t2 = time.perf_counter()
         if goodput is not None:
             tracer.event("train.compile", t1, t2 - t1,
+                         lower_s=timings.lower_seconds,
+                         compile_s=round(timings.compile_seconds, 6),
                          first_step_s=round(t2 - t1, 6))
             goodput.transition(prev, t2)
         fields = {}
         if mem is not None:
+            publish_memory_stats(mem, config.name)
             first["memory"] = dict(dataclasses.asdict(mem),
                                    peak_bytes=mem.peak_bytes)
             fields = dict(temp_mib=round(mem.temp_bytes / 2**20, 1),
                           peak_mib=round(mem.peak_bytes / 2**20, 1))
         log.log("info", "train step compiled",
+                compile_s=round(timings.compile_seconds, 3),
+                cache_dir=timings.cache_dir or "",
                 first_step_s=round(t2 - t1, 3), **fields)
         window_metrics.append(metrics)
         return cur_state, metrics

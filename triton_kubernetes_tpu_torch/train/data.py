@@ -487,12 +487,20 @@ class DevicePrefetch:
         self._exhausted = True
         if self.threaded:
             self._stop.set()
-            # Unblock a producer parked on a full queue.
-            try:
-                while True:
-                    self._queue.get_nowait()
-            except queue.Empty:
-                pass
+            # Unblock a producer parked on a full queue, and wait until it
+            # has returned: a daemon producer still inside torch or numpy
+            # when the interpreter finalizes is ended by pthread_exit,
+            # whose unwind through C++ frames aborts the process
+            # ("terminate called without an active exception", rc 134).
+            while True:
+                try:
+                    while True:
+                        self._queue.get_nowait()
+                except queue.Empty:
+                    pass
+                self._thread.join(timeout=0.05)
+                if not self._thread.is_alive():
+                    break
         while self._in_copy:
             event, _ = self._in_copy.popleft()
             event.synchronize()

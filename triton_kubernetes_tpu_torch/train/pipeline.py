@@ -66,6 +66,33 @@ def _stage_params(layers: List[Any], num_stages: int) -> List[List[Any]]:
     return [layers[i * per:(i + 1) * per] for i in range(num_stages)]
 
 
+def require_global_microbatches(config, mesh) -> None:
+    """Refuse what GPipe over ``mesh`` cannot compute as the reference
+    does: an MoE model at stage > 1 with its rows split (``data`` or
+    ``fsdp`` > 1), :class:`..parallel.multihost.MeshPlacementError`.
+
+    The reference's microbatch m is rows [m B/M, (m+1) B/M) of the global
+    batch, and its MoE layer routes over that microbatch's tokens
+    (capacity, seats, drops and the aux loss). A rank of the port holds a
+    contiguous block of the rows and cuts its own block into microbatches,
+    so the ranks' m-th microbatches together are other rows than the
+    reference's m-th, and the routing would differ. A dense model's loss
+    does not depend on which rows share a microbatch, and ``seq`` splits
+    every row's tokens alike (each rank's m-th microbatch holds the
+    reference's rows), so both run."""
+    if (config.is_moe and mesh is not None and mesh.shape["stage"] > 1
+            and mesh.live_axes(("data", "fsdp"))):
+        from ..parallel.multihost import MeshPlacementError
+
+        raise MeshPlacementError(
+            f"an MoE model under pipeline stages ({mesh.shape['stage']}) "
+            f"with its rows split (data={mesh.shape['data']}, "
+            f"fsdp={mesh.shape['fsdp']}): each rank's microbatches would "
+            f"hold other rows than the reference's, and the expert routing "
+            f"would differ; run the rows on one rank (data=fsdp=1) or "
+            f"stage=1")
+
+
 def pipeline_forward(model, tokens: torch.Tensor, config, num_stages: int,
                      microbatches: int, attention_fn=None,
                      positions: Optional[torch.Tensor] = None, mesh=None):
@@ -91,6 +118,7 @@ def pipeline_forward(model, tokens: torch.Tensor, config, num_stages: int,
             f"microbatches ({microbatches}) must be a multiple of "
             f"stages ({num_stages})")
     staged = mesh is not None and mesh.shape["stage"] > 1
+    require_global_microbatches(config, mesh)
     if staged and mesh.shape["stage"] != num_stages:
         raise ValueError(
             f"num_stages ({num_stages}) must equal the mesh stage axis "

@@ -11,7 +11,8 @@ this rank's batch rows (``batch_spec``: the batch splits over ``data`` and
 from the global batch), cuts its ``seq`` part of the tokens, runs the
 model's one forward on its blocks (``models/llama.py`` through the
 model's placement, ``parallel/placement.py``; GPipe over ``stage``,
-``train/pipeline.py``), sums the gradients over the axes each leaf is
+``train/pipeline.py``; an MoE model's experts over ``expert``, its
+routing over the global batch), sums the gradients over the axes each leaf is
 replicated along, and updates its blocks with the global norm of the
 whole gradient. Every rank of the mesh calls the step in lockstep.
 
@@ -38,8 +39,11 @@ loop (``train/pipeline.py``) syncs once per window, not once per step.
 from __future__ import annotations
 
 import math
+import os
+import time
 import warnings
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -347,6 +351,7 @@ def _local_heads(base, mesh, config: ModelConfig):
         return base(q, k, v, positions)
 
     attn.forfeits = []
+    attn.kernels = getattr(base, "kernels", ())
     return attn
 
 
@@ -438,6 +443,99 @@ def make_eval_step(config: ModelConfig, mesh=None, attention_fn=None,
         return metrics
 
     return step
+
+
+@dataclass(frozen=True)
+class CompileTimings:
+    """Where the wall clock before the first step went, with the
+    reference's fields. The port traces nothing ahead of time, so
+    ``lower_seconds`` is 0; ``compile_seconds`` is the build (``nvcc``)
+    and load of the kernels the step launches, which collapses to the load
+    when ``cache_dir`` already holds them; ``cache_dir`` is the kernels'
+    build directory, None where the step launches no kernel (the CPU)."""
+
+    lower_seconds: float
+    compile_seconds: float
+    cache_dir: Optional[str]
+
+    @property
+    def total_seconds(self) -> float:
+        return self.lower_seconds + self.compile_seconds
+
+
+def enable_compile_cache(cache_dir: str) -> Optional[str]:
+    """Build the CUDA kernels into ``cache_dir`` (created if missing)
+    instead of ``triton_kubernetes_tpu_torch/_build/``: a library's name
+    carries the hash of the sources and ``nvcc`` flags, so a directory that
+    already holds it is a warm start (load only). Returns the directory,
+    or None when it cannot be created (a cold start, not a crash)."""
+    from ..ops import _kernels
+
+    try:
+        os.makedirs(cache_dir, exist_ok=True)
+    except OSError:
+        return None
+    _kernels.BUILD_DIR = Path(cache_dir).resolve()
+    return cache_dir
+
+
+def step_kernels(step_fn: Callable, model) -> Tuple[str, ...]:
+    """The kernels ``step_fn`` launches on ``model``'s device: those of
+    the attention it resolved (``step_fn.attention_fn``, else the model's
+    choice, ``llama.resolve_attention``), which names them in its
+    ``kernels`` -- the flash kernels' forward and backward; the ring, the
+    dense einsum and the CPU launch none."""
+    if torch.device(model.device).type != "cuda":
+        return ()
+    attn = (getattr(step_fn, "attention_fn", None)
+            or llama.resolve_attention(model.config, model.device))
+    return tuple(getattr(attn, "kernels", ()))
+
+
+def publish_memory_stats(mem: MemoryStats, config_name: str = "") -> None:
+    """``tk8s_train_memory_bytes`` of one step's :class:`MemoryStats`,
+    under the reference's labels (``kind`` argument, output, temp, alias
+    and peak)."""
+    from ..utils import metrics as _metrics
+
+    gauge = _metrics.gauge("tk8s_train_memory_bytes")
+    for kind in ("argument", "output", "temp", "alias"):
+        gauge.set(getattr(mem, f"{kind}_bytes"), config=config_name,
+                  kind=kind)
+    gauge.set(mem.peak_bytes, config=config_name, kind="peak")
+
+
+def aot_compile_step(step_fn: Callable, state: TrainState, batch: Any,
+                     config_name: str = "",
+                     clock: Callable[[], float] = time.perf_counter
+                     ) -> Tuple[Callable, CompileTimings]:
+    """The reference's ahead-of-time compile of a train step: here the
+    build and load of every kernel the step launches (:func:`step_kernels`:
+    ``nvcc`` for each missing library, all started together) before its
+    first call, timed and published through the
+    ``tk8s_train_compile_seconds`` gauge (``phase`` "lower", always 0, and
+    "compile"). Returns the step itself -- eager PyTorch has no separate
+    executable -- and the timings; ``batch`` is not read (nothing is
+    traced). ``tk8s_train_memory_bytes`` needs a step that ran
+    (:func:`memory_stats`, then :func:`publish_memory_stats`)."""
+    from ..ops import _kernels
+    from ..utils import metrics as _metrics
+
+    del batch
+    names = step_kernels(step_fn, state.model)
+    t0 = clock()
+    if names:
+        _kernels.build(names)
+        for name in names:
+            _kernels.library(name)
+    t1 = clock()
+    timings = CompileTimings(
+        lower_seconds=0.0, compile_seconds=t1 - t0,
+        cache_dir=str(_kernels.BUILD_DIR) if names else None)
+    gauge = _metrics.gauge("tk8s_train_compile_seconds")
+    gauge.set(timings.lower_seconds, config=config_name, phase="lower")
+    gauge.set(timings.compile_seconds, config=config_name, phase="compile")
+    return step_fn, timings
 
 
 @dataclass(frozen=True)

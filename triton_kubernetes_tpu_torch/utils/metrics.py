@@ -150,6 +150,18 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...], Optional[Tuple[float, ...]]]
         "gauge", "Seconds the training loop has spent blocked waiting on "
         "the device-prefetch iterator (cumulative; ~0 means host input "
         "fully overlaps device compute)", (), None),
+    # ------------------------------- train/trainer.py (kernel builds)
+    "tk8s_train_compile_seconds": (
+        "gauge", "Ahead-of-time split of the train step by phase (lower: "
+        "0, nothing is traced; compile: the build and load of its CUDA "
+        "kernels, near zero on a warm build directory)",
+        ("config", "phase"), None),
+    "tk8s_train_memory_bytes": (
+        "gauge", "Device byte accounting of one train step, measured on "
+        "the card (MemoryStats), by kind (argument/output/temp/alias/"
+        "peak); temp is what a remat policy moves, argument what a "
+        "precision policy's storage dtypes move", ("config", "kind"),
+        None),
     # --------------------------------- train/checkpoint.py (integrity)
     "tk8s_train_checkpoint_save_duration_seconds": (
         "histogram", "Wall clock from checkpoint-save dispatch to "
