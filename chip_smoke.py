@@ -98,7 +98,7 @@ result:
    chunked prefill with the prefix cache, 8 requests; checks
    completions, pool drain, prefix hits and that the paged kernels'
    launch counters rose by exactly (windows x layers) and (decode ticks x
-   layers), the decode GEMM's by ticks x (4 x layers + 1), the
+   layers), the decode GEMM's by (ticks + windows) x (4 x layers + 1), the
    delta-null norm's by (ticks + windows) and the fused add + norm's by
    (ticks + windows) x 2 x layers; prints TTFT, TPOT, tokens/s and tick
    times;
@@ -266,7 +266,33 @@ result:
    bitwise or within 1e-6 relative of the expert-1 step's, the routers',
    wq's and its first expert's gradients within phase 4b's bound, flash
    launches 4/2/2; the choices that move when it routes for itself; each
-   rank's step ms and peak memory.
+   rank's step ms and peak memory;
+8. chaos -- the workload fault arms of ``triton_kubernetes_tpu_torch/
+   chaos`` with every engine serving ``llama3-8b`` at full width and depth
+   (random bf16 weights from seed 0) in the arms' own pools (block size 4:
+   the paged kernels' CUDA-core designs). First fault F9's probe: the last
+   row of prefill windows against the decode row at the same length
+   (lengths 2-25), at bs 4 (must be torch.equal, rows and pages) and at bs
+   16 on the tensor-core designs (recorded). Then the committed corpus
+   entries one card hosts, each to its pinned verdict (a mutation caught
+   on exactly its invariant), engine-preempt with the prefix cache at
+   spec_k 3 (a preemption and a prefix hit required), torn-checkpoint in
+   all three corruptions and kv-migration-torn under ``accepted-torn``
+   (caught on migration-integrity); every engine arm must launch
+   paged_decode and paged_prefill. The 8B's drafter proposes nothing on
+   the arm's prompts (its greedy tokens never repeat one of their
+   history's), so the spec_k 3 arm runs again on a stand-in whose drafts
+   are accepted -- the F9 card test's model: llama-test at the 8B's head
+   width, 512 wide, 2 layers, 256-token vocabulary, seed 9 -- where it
+   must also launch paged_verify under preemption and accept at least
+   one draft. The train arms (two NCCL ranks) must report the typed skip
+   ``ranks-share-a-card``; their crash and resume then runs as a world of
+   one on the card (llama-test, B 8, S 32, 4 steps, a checkpoint each
+   step; rank 0 exits 3 at step 2; the resumed final loss within 1e-6 of
+   an uninterrupted run, every rank trace passing the goodput check, the
+   flash kernels launched). Prints a ``{"chaos": ...}`` line: verdicts,
+   checked invariants, preemptions, seconds and launches by kernel and
+   design.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. With ``--out DIR`` everything measured,
@@ -286,7 +312,9 @@ three flash kernels, then runs phase 5 with its kill and resume arms
 (``DIR/chip_smoke_train.json``, the arms' reports and traces beside it);
 ``--mixtral-only`` builds every kernel and runs phase 4b
 (``DIR/chip_smoke_mixtral.json``); ``--expert-only`` builds and checks the
-three flash kernels and runs phase 7 (``DIR/chip_smoke_expert.json``).
+three flash kernels and runs phase 7 (``DIR/chip_smoke_expert.json``);
+``--chaos-only`` builds every kernel and runs phase 8
+(``DIR/chip_smoke_chaos.json``).
 """
 
 from __future__ import annotations
@@ -2069,8 +2097,8 @@ def launch_counts():
 def row_counts_wanted(ticks, windows, cfg, w8a8=None):
     """What ``ticks`` decode or verify ticks and ``windows`` prefill
     windows launch: one launch for each of a layer's four weight-product
-    groups (wq+wk+wv, wo, w3+w1, w2), and a tick's lm head (a window's
-    head, its one last row, is a plain product, unless W8A8); a tick and a
+    groups (wq+wk+wv, wo, w3+w1, w2), and the lm head (a window's on its
+    one last row, the decode GEMM at M 1 as a tick's); a tick and a
     window each one norm of the embeddings and a fused residual add + norm
     at each of the 2 L layer boundaries (the last one's norm the final
     norm). Under W8A8 (``w8a8`` the 8-bit operand dtype) the products are
@@ -2095,8 +2123,8 @@ def row_counts_wanted(ticks, windows, cfg, w8a8=None):
     tick_wg = _kernels.gemm_wgmma(dtype, 1)
     window_wg = _kernels.gemm_wgmma(dtype, PREFILL_CHUNK)
     window_wg_groups = (per_layer - cfg.is_moe) * cfg.num_layers
-    want = {"decode_gemm": groups + windows * per_window,
-            "decode_gemm_wgmma": (groups * tick_wg
+    want = {"decode_gemm": groups + windows * (per_window + 1),
+            "decode_gemm_wgmma": ((groups + windows) * tick_wg
                                   + windows * window_wg_groups * window_wg),
             "decode_gemm_w8a8": 0, "decode_gemm_w8a8_wgmma": 0,
             "quantize_rows": 0,
@@ -2337,6 +2365,41 @@ def print_tick_profile(what, prof, card):
           flush=True)
 
 
+# Phase 4's serve run: the requests of make_requests submitted at these
+# ticks (request indices by tick).
+SERVE_ARRIVALS = {0: [0, 4, 5], 5: [1, 2, 3], 6: [6, 7]}
+
+
+def serve_ticks(engine, requests, arrivals=SERVE_ARRIVALS):
+    """Phase 4's serve run on a warmed engine: submits ``requests`` at
+    their ticks and steps the engine until it drains, timing each tick by
+    what it ran. Returns the finished requests by id, the ticks' ms by
+    kind, and the run's wall seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, tick = {}, 0
+    tick_ms = {"decode only": [], "prefill window + decode": [],
+               "prefill window only": []}
+    while engine.has_work or tick <= max(arrivals):
+        for i in arrivals.get(tick, []):
+            engine.submit(requests[i])
+        before = engine.stats()
+        t_tick = time.perf_counter()
+        for d in engine.step():
+            done[d.request_id] = d
+        torch.cuda.synchronize()
+        after = engine.stats()
+        window = after["prefill_windows"] > before["prefill_windows"]
+        decode = after["decode_steps"] > before["decode_steps"]
+        kind = ("prefill window + decode" if window and decode else
+                "prefill window only" if window else "decode only")
+        tick_ms[kind].append((time.perf_counter() - t_tick) * 1e3)
+        tick += 1
+        if tick > 10_000:
+            raise AssertionError("engine did not drain")
+    return done, tick_ms, time.perf_counter() - t0
+
+
 def serve_phase(card):
     from triton_kubernetes_tpu_torch.models import get_config, init_params
     from triton_kubernetes_tpu_torch.models import paged
@@ -2363,33 +2426,10 @@ def serve_phase(card):
     metrics.configure()
     base = engine.stats()
     requests = make_requests(cfg, Request)
-    arrivals = {0: [0, 4, 5], 5: [1, 2, 3], 6: [6, 7]}
 
     reset_row_counts()
     pa.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done, tick = {}, 0
-    tick_ms = {"decode only": [], "prefill window + decode": [],
-               "prefill window only": []}
-    while engine.has_work or tick <= max(arrivals):
-        for i in arrivals.get(tick, []):
-            engine.submit(requests[i])
-        before = engine.stats()
-        t_tick = time.perf_counter()
-        for d in engine.step():
-            done[d.request_id] = d
-        torch.cuda.synchronize()
-        after = engine.stats()
-        window = after["prefill_windows"] > before["prefill_windows"]
-        decode = after["decode_steps"] > before["decode_steps"]
-        kind = ("prefill window + decode" if window and decode else
-                "prefill window only" if window else "decode only")
-        tick_ms[kind].append((time.perf_counter() - t_tick) * 1e3)
-        tick += 1
-        if tick > 10_000:
-            raise AssertionError("engine did not drain")
-    wall = time.perf_counter() - t0
+    done, tick_ms, wall = serve_ticks(engine, requests)
     launches = {"paged_decode": pa.ragged_paged_attention.launches,
                 "paged_prefill": pa.paged_prefill_attention.launches,
                 **row_counts()}
@@ -5874,6 +5914,524 @@ def _expert_phase(card, out_dir: Path):
     return launches, dict(reference=ref, ranks=ranks, launches=launches,
                           seconds=seconds)
 
+
+# Phase 8: the workload chaos arms (``triton_kubernetes_tpu_torch/chaos``)
+# on the card. Every engine of every arm serves one model: Llama-3-8B at
+# full width and depth, random bf16 weights from seed 0, in the arms' own
+# tiny pools (block size 4: the paged kernels' CUDA-core designs).
+CHAOS_MODEL, CHAOS_DEVICE = "llama3-8b", "cuda"
+CHAOS_CORPUS = Path(__file__).resolve().parent / "tests" / "chaos_corpus"
+# The committed corpus entries one card hosts, each replayed to its pinned
+# verdict, and the train arms, whose two NCCL ranks one card cannot host:
+# they must report the typed skip.
+CHAOS_REPLAYS = (
+    "workload-prefill-gap", "workload-preempt-abort-flush",
+    "mutation-leaked-pages", "mutation-swallowed-abort",
+    "workload-replica-death", "mutation-dropped-reland",
+    "workload-kv-migration-torn", "workload-torn-checkpoint",
+    "workload-reshard-torn-checkpoint", "mutation-adopt-torn-step",
+    "workload-sigterm-flush")
+CHAOS_TRAIN_SKIPS = ("workload-rank-death", "workload-coordinator-loss")
+# The arms that run engines, and must launch the paged kernels.
+CHAOS_ENGINE_KINDS = ("engine-preempt", "replica-death", "kv-migration-torn")
+# The spec_k 3 arm's drafter proposes from the sequence's own history (the
+# arm's prompts are tokens 0-28): with random weights the 8B model's greedy
+# tokens never repeat one of those, so its verify never runs (drafts
+# proposed are recorded). The arm, its spec unchanged, runs again on a
+# stand-in whose greedy tokens follow their history: the F9 card test's
+# model (tests/test_torch_cuda.py F9_CONFIG, weights from seed 9) --
+# llama-test at the 8B's head width D 128 and GQA group 4, 512 wide, 2
+# layers, its 256-token vocabulary, in bf16, so the same bs-4 CUDA-core
+# designs. It must launch paged_verify under preemption and accept at
+# least one draft there: accepted drafts become kept tokens of a request
+# that is preempted and recomputed.
+CHAOS_DRAFT_MODEL = ("llama-test", dict(
+    dtype="bfloat16", embed_dim=512, num_heads=4, num_kv_heads=1,
+    head_dim=128, mlp_dim=1024, max_seq_len=256), 9)
+# The world-of-one crash and resume: the train arms' trainer (llama-test,
+# B 8, S 32, 4 steps, a checkpoint every step), rank 0 killed at step 2.
+CHAOS_TRAIN_STEPS, CHAOS_CRASH_STEP = 4, 2
+# Fault F9's probe: (block size, prefill chunk) of the chaos pools (the
+# CUDA-core designs, held bitwise) and of a tensor-core pool (recorded);
+# the lengths whose last row is compared.
+RECOMPUTE_DESIGNS = ((4, 8), (16, 16))
+RECOMPUTE_LENGTHS = range(2, 26)
+
+
+# The paged kernels at the chaos arms' shapes (phase 8): the 8B's heads in
+# the arms' pools, block size 4, so the CUDA-core designs. Decode: the
+# replicas' max_batch 4 at lengths across the 64-token table; verify: the
+# preempt pool's 3 sequences at spec_k 3; prefill: one 8-token window at
+# offsets 0, 16 and 40 of the preempt pool's 48-token table.
+CHAOS_BS = 4
+CHAOS_DECODE_LENGTHS = [1, 7, 30, 64]
+CHAOS_VERIFY_LENGTHS = [1, 17, 45]
+CHAOS_PREFILL_CHUNK, CHAOS_PREFILL_OFFSETS = 8, [0, 16, 40]
+
+
+def chaos_pool(gen, n_pages, lengths_tables, device, bs=CHAOS_BS):
+    """bf16 pools of ``bs``-token pages (the 8B's heads), POISON outside
+    the slots each sequence has written."""
+    pools = []
+    for _ in range(2):
+        pool = torch.full((n_pages, HKV, bs, D), POISON, dtype=torch.bfloat16,
+                          device=device)
+        for length, table in lengths_tables:
+            for t in range(-(-length // bs)):
+                n = min(bs, length - t * bs)
+                pool[table[t], :, :n] = torch.randn(
+                    (HKV, n, D), generator=gen, device=device
+                ).to(torch.bfloat16)
+        pools.append(pool)
+    return pools
+
+
+def chaos_kernel_phase(pa, device, flush, peaks):
+    """Decode, verify and prefill at the chaos arms' shapes (CHAOS_*: bs 4,
+    the CUDA-core designs) against their plain versions, timed beside them
+    and one ``scaled_dot_product_attention`` call; verify rows bitwise
+    the decode kernel's. Records named ``<kernel>_bs4``."""
+    from triton_kubernetes_tpu_torch.ops import _kernels
+
+    gen = torch.Generator(device=device).manual_seed(4321)
+    bs, group, records = CHAOS_BS, HQ // HKV, []
+    if _kernels.paged_variant(torch.bfloat16, torch.bfloat16, bs,
+                              D) != "cuda_core":
+        raise AssertionError("the chaos pools' shapes must take the "
+                             "CUDA-core designs")
+
+    def record(name, source, replaces, err, fn, plain, lib, pages_read,
+               extra, keys, shape, **more):
+        kms, pms = time_ms(fn, flush), time_ms(plain, flush)
+        lms = time_ms(lib, flush)
+        nbytes = pages_read * bs * HKV * D * 2 * 2 + extra
+        rec = kernel_record(name, "bf16", source, replaces, err, kms, pms,
+                            lms, nbytes, 4 * D * HQ * keys, peaks,
+                            "scaled_dot_product_attention over the gathered "
+                            "pages with the rows' masks", shape,
+                            variant="cuda_core", **more)
+        records.append(rec)
+        return rec
+
+    def gathered(pool, tables):
+        return (pool[tables.long()].permute(0, 2, 1, 3, 4)
+                .flatten(2, 3).repeat_interleave(group, dim=1))
+
+    # Decode.
+    tw = 64 // bs
+    b = len(CHAOS_DECODE_LENGTHS)
+    tables_cpu = (torch.randperm(b * tw, generator=torch.Generator()
+                                 .manual_seed(4)).reshape(b, tw) + 1
+                  ).to(torch.int32)
+    kp, vp = chaos_pool(gen, 1 + b * tw, [
+        (n, tables_cpu[i].tolist()) for i, n in
+        enumerate(CHAOS_DECODE_LENGTHS)], device)
+    tables = tables_cpu.to(device)
+    lens = torch.tensor(CHAOS_DECODE_LENGTHS, dtype=torch.int32,
+                        device=device)
+    q = torch.randn((b, 1, HQ, D), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    got = pa.ragged_paged_attention(q, kp, vp, tables, lens, impl="cuda")
+    err = check_close("paged_decode at bs 4", got, pa.ragged_paged_attention(
+        q, kp, vp, tables, lens, impl="dense"))
+    kk, vv = gathered(kp, tables), gathered(vp, tables)
+    mask = (torch.arange(tw * bs, device=device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    record("paged_decode_bs4", "paged_decode.cu",
+           "triton_kubernetes_tpu/ops/paged_attention.py:461", err,
+           lambda: pa.ragged_paged_attention(q, kp, vp, tables, lens,
+                                             impl="cuda"),
+           lambda: pa.ragged_paged_attention(q, kp, vp, tables, lens,
+                                             impl="dense"),
+           lambda: sdpa(q.transpose(1, 2), kk, vv, mask),
+           sum(-(-n // bs) for n in CHAOS_DECODE_LENGTHS),
+           2 * q.numel() * 2 + tables.numel() * 4 + b * 4,
+           sum(CHAOS_DECODE_LENGTHS),
+           dict(B=b, Hq=HQ, Hkv=HKV, D=D, bs=bs, T=tw,
+                lengths=CHAOS_DECODE_LENGTHS))
+
+    # Verify, rows bitwise the decode kernel's.
+    tw, s = 48 // bs, SPEC_K + 1
+    b = len(CHAOS_VERIFY_LENGTHS)
+    tables_cpu = (torch.randperm(b * tw, generator=torch.Generator()
+                                 .manual_seed(5)).reshape(b, tw) + 1
+                  ).to(torch.int32)
+    kp, vp = chaos_pool(gen, 1 + b * tw, [
+        (n + s - 1, tables_cpu[i].tolist()) for i, n in
+        enumerate(CHAOS_VERIFY_LENGTHS)], device)
+    tables = tables_cpu.to(device)
+    lens = torch.tensor(CHAOS_VERIFY_LENGTHS, dtype=torch.int32,
+                        device=device)
+    q = torch.randn((b, s, HQ, D), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    got = pa.ragged_verify_attention(q, kp, vp, tables, lens, impl="cuda")
+    err = check_close("paged_verify at bs 4", got, pa.ragged_verify_attention(
+        q, kp, vp, tables, lens, impl="dense"))
+    for j in range(s):
+        row = pa.ragged_paged_attention(q[:, j:j + 1].contiguous(), kp, vp,
+                                        tables, lens + j, impl="cuda")
+        if not torch.equal(got[:, j:j + 1], row):
+            raise AssertionError(f"paged_verify at bs 4: row {j} differs "
+                                 f"from paged_decode at lengths + {j}")
+    kk, vv = gathered(kp, tables), gathered(vp, tables)
+    row_len = lens[:, None] + torch.arange(s, device=device)[None]
+    mask = (torch.arange(tw * bs, device=device)[None, None, :]
+            < row_len[:, :, None])[:, None]
+    record("paged_verify_bs4", "paged_verify.cu",
+           "triton_kubernetes_tpu/ops/paged_attention.py:756", err,
+           lambda: pa.ragged_verify_attention(q, kp, vp, tables, lens,
+                                              impl="cuda"),
+           lambda: pa.ragged_verify_attention(q, kp, vp, tables, lens,
+                                              impl="dense"),
+           lambda: sdpa(q.transpose(1, 2), kk, vv, mask),
+           sum(-(-(n + s - 1) // bs) for n in CHAOS_VERIFY_LENGTHS),
+           2 * q.numel() * 2 + tables.numel() * 4 + b * 4,
+           int(row_len.sum()),
+           dict(B=b, S=s, Hq=HQ, Hkv=HKV, D=D, bs=bs, T=tw,
+                lengths=CHAOS_VERIFY_LENGTHS),
+           rows_bitwise_equal_to_decode=True)
+
+    # Prefill: one window at each offset, summed; rows bitwise the decode
+    # kernel's at their lengths (fault F9).
+    tw, c = 48 // bs, CHAOS_PREFILL_CHUNK
+    table_cpu = (torch.randperm(tw, generator=torch.Generator()
+                                .manual_seed(6)) + 1).to(torch.int32)
+    kp, vp = chaos_pool(gen, 1 + tw, [(tw * bs, table_cpu.tolist())],
+                        device)
+    table = table_cpu.to(device)
+    kk, vv = gathered(kp, table[None]), gathered(vp, table[None])
+    cases = []
+    for off in CHAOS_PREFILL_OFFSETS:
+        q = torch.randn((1, c, HQ, D), generator=gen, device=device
+                        ).to(torch.bfloat16)
+        got = pa.paged_prefill_attention(q, kp, vp, table, off, impl="cuda")
+        err = check_close(f"paged_prefill@{off} at bs 4", got,
+                          pa.paged_prefill_attention(q, kp, vp, table, off,
+                                                     impl="dense"))
+        rows = pa.ragged_paged_attention(
+            q[0][:, None].contiguous(), kp, vp,
+            table[None].expand(c, tw).contiguous(),
+            torch.arange(off + 1, off + c + 1, dtype=torch.int32,
+                         device=device), impl="cuda")
+        if not torch.equal(got[0], rows[:, 0]):
+            raise AssertionError(f"paged_prefill@{off} at bs 4: a row "
+                                 f"differs from paged_decode at its length "
+                                 f"(fault F9)")
+        qpos = off + torch.arange(c, device=device)
+        mask = (torch.arange(tw * bs, device=device)[None, :]
+                <= qpos[:, None])[None, None]
+        keys = sum(off + i + 1 for i in range(c))
+        pages = -(-(off + c) // bs)
+        cases.append(dict(
+            offset=off, max_abs_err=err,
+            ms=time_ms(lambda: pa.paged_prefill_attention(
+                q, kp, vp, table, off, impl="cuda"), flush),
+            plain_ms=time_ms(lambda: pa.paged_prefill_attention(
+                q, kp, vp, table, off, impl="dense"), flush),
+            library_ms=time_ms(lambda: sdpa(q.transpose(1, 2), kk, vv,
+                                            mask), flush),
+            flops=4 * D * HQ * keys,
+            bytes=pages * bs * HKV * D * 2 * 2 + 2 * q.numel() * 2
+            + table.numel() * 4))
+        cases[-1]["bound_ms"] = max(cases[-1]["flops"] / peaks[1],
+                                    cases[-1]["bytes"] / peaks[0]) * 1e3
+    rec = kernel_record(
+        "paged_prefill_bs4", "bf16", "paged_prefill.cu",
+        "triton_kubernetes_tpu/ops/paged_attention.py:633",
+        max(x["max_abs_err"] for x in cases), sum(x["ms"] for x in cases),
+        sum(x["plain_ms"] for x in cases),
+        sum(x["library_ms"] for x in cases),
+        sum(x["bytes"] for x in cases), sum(x["flops"] for x in cases),
+        peaks, "scaled_dot_product_attention over the gathered pages with "
+        "a causal mask at the window's offset",
+        dict(C=c, Hq=HQ, Hkv=HKV, D=D, bs=bs, T=tw,
+             offsets=CHAOS_PREFILL_OFFSETS, summed_over="offsets"),
+        variant="cuda_core", cases=cases, rows_bitwise_equal_to_decode=True)
+    rec["bound_ms"] = sum(x["bound_ms"] for x in cases)
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    records.append(rec)
+    for r in records:
+        print(f"kernel {r['name']} ({r['variant']}, the chaos pools): "
+              f"max_abs_err={r['max_abs_err']:.6g} (tolerance "
+              f"{r['tolerance']}) kernel_ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}); rows == "
+              f"paged_decode bitwise", flush=True)
+    return records
+
+
+def recompute_probe(model, cfg, card, designs=RECOMPUTE_DESIGNS,
+                    lengths=RECOMPUTE_LENGTHS, device=CHAOS_DEVICE):
+    """Fault F9: a preempted sequence recomputes its history in prefill
+    windows and samples its next token from a window's last row, where its
+    solo run sampled it from a decode tick. For each (bs, chunk) and each
+    length n of a seeded sequence: the last row's logits of the windows
+    over its first n tokens on a fresh pool, against one decode step at
+    length n - 1 after windows over n - 1 tokens -- rows torch.equal,
+    greedy tokens equal, the worst difference, and the written pages
+    torch.equal. Returns a record a design."""
+    from triton_kubernetes_tpu_torch.models import paged
+    from triton_kubernetes_tpu_torch.ops import _kernels
+
+    seq = np.random.default_rng(9).integers(0, cfg.vocab_size,
+                                            max(lengths)).tolist()
+    dtype = getattr(torch, cfg.dtype)
+    out = []
+    for bs, chunk in designs:
+        per = -(-max(lengths) // chunk) * chunk // bs
+        table = torch.arange(1, per + 1, dtype=torch.int32, device=device)
+
+        def windows(n):
+            cache = paged.init_paged_cache(cfg, per + 1, bs, device=device)
+            for off in range(0, n, chunk):
+                clen = min(chunk, n - off)
+                toks = seq[off:off + clen] + [0] * (chunk - clen)
+                logits = paged.paged_prefill_chunk(
+                    model, torch.tensor([toks], dtype=torch.int32,
+                                        device=device),
+                    off, clen, cfg, cache, table)
+            return logits, cache
+
+        def written(cache, n):
+            pages = table[:-(-n // bs)].long()
+            return [x[:, pages].transpose(1, 2).flatten(2, 3)[:, :, :n]
+                    for x in (cache.k, cache.v)]
+
+        rec = dict(bs=bs, chunk=chunk, lengths=len(lengths),
+                   design=_kernels.paged_variant(dtype, dtype, bs,
+                                                 cfg.head_dim),
+                   rows_equal=0, greedy_equal=0, pages_equal=0,
+                   max_abs_diff=0.0)
+        with torch.inference_mode():
+            for n in lengths:
+                want, wcache = windows(n)
+                _, cache = windows(n - 1)
+                got = paged.paged_decode_step(
+                    model, torch.tensor([seq[n - 1]], dtype=torch.int32,
+                                        device=device), cfg, cache,
+                    table[None], torch.tensor([n - 1], dtype=torch.int32,
+                                              device=device))[0]
+                rec["rows_equal"] += bool(torch.equal(got, want))
+                rec["greedy_equal"] += int(got.argmax()) == int(want.argmax())
+                rec["pages_equal"] += all(
+                    bool(torch.equal(a, b))
+                    for a, b in zip(written(cache, n), written(wcache, n)))
+                rec["max_abs_diff"] = max(rec["max_abs_diff"],
+                                          float((got - want).abs().max()))
+        print(f"chaos: F9 probe, {cfg.num_layers} layers, bs {bs}, chunk "
+              f"{chunk} ({rec['design']} designs): the last window row vs "
+              f"the decode row at {len(lengths)} lengths "
+              f"{lengths.start}-{lengths.stop - 1}: {rec['rows_equal']} "
+              f"torch.equal, {rec['greedy_equal']} greedy tokens equal, "
+              f"max abs diff {rec['max_abs_diff']!r}, pages torch.equal "
+              f"{rec['pages_equal']} [{card}]", flush=True)
+        out.append(rec)
+    return out
+
+
+def chaos_launches(cfg, launches):
+    """The serving kernels' launches of one arm, by kernel and design: the
+    paged kernels' by the design their pools take, the GEMM's mma.sync
+    (at most 64 rows) and wgmma launches apart."""
+    from triton_kubernetes_tpu_torch.chaos import workload as wl
+    from triton_kubernetes_tpu_torch.ops import _kernels
+
+    dtype = getattr(torch, cfg.dtype)
+    design = _kernels.paged_variant(dtype, dtype,
+                                    wl._PREEMPT_KW["block_size"],
+                                    cfg.head_dim)
+    out = {k: {design: launches[k]} for k in _kernels.PAGED_KERNELS
+           if launches[k]}
+    if launches["decode_gemm"]:
+        out["decode_gemm"] = {
+            "mma_sync": launches["decode_gemm"]
+            - launches["decode_gemm_wgmma"],
+            "wgmma": launches["decode_gemm_wgmma"]}
+    out.update({k: n for k, n in launches.items()
+                if n and k not in out and k != "decode_gemm_wgmma"})
+    return out
+
+
+def chaos_cases(entries):
+    """(label, spec, expected verdict, invariant, model) of every chaos
+    run: the corpus replays, the specs built here, the train arms' skips
+    (model None: the 8B; "draft": CHAOS_DRAFT_MODEL)."""
+    import copy
+
+    cases = [(name, entries[name]["spec"], entries[name]["expect"],
+              entries[name].get("invariant"), None)
+             for name in CHAOS_REPLAYS]
+    base = copy.deepcopy(entries["workload-prefill-gap"]["spec"])
+    spec3 = dict(base, workload={
+        "kind": "engine-preempt", "long_windows": 5, "requests": 3,
+        "prefix_cache": True, "spec_k": 3})
+    cases.append(("preempt-prefix-spec3", spec3, "pass", None, None))
+    for corruption in ("truncate", "bitflip", "torn-manifest"):
+        cases.append((f"torn-checkpoint-{corruption}", dict(base, workload={
+            "kind": "torn-checkpoint", "corruption": corruption}),
+            "pass", None, None))
+    mig = copy.deepcopy(entries["workload-kv-migration-torn"]["spec"])
+    cases.append(("mutation-accepted-torn", dict(mig, mutation="accepted-torn"),
+                  "violated", "migration-integrity", None))
+    cases += [(name, entries[name]["spec"], "skipped", None, None)
+              for name in CHAOS_TRAIN_SKIPS]
+    cases.append(("preempt-prefix-spec3-draft", spec3, "pass", None,
+                  "draft"))
+    return cases
+
+
+def chaos_phase(card):
+    """Phase 8: the workload chaos arms on the card (see CHAOS_*), then the
+    train arms' crash and resume as a world of one. Returns the launches
+    summed over the arms and the record."""
+    from triton_kubernetes_tpu_torch.chaos import corpus
+    from triton_kubernetes_tpu_torch.chaos import workload as wl
+    from triton_kubernetes_tpu_torch.chaos.runner import run_scenario
+    from triton_kubernetes_tpu_torch.models import get_config, init_params
+    from triton_kubernetes_tpu_torch.parallel.multihost import \
+        REASON_RANKS_SHARE_CARD
+    from triton_kubernetes_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    cfg = get_config(CHAOS_MODEL)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=CHAOS_DEVICE)
+    torch.cuda.synchronize()
+    print(f"chaos: {CHAOS_MODEL} {cfg.num_layers} layers, width "
+          f"{cfg.embed_dim}, {cfg.num_params() / 1e9:.3f}B bf16 params in "
+          f"{time.perf_counter() - t0:.1f} s; pools {wl._PREEMPT_KW} and "
+          f"{wl._REPLICA_KW}", flush=True)
+    probe = recompute_probe(model, cfg, card)
+    for rec in probe:
+        if rec["design"] == "cuda_core" and (
+                rec["rows_equal"] != rec["lengths"]
+                or rec["pages_equal"] != rec["lengths"]):
+            raise AssertionError(f"F9: a recomputed row differs from the "
+                                 f"decode row on the CUDA-core designs: "
+                                 f"{rec}")
+    entries = {e["name"]: e for _, e in corpus.load_entries(CHAOS_CORPUS)}
+    runs, total = [], {}
+    models = {None: (cfg, model)}
+    wl.use_model(cfg, model)
+    try:
+        for label, spec, expect, invariant, which in chaos_cases(entries):
+            if which not in models:
+                # The 8B's weights go first: one model on the card at once.
+                wl.use_model()
+                models.clear()
+                model = None
+                gc.collect()
+                torch.cuda.empty_cache()
+                name, over, seed = CHAOS_DRAFT_MODEL
+                dcfg = get_config(name, **over)
+                model = init_params(dcfg, seed=seed, device=CHAOS_DEVICE)
+                models[which] = (dcfg, model)
+                wl.use_model(dcfg, model)
+            rcfg = models[which][0]
+            reset_counts()
+            t0 = time.perf_counter()
+            res = run_scenario(spec, ns=label, device=CHAOS_DEVICE)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            kind = spec["workload"]["kind"]
+            launches = launch_counts()
+            served = {k: metrics.counter(f"tk8s_serve_{k}_total").value()
+                      for k in ("prefix_hit_tokens", "spec_proposed_tokens",
+                                "spec_accepted_tokens")}
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+            violated = [v["invariant"] for v in res.violations]
+            skipped = res.stats.get("workload_skipped")
+            verdict = ("skipped" if skipped else
+                       "pass" if res.passed else "violated")
+            run = dict(name=label, kind=kind, verdict=verdict,
+                       want=expect, checked=res.checked, violated=violated,
+                       skipped=skipped,
+                       model=f"{rcfg.name} {rcfg.num_layers} layers, "
+                             f"width {rcfg.embed_dim}, vocab "
+                             f"{rcfg.vocab_size}",
+                       workload_preemptions=res.stats.get(
+                           "workload_preemptions"),
+                       simulated_seconds=res.stats["simulated_seconds"],
+                       seconds=seconds, served=served,
+                       launches=chaos_launches(rcfg, launches))
+            runs.append(run)
+            print(f"chaos: {label} ({kind}; {run['model']}): {verdict} "
+                  f"(want {expect}"
+                  f"{' on ' + invariant if invariant else ''}), checked "
+                  f"{res.checked}, violated {violated}, preemptions "
+                  f"{run['workload_preemptions']}, {seconds:.2f} s, "
+                  f"served {served}, launches {run['launches']} [{card}]",
+                  flush=True)
+            problems = []
+            if verdict != expect:
+                problems.append(f"verdict {verdict}, want {expect}")
+            if expect == "violated" and violated != [invariant]:
+                problems.append(f"violated {violated}, want [{invariant}]")
+            if expect == "skipped" and (skipped != REASON_RANKS_SHARE_CARD
+                                        or res.checked):
+                problems.append(f"skip reason {skipped!r}, checked "
+                                f"{res.checked}")
+            if kind in CHAOS_ENGINE_KINDS:
+                need = ["paged_decode", "paged_prefill"]
+                if spec["workload"].get("spec_k") and which == "draft":
+                    need.append("paged_verify")
+                    if served["spec_accepted_tokens"] < 1:
+                        problems.append("no draft accepted")
+                problems += [f"no {k} launch" for k in need
+                             if not launches[k]]
+            if spec["workload"].get("prefix_cache") and expect == "pass":
+                if not served["prefix_hit_tokens"]:
+                    problems.append("no prefix-cache hit")
+                if not res.stats.get("workload_preemptions"):
+                    problems.append("no preemption")
+            if problems:
+                raise AssertionError(f"chaos {label}: " + "; ".join(problems)
+                                     + f" ({res.violations})")
+        preempts = [r for r in runs if r["kind"] == "engine-preempt"
+                    and r["verdict"] == "pass"]
+        if not any(r["workload_preemptions"] for r in preempts):
+            raise AssertionError("chaos: no engine-preempt arm preempted")
+    finally:
+        wl.use_model()
+        models.clear()
+        model = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    world = wl.train_crash_resume(CHAOS_TRAIN_STEPS, CHAOS_CRASH_STEP, 0,
+                                  device=CHAOS_DEVICE, n_processes=1)
+    world["seconds"] = time.perf_counter() - t0
+    flash = world["resume_launches"] or {}
+    print(f"chaos: world of one (llama-test, --device {CHAOS_DEVICE}): rank 0 "
+          f"killed at step {CHAOS_CRASH_STEP}: rcs {world['rcs']}, resumed "
+          f"final loss {world['final']!r} vs uninterrupted "
+          f"{world['reference']!r} (tolerance {wl.TRAIN_LOSS_TOL}; "
+          f"{'bitwise' if world['final'] == world['reference'] else 'not bitwise'}"
+          f"), {world['traces']} rank traces, goodput problems "
+          f"{world['trace_problems']}, resumed run's flash launches {flash}, "
+          f"{world['seconds']:.1f} s [{card}]", flush=True)
+    if not (world["died"] and world["rcs"] == [3] and world["ok"]
+            and world["traces"] == 2 and not world["trace_problems"]
+            and all(flash.get(k) for k in FLASH_PER_LAYER)):
+        raise AssertionError(f"chaos: world-of-one crash and resume: "
+                             f"{world}")
+    seconds = time.perf_counter() - t_phase
+    print(f"chaos: phase 8 took {seconds:.1f} s [{card}]", flush=True)
+    line = {"chaos": {
+        "model": f"{CHAOS_MODEL} {cfg.num_layers} layers",
+        "seconds": round(seconds, 1), "f9_probe": probe,
+        "runs": [{k: r[k] for k in ("name", "model", "verdict", "checked",
+                                    "workload_preemptions", "seconds",
+                                    "served", "launches", "skipped")}
+                 for r in runs],
+        "world_of_one": {k: world[k] for k in (
+            "rcs", "final", "reference", "resume_launches", "seconds")}}}
+    print(json.dumps(line, default=str), flush=True)
+    return total, dict(line["chaos"], runs=runs, world_of_one=world)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", type=Path, default=None,
@@ -5928,6 +6486,14 @@ def main() -> int:
                              "then a gloo world of two ranks on the card at "
                              "expert 2) and stop (DIR/chip_smoke_expert.json "
                              "with --out; prints no device line)")
+    parser.add_argument("--chaos-only", action="store_true",
+                        help="build every kernel, run phase 8 (the "
+                             "workload chaos arms on llama3-8b at full "
+                             "width: the corpus replays, the specs built "
+                             "here, the train arms' typed skips, the F9 "
+                             "probe and the world-of-one crash and resume) "
+                             "and stop (DIR/chip_smoke_chaos.json with "
+                             "--out; prints no device line)")
     parser.add_argument("--expert-worker", nargs=3, default=None,
                         metavar=("RANK", "PORT", "DIR"),
                         help=argparse.SUPPRESS)
@@ -6006,6 +6572,23 @@ def main() -> int:
                 dict(card=card, device=name, mixtral=mixtral), indent=1,
                 default=str))
         print(json.dumps({"mixtral_launches": mixtral_launches}))
+        return 0
+
+    if args.chaos_only:
+        flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=device)
+        records = chaos_kernel_phase(pa, device, flush, peaks)
+        del flush
+        total, chaos = chaos_phase(card)
+        for r in records:
+            r["launches"] = total[r["name"].removesuffix("_bs4")]
+        if args.out is not None:
+            args.out.mkdir(parents=True, exist_ok=True)
+            (args.out / "chip_smoke_chaos.json").write_text(json.dumps(
+                dict(card=card, device=name, kernels=records, chaos=chaos),
+                indent=1, default=str))
+        print(json.dumps({"kernels": [{k: r.get(k) for k in (
+            "name", "variant", "launches", "max_abs_err", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")} for r in records]}))
         return 0
 
     if args.migration_only or args.http_only:
@@ -6088,6 +6671,7 @@ def main() -> int:
     records += flash_kernel_phase(device, flush, peaks)
     records += rows_kernel_phase(device, flush, peaks)
     records += w8a8_kernel_phase(device, flush, peaks)
+    records += chaos_kernel_phase(pa, device, flush, peaks)
     del flush
 
     # Phase 4: serve.
@@ -6112,6 +6696,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         # Phase 7: expert parallelism, a world of two ranks on the card.
         train["expert"] = expert = expert_phase(card, out_dir)[1]
+        gc.collect()
+        torch.cuda.empty_cache()
+    # Phase 8: the workload chaos arms.
+    chaos_launches_total, chaos = chaos_phase(card)
     # Each kernel's launches on the serve runs of its page kind (the first
     # serve run and the bf16 runs for bf16 pages) or on training, and per
     # unit of that path: a decode tick, a verify tick, a prefill window, a
@@ -6130,7 +6718,7 @@ def main() -> int:
             c[0] += run["launches"][k]
             c[1] += run[field]
     # The row-invariant kernels, per decode or verify tick or prefill
-    # window (the GEMM: 4 L + 1 a tick, 4 L a window) of every serve run
+    # window (the GEMM: 4 L + 1 a tick or window) of every serve run
     # that is not W8A8 (a W8A8 run launches them no time).
     runs = serve["spec_quant_runs"]
     bf16_runs = [run for run in runs
@@ -6196,6 +6784,16 @@ def main() -> int:
             r["distributed_launches"] = dist["launches"][r["name"]]
         if r["name"] in expert["launches"]:
             r["expert_launches"] = expert["launches"][r["name"]]
+    # The paged kernels at the chaos pools' shapes: their launches are
+    # phase 8's (every chaos engine runs block size 4), per engine run.
+    engine_runs = sum(1 for run in chaos["runs"]
+                      if run["launches"].get("paged_decode"))
+    for k in _kernels.PAGED_KERNELS:
+        ticks[k + "_bs4"] = (None, "engine arm run of phase 8")
+        count[k + "_bs4"] = [chaos_launches_total[k], engine_runs]
+    for r in records:
+        if chaos_launches_total.get(r["name"]):
+            r["chaos_launches"] = chaos_launches_total[r["name"]]
     for r in records:
         n, per = count[r["name"]]
         if not n:
@@ -6209,12 +6807,12 @@ def main() -> int:
         (args.out / "chip_smoke.json").write_text(json.dumps(dict(
             card=card, device=name, build_s=build_s, probe=probe,
             silu_probe=silu, kernels=records,
-            serve=serve, mixtral=mixtral, train=train), indent=1,
-            default=str))
+            serve=serve, mixtral=mixtral, train=train, chaos=chaos),
+            indent=1, default=str))
     keys = ("name", "route", "source", "replaces", "variant", "launches",
             "launches_per_unit", "launches_per", "http_launches",
             "durability_launches", "mixtral_launches", "distributed_launches",
-            "expert_launches",
+            "expert_launches", "chaos_launches",
             "max_abs_err", "ms",
             "plain_ms", "plain_note", "bound_ms",
             "bound_by", "bound_share", "achieved_tflops", "library_ms",

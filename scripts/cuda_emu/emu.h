@@ -379,7 +379,12 @@ inline void wg_mma_s8(int (&d)[R], uint64_t da, uint64_t db) {
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+struct cudaFuncAttributes { size_t sharedSizeBytes = 0; };
 template <typename F> inline cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+template <typename F> inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, F) { *a = {}; return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 232448; return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }

@@ -1550,3 +1550,163 @@ def test_f32_head_product_trains_on_the_card(device):
                                rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(x.grad, (g @ w.float().t()).to(x.dtype))
     torch.testing.assert_close(w.grad, (x.float().t() @ g).to(w.dtype))
+
+
+# Fault F9: a preempted sequence recomputes its history in prefill windows
+# and takes its next token from a window's last row, where its solo run
+# took it from a decode tick; a prefix-cache hit starts a prefill at
+# another request's window boundary. The chaos arms' pools (bs 4) run the
+# CUDA-core designs at every head width.
+F9_CONFIG = dict(dtype="bfloat16", embed_dim=512, num_heads=4,
+                 num_kv_heads=1, head_dim=128, mlp_dim=1024,
+                 max_seq_len=256)
+
+
+@pytest.mark.parametrize("bs,chunk", [(4, 8), (8, 16)])
+def test_recompute_rows_are_decode_rows(device, bs, chunk):
+    """A small bf16 model at the 8B's head width D 128 and GQA group 4,
+    bs 4 and 8 (the CUDA-core designs): for every length L of a seeded
+    sequence, the logits of the last row of the prefill windows over its
+    first L tokens are torch.equal to those of one decode step at length
+    L - 1 after windows over L - 1 tokens, and the pages the two wrote are
+    torch.equal -- the kernels' rows, the row-invariant GEMM (the window's
+    head included) and the norms give a recomputed row its solo bits."""
+    from triton_kubernetes_tpu_torch.models import (
+        get_config, init_params, paged)
+
+    cfg = get_config("llama-test", **F9_CONFIG)
+    assert _kernels.paged_variant(torch.bfloat16, torch.bfloat16, bs,
+                                  cfg.head_dim) == "cuda_core"
+    model = init_params(cfg, seed=9, device=device)
+    gen = torch.Generator().manual_seed(9)
+    seq = torch.randint(0, cfg.vocab_size, (40,), generator=gen).tolist()
+    per = 48 // bs
+    table = torch.arange(1, per + 1, dtype=torch.int32, device=device)
+
+    def windows(n):
+        cache = paged.init_paged_cache(cfg, per + 1, bs, device=device)
+        logits = None
+        for off in range(0, n, chunk):
+            clen = min(chunk, n - off)
+            toks = seq[off:off + clen] + [0] * (chunk - clen)
+            logits = paged.paged_prefill_chunk(
+                model, torch.tensor([toks], dtype=torch.int32,
+                                    device=device),
+                off, clen, cfg, cache, table)
+        return logits, cache
+
+    def written(cache, n):
+        """K and V of positions 0..n-1, [L, Hkv, n, D]."""
+        pages = table[:-(-n // bs)].long()
+        return [x[:, pages].transpose(1, 2).flatten(2, 3)[:, :, :n]
+                for x in (cache.k, cache.v)]
+
+    with torch.inference_mode():
+        for n in range(2, 40):
+            want, wcache = windows(n)
+            _, cache = windows(n - 1)
+            got = paged.paged_decode_step(
+                model, torch.tensor([seq[n - 1]], dtype=torch.int32,
+                                    device=device),
+                cfg, cache, table[None], torch.tensor(
+                    [n - 1], dtype=torch.int32, device=device))[0]
+            assert torch.equal(got, want), (n, float((got - want).abs()
+                                                     .max()))
+            for a, b in zip(written(cache, n), written(wcache, n)):
+                assert torch.equal(a, b), n
+
+
+def test_chaos_preempt_arm_on_the_card(device):
+    """The engine-preempt chaos arm on the card, at the F9 model (weights
+    from seed 9, as above), with the prefix cache and spec_k 3: a request
+    preempted mid-prefill recomputes to its solo tokens, pages converge,
+    the trace is complete -- through the paged decode, verify and prefill
+    kernels, with drafts accepted (kept tokens that came from verify rows
+    under preemption and recompute)."""
+    from triton_kubernetes_tpu_torch.chaos import workload as wl
+    from triton_kubernetes_tpu_torch.chaos.generator import generate_spec
+    from triton_kubernetes_tpu_torch.chaos.runner import run_scenario
+    from triton_kubernetes_tpu_torch.models import get_config, init_params
+    from triton_kubernetes_tpu_torch.utils import metrics
+
+    cfg = get_config("llama-test", **F9_CONFIG)
+    wl.use_model(cfg, init_params(cfg, seed=9, device=device))
+    try:
+        spec = generate_spec(11, "workload")
+        spec["workload"] = {"kind": "engine-preempt", "long_windows": 5,
+                            "requests": 3, "prefix_cache": True,
+                            "spec_k": 3}
+        pa.reset_launch_counts()
+        metrics.configure()
+        res = run_scenario(spec, device="cuda")
+        assert res.passed, res.violations
+        assert res.stats["workload_preemptions"] >= 1
+        assert metrics.counter(
+            "tk8s_serve_spec_accepted_tokens_total").value() >= 1
+        assert pa.ragged_paged_attention.launches > 0
+        assert pa.paged_prefill_attention.launches > 0
+        assert pa.ragged_verify_attention.launches > 0
+    finally:
+        wl.use_model()
+
+
+def test_cuda_core_decode_launches_from_replica_threads(device):
+    """Replicas in one process decode on threads of their own, and the
+    CUDA-core page walk's dynamic shared memory follows (rows, D, bs): the
+    chaos arms' replicas (one model, bs 4) ask the same, replicas of other
+    pool shapes do not. Decode and verify at bs 4 and 8, each launched
+    through its C entry over and over from threads of their own: every
+    launch succeeds, and each output is torch.equal to the wrapper's for
+    it alone."""
+    import threading
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    hkv, group, d, tw = 2, 4, 128, 12
+    cases = []
+    for bs, s in ((4, 1), (8, 1), (4, 4), (8, 4)):
+        kp = _pool(gen, 1 + 3 * tw, hkv, bs, d, torch.bfloat16, device)
+        vp = _pool(gen, 1 + 3 * tw, hkv, bs, d, torch.bfloat16, device)
+        tables = (torch.randperm(3 * tw, device=device).reshape(3, tw) + 1
+                  ).to(torch.int32)
+        lens = torch.tensor([5, tw * bs // 2, tw * bs - s], dtype=torch.int32,
+                            device=device)
+        q = torch.randn((3, s, hkv * group, d), generator=gen,
+                        device=device).to(torch.bfloat16)
+        fn = (pa.ragged_paged_attention if s == 1
+              else pa.ragged_verify_attention)
+        assert _kernels.paged_variant(q.dtype, kp.dtype, bs, d) == \
+            "cuda_core"
+        cases.append((bs, s, kp, vp, tables, lens, q, fn(q, kp, vp, tables,
+                                                           lens)))
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    code = _kernels.PAGED_VARIANTS["cuda_core"]
+    outs = [torch.empty_like(c[6]) for c in cases]
+    failed = []
+
+    def run(i):
+        bs, s, kp, vp, tables, lens, q, _ = cases[i]
+        name = "paged_decode" if s == 1 else "paged_verify"
+        entry = _kernels._entry(name, torch.bfloat16, torch.bfloat16)
+        args = [q.data_ptr(), kp.data_ptr(), vp.data_ptr(), None, None,
+                tables.data_ptr(), lens.data_ptr(), outs[i].data_ptr(),
+                None, None, 3]
+        if s > 1:
+            args.append(s)
+        args += [hkv, group, d, bs, tw, d ** -0.5, code, stream]
+        for _ in range(2000):
+            rc = entry(*args)
+            if rc:
+                failed.append(((bs, s), rc))
+                return
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not failed, failed[:4]
+    for case, got in zip(cases, outs):
+        assert torch.equal(got, case[7]), case[:2]

@@ -260,10 +260,12 @@ def test_decode_and_verify_steps_take_the_row_invariant_ops(monkeypatch):
     final norm), with no residual add and no norm of ``models/llama.py``
     beside them, and 4 L + 1 product calls (wq/wk/wv, wo, w3/w1, w2 a
     layer, and the lm head), seven weights a layer. A prefill window makes
-    the same norm calls and the same product calls but the head's (its one
-    row is a plain product), so that its pages do not depend on the
-    window's width; the one-shot prefill makes none of them (plain norms,
-    adds and einsums)."""
+    the same norm calls and the same product calls, its head's on its one
+    last row included, so that its pages do not depend on the window's
+    width and its last row's logits are the decode step's at that length
+    (fault F9: a preempted sequence's recompute samples from that row);
+    the one-shot prefill makes none of them (plain norms, adds and
+    einsums)."""
     cfg = get_config("llama-test", dtype="bfloat16")
     model = init_params(cfg, seed=0, device="cpu")
     layers = cfg.num_layers
@@ -305,11 +307,10 @@ def test_decode_and_verify_steps_take_the_row_invariant_ops(monkeypatch):
         "norm": 0, "fused": 0, "llama_norm": 2 * layers + 1, "gemm": 0,
         "weights": 0, "adds": 2 * layers}
     fused = {"norm": 1, "fused": 2 * layers, "llama_norm": 0, "adds": 0}
+    want = dict(fused, gemm=4 * layers + 1, weights=7 * layers + 1)
     assert run(paged.paged_prefill_chunk,
                torch.zeros((1, 8), dtype=torch.int32), 0, 5, cfg, cache,
-               tables[0]) == dict(fused, gemm=4 * layers,
-                                  weights=7 * layers)
-    want = dict(fused, gemm=4 * layers + 1, weights=7 * layers + 1)
+               tables[0]) == want
     assert run(paged.paged_decode_step,
                torch.tensor([1, 2], dtype=torch.int32), cfg, cache, tables,
                lens) == want

@@ -187,8 +187,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     decode GEMM's wrappers, generation, the decode weight policy, the
     self-drafter, the migration wire format, the trace module, the two
     tools, and the distributed layer (mesh, sharding, collectives,
-    multihost, ring and blockwise attention, the sharded step) named
-    first."""
+    multihost, ring and blockwise attention, the sharded step) and the
+    chaos harness (corpus, generator, shrinker, runner, workload arms, its
+    command line) named first."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import triton_kubernetes_tpu_torch.train\n"
@@ -216,6 +217,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import triton_kubernetes_tpu_torch.ops.ring_attention\n"
         "import triton_kubernetes_tpu_torch.ops.blockwise_attention\n"
         "import triton_kubernetes_tpu_torch.parallel.placement\n"
+        "import triton_kubernetes_tpu_torch.chaos\n"
+        "import triton_kubernetes_tpu_torch.chaos.corpus\n"
+        "import triton_kubernetes_tpu_torch.chaos.generator\n"
+        "import triton_kubernetes_tpu_torch.chaos.shrink\n"
+        "import triton_kubernetes_tpu_torch.chaos.runner\n"
+        "import triton_kubernetes_tpu_torch.chaos.workload\n"
+        "import triton_kubernetes_tpu_torch.tools.chaos\n"
         "import triton_kubernetes_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"

@@ -16,7 +16,10 @@ design's indexing, fragment layouts, masking and ring give the JAX
 package's answer -- held to one bf16 output ulp plus 1e-2 absolute (p is
 rounded to bf16 in both, and the emulated mma sums in another order than
 the reference) -- with every output row the same bits whatever window it
-came in. The emulation skips where there is no g++.
+came in; and that the CUDA-core design's rows are the CUDA-core decode
+kernel's rows bit for bit (fault F9: a preempted sequence's recompute takes
+its next token from a prefill window's row where its solo run took it from
+a decode tick). The emulation skips where there is no g++.
 """
 
 import importlib.util
@@ -58,13 +61,14 @@ def test_prefill_variant_is_chosen_by_shape(dtype, pages, bs, d):
 
 @pytest.fixture(scope="module")
 def emu(tmp_path_factory):
-    """The prefill C entries built with g++ against emu.h."""
+    """The prefill and decode C entries built with g++ against emu.h."""
     if shutil.which("g++") is None:
         pytest.skip("the CUDA emulation builds with g++, which is missing")
     spec = importlib.util.spec_from_file_location("emulate_paged", EMU)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    libs = mod.build(tmp_path_factory.mktemp("emu"), ("paged_prefill",))
+    libs = mod.build(tmp_path_factory.mktemp("emu"),
+                     ("paged_prefill", "paged_decode"))
     return mod.Emulated(libs)
 
 
@@ -228,3 +232,40 @@ def test_cuda_core_prefill_matches_jax(emu):
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table),
         jnp.int32(offset), impl="pallas-interpret")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+# (q dtype, page kind, D, bs, Hq, Hkv): every shape the CUDA-core designs
+# serve -- the chaos arms' pools (bf16, bs 4, D 128, the 8B's GQA group 4)
+# on every page kind, bs 8, and f32 queries at a tensor-core width.
+RECOMPUTE_CASES = [(torch.bfloat16, "bf16", 128, 4, 8, 2),
+                   (torch.bfloat16, "int8", 128, 4, 8, 2),
+                   (torch.bfloat16, "fp8", 128, 4, 8, 2),
+                   (torch.bfloat16, "bf16", 64, 8, 4, 2),
+                   (torch.float32, "bf16", 128, 16, 4, 1)]
+
+
+@pytest.mark.parametrize("dtype,kind,d,bs,hq,hkv", RECOMPUTE_CASES,
+                         ids=["bf16-bs4", "int8-bs4", "fp8-bs4",
+                              "bf16-bs8-d64", "f32q-bs16"])
+def test_cuda_core_prefill_rows_are_the_decode_rows(emu, dtype, kind, d, bs,
+                                                    hq, hkv):
+    """Every row of CUDA-core prefill windows -- at offset 0, mid-table,
+    a ragged last window, a row alone -- is torch.equal to the CUDA-core
+    decode kernel's output for that query at its length (length = the
+    row's position + 1), on the same pages: the same per-row operations
+    in the same order, the page's sum of exps in the decode's lane
+    order."""
+    tw = 12
+    table, _, (kp, vp, ks, vs) = _pages(60 + bs, kind, tw, hkv, bs, d)
+    if kind == "bf16" and dtype == torch.float32:
+        kp, vp = kp.float(), vp.float()
+    table = _t(table)
+    assert _kernels.paged_variant(dtype, kp.dtype, bs, d) == "cuda_core"
+    for c, offset in ((16, 0), (8, 8), (5, 24), (1, 29), (24, 21)):
+        q = _t(_q(c + offset, c, hq, d)).to(dtype)
+        rc, rows = emu.prefill(q, kp, vp, table, offset, ks, vs)
+        assert rc == 0
+        lens = torch.arange(offset + 1, offset + c + 1, dtype=torch.int32)
+        dec = emu("paged_decode", q[0][:, None].contiguous(), kp, vp,
+                  table[None].expand(c, tw).contiguous(), lens, ks, vs)
+        assert torch.equal(rows[0], dec[:, 0]), (c, offset)

@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #define TK8S_NEG_INF (-1e30f)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -132,24 +134,45 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// One row's online-softmax step over one page, by one thread (the prefill
-// kernel's). `s` holds the page's n scores, `p` receives exp(s - m_new),
-// rounded to T unless the pool is quantized; m, l and corr are this row's
-// running state.
-template <typename T, typename KV>
+// One row's online-softmax step over one page of N keys, by one thread
+// (the prefill kernel's CUDA-core design). `s` holds the page's N scores,
+// `p` receives exp(s - m_new), rounded to T unless the pool is quantized;
+// m, l and corr are this row's running state. Every value is the page walk
+// of the decode and verify kernels' (paged_rows_body) bit for bit: the
+// same max, exps and corr, and the page's sum of exps added in the order
+// warp_sum adds them with lane j holding key j and the lanes past N
+// holding 0 -- the butterfly's steps of offset >= N add zeros (exact), and
+// each later step of offset o adds element i + o to element i. So a row a
+// prefill window computes is the row a decode tick computes at its length
+// (a preempted sequence's recompute gives its solo run's tokens).
+template <int N>
+__device__ __forceinline__ float lane_order_sum(float (&t)[N]) {
+  static_assert(N >= 1 && N <= 32 && (N & (N - 1)) == 0,
+                "a page is at most one warp's lanes, a power of two");
+#pragma unroll
+  for (int o = N / 2; o > 0; o >>= 1) {
+#pragma unroll
+    for (int i = 0; i < o; ++i) t[i] = t[i] + t[i + o];
+  }
+  return t[0];
+}
+
+template <typename T, typename KV, int N>
 __device__ __forceinline__ void softmax_row_update(const float* s, float* p,
-                                                   int n, float* m, float* l,
+                                                   float* m, float* l,
                                                    float* corr) {
   const float m_prev = *m;
   float m_cur = TK8S_NEG_INF;
-  for (int j = 0; j < n; ++j) m_cur = fmaxf(m_cur, s[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) m_cur = fmaxf(m_cur, s[j]);
   const float m_new = fmaxf(m_prev, m_cur);
-  float sum = 0.f;
-  for (int j = 0; j < n; ++j) {
-    const float e = expf(s[j] - m_new);
-    sum += e;
-    p[j] = is_quant<KV>() ? e : round_to<T>(e);
+  float e[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    e[j] = expf(s[j] - m_new);
+    p[j] = is_quant<KV>() ? e[j] : round_to<T>(e[j]);
   }
+  const float sum = lane_order_sum<N>(e);
   const float c = expf(m_prev - m_new);
   *l = fmaf(*l, c, sum);
   *corr = c;
@@ -367,6 +390,37 @@ size_t paged_rows_smem(int rows, int d, int bs) {
   return sizeof(KV) * (size_t)kRowsKeys * (2 * d + vec_of<KV>()) +
          sizeof(float) * ((size_t)rows * d + 2 * (size_t)rows * kRowsKeys +
                           (size_t)rows * (kRowsKeys / bs) + rows);
+}
+
+// A kernel's dynamic shared-memory limit belongs to the kernel on a device,
+// not to a launch, and serving replicas in one process launch from threads
+// of their own. The launchers whose need follows the call's shape (the
+// CUDA-core walks: rows, D, bs; the prefill ring: the window's last page)
+// therefore raise the limit once per (kernel, device), to all the card
+// lets a block have beside the kernel's static shared memory, and never
+// set it again: no thread can lower it under another's launch (faults F8,
+// F10), and a launch asks only for its own size. `raised` is the caller's
+// per-kernel record of the devices done; two threads that race on a first
+// call both set the same value.
+template <typename Kernel>
+cudaError_t raise_smem_limit(Kernel* kernel,
+                             std::atomic<unsigned long long>& raised) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (raised.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  int optin = 0;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           optin - (int)attr.sharedSizeBytes);
+  if (e == cudaSuccess) raised.fetch_or(bit, std::memory_order_release);
+  return e;
 }
 
 // Whether the walk takes these shapes (the bindings check them first).

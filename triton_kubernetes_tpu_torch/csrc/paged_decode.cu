@@ -117,9 +117,8 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
     if (!paged_rows_shapes_ok<KV>(group, kMaxGroup, d, bs, k_scale, v_scale))
       return (int)cudaErrorInvalidValue;
     const size_t smem = paged_rows_smem<KV>(group, d, bs);
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel<T, KV>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    static std::atomic<unsigned long long> raised{0};
+    cudaError_t e = raise_smem_limit(paged_decode_kernel<T, KV>, raised);
     if (e != cudaSuccess) return (int)e;
     dim3 grid(b, hkv);
     paged_decode_kernel<T, KV><<<grid, kRowsThreads, smem,

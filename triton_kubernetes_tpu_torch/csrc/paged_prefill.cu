@@ -51,7 +51,12 @@
 //   stage's dependent steps, so every instruction of the softmax counts:
 //   exp is the card's ex2.approx (__expf).
 // - cuda_core (f32 queries, other block sizes and widths):
-//   paged_prefill_kernel below, the products on the CUDA cores in f32.
+//   paged_prefill_kernel below, the products on the CUDA cores in f32. Its
+//   rows are the CUDA-core decode kernel's rows bit for bit: the same
+//   per-row operations in the same order, the page's sum of exps added in
+//   warp_sum's lane order (softmax_row_update). A preempted sequence's
+//   recompute, whose next token comes from a prefill window, then samples
+//   from the logits its solo run's decode tick gave (fault F9).
 //
 // Rounding order, shared with the plain version (ops/paged_attention.py
 //   `_paged_attention_plain`, one span), so the card holds the kernels to
@@ -84,19 +89,11 @@
 //   P V. A running max per stage rather than per page would cut the folds
 //   and shuffles 4x, at the price of a plain version that differs from the
 //   reference's.
-#include <mutex>
 #include <type_traits>
 
 #include "paged_common.cuh"
 
 namespace {
-
-// Serving replicas in one process launch from threads of their own, and a
-// kernel's dynamic shared-memory limit belongs to the kernel, not the call:
-// the tensor-core design's need grows with the window's last page. Setting
-// the limit and launching under one lock keeps another thread's smaller
-// limit from landing in between (the launch would fail, invalid value).
-std::mutex launch_mutex;
 
 // ---- cuda_core: the products on the CUDA cores in f32 ----
 //
@@ -249,9 +246,9 @@ paged_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
     // 3. Online softmax, page by page, one thread per row.
     if (tid < rows) {
       for (int p = 0; p < np; ++p)
-        softmax_row_update<T, KV>(s_sh + tid * sp + p * BS,
-                                  p_sh + tid * sp + p * BS, BS, m_sh + tid,
-                                  l_sh + tid, c_sh + tid * ppt + p);
+        softmax_row_update<T, KV, BS>(s_sh + tid * sp + p * BS,
+                                      p_sh + tid * sp + p * BS, m_sh + tid,
+                                      l_sh + tid, c_sh + tid * ppt + p);
     }
     __syncthreads();
 
@@ -303,10 +300,8 @@ int launch_bs(const T* q, const KV* k_pages, const KV* v_pages,
       sizeof(float) * ((size_t)(kRows + kKeys) * (d + 4) +
                        2 * (size_t)kRows * (kKeys + 1) +
                        (size_t)kRows * (kKeys / BS) + 2 * kRows);
-  std::lock_guard<std::mutex> hold(launch_mutex);
-  cudaError_t e = cudaFuncSetAttribute(
-      paged_prefill_kernel<T, KV, BS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> raised{0};
+  cudaError_t e = raise_smem_limit(paged_prefill_kernel<T, KV, BS>, raised);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(hkv, (chunk * group + kRows - 1) / kRows);
   paged_prefill_kernel<T, KV, BS><<<grid, kThreads, smem, stream>>>(
@@ -684,10 +679,9 @@ int launch_mma(const void* q, const void* k_pages, const void* v_pages,
   // The longest walk's pages size the page-id (and scale) table.
   const int n_pages = (offset + chunk - 1) / BS + 1;
   const size_t smem = L::kFixedBytes + (size_t)L::kPageBytes * n_pages;
-  std::lock_guard<std::mutex> hold(launch_mutex);
-  cudaError_t e = cudaFuncSetAttribute(
-      paged_prefill_mma_kernel<KV, D, BS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> raised{0};
+  cudaError_t e =
+      raise_smem_limit(paged_prefill_mma_kernel<KV, D, BS>, raised);
   if (e != cudaSuccess) return (int)e;
   const int blocks = (chunk * group + kMmaRows - 1) / kMmaRows * hkv;
   paged_prefill_mma_kernel<KV, D, BS><<<blocks, kMmaThreads, smem,

@@ -88,9 +88,9 @@ int launch_rows(const void* q, const void* k_pages, const void* v_pages,
                 int b, int spec, int hkv, int group, int d, int bs, int tw,
                 float scale, void* stream) {
   const size_t smem = paged_rows_smem<KV>(spec * group, d, bs);
-  cudaError_t e = cudaFuncSetAttribute(
-      paged_verify_kernel<T, KV, MAX_ROWS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> raised{0};
+  cudaError_t e =
+      raise_smem_limit(paged_verify_kernel<T, KV, MAX_ROWS>, raised);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(b, hkv);
   paged_verify_kernel<T, KV, MAX_ROWS><<<grid, kRowsThreads, smem,

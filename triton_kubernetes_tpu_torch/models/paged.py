@@ -340,11 +340,15 @@ def paged_prefill_chunk(model: llama.Llama,
     # written by a 256-token one (fault F2).
     h = _serve_layers(model, model.embed[tokens], config, positions, attend)
     # The head reads only the last real row (quantized rows are quantized
-    # each by itself: the slice is bitwise the row's own).
+    # each by itself: the slice is bitwise the row's own), through the
+    # decode step's row-invariant product: a preempted sequence's recompute
+    # takes its next token from this row, which must be the logits its
+    # solo run's decode tick gave (fault F9).
     last = (h.positions(chunk_len - 1, chunk_len)
             if isinstance(h, QuantizedRows)
             else h[:, chunk_len - 1: chunk_len])
-    logits = llama.unembed_normed(last, model, config=config)[0, 0]
+    logits = llama.unembed_normed(last, model, row_invariant=True,
+                                  config=config)[0, 0]
     if not with_quant_error:
         return logits
     # [L, 1, C, Hkv, Dh] -> [L, w, Hkv, bs, Dh], the window's pages.

@@ -14,8 +14,9 @@ gathers sharded leaves to its writer (:class:`CoordinatedCheckpoint`).
 
 Environments that cannot host cross-process collectives raise
 :class:`MultiHostUnavailable` with a bounded ``reason`` slug (the
-reference's, plus ``no-nccl`` and ``no-world-size``); the trainer turns it
-into ``EXIT_UNSUPPORTED``.
+reference's, plus ``no-nccl``, ``ranks-share-a-card`` -- more NCCL ranks
+than cards: two NCCL ranks cannot share one device -- and
+``no-world-size``); the trainer turns it into ``EXIT_UNSUPPORTED``.
 """
 
 from __future__ import annotations
@@ -44,9 +45,11 @@ REASON_NO_CPU_COLLECTIVES = "no-cpu-collectives"
 REASON_NO_COLLECTIVES_FLAG = "no-cpu-collectives-flag"
 REASON_NO_PROCESS_ARRAY = "no-process-local-array-api"
 REASON_HOST_CEILING = "host-parallel-ceiling"
-# The port's own: a card without NCCL, a world size nobody gave, and a
-# fleet shape that asks a process for more than one device.
+# The port's own: a card without NCCL, more NCCL ranks than cards, a world
+# size nobody gave, and a fleet shape that asks a process for more than one
+# device.
 REASON_NO_NCCL = "no-nccl"
+REASON_RANKS_SHARE_CARD = "ranks-share-a-card"
 REASON_NO_WORLD_SIZE = "no-world-size"
 REASON_DEVICES_PER_PROCESS = "one-device-per-process"
 
@@ -73,9 +76,13 @@ def backend_for(device_type: str) -> str:
     return "nccl" if device_type == "cuda" else "gloo"
 
 
-def support_report(device_type: str = "cpu") -> Dict[str, Any]:
-    """What this torch can do for ``device_type``, without initializing
-    anything. Keys: ``ok`` plus a ``reason`` slug when not ok."""
+def support_report(device_type: str = "cpu",
+                   n_processes: int = 1) -> Dict[str, Any]:
+    """What this torch can do for ``device_type`` with ``n_processes``
+    ranks on this machine, without initializing anything. Keys: ``ok``
+    plus a ``reason`` slug when not ok. A CUDA rank owns one card: NCCL
+    refuses two ranks on one device, so a world wider than the cards here
+    is ``ranks-share-a-card``."""
     import torch.distributed as dist
 
     if not dist.is_available():
@@ -87,6 +94,12 @@ def support_report(device_type: str = "cpu") -> Dict[str, Any]:
             return {"ok": False, "reason": REASON_NO_NCCL,
                     "detail": "no CUDA device with NCCL here; a CUDA run "
                               "does not fall back to gloo or the CPU"}
+        cards = torch.cuda.device_count()
+        if n_processes > cards:
+            return {"ok": False, "reason": REASON_RANKS_SHARE_CARD,
+                    "detail": f"{n_processes} NCCL ranks on {cards} "
+                              f"card(s): each rank needs a card of its own "
+                              f"(NCCL refuses two ranks on one device)"}
         return {"ok": True, "reason": "",
                 "detail": f"torch {torch.__version__} with NCCL"}
     if not dist.is_gloo_available():
@@ -97,10 +110,12 @@ def support_report(device_type: str = "cpu") -> Dict[str, Any]:
             "detail": f"torch {torch.__version__} with gloo CPU collectives"}
 
 
-def require_multihost(device_type: str = "cpu") -> None:
+def require_multihost(device_type: str = "cpu",
+                      n_processes: int = 1) -> None:
     """Raise :class:`MultiHostUnavailable` (typed reason) unless this
-    environment can run cross-process collectives on ``device_type``."""
-    rep = support_report(device_type)
+    environment can run cross-process collectives on ``device_type`` for
+    ``n_processes`` local ranks."""
+    rep = support_report(device_type, n_processes)
     if not rep["ok"]:
         raise MultiHostUnavailable(rep["detail"], rep["reason"])
 
@@ -777,8 +792,9 @@ def launch_trainers(trainer_args: Sequence[str], *, n_processes: int = 2,
     stragglers are killed after ``preempt_grace``.
 
     Raises :class:`MultiHostUnavailable` when the environment cannot host
-    the run (gloo for ``--device cpu``, NCCL otherwise)."""
-    require_multihost(_device_type_of(trainer_args))
+    the run (gloo for ``--device cpu``, NCCL and a card a rank
+    otherwise)."""
+    require_multihost(_device_type_of(trainer_args), n_processes)
     os.makedirs(run_dir, exist_ok=True)
     port = port if port is not None else pick_coordinator_port(tag or run_dir)
     n_cores = os.cpu_count() or 1

@@ -49,7 +49,10 @@ cross-process agreement; logs carry ``process=N`` and metrics
 (``.rankN`` before the extension). A batch the batch axes do not divide,
 and a fused exchange asked for where it cannot run, exit ``EXIT_CONFIG``
 (2). ``TK8S_TEST_CRASH_RANK=N`` makes rank N exit 3 at startup (the
-launcher's fail-fast test).
+launcher's fail-fast test); ``TK8S_TEST_CRASH_STEP=N`` makes the rank named
+by ``TK8S_TEST_CRASH_STEP_RANK`` (default 0) exit 3 mid-run, at the first
+sync window at or past ``start_step + N``, through ``os._exit`` -- no
+``finally`` runs, as in a real crash (the chaos train arms' death).
 
 ``--expert`` is the expert-parallel degree of an MoE model (the Mixtral
 family): under a world of that many processes or more, each rank holds
@@ -833,8 +836,23 @@ def _train(args, log, distributed: bool) -> int:
             os.path.join(args.profile_dir, "train_trace.json"))
         log.log("info", "profiler trace written", dir=args.profile_dir)
 
+    # Mid-run death injection (the chaos train arms): the named rank
+    # hard-exits at the first sync window >= start_step + N -- rank 0
+    # models coordinator loss, any other rank a plain worker death.
+    crash_step_env = os.environ.get("TK8S_TEST_CRASH_STEP")
+    crash_step = int(crash_step_env) if crash_step_env else None
+    crash_step_rank = os.environ.get("TK8S_TEST_CRASH_STEP_RANK", "0")
+
     def on_sync(gstep, cur_state, window_losses, window_dt):
         nonlocal last_loss
+        if crash_step is not None \
+                and gstep >= start_step + crash_step \
+                and str(rank) == crash_step_rank:
+            log.log("error",
+                    "TK8S_TEST_CRASH_STEP: injected mid-run death",
+                    step=gstep, rank=crash_step_rank)
+            # os._exit on purpose: a real crash runs no finally blocks.
+            os._exit(3)
         n = len(window_losses)
         # The window's grad norms and MoE aux losses: the loop's sync
         # already drained these steps, so this small transfer does not

@@ -162,6 +162,21 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...], Optional[Tuple[float, ...]]]
         "peak); temp is what a remat policy moves, argument what a "
         "precision policy's storage dtypes move", ("config", "kind"),
         None),
+    # ------------------------------------------------------------ chaos/
+    "tk8s_chaos_scenarios_total": (
+        "counter", "Chaos-harness scenarios run, by verdict "
+        "(ok / violated)", ("status",), None),
+    "tk8s_chaos_invariant_checks_total": (
+        "counter", "Chaos-harness invariant evaluations by invariant id "
+        "and verdict", ("invariant", "status"), None),
+    "tk8s_chaos_shrink_steps_total": (
+        "counter", "Candidate reductions tried while shrinking failing "
+        "chaos specs, by outcome (accepted / rejected)",
+        ("outcome",), None),
+    "tk8s_chaos_workload_arms_total": (
+        "counter", "Workload fault arms run by the chaos harness, by "
+        "fault kind and outcome (ok / violated / skipped)",
+        ("kind", "status"), None),
     # --------------------------------- train/checkpoint.py (integrity)
     "tk8s_train_checkpoint_save_duration_seconds": (
         "histogram", "Wall clock from checkpoint-save dispatch to "
