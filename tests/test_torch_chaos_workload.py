@@ -142,6 +142,30 @@ def test_engine_preempt_arm_preempts_and_holds_every_invariant(fields):
         assert inv in res.checked
 
 
+def test_engine_preempt_arm_preempts_in_a_pool_of_16_token_pages():
+    """A workload ``block_size`` of 16: the arm in a pool of 16-token pages
+    (the paged kernels' tensor-core designs on the card) -- 4 usable
+    pages, 48-token prompts whose first decode token needs a fourth page
+    -- preempts and keeps every invariant (tokens those of the solo runs
+    in the same pool); the default pool is untouched, and a block size
+    with no pool raises."""
+    pool = dict(block_size=16, num_blocks=5, max_batch=3, max_model_len=64,
+                prefill_chunk=16)
+    assert wl.preempt_pool(16) == pool
+    assert wl.preempt_pool()["block_size"] == 4
+    res = run_scenario(_spec(11, "engine-preempt", long_windows=6,
+                             requests=3, block_size=16), device="cpu")
+    engine, _ = wl._engine(("preempt", False, 0, 16), "cpu")
+    assert engine.block_size == 16
+    assert res.passed, res.violations
+    assert res.stats.get("workload_preemptions", 0) >= 1
+    assert "engine-parity" in res.checked
+    default, _ = wl._engine(("preempt", False, 0, 4), "cpu")
+    assert default.block_size == 4
+    with pytest.raises(ValueError, match="no preempt pool of block size 8"):
+        wl.preempt_pool(8)
+
+
 def test_engine_preempt_abort_flushes_every_lifecycle():
     res = run_scenario(_spec(12, "engine-preempt", long_windows=5,
                              abort_after_steps=3), device="cpu")

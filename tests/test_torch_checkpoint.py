@@ -416,6 +416,38 @@ def test_restore_into_another_config_is_a_mesh_mismatch(tmp_path):
     mgr.close()
 
 
+def _vm_flags(addr):
+    """The kernel's VmFlags of the mapping holding ``addr`` (Linux)."""
+    lo = hi = None
+    with open("/proc/self/smaps") as f:
+        for line in f:
+            head = line.split()[0]
+            if "-" in head and ":" not in head:
+                lo, hi = (int(x, 16) for x in head.split("-"))
+            elif line.startswith("VmFlags:") and lo <= addr < hi:
+                return line.split()[1:]
+    return None
+
+
+@pytest.mark.skipif(not os.path.exists("/proc/self/smaps"),
+                    reason="reads the mapping's flags from /proc")
+def test_host_arena_has_its_own_pages_and_no_fork_copy():
+    """Fault F11: the staging arena that the card copies into is an
+    anonymous mapping of its own -- page-aligned, zeroed, exactly the
+    bytes asked for -- marked so a forked child does not inherit it
+    (``dc``), so a fork never turns its pages copy-on-write under a
+    pending device-to-host copy."""
+    import mmap
+
+    arena = ckpt_mod.host_arena(3 * mmap.PAGESIZE + 5)
+    assert arena.numel() == 3 * mmap.PAGESIZE + 5
+    assert arena.dtype == torch.uint8 and not bool(arena.any())
+    assert arena.data_ptr() % mmap.PAGESIZE == 0
+    assert "dc" in _vm_flags(arena.data_ptr())
+    arena[-1] = 7  # writable, to its last byte
+    assert int(arena[-1]) == 7
+
+
 def test_shared_staging_serializes_saves(tmp_path):
     """Two managers on one staging: the second save waits for the first
     one's writer (its wait is recorded), and each save keeps its times."""

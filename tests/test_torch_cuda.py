@@ -1562,25 +1562,38 @@ F9_CONFIG = dict(dtype="bfloat16", embed_dim=512, num_heads=4,
                  max_seq_len=256)
 
 
-@pytest.mark.parametrize("bs,chunk", [(4, 8), (8, 16)])
-def test_recompute_rows_are_decode_rows(device, bs, chunk):
+# The lengths past 256 cross the first span of the tensor-core decode walk.
+F9_LONG = (250, 255, 256, 257, 258, 262)
+
+
+@pytest.mark.parametrize("bs,chunk,design,lengths", [
+    pytest.param(4, 8, "cuda_core", range(2, 40), id="4-8"),
+    pytest.param(8, 16, "cuda_core", range(2, 40), id="8-16"),
+    pytest.param(16, 16, "tensor_core", (*range(2, 40), *F9_LONG),
+                 id="16-16"),
+    pytest.param(32, 32, "tensor_core", (*range(2, 40), *F9_LONG),
+                 id="32-32")])
+def test_recompute_rows_are_decode_rows(device, bs, chunk, design, lengths):
     """A small bf16 model at the 8B's head width D 128 and GQA group 4,
-    bs 4 and 8 (the CUDA-core designs): for every length L of a seeded
-    sequence, the logits of the last row of the prefill windows over its
-    first L tokens are torch.equal to those of one decode step at length
-    L - 1 after windows over L - 1 tokens, and the pages the two wrote are
-    torch.equal -- the kernels' rows, the row-invariant GEMM (the window's
-    head included) and the norms give a recomputed row its solo bits."""
+    bs 4 and 8 (the CUDA-core designs) and bs 16 and 32 (the tensor-core
+    designs, lengths across the decode walk's first 256-key span too): for
+    every length L of a seeded sequence, the logits of the last row of the
+    prefill windows over its first L tokens are torch.equal to those of
+    one decode step at length L - 1 after windows over L - 1 tokens, and
+    the pages the two wrote are torch.equal -- the kernels' rows, the
+    row-invariant GEMM (the window's head included) and the norms give a
+    recomputed row its solo bits."""
     from triton_kubernetes_tpu_torch.models import (
         get_config, init_params, paged)
 
-    cfg = get_config("llama-test", **F9_CONFIG)
+    cfg = get_config("llama-test", **dict(F9_CONFIG, max_seq_len=512))
     assert _kernels.paged_variant(torch.bfloat16, torch.bfloat16, bs,
-                                  cfg.head_dim) == "cuda_core"
+                                  cfg.head_dim) == design
     model = init_params(cfg, seed=9, device=device)
     gen = torch.Generator().manual_seed(9)
-    seq = torch.randint(0, cfg.vocab_size, (40,), generator=gen).tolist()
-    per = 48 // bs
+    seq = torch.randint(0, cfg.vocab_size, (max(lengths),),
+                        generator=gen).tolist()
+    per = max(48 // bs, -(-max(lengths) // chunk) * chunk // bs)
     table = torch.arange(1, per + 1, dtype=torch.int32, device=device)
 
     def windows(n):
@@ -1602,7 +1615,7 @@ def test_recompute_rows_are_decode_rows(device, bs, chunk):
                 for x in (cache.k, cache.v)]
 
     with torch.inference_mode():
-        for n in range(2, 40):
+        for n in lengths:
             want, wcache = windows(n)
             _, cache = windows(n - 1)
             got = paged.paged_decode_step(
@@ -1648,6 +1661,64 @@ def test_chaos_preempt_arm_on_the_card(device):
         assert pa.ragged_verify_attention.launches > 0
     finally:
         wl.use_model()
+
+
+def test_chaos_preempt_arm_in_a_tensor_core_pool(device):
+    """The engine-preempt arm at the F9 model in a pool of 16-token pages
+    (the paged kernels' tensor-core designs; 4 usable pages, 48-token
+    prompts): it preempts, and every request's tokens are its solo run's
+    -- a recomputed row's next token comes from a tensor-core prefill
+    window's last row where the solo run took it from a decode tick."""
+    from triton_kubernetes_tpu_torch.chaos import workload as wl
+    from triton_kubernetes_tpu_torch.chaos.generator import generate_spec
+    from triton_kubernetes_tpu_torch.chaos.runner import run_scenario
+    from triton_kubernetes_tpu_torch.models import get_config, init_params
+
+    cfg = get_config("llama-test", **F9_CONFIG)
+    assert _kernels.paged_variant(torch.bfloat16, torch.bfloat16, 16,
+                                  cfg.head_dim) == "tensor_core"
+    wl.use_model(cfg, init_params(cfg, seed=9, device=device))
+    try:
+        spec = generate_spec(11, "workload")
+        spec["workload"] = {"kind": "engine-preempt", "long_windows": 6,
+                            "requests": 3, "block_size": 16}
+        pa.reset_launch_counts()
+        res = run_scenario(spec, device="cuda")
+        assert res.passed, res.violations
+        assert "engine-parity" in res.checked
+        assert res.stats["workload_preemptions"] >= 1
+        assert pa.ragged_paged_attention.launches > 0
+        assert pa.paged_prefill_attention.launches > 0
+    finally:
+        wl.use_model()
+
+
+def test_checkpoint_arm_holds_its_values_beside_forks(device):
+    """Fault F11: the reshard-torn-checkpoint arm (a two-leaf state on the
+    card saved through the pinned staging arena, the newest manifest
+    torn, the step before restored) keeps each step's values while this
+    process forks over and over, each child holding the pages
+    copy-on-write (``forking_beside``): the arena's pages are its own and
+    no fork shares them, so no save's bytes go stale."""
+    import copy
+    import os
+
+    from triton_kubernetes_tpu_torch.chaos import corpus
+    from triton_kubernetes_tpu_torch.chaos import workload as wl
+    from triton_kubernetes_tpu_torch.chaos.runner import run_scenario
+
+    entries = {e["name"]: e for _, e in corpus.load_entries(
+        os.path.join(os.path.dirname(__file__), "chaos_corpus"))}
+    spec = entries["workload-reshard-torn-checkpoint"]["spec"]
+    with wl.forking_beside() as forks:
+        bad = []
+        for i in range(100):
+            res = run_scenario(copy.deepcopy(spec), ns=f"f11-{i}",
+                               device=device)
+            if not res.passed:
+                bad.append([v["detail"] for v in res.violations])
+    assert forks[0] > 0
+    assert not bad, bad
 
 
 def test_cuda_core_decode_launches_from_replica_threads(device):

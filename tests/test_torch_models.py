@@ -187,9 +187,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     decode GEMM's wrappers, generation, the decode weight policy, the
     self-drafter, the migration wire format, the trace module, the two
     tools, and the distributed layer (mesh, sharding, collectives,
-    multihost, ring and blockwise attention, the sharded step) and the
+    multihost, the per-host rank launcher, ring and blockwise attention,
+    the sharded step), the
     chaos harness (corpus, generator, shrinker, runner, workload arms, its
-    command line) named first."""
+    command line) and the GPU provisioning twins (the topology renderers
+    and their command line, the node pool and JobSet modules, the workflow
+    configs) named first."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import triton_kubernetes_tpu_torch.train\n"
@@ -214,6 +217,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import triton_kubernetes_tpu_torch.parallel.sharding\n"
         "import triton_kubernetes_tpu_torch.parallel.collectives\n"
         "import triton_kubernetes_tpu_torch.parallel.multihost\n"
+        "import triton_kubernetes_tpu_torch.parallel.host_launch\n"
         "import triton_kubernetes_tpu_torch.ops.ring_attention\n"
         "import triton_kubernetes_tpu_torch.ops.blockwise_attention\n"
         "import triton_kubernetes_tpu_torch.parallel.placement\n"
@@ -224,6 +228,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import triton_kubernetes_tpu_torch.chaos.runner\n"
         "import triton_kubernetes_tpu_torch.chaos.workload\n"
         "import triton_kubernetes_tpu_torch.tools.chaos\n"
+        "import triton_kubernetes_tpu_torch.topology\n"
+        "import triton_kubernetes_tpu_torch.topology.gpus\n"
+        "import triton_kubernetes_tpu_torch.topology.labels\n"
+        "import triton_kubernetes_tpu_torch.topology.daemonsets\n"
+        "import triton_kubernetes_tpu_torch.topology.jobset\n"
+        "import triton_kubernetes_tpu_torch.topology.serving\n"
+        "import triton_kubernetes_tpu_torch.topology.__main__\n"
+        "import triton_kubernetes_tpu_torch.modules.gcp_gpu\n"
+        "import triton_kubernetes_tpu_torch.workflows.providers.gcp_gpu\n"
         "import triton_kubernetes_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"

@@ -269,3 +269,41 @@ def test_cuda_core_prefill_rows_are_the_decode_rows(emu, dtype, kind, d, bs,
         dec = emu("paged_decode", q[0][:, None].contiguous(), kp, vp,
                   table[None].expand(c, tw).contiguous(), lens, ks, vs)
         assert torch.equal(rows[0], dec[:, 0]), (c, offset)
+
+
+# (page kind, D, bs): every tensor-core shape -- bf16, int8 and fp8 pages
+# at bs 16 and 32, D 64 and 128.
+TENSOR_CORE_RECOMPUTE = [(kind, d, bs) for kind in ("bf16", "int8", "fp8")
+                         for bs in (16, 32) for d in (64, 128)]
+
+
+@pytest.mark.parametrize("kind,d,bs", TENSOR_CORE_RECOMPUTE,
+                         ids=[f"{k}-d{d}-bs{b}"
+                              for k, d, b in TENSOR_CORE_RECOMPUTE])
+def test_tensor_core_prefill_rows_are_the_decode_rows(emu, kind, d, bs):
+    """Every row of tensor-core prefill windows is torch.equal to the
+    tensor-core decode kernel's output for that query at its length, on
+    the same pages (group 4): a window at offset 0, one that straddles
+    the first 256-key span of the decode walk -- its second warp's four
+    tokens lie on both sides of it -- and a short one wholly in the second
+    span. The prefill runs the decode's spans, its per-page softmax and
+    sums and its mma chains in its k order, and an emulated mma chain is
+    bitwise itself for a fixed k order, so the rows must be the same bits
+    (fault F9 on the main serve path's pools)."""
+    hq, hkv = 4, 1
+    tw = 320 // bs
+    table, _, (kp, vp, ks, vs) = _pages(70 + bs + d, kind, tw, hkv, bs, d)
+    table = _t(table)
+    assert _kernels.paged_variant(torch.bfloat16, kp.dtype, bs,
+                                  d) == "tensor_core"
+    for c, offset in ((8, 0), (12, 250), (3, 300)):
+        q = _t(_q(c + offset, c, hq, d)).to(torch.bfloat16)
+        rc, rows = emu.prefill(q, kp, vp, table, offset, ks, vs)
+        assert rc == 0
+        lens = torch.arange(offset + 1, offset + c + 1, dtype=torch.int32)
+        dec = emu("paged_decode", q[0][:, None].contiguous(), kp, vp,
+                  table[None].expand(c, tw).contiguous(), lens, ks, vs)
+        differ = (rows[0] != dec[:, 0]).flatten(1).any(1)
+        assert not bool(differ.any()), (c, offset, differ.nonzero()
+                                        .flatten().tolist())
+

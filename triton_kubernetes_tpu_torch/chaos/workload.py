@@ -50,6 +50,7 @@ trace and metrics modules; every arm imports the rest lazily. The
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import os
@@ -82,6 +83,38 @@ TRAIN_LOSS_TOL = 1e-6
 _REPO_ROOT = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", ".."))
 
+#: Seconds a :func:`forking_beside` child holds its parent's pages
+#: copy-on-write before it execs.
+FORK_HOLD_S = 0.02
+
+
+@contextlib.contextmanager
+def forking_beside():
+    """While the block runs, fork a child over and over that keeps the
+    parent's pages copy-on-write for ``FORK_HOLD_S`` and then execs
+    ``true``: what a launcher that forks trainers with a ``preexec_fn``
+    does to the process beside it (the condition of fault F11, a
+    checkpoint's staged bytes going stale under a fork), at a rate no
+    launch reaches. Yields a one-item list: the forks made so far."""
+    stop, forks = threading.Event(), [0]
+    true = shutil.which("true")
+    argv = [true] if true else [sys.executable, "-c", ""]
+
+    def loop() -> None:
+        while not stop.is_set():
+            # A preexec_fn makes subprocess fork rather than vfork.
+            subprocess.run(argv, preexec_fn=lambda: time.sleep(FORK_HOLD_S),
+                           check=False)
+            forks[0] += 1
+
+    thread = threading.Thread(target=loop, daemon=True)
+    thread.start()
+    try:
+        yield forks
+    finally:
+        stop.set()
+        thread.join()
+
 
 class WorkloadArmSkipped(RuntimeError):
     """This environment cannot run the arm (no multi-process collectives,
@@ -108,6 +141,13 @@ _TRAIN_REFERENCE: Dict[Any, Optional[float]] = {}  # -> final loss
 #: preemption; replicas get the router-test shape.
 _PREEMPT_KW = dict(block_size=4, num_blocks=12, max_batch=3,
                    max_model_len=48, prefill_chunk=8)
+#: The preempt pool in 16-token pages (a workload ``block_size`` of 16),
+#: whose paged kernels take their tensor-core designs on the card: 4
+#: usable pages, so 48-token prompts (``long_windows`` 6) whose first
+#: decode token needs a fourth page preempt.
+_PREEMPT_TC_KW = dict(block_size=16, num_blocks=5, max_batch=3,
+                      max_model_len=64, prefill_chunk=16)
+_PREEMPT_POOLS = {4: _PREEMPT_KW, 16: _PREEMPT_TC_KW}
 _REPLICA_KW = dict(block_size=4, num_blocks=32, max_batch=4,
                    max_model_len=64, prefill_chunk=8, prefix_cache=True)
 
@@ -131,6 +171,15 @@ def use_model(config: Any = None, model: Any = None) -> None:
         _MODEL.clear()
         if model is not None:
             _MODEL.append((config, model, True))
+
+
+def preempt_pool(block_size: int = 4) -> Dict[str, Any]:
+    """The engine-preempt arm's pool shape for a workload ``block_size``
+    (4, the default, or 16)."""
+    if block_size not in _PREEMPT_POOLS:
+        raise ValueError(f"no preempt pool of block size {block_size}; "
+                         f"have {sorted(_PREEMPT_POOLS)}")
+    return dict(_PREEMPT_POOLS[block_size])
 
 
 def _model(device: Any):
@@ -157,7 +206,8 @@ def _model(device: Any):
 
 def _engine(key: Tuple[Any, ...], device: Any = "cuda"):
     """Cached (engine, ManualClock) for a shape key:
-    ``("preempt", prefix_cache, spec_k)``, ``("replica", i)``,
+    ``("preempt", prefix_cache, spec_k[, block_size])`` (block size 4
+    unless given), ``("replica", i)``,
     ``("mig-src",)``/``("mig-dst",)`` or ``("solo",)`` (the re-land
     reference twin of the replica shape)."""
     from ..serve.engine import ManualClock, ServeEngine
@@ -168,7 +218,7 @@ def _engine(key: Tuple[Any, ...], device: Any = "cuda"):
     if got is not None:
         return got
     if key[0] == "preempt":
-        kw = dict(_PREEMPT_KW, prefix_cache=bool(key[1]),
+        kw = dict(preempt_pool(*key[3:]), prefix_cache=bool(key[1]),
                   spec_k=int(key[2]))
     else:
         kw = dict(_REPLICA_KW)
@@ -237,11 +287,13 @@ def _arm_engine_preempt(cfg, spec, res, check, recorder, device) -> None:
     mid-decode): a short prompt with a long decode grows into the pool a
     long prefill holds, the engine evicts the latest admission, and the
     victim recomputes. Outputs must not change; pages must converge; the
-    trace must attribute every wait to ``queue``."""
+    trace must attribute every wait to ``queue``. A workload
+    ``block_size`` of 16 runs it in :data:`_PREEMPT_TC_KW`'s pool."""
     from ..serve.engine import Request
 
     mutation = spec.get("mutation")
-    ekey = ("preempt", bool(cfg["prefix_cache"]), int(cfg["spec_k"]))
+    ekey = ("preempt", bool(cfg["prefix_cache"]), int(cfg["spec_k"]),
+            int(cfg.get("block_size", 4)))
     engine, clock = _engine(ekey, device)
     clock.tick = ENGINE_CLOCK_TICK
     long_prompt = [(7 * i + 3) % 29 for i

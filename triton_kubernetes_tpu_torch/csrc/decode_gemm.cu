@@ -118,6 +118,16 @@
 #define TK8S_GEMM_STAGES_128 3
 #endif
 
+// The C entries fall into five groups, which ops/_kernels.py (UNITS) builds
+// as five translation units in parallel, -DTK8S_UNIT=0..4: the template
+// instantiations of each group compile only in its own unit. Without
+// TK8S_UNIT one unit holds every entry.
+#ifdef TK8S_UNIT
+#define TK8S_IN_UNIT(i) (TK8S_UNIT == (i))
+#else
+#define TK8S_IN_UNIT(i) 1
+#endif
+
 namespace {
 
 constexpr int kThreads = 128;  // four warps
@@ -1714,6 +1724,7 @@ int launch(const void* x, const void* const* w, void* const* y,
   return launch_rows<128, Out>(x, g, blocks, m, k, splits, ws, counters, s);
 }
 
+#if TK8S_IN_UNIT(1)
 int launch_f32(const void* x, const void* const* w, void* const* y,
                const int* n, int count, int m, int k, int tile_n,
                int splits, void* ws, void* counters, void* stream) {
@@ -1730,6 +1741,7 @@ int launch_f32(const void* x, const void* const* w, void* const* y,
         (const float*)x, g, m, k, splits, (float*)ws, (int*)counters);
   return (int)cudaGetLastError();
 }
+#endif
 
 template <int MT, int BN, int kStages, bool kInt8, typename Out>
 int launch_w8a8_rows(const void* x, const void* x_scale,
@@ -1807,6 +1819,7 @@ int launch_w8a8(const void* x, const void* x_scale, const void* const* w,
 // splits * min(m, 64) * tile_n floats and one int counter per (column
 // tile, row tile), zero on entry and left zero. Unused w_p, y_p and n_p
 // are ignored.
+#if TK8S_IN_UNIT(0)
 extern "C" int tk8s_decode_gemm_bf16_bf16(
     const void* x, const void* w0, const void* w1, const void* w2, void* y0,
     void* y1, void* y2, int n0, int n1, int n2, int count, int m, int k,
@@ -1817,6 +1830,8 @@ extern "C" int tk8s_decode_gemm_bf16_bf16(
   return launch<__nv_bfloat16>(x, w, y, n, count, m, k, tile_n, splits,
                                workspace, counters, stream);
 }
+#endif
+#if TK8S_IN_UNIT(1)
 extern "C" int tk8s_decode_gemm_bf16_f32(
     const void* x, const void* w0, const void* w1, const void* w2, void* y0,
     void* y1, void* y2, int n0, int n1, int n2, int count, int m, int k,
@@ -1837,6 +1852,7 @@ extern "C" int tk8s_decode_gemm_f32_f32(
   return launch_f32(x, w, y, n, count, m, k, tile_n, splits, workspace,
                     counters, stream);
 }
+#endif
 
 // W8A8: one launch for `count` (1-3) products of xq [m, k] (int8 or
 // float8_e4m3fn bytes, row-major) with weights stored K-contiguous,
@@ -1860,10 +1876,14 @@ extern "C" int tk8s_decode_gemm_f32_f32(
                                    tile_n, splits, workspace, counters,      \
                                    stream);                                  \
   }
+#if TK8S_IN_UNIT(2)
 TK8S_W8A8_ENTRY(tk8s_decode_gemm_s8_bf16, true, __nv_bfloat16)
 TK8S_W8A8_ENTRY(tk8s_decode_gemm_s8_f32, true, float)
+#endif
+#if TK8S_IN_UNIT(3)
 TK8S_W8A8_ENTRY(tk8s_decode_gemm_e4m3_bf16, false, __nv_bfloat16)
 TK8S_W8A8_ENTRY(tk8s_decode_gemm_e4m3_f32, false, float)
+#endif
 
 // The bit probe (gemm_probe_kernel): a [64, 16 steps] (bf16) or [64, 32
 // steps] (s8, e4m3) row-major; b [16 steps, 64] (bf16) or [64, 32 steps]
@@ -1873,7 +1893,9 @@ TK8S_W8A8_ENTRY(tk8s_decode_gemm_e4m3_f32, false, float)
                       void* d_mma, void* d_wg, int steps, void* stream) {  \
     return launch_probe<Op>(a, b, c, d_mma, d_wg, steps, stream);          \
   }
+#if TK8S_IN_UNIT(4)
 TK8S_PROBE_ENTRY(tk8s_gemm_probe_bf16, WgBf16)
 TK8S_PROBE_ENTRY(tk8s_gemm_probe_s8, WgS8)
 TK8S_PROBE_ENTRY(tk8s_gemm_probe_e4m3, WgE4m3Direct)
 TK8S_PROBE_ENTRY(tk8s_gemm_probe_e4m3_f16, WgE4m3)
+#endif

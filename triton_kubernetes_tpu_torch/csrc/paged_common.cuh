@@ -1012,11 +1012,28 @@ __device__ __forceinline__ void paged_span_body(
 }  // namespace
 
 // The six (q dtype, page dtype) pairs of every paged kernel's C entries:
-// ENTRY(suffix, T, KV) is expanded once per pair.
-#define TK8S_PAGED_DTYPES(ENTRY)      \
+// ENTRY(suffix, T, KV) is expanded once per pair. A source that
+// ops/_kernels.py (UNITS) builds as three translation units in parallel,
+// -DTK8S_UNIT=0..2, holds one page kind's pairs in each: the unquantized
+// pages, int8, fp8. Without TK8S_UNIT one unit holds every pair.
+#define TK8S_PAGED_DTYPES_SAME(ENTRY)       \
   ENTRY(bf16, __nv_bfloat16, __nv_bfloat16) \
-  ENTRY(f32, float, float)                  \
-  ENTRY(bf16_int8, __nv_bfloat16, int8_t)   \
+  ENTRY(f32, float, float)
+#define TK8S_PAGED_DTYPES_INT8(ENTRY)     \
+  ENTRY(bf16_int8, __nv_bfloat16, int8_t) \
+  ENTRY(f32_int8, float, int8_t)
+#define TK8S_PAGED_DTYPES_FP8(ENTRY)             \
   ENTRY(bf16_fp8, __nv_bfloat16, __nv_fp8_e4m3) \
-  ENTRY(f32_int8, float, int8_t)            \
   ENTRY(f32_fp8, float, __nv_fp8_e4m3)
+#if !defined(TK8S_UNIT)
+#define TK8S_PAGED_DTYPES(ENTRY) \
+  TK8S_PAGED_DTYPES_SAME(ENTRY)  \
+  TK8S_PAGED_DTYPES_INT8(ENTRY)  \
+  TK8S_PAGED_DTYPES_FP8(ENTRY)
+#elif TK8S_UNIT == 0
+#define TK8S_PAGED_DTYPES(ENTRY) TK8S_PAGED_DTYPES_SAME(ENTRY)
+#elif TK8S_UNIT == 1
+#define TK8S_PAGED_DTYPES(ENTRY) TK8S_PAGED_DTYPES_INT8(ENTRY)
+#else
+#define TK8S_PAGED_DTYPES(ENTRY) TK8S_PAGED_DTYPES_FP8(ENTRY)
+#endif

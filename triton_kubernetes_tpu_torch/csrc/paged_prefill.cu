@@ -48,8 +48,23 @@
 //   row of a warp sees whole runs without the causal mask. With one warp
 //   of 16 rows per scheduler (1,024 rows per KV head at C 256, group 4,
 //   are 512 warps on 132 SMs), the time goes to the latency of each
-//   stage's dependent steps, so every instruction of the softmax counts:
-//   exp is the card's ex2.approx (__expf).
+//   stage's dependent steps.
+//   Each row runs the decode span walk's operations in its order
+//   (paged_common.cuh, paged_span_body), so a window's row is bitwise the
+//   tensor-core decode kernel's output at the row's length (fault F9: a
+//   preempted sequence's recompute takes its next token from a window's
+//   last row where its solo run took it from a decode tick). The key axis
+//   is cut into the decode's spans of TK8S_PAGED_SPAN keys, fixed by
+//   position (four stages each); a row's state restarts from m = NEG_INF,
+//   l = 0, acc = 0 at each span, and the spans below its length are merged
+//   in increasing order with the decode's merge arithmetic: the finished
+//   span into a merged state kept in shared memory, the last one at the
+//   end. Within a span: the decode's per-page online softmax, exp by expf,
+//   a page's sum of p in the span walk's order (each 16-key chunk
+//   pairwise, then across the quad, then the chunks in order), and the
+//   Q K^T and P V chains in its k order (a score over the D/16 k-steps in
+//   order; a page's P V over its 16-key chunks in order, hi then lo on
+//   8-bit pools).
 // - cuda_core (f32 queries, other block sizes and widths):
 //   paged_prefill_kernel below, the products on the CUDA cores in f32. Its
 //   rows are the CUDA-core decode kernel's rows bit for bit: the same
@@ -59,13 +74,14 @@
 //   from the logits its solo run's decode tick gave (fault F9).
 //
 // Rounding order, shared with the plain version (ops/paged_attention.py
-//   `_paged_attention_plain`, one span), so the card holds the kernels to
+//   `_paged_attention_plain`, with the decode's spans where the tensor-core
+//   design runs, `_kernels.paged_span`), so the card holds the kernels to
 //   one bf16 ulp of it: q.k in f32 from q's dtype and K converted exactly,
 //   then times D^-0.5 (then times the page's K scale); the reference's f32
 //   online softmax per page of bs keys, m_new = max(m, page max), p =
 //   exp(s - m_new), corr = exp(m - m_new), l = fmaf(l, corr, sum p) (exp:
-//   expf on the CUDA cores, __expf on the tensor cores -- ex2.approx, a
-//   relative error of a few 1e-6); p rounded to V's dtype before P*V on
+//   expf; on the tensor cores the running max restarts at each span and the
+//   spans are merged, as the decode's); p rounded to V's dtype before P*V on
 //   unquantized pools, kept in f32 on quantized ones (on the tensor cores
 //   p = hi + lo, two bf16 products, |p - hi - lo| <= 2^-16 p), whose page
 //   sums are multiplied by the V scale; acc = fmaf(acc, corr, pv) per page;
@@ -73,22 +89,24 @@
 //
 // Rows independent of the window (tensor-core design): stages are fixed by
 //   key position, never by the offset or the row tile, an mma row does not
-//   see its tile's other rows, and a page past a row's position is an exact
-//   no-op of its softmax (corr 1, p 0). So the output row at position p
-//   has the same bits whatever window it came in -- the identity the
-//   reference pins as making prefix sharing invisible in outputs.
+//   see its tile's other rows, a page past a row's position is an exact
+//   no-op of its softmax (corr 1, p 0), and a row's spans follow from its
+//   position alone. So the output row at position p has the same bits
+//   whatever window it came in -- the identity the reference pins as making
+//   prefix sharing invisible in outputs.
 //
 // What still holds it back (H100 SXM at 700 W, C 256 at offsets 0, 256 and
-//   1,024 summed: bf16 0.099 ms, 0.084 of the bound, int8 0.151, fp8
-//   0.164; SDPA 0.21 -- PERF.md, Findings): each 64-key stage is one
+//   1,024 summed, before the decode's expf and spans: bf16 0.099 ms, 0.084
+//   of the bound, int8 0.151, fp8 0.164; SDPA 0.21 -- PERF.md, Findings):
+//   each 64-key stage is one
 //   chain of dependent steps a warp, per page max shuffles, exp, sum
 //   shuffles, P V and a fold of the whole accumulator, about 1.7 us a
 //   stage where its instructions alone would take ~0.5 us; a fixed ~15 us
 //   a launch (setup, the first stage's DRAM latency) dominates short
 //   windows; 8-bit pages add the conversion pass, a barrier and the second
 //   P V. A running max per stage rather than per page would cut the folds
-//   and shuffles 4x, at the price of a plain version that differs from the
-//   reference's.
+//   and shuffles 4x, at the price of rows that are no longer the decode's
+//   (F9) and a plain version that differs from the reference's.
 #include <type_traits>
 
 #include "paged_common.cuh"
@@ -319,9 +337,14 @@ constexpr int kMmaRows = 16 * kMmaWarps;  // query rows a block
 constexpr int kMmaStageKeys = 64;         // keys a stage, fixed by position
 constexpr int kMmaRing = 3;               // stages in the ring
 
+static_assert(kSpanKeys % kMmaStageKeys == 0,
+              "a span of the decode walk is whole prefill stages");
+
 // Shared memory of one block: the query tile, the ring (K and V of each
 // stage in the page type), on 8-bit pools one stage of K and V converted to
-// bf16, then the walk's page ids (and on 8-bit pools their K and V scales).
+// bf16; on windows that reach past the first span, each thread's merged
+// accumulator of the spans before the current one; then the walk's page
+// ids (and on 8-bit pools their K and V scales).
 template <typename KV, int D>
 struct PrefillSmem {
   static constexpr int kBf16Stride = D + 8;                    // bf16 rows
@@ -333,6 +356,7 @@ struct PrefillSmem {
   static constexpr int kConvBytes =
       is_quant<KV>() ? 2 * kMmaStageKeys * kBf16Stride * 2 : 0;
   static constexpr int kFixedBytes = kQBytes + kRingBytes + kConvBytes;
+  static constexpr int kMergeBytes = kMmaThreads * (D / 2) * 4;
   static constexpr int kPageBytes = is_quant<KV>() ? 12 : 4;  // a page
 };
 
@@ -412,7 +436,13 @@ paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* kb = reinterpret_cast<__nv_bfloat16*>(
       smem_raw + L::kQBytes + L::kRingBytes);  // 8-bit pools: [64][QS]
   __nv_bfloat16* vb = kb + kMmaStageKeys * QS;
-  int* tbl = reinterpret_cast<int*>(smem_raw + L::kFixedBytes);
+  // Merged accumulators, element (nt, e) of thread tid at
+  // (4 nt + e) * kMmaThreads + tid; only a window past the first span has
+  // them.
+  const bool spans = offset + chunk > kSpanKeys;
+  float* a_mrg = reinterpret_cast<float*>(smem_raw + L::kFixedBytes);
+  int* tbl = reinterpret_cast<int*>(smem_raw + L::kFixedBytes +
+                                    (spans ? L::kMergeBytes : 0));
   float* ksc = reinterpret_cast<float*>(tbl + n_pages);
   float* vsc = ksc + n_pages;
 
@@ -483,7 +513,11 @@ paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
                 smem_u32(q_sh + (wr0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
                                     QS +
                          kk * 16 + (lane >> 4) * 8));
+  // (m, l, acc): the softmax state of the current span; (m_mrg, l_mrg,
+  // a_mrg): the spans before it, merged in order.
   float m_run[2] = {TK8S_NEG_INF, TK8S_NEG_INF}, l_run[2] = {0.f, 0.f};
+  float m_mrg[2] = {TK8S_NEG_INF, TK8S_NEG_INF}, l_mrg[2] = {0.f, 0.f};
+  int cur_span = 0;
   float acc[D / 8][4];
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt)
@@ -523,6 +557,36 @@ paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     const int ks = st * kMmaStageKeys;  // first key of the stage
     if (!live_warp || ks > warp_last) continue;  // nothing this warp sees
+    if (ks > 0 && ks % kSpanKeys == 0) {
+      // A span ends. Every row of the warp has keys in it (the warp's rows
+      // lie within 16 positions of warp_last >= ks), so, as the decode's
+      // last block does for each span below a row's length, fold it into
+      // the merged state -- the first span is copied -- and start the next
+      // from fresh state.
+      const bool first = ks == kSpanKeys;
+      float co[2], cs[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float mn = fmaxf(m_mrg[hf], m_run[hf]);
+        co[hf] = expf(m_mrg[hf] - mn);
+        cs[hf] = expf(m_run[hf] - mn);
+        l_mrg[hf] = first ? l_run[hf]
+                          : fmaf(l_mrg[hf], co[hf], __fmul_rn(l_run[hf], cs[hf]));
+        m_mrg[hf] = first ? m_run[hf] : mn;
+        m_run[hf] = TK8S_NEG_INF;
+        l_run[hf] = 0.f;
+      }
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float* a = a_mrg + (4 * nt + e) * kMmaThreads + tid;
+          *a = first ? acc[nt][e]
+                     : fmaf(*a, co[e >> 1], __fmul_rn(acc[nt][e], cs[e >> 1]));
+          acc[nt][e] = 0.f;
+        }
+      cur_span = ks / kSpanKeys;
+    }
     // WHOLE: every row of the warp sees every key of the stage, so no key
     // is masked and every page is visited.
     auto compute = [&](auto whole) {
@@ -578,21 +642,29 @@ paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
           const float m_new = fmaxf(m_run[hf], mx);
+          // The page's sum of p as the span walk adds it: each 16-key
+          // chunk's four values a thread, pairwise, then across the quad,
+          // then the chunks in order (the first added to +0: exact).
           float sum = 0.f;
 #pragma unroll
-          for (int t = 0; t < TPP; ++t)
+          for (int c = 0; c < KPP; ++c) {
+            float pc[2][2];
 #pragma unroll
-            for (int e = 2 * hf; e < 2 * hf + 2; ++e) {
-              const int key = pstart + t * 8 + 2 * t4 + (e & 1);
-              const float p =
-                  WHOLE || key <= rpos[hf] ? __expf(s[pg * TPP + t][e] - m_new)
-                                           : 0.f;
-              s[pg * TPP + t][e] = p;
-              sum += p;
-            }
-          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-          corr[hf] = __expf(m_run[hf] - m_new);
+            for (int t = 0; t < 2; ++t)
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                const int nt = pg * TPP + 2 * c + t, e = 2 * hf + i;
+                const int key = pstart + (2 * c + t) * 8 + 2 * t4 + i;
+                pc[t][i] = WHOLE || key <= rpos[hf] ? expf(s[nt][e] - m_new)
+                                                    : 0.f;
+                s[nt][e] = pc[t][i];
+              }
+            float cs = (pc[0][0] + pc[0][1]) + (pc[1][0] + pc[1][1]);
+            cs += __shfl_xor_sync(0xffffffffu, cs, 1);
+            cs += __shfl_xor_sync(0xffffffffu, cs, 2);
+            sum += cs;
+          }
+          corr[hf] = expf(m_run[hf] - m_new);
           l_run[hf] = fmaf(l_run[hf], corr[hf], sum);
           m_run[hf] = m_new;
         }
@@ -658,7 +730,25 @@ paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int r = wr0 + g + 8 * hf;
     if (r >= tile_rows) continue;
     const int gr = row0 + r;
-    const float l = l_run[hf];
+    // The row's state over every span below its length: the current span
+    // alone, the merged spans (the current one starts past the row), or
+    // the current span merged into them, as the decode's last block ends.
+    float l = l_run[hf];
+    if (cur_span > 0) {
+      const bool live_cur = rpos[hf] >= cur_span * kSpanKeys;
+      const float mn = fmaxf(m_mrg[hf], m_run[hf]);
+      const float co = expf(m_mrg[hf] - mn), cs = expf(m_run[hf] - mn);
+      l = live_cur ? fmaf(l_mrg[hf], co, __fmul_rn(l_run[hf], cs))
+                   : l_mrg[hf];
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+        for (int e = 2 * hf; e < 2 * hf + 2; ++e) {
+          const float a = a_mrg[(4 * nt + e) * kMmaThreads + tid];
+          acc[nt][e] =
+              live_cur ? fmaf(a, co, __fmul_rn(acc[nt][e], cs)) : a;
+        }
+    }
     __nv_bfloat16* o =
         out + ((size_t)(gr / group) * hq + (size_t)h * group + gr % group) *
                   D + 2 * t4;
@@ -676,9 +766,12 @@ int launch_mma(const void* q, const void* k_pages, const void* v_pages,
                const void* block_table, void* out, int chunk, int hkv,
                int group, int offset, float scale, void* stream) {
   using L = PrefillSmem<KV, D>;
-  // The longest walk's pages size the page-id (and scale) table.
+  // The longest walk's pages size the page-id (and scale) table; a
+  // window past the first span holds the merged accumulators.
   const int n_pages = (offset + chunk - 1) / BS + 1;
-  const size_t smem = L::kFixedBytes + (size_t)L::kPageBytes * n_pages;
+  const size_t smem = L::kFixedBytes +
+                      (offset + chunk > kSpanKeys ? L::kMergeBytes : 0) +
+                      (size_t)L::kPageBytes * n_pages;
   static std::atomic<unsigned long long> raised{0};
   cudaError_t e =
       raise_smem_limit(paged_prefill_mma_kernel<KV, D, BS>, raised);

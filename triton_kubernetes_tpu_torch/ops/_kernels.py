@@ -9,6 +9,9 @@ use, on the machine with the card, by
 into ``triton_kubernetes_tpu_torch/_build/`` (listed in ``.gitignore``),
 with ``-DTK8S_PAGED_SPAN=`` :data:`PAGED_SPAN_KEYS`;
 ``-Xptxas -v`` puts each kernel's registers and spills in the build log.
+A source listed in :data:`UNITS` is compiled as that many translation
+units (``-c -DTK8S_UNIT=i``, each holding a share of its C entries) that
+build in parallel with everything else, then linked into one library.
 The library name carries a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. The library is
 loaded with ``ctypes``: pointers and the stream are ``c_void_p``, ints
@@ -23,6 +26,7 @@ that names ``nvcc``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -30,6 +34,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, NamedTuple, Optional, Sequence, Tuple
 
@@ -49,6 +54,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("paged_decode", "paged_verify", "paged_prefill", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv", "decode_gemm", "rms_norm",
            "quantize_rows")
+# Sources compiled as several translation units in parallel (their C
+# entries split by ``TK8S_UNIT``): the decode GEMM's five entry groups,
+# and the prefill and verify kernels' three page kinds, whose template
+# instantiations take far longer to compile than any other source.
+UNITS = {"decode_gemm": 5, "paged_prefill": 3, "paged_verify": 3}
 PAGED_KERNELS = ("paged_decode", "paged_verify", "paged_prefill")
 # What a serving engine launches: the paged kernels, the row-invariant
 # GEMM and norm, and W8A8's quantizer.
@@ -302,18 +312,30 @@ def find_nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(repr(sorted(UNITS.items())).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def _run(cmd) -> Tuple[int, str, float]:
+    """A compiler command's exit code, output and seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
-    """Compile every named kernel whose library is missing, all ``nvcc``
-    processes started together; returns {name: compiler log}. Raises
+    """Compile every named kernel whose library is missing, every ``nvcc``
+    process (each translation unit of :data:`UNITS`) started together;
+    returns {name: compiler log}, each log ending in a line ``built NAME
+    in S s`` (the longest unit's seconds, and the link's). Raises
     ``RuntimeError`` with the compiler's output if a build fails."""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    unit_flags = [f for f in NVCC_FLAGS if f != "-shared"] + ["-c"]
     jobs = {}
     for name in names:
         if name not in _SIGNATURES:
@@ -323,18 +345,37 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
             continue
         fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp, out)
+        src = str(CSRC / f"{name}.cu")
+        if name in UNITS:
+            objs = [f"{tmp}.{i}.o" for i in range(UNITS[name])]
+            cmds = [[nvcc, *unit_flags, f"-DTK8S_UNIT={i}", "-o", obj, src]
+                    for i, obj in enumerate(objs)]
+        else:
+            objs = []
+            cmds = [[nvcc, *NVCC_FLAGS, "-o", tmp, src]]
+        jobs[name] = (tmp, out, objs, cmds)
+    flat = [(name, cmd) for name, (*_, cmds) in jobs.items() for cmd in cmds]
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(flat))) as pool:
+        done = list(pool.map(lambda job: _run(job[1]), flat))
     logs: Dict[str, str] = {}
     failed = []
-    for name, (proc, tmp, out) in jobs.items():
-        log, _ = proc.communicate()
-        logs[name] = log
-        if proc.returncode != 0:
+    for name, (tmp, out, objs, _) in jobs.items():
+        mine = [r for (n, _), r in zip(flat, done) if n == name]
+        log = "".join(text for _, text, _ in mine)
+        seconds = max(s for _, _, s in mine)
+        rc = max(code for code, _, _ in mine)
+        if rc == 0 and objs:
+            rc, text, s = _run([nvcc, *NVCC_FLAGS[:2], "-shared",
+                                "-o", tmp, *objs])
+            log += text
+            seconds += s
+        for obj in objs:
+            if os.path.exists(obj):
+                os.unlink(obj)
+        logs[name] = log + f"built {name} in {seconds:.1f} s\n"
+        if rc != 0:
             os.unlink(tmp)
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{name} (nvcc exit {rc}):\n{log}")
         else:
             os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
     if failed:

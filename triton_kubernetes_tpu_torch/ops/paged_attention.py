@@ -37,8 +37,8 @@ The plain versions follow the kernels' steps: scores in f32 from the
 input-dtype operands (8-bit K converted exactly), times ``D ** -0.5``,
 then times the page's K scale when quantized; an online softmax over one
 page of keys at a time, in f32, whose running max restarts at every span
-of ``_kernels.PAGED_SPAN_KEYS`` keys where the decode and verify kernels
-run their tensor-core design (``_kernels.paged_span``); ``p`` rounded to
+of ``_kernels.PAGED_SPAN_KEYS`` keys where the decode, verify and prefill
+kernels run their tensor-core design (``_kernels.paged_span``); ``p`` rounded to
 V's dtype before ``P @ V`` on unquantized pools, kept in f32 on quantized
 ones, where each page's ``P @ V`` is multiplied by its V scale; ``acc /
 l`` where ``l > 0``, else 0. Pages the kernels never visit (at or past
@@ -411,7 +411,10 @@ def paged_prefill_attention(
         positions = offset + torch.arange(c, device=q.device)[None]
         kv_len = torch.full((1,), offset + c, device=q.device)
         return _paged_attention_plain(q, kk, vv, positions, kv_len,
-                                      k_pages.shape[2], ks, vs)
+                                      k_pages.shape[2], ks, vs,
+                                      _kernels.paged_span(
+                                          q.dtype, k_pages.dtype,
+                                          *k_pages.shape[2:]))
     out = _kernels.paged_prefill(q, k_pages, v_pages, block_table, offset,
                                  k_scale, v_scale)
     paged_prefill_attention.launches += 1

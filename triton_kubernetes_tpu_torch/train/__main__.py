@@ -32,7 +32,9 @@ JobSet injects (``topology/jobset.py``): ``JAX_COORDINATOR_ADDRESS``
 the run exits ``EXIT_UNSUPPORTED`` (69) with a typed reason instead of
 hanging, as it does when the device has no collectives backend (NCCL on
 the card, gloo on the CPU; nothing falls back). Each process drives one
-device (``cuda:rank``). The mesh flags ``--data`` (0 = the processes the
+device: ``cuda:LOCAL_RANK`` where the pod runs one process a GPU of its
+host (``GPUS_PER_HOST`` set, ``parallel/host_launch.py``), else
+``cuda:rank``. The mesh flags ``--data`` (0 = the processes the
 other axes leave), ``--stage``, ``--fsdp`` (-1 absorbs the rest),
 ``--seq``, ``--tensor`` lay the ranks out (``parallel/mesh.py``);
 ``--microbatches`` feeds GPipe under ``--stage``; ``--ring-attention``
@@ -113,6 +115,7 @@ class DistributedEnv:
     coordinator: str               # host:port of worker 0
     process_id: int                # this worker's rank
     num_processes: Optional[int]   # None = not given
+    local_rank: Optional[int] = None  # the host's GPU; None = not given
 
 
 def parse_distributed_env(
@@ -124,8 +127,12 @@ def parse_distributed_env(
     ``JAX_COORDINATOR_ADDRESS`` selects JobSet mode; the worker id comes
     from ``TPU_WORKER_ID`` falling back to ``JOB_COMPLETION_INDEX``
     falling back to 0; world size from ``NUM_TPU_WORKERS`` (0/unset = not
-    given). Malformed values raise :class:`DistributedEnvError` -- never a
-    downstream hang."""
+    given). Where ``GPUS_PER_HOST`` g is set, those name the host: a GPU
+    pool's pod holds every GPU of its host and starts one process a GPU
+    (``parallel/host_launch.py``), each with ``LOCAL_RANK`` j, which is
+    rank ``worker * g + j`` of ``NUM_TPU_WORKERS * g`` and drives
+    ``cuda:j``. Malformed values raise :class:`DistributedEnvError` --
+    never a downstream hang."""
     env = os.environ if environ is None else environ
     coord = (env.get("JAX_COORDINATOR_ADDRESS") or "").strip()
     if not coord:
@@ -161,8 +168,38 @@ def parse_distributed_env(
             raise DistributedEnvError(
                 f"TPU_WORKER_ID={wid} out of range for "
                 f"NUM_TPU_WORKERS={num}")
-    return DistributedEnv(coordinator=coord, process_id=wid,
-                          num_processes=num)
+    per_host = _env_int(env, "GPUS_PER_HOST")
+    if per_host is None:
+        return DistributedEnv(coordinator=coord, process_id=wid,
+                              num_processes=num)
+    if per_host < 1:
+        raise DistributedEnvError(f"GPUS_PER_HOST={per_host} must be >= 1")
+    local = _env_int(env, "LOCAL_RANK")
+    if local is None and per_host > 1:
+        raise DistributedEnvError(
+            f"GPUS_PER_HOST={per_host} without LOCAL_RANK: start the pod's "
+            f"ranks through python -m "
+            f"triton_kubernetes_tpu_torch.parallel.host_launch")
+    local = local or 0
+    if not 0 <= local < per_host:
+        raise DistributedEnvError(
+            f"LOCAL_RANK={local} out of range for GPUS_PER_HOST={per_host}")
+    return DistributedEnv(
+        coordinator=coord, process_id=wid * per_host + local,
+        num_processes=None if num is None else num * per_host,
+        local_rank=local)
+
+
+def _env_int(env: Mapping[str, str], name: str) -> Optional[int]:
+    """``env[name]`` as an integer, None when unset or blank."""
+    raw = (env.get(name) or "").strip()
+    if not raw:
+        return None
+    try:
+        return int(raw)
+    except ValueError:
+        raise DistributedEnvError(f"{name}={raw!r} is not an integer") \
+            from None
 
 
 def _maybe_init_distributed(mode: str, device_type: str, log) -> bool:
@@ -192,10 +229,12 @@ def _maybe_init_distributed(mode: str, device_type: str, log) -> bool:
     require_multihost(device_type)
     backend = backend_for(device_type)
     if device_type == "cuda":
-        torch.cuda.set_device(denv.process_id % torch.cuda.device_count())
+        torch.cuda.set_device(
+            denv.local_rank if denv.local_rank is not None
+            else denv.process_id % torch.cuda.device_count())
     log.log("info", "distributed init", backend=backend,
             coordinator=denv.coordinator, process_id=denv.process_id,
-            num_processes=denv.num_processes)
+            num_processes=denv.num_processes, local_rank=denv.local_rank)
     dist.init_process_group(backend,
                             init_method=f"tcp://{denv.coordinator}",
                             rank=denv.process_id,

@@ -65,6 +65,7 @@ import concurrent.futures
 import dataclasses
 import hashlib
 import json
+import mmap
 import os
 import shutil
 import threading
@@ -279,13 +280,30 @@ def _fsync_dir(path: str) -> None:
 
 # ------------------------------------------------------------ host staging
 
+def host_arena(nbytes: int) -> torch.Tensor:
+    """``nbytes`` of zeroed host memory to page-lock: an anonymous mapping
+    of its own (page-aligned, no other object on its pages) that a forked
+    child does not inherit (``MADV_DONTFORK``). A page the card copies
+    into must keep its physical frame: a fork marks the parent's pages
+    copy-on-write, and a CPU write to such a page while the child lives
+    (an object beside a small arena on the heap, say) moves the parent to
+    a new frame the card never writes, so the bytes a save writes are
+    stale (fault F11: trainer processes started beside a saving process).
+    The tensor keeps the mapping alive."""
+    region = mmap.mmap(-1, max(nbytes, 1))
+    if hasattr(mmap, "MADV_DONTFORK"):
+        region.madvise(mmap.MADV_DONTFORK)
+    return torch.frombuffer(region, dtype=torch.uint8, count=nbytes)
+
+
 class HostStaging:
     """Host memory that checkpoint copies land in, held by one save at a
     time: a second :meth:`acquire` waits until the first save's writer
     has released it. Leaves on a card land in one **pinned arena**, so the
     device-to-host copies run asynchronously on the stream at full rate:
-    plain host memory, its pages first touched by torch's threaded
-    ``zero_`` and then page-locked with ``cudaHostRegister`` -- exactly
+    an anonymous mapping of its own (:func:`host_arena`), its pages first
+    touched by torch's threaded ``zero_`` and then page-locked with
+    ``cudaHostRegister`` -- exactly
     the bytes asked for, where torch's pinned allocator rounds every
     block up to a power of two (a 23 GB checkpoint would pin 32 GB).
     Page-locking costs about half a second a GB, so the arena outlives a
@@ -323,7 +341,7 @@ class HostStaging:
         if total and (self._arena is None or self._arena.numel() < total):
             self._drop_arena()
             t0 = time.perf_counter()
-            arena = torch.empty(total, dtype=torch.uint8)
+            arena = host_arena(total)
             arena.zero_()  # fault the pages in on every core first
             torch.cuda.check_error(torch.cuda.cudart().cudaHostRegister(
                 arena.data_ptr(), total, 0))
