@@ -151,7 +151,9 @@ must stay within 750 s of its 1,200 s limit.
    torn transfer (a bit flipped in the middle of the pages, a copy cut
    there: each refused with ``TornPayloadError``, the destination's pool
    ``torch.equal`` to before and its pages in use unchanged, the session
-   then resumed on the source to the baseline's tokens); a ``migration``
+   then resumed on the source to the baseline's tokens) -- the handoffs
+   and drains on every other request of the 12 (4 base, 2 repetitive),
+   each held to the whole run's tokens; a ``migration
    JSON line gives payload bytes, export and import ms and GB/s and
    sha256 alone, by pool kind. Then HTTP serving on the same 12 requests
    (``http_phase``): A, the 12 fired at once at one ``ServeHTTPServer``
@@ -180,22 +182,29 @@ must stay within 750 s of its 1,200 s limit.
    above 0; the windows' cuBLAS products before the repair are run too,
    for the before/after count and device time, not asserted). Then W8A8: the 8B
    model quantized to int8 and to fp8 (``weight_dtype`` = ``matmul_dtype``),
-   each served at spec_k 0 and 3 on the 12 requests -- spec-on tokens
+   each served at spec_k 0 and 3 on 8 of the 12 requests (4 base, the 4
+   repetitive) -- spec-on tokens
    asserted equal to spec-off, launches of kernels A and B counted as
    above (kernel A standalone once a layer, in the norms as often as the
-   norms run, in the SwiGLU once a layer) -- and its first-token logits:
-   int8 with kernels A (every form) and B ``torch.equal`` to their plain
-   versions, and the whole kernel path
-   within a fixed limit a dtype of the plain path (0.05 cannot hold: a
-   quantizer turns a one-ulp difference upstream into a quantum), which
-   two controls in the kernels' place (the product in bf16; W8A16) must
-   exceed (with the norms and the SwiGLU handing those arms their
-   unquantized rows, ``plain_row_ops``); printed against the bf16
-   model's; F2 again under W8A8 int8; a profiled W8A8 int8 prefill
+   norms run, in the SwiGLU once a layer) -- and its check per layer: the
+   quantized model's plain path runs the probe prompt once, keeping each
+   layer boundary's residual stream, and every layer is then fed that
+   plain input on the kernel path, on two controls in the place of kernels
+   A and B (the product in bf16; W8A16; the norms and the SwiGLU handing
+   them their unquantized rows, ``plain_row_ops``) and on A and B's plain
+   versions: each layer's output (its attention and MLP deltas) within a
+   fixed limit a dtype of the plain layer's at every layer on the kernel
+   path, past it at every layer for both controls, every layer's three
+   readings printed (int8: A and B ``torch.equal`` to their plain
+   versions, by layer and at full depth; 0.05 cannot hold: a quantizer
+   turns a one-ulp difference upstream into a quantum); the full-depth
+   first-token logits printed against the plain path's, two plain paths'
+   and the bf16 model's, deciding nothing; F2 again under W8A8 int8; a
+   profiled W8A8 int8 prefill
    window and decode tick, each of which must run kernel B, no cuBLAS
    GEMM, 2 x layers + 1 quantizing norms, and one fused SwiGLU and one
    standalone kernel A (wo's input) a layer; and one weight-only int8 run
-   of the 8 requests (``matmul_dtype`` auto: the dequantize path);
+   of 4 of the 8 requests (``matmul_dtype`` auto: the dequantize path);
 4b. mixtral -- ``mixtral-8x7b`` at full width (D 4096, F 14336, E 8,
    K 2, V 32000), random bf16 weights from seed 0, capacity factor 4.0
    (E / K: dropless). Serve, cut to 4 of 32 layers (11.8 GB of
@@ -267,9 +276,12 @@ must stay within 750 s of its 1,200 s limit.
    restore's verify, read and copy seconds, SIGTERM-to-exit, the prefetch
    wait per window, the ledgers, and A's step times and MFU; the
    checkpoints are deleted at the end.
-6. distributed -- phase 5's cut as GPipe on the card, the ring at n = 1,
-   the entry point under a one-rank NCCL world, blockwise attention
-   against the flash kernels, the fused exchange against the sharded step;
+6. distributed -- phase 5's cut as GPipe on the card, the ring at n = 1
+   and the entry point under a one-rank NCCL world (each 3 of phase 5's
+   steps, their losses phase 5's first three), blockwise attention
+   against the flash kernels, the fused exchange against the sharded
+   step; run beside the durability arm B once arm A has ended (B then
+   mostly waits on the disk), so its printed times are taken beside B;
 7. expert -- ``mixtral-8x7b`` at full width cut to 2 layers, B 1 x 2048:
    the expert-1 step in this process (its expert choices recorded, its
    gradients kept), freed, then a gloo world of two processes on cuda:0
@@ -278,7 +290,23 @@ must stay within 750 s of its 1,200 s limit.
    bitwise or within 1e-6 relative of the expert-1 step's, the routers',
    wq's and its first expert's gradients within phase 4b's bound, flash
    launches 4/2/2; the choices that move when it routes for itself; each
-   rank's step ms and peak memory;
+   rank's step ms and peak memory. Then MoE under GPipe with its rows
+   split: the one-process GPipe run (2 stages, 2 microbatches, B 4 x 512,
+   capacity factor 1.25: tokens drop; its routing recorded), freed, then
+   a gloo world of four processes on cuda:0 at ``stage`` 2 x ``data`` 2
+   (``chip_smoke.py --gpipe-moe-worker``; each rank one layer and one row
+   of each microbatch, its share of the global microbatch as the batch
+   placer gives it; the stage shift through host memory, since gloo
+   sends no CUDA tensor): each rank probes all_reduce, all_gather,
+   reduce_scatter and the shift on CUDA tensors, then one forward and
+   backward on the recorded routing (replayed by content), its loss
+   within 1e-4 relative (phase 5's bound of two valid paths: its products
+   run on half the rows) and its aux loss bitwise or within 1e-6 of the
+   one-process run's, its stage's router, wq and first expert's w1 and
+   w2 gradients (summed over data) within phase 4b's bound, flash
+   launches 4/2/2, the dropped
+   assignments over the ranks equal to the one-process run's and above 0;
+   each rank's peak memory printed;
 8. chaos -- the workload fault arms of ``triton_kubernetes_tpu_torch/
    chaos`` with every engine serving ``llama3-8b`` at full width and depth
    (random bf16 weights from seed 0) in the arms' own pools (block size 4:
@@ -308,7 +336,7 @@ must stay within 750 s of its 1,200 s limit.
    step; rank 0 exits 3 at step 2; the resumed final loss within 1e-6 of
    an uninterrupted run, every rank trace passing the goodput check, the
    flash kernels launched). While it finishes, F11's check: the
-   reshard-torn-checkpoint arm 40 times or more beside a loop of forks
+   reshard-torn-checkpoint arm 10 times or more beside a loop of forks
    that hold the pages copy-on-write, every restore with its step's
    values. Prints a ``{"chaos": ...}`` line: verdicts,
    checked invariants, preemptions, seconds and launches by kernel and
@@ -331,7 +359,9 @@ traced and migration runs, and stops (``DIR/chip_smoke_migration.json``);
 three flash kernels, then runs phase 5 with its kill and resume arms
 (``DIR/chip_smoke_train.json``, the arms' reports and traces beside it);
 ``--mixtral-only`` builds every kernel and runs phase 4b
-(``DIR/chip_smoke_mixtral.json``); ``--expert-only`` builds and checks the
+(``DIR/chip_smoke_mixtral.json``); ``--w8a8-only`` builds every kernel and
+runs phase 4's W8A8 check on the 8B, without its serve runs
+(``DIR/chip_smoke_w8a8.json``); ``--expert-only`` builds and checks the
 three flash kernels and runs phase 7 (``DIR/chip_smoke_expert.json``);
 ``--chaos-only`` builds every kernel and runs phase 8
 (``DIR/chip_smoke_chaos.json``).
@@ -2730,6 +2760,32 @@ def migration_only(card, http_only=False):
                 traced_and_migration_s=took)
 
 
+def w8a8_only(card):
+    """``--w8a8-only``: the 8B model, the bf16 kernels' first-token logits
+    of the probe, and :func:`w8a8_logits_check` for int8 and fp8: the
+    per-layer readings, without the serve runs."""
+    from triton_kubernetes_tpu_torch.models import (get_config, init_params,
+                                                    paged, quantize_weights)
+    from triton_kubernetes_tpu_torch.serve import Request
+
+    cfg = get_config("llama3-8b")
+    model = init_params(cfg, seed=0, device="cuda")
+    requests = make_requests(cfg, Request)
+    probe = requests[4].tokens
+    with torch.inference_mode():
+        bf16_logits = first_token_logits(model, cfg, probe, None, paged)
+    out = {}
+    for wd in ("int8", "fp8"):
+        qmodel = quantize_weights(model, wd)
+        qcfg = dataclasses.replace(cfg, weight_quant=wd, matmul_dtype=wd)
+        out[wd] = w8a8_logits_check(qmodel, qcfg, probe, bf16_logits, wd,
+                                    card, requests[4].request_id)
+        del qmodel
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def repetitive_requests(cfg, Request):
     """4 prompts of 300-700 copies of one seeded token: a motif tiled so far
     that this random-weight model settles into repeating its own output,
@@ -3063,6 +3119,15 @@ MIGRATION_DRAINS = (("bf16", SPEC_K), ("int8", 0))
 # migration phase's own handoffs take the other five.
 HTTP_HANDOFF = ("int8", SPEC_K)
 DRAIN_AFTER_TICKS = 4
+# The migration phase's handoffs and drains serve half of the 12 requests
+# (every other one: 4 of the 8 base ones, r0 among them for the prefix
+# check, and 2 of the 4 repetitive ones, whose drafts are accepted), on
+# SPEC_ARRIVALS' ticks; a request's tokens do not depend on which others
+# share its ticks (rows bitwise across row counts), so each is still held
+# to the whole run's.
+MIGRATION_REQUESTS = tuple(range(0, 12, 2))
+MIGRATION_ARRIVALS = {t: [i for i in ids if i in MIGRATION_REQUESTS]
+                      for t, ids in SPEC_ARRIVALS.items()}
 
 
 def served_engine(model, cfg, kind="bf16", spec_k=0):
@@ -3143,7 +3208,8 @@ def _check_migrated(tag, done, reqs, base, launches, spec_k):
         raise AssertionError(f"{tag}: {missing} never finished")
     same, first = tokens_equal({"tokens": done}, base, reqs)
     total = sum(len(done[r.request_id]) for r in reqs)
-    if same != total or total != base["generated_tokens"]:
+    if same != total or total != sum(len(base["tokens"][r.request_id])
+                                     for r in reqs):
         raise AssertionError(f"{tag}: {same}/{total} tokens equal to the "
                              f"unmigrated run, first differences {first}")
     ran = ["paged_prefill", "paged_decode"] + (["paged_verify"]
@@ -3161,7 +3227,8 @@ def _drained(tag, *engines):
 
 
 def handoff_run(model, cfg, kind, spec_k, reqs, base, prefix_check=False):
-    """The source serves the 12 requests with ``handoff=True``: each
+    """The source serves the MIGRATION_REQUESTS of the 12 (``reqs``) with
+    ``handoff=True``: each
     finishes with "handoff" after its first token and is shipped to the
     destination as it finishes, which decodes it to the end, both engines
     stepping in one loop."""
@@ -3176,8 +3243,8 @@ def handoff_run(model, cfg, kind, spec_k, reqs, base, prefix_check=False):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     first, done, tick = {}, {}, 0
-    while src.has_work or dst.has_work or tick <= max(SPEC_ARRIVALS):
-        for i in SPEC_ARRIVALS.get(tick, []):
+    while src.has_work or dst.has_work or tick <= max(MIGRATION_ARRIVALS):
+        for i in MIGRATION_ARRIVALS.get(tick, []):
             src.submit(hreqs[i])
         for d in src.step():
             if d.finish_reason != "handoff":
@@ -3198,7 +3265,8 @@ def handoff_run(model, cfg, kind, spec_k, reqs, base, prefix_check=False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
-    same, total = _check_migrated(tag, done, reqs, base, launches, spec_k)
+    mine = [reqs[i] for i in MIGRATION_REQUESTS]
+    same, total = _check_migrated(tag, done, mine, base, launches, spec_k)
     prefix = prefix_reference_check(src, dst, reqs, base) \
         if prefix_check else None
     _drained(tag, src, dst)
@@ -3255,7 +3323,8 @@ def prefix_reference_check(src, dst, reqs, base):
 
 
 def drain_run(model, cfg, kind, spec_k, reqs, base, torn_check=False):
-    """The source serves the 12 requests; after DRAIN_AFTER_TICKS decode or
+    """The source serves the MIGRATION_REQUESTS of the 12 (``reqs``); after
+    DRAIN_AFTER_TICKS decode or
     verify ticks every id in ``exportable_sessions()`` is exported,
     imported into the destination and released on the source, and both run
     to the end (with ``torn_check``, once two sessions are exportable). With
@@ -3275,8 +3344,8 @@ def drain_run(model, cfg, kind, spec_k, reqs, base, torn_check=False):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done, tick, drained, torn = {}, 0, [], None
-    while src.has_work or dst.has_work or tick <= max(SPEC_ARRIVALS):
-        for i in SPEC_ARRIVALS.get(tick, []):
+    while src.has_work or dst.has_work or tick <= max(MIGRATION_ARRIVALS):
+        for i in MIGRATION_ARRIVALS.get(tick, []):
             src.submit(reqs[i])
         for eng in (src, dst):
             for d in eng.step():
@@ -3305,7 +3374,9 @@ def drain_run(model, cfg, kind, spec_k, reqs, base, torn_check=False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
-    same, total = _check_migrated(tag, done, reqs, base, launches, spec_k)
+    same, total = _check_migrated(tag, done, [reqs[i] for i in
+                                              MIGRATION_REQUESTS],
+                                  base, launches, spec_k)
     _drained(tag, src, dst)
     del src, dst
     gc.collect()
@@ -3791,16 +3862,21 @@ def http_entry_point_arm(cfg, card, payloads):
     with tempfile.TemporaryDirectory() as tmp:
         traces = [str(Path(tmp) / f"{n}.jsonl") for n in ("s0", "s1", "r")]
         try:
-            urls = []
-            for i in range(2):
-                extra = serve_extra + ["--trace-jsonl", traces[i]]
-                print(f"http[C]: replica {i}: the rendered serve "
-                      f"Deployment's argv {serve_argv} + appended {extra}",
-                      flush=True)
-                proc, url = start_entry_point(serve_argv + extra,
-                                              Path(tmp) / f"s{i}.log")
-                procs.append(proc)
-                urls.append(url)
+            # The two replicas start side by side (each its own 8B init).
+            starts = []
+            with concurrent.futures.ThreadPoolExecutor(2) as ex:
+                for i in range(2):
+                    extra = serve_extra + ["--trace-jsonl", traces[i]]
+                    print(f"http[C]: replica {i}: the rendered serve "
+                          f"Deployment's argv {serve_argv} + appended "
+                          f"{extra}", flush=True)
+                    starts.append(ex.submit(start_entry_point,
+                                            serve_argv + extra,
+                                            Path(tmp) / f"s{i}.log"))
+                for f in starts:
+                    if f.exception() is None:
+                        procs.append(f.result()[0])
+            urls = [f.result()[1] for f in starts]
             route_argv = rendered_argv(serving.render_router_deployment(
                 "chip-route", "tk8s/torch-cuda-runtime", urls))
             extra = ["--route-host", "127.0.0.1", "--port", "0",
@@ -3883,25 +3959,92 @@ def w8a16_rows(x, qs, scales, out):
                      ).to(out) for q, s in zip(qs, scales)]
 
 
-# The W8A8 first-token logits' limit, relative L2 of the kernel path
-# against the same quantized model's plain path on the 8B probe: midway
-# between the sound kernels' reading and the nearest control's, both as
-# read on the current kernels and plain versions (H100 80GB HBM3, 700 W;
-# PERF.md), so each side has the same room. A quantizer turns a one-ulp
-# difference upstream into a whole quantum, so the bf16 paths' 0.05
-# cannot hold here; and two valid plain paths differ by more than the
-# limit (int8 0.24, fp8 0.38), so a change of rounding order upstream
-# moves the sound reading and the limit must be set anew from readings.
-W8A8_SOUND_READING = {"int8": 0.13742, "fp8": 0.26297}
-W8A8_NEAREST_CONTROL = {"int8": 0.21843, "fp8": 0.34255}
-W8A8_LOGITS_LIMIT = {
-    wd: round((W8A8_SOUND_READING[wd] + W8A8_NEAREST_CONTROL[wd]) / 2, 5)
-    for wd in W8A8_SOUND_READING}
-# The controls the W8A8 logits comparison must reject: each takes the
-# place of kernels A and B on the serving steps (everything else the same
-# kernels), and its first-token logits must sit past the dtype's limit.
+# The W8A8 check is per layer: the quantized 8B's plain path (every row
+# op and attention plain) runs the probe prompt once and keeps each layer
+# boundary's residual stream; then every layer is fed that plain input
+# (``layer_boundaries``) on the kernel path, on each of ``W8A8_CONTROLS``
+# in the place of kernels A and B, and on the plain versions of A and B,
+# and its output -- the two residual deltas it adds, attention's and the
+# MLP's, over the prompt's rows -- is held to the plain layer's, relative
+# L2. A quantizer turns a one-ulp difference upstream into a whole
+# quantum, so at full depth two valid plain paths differ by more than a
+# sound kernel does (int8 0.24, fp8 0.38); fed the plain input, a layer's
+# error does not grow with depth. The limit a dtype is midway between the
+# kernel path's worst layer and the nearest control's best layer as read
+# on the current kernels and plain versions (H100 80GB HBM3, 700 W;
+# PERF.md), so each side has the same room; the full-depth first-token
+# numbers are printed beside them and decide nothing.
+W8A8_LAYER_SOUND_READING = {"int8": 0.00068, "fp8": 0.00113}
+W8A8_LAYER_NEAREST_CONTROL = {"int8": 0.01420, "fp8": 0.01937}
+W8A8_LAYER_LIMIT = {
+    wd: (None if W8A8_LAYER_SOUND_READING[wd] is None else round(
+        (W8A8_LAYER_SOUND_READING[wd] + W8A8_LAYER_NEAREST_CONTROL[wd]) / 2,
+        5)) for wd in W8A8_LAYER_SOUND_READING}
+# The controls the W8A8 check must reject: each takes the place of
+# kernels A and B on the serving steps (everything else the same kernels),
+# and its best layer must sit past the dtype's limit.
 W8A8_CONTROLS = (("bf16 product", bf16_product_rows),
                  ("W8A16", w8a16_rows))
+
+
+# The W8A8 serve runs take 8 of the 12 requests: the first four base
+# ones and the four repetitive ones (whose drafts the spec_k 3 runs
+# accept), on SPEC_ARRIVALS' ticks.
+W8A8_REQUESTS = (0, 1, 2, 3, 8, 9, 10, 11)
+# The weight-only (dequantize path) run's requests, of the 8 base ones.
+DEQUANT_REQUESTS = (0, 1, 2, 3)
+
+
+@contextlib.contextmanager
+def layer_boundaries(deltas, xs=None, forced=None):
+    """The serving steps' layer boundaries (``paged._serve_layers``: each
+    residual add and the norm after it, one launch), as they stand when
+    entered (kernels, or ``plain_row_ops``' swaps): every boundary's delta
+    -- the attention or MLP output it adds -- is appended to ``deltas``,
+    and with ``xs`` the residual stream it hands on (``x + delta``). With
+    ``forced`` (an earlier run's ``xs``, in order) a boundary hands on that
+    stream instead, and its norm of it: each sub-block is then fed the
+    other run's input."""
+    from triton_kubernetes_tpu_torch.models import paged
+
+    saved = (paged.add_rms_norm_rows, paged.add_rms_norm_quant_rows)
+    feed = iter(forced) if forced is not None else None
+
+    def wrap(fn):
+        def boundary(x, delta, *rest):
+            deltas.append(delta.clone())
+            if feed is not None:
+                x, delta = next(feed), torch.zeros_like(delta)
+            out = fn(x, delta, *rest)
+            if xs is not None:
+                xs.append(out[0].clone())
+            return out
+        return boundary
+
+    paged.add_rms_norm_rows, paged.add_rms_norm_quant_rows = map(wrap,
+                                                                  saved)
+    try:
+        yield
+    finally:
+        paged.add_rms_norm_rows, paged.add_rms_norm_quant_rows = saved
+
+
+def layer_errors(deltas, want, layers, rows):
+    """Relative L2 of each layer's output -- its two deltas over the
+    windows' real rows (``rows``: real rows a window, in order) -- against
+    ``want``'s, and whether each is bitwise."""
+    errs, same = [], []
+    for i in range(layers):
+        got, ref = [], []
+        for w, n in enumerate(rows):
+            for j in (2 * i, 2 * i + 1):
+                k = w * 2 * layers + j
+                got.append(deltas[k][:, :n].reshape(-1))
+                ref.append(want[k][:, :n].reshape(-1))
+        got, ref = torch.cat(got), torch.cat(ref)
+        errs.append(rel_l2(got, ref))
+        same.append(bool(torch.equal(got, ref)))
+    return errs, same
 
 
 @contextlib.contextmanager
@@ -3947,17 +4090,134 @@ def plain_row_ops(w8a8_only=False, w8a8_rows=plain_w8a8_rows):
          paged.add_rms_norm_quant_rows) = saved
 
 
+def w8a8_logits_check(qmodel, qcfg, probe, bf16_logits, wd, card, rid):
+    """The W8A8 check of one dtype on the probe prompt: per layer, each
+    layer fed the plain path's input (:func:`layer_boundaries`), the kernel
+    path within :data:`W8A8_LAYER_LIMIT` of the plain layer at every layer
+    and each of :data:`W8A8_CONTROLS` past it at every layer (int8: every
+    layer's output with kernels A and B ``torch.equal`` to the same with
+    their plain versions); at full depth, the first-token logits of the
+    kernel path against the plain path, two plain paths (the chunked
+    windows and the one-shot prefill) and the bf16 model's, printed (int8:
+    kernels A and B ``torch.equal`` to their plain versions, asserted).
+    Returns the record."""
+    from triton_kubernetes_tpu_torch.models import paged
+
+    n = len(probe)
+    width = -(-n // BS) * BS
+    rows = [min(PREFILL_CHUNK, n - off) for off in range(0, n, PREFILL_CHUNK)]
+    layers = qcfg.num_layers
+    plain_deltas, plain_xs = [], []
+    with torch.inference_mode():
+        lk = first_token_logits(qmodel, qcfg, probe, None, paged)
+        with plain_row_ops(w8a8_only=True):
+            lw = first_token_logits(qmodel, qcfg, probe, None, paged)
+        with plain_row_ops():
+            with layer_boundaries(plain_deltas, xs=plain_xs):
+                lp = first_token_logits(qmodel, qcfg, probe, "dense", paged)
+            lo = paged.paged_prefill(
+                qmodel, torch.tensor([probe + [0] * (width - n)],
+                                     dtype=torch.int32, device=SERVE_DEVICE),
+                n, qcfg, paged.init_paged_cache(
+                    qcfg, width // BS + 1, BS, device=SERVE_DEVICE),
+                torch.arange(1, width // BS + 1, dtype=torch.int32,
+                             device=SERVE_DEVICE))
+        # Each layer fed the plain path's input, three ways.
+        arms = [("kernels A and B", contextlib.nullcontext())]
+        arms += [(label, plain_row_ops(w8a8_only=True, w8a8_rows=fn))
+                 for label, fn in W8A8_CONTROLS]
+        arms.append(("plain A and B", plain_row_ops(w8a8_only=True)))
+        per_layer, bitwise, outs = {}, {}, {}
+        for label, ops in arms:
+            deltas = []
+            with ops, layer_boundaries(deltas, forced=plain_xs):
+                first_token_logits(qmodel, qcfg, probe, None, paged)
+            per_layer[label], bitwise[label] = layer_errors(
+                deltas, plain_deltas, layers, rows)
+            if wd == "int8" and label in ("kernels A and B", "plain A and B"):
+                outs[label] = deltas
+            del deltas
+    del plain_deltas, plain_xs
+    ab_equal = None
+    if wd == "int8":
+        ab_equal = [all(torch.equal(a, b) for a, b in zip(
+            outs["kernels A and B"][2 * i::2 * layers],
+            outs["plain A and B"][2 * i::2 * layers])) and all(
+            torch.equal(a, b) for a, b in zip(
+                outs["kernels A and B"][2 * i + 1::2 * layers],
+                outs["plain A and B"][2 * i + 1::2 * layers]))
+            for i in range(layers)]
+        del outs
+    limit = W8A8_LAYER_LIMIT[wd]
+    kernel_worst = max(per_layer["kernels A and B"])
+    control_best = {label: min(per_layer[label])
+                    for label, _ in W8A8_CONTROLS}
+    err, floor = rel_l2(lk, lp), rel_l2(lo, lp)
+    ops_err, vs_bf16 = rel_l2(lk, lw), rel_l2(lk, bf16_logits)
+    record = dict(
+        per_layer_rel_l2=per_layer, per_layer_limit=limit,
+        per_layer_kernel_worst=kernel_worst,
+        per_layer_control_best=control_best,
+        per_layer_int8_ab_bitwise=ab_equal,
+        rel_l2_vs_plain=err, plain_paths_rel_l2=floor,
+        rel_l2_vs_plain_w8a8_ops=ops_err, rel_l2_vs_bf16=vs_bf16,
+        same_argmax_as_plain=int(lk.argmax()) == int(lp.argmax()))
+    labels = [label for label, _ in arms]
+    print(f"serve[W8A8 {wd}]: per layer, fed the plain path's input, "
+          f"relative L2 of the layer's output (attention and MLP deltas, "
+          f"{sum(rows)} rows) against the plain layer's, "
+          f"({', '.join(labels)}):", flush=True)
+    for i in range(layers):
+        print(f"serve[W8A8 {wd}]: layer {i}: " + " ".join(
+            f"{per_layer[label][i]:.5f}" for label in labels)
+            + (f" (A and B torch.equal their plain versions: "
+               f"{ab_equal[i]})" if ab_equal is not None else ""),
+            flush=True)
+    shown = ", ".join(f"{label} {e:.5f}" for label, e in control_best.items())
+    print(f"serve[W8A8 {wd}]: {rid}: the kernel path's worst layer "
+          f"{kernel_worst:.5f} (limit {limit}; the controls' best layers, "
+          f"which must fall past it: {shown}); at full depth, the "
+          f"first-token logits: kernels A and B vs their plain versions "
+          f"{ops_err:.5f}{' (torch.equal)' if ops_err == 0 else ''}, the "
+          f"kernel path vs the plain path {err:.5f}, two plain paths "
+          f"{floor:.5f}, vs the bf16 model's kernels {vs_bf16:.5f} (not "
+          f"bounded), same argmax: {record['same_argmax_as_plain']} "
+          f"[{card}]", flush=True)
+    if not bool(torch.isfinite(lk).all()):
+        raise AssertionError(f"W8A8 {wd} first-token logits not finite")
+    if limit is None:
+        raise AssertionError(f"W8A8 {wd}: no per-layer limit set (readings: "
+                             f"kernel worst {kernel_worst}, controls' best "
+                             f"{control_best})")
+    if kernel_worst > limit:
+        raise AssertionError(f"W8A8 {wd}: the kernel path's worst layer "
+                             f"{kernel_worst} is past the limit {limit}")
+    passed = [label for label, e in control_best.items() if e <= limit]
+    if passed:
+        raise AssertionError(f"W8A8 {wd}: the controls {passed} in the "
+                             f"kernels' place come within the limit {limit} "
+                             f"at some layer ({control_best}): the check "
+                             f"cannot tell a fault")
+    if wd == "int8" and not (torch.equal(lk, lw) and all(ab_equal)):
+        raise AssertionError(f"W8A8 int8: kernels A and B vs their plain "
+                             f"versions differ (full depth relative L2 "
+                             f"{ops_err}; bitwise by layer {ab_equal}); "
+                             f"they must be torch.equal")
+    return record
+
+
 def w8a8_phase(model, cfg, card, requests, bf16_logits):
     """The W8A8 serve runs of the 8B model: weights int8 and fp8 with
     W8A8 arithmetic (bf16 pages), each at spec_k 0 and 3 -- spec-on greedy
     tokens asserted equal to spec-off -- and one weight-only int8 run of
-    the 8 requests (``matmul_dtype`` auto: the dequantize path). Then, per
-    W8A8 dtype,
-    first-token logits with the kernels against the same quantized model's
-    plain path (int8: kernels A and B ``torch.equal`` to their plain
-    versions; both: the whole path within :data:`W8A8_LOGITS_LIMIT`, and
-    each of :data:`W8A8_CONTROLS` in the kernels' place past it) and
-    against the bf16 model's (printed); F2's window check under W8A8 int8;
+    4 of the 8 requests (``matmul_dtype`` auto: the dequantize path). Then, per
+    W8A8 dtype, :func:`w8a8_logits_check`: each layer fed the same
+    quantized model's plain path's input, the kernel path within
+    :data:`W8A8_LAYER_LIMIT` of the plain layer and each of
+    :data:`W8A8_CONTROLS` in the kernels' place past it (int8: kernels A
+    and B ``torch.equal`` to their plain versions, by layer and at full
+    depth), and the full-depth first-token logits printed against the
+    plain path's and the bf16 model's; F2's window check under W8A8 int8;
     and a profiled
     W8A8 int8 decode tick, which must run kernels A and B and no cuBLAS
     GEMM. Returns (the runs' records, the phase's record)."""
@@ -3965,7 +4225,10 @@ def w8a8_phase(model, cfg, card, requests, bf16_logits):
     from triton_kubernetes_tpu_torch.serve import Request, ServeEngine
 
     reqs = list(requests) + repetitive_requests(cfg, Request)
-    arrivals = {0: [0, 4, 5, 8, 9], 5: [1, 2, 3], 6: [6, 7, 10, 11]}
+    reqs = [reqs[i] for i in W8A8_REQUESTS]
+    arrivals = {t: [W8A8_REQUESTS.index(i) for i in ids
+                    if i in W8A8_REQUESTS]
+                for t, ids in SPEC_ARRIVALS.items()}
     runs, record = [], {"logits": {}}
     probe = requests[4].tokens
     for wd in ("int8", "fp8"):
@@ -3990,73 +4253,9 @@ def w8a8_phase(model, cfg, card, requests, bf16_logits):
                                          + agree)
             print_serve_run(f"W8A8 {wd} weights, bf16 pages", run, reqs,
                             runs[0]["kv_pool_bytes"], card, agree)
-        # Kernels against plain, held to a fixed limit a dtype
-        # (W8A8_LOGITS_LIMIT), with controls that must fall past it. The
-        # check with teeth for int8 is the swap of kernels A and B alone:
-        # its logits must be torch.equal to the plain W8A8 ops' (all else
-        # the same kernels). The distance of two plain paths (the chunked
-        # windows and the one-shot prefill, every op plain) is printed
-        # beside them, not used as a bound.
-        n = len(probe)
-        width = -(-n // BS) * BS
-        with torch.inference_mode():
-            lk = first_token_logits(qmodel, qcfg, probe, None, paged)
-            with plain_row_ops(w8a8_only=True):
-                lw = first_token_logits(qmodel, qcfg, probe, None, paged)
-            controls = {}
-            for label, fn in W8A8_CONTROLS:
-                with plain_row_ops(w8a8_only=True, w8a8_rows=fn):
-                    controls[label] = first_token_logits(qmodel, qcfg, probe,
-                                                         None, paged)
-            with plain_row_ops():
-                lp = first_token_logits(qmodel, qcfg, probe, "dense", paged)
-                lo = paged.paged_prefill(
-                    qmodel, torch.tensor([probe + [0] * (width - n)],
-                                         dtype=torch.int32,
-                                         device=SERVE_DEVICE),
-                    n, qcfg, paged.init_paged_cache(
-                        qcfg, width // BS + 1, BS, device=SERVE_DEVICE),
-                    torch.arange(1, width // BS + 1, dtype=torch.int32,
-                                 device=SERVE_DEVICE))
-        limit = W8A8_LOGITS_LIMIT[wd]
-        err, floor = rel_l2(lk, lp), rel_l2(lo, lp)
-        ops_err, vs_bf16 = rel_l2(lk, lw), rel_l2(lk, bf16_logits)
-        control_err = {label: rel_l2(lc, lp)
-                       for label, lc in controls.items()}
-        record["logits"][wd] = dict(
-            rel_l2_vs_plain=err, limit=limit,
-            controls_rel_l2_vs_plain=control_err,
-            plain_paths_rel_l2=floor,
-            rel_l2_vs_plain_w8a8_ops=ops_err, rel_l2_vs_bf16=vs_bf16,
-            same_argmax_as_plain=int(lk.argmax()) == int(lp.argmax()))
-        shown = ", ".join(f"{label} {e:.5f}"
-                          for label, e in control_err.items())
-        print(f"serve[W8A8 {wd}]: {requests[4].request_id} first-token "
-              f"logits: kernels A and B vs their plain versions (all else "
-              f"the same kernels) relative L2 {ops_err:.5f}"
-              f"{' (torch.equal)' if ops_err == 0 else ''}; the kernel path "
-              f"vs the quantized model's plain path {err:.5f} (limit "
-              f"{limit}; controls in the kernels' place, which must fall "
-              f"past it: {shown}; two plain paths differ by {floor:.5f}), "
-              f"same argmax: {int(lk.argmax()) == int(lp.argmax())}; vs the "
-              f"bf16 model's kernels {vs_bf16:.5f} (not bounded) [{card}]",
-              flush=True)
-        if not bool(torch.isfinite(lk).all()) or err > limit:
-            raise AssertionError(f"W8A8 {wd} first-token logits: kernels vs "
-                                 f"plain relative L2 {err}, past the limit "
-                                 f"{limit}")
-        passed = [label for label, e in control_err.items() if e <= limit]
-        if passed:
-            raise AssertionError(f"W8A8 {wd} first-token logits: the "
-                                 f"controls {passed} in the kernels' place "
-                                 f"come within the limit {limit} "
-                                 f"({control_err}): the comparison cannot "
-                                 f"tell a fault")
-        if wd == "int8" and not torch.equal(lk, lw):
-            raise AssertionError(f"W8A8 int8 first-token logits: kernels A "
-                                 f"and B vs their plain versions differ "
-                                 f"(relative L2 {ops_err}); they must be "
-                                 f"torch.equal")
+        record["logits"][wd] = w8a8_logits_check(
+            qmodel, qcfg, probe, bf16_logits, wd, card,
+            requests[4].request_id)
         if wd == "int8":
             f2 = window_invariance_check(qmodel, qcfg, paged,
                                          "W8A8 int8, bf16 pages")
@@ -4107,14 +4306,15 @@ def w8a8_phase(model, cfg, card, requests, bf16_logits):
         del qmodel
         gc.collect()
         torch.cuda.empty_cache()
-    # The dequantize path serves the 8 requests of phase 4's first run
-    # (no drafter at spec_k 0 to feed): at a TPOT near 0.18 s it is the
-    # slowest serve run of the script.
-    run = serve_run(model, cfg, "bf16", 0, requests, SERVE_ARRIVALS,
-                    weights=("int8", "auto"))
+    # The dequantize path serves 4 of the 8 requests of phase 4's first
+    # run (no drafter at spec_k 0 to feed), all submitted at tick 0: at a
+    # TPOT near 0.18 s it is the slowest serve run of the script.
+    few = [requests[i] for i in DEQUANT_REQUESTS]
+    run = serve_run(model, cfg, "bf16", 0, few,
+                    {0: list(range(len(few)))}, weights=("int8", "auto"))
     runs.append(run)
     print_serve_run("int8 weights, dequantize path (matmul_dtype auto), "
-                    "bf16 pages", run, requests, runs[0]["kv_pool_bytes"],
+                    "bf16 pages", run, few, runs[0]["kv_pool_bytes"],
                     card, "")
     return runs, record
 
@@ -5048,9 +5248,10 @@ DURABLE_STEPS, DURABLE_SYNC, DURABLE_CKPT_EVERY, DURABLE_KILL_AT = 12, 2, 4, 6
 DURABLE_DIR = Path(__file__).resolve().parent / "_durable"
 DURABLE_ARM_TIMEOUT_S = 420
 DURABLE_CHECKPOINTS_ON_DISK = 2  # B's scheduled and emergency steps
-# What shares the card with each arm (A beside B, then C beside D): every
-# time an arm prints is taken beside the other arm, not alone.
-DURABLE_BESIDE = {"A": "beside arm B", "B": "beside arm A",
+# What shares the card with each arm (A beside B, then C beside D; in the
+# full run phase 6 beside B once A ends): every time an arm prints is
+# taken beside the other work, not alone.
+DURABLE_BESIDE = {"A": "beside arm B", "B": "beside arm A, then phase 6",
                   "C": "beside arm D", "D": "beside arm C"}
 
 
@@ -5207,12 +5408,15 @@ def corrupt_copy(src_dirs, copy_root, torn):
     return copies, victim.name
 
 
-def durability_phase(card, out_dir: Path):
+def durability_phase(card, out_dir: Path, beside_b=None):
     """Phase 5's kill and resume (module constants above): A, B, C and the
     torn copy D, each a trainer subprocess on the DURABLE_LAYERS cut, A
     beside B and C beside D; checks
     exit codes, the emergency save, the restore and the fallback, the
-    losses, every arm's flash launches and goodput ledger."""
+    losses, every arm's flash launches and goodput ledger. ``beside_b``
+    (a callable) runs in this process once A has ended, while B, which
+    then mostly waits on the disk, still holds its share of the card (a
+    1-layer trainer, ~29 GB); its result is returned under "beside"."""
     import shutil
 
     from triton_kubernetes_tpu_torch.models import get_config
@@ -5250,16 +5454,20 @@ def durability_phase(card, out_dir: Path):
 
     # A and B run side by side on the card, then C and D (each pair is
     # independent: A writes nothing, and D restores a copy); every check
-    # is the same as run one after another.
-    arms = {}
-    side = concurrent.futures.ThreadPoolExecutor(1)
+    # is the same as run one after another. Once A ends, ``beside_b``
+    # runs here while B goes on.
+    arms, beside = {}, None
+    side = concurrent.futures.ThreadPoolExecutor(2)
     arm_a = side.submit(timed, run_arm, "A", [], out_dir, jobset=True)
+    arm_b = side.submit(timed, run_arm, "B", ckpt_args, out_dir,
+                        kill_at=DURABLE_KILL_AT)
     try:
         try:
-            (rc, recs, b, b_trace, kill_s, lines), b_s = timed(
-                run_arm, "B", ckpt_args, out_dir, kill_at=DURABLE_KILL_AT)
-        finally:
             (rc_a, a_recs, a, a_trace, _, lines_a), a_s = arm_a.result()
+            if beside_b is not None:
+                beside = beside_b()
+        finally:
+            (rc, recs, b, b_trace, kill_s, lines), b_s = arm_b.result()
         if rc_a != 0 or a["steps"] != DURABLE_STEPS or not all(
                 np.isfinite(a["losses"])):
             raise AssertionError(f"arm A: exit {rc_a}, report {a}\n"
@@ -5445,7 +5653,7 @@ def durability_phase(card, out_dir: Path):
         prefetch_wait_per_window=per_window, a_steady_tokens_per_sec=tps,
         a_mfu=a_mfu, launches={k: {kk: arms[k]["report"]["kernel_launches"]
                                    [kk] for kk in per_step}
-                               for k in ("A", "B", "C")})
+                               for k in ("A", "B", "C")}, beside=beside)
 
 
 # Phase 6: distributed training on one card. Full width at phase 5's cut
@@ -5456,7 +5664,12 @@ def durability_phase(card, out_dir: Path):
 # sharded step. It writes no checkpoint.
 DIST_DEVICE = "cuda"
 DIST_STAGES, DIST_MICROBATCHES = 2, 4
-DIST_TIMED_STEPS = 3
+DIST_TIMED_STEPS = 2
+# The ring and the entry-point arms run the trainer this many steps of
+# phase 5's: the learning rate of the updates before step 3 does not
+# depend on the step count (warm-up 1), so their losses are phase 5's
+# first three.
+DIST_ARM_STEPS = 3
 DIST_ARM_TIMEOUT_S = 300
 BLOCKWISE_SHAPE = (1, 4096)
 # Blockwise keeps p and dS in f32 where the flash kernels round them to
@@ -5770,9 +5983,12 @@ def fused_check(card):
     return dict(metrics=fm, leaves_bitwise=same, leaves=len(fp))
 
 
-def distributed_phase(card, out_dir: Path, flash_report=None):
+def distributed_phase(card, out_dir: Path, flash_report=None, fused=True):
     """Phase 6. ``flash_report`` is phase 5's run report (the flash
-    baseline); without it the phase runs phase 5's trainer itself."""
+    baseline); without it the phase runs phase 5's trainer itself. With
+    ``fused`` False the fused exchange's check is left to the caller
+    (:func:`fused_check`: two full 4-layer states, ~53 GB, which do not
+    fit beside a durability arm)."""
     from triton_kubernetes_tpu_torch.ops import flash_attention as fa
     from triton_kubernetes_tpu_torch.train import __main__ as train_main
 
@@ -5796,10 +6012,11 @@ def distributed_phase(card, out_dir: Path, flash_report=None):
     launches = dict(out["gpipe"]["launches"])
 
     # The ring at n = 1 through the entry point.
-    ring, _ = train_arm("ring", ["--ring-attention"], out_dir)
+    arm_steps = ["--steps", str(DIST_ARM_STEPS)]
+    ring, _ = train_arm("ring", ["--ring-attention", *arm_steps], out_dir)
     ring_rel = max(abs(a - b) / abs(b) for a, b in zip(
         ring["losses"], flash_report["losses"]))
-    if (len(ring["losses"]) != TRAIN_STEPS
+    if (len(ring["losses"]) != DIST_ARM_STEPS
             or not all(np.isfinite(ring["losses"] + ring["grad_norms"]))
             or not ring_rel <= STEP_LOSS_REL):
         raise AssertionError(f"ring at n = 1: losses {ring['losses']} vs "
@@ -5811,7 +6028,7 @@ def distributed_phase(card, out_dir: Path, flash_report=None):
     out["ring"] = dict(losses=ring["losses"], max_loss_rel_diff=ring_rel,
                        steady_ms=steady_ms(ring), report=ring)
     print(f"distributed: ring attention at n = 1 (--ring-attention, "
-          f"{TRAIN_STEPS} steps): losses {[round(x, 5) for x in ring['losses']]}"
+          f"{DIST_ARM_STEPS} steps): losses {[round(x, 5) for x in ring['losses']]}"
           f", worst rel diff to the flash run {ring_rel:.3g} (bound "
           f"{STEP_LOSS_REL}); steady step ms ring {steady_ms(ring):.3f} vs "
           f"flash {out['flash_steady_ms']:.3f} [{card}]", flush=True)
@@ -5819,16 +6036,18 @@ def distributed_phase(card, out_dir: Path, flash_report=None):
     # The entry point under a one-rank NCCL world: bitwise phase 5.
     env = {"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}",
            "NUM_TPU_WORKERS": "1", "TPU_WORKER_ID": "0"}
-    entry, log = train_arm("entry", ["--distributed", "on"], out_dir, env)
+    entry, log = train_arm("entry", ["--distributed", "on", *arm_steps],
+                           out_dir, env)
     from triton_kubernetes_tpu_torch.parallel.multihost import backend_for
 
     if f"backend={backend_for(DIST_DEVICE)}" not in log:
         raise AssertionError(f"the entry point joined no "
                              f"{backend_for(DIST_DEVICE)} world:\n"
                              f"{log[-2000:]}")
-    same = (entry["losses"] == flash_report["losses"]
-            and entry["grad_norms"] == flash_report["grad_norms"])
-    want = {k: n * TRAIN_LAYERS * TRAIN_STEPS
+    same = (entry["losses"] == flash_report["losses"][:DIST_ARM_STEPS]
+            and entry["grad_norms"]
+            == flash_report["grad_norms"][:DIST_ARM_STEPS])
+    want = {k: n * TRAIN_LAYERS * DIST_ARM_STEPS
             for k, n in FLASH_PER_LAYER.items()}
     if not same or entry["kernel_launches"] != want:
         raise AssertionError(
@@ -5843,13 +6062,14 @@ def distributed_phase(card, out_dir: Path, flash_report=None):
                         losses_bitwise=same, steady_ms=steady_ms(entry),
                         launches=entry["kernel_launches"], report=entry)
     print(f"distributed: --distributed on under NCCL, world 1 "
-          f"({TRAIN_STEPS} steps): report mesh {entry['mesh']}, dcn_sync "
+          f"({DIST_ARM_STEPS} steps): report mesh {entry['mesh']}, dcn_sync "
           f"{entry['dcn_sync']}, n_processes {entry['n_processes']}; "
           f"losses and grad norms bitwise phase 5's: {same}; steady step ms "
           f"{steady_ms(entry):.3f} vs {out['flash_steady_ms']:.3f}; flash "
           f"launches {entry['kernel_launches']} [{card}]", flush=True)
 
-    out["fused"] = fused_check(card)
+    if fused:
+        out["fused"] = fused_check(card)
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t0
     print(f"distributed: phase 6 took {out['seconds']:.1f} s", flush=True)
@@ -5941,9 +6161,8 @@ def expert_reference(card, out_dir: Path):
         for name, e in expert_leaves(rank, held):
             g = model.get_parameter(name).grad
             grads[(name, e)] = (g if e is None else g[e]).detach().cpu()
-    torch.save(dict(loss=loss, aux=float(m["aux_loss"]),
-                    choices=[c.cpu() for c in choices], grads=grads),
-               out_dir / "expert_reference.pt")
+    saved = dict(loss=loss, aux=float(m["aux_loss"]),
+                 choices=[c.cpu() for c in choices], grads=grads)
     step_ms = []
     for _ in range(EXPERT_STEPS - 1):
         torch.cuda.synchronize()
@@ -5955,6 +6174,8 @@ def expert_reference(card, out_dir: Path):
     del state, model, step, m, grads
     gc.collect()
     torch.cuda.empty_cache()
+    # Written once the card is free: the ranks build their blocks on it.
+    save_reference(saved, out_dir / "expert_reference.pt")
     want = {k: n * EXPERT_LAYERS for k, n in FLASH_PER_LAYER.items()}
     if launches != want:
         raise AssertionError(f"expert 1 step: flash launches {launches} "
@@ -6007,7 +6228,7 @@ def expert_worker(rank: int, port: int, out_dir: Path) -> None:
             raise AssertionError(f"gloo on CUDA tensors: all_reduce "
                                  f"{x.tolist()}, all_gather "
                                  f"{gathered.tolist()}")
-        ref = torch.load(out_dir / "expert_reference.pt")
+        ref = await_reference(out_dir / "expert_reference.pt")
         cfg = expert_config()
         mesh = create_mesh(MeshConfig(expert=EXPERT_DEGREE, fsdp=1),
                            device_type=EXPERT_DEVICE)
@@ -6081,37 +6302,17 @@ def expert_phase(card, out_dir: Path):
     compared steps, the record)."""
     with tempfile.TemporaryDirectory() as tmp:
         launches, out = _expert_phase(card, Path(tmp))
-        for r in range(EXPERT_DEGREE):
-            name = f"expert_rank{r}.json"
+        names = [f"expert_rank{r}.json" for r in range(EXPERT_DEGREE)] + [
+            f"gpipe_moe_rank{r}.json" for r in range(GPIPE_MOE_RANKS)]
+        for name in names:
             (out_dir / name).write_text((Path(tmp) / name).read_text())
     return launches, out
 
 
 def _expert_phase(card, out_dir: Path):
     t0 = time.perf_counter()
-    ref = expert_reference(card, out_dir)
-    port = free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--expert-worker",
-         str(r), str(port), str(out_dir)],
-        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
-        for r in range(EXPERT_DEGREE)]
-    logs = []
-    try:
-        deadline = time.monotonic() + EXPERT_WORLD_TIMEOUT_S
-        for p in procs:
-            logs.append(p.communicate(
-                timeout=max(deadline - time.monotonic(), 1))[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    bad = [(r, p.returncode, log[-3000:])
-           for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode]
-    if bad:
-        raise AssertionError(f"expert world: ranks failed: {bad}")
+    ref = run_world("--expert-worker", EXPERT_DEGREE, out_dir, "expert",
+                    lambda: expert_reference(card, out_dir))
     ranks = [json.loads((out_dir / f"expert_rank{r}.json").read_text())
              for r in range(EXPERT_DEGREE)]
     want = {k: n * EXPERT_LAYERS for k, n in FLASH_PER_LAYER.items()}
@@ -6149,10 +6350,476 @@ def _expert_phase(card, out_dir: Path):
               f"peak memory {r['peak_memory_bytes'] / 1e9:.2f} GB [{card}]",
               flush=True)
     launches = {k: sum(r["launches"][k] for r in ranks) for k in want}
+    print(f"expert: the expert-2 world took {time.perf_counter() - t0:.1f} "
+          f"s [{card}]", flush=True)
+    gpipe_launches, gpipe = gpipe_moe_world(card, out_dir)
     seconds = time.perf_counter() - t0
     print(f"expert: phase 7 took {seconds:.1f} s [{card}]", flush=True)
+    return ({k: n + gpipe_launches[k] for k, n in launches.items()},
+            dict(reference=ref, ranks=ranks, launches=launches,
+                 gpipe_moe=gpipe, seconds=seconds))
+
+
+# Phase 7, second world: an MoE model under GPipe with its rows split,
+# ``stage`` 2 x ``data`` 2 in a gloo world of four processes on cuda:0.
+# Mixtral-8x7B at full width cut to 2 layers, one a stage, B 4 x 512
+# tokens, 2 microbatches (each rank holds one row of each: its share of the
+# global microbatch, as the batch placer gives it), capacity factor 1.25
+# (the model's: tokens drop), flash attention, bf16 policy, full remat.
+# The bytes: a stage holds ~1.58B parameters (one layer of 1.45B and the
+# embedding or the head): 6.3 GB of f32 masters and as much of
+# gradients; a rank peaks at 17.6-18.1 GB with the backward's transients
+# (the one-process run of both stages at 29.8 GB; H100 80GB HBM3, 700 W,
+# PERF.md); AdamW's moments would
+# add 12.6 GB a rank, past 80 GB for four, so the world is held to the
+# one-process GPipe run on its first forward and backward, as the
+# expert-2 world's first step is, with no update. Rows split over
+# ``fsdp`` instead would gather each rank's half of the f32 layer in
+# every forward, recompute and backward, ~34 GB a rank through gloo's
+# host path: 99.7 s for one forward and backward (H100 80GB HBM3, 700 W;
+# PERF.md), past the script's budget; the CPU tests hold stage x fsdp to
+# the JAX package. The shift along ``stage`` is ``collectives.ppermute``:
+# gloo's send and receive do not take CUDA tensors
+# (``scripts/gloo_cuda_probe.py``), so over gloo it goes through the host
+# (``collectives._through_host``); every compute stays on the card.
+GPIPE_MOE_MESH = dict(stage=2, data=2)
+GPIPE_MOE_RANKS = 4
+GPIPE_MOE_BATCH, GPIPE_MOE_SEQ = 4, 512
+GPIPE_MOE_MICRO = 2
+# The rows a microbatch splits over (data x fsdp), data-major.
+GPIPE_MOE_ROW_AXES = ("data", "fsdp")
+# A rank's loss against the one-process run's: phase 5's bound of two
+# valid paths. Unlike the expert-2 world's ranks, which run the expert-1
+# step's rows, a rank here runs half of each microbatch's rows through
+# every bf16 product (cuBLAS picks its kernel by the row count), so its
+# activations and logits are not bitwise the one-process run's; measured
+# 5.6e-6 relative on rank 0 (H100 80GB HBM3, 700 W; PERF.md). The aux
+# loss (f32 router probabilities over the same choices) keeps
+# EXPERT_LOSS_REL.
+GPIPE_MOE_LOSS_REL = STEP_LOSS_REL
+
+
+def gpipe_moe_batch():
+    """The four-rank world's global batch, on the host."""
+    from triton_kubernetes_tpu_torch.train import synthetic_batches
+
+    return next(synthetic_batches(expert_config().vocab_size,
+                                  GPIPE_MOE_BATCH, GPIPE_MOE_SEQ, seed=99))
+
+
+def gpipe_moe_leaves(stage):
+    """(global name, expert index) of the gradient leaves held to the
+    one-process run on a rank of ``stage``: its layer's router and wq,
+    and the first expert's w1 and w2 (every rank holds all eight
+    experts)."""
+    return [(f"layers.{stage}.router", None), (f"layers.{stage}.wq", None),
+            (f"layers.{stage}.moe_w1", 0), (f"layers.{stage}.moe_w2", 0)]
+
+
+@contextlib.contextmanager
+def routing_by_probs(mode, log, share=(1, 0)):
+    """Record every ``ops.moe._top_k`` call's probabilities and choices
+    into ``log`` ("record"), or replay them by content ("replay"): a call
+    takes the choices of the recorded call whose probabilities, cut to this
+    rank's share of the tokens (``share``: the row shards and this rank's
+    index among them; a rank's microbatch rows are its share of the global
+    one, data-major), lie closest to its own. Under GPipe a rank makes its
+    calls in another order than one process does, and remat repeats them,
+    so order cannot pair them. Yields a one-item list: the largest
+    distance of a replayed pairing."""
+    from triton_kubernetes_tpu_torch.ops import moe
+
+    real = moe._top_k
+    n, r = share
+    worst = [0.0]
+
+    def top_k(probs, k):
+        if mode == "record":
+            vals, idx = real(probs, k)
+            log.append((probs.detach().clone(), idx))
+            return vals, idx
+        best = None
+        for p_full, i_full in log:
+            p = p_full.reshape(n, -1, p_full.shape[-1])[r]
+            if p.shape != probs.shape:
+                continue
+            d = float((p - probs.detach()).abs().max())
+            if best is None or d < best[0]:
+                best = (d, i_full.reshape(n, -1, k)[r])
+        worst[0] = max(worst[0], best[0])
+        return probs.gather(-1, best[1]), best[1]
+
+    moe._top_k = top_k
+    try:
+        yield worst
+    finally:
+        moe._top_k = real
+
+
+@contextlib.contextmanager
+def counting_drops(cls, cfg, counts):
+    """Each seating by ``cls`` (``ops.moe.Routing`` on one device,
+    ``parallel.placement.MeshRouting`` on a mesh) appends how many of its
+    assignments sit at or past the capacity: the dropped ones."""
+    from triton_kubernetes_tpu_torch.ops import moe
+
+    real = cls.positions
+
+    def positions(self, top_i):
+        pos = real(self, top_i)
+        b, s, k = top_i.shape
+        cap = moe._capacity(cfg.capacity_factor, k, self.tokens(b * s),
+                            cfg.num_experts)
+        counts.append(int((pos >= cap).sum()))
+        return pos
+
+    cls.positions = positions
+    try:
+        yield counts
+    finally:
+        cls.positions = real
+
+
+def gpipe_moe_reference(card, out_dir: Path):
+    """The one-process GPipe run (no mesh, every stage here, the same
+    microbatches, seed and batch): its first forward and backward's loss,
+    aux loss, dropped assignments, routing calls (recorded) and the
+    compared gradient leaves, saved to ``out_dir`` for the world's ranks;
+    then freed."""
+    from triton_kubernetes_tpu_torch.models import llama
+    from triton_kubernetes_tpu_torch.ops import flash_attention as fa
+    from triton_kubernetes_tpu_torch.ops import moe
+    from triton_kubernetes_tpu_torch.train import loss_fn
+
+    cfg = expert_config()
+    stages = GPIPE_MOE_MESH["stage"]
+    torch.cuda.reset_peak_memory_stats()
+    model = llama.init_params(cfg, seed=EXPERT_SEED, device=EXPERT_DEVICE,
+                              trainable=True)
+    tokens = torch.as_tensor(gpipe_moe_batch()["tokens"],
+                             device=EXPERT_DEVICE)
+    attn = llama.resolve_attention(cfg, model.device)
+    calls, drops = [], []
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with routing_by_probs("record", calls), \
+            counting_drops(moe.Routing, cfg, drops):
+        total, m = loss_fn(model, tokens, cfg, attn, stages, GPIPE_MOE_MICRO)
+        total.backward()
+    loss, aux = float(m["loss"]), float(m["aux_loss"])
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fa.flash_attention.launches)
+    # The forward's seatings: a layer a microbatch (remat repeats them).
+    dropped = sum(drops[:GPIPE_MOE_MICRO * cfg.num_layers])
+    grads = {}
+    for s in range(stages):
+        for name, e in gpipe_moe_leaves(s):
+            g = model.get_parameter(name).grad
+            grads[name] = (g if e is None else g[e:e + 1]).detach().cpu()
+    saved = dict(loss=loss, aux=aux, dropped=dropped,
+                 calls=[(p.cpu(), i.cpu()) for p, i in calls], grads=grads)
+    peak = torch.cuda.max_memory_allocated()
+    del model, total, m, grads, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Written once the card is free: the ranks build their blocks on it.
+    save_reference(saved, out_dir / "gpipe_moe_reference.pt")
+    want = {k: n * GPIPE_MOE_MICRO * cfg.num_layers
+            for k, n in FLASH_PER_LAYER.items()}
+    if launches != want:
+        raise AssertionError(f"one-process GPipe: flash launches {launches} "
+                             f"!= {want}")
+    print(f"expert[gpipe]: {MIXTRAL_MODEL} cut to {cfg.num_layers} layers, "
+          f"one process, {stages} stages x {GPIPE_MOE_MICRO} microbatches, "
+          f"B {GPIPE_MOE_BATCH} x {GPIPE_MOE_SEQ}, cf "
+          f"{cfg.capacity_factor}: loss {loss!r}, aux {aux!r}, "
+          f"{dropped} assignments dropped, forward and backward "
+          f"{ms:.1f} ms, peak memory {peak / 1e9:.2f} GB, flash launches "
+          f"{launches} [{card}]", flush=True)
+    return dict(loss=loss, aux=aux, dropped=dropped, ms=ms,
+                peak_memory_bytes=peak, launches=launches)
+
+
+def gpipe_moe_worker(rank: int, port: int, out_dir: Path) -> None:
+    """One rank of phase 7's second world (``chip_smoke.py
+    --gpipe-moe-worker RANK PORT DIR``): gloo over ``GPIPE_MOE_RANKS``
+    processes on cuda:0 at ``GPIPE_MOE_MESH``. Probes the collectives the
+    step issues on CUDA tensors (all_reduce, all_gather, reduce_scatter,
+    and the stage shift through ``collectives.ppermute``), builds its
+    blocks of the one-process model (the same seed: the same values),
+    takes its rows of every microbatch through the batch placer, runs one
+    forward and backward on the recorded routing, and holds its loss, aux
+    loss and gradient blocks to the one-process run's. Writes
+    ``gpipe_moe_rank{RANK}.json``."""
+    import torch.distributed as dist
+
+    from triton_kubernetes_tpu_torch.models import llama
+    from triton_kubernetes_tpu_torch.ops import flash_attention as fa
+    from triton_kubernetes_tpu_torch.parallel import (MeshConfig,
+                                                      collectives,
+                                                      create_mesh, placement)
+    from triton_kubernetes_tpu_torch.parallel.collectives import \
+        all_reduce_sum
+    from triton_kubernetes_tpu_torch.parallel.multihost import \
+        make_batch_placer
+    from triton_kubernetes_tpu_torch.parallel.sharding import local_slices
+    from triton_kubernetes_tpu_torch.train import loss_fn
+
+    t_start = time.perf_counter()
+    marks = {}
+    if EXPERT_DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=GPIPE_MOE_RANKS)
+    try:
+        marks["joined"] = time.perf_counter() - t_start
+        cfg = expert_config()
+        mesh = create_mesh(MeshConfig(**GPIPE_MOE_MESH),
+                           device_type=EXPERT_DEVICE)
+        n = GPIPE_MOE_RANKS
+        dev = EXPERT_DEVICE
+        # The step's collectives on CUDA tensors, then the stage shift.
+        x = torch.full((4,), float(rank + 1), device=dev)
+        dist.all_reduce(x)
+        gathered = torch.empty(4 * n, device=dev)
+        dist.all_gather_into_tensor(gathered, torch.full(
+            (4,), float(rank), device=dev))
+        scattered = torch.empty(2, device=dev)
+        dist.reduce_scatter_tensor(scattered, torch.arange(
+            2 * n, dtype=torch.float32, device=dev))
+        stage = mesh.coordinate()["stage"]
+        shifted = collectives.ppermute(
+            torch.full((3,), float(stage + 1), device=dev), mesh, "stage",
+            [(0, 1), (1, 0)])
+        probe = dict(
+            all_reduce=bool(torch.all(x == n * (n + 1) / 2)),
+            all_gather=gathered.tolist() == [float(r) for r in range(n)
+                                             for _ in range(4)],
+            reduce_scatter=scattered.tolist() == [
+                float(n * v) for v in (2 * rank, 2 * rank + 1)],
+            ppermute=shifted.device.type == torch.device(dev).type
+            and shifted.tolist() == [float(2 - stage)] * 3,
+            ppermute_through_host=collectives._through_host(
+                shifted, mesh.group(["stage"])))
+        if not all(probe.values()):
+            raise AssertionError(f"gloo on {dev} tensors: {probe}")
+        marks["probed"] = time.perf_counter() - t_start
+        ref = await_reference(out_dir / "gpipe_moe_reference.pt")
+        torch.cuda.reset_peak_memory_stats()
+        model = llama.init_params(cfg, seed=EXPERT_SEED, device=dev,
+                                  trainable=True, mesh=mesh)
+        # The init drew every leaf whole: hand those blocks back, since
+        # three more ranks share the card.
+        torch.cuda.empty_cache()
+        batch = make_batch_placer(mesh, microbatches=GPIPE_MOE_MICRO)(
+            gpipe_moe_batch())
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        attn = llama.resolve_attention(cfg, model.device)
+        share = (mesh.axes_size(GPIPE_MOE_ROW_AXES),
+                 mesh.axes_index(GPIPE_MOE_ROW_AXES))
+        calls = [(p.to(dev), i.to(dev)) for p, i in ref["calls"]]
+        drops = []
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        marks["built"] = t0 - t_start
+        with routing_by_probs("replay", calls, share) as worst, \
+                counting_drops(placement.MeshRouting, cfg, drops):
+            total, m = loss_fn(model, tokens, cfg, attn, mesh.shape["stage"],
+                               GPIPE_MOE_MICRO)
+            torch.cuda.synchronize()
+            marks["forward"] = time.perf_counter() - t_start
+            total.backward()
+        loss, aux = float(m["loss"]), float(m["aux_loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        marks["backward"] = time.perf_counter() - t_start
+        launches = dict(fa.flash_attention.launches)
+        peak = torch.cuda.max_memory_allocated()
+        layers_here = len(model.layers)
+        by_name = {model.layout[name][0]: (name, p)
+                   for name, p in model.named_parameters()}
+        blocks = []
+        for glob, e in gpipe_moe_leaves(stage):
+            name, p = by_name[glob]
+            _, shape, spec = model.layout[name]
+            sl = local_slices(shape, spec, mesh)
+            want = ref["grads"][glob]
+            if e is None:
+                got, want = p.grad, want[sl]
+            else:
+                got = p.grad[e - sl[0].start]
+                want = want[(slice(0, 1),) + sl[1:]][0]
+            blocks.append((glob, e, got.clone(), want))
+        # Only the compared blocks are kept: the rest of the gradient and
+        # the graph's buffers go back before the sums.
+        for p in model.parameters():
+            p.grad = None
+        del total, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        grads = {}
+        for glob, e, got, want in blocks:
+            # Summed over data, along which every block is replicated, as
+            # the step's sync_grads sums it (here only the compared
+            # blocks; fsdp's reduce-scatter already summed its split).
+            got = all_reduce_sum(got, mesh, ("data",))
+            want = want.to(dev)
+            grads[glob if e is None else f"{glob}[{e}]"] = dict(
+                rel_l2=rel_l2(got, want),
+                max_abs=float((got.float() - want.float()).abs().max()),
+                bitwise=bool(torch.equal(got, want)),
+                block=list(got.shape))
+        out = dict(rank=rank, mesh=repr(mesh.shape), coordinate=dict(
+                       stage=stage, row_shard=share[1]),
+                   probe=probe, rows=batch["tokens"].shape[0],
+                   loss=loss, aux=aux,
+                   loss_bitwise=loss == ref["loss"],
+                   loss_rel_diff=abs(loss - ref["loss"]) / abs(ref["loss"]),
+                   aux_bitwise=aux == ref["aux"],
+                   aux_rel_diff=abs(aux - ref["aux"]) / abs(ref["aux"]),
+                   replay_worst_distance=worst[0],
+                   dropped=sum(drops[:GPIPE_MOE_MICRO * layers_here]),
+                   grads=grads, ms=ms, launches=launches,
+                   layers=layers_here, peak_memory_bytes=peak,
+                   marks={k: round(v, 2) for k, v in marks.items()})
+        (out_dir / f"gpipe_moe_rank{rank}.json").write_text(json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_world(flag, n, out_dir: Path, what, reference):
+    """``n`` processes of ``chip_smoke.py FLAG RANK PORT DIR`` on this
+    card, started before ``reference()`` runs here: while it computes
+    what they are held to (and writes it for them, :func:`save_reference`),
+    they start, join their world, probe it and import what their first
+    step would (:func:`await_reference`). Returns ``reference()``'s
+    result; raises with the failed ranks' log tails. Their caching
+    allocators grow by expandable segments, so that blocks one rank
+    caches past its need do not crowd out the others."""
+    import os
+
+    port = free_port()
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), flag, str(r),
+         str(port), str(out_dir)],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env) for r in range(n)]
+    logs = []
+    try:
+        ref = reference()
+        deadline = time.monotonic() + EXPERT_WORLD_TIMEOUT_S
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(r, p.returncode, log[-3000:])
+           for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode]
+    if bad:
+        raise AssertionError(f"{what} world: ranks failed: {bad}")
+    return ref
+
+
+def save_reference(obj, path: Path) -> None:
+    """Write a world's reference whole before its ranks can see it."""
+    tmp = path.with_suffix(".tmp")
+    torch.save(obj, tmp)
+    tmp.replace(path)
+
+
+def await_reference(path: Path):
+    """A rank's reference, once the parent has written it. Before waiting
+    the rank imports ``torch._dynamo``, which the first call of a
+    rematerialized block (``torch.utils.checkpoint``) would import inside
+    the timed step: 7.9-8.2 s a rank with four starting at once (H100
+    80GB HBM3, 700 W host; PERF.md)."""
+    import torch._dynamo  # noqa: F401
+
+    deadline = time.monotonic() + EXPERT_WORLD_TIMEOUT_S
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no reference at {path}")
+        time.sleep(0.2)
+    return torch.load(path, mmap=True)
+
+
+def gpipe_moe_world(card, out_dir: Path):
+    """The one-process GPipe run, then the four-rank world held to it.
+    Returns (flash launches summed over the ranks, the record)."""
+    t0 = time.perf_counter()
+
+    def reference():
+        ref = gpipe_moe_reference(card, out_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        print(f"expert[gpipe]: after the one-process run this process "
+              f"holds {torch.cuda.memory_reserved() / 1e9:.2f} GB of the "
+              f"card (memory_reserved); {free / 1e9:.2f} of "
+              f"{total / 1e9:.2f} GB free", flush=True)
+        return ref
+
+    ref = run_world("--gpipe-moe-worker", GPIPE_MOE_RANKS, out_dir,
+                    "gpipe moe", reference)
+    ranks = [json.loads((out_dir / f"gpipe_moe_rank{r}.json").read_text())
+             for r in range(GPIPE_MOE_RANKS)]
+    problems = []
+    for r in ranks:
+        want = {k: v * GPIPE_MOE_MICRO * r["layers"]
+                for k, v in FLASH_PER_LAYER.items()}
+        grad_rel = max(g["rel_l2"] for g in r["grads"].values())
+        bad = []
+        for what, bound in (("loss", GPIPE_MOE_LOSS_REL),
+                            ("aux", EXPERT_LOSS_REL)):
+            if not (r[f"{what}_bitwise"] or r[f"{what}_rel_diff"] <= bound):
+                bad.append(f"{what} {r[what]!r} vs {ref[what]!r} (bound "
+                           f"{bound})")
+        if not grad_rel <= STEP_GRAD_REL_L2:
+            bad.append(f"worst gradient rel L2 {grad_rel}")
+        if r["launches"] != want:
+            bad.append(f"flash launches {r['launches']} != {want}")
+        if r["rows"] != GPIPE_MOE_BATCH // (
+                GPIPE_MOE_MESH.get("data", 1) * GPIPE_MOE_MESH.get("fsdp", 1)):
+            bad.append(f"holds {r['rows']} rows")
+        problems += [f"rank {r['rank']}: {b}" for b in bad]
+        print(f"expert[gpipe]: rank {r['rank']} of {GPIPE_MOE_RANKS} (gloo "
+              f"on cuda:0, stage {r['coordinate']['stage']}, row shard "
+              f"{r['coordinate']['row_shard']}, {r['rows']} rows: one of each "
+              f"microbatch): loss {r['loss']!r} "
+              f"{'bitwise' if r['loss_bitwise'] else 'rel diff %.3g' % r['loss_rel_diff']}"
+              f" (bound {GPIPE_MOE_LOSS_REL}), aux {r['aux']!r} "
+              f"{'bitwise' if r['aux_bitwise'] else 'rel diff %.3g' % r['aux_rel_diff']}"
+              f" (bound {EXPERT_LOSS_REL}); gradient blocks (rel L2, bound "
+              f"{STEP_GRAD_REL_L2}; bitwise): "
+              f"{ {k: (round(g['rel_l2'], 9), g['bitwise']) for k, g in r['grads'].items()} }"
+              f"; routing replayed (worst pairing distance "
+              f"{r['replay_worst_distance']:.3g}); {r['dropped']} of its "
+              f"assignments dropped; collectives on CUDA {r['probe']}; "
+              f"flash launches {r['launches']}; forward and backward "
+              f"{r['ms']:.1f} ms (four ranks share the card; from its start "
+              f"the rank's seconds at each mark {r['marks']}); peak memory "
+              f"{r['peak_memory_bytes'] / 1e9:.2f} GB [{card}]", flush=True)
+    dropped = sum(r["dropped"] for r in ranks)
+    if dropped != ref["dropped"] or not dropped:
+        problems.append(f"the ranks dropped {dropped} assignments, the "
+                        f"one-process run {ref['dropped']} (must be equal, "
+                        f"and above 0)")
+    if problems:
+        raise AssertionError("gpipe moe: " + "; ".join(problems))
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in FLASH_PER_LAYER}
+    seconds = time.perf_counter() - t0
+    print(f"expert[gpipe]: {dropped} assignments dropped over the ranks, as "
+          f"one process; world of {GPIPE_MOE_RANKS} took {seconds:.1f} s "
+          f"[{card}]", flush=True)
     return launches, dict(reference=ref, ranks=ranks, launches=launches,
-                          seconds=seconds)
+                          dropped=dropped, seconds=seconds)
 
 
 # Phase 8: the workload chaos arms (``triton_kubernetes_tpu_torch/chaos``)
@@ -6205,8 +6872,10 @@ RECOMPUTE_LENGTHS = (*range(2, 26), 250, 255, 256, 257, 258, 262)
 CHAOS_TC_WORKLOAD = {"kind": "engine-preempt", "long_windows": 6,
                      "requests": 3, "block_size": 16}
 # Fault F11's check: the reshard-torn-checkpoint arm at least this many
-# times beside forks (more while the world of one still runs).
-CHAOS_FORK_RUNS = 40
+# times beside forks (more while the world of one still runs). The arena
+# before the repair went stale in 197 and 193 of 200 runs beside forks
+# (H100 80GB HBM3, 700 W; PERF.md), so 10 runs catch it all but surely.
+CHAOS_FORK_RUNS = 10
 
 
 # The paged kernels at the chaos arms' shapes (phase 8): the 8B's heads in
@@ -6822,7 +7491,19 @@ def main() -> int:
                              "probe and the world-of-one crash and resume) "
                              "and stop (DIR/chip_smoke_chaos.json with "
                              "--out; prints no device line)")
+    parser.add_argument("--w8a8-only", action="store_true",
+                        help="build every kernel and run the W8A8 check "
+                             "of phase 4 on the 8B model (each layer fed "
+                             "the plain path's input, int8 and fp8; the "
+                             "full-depth first-token logits printed) "
+                             "without the serve runs, and stop: the short "
+                             "run after a change upstream of a quantizer "
+                             "(DIR/chip_smoke_w8a8.json with --out; prints "
+                             "no device line)")
     parser.add_argument("--expert-worker", nargs=3, default=None,
+                        metavar=("RANK", "PORT", "DIR"),
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--gpipe-moe-worker", nargs=3, default=None,
                         metavar=("RANK", "PORT", "DIR"),
                         help=argparse.SUPPRESS)
     parser.add_argument("--mixtral-only", action="store_true",
@@ -6835,6 +7516,10 @@ def main() -> int:
     if args.expert_worker is not None and torch.cuda.is_available():
         rank, port, out_dir = args.expert_worker
         expert_worker(int(rank), int(port), Path(out_dir))
+        return 0
+    if args.gpipe_moe_worker is not None and torch.cuda.is_available():
+        rank, port, out_dir = args.gpipe_moe_worker
+        gpipe_moe_worker(int(rank), int(port), Path(out_dir))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on the "
@@ -6862,7 +7547,8 @@ def main() -> int:
           f"{peaks[0] / 1e12} TB/s, {peaks[1] / 1e12:.0f} bf16 TFLOP/s)",
           flush=True)
     device = torch.device("cuda")
-    full_run = not any((args.flash_only, args.gemm_only, args.migration_only,
+    full_run = not any((args.flash_only, args.gemm_only, args.w8a8_only,
+                        args.migration_only,
                         args.train_only, args.http_only,
                         args.distributed_only, args.expert_only,
                         args.chaos_only, args.mixtral_only))
@@ -6926,6 +7612,20 @@ def main() -> int:
         print(json.dumps({"kernels": [{k: r.get(k) for k in (
             "name", "variant", "launches", "max_abs_err", "ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by")} for r in records]}))
+        return 0
+
+    if args.w8a8_only:
+        t0 = time.perf_counter()
+        w8a8 = w8a8_only(card)
+        phase_done("4 serve: W8A8 check alone", t0)
+        if args.out is not None:
+            args.out.mkdir(parents=True, exist_ok=True)
+            (args.out / "chip_smoke_w8a8.json").write_text(json.dumps(
+                dict(card=card, device=name, w8a8=w8a8), indent=1))
+        print(json.dumps({"w8a8": {wd: {k: r[k] for k in (
+            "per_layer_kernel_worst", "per_layer_control_best",
+            "rel_l2_vs_plain", "plain_paths_rel_l2")}
+            for wd, r in w8a8.items()}}))
         return 0
 
     if args.migration_only or args.http_only:
@@ -7031,21 +7731,37 @@ def main() -> int:
         t0 = time.perf_counter()
         train_launches, train = train_phase(card, out_dir)
         phase_done("5 train", t0)
+        # Phase 6, distributed training on one card, runs beside the
+        # durability arm B once arm A has ended (B mostly waits on the
+        # disk; the two fit the card together).
         t0 = time.perf_counter()
-        train["durability"] = durable = durability_phase(card, out_dir)
+
+        def phase_6():
+            t6 = time.perf_counter()
+            out = distributed_phase(card, out_dir,
+                                    flash_report=train["report"],
+                                    fused=False)
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase_done("6 distributed (beside durability arm B)", t6)
+            return out
+
+        train["durability"] = durable = durability_phase(
+            card, out_dir, beside_b=phase_6)
+        train["distributed"] = dist = durable.pop("beside")
         gc.collect()
         torch.cuda.empty_cache()
-        phase_done("5 durability arms", t0)
-        # Phase 6: distributed training on one card.
+        phase_done("5 durability arms (and phase 6 beside arm B)", t0)
+        # The fused exchange's check, whose two states do not fit beside
+        # a durability arm.
         t0 = time.perf_counter()
-        train["distributed"] = dist = distributed_phase(
-            card, out_dir, flash_report=train["report"])
+        dist["fused"] = fused_check(card)
         gc.collect()
         torch.cuda.empty_cache()
-        phase_done("6 distributed", t0)
+        phase_done("6 distributed: the fused exchange", t0)
         # Phase 7: expert parallelism, a world of two ranks on the card.
         t0 = time.perf_counter()
-        train["expert"] = expert = expert_phase(card, out_dir)[1]
+        expert_launches, train["expert"] = expert_phase(card, out_dir)
         gc.collect()
         torch.cuda.empty_cache()
         phase_done("7 expert", t0)
@@ -7135,8 +7851,9 @@ def main() -> int:
     for r in records:
         if r["name"] in dist["launches"]:
             r["distributed_launches"] = dist["launches"][r["name"]]
-        if r["name"] in expert["launches"]:
-            r["expert_launches"] = expert["launches"][r["name"]]
+        if r["name"] in expert_launches:
+            # The expert-2 world's and the GPipe world's, over their ranks.
+            r["expert_launches"] = expert_launches[r["name"]]
     # The paged kernels at the chaos pools' shapes: their launches are
     # phase 8's (every chaos engine runs block size 4), per engine run.
     engine_runs = sum(1 for run in chaos["runs"]

@@ -1781,3 +1781,80 @@ def test_cuda_core_decode_launches_from_replica_threads(device):
     assert not failed, failed[:4]
     for case, got in zip(cases, outs):
         assert torch.equal(got, case[7]), case[:2]
+
+
+_PPERMUTE_RANK = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+from triton_kubernetes_tpu_torch.parallel import MeshConfig, create_mesh
+from triton_kubernetes_tpu_torch.parallel import collectives
+
+rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=2)
+mesh = create_mesh(MeshConfig(stage=2, fsdp=1), device_type="cuda")
+
+
+def mine(r):
+    gen = torch.Generator(device="cuda").manual_seed(100 + r)
+    return torch.randn((3, 64, 96), generator=gen, device="cuda").to(
+        torch.bfloat16)
+
+
+x = mine(rank).requires_grad_()
+swap = [(0, 1), (1, 0)]
+y = collectives.ppermute(x, mesh, "stage", swap)
+pos = collectives.ppermute(torch.arange(5, device="cuda") + 10 * rank, mesh,
+                           "stage", [(0, 1)])
+(y.float() * (rank + 2)).sum().backward()
+torch.cuda.synchronize()
+want_pos = torch.arange(5, device="cuda") if rank == 1 else torch.zeros(
+    5, dtype=torch.long, device="cuda")
+rec = dict(
+    through_host=collectives._through_host(x, mesh.group(["stage"])),
+    on_card=y.is_cuda and x.grad.is_cuda,
+    peer_bitwise=bool(torch.equal(y, mine(1 - rank))),
+    positions=bool(torch.equal(pos, want_pos)),
+    grad_bitwise=bool(torch.equal(x.grad, torch.full_like(
+        x, float((1 - rank) + 2)))))
+open(out, "w").write(json.dumps(rec))
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def test_ppermute_over_gloo_on_the_card_goes_through_the_host(device,
+                                                              tmp_path):
+    """GPipe's shift (``collectives.ppermute`` along ``stage``) in a
+    two-rank gloo world on cuda:0, as ``chip_smoke.py``'s four-rank world
+    runs it: gloo's send and receive read a CUDA tensor's pointer as host
+    memory (the process aborts, ``writev ... Bad address``), so over gloo
+    a CUDA tensor goes through the host (``_through_host``, chosen by the
+    backend). Each rank gets its peer's bf16 tensor bitwise, on the card;
+    an integer tensor sent one way arrives and the other rank gets zeros;
+    the backward's inverse shift brings each rank its peer's cotangent
+    bitwise."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    outs = [str(tmp_path / f"rank{r}.json") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _PPERMUTE_RANK, str(r), str(port), outs[r]],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    logs = [p.communicate(timeout=180)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], [x[-2000:] for x in logs]
+    for path in outs:
+        rec = json.loads(open(path).read())
+        assert rec == dict(through_host=True, on_card=True,
+                           peer_bitwise=True, positions=True,
+                           grad_bitwise=True), rec

@@ -71,7 +71,8 @@ PARAMS_TOL = dict(rtol=1e-5, atol=1e-5)
 MESHES = {
     2: [(2, 1, 1, 1, 1), (1, 1, 2, 1, 1), (1, 1, 1, 1, 2),
         (1, 2, 1, 1, 1), (1, 1, 1, 2, 1)],
-    4: [(2, 1, 2, 1, 1), (1, 1, 2, 1, 2), (1, 1, 1, 1, 4)],
+    4: [(2, 1, 2, 1, 1), (1, 1, 2, 1, 2), (1, 1, 1, 1, 4),
+        (1, 2, 2, 1, 1)],
 }
 MICROBATCHES = 4  # for the stage cases
 # Head counts the tensor axis of the misfit case divides neither of.
@@ -111,7 +112,7 @@ def _worker_train(mesh_t, params, world, rank, out, overrides=None,
     opt = make_optimizer(**OPT)
     state = state_for(model, opt)
     step = make_train_step(cfg, opt, mesh=mesh, microbatches=MICROBATCHES)
-    place = make_batch_placer(mesh)
+    place = make_batch_placer(mesh, microbatches=MICROBATCHES)
     key = key or _key(mesh_t)
     losses, norms = [], []
     for i in range(STEPS):
@@ -453,7 +454,10 @@ def test_sharded_steps_match_make_train_step(worlds, params, grads, n,
     (data, stage, fsdp, seq, tensor). Covers (data, fsdp, tensor) in
     (2,1,1), (1,2,1), (1,1,2), (2,2,1), (1,2,2); tensor 4 (hkv 2 <
     tensor: the GQA repeat); stage 2 across 2 ranks (GPipe, 4
-    microbatches); seq 2 with the ring in the step."""
+    microbatches), and stage 2 x fsdp 2 across 4 (the first stage gathers
+    the embedding over fsdp before its first shift: fault F12, a hang in
+    ``new_group`` until every rank made the mesh's groups in one order);
+    seq 2 with the ring in the step."""
     _, outs = worlds(n)
     losses, norms, final = _jax_steps(params, mesh_t)
     key = _key(mesh_t)

@@ -23,7 +23,18 @@ What each mesh pins:
 3. ``expert`` 2 x ``tensor`` 2 and ``expert`` 2 x ``fsdp`` 2: the
    reference's ``tests/test_parallel.py:91-107`` shapes cut to four ranks
    (experts split over ``expert``, their ``mlp`` and ``embed`` dims over
-   ``tensor`` and ``fsdp``).
+   ``tensor`` and ``fsdp``);
+4. ``stage`` 2 x ``data`` 2 and ``stage`` 2 x ``fsdp`` 2 at 4
+   microbatches: GPipe with the rows split. The reference's microbatch m
+   is rows [m B/M, (m+1) B/M) of the global batch, its stage buffer
+   sharded ``P(stage, (data, fsdp), seq)``; the batch placer gives rank r
+   of the R row shards rows [m B/M + r B/(M R), m B/M + (r+1) B/(M R)) of
+   every microbatch m, in m order, so each tick's routing seats one global
+   microbatch (JAX's side: ``make_train_step(..., microbatches=4)``, its
+   gradient the pipelined loss's). The placer's rows are held to the
+   ``NamedSharding`` of that buffer, and the trainer's four-process world
+   at ``--stage 2 --data 2`` -- through an elastic restart onto two
+   processes (``data`` 1) and back -- to the one-process GPipe run.
 
 Every mesh runs both dispatches ("dense" and "sort"). The bounds are
 ``test_torch_distributed.py``'s: losses and grad norms 1e-5 relative, the
@@ -61,8 +72,11 @@ AXES = ("data", "stage", "fsdp", "seq", "expert", "tensor")
 MESHES = {
     2: [(2, 1, 1, 1, 1, 1), (1, 1, 2, 1, 1, 1), (1, 1, 1, 2, 1, 1),
         (1, 1, 1, 1, 2, 1)],
-    4: [(1, 1, 1, 1, 4, 1), (1, 1, 1, 1, 2, 2), (1, 1, 2, 1, 2, 1)],
+    4: [(1, 1, 1, 1, 4, 1), (1, 1, 1, 1, 2, 2), (1, 1, 2, 1, 2, 1),
+        (2, 2, 1, 1, 1, 1), (1, 2, 2, 1, 1, 1)],
 }
+# GPipe's microbatches for the stage cases (the stage count elsewhere).
+MICROBATCHES = 4
 CASES = [(n, m, d) for n in (2, 4) for m in MESHES[n] for d in DISPATCHES]
 
 
@@ -78,13 +92,20 @@ def _key(mesh_t, dispatch):
     return "mesh" + "_".join(map(str, mesh_t)) + "_" + dispatch
 
 
+def _stages(mesh_t):
+    """(stages, microbatches) of a case: GPipe's, or (1, 1)."""
+    stages = _sizes(mesh_t)["stage"]
+    return (stages, MICROBATCHES) if stages > 1 else (1, 1)
+
+
 # ---------------------------------------------------------------- workers
 
 def _worker_train(mesh_t, dispatch, params, out):
     from triton_kubernetes_tpu_torch.parallel import create_mesh
     from triton_kubernetes_tpu_torch.parallel.multihost import \
         make_batch_placer
-    from triton_kubernetes_tpu_torch.train import (make_optimizer,
+    from triton_kubernetes_tpu_torch.train import (make_eval_step,
+                                                   make_optimizer,
                                                    make_train_step,
                                                    state_for)
 
@@ -94,8 +115,9 @@ def _worker_train(mesh_t, dispatch, params, out):
                                     trainable=True, mesh=mesh)
     opt = make_optimizer(**OPT)
     state = state_for(model, opt)
-    step = make_train_step(cfg, opt, mesh=mesh)
-    place = make_batch_placer(mesh)
+    _, micro = _stages(mesh_t)
+    step = make_train_step(cfg, opt, mesh=mesh, microbatches=micro)
+    place = make_batch_placer(mesh, microbatches=micro)
     key = _key(mesh_t, dispatch)
     losses, norms, auxs = [], [], []
     for i in range(STEPS):
@@ -110,6 +132,11 @@ def _worker_train(mesh_t, dispatch, params, out):
     out[f"{key}/losses"] = np.array(losses)
     out[f"{key}/grad_norms"] = np.array(norms)
     out[f"{key}/aux"] = np.array(auxs)
+    if micro > 1:  # GPipe's eval step on the updated blocks
+        m = make_eval_step(cfg, mesh=mesh, microbatches=micro)(
+            state.model, place({"tokens": _tokens(10 + STEPS)}))
+        out[f"{key}/eval"] = np.array([float(m["loss"]),
+                                       float(m["aux_loss"])])
     for name, p in state.model.named_parameters():
         out[f"{key}/{model.layout[name][0]}"] = p.detach().numpy().copy()
         out[f"{key}/shape/{model.layout[name][0]}"] = np.array(p.shape)
@@ -180,7 +207,8 @@ def worlds(params, tmp_path_factory):
 
 def _jax_steps(params, mesh_t, dispatch):
     """JAX's make_train_step on the same mesh shape: (losses, grad norms,
-    aux losses, final params)."""
+    aux losses, final params, and under GPipe its make_eval_step's loss
+    and aux loss on the next batch at the final params, else None)."""
     import jax
     import jax.numpy as jnp
 
@@ -202,24 +230,32 @@ def _jax_steps(params, mesh_t, dispatch):
                                    opt_state=o)
 
     state = jax.jit(init)(params)
-    step = jtrainer.make_train_step(jcfg, mesh, opt)
+    step = jtrainer.make_train_step(jcfg, mesh, opt,
+                                    microbatches=_stages(mesh_t)[1])
     losses, norms, auxs = [], [], []
     for i in range(STEPS):
         state, m = step(state, {"tokens": jnp.asarray(_tokens(10 + i))})
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         auxs.append(float(m["aux_loss"]))
+    evals = None
+    if _stages(mesh_t)[0] > 1:
+        m = jtrainer.make_eval_step(jcfg, mesh, microbatches=MICROBATCHES)(
+            state.params, {"tokens": jnp.asarray(_tokens(10 + STEPS))})
+        evals = [float(m["loss"]), float(m["aux_loss"])]
     return losses, norms, auxs, jax.tree.map(
-        lambda a: np.asarray(a, np.float32), state.params)
+        lambda a: np.asarray(a, np.float32), state.params), evals
 
 
 _GRADS = {}
 
 
-def _jax_grads(params, dispatch):
+def _jax_grads(params, dispatch, stages=1, microbatches=1):
     """JAX's gradient of the first batch's loss at the start weights (the
-    global loss: one device's answer is every mesh's)."""
-    if dispatch not in _GRADS:
+    global loss: one device's answer is every mesh's; under GPipe the
+    pipelined loss, whose routing runs per microbatch)."""
+    key = (dispatch, stages, microbatches)
+    if key not in _GRADS:
         import jax
         import jax.numpy as jnp
 
@@ -228,11 +264,11 @@ def _jax_grads(params, dispatch):
 
         jcfg = jget_config(MODEL, **_overrides(dispatch))
         g = jax.jit(jax.grad(
-            lambda p, tok: jtrainer.loss_fn(p, tok, jcfg)[0]))(
+            lambda p, tok: jtrainer.loss_fn(p, tok, jcfg, None, stages,
+                                            microbatches)[0]))(
             params, jnp.asarray(_tokens(10)))
-        _GRADS[dispatch] = jax.tree.map(
-            lambda a: np.asarray(a, np.float32), g)
-    return _GRADS[dispatch]
+        _GRADS[key] = jax.tree.map(lambda a: np.asarray(a, np.float32), g)
+    return _GRADS[key]
 
 
 def _check_blocks(tree, outs, prefix, mesh_t, tol):
@@ -254,11 +290,13 @@ def _check_blocks(tree, outs, prefix, mesh_t, tol):
     return split
 
 
-def _drops(params, dispatch):
+def _drops(params, dispatch, stages=1, microbatches=1):
     """Assignments the one-device port model drops over the first batch
-    (every layer), counted where its seating runs (``moe._positions``: a
-    position at or past the capacity is a drop)."""
+    (every layer, and under GPipe every microbatch), counted where its
+    seating runs (``moe._positions``: a position at or past the capacity
+    is a drop)."""
     from triton_kubernetes_tpu_torch.ops import moe
+    from triton_kubernetes_tpu_torch.train.pipeline import pipeline_forward
 
     cfg = get_config(MODEL, **_overrides(dispatch))
     model = llama.from_numpy_params(params, cfg, device="cpu")
@@ -273,12 +311,16 @@ def _drops(params, dispatch):
         return pos
 
     moe._positions = counted_positions
+    inputs = torch.as_tensor(_tokens(10))[:, :-1]
     try:
         with torch.no_grad():
-            llama.forward(model, torch.as_tensor(_tokens(10))[:, :-1], cfg)
+            if stages > 1:
+                pipeline_forward(model, inputs, cfg, stages, microbatches)
+            else:
+                llama.forward(model, inputs, cfg)
     finally:
         moe._positions = positions
-    assert len(dropped) == cfg.num_layers
+    assert len(dropped) == cfg.num_layers * microbatches
     return sum(dropped)
 
 
@@ -289,12 +331,14 @@ def test_moe_steps_match_make_train_step(worlds, params, n, mesh_t,
     """Two sharded steps of ``mixtral-test`` at a capacity factor that
     drops tokens: loss, aux loss, grad norm, every rank's block of the
     first gradient and of every updated leaf against JAX's step on a mesh
-    of the same shape (data, stage, fsdp, seq, expert, tensor). On an
+    of the same shape (data, stage, fsdp, seq, expert, tensor); under
+    GPipe also the eval step's loss and aux loss on the next batch. On an
     expert axis the expert leaves are split (``E / expert`` experts a
     rank) and the router is not."""
     _, outs = worlds(n)
-    assert _drops(params, dispatch) > 0
-    losses, norms, auxs, final = _jax_steps(params, mesh_t, dispatch)
+    stages, micro = _stages(mesh_t)
+    assert _drops(params, dispatch, stages, micro) > 0
+    losses, norms, auxs, final, evals = _jax_steps(params, mesh_t, dispatch)
     key = _key(mesh_t, dispatch)
     for out in outs:
         np.testing.assert_allclose(out[f"{key}/losses"], losses,
@@ -303,14 +347,20 @@ def test_moe_steps_match_make_train_step(worlds, params, n, mesh_t,
                                    **REL)
         np.testing.assert_allclose(out[f"{key}/grad_norms"], norms,
                                    err_msg=key, **REL)
-    _check_blocks(_jax_grads(params, dispatch), outs, f"{key}/grad", mesh_t,
-                  GRAD_TOL)
+        if evals is not None:
+            np.testing.assert_allclose(out[f"{key}/eval"], evals,
+                                       err_msg=key, **REL)
+    _check_blocks(_jax_grads(params, dispatch, stages, micro), outs,
+                  f"{key}/grad", mesh_t, GRAD_TOL)
     split = _check_blocks(final, outs, key, mesh_t, PARAMS_TOL)
     sizes = _sizes(mesh_t)
     e = get_config(MODEL).num_experts
     for glob in (f"layers.{i}.{leaf}" for i in range(2)
                  for leaf in ("moe_w1", "moe_w3", "moe_w2")):
-        assert outs[0][f"{key}/shape/{glob}"][0] == e // sizes["expert"]
+        # A layer's leaves live on its stage's ranks only.
+        shape = next(out[f"{key}/shape/{glob}"] for out in outs
+                     if f"{key}/shape/{glob}" in out)
+        assert shape[0] == e // sizes["expert"]
         assert (glob in split) == (
             sizes["expert"] * sizes["fsdp"] * sizes["tensor"] > 1)
     assert "layers.0.router" in split if sizes["fsdp"] > 1 else \
@@ -359,41 +409,156 @@ def test_expert_split_checkpoint_restores_at_world_1_and_2(worlds):
 
 
 
-def test_moe_under_stages_with_split_rows_is_refused(tmp_path):
-    """An MoE model at ``stage`` 2 with its rows split (``data`` 2) is a
-    config error: each rank's microbatches would hold other rows than the
-    reference's, so the routing would differ. The trainer's world exits
-    2 before its first step, and the library's GPipe raises the same
-    typed error; a dense model there, and an MoE model whose rows stay on
-    one rank (``seq`` 2, or ``stage`` 2 alone), pass the check."""
-    from triton_kubernetes_tpu_torch.constants import EXIT_CONFIG
-    from triton_kubernetes_tpu_torch.parallel.multihost import (
-        MeshPlacementError, launch_trainers)
-    from triton_kubernetes_tpu_torch.train.pipeline import (
-        pipeline_forward, require_global_microbatches)
+@pytest.mark.parametrize("sizes", [
+    dict(stage=2, data=2), dict(stage=2, fsdp=2),
+    dict(stage=2, data=2, fsdp=2)], ids=lambda d: "_".join(
+        f"{k}{v}" for k, v in d.items()))
+def test_placer_rows_are_the_stage_buffers_shards(sizes):
+    """Under ``stage`` > 1 each rank's rows are, microbatch by
+    microbatch, the rows its device holds of the reference's stage buffer
+    ``[M, mb, S]`` under ``NamedSharding(mesh, P(stage, (data, fsdp),
+    seq))``: the buffer's row dim split over the row shards, the same for
+    every microbatch (the stage dim names which stage's slot a device
+    holds; every rank takes all M microbatches' rows)."""
+    import jax
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
 
-    moe_cfg, dense_cfg = get_config(MODEL), get_config("llama-test")
-    for sizes in (dict(stage=2, data=2), dict(stage=2, fsdp=2)):
-        with pytest.raises(MeshPlacementError, match="rows split"):
-            require_global_microbatches(moe_cfg, Mesh(sizes, 0))
-        require_global_microbatches(dense_cfg, Mesh(sizes, 0))
-    for sizes in (dict(stage=2, seq=2), dict(stage=2),
-                  dict(data=2, expert=2)):
-        require_global_microbatches(moe_cfg, Mesh(sizes, 0))
-    with pytest.raises(MeshPlacementError, match="rows split"):
-        pipeline_forward(None, torch.zeros((4, 8), dtype=torch.long),
-                         moe_cfg, 2, 2, mesh=Mesh(dict(stage=2, data=2), 0))
-    rep = launch_trainers(
-        ["--device", "cpu", "--model", MODEL, "--stage", "2", "--data", "2",
-         "--seq-len", "16", "--steps", "1", "--json-logs"],
-        n_processes=4, run_dir=str(tmp_path), tag="t-moe-gpipe",
-        timeout=120, pin_cores=False)
-    # Every rank refuses on its own; the launcher kills the peers of the
-    # first to exit (SIGKILL, -9) if they are still running.
-    done = [w for w in rep.workers if w.returncode != -9]
-    assert done and all(w.returncode == EXIT_CONFIG for w in done), [
-        (w.returncode, w.tail) for w in rep.workers]
-    assert all("mesh placement rejected" in w.tail for w in done)
+    from triton_kubernetes_tpu.parallel import MeshConfig as JMeshConfig
+    from triton_kubernetes_tpu.parallel import create_mesh as jcreate_mesh
+    from triton_kubernetes_tpu_torch.parallel.multihost import (
+        local_batch_rows, make_batch_placer)
+    from triton_kubernetes_tpu_torch.train.trainer import batch_spec
+
+    b, seq, micro = 16, 4, MICROBATCHES
+    n = int(np.prod(list(sizes.values())))
+    jmesh = jcreate_mesh(JMeshConfig(**sizes), devices=jax.devices()[:n])
+    assert tuple(jmesh.axis_names) == AXES
+    shape = (micro, b // micro, seq)
+    buf = np.broadcast_to(np.arange(b).reshape(micro, -1, 1), shape)
+    index = NamedSharding(jmesh, P("stage", ("data", "fsdp"), "seq")
+                          ).devices_indices_map(shape)
+    batch = {"tokens": np.arange(b)[:, None] * np.ones((1, seq + 1), int)}
+    for rank in range(n):
+        mesh = Mesh(sizes, rank)
+        coord = mesh.coordinate()
+        dev = jmesh.devices[tuple(coord[a] for a in AXES)]
+        sl_m, sl_rows, _ = index[dev]
+        got = make_batch_placer(mesh, microbatches=micro)(batch)["tokens"]
+        assert (got == got[:, :1]).all()
+        rows = got[:, 0].reshape(micro, -1)
+        np.testing.assert_array_equal(rows, buf[:, sl_rows, 0])
+        np.testing.assert_array_equal(rows[sl_m], buf[sl_m, sl_rows, 0])
+        assert local_batch_rows(mesh, batch_spec(), b, micro) == rows.size
+    # At stage 1 the placement is the plain row blocks, whatever M.
+    mesh = Mesh(dict(data=2, fsdp=2), 1)
+    assert make_batch_placer(mesh, microbatches=micro)(batch)["tokens"][
+        :, 0].tolist() == [4, 5, 6, 7]
+
+
+GPIPE_MICRO = 4
+GPIPE_ARGS = ["--device", "cpu", "--model", MODEL, "--stage", "2", "--data",
+              "2", "--microbatches", str(GPIPE_MICRO), "--batch-size", "8",
+              "--seq-len", "16", "--log-every", "1", "--json-logs",
+              "--model-opt", f"capacity_factor={CF}"]
+
+
+def _one_process_gpipe(steps):
+    """The trainer's run on one process with every stage here: its
+    config, weights (seed 0), optimizer and synthetic batches, each step
+    GPipe's ``loss_fn`` over the whole batch at the same microbatches.
+    Losses and aux losses a step, and the assignments dropped at the
+    first step."""
+    from triton_kubernetes_tpu_torch.ops import moe
+    from triton_kubernetes_tpu_torch.train import init_state, make_optimizer
+    from triton_kubernetes_tpu_torch.train.__main__ import _build_parser
+    from triton_kubernetes_tpu_torch.train.data import synthetic_batches
+    from triton_kubernetes_tpu_torch.train.precision import apply_policy
+    from triton_kubernetes_tpu_torch.train.trainer import loss_fn
+
+    args = _build_parser().parse_args(GPIPE_ARGS + ["--steps", str(steps)])
+    cfg = apply_policy(get_config(MODEL, capacity_factor=CF),
+                       args.precision)
+    opt = make_optimizer(learning_rate=args.learning_rate,
+                         warmup_steps=args.warmup_steps,
+                         decay_steps=max(args.steps, args.warmup_steps + 1))
+    state = init_state(cfg, opt, seed=0, device="cpu")
+    model, params = state.model, list(state.model.parameters())
+    batches = synthetic_batches(cfg.vocab_size, args.batch_size,
+                                args.seq_len)
+    attn = llama.resolve_attention(cfg, model.device)
+    dropped, positions = [], moe._positions
+
+    def counted_positions(top_i):
+        pos = positions(top_i)
+        cap = moe._capacity(cfg.capacity_factor, cfg.num_selected,
+                            top_i.shape[0], cfg.num_experts)
+        dropped.append(int((pos >= cap).sum()))
+        return pos
+
+    losses, auxs = [], []
+    for i in range(steps):
+        for p in params:
+            p.grad = None
+        moe._positions = counted_positions if i == 0 else positions
+        try:
+            total, m = loss_fn(model, torch.as_tensor(next(batches)["tokens"]),
+                               cfg, attn, 2, GPIPE_MICRO)
+        finally:
+            moe._positions = positions
+        total.backward()
+        grads = [p.grad for p in params]
+        opt.update(params, grads, state.opt_state,
+                   norm=model.placement.global_norm(params, grads))
+        losses.append(float(m["loss"]))
+        auxs.append(float(m["aux_loss"]))
+    return losses, auxs, sum(dropped)
+
+
+def test_trainer_trains_moe_under_stages_with_split_rows(tmp_path):
+    """The trainer's four-process world at ``--stage 2 --data 2`` (an MoE
+    model, capacity 1.0: tokens drop) exits 0, and its losses and aux
+    losses equal the one-process GPipe run's at the same microbatches.
+    Through ``elastic_restart`` it then resumes on two processes (``data``
+    1: the recorded model axes kept, ``data`` absorbing the fleet) and on
+    four again, each restore a reshard at the saved global step and each
+    phase's batches placed by the new mesh: the losses at every step are
+    still the one-process run's."""
+    from triton_kubernetes_tpu_torch.parallel.multihost import (
+        ElasticPhase, elastic_restart)
+
+    ckpt = str(tmp_path / "ckpt")
+    phases = [ElasticPhase(4, extra_args=("--steps", "2")),
+              ElasticPhase(2, extra_args=("--steps", "3")),
+              ElasticPhase(4, extra_args=("--steps", "4"))]
+    reports = elastic_restart(GPIPE_ARGS + ["--checkpoint-dir", ckpt],
+                              phases=phases, run_dir=str(tmp_path / "run"),
+                              tag="t-moe-gpipe", timeout=240,
+                              pin_cores=False)
+    assert len(reports) == 3
+    for rep in reports:
+        assert rep.ok, [(w.returncode, w.tail) for w in rep.workers]
+    losses, auxs, dropped = _one_process_gpipe(4)
+    assert dropped > 0
+    meshes = ["mesh(data=2, stage=2)", "mesh(stage=2)",
+              "mesh(data=2, stage=2)"]
+    starts = [0, 2, 3]
+    for i, (rep, mesh) in enumerate(zip(reports, meshes)):
+        r = rep.report
+        assert r["mesh"] == mesh and r["microbatches"] == GPIPE_MICRO
+        lo = starts[i]
+        assert r["start_step"] == lo
+        hi = lo + r["steps"]
+        np.testing.assert_allclose(r["losses"], losses[lo:hi],
+                                   err_msg=mesh, **REL)
+        np.testing.assert_allclose(r["aux_losses"], auxs[lo:hi],
+                                   err_msg=mesh, **REL)
+        if i:
+            assert r["reshard"]["step"] == lo
+            assert r["reshard"]["from_processes"] == (4, 2)[i - 1]
+        else:
+            assert r["reshard"] is None
+
 
 if __name__ == "__main__" and sys.argv[1:2] == ["worker"]:
     worker(*map(int, sys.argv[2:5]), sys.argv[5])

@@ -188,11 +188,30 @@ def _peer_ranks(mesh: Mesh, axis: str, perm: Sequence[Tuple[int, int]]
     return (ranks[dst[0]] if dst else None, ranks[src[0]] if src else None)
 
 
+def _through_host(x: torch.Tensor, group) -> bool:
+    """Whether a point-to-point transfer of ``x`` over ``group`` goes
+    through host memory: gloo's collectives take CUDA tensors, but its
+    send and receive read the tensor's pointer as host memory (a CUDA
+    tensor aborts the process, ``writev ... Bad address``), so over gloo a
+    CUDA tensor is copied to the host, sent, and the received one copied
+    back. Chosen by the backend, never by catching an error; the compute
+    stays on the card."""
+    return x.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
+
+
 def _permute(x: torch.Tensor, mesh: Mesh, axis: str,
              perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
     group = mesh.group([axis])
     send_to, recv_from = _peer_ranks(mesh, axis, perm)
     x = x.contiguous()
+    if _through_host(x, group):
+        return _permute_tensor(x.cpu(), group, send_to, recv_from).to(
+            x.device)
+    return _permute_tensor(x, group, send_to, recv_from)
+
+
+def _permute_tensor(x: torch.Tensor, group, send_to: Optional[int],
+                    recv_from: Optional[int]) -> torch.Tensor:
     out = torch.zeros_like(x)
     ops: List[dist.P2POp] = []
     if send_to is not None:

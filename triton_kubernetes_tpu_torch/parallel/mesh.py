@@ -163,10 +163,8 @@ class Mesh:
     def group(self, axes: Sequence[str]):
         """The process group of this rank's peers along ``axes``, or None
         when that group is this rank alone (a collective over it is the
-        identity, and none is issued). The first request for a set of
-        axes creates the groups of every rank (``new_group`` is
-        collective: every rank asks for the same sets in the same order,
-        which the step's code guarantees)."""
+        identity, and none is issued). The first request creates the
+        groups of every set of live axes (:meth:`_create_groups`)."""
         live = self.live_axes(axes)
         if not live:
             return None
@@ -174,21 +172,38 @@ class Mesh:
             raise RuntimeError(
                 f"mesh {self.shape}: a collective over {live} needs an "
                 f"initialized process group (this mesh is layout only)")
-        if live not in self._groups:
-            import torch.distributed as dist
-
-            mine = None
-            seen = set()
-            for r in range(self.size):
-                ranks = tuple(self.group_ranks(live, r))
-                if ranks in seen:
-                    continue
-                seen.add(ranks)
-                g = dist.new_group(list(ranks))
-                if self.rank in ranks:
-                    mine = g
-            self._groups[live] = mine
+        if not self._groups:
+            self._create_groups()
         return self._groups[live]
+
+    def _create_groups(self) -> None:
+        """Every group of every non-empty set of the live axes, in one
+        fixed order (the sets by size, then in mesh order; a set's groups
+        by their first rank). ``new_group`` is collective over the world
+        and names a group by the count made before it, so every rank must
+        create the same groups in the same order; ranks reach their first
+        collective at different points of a step (under GPipe a first
+        stage gathers the embedding over ``fsdp`` before its first shift
+        along ``stage``, a later stage shifts first), so the first request
+        makes them all."""
+        import itertools
+
+        import torch.distributed as dist
+
+        live_all = self.live_axes(MESH_AXES)
+        for n in range(1, len(live_all) + 1):
+            for live in itertools.combinations(live_all, n):
+                mine = None
+                seen = set()
+                for r in range(self.size):
+                    ranks = tuple(self.group_ranks(live, r))
+                    if ranks in seen:
+                        continue
+                    seen.add(ranks)
+                    g = dist.new_group(list(ranks))
+                    if self.rank in ranks:
+                        mine = g
+                self._groups[live] = mine
 
 
 def create_mesh(config: Optional[MeshConfig] = None,

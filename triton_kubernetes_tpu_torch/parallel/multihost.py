@@ -36,9 +36,9 @@ import numpy as np
 import torch
 
 from ..constants import COORDINATOR_PORT, EXIT_UNSUPPORTED  # noqa: F401
-from .mesh import (AXIS_DATA, AXIS_FSDP, MESH_AXES, Mesh, MeshConfig,
-                   create_mesh)
-from .sharding import local_shape, local_slices
+from .mesh import (AXIS_DATA, AXIS_FSDP, AXIS_STAGE, MESH_AXES, Mesh,
+                   MeshConfig, create_mesh)
+from .sharding import local_shape, local_slices, spec_axes
 
 REASON_NO_DISTRIBUTED = "no-jax-distributed"
 REASON_NO_CPU_COLLECTIVES = "no-cpu-collectives"
@@ -257,32 +257,60 @@ def process_batch_bounds(global_batch: int,
 
 
 def _batch_rows(mesh: Mesh, spec: Any, global_rows: int,
-                rank: Optional[int] = None) -> slice:
-    return local_slices((global_rows,), tuple(spec)[:1], mesh, rank)[0]
+                microbatches: int = 0, rank: Optional[int] = None
+                ) -> np.ndarray:
+    """The global rows ``rank`` holds, in the order its step takes them.
+
+    With ``stage`` 1 that is its block of the rows under ``spec``. Under
+    ``stage`` > 1 GPipe cuts the rows into ``microbatches`` (default the
+    stage count) global microbatches of B / M rows, and the reference's
+    stage buffer ``[M, mb, S, D]`` splits each microbatch's rows over the
+    spec's axes (``P(stage, (data, fsdp), seq)``): the rank then holds its
+    block of every microbatch, concatenated in microbatch order, so its
+    m-th local microbatch is its share of global microbatch m."""
+    m = (microbatches or mesh.shape[AXIS_STAGE]) \
+        if mesh.shape[AXIS_STAGE] > 1 else 1
+    if global_rows % m:
+        raise MeshPlacementError(
+            f"global batch {global_rows} must divide into {m} microbatches")
+    mb = global_rows // m
+    shards = mesh.axes_size(mesh.live_axes(spec_axes(tuple(spec)[0])))
+    if m > 1 and mb % shards:
+        raise MeshPlacementError(
+            f"a microbatch's {mb} rows must divide into the {shards} row "
+            f"shards under pipeline stages")
+    sl = local_slices((mb,), tuple(spec)[:1], mesh, rank)[0]
+    return np.concatenate([np.arange(i * mb + sl.start, i * mb + sl.stop)
+                           for i in range(m)])
 
 
-def make_batch_placer(mesh: Mesh, spec: Any = None
+def make_batch_placer(mesh: Mesh, spec: Any = None, microbatches: int = 0
                       ) -> Callable[[Any], Any]:
     """A ``place`` function for a batch: takes one *global* host batch
     (a dict of batch-major arrays) and returns this rank's rows under
     ``spec`` (default the trainer's ``batch_spec``: rows over data and
     fsdp, data-major) -- the rows this rank's step takes. Ownership comes
     from the spec, not from process arithmetic: ranks that differ only
-    along stage, seq or tensor hold the same rows."""
+    along stage, seq or tensor hold the same rows. Under ``stage`` > 1
+    the rows are those of the step's ``microbatches`` global microbatches
+    (default the stage count, as ``make_train_step``'s), each split over
+    the spec's axes as the reference's stage buffer splits them
+    (:func:`_batch_rows`)."""
     if spec is None:
         spec = ((AXIS_DATA, AXIS_FSDP), None)
 
     def place(batch: Any) -> Any:
-        return {k: np.asarray(v)[_batch_rows(mesh, spec, len(v))]
+        return {k: np.asarray(v)[_batch_rows(mesh, spec, len(v),
+                                             microbatches)]
                 for k, v in batch.items()}
 
     return place
 
 
-def local_batch_rows(mesh: Mesh, spec: Any, global_rows: int) -> int:
+def local_batch_rows(mesh: Mesh, spec: Any, global_rows: int,
+                     microbatches: int = 0) -> int:
     """How many batch rows THIS rank computes under ``spec``."""
-    sl = _batch_rows(mesh, spec, global_rows)
-    return sl.stop - sl.start
+    return len(_batch_rows(mesh, spec, global_rows, microbatches))
 
 
 def local_full_value(leaf: Any, full_shape: Optional[Sequence[int]] = None

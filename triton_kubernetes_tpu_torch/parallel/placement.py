@@ -233,7 +233,16 @@ class MeshRouting(Routing):
     through :func:`reduce_from`, Megatron's pair over ``expert``, so the
     router, everything before the layer and the aux loss get the whole
     gradient on every expert rank and nothing is summed over ``expert``
-    after the backward."""
+    after the backward.
+
+    Under GPipe (``stage`` > 1) the layer sees one microbatch at a tick.
+    The batch placer (``parallel.multihost.make_batch_placer``) gives each
+    rank its share of every global microbatch -- rank r of the R = data x
+    fsdp row shards holds rows [m B/M + r B/(M R), m B/M + (r+1) B/(M R))
+    of microbatch m -- so the gathered ids, in rank-block order, are the
+    reference's microbatch m row for row, and the seats, drops and means
+    are that microbatch's, as in the reference's stage buffer sharded
+    ``P(stage, (data, fsdp), seq)``."""
 
     def __init__(self, mesh: Mesh, split: bool):
         self.mesh = mesh

@@ -43,7 +43,9 @@ anyway). Under a world the step is the sharded one (the model's
 placement, ``parallel/placement.py``) even at one rank, or with ``--dcn-sync fused`` (``auto`` under several
 processes on a pure data-parallel mesh) the replica step with one
 all-reduce (``parallel/multihost.make_fused_dcn_step``). Every rank reads
-the same global stream and stages its own rows; checkpoints are written
+the same global stream and stages its own rows (under ``--stage``
+its share of every global microbatch, as the reference's stage buffer
+splits it); checkpoints are written
 by rank 0 through ``CoordinatedCheckpoint``; the preemption stop is a
 cross-process agreement; logs carry ``process=N`` and metrics
 ``process_id``; rank 0 writes the report (with ``n_processes``,
@@ -476,7 +478,6 @@ def _train(args, log, distributed: bool) -> int:
         peek_newest_manifest, restore_newest_verified)
     from .data import DevicePrefetch
     from .mfu import flops_per_token, mfu, peak_bf16_tflops
-    from .pipeline import require_global_microbatches
     from .precision import apply_policy, policy_of, remat_policy_of
     from .resilience import (
         EXIT_RESUME, AnomalyAbortedError, LossAnomalyGuard, PreemptionGuard,
@@ -595,7 +596,6 @@ def _train(args, log, distributed: bool) -> int:
             mesh = multihost.create_hybrid_mesh(
                 multihost.default_mesh_config(mesh_cfg, n_processes),
                 device_type=device.type)
-            require_global_microbatches(config, mesh)
         except multihost.MeshPlacementError as e:
             log.log("error", "mesh placement rejected", error=str(e))
             return EXIT_CONFIG
@@ -779,10 +779,13 @@ def _train(args, log, distributed: bool) -> int:
     sync_every = 1 if args.dry_run else \
         max(args.sync_every or args.log_every, 1)
     # The floor scales with the rows THIS rank computes.
-    local_rows = (multihost.local_batch_rows(mesh, batch_spec(), batch_size)
+    local_rows = (multihost.local_batch_rows(mesh, batch_spec(), batch_size,
+                                             args.microbatches)
                   if mesh is not None else batch_size)
     step_floor = args.device_ms_per_row * local_rows / 1e3
-    place = multihost.make_batch_placer(mesh) if mesh is not None else None
+    place = (multihost.make_batch_placer(mesh, batch_spec(),
+                                         args.microbatches)
+             if mesh is not None else None)
 
     # The resilient driver rebuilds the stream at a rolled-back or resumed
     # step by deterministic replay: same source, same seed, skip to the

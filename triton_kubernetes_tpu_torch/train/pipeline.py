@@ -13,6 +13,21 @@ reference's ``vmap`` branch). With stage > 1 rank s holds stage s (a model
 built over the mesh holds only its layers) and the shift is a
 :func:`..parallel.collectives.ppermute` along ``stage``.
 
+**Rows.** The reference's microbatch m is rows [m B/M, (m+1) B/M) of the
+global batch, and its stage buffer ``[M, mb, S, D]`` is sharded
+``P(stage, (data, fsdp), seq)``: each microbatch's rows split over the
+row shards. The port places a batch the same way under stage > 1
+(``parallel.multihost.make_batch_placer``): rank r of the R = data x fsdp
+row shards holds, for each m, rows [m B/M + r B/(M R), m B/M + (r+1)
+B/(M R)), in m order, and cuts them into its M local microbatches. So an
+MoE layer's routing -- capacity, seats, drops and the aux loss's means,
+gathered over the batch axes by ``parallel.placement.MeshRouting`` --
+covers one global microbatch at every tick, as in the reference; every
+rank of a stage group holds the same m at a tick and skips the same
+bubbles, so those gathers pair up. A dense model's loss does not depend
+on which rows share a microbatch, so dense results move only by
+summation order.
+
 The reference computes its bubbles -- (stage, tick) pairs that hold no
 microbatch -- on zero activations and masks their aux loss out; the port
 skips them, which gives the same logits and aux. Across ranks a bubble
@@ -66,33 +81,6 @@ def _stage_params(layers: List[Any], num_stages: int) -> List[List[Any]]:
     return [layers[i * per:(i + 1) * per] for i in range(num_stages)]
 
 
-def require_global_microbatches(config, mesh) -> None:
-    """Refuse what GPipe over ``mesh`` cannot compute as the reference
-    does: an MoE model at stage > 1 with its rows split (``data`` or
-    ``fsdp`` > 1), :class:`..parallel.multihost.MeshPlacementError`.
-
-    The reference's microbatch m is rows [m B/M, (m+1) B/M) of the global
-    batch, and its MoE layer routes over that microbatch's tokens
-    (capacity, seats, drops and the aux loss). A rank of the port holds a
-    contiguous block of the rows and cuts its own block into microbatches,
-    so the ranks' m-th microbatches together are other rows than the
-    reference's m-th, and the routing would differ. A dense model's loss
-    does not depend on which rows share a microbatch, and ``seq`` splits
-    every row's tokens alike (each rank's m-th microbatch holds the
-    reference's rows), so both run."""
-    if (config.is_moe and mesh is not None and mesh.shape["stage"] > 1
-            and mesh.live_axes(("data", "fsdp"))):
-        from ..parallel.multihost import MeshPlacementError
-
-        raise MeshPlacementError(
-            f"an MoE model under pipeline stages ({mesh.shape['stage']}) "
-            f"with its rows split (data={mesh.shape['data']}, "
-            f"fsdp={mesh.shape['fsdp']}): each rank's microbatches would "
-            f"hold other rows than the reference's, and the expert routing "
-            f"would differ; run the rows on one rank (data=fsdp=1) or "
-            f"stage=1")
-
-
 def pipeline_forward(model, tokens: torch.Tensor, config, num_stages: int,
                      microbatches: int, attention_fn=None,
                      positions: Optional[torch.Tensor] = None, mesh=None):
@@ -104,7 +92,13 @@ def pipeline_forward(model, tokens: torch.Tensor, config, num_stages: int,
 
     For dense configs this is the sequential forward up to summation
     order. For MoE configs routing and capacity run per microbatch, as in
-    the reference."""
+    the reference. ``tokens`` are this rank's rows; on a mesh whose rows
+    are split (``data`` or ``fsdp`` > 1) they must be its share of every
+    global microbatch in microbatch order, as
+    ``parallel.multihost.make_batch_placer`` places them, so the m-th
+    local microbatch is this rank's part of the reference's m-th and the
+    MoE routing (``parallel.placement.MeshRouting``) seats that global
+    microbatch's tokens together."""
     from ..models import llama
     from ..parallel.collectives import ppermute
 
@@ -118,7 +112,6 @@ def pipeline_forward(model, tokens: torch.Tensor, config, num_stages: int,
             f"microbatches ({microbatches}) must be a multiple of "
             f"stages ({num_stages})")
     staged = mesh is not None and mesh.shape["stage"] > 1
-    require_global_microbatches(config, mesh)
     if staged and mesh.shape["stage"] != num_stages:
         raise ValueError(
             f"num_stages ({num_stages}) must equal the mesh stage axis "

@@ -8,7 +8,8 @@ rank's blocks (``models.llama`` built with ``mesh=``) and so do both Adam
 moments (ZeRO: the reference's ``_constrain_opt_state``); the step takes
 this rank's batch rows (``batch_spec``: the batch splits over ``data`` and
 ``fsdp``, data-major; ``parallel.multihost.make_batch_placer`` cuts them
-from the global batch), cuts its ``seq`` part of the tokens, runs the
+from the global batch, under ``stage`` > 1 as its share of every global
+microbatch, in microbatch order), cuts its ``seq`` part of the tokens, runs the
 model's one forward on its blocks (``models/llama.py`` through the
 model's placement, ``parallel/placement.py``; GPipe over ``stage``,
 ``train/pipeline.py``; an MoE model's experts over ``expert``, its
