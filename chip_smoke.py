@@ -166,7 +166,16 @@ must stay within 750 s of its 1,200 s limit.
    triton_kubernetes_tpu_torch.tools.serve`` processes and a ``tools.route``
    over them, their argv the rendered serve and route Deployments'
    (``topology/serving.py``) plus the arguments it logs, the 12 at once
-   and the same open loop, then SIGTERM (exit
+   and the same open loop, then the reconcile operator (``operate_arm``:
+   ``python -m triton_kubernetes_tpu_torch.tools.operate`` over a
+   local-backend document of one h100-8 pool that the port's executor
+   applied on the simulated cloud, scraping both replicas each second for
+   8 ticks while 12 long greedy requests skew KV use onto replica 0: a
+   journaled queue-high grow whose new pool the document holds and the
+   simulated cloud applied, at least one rebalance over ``/migrate`` whose
+   moved session's tokens equal the same request's unmigrated tokens, the
+   operator's ``/healthz`` 200 and ``tk8s_operator_*`` on its
+   ``/metrics``, exit 0; ``phase: operate``), then SIGTERM (exit
    143, every trace file closed). A's and B's tokens must equal the
    engine-level bf16 spec_k 0 and int8 spec_k 3 runs, every token; every
    response 200 and no engine loop dead; kernels 4 and 5 (6 in B), the GEMM
@@ -3902,6 +3911,7 @@ def http_entry_point_arm(cfg, card, payloads):
             poisson = poisson_run(f"C: Poisson 2 req/s x "
                                   f"{HTTP_POISSON['n']}, 2 replica "
                                   f"processes", rurl, cfg, card)
+            operate = operate_arm(urls, Path(tmp), cfg, card)
             stats = [http_call(u + "/stats")[1] for u in urls]
             launches = {k: sum(s["kernel_launches"][k] for s in stats)
                         for k in stats[0]["kernel_launches"]}
@@ -3926,7 +3936,179 @@ def http_entry_point_arm(cfg, card, payloads):
           f"SIGTERM exit codes {codes}, trace files closed [{card}]",
           flush=True)
     return dict(start_s=started, burst=burst, poisson=poisson,
-                launches=launches, exit_codes=codes)
+                operate=operate, launches=launches, exit_codes=codes)
+
+
+# The operate arm's skewed burst at replica 0: OPERATE_BURST greedy requests
+# of OPERATE_PROMPT random tokens and OPERATE_NEW_TOKENS new ones -- 8 run
+# (the replica's max batch), the rest wait -- and the operator's flags.
+OPERATE_BURST = 12
+OPERATE_PROMPT = 1500
+OPERATE_NEW_TOKENS = 96
+OPERATE_TICKS = 8
+OPERATE_QUEUE_HIGH = 2
+
+
+def kv_utilization(url):
+    """A replica's KV-pool utilization gauge, from its /metrics (0 before
+    its engine's first tick sets it)."""
+    fam = http_metrics(url).get("tk8s_serve_kv_block_utilization")
+    return max((float(s["value"]) for s in (fam or {}).get("series", [])),
+               default=0.0)
+
+
+def operate_arm(urls, tmp, cfg, card):
+    """The reconcile operator (``tools.operate``) over arm C's two replica
+    processes. A local-backend document of one GPU cluster ("chip", one
+    h100-8 pool) is applied by the port's executor on the simulated cloud;
+    the operator scrapes both replicas each second for
+    ``OPERATE_TICKS`` ticks, with the autoscaler on that cluster
+    (``--queue-high`` below the burst's queue depth, a TTFT SLO out of
+    reach so the queue decides) and rebalancing on (thresholds just above
+    the replicas' pre-burst KV use). After its first tick, a burst of
+    long greedy requests at replica 0 alone skews KV use onto it. Checks:
+    a journaled ``grow`` (queue-high) whose new pool the document holds
+    and the simulated cloud applied; at least one rebalance with status
+    ok whose moved session's tokens (the source answers "migrated", the
+    destination's /await the stream) equal the same request's tokens run
+    unmigrated on replica 0; the operator's /healthz 200 and /metrics with
+    ``tk8s_operator_*``; exit 0."""
+    import importlib
+    import io
+    import threading
+
+    from triton_kubernetes_tpu_torch.backends import LocalBackend
+    from triton_kubernetes_tpu_torch.executor import (LocalExecutor,
+                                                      document_from_spec,
+                                                      load_executor_state)
+    from triton_kubernetes_tpu_torch.utils.logging import Logger
+
+    observe = importlib.import_module(
+        "triton_kubernetes_tpu_torch.operator.observe")
+    t0 = time.perf_counter()
+    state, name = tmp / "operate-state", "chip-operator"
+    backend = LocalBackend(state)
+    doc = document_from_spec(
+        {"manager": {"provider": "bare-metal", "name": "m1"},
+         "clusters": [{"provider": "gcp-gpu", "name": "chip",
+                       "pools": [{"name": "pool0",
+                                  "accelerator": "h100-8"}]}]},
+        name, backend=backend.executor_backend_config(name))
+    executor = LocalExecutor(log=lambda m: None,
+                             logger=Logger(stream=io.StringIO()))
+    executor.apply(doc)
+    backend.persist(doc)
+    before = [kv_utilization(u) for u in urls]
+    high = max(before) + 0.1
+    gap = abs(before[0] - before[1]) + 0.1
+    journal = tmp / "operate-journal.jsonl"
+    argv = ["triton_kubernetes_tpu_torch.tools.operate",
+            "--state-dir", str(state), "--cluster-manager", name,
+            "--scrape", urls[0] + "/metrics", "--scrape", urls[1] + "/metrics",
+            "--autoscale-cluster", "chip", "--queue-high",
+            str(OPERATE_QUEUE_HIGH), "--scale-up-after", "1",
+            "--cooldown", "600", "--max-pools", "2", "--ttft-slo", "1000",
+            "--rebalance-gap", f"{gap:.4f}", "--rebalance-high",
+            f"{high:.4f}", "--interval", "1", "--max-ticks",
+            str(OPERATE_TICKS), "--journal-out", str(journal),
+            "--operator-port", "0"]
+    print(f"operate: tools.operate {argv[1:]} (KV use before the burst "
+          f"{before})", flush=True)
+    proc, ourl = start_entry_point(argv, tmp / "operate.log")
+    try:
+        deadline = time.perf_counter() + 30
+        while not (journal.exists() and journal.read_text().strip()):
+            if time.perf_counter() > deadline or proc.poll() is not None:
+                raise AssertionError(f"operate: no first tick: "
+                                     f"{(tmp / 'operate.log').read_text()}")
+            time.sleep(0.05)
+        health = http_call(ourl + "/healthz")
+        families = sorted(k for k in http_metrics(ourl)
+                          if k.startswith("tk8s_operator_"))
+        gen = np.random.default_rng(23)
+        payloads = [{"tokens": gen.integers(1, cfg.vocab_size,
+                                            OPERATE_PROMPT).tolist(),
+                     "max_new_tokens": OPERATE_NEW_TOKENS,
+                     "temperature": 0.0, "seed": i}
+                    for i in range(OPERATE_BURST)]
+        burst = {}
+        burst_thread = threading.Thread(
+            target=lambda: burst.update(out=fire(urls[0], payloads)),
+            daemon=True)
+        burst_thread.start()
+        burst_thread.join(HTTP_TIMEOUT_S)
+        code = proc.wait(60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+    if health[0] != 200 or "tk8s_operator_reconciles_total" not in families:
+        raise AssertionError(f"operate: /healthz {health}, operator "
+                             f"families {families}")
+    if code != 0 or "out" not in burst:
+        raise AssertionError(f"operate: exit {code}, burst done "
+                             f"{'out' in burst}: "
+                             f"{(tmp / 'operate.log').read_text()[-2000:]}")
+    ticks = [json.loads(line) for line in journal.read_text().splitlines()]
+    grows = [t for t in ticks if (t.get("decision") or {}).get(
+        "direction") == "grow"]
+    moves = [a for t in ticks for a in t["actions"]
+             if a["rule"] == "rebalance" and a["status"] == "ok"]
+    if len(ticks) != OPERATE_TICKS or not grows or not moves or any(
+            g["decision"]["reason"] != "queue-high" for g in grows):
+        raise AssertionError(f"operate: {len(ticks)} ticks, grows {grows}, "
+                             f"rebalances {moves}: "
+                             f"{[t['outcome'] for t in ticks]}")
+    # The scale-up: one more gcp-gpu-nodepool module, applied on the
+    # simulated cloud.
+    doc = backend.state(name)
+    doc.set_backend_config(backend.executor_backend_config(name))
+    pools = observe.gpu_pool_modules(doc).get("chip", [])
+    applied = load_executor_state(doc).modules
+    sim_pools = executor.cloud_view(doc).get_resource(
+        "gke_cluster", "chip")["node_pools"]
+    if (pools != ["node_gcp-gpu_chip_pool0", "node_gcp-gpu_chip_pool1"]
+            or not all(p in applied for p in pools)
+            or "pool1" not in sim_pools):
+        raise AssertionError(f"operate: pools {pools}, applied "
+                             f"{sorted(applied)}, cloud {sorted(sim_pools)}")
+    # The moved sessions: the stream from the destination, against the
+    # same requests run unmigrated on replica 0 (all at once).
+    by_rid = {b["request_id"]: (i, b) for i, (s, b, _, _) in
+              enumerate(burst["out"])}
+    moved = []
+    for a in moves:
+        i, body = by_rid[a["request_id"]]
+        if body.get("finish_reason") != "migrated":
+            raise AssertionError(f"operate: moved {a} answered {body}")
+        status, full = http_call(body["migrated_to"] + "/await",
+                                 {"request_id": body["dest_request_id"]})
+        if status != 200:
+            raise AssertionError(f"operate: /await {status} {full}")
+        moved.append((i, full["tokens"]))
+    again = fire(urls[0], [payloads[i] for i, _ in moved])
+    for (i, tokens), (status, body, _, _) in zip(moved, again):
+        if status != 200 or body["tokens"] != tokens or len(
+                tokens) != OPERATE_NEW_TOKENS:
+            raise AssertionError(f"operate: request {i} migrated "
+                                 f"{tokens[:8]}.. unmigrated "
+                                 f"{body.get('tokens', [])[:8]}..")
+    unmoved = [b for s, b, _, _ in burst["out"]
+               if b.get("finish_reason") != "migrated"]
+    if any(len(b["tokens"]) != OPERATE_NEW_TOKENS for b in unmoved):
+        raise AssertionError("operate: a request not moved came back short")
+    seconds = phase_done("operate", t0)
+    print(f"operate: {len(ticks)} ticks "
+          f"{[t['outcome'] for t in ticks]}; grow at tick "
+          f"{grows[0]['tick']} (queue {grows[0]['observed']['queue_depth']}"
+          f" > {OPERATE_QUEUE_HIGH}) applied as pool1 on the simulated "
+          f"cloud; {len(moves)} sessions rebalanced 0 -> 1 over /migrate, "
+          f"tokens equal to their unmigrated runs; /healthz 200, "
+          f"{len(families)} tk8s_operator_* families; exit 0 [{card}]",
+          flush=True)
+    return dict(seconds=seconds, ticks=[t["outcome"] for t in ticks],
+                grow_tick=grows[0]["tick"], rebalances=len(moves),
+                kv_before=before)
 
 
 def plain_w8a8_rows(x, qs, scales, out):

@@ -36,7 +36,9 @@ two small engines on the card (handoff and drain keep the tokens, a torn
 payload leaves the destination's pool unchanged), two engines stepping
 on two threads of one process (each request keeps its tokens), and the
 serving MoE layer (rows bitwise across row counts, within one bf16 ulp
-of ``moe_layer``).
+of ``moe_layer``); and the reconcile operator (``tools.operate``) over a
+``tools.serve`` replica on the card, whose windowed TTFT p99 is the
+replica's own histogram's.
 """
 
 import pytest
@@ -1858,3 +1860,88 @@ def test_ppermute_over_gloo_on_the_card_goes_through_the_host(device,
         assert rec == dict(through_host=True, on_card=True,
                            peer_bitwise=True, positions=True,
                            grad_bitwise=True), rec
+
+
+def test_operate_windows_ttft_of_a_replica_on_the_card(device, tmp_path):
+    """``tools.operate`` over one ``tools.serve`` replica on the card
+    (llama-test) for 3 ticks: the first only takes the replica's baseline;
+    the requests sent after it and answered before the second tick are
+    that tick's window, whose TTFT p99 and count are the replica's own
+    histogram's (its buckets, quantiled as the operator quantiles them);
+    the third tick's window is empty."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    from triton_kubernetes_tpu_torch.backends import LocalBackend
+    from triton_kubernetes_tpu_torch.executor import document_from_spec
+    from triton_kubernetes_tpu_torch.utils import metrics
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def start(module, *args):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", f"triton_kubernetes_tpu_torch.tools."
+             f"{module}", *args], cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL, text=True)
+        return proc, proc.stdout.readline()
+
+    def scrape(url):
+        """The replica's cumulative TTFT buckets, "+Inf" the count."""
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+            fam = metrics.parse_prometheus(r.read().decode())[
+                "tk8s_serve_ttft_seconds"]
+        cum = metrics.merge_histogram_series(fam["series"])
+        return dict(cum["buckets"], **{"+Inf": float(cum["count"])})
+
+    def post(url, payload):
+        req = urllib.request.Request(
+            url + "/generate", data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    backend = LocalBackend(tmp_path / "state")
+    backend.persist(document_from_spec(
+        {"manager": {"provider": "bare-metal", "name": "m1"}}, "m1",
+        backend=backend.executor_backend_config("m1")))
+    journal = tmp_path / "j.jsonl"
+    procs = []
+    try:
+        srv, line = start("serve", "--model", "llama-test", "--port", "0")
+        procs.append(srv)
+        url = line.split(" on ")[1].split()[0]
+        post(url, {"tokens": [1, 2, 3], "max_new_tokens": 2})
+        base = scrape(url)
+        op, line = start("operate", "--state-dir", str(tmp_path / "state"),
+                         "--scrape", url + "/metrics", "--interval", "8",
+                         "--max-ticks", "3", "--journal-out", str(journal))
+        procs.append(op)
+        assert line.startswith("operating manager m1"), line
+        deadline = time.monotonic() + 60
+        while not (journal.exists() and journal.read_text().strip()):
+            assert time.monotonic() < deadline and op.poll() is None
+            time.sleep(0.05)
+        for i in range(6):
+            post(url, {"tokens": [5 + i, 7, 9, 11, 2, 4], "max_new_tokens":
+                       4 + i})
+        assert op.wait(timeout=60) == 0
+        final = scrape(url)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+            p.stdout.close()
+    ticks = [json.loads(x) for x in journal.read_text().splitlines()]
+    assert [t["observed"]["sources_ok"] for t in ticks] == [1, 1, 1]
+    assert ticks[0]["observed"]["window_requests"] == 0
+    window = {le: c - base.get(le, 0.0) for le, c in final.items()}
+    assert window["+Inf"] == 6
+    assert ticks[1]["observed"]["window_requests"] == 6
+    assert ticks[1]["observed"]["ttft_p99_s"] == round(
+        metrics.histogram_quantile(window, 0.99), 6)
+    assert ticks[2]["observed"]["window_requests"] == 0

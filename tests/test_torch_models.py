@@ -192,7 +192,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     chaos harness (corpus, generator, shrinker, runner, workload arms, its
     command line) and the GPU provisioning twins (the topology renderers
     and their command line, the node pool and JobSet modules, the workflow
-    configs) named first."""
+    configs) and the reconcile operator (its state document, backends,
+    executor, pool repair and command line) named first."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import triton_kubernetes_tpu_torch.train\n"
@@ -237,6 +238,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import triton_kubernetes_tpu_torch.topology.__main__\n"
         "import triton_kubernetes_tpu_torch.modules.gcp_gpu\n"
         "import triton_kubernetes_tpu_torch.workflows.providers.gcp_gpu\n"
+        "import triton_kubernetes_tpu_torch.state\n"
+        "import triton_kubernetes_tpu_torch.backends\n"
+        "import triton_kubernetes_tpu_torch.executor\n"
+        "import triton_kubernetes_tpu_torch.workflows.repair\n"
+        "import triton_kubernetes_tpu_torch.operator\n"
+        "import triton_kubernetes_tpu_torch.tools.operate\n"
         "import triton_kubernetes_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"

@@ -18,8 +18,10 @@ import fnmatch
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -380,6 +382,86 @@ def test_host_launch_starts_a_rank_a_gpu_of_the_rendered_pod():
     ranks = sorted(parse_distributed_env(dict(env, **e)).process_id
                    for e in seen)
     assert ranks == list(range(8, 16))
+
+
+def test_host_launch_keeps_each_rank_line_whole_when_unbuffered():
+    """F13: under ``PYTHONUNBUFFERED=1`` a rank's ``print`` writes the
+    line and its newline apart. The rendered h100-16 pod's eight ranks
+    each print 200 JSON lines to stdout and 200 plain lines to stderr:
+    every stdout line parses, every rank gives 200, and stderr stays
+    apart from stdout."""
+    spec = GpuPoolSpec.from_accelerator("h100-16")
+    show = ("import json, os, sys\n"
+            "r = os.environ['LOCAL_RANK']\n"
+            "for i in range(200):\n"
+            "    print(json.dumps({'LOCAL_RANK': r, 'i': i, 'pad': 'x' * 64}))\n"
+            "    print('err', r, i, file=sys.stderr)\n")
+    job = js.render_jobset("train", spec, "ml-p", "img",
+                           ["python", "-c", show])
+    env = dict(_env(job, 1), PYTHONUNBUFFERED="1")
+    command = job["spec"]["template"]["spec"]["containers"][0]["command"]
+    out = subprocess.run(_host_argv(command), cwd=ROOT,
+                         env=dict(os.environ, **env), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    seen = [json.loads(line) for line in out.stdout.splitlines()]
+    counts = {}
+    for e in seen:
+        counts[e["LOCAL_RANK"]] = counts.get(e["LOCAL_RANK"], 0) + 1
+    assert counts == {str(r): 200 for r in range(8)}
+    for r in range(8):
+        mine = [e["i"] for e in seen if e["LOCAL_RANK"] == str(r)]
+        assert mine == list(range(200))
+    err = out.stderr.splitlines()
+    assert len(err) == 8 * 200
+    assert all(line.split()[0] == "err" and len(line.split()) == 3
+               for line in err)
+
+
+def test_host_launch_ends_a_killed_rank_partial_line(tmp_path):
+    """A rank that dies mid-line leaves its partial line, ended with a
+    newline, before the pod's exit code returns. Each rank dies only once
+    both have written (a rank that ended first would have its sibling
+    sent SIGTERM before it wrote)."""
+    launch = [sys.executable, "-m",
+              "triton_kubernetes_tpu_torch.parallel.host_launch", "--"]
+    env = dict(os.environ, GPUS_PER_HOST="2", PYTHONUNBUFFERED="1")
+    cut = ("import os, sys, time; r = os.environ['LOCAL_RANK']; "
+           "sys.stdout.write('whole ' + r + '\\n'); "
+           "sys.stdout.write('part' + r); "
+           f"d = {str(tmp_path)!r}; open(os.path.join(d, r), 'w').close(); "
+           "t = time.monotonic() + 30\n"
+           "while len(os.listdir(d)) < 2 and time.monotonic() < t:\n"
+           "    time.sleep(0.01)\n"
+           "os._exit(4)")
+    out = subprocess.run(launch + [sys.executable, "-c", cut], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 4
+    assert out.stdout.endswith("\n")
+    assert sorted(out.stdout.splitlines()) == ["part0", "part1",
+                                               "whole 0", "whole 1"]
+
+
+def test_host_launch_returns_when_a_rank_leaves_a_pipe_open():
+    """A rank that leaves a process holding its stdout open (no EOF for
+    60 s) still gives the pod its exit code within ``DRAIN_S`` of its
+    end, with the lines it wrote."""
+    from triton_kubernetes_tpu_torch.parallel import host_launch
+
+    launch = [sys.executable, "-m",
+              "triton_kubernetes_tpu_torch.parallel.host_launch", "--"]
+    env = dict(os.environ, GPUS_PER_HOST="1", PYTHONUNBUFFERED="1")
+    leave = ("import subprocess, sys; "
+             "p = subprocess.Popen([sys.executable, '-c', "
+             "'import time; time.sleep(60)']); print(p.pid); sys.exit(3)")
+    t0 = time.monotonic()
+    out = subprocess.run(launch + [sys.executable, "-c", leave], cwd=ROOT,
+                         env=env, stdout=subprocess.PIPE, text=True,
+                         timeout=50)
+    (pid,) = out.stdout.split()
+    os.kill(int(pid), signal.SIGKILL)
+    assert out.returncode == 3
+    assert time.monotonic() - t0 < host_launch.DRAIN_S + 20
 
 
 def test_host_launch_passes_on_signals_and_the_first_failure():

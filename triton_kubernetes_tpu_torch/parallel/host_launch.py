@@ -19,6 +19,16 @@ later. The exit code is the first non-zero one a rank gave, as
 ``128 + signal`` for a rank a signal ended, else 0: a trainer's
 ``EXIT_RESUME`` reaches the Job's pod failure policy as it would from a
 pod of one rank.
+
+A rank's stdout and stderr are pipes, each drained by a thread that
+writes whole lines to the pod's matching stream under one lock a
+stream: the ranks' lines never split or merge (a rank whose Python runs
+unbuffered writes a line's body and its newline apart), so a trainer's
+JSON report lines stay parseable. A rank killed mid-line leaves its
+partial line, ended with a newline. The pipes are drained to EOF for at
+most ``DRAIN_S`` seconds after the last rank ends: a process that a rank
+left running may hold them open, and the pod's exit code must not wait
+on it.
 """
 
 from __future__ import annotations
@@ -27,12 +37,16 @@ import os
 import signal
 import subprocess
 import sys
+import threading
 import time
-from typing import List, Optional, Sequence
+from typing import BinaryIO, List, Optional, Sequence
 
 # Seconds between a rank's failure's SIGTERM to the others and their kill:
 # room for an emergency checkpoint, as the local launcher gives.
 GRACE_S = 120.0
+# Seconds the pipes are drained after every rank has ended. A process a
+# rank left behind may hold a pipe open, and then no EOF comes.
+DRAIN_S = 5.0
 
 
 def rank_env(local_rank: int, environ=None):
@@ -46,12 +60,34 @@ def _code(rc: int) -> int:
     return 128 - rc if rc < 0 else rc
 
 
+def _pump(src: BinaryIO, dst: BinaryIO, lock: threading.Lock) -> None:
+    """Copy ``src`` to ``dst`` a whole line at a time, under ``lock``,
+    until EOF; a last line without its newline gets one."""
+    with src:
+        for line in iter(src.readline, b""):
+            if not line.endswith(b"\n"):
+                line += b"\n"
+            with lock:
+                dst.write(line)
+                dst.flush()
+
+
 def run_ranks(command: Sequence[str], per_host: int,
               poll: float = 0.05) -> int:
     """Run ``command`` ``per_host`` times, one process a ``LOCAL_RANK``,
     and wait for all of them; returns the pod's exit code."""
-    procs = [subprocess.Popen(list(command), env=rank_env(i))
+    procs = [subprocess.Popen(list(command), env=rank_env(i),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE)
              for i in range(per_host)]
+    streams = [(getattr(s, "buffer", s), threading.Lock())
+               for s in (sys.stdout, sys.stderr)]
+    pumps = [threading.Thread(target=_pump, daemon=True,
+                              args=(pipe, dst, lock))
+             for p in procs
+             for pipe, (dst, lock) in zip((p.stdout, p.stderr), streams)]
+    for t in pumps:
+        t.start()
 
     def forward(signum, _frame):
         for p in procs:
@@ -86,6 +122,9 @@ def run_ranks(command: Sequence[str], per_host: int,
             if p.poll() is None:
                 p.kill()
             p.wait()
+        drain_until = time.monotonic() + DRAIN_S
+        for t in pumps:
+            t.join(max(0.0, drain_until - time.monotonic()))
     if first is None:
         failed = [p.returncode for p in procs if p.returncode != 0]
         first = _code(failed[0]) if failed else 0

@@ -4,8 +4,10 @@ registry, its exposition, the ``tk8s_serve_*`` families the serving
 engine and its HTTP front end update (its KV-session migration's among
 them), the router's ``tk8s_route_*``, the
 ``tk8s_train_*`` families of the training loop, its checkpoints and its
-anomaly guard, and the goodput ledger's
-``tk8s_goodput_seconds_total``, so they behave exactly as the JAX package's
+anomaly guard, the goodput ledger's ``tk8s_goodput_seconds_total``, and
+the executor's, the simulated cloud's, the pool repair's and the
+operator's (``tk8s_apply_*``, ``tk8s_cloudsim_*``, ``tk8s_repairs_total``,
+``tk8s_operator_*``), so they behave exactly as the JAX package's
 do, and the Prometheus text parser (``parse_prometheus``,
 ``histogram_quantile``, ``merge_histogram_series``) that reads a saved
 scrape back.
@@ -213,6 +215,107 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...], Optional[Tuple[float, ...]]]
         "exactly (GOODPUT_CATEGORIES in utils/trace.py is the closed "
         "vocabulary; lint rule TK8S113 pins it)",
         ("source", "category", "process_id"), None),
+    # -------------------------------------------------- executor/engine.py
+    "tk8s_module_apply_duration_seconds": (
+        "histogram", "Wall-clock duration of one module apply "
+        "(including retries and backoff)", ("module",), DEFAULT_BUCKETS),
+    "tk8s_module_apply_attempts_total": (
+        "counter", "Module apply attempts (first try + every retry)",
+        ("module",), None),
+    "tk8s_apply_retries_total": (
+        "counter", "Retries taken after a transient module-apply fault",
+        ("module",), None),
+    "tk8s_apply_faults_total": (
+        "counter", "Module-apply faults by retryability classification",
+        ("kind",), None),
+    "tk8s_apply_backoff_seconds_total": (
+        "counter", "Total seconds slept in retry backoff across applies",
+        (), None),
+    "tk8s_applies_total": (
+        "counter", "Whole-graph applies by terminal journal status",
+        ("status",), None),
+    "tk8s_destroys_total": (
+        "counter", "Whole-graph/targeted destroys by terminal journal "
+        "status", ("status",), None),
+    "tk8s_module_destroy_duration_seconds": (
+        "histogram", "Wall-clock duration of one module destroy",
+        ("module",), DEFAULT_BUCKETS),
+    "tk8s_apply_in_flight": (
+        "gauge", "Modules currently in flight in the wavefront "
+        "apply/destroy scheduler (bounded by --parallelism)", (), None),
+    "tk8s_apply_waves_total": (
+        "counter", "Dependency waves (DAG depth levels) dispatched by "
+        "the wavefront scheduler", (), None),
+    "tk8s_apply_critical_path_seconds": (
+        "gauge", "Critical-path (longest dependency chain) seconds of "
+        "the most recent apply/destroy — the floor no parallelism can "
+        "beat", ("kind",), None),
+    "tk8s_apply_total_work_seconds": (
+        "gauge", "Sum of per-module durations of the most recent "
+        "apply/destroy — what a serial run would pay", ("kind",), None),
+    "tk8s_state_saves_total": (
+        "counter", "Executor-state (journal) saves by backend kind",
+        ("backend",), None),
+    # ------------------------------------------------ executor/cloudsim.py
+    "tk8s_cloudsim_ops_total": (
+        "counter", "Simulated cloud mutations by operation", ("op",), None),
+    "tk8s_cloudsim_faults_total": (
+        "counter", "Injected simulator faults fired, by kind",
+        ("kind",), None),
+    "tk8s_cloudsim_preemptions_total": (
+        "counter", "GPU pool preemptions fired in the simulator", (), None),
+    # ------------------------------------------------- workflows/repair.py
+    "tk8s_repairs_total": (
+        "counter", "repair {node,slice} workflow runs by outcome",
+        ("kind", "outcome"), None),
+    # --------------------------------------------- operator/ (reconcile)
+    "tk8s_operator_reconciles_total": (
+        "counter", "Reconcile ticks by outcome (noop = no drift, acted "
+        "= a rule ran, failed = a rule raised)", ("outcome",), None),
+    "tk8s_operator_reconcile_duration_seconds": (
+        "histogram", "Wall-clock duration of one observe->diff->act "
+        "reconcile tick", (), DEFAULT_BUCKETS),
+    "tk8s_operator_drift_total": (
+        "counter", "Drift items the reconciler observed, by kind "
+        "(apply = missing/changed desired module, prune = orphaned "
+        "applied module, preempted = dead GPU pool awaiting "
+        "replacement)", ("kind",), None),
+    "tk8s_operator_scale_decisions_total": (
+        "counter", "Autoscaler decisions per reconcile tick, by "
+        "direction (grow/drain/hold) and the policy reason that drove "
+        "it (ttft-slo-breach, queue-high, calm, cooldown, risk-floor, "
+        "at-max, at-min, hysteresis, no-signal, repair-first, "
+        "nothing-drainable)",
+        ("direction", "reason"), None),
+    "tk8s_operator_rebalances_total": (
+        "counter", "KV-pressure rebalance actuations between serving "
+        "replicas (migrate one session from the most- to the "
+        "least-pressured replica), by status (ok / failed)",
+        ("status",), None),
+    "tk8s_operator_slo_attainment": (
+        "gauge", "Fraction of recent reconcile ticks (sliding window) "
+        "whose observed serving signal met the SLO, by slo "
+        "(ttft_p99 / queue_depth); 1.0 = fully attained", ("slo",), None),
+    "tk8s_operator_pools": (
+        "gauge", "GPU node pools currently desired for the "
+        "autoscaled cluster (the autoscaler's scaling unit)",
+        ("cluster",), None),
+    "tk8s_operator_train_resizes_total": (
+        "counter", "Train-fleet policy decisions per reconcile tick, "
+        "by direction (replace/shrink/regrow/hold) and the rule reason "
+        "that drove it (replace-lost, shrink-instead-of-wait, regrow, "
+        "converged, no-signal, no-capacity, await-capacity, "
+        "serving-pressure, cooldown, done)",
+        ("direction", "reason"), None),
+    "tk8s_operator_train_workers": (
+        "gauge", "Train worker processes the operator last decided the "
+        "fleet should run (the elastic trainer's negotiated world "
+        "size)", (), None),
+    "tk8s_operator_fleet_goodput": (
+        "gauge", "Fleet useful-chip-time fraction over the most recent "
+        "reconcile window (useful categories / all accounted "
+        "chip-seconds across scraped sources) — the signal the "
+        "goodput-aware arbitration policy reads", (), None),
 }
 
 _VALID_KINDS = ("counter", "gauge", "histogram")
