@@ -349,7 +349,23 @@ must stay within 750 s of its 1,200 s limit.
    that hold the pages copy-on-write, every restore with its step's
    values. Prints a ``{"chaos": ...}`` line: verdicts,
    checked invariants, preemptions, seconds and launches by kernel and
-   design.
+   design. Every run's ``checked`` list starts with the infra invariants
+   (its GPU twin's module DAG against the simulated cloud, host code),
+   which must equal the reference's runner's for the same spec
+   (``CHAOS_INFRA_CHECKED``, data taken on the CPU). Before the arms,
+   ``phase: chaos-infra``: the 11 infra-only corpus entries through the
+   port's ``run_scenario`` (``ref``, ``par`` and ``kill`` arms, repair,
+   the operator hit between observe and act, destroy), each to its pinned
+   verdict and the reference's ``checked`` list
+   (``CHAOS_INFRA_ENTRIES``; ``mutation-unfaulted-reference`` caught on
+   ``parity`` alone); then one round of the reference's soak loop
+   (``chaos/soak.py``): ``generate_spec(50000, "soak")`` passes, its twin
+   applied to a live executor, a trainer of the stand-in's config with
+   flash attention (bf16, D 128: the flash kernels' tensor-core designs)
+   takes 2 steps and saves a checkpoint, the first GPU pool is preempted
+   and repaired, the state restored and 2 more steps taken: the four
+   losses ``torch.equal`` to an uninterrupted 4-step run, and flash
+   kernels 1-3 launched.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. With ``--out DIR`` everything measured,
@@ -372,8 +388,8 @@ three flash kernels, then runs phase 5 with its kill and resume arms
 runs phase 4's W8A8 check on the 8B, without its serve runs
 (``DIR/chip_smoke_w8a8.json``); ``--expert-only`` builds and checks the
 three flash kernels and runs phase 7 (``DIR/chip_smoke_expert.json``);
-``--chaos-only`` builds every kernel and runs phase 8
-(``DIR/chip_smoke_chaos.json``).
+``--chaos-only`` builds every kernel and runs phase 8, ``phase:
+chaos-infra`` included (``DIR/chip_smoke_chaos.json``).
 """
 
 from __future__ import annotations
@@ -7058,6 +7074,51 @@ CHAOS_TC_WORKLOAD = {"kind": "engine-preempt", "long_windows": 6,
 # before the repair went stale in 197 and 193 of 200 runs beside forks
 # (H100 80GB HBM3, 700 W; PERF.md), so 10 runs catch it all but surely.
 CHAOS_FORK_RUNS = 10
+# The infra half (``phase: chaos-infra``): every corpus entry without a
+# workload fault, replayed through the port's runner on its GPU twin, and
+# the ``checked`` list the reference's runner gives it -- data taken on
+# the CPU (this script imports no JAX; tests/test_torch_chaos_infra.py
+# holds these pins to the reference's runner).
+_INFRA_HEAD = ("parity", "trace-journal", "metrics-journal")
+_INFRA_TAIL = ("destroy-clean", "destroy-clean")
+CHAOS_INFRA_ENTRIES = {
+    "kill-mid-wave-resume": _INFRA_HEAD + ("kill-resume",) + _INFRA_TAIL,
+    "mutation-unfaulted-reference": _INFRA_HEAD + _INFRA_TAIL,
+    "operator-preempt-mid-reconcile":
+        _INFRA_HEAD + ("operator-converge",) + _INFRA_TAIL,
+    "provider-aws": _INFRA_HEAD + ("kill-resume",) + _INFRA_TAIL,
+    "provider-azure": _INFRA_HEAD + ("kill-resume",) + _INFRA_TAIL,
+    "provider-bare-metal": _INFRA_HEAD + ("kill-resume",) + _INFRA_TAIL,
+    "provider-triton": _INFRA_HEAD + _INFRA_TAIL,
+    "provider-vsphere": _INFRA_HEAD + ("kill-resume",) + _INFRA_TAIL,
+    "tpu-at-op-preempt-serial": _INFRA_HEAD + ("repair",) + _INFRA_TAIL,
+    "tpu-graceful-warning": _INFRA_HEAD + ("repair",) + _INFRA_TAIL,
+    "tpu-preempt-repair": _INFRA_HEAD + ("repair",) + _INFRA_TAIL,
+}
+# The infra part of each workload run's ``checked`` list (its spec's
+# topology, faults and draws; the workload fault does not change it), as
+# the reference's runner gives it: no workload spec draws a kill, a pool
+# or an operator preemption.
+CHAOS_INFRA_CHECKED = {label: _INFRA_HEAD + _INFRA_TAIL for label in (
+    "workload-prefill-gap", "workload-preempt-abort-flush",
+    "mutation-leaked-pages", "mutation-swallowed-abort",
+    "workload-replica-death", "mutation-dropped-reland",
+    "workload-kv-migration-torn", "workload-torn-checkpoint",
+    "workload-reshard-torn-checkpoint", "mutation-adopt-torn-step",
+    "workload-sigterm-flush", "preempt-prefix-spec3",
+    "torn-checkpoint-truncate", "torn-checkpoint-bitflip",
+    "torn-checkpoint-torn-manifest", "mutation-accepted-torn",
+    "engine-preempt-bs16", "workload-rank-death",
+    "workload-coordinator-loss", "preempt-prefix-spec3-draft")}
+# One round of the soak loop (``chaos/soak.py``) at the reference's first
+# seed, its trainer at CHAOS_DRAFT_MODEL's config with flash attention
+# (bf16, D 128: the flash kernels' tensor-core designs) on B x S tokens,
+# the reference soak's optimizer. Not the 8B's width: a full-width
+# checkpoint is phase 5's 17.84 GB save, which this round would only
+# repeat; the path under test is the topology's.
+CHAOS_SOAK_SEED = 50_000
+CHAOS_SOAK_BATCH = (8, 128)
+CHAOS_SOAK_OPT = dict(learning_rate=1e-2, warmup_steps=2, decay_steps=100)
 
 
 # The paged kernels at the chaos arms' shapes (phase 8): the 8B's heads in
@@ -7439,6 +7500,118 @@ def fork_check(spec, run_scenario, wl, world, card):
     return dict(runs=runs, forks=forks[0], violated=len(bad))
 
 
+def chaos_soak_round(card, ckpt_dir):
+    """One round of the reference's soak loop on the card
+    (``chaos/soak.py``; CHAOS_SOAK_*): the four losses must be
+    ``torch.equal`` to an uninterrupted 4-step run, and the round must
+    launch every flash kernel (counted from zero just before it, after
+    the uninterrupted run)."""
+    from triton_kubernetes_tpu_torch.chaos.soak import (soak_round,
+                                                        train_losses)
+    from triton_kubernetes_tpu_torch.models import get_config
+    from triton_kubernetes_tpu_torch.ops import flash_attention as fa
+    from triton_kubernetes_tpu_torch.train import (init_state,
+                                                   make_optimizer,
+                                                   make_train_step,
+                                                   synthetic_batches)
+
+    name, over, seed = CHAOS_DRAFT_MODEL
+    cfg = get_config(name, **over, attention="flash")
+    opt = make_optimizer(**CHAOS_SOAK_OPT)
+    step = make_train_step(cfg, opt)
+    batch = next(synthetic_batches(cfg.vocab_size, *CHAOS_SOAK_BATCH))
+
+    def fresh():
+        return init_state(cfg, opt, seed=seed, device=CHAOS_DEVICE)
+
+    _, want = train_losses(step, fresh(), batch, 4)
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    rnd = soak_round(CHAOS_SOAK_SEED, step, fresh, batch, ckpt_dir,
+                     ns="soak-card", device=CHAOS_DEVICE,
+                     log=lambda m: print(f"chaos-infra: {m}", flush=True))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fa.flash_attention.launches[k] for k in FLASH_PER_LAYER}
+    result, pool = rnd["result"], rnd["pool"]
+    got = [float(x) for x in rnd["losses"]]
+    equal = [bool(torch.equal(a, b)) for a, b in zip(rnd["losses"], want)]
+    print(f"chaos-infra: soak round (seed {CHAOS_SOAK_SEED}; {cfg.name} "
+          f"{cfg.num_layers} layers, width {cfg.embed_dim}, D "
+          f"{cfg.head_dim}, {cfg.dtype}, B x S {CHAOS_SOAK_BATCH}): "
+          f"checked {result.checked}, simulated "
+          f"{result.stats['simulated_seconds']} s; pool "
+          f"{pool['slice_id']} ({pool['accelerator']}) repaired as "
+          f"{rnd['repaired']}, restored at step {rnd['restored_step']}; "
+          f"losses {got!r} vs uninterrupted {[float(x) for x in want]!r}, "
+          f"torch.equal {equal}; flash launches {launches}; "
+          f"{seconds:.1f} s [{card}]", flush=True)
+    if not all(equal) or len(equal) != 4:
+        raise AssertionError(f"chaos soak: resumed losses {got} differ "
+                             f"from the uninterrupted run's")
+    if not all(launches.values()):
+        raise AssertionError(f"chaos soak: a flash kernel launched no "
+                             f"time: {launches}")
+    return dict(seed=CHAOS_SOAK_SEED, checked=result.checked,
+                simulated_seconds=result.stats["simulated_seconds"],
+                pool=pool, repaired=rnd["repaired"], losses=got,
+                launches=launches, seconds=seconds)
+
+
+def chaos_infra_phase(card):
+    """``phase: chaos-infra``: the infra-only corpus entries
+    (CHAOS_INFRA_ENTRIES) through the port's ``run_scenario`` on their GPU
+    twins, each to its pinned verdict and the reference's ``checked``
+    list, then one soak round (:func:`chaos_soak_round`). Returns the
+    record."""
+    import copy
+
+    from triton_kubernetes_tpu_torch.chaos import corpus
+    from triton_kubernetes_tpu_torch.chaos.runner import run_scenario
+
+    entries = {e["name"]: e for _, e in corpus.load_entries(CHAOS_CORPUS)}
+    infra = sorted(n for n, e in entries.items()
+                   if not e["spec"].get("workload"))
+    if infra != sorted(CHAOS_INFRA_ENTRIES):
+        raise AssertionError(f"chaos-infra: the corpus's infra entries "
+                             f"{infra} are not the pinned ones")
+    runs = []
+    for name, want in CHAOS_INFRA_ENTRIES.items():
+        entry = entries[name]
+        t0 = time.perf_counter()
+        res = run_scenario(copy.deepcopy(entry["spec"]), ns=f"infra-{name}",
+                           device=CHAOS_DEVICE)
+        seconds = time.perf_counter() - t0
+        verdict = "pass" if res.passed else "violated"
+        violated = [v["invariant"] for v in res.violations]
+        invariant = entry.get("invariant")
+        print(f"chaos-infra: {name}: {verdict} (want {entry['expect']}"
+              f"{' on ' + invariant if invariant else ''}), violated "
+              f"{violated}, checked {res.checked}, ref_ops "
+              f"{res.stats['ref_ops']}, simulated_seconds "
+              f"{res.stats['simulated_seconds']}, {seconds:.2f} s [{card}]",
+              flush=True)
+        problems = []
+        if verdict != entry["expect"]:
+            problems.append(f"verdict {verdict}")
+        if entry["expect"] == "violated" and violated != [invariant]:
+            problems.append(f"violated {violated}, want [{invariant}]")
+        if res.checked != list(want):
+            problems.append(f"checked {res.checked}, the reference's "
+                            f"{list(want)}")
+        if problems:
+            raise AssertionError(f"chaos-infra {name}: "
+                                 + "; ".join(problems))
+        runs.append(dict(name=name, verdict=verdict, checked=res.checked,
+                         violated=violated, stats=res.stats,
+                         seconds=seconds))
+    with tempfile.TemporaryDirectory(prefix="tk8s-soak-") as tmp:
+        soak = chaos_soak_round(card, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(runs=runs, soak=soak)
+
+
 def chaos_phase(card):
     """Phase 8: the workload chaos arms on the card (see CHAOS_*), with
     the train arms' crash and resume as a world of one (trainer
@@ -7448,13 +7621,15 @@ def chaos_phase(card):
     the record."""
     from triton_kubernetes_tpu_torch.chaos import corpus
     from triton_kubernetes_tpu_torch.chaos import workload as wl
-    from triton_kubernetes_tpu_torch.chaos.runner import run_scenario
+    from triton_kubernetes_tpu_torch.chaos.runner import (INVARIANTS,
+                                                          run_scenario)
     from triton_kubernetes_tpu_torch.models import get_config, init_params
     from triton_kubernetes_tpu_torch.ops import _kernels
     from triton_kubernetes_tpu_torch.parallel.multihost import \
         REASON_RANKS_SHARE_CARD
     from triton_kubernetes_tpu_torch.utils import metrics
 
+    infra_ids = INVARIANTS[:INVARIANTS.index("engine-parity")]
     t_phase = time.perf_counter()
     cfg = get_config(CHAOS_MODEL)
     t0 = time.perf_counter()
@@ -7509,6 +7684,8 @@ def chaos_phase(card):
             for k, n in launches.items():
                 total[k] = total.get(k, 0) + (0 if tc_pool else n)
             violated = [v["invariant"] for v in res.violations]
+            infra = [c for c in res.checked if c in infra_ids]
+            work = [c for c in res.checked if c not in infra_ids]
             skipped = res.stats.get("workload_skipped")
             verdict = ("skipped" if skipped else
                        "pass" if res.passed else "violated")
@@ -7529,7 +7706,9 @@ def chaos_phase(card):
             print(f"chaos: {label} ({kind}; {run['model']}): {verdict} "
                   f"(want {expect}"
                   f"{' on ' + invariant if invariant else ''}), checked "
-                  f"{res.checked}, violated {violated}, preemptions "
+                  f"infra {infra} (reference "
+                  f"{list(CHAOS_INFRA_CHECKED[label])}), workload {work}, "
+                  f"violated {violated}, preemptions "
                   f"{run['workload_preemptions']}, {seconds:.2f} s, "
                   f"served {served}, launches {run['launches']} [{card}]",
                   flush=True)
@@ -7538,10 +7717,13 @@ def chaos_phase(card):
                 problems.append(f"verdict {verdict}, want {expect}")
             if expect == "violated" and violated != [invariant]:
                 problems.append(f"violated {violated}, want [{invariant}]")
+            if infra != list(CHAOS_INFRA_CHECKED[label]):
+                problems.append(f"infra checked {infra}, the reference's "
+                                f"{list(CHAOS_INFRA_CHECKED[label])}")
             if expect == "skipped" and (skipped != REASON_RANKS_SHARE_CARD
-                                        or res.checked):
-                problems.append(f"skip reason {skipped!r}, checked "
-                                f"{res.checked}")
+                                        or work):
+                problems.append(f"skip reason {skipped!r}, workload checked "
+                                f"{work}")
             if kind in CHAOS_ENGINE_KINDS:
                 need = ["paged_decode", "paged_prefill"]
                 if spec["workload"].get("spec_k") and which == "draft":
@@ -7666,7 +7848,9 @@ def main() -> int:
                              "expert 2) and stop (DIR/chip_smoke_expert.json "
                              "with --out; prints no device line)")
     parser.add_argument("--chaos-only", action="store_true",
-                        help="build every kernel, run phase 8 (the "
+                        help="build every kernel, run the infra chaos "
+                             "(the 11 infra corpus entries and one soak "
+                             "round) and phase 8 (the "
                              "workload chaos arms on llama3-8b at full "
                              "width: the corpus replays, the specs built "
                              "here, the train arms' typed skips, the F9 "
@@ -7783,7 +7967,13 @@ def main() -> int:
         flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=device)
         records = chaos_kernel_phase(pa, device, flush, peaks)
         del flush
+        t0 = time.perf_counter()
+        chaos_infra = chaos_infra_phase(card)
+        phase_done("chaos-infra", t0)
+        t0 = time.perf_counter()
         total, chaos = chaos_phase(card)
+        phase_done("8 chaos (the world of one beside the arms)", t0)
+        chaos["infra"] = chaos_infra
         for r in records:
             r["launches"] = total[r["name"].removesuffix("_bs4")]
         if args.out is not None:
@@ -7947,9 +8137,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_done("7 expert", t0)
-    # Phase 8: the workload chaos arms.
+    # Phase 8: the infra chaos, then the workload chaos arms.
+    t0 = time.perf_counter()
+    chaos_infra = chaos_infra_phase(card)
+    phase_done("chaos-infra", t0)
     t0 = time.perf_counter()
     chaos_launches_total, chaos = chaos_phase(card)
+    chaos["infra"] = chaos_infra
     phase_done("8 chaos (the world of one beside the arms)", t0)
     # Each kernel's launches on the serve runs of its page kind (the first
     # serve run and the bf16 runs for bf16 pages) or on training, and per
@@ -8047,6 +8241,9 @@ def main() -> int:
     for r in records:
         if chaos_launches_total.get(r["name"]):
             r["chaos_launches"] = chaos_launches_total[r["name"]]
+        if r["name"] in chaos_infra["soak"]["launches"]:
+            r["chaos_soak_launches"] = chaos_infra["soak"]["launches"][
+                r["name"]]
     for r in records:
         n, per = count[r["name"]]
         if not n:
@@ -8067,7 +8264,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "variant", "launches",
             "launches_per_unit", "launches_per", "http_launches",
             "durability_launches", "mixtral_launches", "distributed_launches",
-            "expert_launches", "chaos_launches",
+            "expert_launches", "chaos_launches", "chaos_soak_launches",
             "max_abs_err", "ms",
             "plain_ms", "plain_note", "bound_ms",
             "bound_by", "bound_share", "achieved_tflops", "library_ms",

@@ -197,10 +197,13 @@ def test_forced_shrink_leaked_pages_lands_minimal():
                                         "torn-manifest"])
 def test_torn_checkpoint_arm_every_corruption(corruption):
     for torn_step, keep in ((1, 2), (2, 3)):
-        res = run_scenario(_spec(15, "torn-checkpoint",
-                                 corruption=corruption, torn_step=torn_step,
-                                 keep_steps=keep), device="cpu")
-        assert res.checked == ["ckpt-fallback"]
+        spec = _spec(15, "torn-checkpoint", corruption=corruption,
+                     torn_step=torn_step, keep_steps=keep)
+        res = run_scenario(spec, device="cpu")
+        # The infra arms first, as the reference's runner checks them.
+        infra = jrun_scenario(dict(copy.deepcopy(spec), workload=None),
+                              ns="wl-infra").checked
+        assert res.checked == infra + ["ckpt-fallback"]
         assert res.passed, (corruption, res.violations)
 
 

@@ -38,7 +38,8 @@ on two threads of one process (each request keeps its tokens), and the
 serving MoE layer (rows bitwise across row counts, within one bf16 ulp
 of ``moe_layer``); and the reconcile operator (``tools.operate``) over a
 ``tools.serve`` replica on the card, whose windowed TTFT p99 is the
-replica's own histogram's.
+replica's own histogram's; and one round of the chaos soak loop
+(apply, train, preempt, repair, resume) with its losses bitwise.
 """
 
 import pytest
@@ -1663,6 +1664,42 @@ def test_chaos_preempt_arm_on_the_card(device):
         assert pa.ragged_verify_attention.launches > 0
     finally:
         wl.use_model()
+
+
+def test_chaos_infra_soak_round_on_the_card(device, tmp_path):
+    """One round of the chaos soak loop (``chaos/soak.py``) on the card:
+    the soak profile's first scenario passes its infra arms, its GPU twin
+    is applied, a bf16 trainer at the F9 model's widths with flash
+    attention (D 128: the flash kernels' tensor-core designs) takes 2
+    steps and checkpoints, the first GPU pool is preempted and repaired,
+    the state restored and 2 more steps taken -- the four losses
+    ``torch.equal`` to an uninterrupted run, flash kernels 1-3 launched."""
+    from triton_kubernetes_tpu_torch.chaos.soak import (soak_round,
+                                                        train_losses)
+    from triton_kubernetes_tpu_torch.models import get_config
+    from triton_kubernetes_tpu_torch.ops import flash_attention as fa
+    from triton_kubernetes_tpu_torch.train import (init_state,
+                                                   make_optimizer,
+                                                   make_train_step,
+                                                   synthetic_batches)
+
+    cfg = get_config("llama-test", **F9_CONFIG, attention="flash")
+    opt = make_optimizer(learning_rate=1e-2, warmup_steps=2,
+                         decay_steps=100)
+    step = make_train_step(cfg, opt)
+    batch = next(synthetic_batches(cfg.vocab_size, 8, 128))
+
+    def fresh():
+        return init_state(cfg, opt, seed=9, device=device)
+
+    _, want = train_losses(step, fresh(), batch, 4)
+    fa.reset_launch_counts()
+    rnd = soak_round(50_000, step, fresh, batch, str(tmp_path / "ckpt"),
+                     ns="soak-cuda", device="cuda")
+    assert rnd["result"].passed and rnd["restored_step"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(rnd["losses"], want))
+    assert all(fa.flash_attention.launches[k] > 0 for k in
+               ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
 
 
 def test_chaos_preempt_arm_in_a_tensor_core_pool(device):

@@ -10,11 +10,9 @@ A corpus entry is one JSON file under ``tests/chaos_corpus/`` holding a
   carries a ``mutation`` that deliberately breaks an invariant, and
   replay asserts the harness still *catches* it.
 
-The port reads the same files with the same schema. Its runner drives only
-a spec's ``workload`` arm (the infra half -- the cluster manager's DAG
-against its simulator -- stays with the reference), so :func:`replay` of an
-entry without a workload fault raises
-:class:`~.runner.ChaosHarnessError`.
+The port reads the same files with the same schema, and :func:`replay`
+runs every entry: its infra half on the GPU twin of the spec, its
+workload arm (if any) on the device asked for.
 """
 
 from __future__ import annotations
@@ -204,8 +202,8 @@ def load_entries(corpus_dir: str) -> List[Tuple[str, Dict[str, Any]]]:
 
 def replay(entry: Dict[str, Any], ns: Optional[str] = None,
            device: str = "cuda"):
-    """Run a corpus entry's spec through the port's runner on ``device``;
-    returns the ScenarioResult. The caller asserts the verdict against
+    """Run a corpus entry's spec through the port's runner (its workload
+    arm, if any, on ``device``); returns the ScenarioResult. The caller asserts the verdict against
     ``entry['expect']``."""
     from .runner import run_scenario
 

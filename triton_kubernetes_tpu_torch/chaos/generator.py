@@ -1,35 +1,90 @@
-"""Seeded scenario generation for the workload profiles -- the port of
-``triton_kubernetes_tpu/chaos/generator.py``'s ``workload`` and
-``workload-train`` profiles.
+"""Seeded scenario generation: DAGs, latency models, fault plans -- the
+port of ``triton_kubernetes_tpu/chaos/generator.py``, every profile.
 
-One scenario is a JSON-able *spec*: the runner drives it, the shrinker
-reduces it, and the corpus pins it. Same seed, same spec, byte for byte,
-and the same spec as the reference's generator: the only randomness source
-is ``random.Random(seed)`` and every draw -- the infra topology, fault
-rules, latency model, kill fraction and operator preemption included --
-is made in the reference's order. The port carries the infra parts of a
-spec unchanged and runs only its ``workload`` fault (chaos/runner.py).
+One scenario is a JSON-able *spec* -- the unit the whole harness shares:
+the runner materializes it (executor/dagspec.py), the shrinker reduces it
+structurally, and the corpus pins it. Same seed, same spec, byte for byte,
+and the same spec as the reference's generator: the only randomness
+source is ``random.Random(seed)`` and every draw is made in the
+reference's order. A spec keeps the reference's vocabulary -- ``gcp-tpu``
+clusters of ``v5e-16`` pools, the profile name ``tpu`` -- so the committed
+corpus replays unchanged; :func:`twin_spec` gives the GPU twin the runner
+applies (``gcp-gpu`` clusters of ``h100-16`` pools).
+
+Spec shape::
+
+    {"version": 1, "seed": 7, "profile": "default",
+     "parallelism": 2,                  # the non-serial parity arm
+     "op_latency": None | 0.002 | {"register_node": 0.01, "*": 0.0},
+     "topology": {...},                 # executor/dagspec.py shape
+     "faults": [...],                   # cloudsim FaultPlan rules
+     "kill_fraction": None | 0.4,       # arms the kill-resume invariant
+     "mutation": None | "unfaulted-reference",   # harness self-test
+     "operator_preempt": None | {"slice_id": ..., "at_tick": 1},
+     "workload": None | {"kind": "engine-preempt", ...}}
+
+Every generated fault rule is **module-anchored** (``module`` /
+``at_module_op``) -- the interleaving-safe form, valid at any parallelism.
+Global-clock ``at_op`` preemption anchors are not drawn (the safe tick
+depends on op counts the generator cannot know a priori); a hand-written
+serial corpus entry pins that shape
+(``tests/chaos_corpus/tpu-at-op-preempt-serial.json``). Preempt rules
+anchor on a module that *depends on* the pool (the jobset), so the pool
+exists by the time the reclaim fires.
 """
 
 from __future__ import annotations
 
+import copy
+import io
 import random
 from typing import Any, Dict, List, Optional
 
+from ..executor.dagspec import MANAGER_PROVIDERS, DagSpecError
+
 SPEC_VERSION = 1
 
-#: The cluster manager providers (``executor/dagspec.MANAGER_PROVIDERS``
-#: of the reference: every provider with a manager module, sorted).
-MANAGER_PROVIDERS = ("aws", "azure", "bare-metal", "gcp", "triton")
+#: The TPU accelerator the reference's generator draws (every corpus pool
+#: too) and its GPU twin: two A3 hosts of eight H100s.
+TWIN_ACCELERATORS = {"v5e-16": "h100-16"}
+
+#: Mutations a reference TPU pool issues that its GPU twin does not: after
+#: its manifests it deletes three fixed-name DaemonSets (``tpu-jax-runtime``,
+#: ``tpu-device-plugin``, ``tpu-health``) left by clusters provisioned
+#: before its per-shape names. The GPU pool never had fixed names.
+TPU_POOL_EXTRA_OPS = 3
 
 # Cluster shapes a profile draws from. Weights are draw multiplicities.
 _RANCHER = ("aws", "azure", "triton", "vsphere", "bare-metal", "gcp")
 _HOSTED = ("gke", "aks")
 
-#: Generation profiles: (knobs the drawing loop reads). Workload faults
-#: on a deliberately small infra DAG; workload_weight 1.0 -- every
-#: scenario draws one.
+#: Generation profiles: (knobs the drawing loop reads).
 PROFILES: Dict[str, Dict[str, Any]] = {
+    # Small mixed DAGs, cheap faults — the CI sweep workhorse.
+    "quick": {"clusters": (1, 2), "nodes": (0, 2), "tpu_weight": 0.0,
+              "hosted_weight": 0.2, "parallelism": (1, 2),
+              "fault_rules": (0, 2), "latency_weight": 0.15,
+              "kill_weight": 0.2, "operator_weight": 0.0},
+    # The full matrix: every provider family, widths 1/2/8, all fault
+    # kinds, occasional latency models and kills.
+    "default": {"clusters": (1, 3), "nodes": (0, 3), "tpu_weight": 0.25,
+                "hosted_weight": 0.25, "parallelism": (1, 2, 8),
+                "fault_rules": (0, 3), "latency_weight": 0.25,
+                "kill_weight": 0.3, "operator_weight": 0.25},
+    # TPU-pool DAGs with preemption/graceful-warning faults — the
+    # apply -> preempt -> repair -> resume loop.
+    "tpu": {"clusters": (1, 2), "nodes": (0, 1), "tpu_weight": 1.0,
+            "hosted_weight": 0.0, "parallelism": (1, 2, 8),
+            "fault_rules": (1, 3), "latency_weight": 0.25,
+            "kill_weight": 0.25, "operator_weight": 0.4},
+    # The long soak: TPU loops under a heavy simulated latency model so
+    # every round advances the mutation clock by minutes of simulated
+    # time (the sleeper is a recorder — no wall-clock cost).
+    "soak": {"clusters": (1, 2), "nodes": (0, 1), "tpu_weight": 1.0,
+             "hosted_weight": 0.0, "parallelism": (1, 2, 8),
+             "fault_rules": (1, 2), "latency_weight": 1.0,
+             "latency_scale": 60.0, "kill_weight": 0.2,
+             "operator_weight": 0.3},
     "workload": {"clusters": (0, 1), "nodes": (0, 1), "tpu_weight": 0.0,
                  "hosted_weight": 0.2, "parallelism": (1, 2),
                  "fault_rules": (0, 1), "latency_weight": 0.1,
@@ -52,7 +107,8 @@ PROFILES: Dict[str, Dict[str, Any]] = {
                                           ("coordinator-loss", 0.4))},
 }
 
-# Ops each module family is known to issue -- rules target these.
+# Ops each module family is known to issue -- rules target these so a
+# drawn fault actually lands somewhere interesting.
 _FAMILY_OPS = {
     "manager": ("bootstrap_manager", "create_resource"),
     "rancher-cluster": ("create_or_get_cluster", "create_resource"),
@@ -260,7 +316,7 @@ def scenario_seed(base: int, i: int) -> int:
     return (base * 1_000_003 + i) % (2 ** 31 - 1)
 
 
-def generate_spec(seed: int, profile: str = "workload") -> Dict[str, Any]:
+def generate_spec(seed: int, profile: str = "default") -> Dict[str, Any]:
     """One scenario spec, fully determined by (seed, profile)."""
     if profile not in PROFILES:
         raise ValueError(
@@ -284,3 +340,92 @@ def generate_spec(seed: int, profile: str = "workload") -> Dict[str, Any]:
     spec["operator_preempt"] = _draw_operator(rng, prof, topo)
     spec["workload"] = _draw_workload(rng, prof)
     return spec
+
+
+def _twin_module_key(key: str) -> str:
+    """A module key in the twin's scheme: ``gcp-gpu`` in the provider slot
+    of a cluster or pool key (``cluster_gcp-tpu_ml``,
+    ``node_gcp-tpu_ml_pool0``); every other key unchanged."""
+    for prefix in ("cluster_", "node_"):
+        if key.startswith(prefix + "gcp-tpu_"):
+            return prefix + "gcp-gpu_" + key[len(prefix + "gcp-tpu_"):]
+    return key
+
+
+def twin_spec(spec: Dict[str, Any]) -> Dict[str, Any]:
+    """The GPU twin of a reference spec: every ``gcp-tpu`` cluster becomes
+    ``gcp-gpu``, each of its ``v5e-16`` pools ``h100-16`` (two A3 hosts),
+    and every fault rule's module key names the twin's cluster and pool
+    modules. A global-clock ``at_op`` anchor moves to the twin's tick of
+    the same operation (:func:`_twin_at_op`). Pool (slice) ids, ``job_*``
+    keys and everything else stay. Raises :class:`~..executor.dagspec.DagSpecError` naming any other TPU
+    accelerator. A spec that is already a twin comes back unchanged."""
+    out = copy.deepcopy(spec)
+    for cl in out.get("topology", {}).get("clusters", []):
+        if cl.get("provider") != "gcp-tpu":
+            continue
+        cl["provider"] = "gcp-gpu"
+        for pool in cl.get("pools", []):
+            if "accelerator" not in pool:
+                continue
+            accel = pool["accelerator"]
+            if accel not in TWIN_ACCELERATORS:
+                raise DagSpecError(
+                    f"pool {cl.get('name')}/{pool.get('name')}: TPU "
+                    f"accelerator {accel!r} has no GPU twin (twins: "
+                    f"{TWIN_ACCELERATORS})")
+            pool["accelerator"] = TWIN_ACCELERATORS[accel]
+    pools = [f"node_gcp-gpu_{cl.get('name')}_{pool.get('name')}"
+             for cl in spec.get("topology", {}).get("clusters", [])
+             if cl.get("provider") == "gcp-tpu"
+             for pool in cl.get("pools", [])]
+    for rule in out.get("faults") or []:
+        if isinstance(rule.get("module"), str):
+            rule["module"] = _twin_module_key(rule["module"])
+        if pools and "at_op" in rule:
+            rule["at_op"] = _twin_at_op(out["topology"], pools,
+                                        int(rule["at_op"]))
+    return out
+
+
+def _twin_at_op(topology: Dict[str, Any], pools: List[str],
+                at_op: int) -> int:
+    """The twin's global mutation-clock tick for the reference's ``at_op``.
+
+    Each twin pool in ``pools`` issues :data:`TPU_POOL_EXTRA_OPS` fewer
+    mutations than its TPU original, so a global anchor names another
+    operation on the twin. A fault-free serial apply of the twin records
+    which module issues each tick; walking it on the reference's clock
+    (the extra deletes after each pool's last operation) gives the twin
+    tick of the same operation, or of the next one where ``at_op`` falls
+    on a delete. An anchor past the apply keeps its distance from the
+    apply's end."""
+    from ..executor.cloudsim import CloudSimulator
+    from ..executor.dagspec import document_from_spec
+    from ..executor.engine import _MEMORY_STATES, LocalExecutor
+    from ..utils.logging import Logger
+
+    issued: List[str] = []
+
+    def factory(doc, state):
+        sim = CloudSimulator(state or {})
+        sim.kill_hook = lambda op, module, module_op: issued.append(module)
+        return sim
+
+    name = "twin-at-op"
+    _MEMORY_STATES.pop(name, None)
+    try:
+        LocalExecutor(log=lambda m: None, logger=Logger(stream=io.StringIO()),
+                      driver_factory=factory).apply(
+            document_from_spec(topology, name))
+    finally:
+        _MEMORY_STATES.pop(name, None)
+    last = {m: i for i, m in enumerate(issued) if m in pools}
+    ref_tick = 0
+    for i, module in enumerate(issued):
+        ref_tick += 1
+        if ref_tick >= at_op:
+            return i + 1
+        if last.get(module) == i:
+            ref_tick += TPU_POOL_EXTRA_OPS
+    return len(issued) + max(1, at_op - ref_tick)

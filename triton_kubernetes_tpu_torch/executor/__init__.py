@@ -9,10 +9,11 @@ from .cloudsim import (
     FatalFaultError,
     FaultPlan,
     FaultPlanError,
+    SimulatedKillError,
     TransientFaultError,
 )
 from .dagspec import DagSpecError, document_from_spec, gpu_pools
-from .drivers import make_driver
+from .drivers import driver_config, make_driver
 from .engine import (
     ApplyError,
     ExecutorState,
@@ -22,7 +23,9 @@ from .engine import (
     RetryPolicy,
     TransientApplyError,
     load_executor_state,
+    modules_fingerprint,
     save_executor_state,
+    state_fingerprint,
 )
 from .interpolate import (
     InterpolationError,
@@ -46,15 +49,19 @@ __all__ = [
     "Plan",
     "PlanAction",
     "RetryPolicy",
+    "SimulatedKillError",
     "TransientApplyError",
     "TransientFaultError",
     "diff_states",
     "document_from_spec",
+    "driver_config",
     "extract_dependencies",
     "gpu_pools",
     "load_executor_state",
     "make_driver",
     "module_dependencies",
+    "modules_fingerprint",
     "resolve",
     "save_executor_state",
+    "state_fingerprint",
 ]

@@ -24,10 +24,14 @@ wall clock, no randomness):
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import hashlib
+import os
+import signal as _signal
 import threading
-from typing import Any, Dict, List, Optional
+import time
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 from ..manager import protocol
 from ..utils import metrics
@@ -53,11 +57,21 @@ class FatalFaultError(CloudSimError):
 
 
 class FaultPlanError(ValueError):
-    """A fault-rule spec is malformed (unknown op/kind/key, a preempt
-    rule with no slice). Raised at plan
+    """A fault-rule spec is malformed (unknown op/kind/mode, a preempt
+    rule with no slice, a floating at_module_op anchor). Raised at plan
     *construction*, uniformly for every rule shape — a generated or
     hand-written plan must fail loudly before the first op, not fire
     nothing (or the wrong thing) mid-apply."""
+
+
+class SimulatedKillError(BaseException):
+    """An injected process death (the kill-mid-wave fault class).
+
+    Derives from BaseException on purpose: the engine's retry loop
+    catches ``Exception``, so a kill rides past retry/backoff exactly
+    like a real SIGKILL would — the module is NOT retried, the wavefront
+    unwinds, and whatever state was saved per completed module is what
+    the resumed run starts from."""
 
 
 class FaultPlan:
@@ -84,20 +98,41 @@ class FaultPlan:
            "kind": "fatal", "error": "quota exceeded"},
           # Reclaim a named GPU pool when the mutation clock reaches 7:
           {"op": "preempt", "slice_id": "ml-pool0", "at_op": 7},
+          # Graceful-warning preemption: deliver the SIGTERM a spot
+          # reclaim sends to the trainer process at the warning tick,
+          # reclaim the pool grace_ops mutations later (0 = same tick):
+          {"op": "preempt", "slice_id": "ml-pool0", "at_op": 7,
+           "mode": "graceful-warning", "notify_pid": 12345,
+           "signal": "SIGTERM", "grace_ops": 3},
         ]}
 
     ``match`` values substring-match the operation's info fields (type,
     name, cluster, pool, hostname, ...); an absent ``match`` matches every
     call of that op; ``op: "*"`` matches every mutating operation.
 
-    A preemption fires when the mutation clock next advances past its
-    ``at_op``. Under the wavefront apply at ``--parallelism`` above 1 the
-    global clock interleaves differently from run to run, so ``at_op``
-    anchors are deterministic only for serial applies; an op rule with a
-    ``match`` that names one module's resources fires alike at any
-    parallelism. (The reference's per-module ``module``/``at_module_op``
-    anchors and its graceful-warning preemption are not ported: nothing
-    in the port sets them.)
+    **Per-module anchors (interleaving-safe).** Under the wavefront apply
+    scheduler the *global* mutation clock interleaves differently at every
+    ``--parallelism``, so rules anchored on it (``at_op``) are only
+    deterministic for serial applies. Each rule may instead carry:
+
+    * ``module`` — substring-match against the module key the engine has
+      scoped around the current apply (``CloudSimulator.module_scope``);
+    * ``at_module_op`` — the 1-based index of the operation *within that
+      module's own op sequence* (op rules: fire exactly at that index;
+      preempt rules: fire once the scoped module's counter reaches it).
+
+    A module's own op sequence is fixed by its config, so per-module
+    anchors fire identically at any parallelism — the property the
+    parallel-vs-serial bitwise-equality tests pin. ``at_module_op``
+    requires ``module`` (an anchor that floats to whichever module gets
+    there first would defeat the point; rejected at plan build).
+
+    As with the global clock, a pending preemption (and a
+    graceful-warning reclaim in particular) only fires when its
+    anchoring clock next *advances*: a ``grace_ops`` window that
+    extends past the anchored module's (or, for ``at_op``, the whole
+    apply's) last mutation never fires — budget grace windows inside
+    the ops the run will actually make.
     """
 
     #: Every mutating operation the simulator exposes — the closed set an
@@ -112,13 +147,16 @@ class FaultPlan:
     })
 
     # Key vocabularies per rule shape: a misspelled key ("slice" for
-    # "slice_id") is as silently inert as a misspelled op. ``fired`` is
-    # the serialized live-state key, accepted so a persisted plan
-    # round-trips through its own to_dict().
+    # "slice_id") is as silently inert as a misspelled op. ``fired`` /
+    # ``warned`` are the serialized live-state keys, accepted so a
+    # persisted plan round-trips through its own to_dict().
     _OP_RULE_KEYS = frozenset({
-        "op", "times", "kind", "error", "match", "fired"})
+        "op", "times", "kind", "error", "match", "module", "at_module_op",
+        "fired"})
     _PREEMPT_RULE_KEYS = frozenset({
-        "op", "slice_id", "at_op", "times", "kind", "fired"})
+        "op", "slice_id", "at_op", "at_module_op", "module", "mode",
+        "notify_pid", "signal", "grace_ops", "times", "kind", "fired",
+        "warned"})
 
     def __init__(self, spec: Optional[Dict[str, Any]] = None):
         self.rules: List[Dict[str, Any]] = []
@@ -143,13 +181,21 @@ class FaultPlan:
         r.setdefault("times", 1)
         r.setdefault("kind", "transient")
         r.setdefault("fired", 0)
-        for key in ("times", "fired", "at_op"):
+        if "at_module_op" in r and not r.get("module"):
+            # Without a module anchor the per-module op index matches
+            # whichever module reaches it first — exactly the
+            # interleaving-dependence this anchor exists to remove.
+            raise bad("fault rule with at_module_op must name its module")
+        for key in ("times", "fired", "at_op", "at_module_op", "grace_ops",
+                    "notify_pid", "warned"):
             if key in r and not isinstance(r[key], int):
                 raise bad(f"{key!r} must be an integer")
             if key in r and r[key] < 0:
                 raise bad(f"{key!r} must be >= 0")
         if r["times"] < 1:
             raise bad("'times' must be >= 1")
+        if "at_module_op" in r and r["at_module_op"] < 1:
+            raise bad("'at_module_op' is a 1-based op index, must be >= 1")
         # kind is checked for EVERY rule shape (preempt rules carry the
         # serialized default too): a typo'd kind silently firing with
         # transient semantics is the exact class this validation kills.
@@ -162,11 +208,14 @@ class FaultPlan:
                 raise bad(f"unknown preempt-rule keys {sorted(unknown)}")
             if not isinstance(r.get("slice_id"), str) or not r["slice_id"]:
                 raise bad("preempt rules must name their 'slice_id'")
+            if r.get("mode") not in (None, "graceful-warning"):
+                raise bad(f"unknown preempt mode {r.get('mode')!r} "
+                          "(only 'graceful-warning')")
             return r
         unknown = set(r) - cls._OP_RULE_KEYS
         if unknown:
             raise bad(f"unknown rule keys {sorted(unknown)} "
-                      "(slice_id/at_op are preempt-rule keys)")
+                      "(mode/slice_id/grace_ops are preempt-rule keys)")
         if op != "*" and op not in cls.MUTATING_OPS:
             raise bad(f"unknown op {op!r} (choices: '*', 'preempt', "
                       f"{sorted(cls.MUTATING_OPS)})")
@@ -178,30 +227,63 @@ class FaultPlan:
         return {"faults": [dict(r) for r in self.rules]}
 
     @staticmethod
-    def _matches(rule: Dict[str, Any], op: str,
-                 info: Dict[str, Any]) -> bool:
+    def _matches(rule: Dict[str, Any], op: str, info: Dict[str, Any],
+                 module: str, module_op: int) -> bool:
         if rule.get("op") not in ("*", op):
+            return False
+        if "module" in rule and str(rule["module"]) not in module:
+            return False
+        if "at_module_op" in rule and int(rule["at_module_op"]) != module_op:
             return False
         for key, want in (rule.get("match") or {}).items():
             if str(want) not in str(info.get(key, "")):
                 return False
         return True
 
-    def check(self, sim: "CloudSimulator", op: str,
-              info: Dict[str, Any]) -> None:
+    @staticmethod
+    def _preempt_due(rule: Dict[str, Any], sim: "CloudSimulator",
+                     module: str, module_op: int, grace: int = 0) -> bool:
+        """Whether a preempt rule's anchor (+grace window) has passed —
+        the global mutation clock by default, the scoped module's own op
+        counter when the rule carries ``at_module_op``."""
+        if "at_module_op" in rule:
+            if str(rule.get("module", "")) not in module:
+                return False
+            return module_op >= int(rule["at_module_op"]) + grace
+        return sim.ops >= int(rule.get("at_op", 0)) + grace
+
+    def check(self, sim: "CloudSimulator", op: str, info: Dict[str, Any],
+              module: str = "", module_op: int = 0) -> None:
         """Called by the simulator before each mutating operation (the
         mutation clock has already ticked). Fires due preemptions, then
-        raises if an armed fault rule matches this call."""
+        raises if an armed fault rule matches this call. ``module`` /
+        ``module_op`` identify the engine-scoped module issuing the call
+        and its per-module op index (0 when unscoped)."""
         for rule in self.rules:
             if rule.get("op") != "preempt" or rule["fired"]:
                 continue
-            if sim.ops >= int(rule.get("at_op", 0)):
+            if rule.get("mode") == "graceful-warning":
+                # The spot-reclaim contract: SIGTERM lands first, the reclaim
+                # follows after the grace window. Both anchors are
+                # deterministic clock ticks, so the sequence repeats
+                # exactly and the warned/fired flags serialize.
+                if not rule.get("warned") and self._preempt_due(
+                        rule, sim, module, module_op):
+                    rule["warned"] = 1
+                    sim.warn_preemption(rule["slice_id"],
+                                        pid=rule.get("notify_pid"),
+                                        sig=rule.get("signal", "SIGTERM"))
+                if self._preempt_due(rule, sim, module, module_op,
+                                     grace=int(rule.get("grace_ops", 0))):
+                    rule["fired"] = 1
+                    sim.preempt_slice(rule["slice_id"])
+            elif self._preempt_due(rule, sim, module, module_op):
                 rule["fired"] = 1
                 sim.preempt_slice(rule["slice_id"])
         for rule in self.rules:
             if rule.get("op") == "preempt" or rule["fired"] >= rule["times"]:
                 continue
-            if self._matches(rule, op, info):
+            if self._matches(rule, op, info, module, module_op):
                 rule["fired"] += 1
                 metrics.counter("tk8s_cloudsim_faults_total").inc(
                     kind=rule["kind"])
@@ -214,8 +296,15 @@ class FaultPlan:
 
 class CloudSimulator:
     def __init__(self, state: Optional[Dict[str, Any]] = None,
-                 fault_plan: Optional[Dict[str, Any]] = None):
+                 fault_plan: Optional[Dict[str, Any]] = None,
+                 op_latency: Optional[Any] = None,
+                 sleep: Callable[[float], None] = time.sleep):
         s = state or {}
+        # Injectable sleeper (the executor/serve-engine pattern): tests
+        # assert latency *accounting* against a recorder instead of
+        # wall-clock thresholds that flake under concurrent machine load.
+        # Not serialized — a timing implementation, not timing model.
+        self._sleep = sleep
         self.resources: Dict[str, Dict[str, Any]] = s.get("resources", {})
         self.managers: Dict[str, Dict[str, Any]] = s.get("managers", {})
         self.clusters: Dict[str, Dict[str, Any]] = s.get("clusters", {})
@@ -225,6 +314,12 @@ class CloudSimulator:
         # It anchors at_op preemptions and lets tests assert the zero-
         # mutation no-op contract without wrapping the driver.
         self.ops: int = s.get("ops", 0)
+        # Per-module op counters (ticked only inside an engine
+        # ``module_scope``): the interleaving-independent clock that
+        # per-module fault anchors fire on. Serialized with the state so
+        # module-scoped fault sequences survive round-trips like the
+        # global clock does.
+        self.module_ops: Dict[str, int] = s.get("module_ops", {})
         # Lifetime preemption count per slice id. The live "preempted"
         # pool flag is consumed by repair (the replacement pool comes
         # back clean), so without this record past reclaims are
@@ -235,6 +330,25 @@ class CloudSimulator:
         # the wavefront apply scheduler can drive modules concurrently:
         # clock tick + fault check + state mutation are indivisible.
         self._lock = threading.RLock()
+        self._scope = threading.local()
+        # Injectable process-death hook (the chaos harness's kill-mid-wave
+        # fault): called after every mutation's clock tick + fault check
+        # but BEFORE the op's state mutation lands, outside the lock; may
+        # raise :class:`SimulatedKillError`. The death therefore leaves
+        # the current op not-yet-applied (like an injected fault would) —
+        # half-applied *modules* and mid-wave sibling commits are the
+        # states it exercises, not a torn individual op. Never
+        # serialized — a kill is an event, not state.
+        self.kill_hook: Optional[Callable[[str, str, int], None]] = None
+        # Opt-in deterministic per-op simulated latency (seconds): a float
+        # applied to every mutating op, or an {op: seconds} map with "*"
+        # as the default. Off (0) unless configured; serialized with the
+        # sim so a reloaded state keeps the same timing model. The sleep
+        # happens OUTSIDE the lock, so concurrent modules overlap their
+        # latency — which is exactly what makes apply concurrency
+        # measurable without a real cloud.
+        self.op_latency: Optional[Any] = (
+            op_latency if op_latency is not None else s.get("op_latency"))
         # Persisted plan state (with decremented fire-counts) wins over the
         # UNCHANGED spec it came from, so fault sequences stay deterministic
         # across the save/load round-trip of the executor state — but a
@@ -249,16 +363,51 @@ class CloudSimulator:
         else:
             self.fault_plan = None
 
+    @contextlib.contextmanager
+    def module_scope(self, module_key: str) -> Iterator[None]:
+        """Attribute this thread's mutations to one module: ticks that
+        module's own op counter and lets fault rules anchor on it
+        (``module`` / ``at_module_op``). The engine wraps each module
+        apply/destroy in this scope; the scope is thread-local, so
+        concurrent modules never see each other's attribution."""
+        prev = getattr(self._scope, "module", "")
+        self._scope.module = module_key
+        try:
+            yield
+        finally:
+            self._scope.module = prev
+
+    def _op_latency_s(self, op: str) -> float:
+        spec = self.op_latency
+        if not spec:
+            return 0.0
+        if isinstance(spec, dict):
+            return float(spec.get(op, spec.get("*", 0.0)))
+        return float(spec)
+
     def _mutate(self, op: str, **info: Any) -> None:
         """Tick the mutation clock and give the fault plan its shot. Every
         mutating operation calls this first, before touching state, so an
         injected failure always leaves the op not-yet-applied (the module
         retries it via its own idempotent create-or-get)."""
+        module = getattr(self._scope, "module", "")
         with self._lock:
             self.ops += 1
+            module_op = 0
+            if module:
+                module_op = self.module_ops.get(module, 0) + 1
+                self.module_ops[module] = module_op
             metrics.counter("tk8s_cloudsim_ops_total").inc(op=op)
             if self.fault_plan is not None:
-                self.fault_plan.check(self, op, info)
+                if module:
+                    info = dict(info, module=module)
+                self.fault_plan.check(self, op, info, module=module,
+                                      module_op=module_op)
+        if self.kill_hook is not None:
+            self.kill_hook(op, module, module_op)
+        latency = self._op_latency_s(op)
+        if latency > 0:
+            self._sleep(latency)
 
     # ------------------------------------------------------------- serialization
     def to_dict(self) -> Dict[str, Any]:
@@ -271,8 +420,12 @@ class CloudSimulator:
                 "serial": self.serial,
                 "ops": self.ops,
             }
+            if self.module_ops:
+                out["module_ops"] = self.module_ops
             if self.preempt_history:
                 out["preempt_history"] = self.preempt_history
+            if self.op_latency:
+                out["op_latency"] = self.op_latency
             if self.fault_plan is not None:
                 out["fault_plan"] = self.fault_plan.to_dict()
                 if self._fault_spec is not None:
@@ -556,6 +709,32 @@ class CloudSimulator:
                         for n in pool.get("nodes", []))
                         or f"{rec.get('name')}-{pool_name}" == slice_id):
                     yield rec, pool
+
+    def warn_preemption(self, slice_id: str, pid: Optional[int] = None,
+                        sig: Any = "SIGTERM") -> List[str]:
+        """Graceful preemption warning: a spot reclaim sends the workload
+        SIGTERM ~30 s before it takes a GPU pool's hosts (the JobSet
+        termination grace period). The simulator marks the pool
+        ``preempt_warning`` and -- when ``pid`` names a live trainer
+        process -- delivers the real signal, so a test drives the
+        trainer's preemption-aware emergency-checkpoint path with an
+        actual SIGTERM, not a mock. Like :meth:`preempt_slice`, this IS
+        the fault event: no clock tick, no fault-plan re-entry."""
+        hit: List[str] = []
+        with self._lock:
+            for _, pool in self._slice_pools(slice_id):
+                pool["preempt_warning"] = True
+                hit.extend(n["name"] for n in pool.get("nodes", []))
+        if not hit:
+            raise CloudSimError(f"no node pool carries slice {slice_id!r}")
+        metrics.counter("tk8s_cloudsim_preempt_warnings_total").inc()
+        if pid:
+            signum = getattr(_signal, sig) if isinstance(sig, str) else sig
+            try:
+                os.kill(int(pid), signum)
+            except ProcessLookupError:
+                pass  # workload already gone; the warning outlived it
+        return hit
 
     def preempt_slice(self, slice_id: str) -> List[str]:
         """Preempt a GPU pool: every host VM in its node pool is

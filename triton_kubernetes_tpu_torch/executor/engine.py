@@ -179,6 +179,40 @@ def delete_executor_state(doc: StateDocument) -> None:
         os.unlink(loc["local"]["path"])
 
 
+# Journal fields that are deterministic at every parallelism — what the
+# bitwise-parity contract covers. Timings (durations, backoff_total,
+# critical_path/total_work) vary run to run and are excluded.
+JOURNAL_PARITY_FIELDS = ("kind", "order", "wave", "waves", "completed",
+                         "retries", "status")
+
+
+def state_fingerprint(doc: StateDocument, with_journal: bool = True) -> str:
+    """Canonical bytes of everything the parallel-vs-serial parity
+    contract covers: applied modules + outputs, the full cloud dict
+    (content-addressed ids/ips, fault-plan fired counts, op clocks), and
+    — unless ``with_journal=False`` — the journal's deterministic fields
+    (:data:`JOURNAL_PARITY_FIELDS`).
+
+    Every consumer (tests, the chaos harness) compares the same bytes.
+    """
+    est = load_executor_state(doc)
+    fp: Dict[str, Any] = {"modules": est.modules, "cloud": est.cloud,
+                          "serial": est.serial}
+    if with_journal:
+        fp["journal"] = {k: est.journal.get(k)
+                         for k in JOURNAL_PARITY_FIELDS}
+    return json.dumps(fp, sort_keys=True)
+
+
+def modules_fingerprint(doc: StateDocument) -> str:
+    """Canonical bytes of the applied module records alone (configs,
+    outputs, resources) — the convergence contract for interrupted runs:
+    a killed-and-resumed apply must end with the same *modules* as an
+    uninterrupted one, even though its cloud op clocks and journal
+    necessarily differ (the retried ops ticked extra mutations)."""
+    return json.dumps(load_executor_state(doc).modules, sort_keys=True)
+
+
 class LocalExecutor:
     """Drives modules in-process. The default executor everywhere.
 
@@ -189,19 +223,25 @@ class LocalExecutor:
     sum of every module's wall time. ``parallelism=1`` executes inline in
     the calling thread, in exact topological order — byte-identical to
     the historical serial loop. Final applied state, outputs, and
-    fault-plan firings of rules that match one module's resources are
-    identical at every parallelism (test-pinned): simulator ids are
-    content-addressed and its lists are kept sorted.
+    fault-plan firings are identical at every parallelism (test-pinned):
+    simulator ids are content-addressed, its lists are kept sorted and
+    per-module fault anchors are interleaving-independent.
     """
 
     def __init__(self, log: Optional[Callable[[str], None]] = None,
                  logger=None, retry: Optional[RetryPolicy] = None,
                  sleep: Optional[Callable[[float], None]] = None,
-                 parallelism: int = 1):
+                 parallelism: int = 1,
+                 driver_factory: Optional[Callable[..., Any]] = None):
         from ..utils.logging import get_logger
 
         self.logger = logger if logger is not None else get_logger()
         self.log = log or (lambda msg: self.logger.info(msg))
+        # Injected driver construction (make_driver's signature): the seam
+        # the chaos harness uses to hand the simulator a recording sleeper
+        # or a kill hook -- things a JSON driver config cannot carry.
+        self._make_driver = (driver_factory if driver_factory is not None
+                             else make_driver)
         self.retry = retry if retry is not None else RetryPolicy()
         # Injected sleeper: tests drive backoff without wall-clock waits.
         self._sleep = sleep if sleep is not None else time.sleep
@@ -372,7 +412,8 @@ class LocalExecutor:
                 and any("at_op" in r for r in plan_obj.rules)):
             self.logger.warn(
                 "fault plan uses at_op (global-clock) anchors, which are "
-                "only deterministic at --parallelism 1")
+                "only deterministic at --parallelism 1; use module/"
+                "at_module_op anchors for interleaving-safe injection")
         return workers
 
     @staticmethod
@@ -406,7 +447,7 @@ class LocalExecutor:
         self._taint_dependents(plan, desired, targets)
         self.log(plan.summary())
 
-        cloud = make_driver(doc, est.cloud)
+        cloud = self._make_driver(doc, est.cloud)
         order = topo_order(desired)
         outputs: Dict[str, Dict[str, Any]] = {
             name: rec.get("outputs", {}) for name, rec in est.modules.items()
@@ -474,7 +515,8 @@ class LocalExecutor:
                     # under(): worker threads adopt the apply span so
                     # logs/traces keep the apply/module.<name> nesting
                     # (no-op on the serial inline path).
-                    with self.logger.under(apply_span), \
+                    with cloud.module_scope(name), \
+                            self.logger.under(apply_span), \
                             self.logger.span(f"module.{name}",
                                              action=action.value,
                                              source=module.SOURCE) as msp:
@@ -627,7 +669,7 @@ class LocalExecutor:
         ``tk8s_module_destroy_duration_seconds``.
         """
         est = load_executor_state(doc)
-        cloud = make_driver(doc, est.cloud)
+        cloud = self._make_driver(doc, est.cloud)
         names = list(est.modules) if targets is None else [
             t for t in targets if t in est.modules
         ]
@@ -677,7 +719,8 @@ class LocalExecutor:
                     rec = est.modules.get(name)
                     if rec is None:
                         return
-                    with self.logger.under(destroy_span), \
+                    with cloud.module_scope(name), \
+                            self.logger.under(destroy_span), \
                             self.logger.span(f"module.{name}",
                                              action="destroy") as msp:
                         self._destroy_module_resources(name, rec, cloud,

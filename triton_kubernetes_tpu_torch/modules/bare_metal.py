@@ -1,30 +1,28 @@
-"""The bare-metal cluster manager: the manager module the port's GPU
-documents name (``module.cluster-manager``). The port's copy of the
-reference's ``BareMetalManager`` (``modules/bare_metal.py`` over
-``modules/family.py``'s ``ManagerModule``): it adopts an existing host
-and bootstraps the control plane's credentials on it. The reference's
-bare-metal cluster and host modules are not ported: GPU capacity comes
-from GKE node pools (``gcp_gpu``).
+"""Bare-metal modules: existing hosts driven over SSH (the port's copy of
+the reference's ``modules/bare_metal.py``).
+
+* ``bare-metal-manager`` -- the manager the port's GPU documents name
+  (``module.cluster-manager``): it adopts an existing host and bootstraps
+  the control plane's credentials on it;
+* ``bare-metal-k8s`` -- a cluster registration (API call only);
+* ``bare-metal-k8s-host`` -- one adopted host that joins its cluster.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
 
-from .base import DriverContext, Module, Resource, Variable
+from .base import DriverContext, Resource, Variable
+from .family import ClusterModule, HostModule, ManagerModule
 from .registry import register
 
 
 @register
-class BareMetalManager(Module):
+class BareMetalManager(ManagerModule):
     SOURCE = "modules/bare-metal-manager"
     ALIASES = ("bare-metal-rancher",)
-    OUTPUTS = ["manager_url", "manager_access_key", "manager_secret_key"]
-    VARIABLES = [
-        Variable("name", required=True),
-        Variable("manager_image", default="tk8s/manager:2.0"),
-        Variable("agent_image", default="tk8s/agent:2.0"),
-        Variable("admin_password", default=""),
+    PROVIDER = "bare-metal"
+    VARIABLES = ManagerModule.VARIABLES + [
         Variable("host", required=True),
         Variable("ssh_user", default="root"),
         Variable("key_path", default="~/.ssh/id_rsa"),
@@ -46,3 +44,26 @@ class BareMetalManager(Module):
         return ({"manager_url": creds["url"],
                  "manager_access_key": creds["access_key"],
                  "manager_secret_key": creds["secret_key"]}, resources)
+
+
+@register
+class BareMetalCluster(ClusterModule):
+    SOURCE = "modules/bare-metal-k8s"
+    ALIASES = ("bare-metal-rancher-k8s",)
+    PROVIDER = "bare-metal"
+
+
+@register
+class BareMetalHost(HostModule):
+    SOURCE = "modules/bare-metal-k8s-host"
+    ALIASES = ("bare-metal-rancher-k8s-host",)
+    PROVIDER = "bare-metal"
+    VARIABLES = HostModule.VARIABLES + [
+        Variable("host", required=True),
+        Variable("ssh_user", default="root"),
+        Variable("key_path", default="~/.ssh/id_rsa"),
+        Variable("bastion_host", default=""),
+    ]
+
+    def instance_attrs(self, config: Dict[str, Any]) -> Dict[str, Any]:
+        return {"ip": config["host"], "adopted": True}

@@ -87,3 +87,24 @@ class Module(abc.ABC):
             r = Resource.from_dict(rdict)
             ctx.cloud.delete_resource(r.type, r.name)
 
+
+def agent_import_manifest(agent_image: str = "tk8s/agent:2.0"):
+    """The in-cluster import agent Deployment hosted clusters apply
+    (reference: curl /v3/import/<token>.yaml | kubectl apply — the
+    cattle-cluster-agent), as a real schema-valid Deployment."""
+    labels = {"app": "cattle-cluster-agent"}
+    return {
+        "apiVersion": "apps/v1", "kind": "Deployment",
+        "metadata": {"name": "cattle-cluster-agent",
+                     "namespace": "cattle-system", "labels": dict(labels)},
+        "spec": {
+            "replicas": 1,
+            "selector": {"matchLabels": dict(labels)},
+            "template": {
+                "metadata": {"labels": dict(labels)},
+                "spec": {"containers": [{
+                    "name": "cluster-agent", "image": agent_image,
+                }]},
+            },
+        },
+    }

@@ -1,16 +1,16 @@
 """``python -m triton_kubernetes_tpu_torch.tools.chaos`` -- the port of
-``tk8s chaos`` for the workload profiles: a seeded sweep of generated
-scenarios, each scenario's workload fault run through its arm against the
-port's engines, router, migration, checkpoints and trainer on ``--device``
-(the card unless ``--device cpu``), checking the workload invariants.
+``tk8s chaos``: a seeded sweep of generated scenarios, each scenario's GPU
+twin through the infra arms (the module DAG against the simulated cloud:
+host code) and, for a workload profile, its workload fault through its
+arm against the port's engines, router, migration, checkpoints and
+trainer on ``--device`` (the card unless ``--device cpu``).
 
 Prints ``chaos sweep: P/N scenarios passed (profile=..., seed=...,
 simulated Xs)`` and a line per failing seed; exits 1 on any failure, 2 on
 a bad argument. ``--shrink`` shrinks failing seeds to minimal specs and
 writes them as corpus entries under ``--corpus-dir``, which it needs
-named: the committed ``tests/chaos_corpus/`` is replayed by the reference
-package's tests, which hold an entry to infra minimality bars the port's
-shrinker (workload moves only) does not reduce."""
+named: the committed ``tests/chaos_corpus/`` is the reference package's,
+and the port reads it and never writes it."""
 
 from __future__ import annotations
 
@@ -26,18 +26,20 @@ from ._log import error
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m triton_kubernetes_tpu_torch.tools.chaos",
-        description="seeded chaos sweep of workload faults over the port: "
-                    "generated scenarios, each fault injected against the "
-                    "real engines, router, migration, checkpoints or "
-                    "trainer, checked by the workload invariants")
+        description="property-based chaos sweep over the port: seeded "
+                    "module DAGs + fault plans against the simulated "
+                    "cloud, and workload faults against the real engines, "
+                    "router, migration, checkpoints or trainer, checked "
+                    "by the pinned invariants")
     p.add_argument("--seed", type=int, default=0, metavar="N",
                    help="base seed of the sweep (default: 0; scenario i "
                         "derives its own seed deterministically)")
     p.add_argument("--runs", type=int, default=25, metavar="N",
                    help="generated scenarios to run (default: 25)")
     p.add_argument("--profile", choices=sorted(PROFILES),
-                   default="workload",
-                   help="generation profile (default: workload)")
+                   default="default",
+                   help="generation profile: DAG sizes, provider mix, "
+                        "fault density (default: default)")
     p.add_argument("--shrink", action="store_true",
                    help="shrink failing seeds to minimal specs and write "
                         "them as corpus entries under --corpus-dir")
@@ -45,8 +47,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="where shrunk counterexamples land; required with "
                         "--shrink")
     p.add_argument("--device", default="cuda",
-                   help="device the arms run on (default: cuda; cpu runs "
-                        "the plain versions)")
+                   help="device the workload arms run on (default: cuda; "
+                        "cpu runs the plain versions; the infra arms need "
+                        "none)")
     p.add_argument("--json", action="store_true",
                    help="print the sweep report as JSON")
     return p
@@ -55,15 +58,17 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
     if args.shrink and args.corpus_dir is None:
-        error("--shrink needs --corpus-dir: the committed corpus is held "
-              "to infra minimality bars the port's shrinker does not "
-              "reduce", "ValueError", args.json)
+        error("--shrink needs --corpus-dir: the committed corpus is the "
+              "reference package's, which the port never writes",
+              "ValueError", args.json)
         return 2
     from ..chaos.runner import run_sweep
     from ..models.llama import resolve_device
 
     try:
-        resolve_device(args.device)
+        if PROFILES[args.profile].get("workload_weight"):
+            # Only a workload profile's arms touch the device.
+            resolve_device(args.device)
     except RuntimeError as e:
         error(str(e), "RuntimeError", args.json)
         return 2
